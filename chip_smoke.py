@@ -4,28 +4,45 @@
 Usage: python3 chip_smoke.py        (from the root of the repository)
 
 1. prints the card's name and power limit and the torch/CUDA versions;
-2. builds the CUDA sublayer kernels from csrc/ with nvcc for sm_90a;
-3. checks each kernel against its plain PyTorch version on the card at
-   the CLIP ViT-B/32 main-path shapes, in bf16 and f32, with times;
-4. builds ViT-B/32 (widths 768/512, 12+12 layers, bf16) with random
-   weights from a numpy seed and drives the main path once with the
-   launch counters zeroed: uint8 videos through `encode_video_u8`, a bf16
+2. builds the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
+   source, in parallel);
+3. checks each kernel against its plain PyTorch version on the card, in
+   bf16 and f32, with times: the sublayers at the CLIP ViT-B/32
+   main-path shapes, flash attention at the TimeSformer shapes (joint
+   8x224 with 1569 tokens, space-only 197, causal 1000 at head dim 128,
+   causal 197 queries against 1569 keys);
+4. CLIP path: builds ViT-B/32 (widths 768/512, 12+12 layers, bf16) with
+   random weights from a numpy seed and drives it once with the launch
+   counters zeroed: uint8 videos through `encode_video_u8`, a bf16
    `RetrievalIndex` of 65,536 rows, text queries through `encode_text`,
    `search`; then checks the kernel arm against the plain arm
    (fused_attn=fused_mlp=False), the search against brute force, and the
    counters;
-5. times videos/s of both arms at B=32, and one query wave (text tower
-   of each arm, then the search);
-6. prints a JSON line of kernel results and, last, a JSON line naming
+5. times videos/s of both CLIP arms at B=32, and one query wave (text
+   tower of each arm, then the search);
+6. caption path: the joint space-time TimeSformer ViT-B/16 (8x224,
+   patch 16, width 768, 12 heads, 12 layers, bf16, flash attention)
+   with the RNN decoder of configs/seq_generate/timesformer_relseq.py,
+   random weights from a numpy seed, loaded through
+   `api.init_recognizer`; 16 normalised clips through `api.caption_clips`
+   with the flash counter zeroed (12 launches per forward), checked
+   against the plain arm (use_flash_attention=False, same weights):
+   backbone CLS features by cosine, step-0 probabilities by the bf16
+   tolerance, label flips of steps 1-4 counted; then the shipped divided
+   space-time caption config (bf16, no kernel on its path) at 2 clips;
+7. times videos/s of both TimeSformer arms at 16 clips;
+8. prints a JSON line of kernel results and, last, a JSON line naming
    the device.
 
-Exits non-zero, printing no result, when CUDA is unavailable or any
-check fails.
+Nothing is cut: both models run at full width and depth.  Exits
+non-zero, printing no result, when CUDA is unavailable or any check
+fails.
 """
 
 from __future__ import annotations
 
 import json
+import runpy
 import subprocess
 import sys
 import time
@@ -39,11 +56,30 @@ PACKAGE = ROOT / "cross_modal_video_engine_tpu_torch"
 # max |kernel - plain|: f32 differs only in summation order; in bf16 the
 # inputs below keep outputs under 4 in magnitude, where one bf16 step is
 # 1.6e-2, and a one-step flip of an intermediate rounding may reach them
+# (flash attention with q, k, v drawn N(0, 1): where a bf16 output
+# reaches |x| >= 4, in causal first rows that average one or two rows of
+# v, one bf16 step is 3.1e-2, and the bound there is that one step)
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 COSINE_MIN = 0.999                          # kernel arm vs plain arm
 SRC = "cross_modal_video_engine_tpu_torch/csrc/"
 TPU_SRC = "cross_modal_video_engine_tpu/ops/attention_sublayer.py"
+TPU_FLASH = "cross_modal_video_engine_tpu/ops/flash_attention.py:151"
 VIDEOS, FRAMES, QUERIES, INDEX_ROWS, BENCH_VIDEOS = 16, 8, 8, 65536, 32
+# flash attention checks: name -> ((B, H, Sq, Skv, D), causal); the
+# first is the joint model's shape, the kernel's main-path case
+FLASH_CASES = {
+    "joint 8x224 (1569)": ((4, 12, 1569, 1569, 64), False),
+    "space-only (197)": ((16 * 8, 12, 197, 197, 64), False),
+    "causal 1000 hd128": ((2, 8, 1000, 1000, 128), True),
+    "causal 197 vs 1569": ((4, 12, 197, 1569, 64), True),
+}
+CLIPS = 16                                  # TimeSformer clips per call
+# the caption path's backbone: TimeSformer ViT-B/16, joint space-time
+TS_JOINT = dict(num_frames=8, img_size=224, patch_size=16, embed_dims=768,
+                num_heads=12, num_layers=12,
+                attention_type="joint_space_time", dtype="bfloat16",
+                use_flash_attention=True)
+RELSEQ_CONFIG = ROOT / "configs" / "seq_generate" / "timesformer_relseq.py"
 # bench.py's model: CLIP ViT-B/32, bf16
 VIT_B32 = dict(embed_dim=512, image_resolution=224, vision_width=768,
                vision_layers=12, vision_heads=12, patch_size=32,
@@ -178,6 +214,61 @@ def check_kernels(dev):
     return results
 
 
+def flash_err(got, want, dtype_name: str):
+    """max |kernel - plain| and whether every element is within TOL (or,
+    in bf16, within one bf16 step of the plain output where that step is
+    larger)."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    tol = torch.full_like(err, TOL[dtype_name])
+    if dtype_name == "bfloat16":
+        step = torch.ldexp(torch.ones_like(err),
+                           torch.frexp(want.float())[1] - 8)
+        tol = torch.maximum(tol, step)
+    finite = bool(torch.isfinite(got.float()).all())
+    return float(err.max()), finite and bool((err <= tol).all())
+
+
+def check_flash(dev):
+    """The flash kernel against its plain version at FLASH_CASES; returns
+    the per-case results and prints one line per case."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.ops import flash_attention as fa
+    results, failures = [], []
+    for i, (case, ((b, h, sq, skv, d), causal)) in enumerate(
+            FLASH_CASES.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(2000 + i)
+            q, k, v = (torch.randn(*shape, generator=gen, device=dev)
+                       .to(dtype) for shape in
+                       ((b, h, sq, d), (b, h, skv, d), (b, h, skv, d)))
+            scale = d ** -0.5
+            name = str(dtype).removeprefix("torch.")
+            with torch.no_grad():
+                got = fa.flash_attention(q, k, v, scale, causal)
+                want = fa._reference_attention(q, k, v, scale, causal)
+                torch.cuda.synchronize()
+                err, ok = flash_err(got, want, name)
+                del got, want
+                ms = cuda_ms(lambda: fa.flash_attention(q, k, v, scale,
+                                                        causal))
+                plain_ms = cuda_ms(lambda: fa._reference_attention(
+                    q, k, v, scale, causal), iters=5, warmup=1)
+            print(f"kernel flash {case:20s} {name:8s} (B,H,Sq,Skv,D)="
+                  f"{(b, h, sq, skv, d)} causal={causal}: max_abs_err "
+                  f"{err:.3e} (tol {TOL[name]:g}) {'ok' if ok else 'FAIL'};"
+                  f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+                  flush=True)
+            results.append(dict(case=case, kernel="flash_attention",
+                                dtype=name, err=err, ms=ms,
+                                plain_ms=plain_ms))
+            if not ok:
+                failures.append(f"flash {case} {name}: err {err}")
+    if failures:
+        raise SystemExit("flash checks failed: " + "; ".join(failures))
+    return results
+
+
 def text_ids(rng, n: int, length: int = 77, vocab: int = 49408) -> np.ndarray:
     """Token ids shaped like BPE output: tokens, then EOT (the highest id),
     then zeros."""
@@ -304,18 +395,168 @@ def throughput(model, plain, cfg, dev, rng, card):
     return rates
 
 
+def relseq_model() -> dict:
+    """The `model` dict of the shipped caption config, as the file says."""
+    return runpy.run_path(str(RELSEQ_CONFIG))["model"]
+
+
+def build_timesformer(dev):
+    """The caption path's two arms, from one random state dict through
+    api.init_recognizer: flash attention on (kernel arm) and off."""
+    from cross_modal_video_engine_tpu_torch.api import init_recognizer
+    from cross_modal_video_engine_tpu_torch.models.decoder_head import (
+        RNNDecoderConfig)
+    from cross_modal_video_engine_tpu_torch.models.recognizer import (
+        random_state_dict)
+    from cross_modal_video_engine_tpu_torch.models.timesformer import (
+        TimeSformerConfig)
+    decoder = relseq_model()["decoder"]
+    t0 = time.perf_counter()
+    sd = random_state_dict(TimeSformerConfig(**TS_JOINT), seed=2,
+                           decoder_cfg=RNNDecoderConfig(**decoder))
+    model, _ = init_recognizer({"backbone": TS_JOINT, "decoder": decoder},
+                               sd, device=dev)
+    plain, _ = init_recognizer(
+        {"backbone": {**TS_JOINT, "use_flash_attention": False},
+         "decoder": decoder}, sd, device=dev)
+    print(f"TimeSformer ViT-B/16 joint bf16 + RNN decoder built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return model, plain
+
+
+def normalised_clips(rng, n: int, dev):
+    """n uint8 clips of 8 x 224^2, normalised as the test pipeline does
+    ((x - 127.5) / 127.5)."""
+    import torch
+    u8 = torch.from_numpy(rng.integers(0, 256, (n, FRAMES, 224, 224, 3),
+                                       dtype=np.uint8)).to(dev)
+    return (u8.float() - 127.5) / 127.5
+
+
+def drive_caption_path(model, plain, clips):
+    """The caption path once with the flash counter zeroed just before
+    and read just after; then the checks against the plain arm.  Returns
+    the path's flash launches."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.api import caption_clips
+    from cross_modal_video_engine_tpu_torch.ops import flash_attention as fa
+
+    layers = model.backbone.cfg.num_layers
+    fa.flash_attention.launches = 0
+    steps, probs = caption_clips(model, clips, num_segs=1)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    fa.flash_attention.launches = 0
+    with torch.no_grad():
+        feat = model.extract_feat(clips)
+    torch.cuda.synchronize()
+    feat_launches = fa.flash_attention.launches
+    steps_p, probs_p = caption_clips(plain, clips, num_segs=1)
+    with torch.no_grad():
+        feat_p = plain.extract_feat(clips)
+
+    n, dec = clips.shape[0], model.cls_head.cfg
+    step0 = float((probs[:, 0] - probs_p[:, 0]).abs().max())
+    flips = sum(len(set(a) ^ set(b)) for va, vb in zip(steps, steps_p)
+                for a, b in zip(va[1:], vb[1:]))
+    cos = cosine_min(feat, feat_p)
+    print(f"caption path, {n} clips: flash launches {launches} per "
+          f"caption forward, {feat_launches} per feature forward (need "
+          f"{layers}); kernel arm vs plain arm: backbone CLS min cosine "
+          f"{cos:.6f} (need >= {COSINE_MIN}), step-0 probability max err "
+          f"{step0:.3e} (tol {TOL['bfloat16']:g}); label flips in steps "
+          f"1-{dec.max_len - 1}: {flips} of "
+          f"{n * (dec.max_len - 1) * dec.num_classes} labels (reported, "
+          f"not checked: greedy feedback at {dec.threshold})")
+    print(f"  video 0 labels per step: kernel arm {steps[0]}, plain arm "
+          f"{steps_p[0]}")
+    checks = {
+        "probs shape": tuple(probs.shape) == (n, dec.max_len,
+                                              dec.num_classes),
+        "finite": bool(torch.isfinite(probs).all()
+                       and torch.isfinite(feat).all()),
+        "flash launches": launches == layers and feat_launches == layers,
+        "cosine vs plain arm": cos >= COSINE_MIN,
+        "step-0 probabilities": step0 <= TOL["bfloat16"],
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"caption-path checks failed: {failed}")
+    return launches
+
+
+def divided_caption_config(dev, clips):
+    """The shipped caption config (divided space-time, as written) in
+    bf16, once at 2 clips: shapes, finiteness and time."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.api import (caption_clips,
+                                                        init_recognizer)
+    from cross_modal_video_engine_tpu_torch.models.decoder_head import (
+        RNNDecoderConfig)
+    from cross_modal_video_engine_tpu_torch.models.recognizer import (
+        random_state_dict)
+    from cross_modal_video_engine_tpu_torch.models.timesformer import (
+        TimeSformerConfig)
+    from cross_modal_video_engine_tpu_torch.ops import flash_attention as fa
+    model_cfg = relseq_model()
+    cfg_d = {"backbone": {**model_cfg["backbone"], "dtype": "bfloat16"},
+             "decoder": model_cfg["decoder"]}
+    sd = random_state_dict(TimeSformerConfig(**cfg_d["backbone"]), seed=3,
+                           decoder_cfg=RNNDecoderConfig(**cfg_d["decoder"]))
+    model, _ = init_recognizer(cfg_d, sd, device=dev)
+    fa.flash_attention.launches = 0
+    caption_clips(model, clips[:2], num_segs=1)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps, probs = caption_clips(model, clips[:2], num_segs=1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    dec = model.cls_head.cfg
+    ok = (tuple(probs.shape) == (2, dec.max_len, dec.num_classes)
+          and bool(torch.isfinite(probs).all())
+          and fa.flash_attention.launches == 0)
+    print(f"divided space-time caption config (timesformer_relseq.py, "
+          f"bf16), 2 clips: probs {tuple(probs.shape)}, "
+          f"{'finite' if ok else 'FAIL'}, {ms:.1f} ms per call (host "
+          f"clock); video 0 labels per step {steps[0]}")
+    if not ok:
+        raise SystemExit("divided caption config failed")
+
+
+def caption_throughput(model, plain, clips, card):
+    """videos/s of both TimeSformer arms, in turns: plain, kernel,
+    kernel, plain."""
+    import torch
+    n = clips.shape[0]
+    rates = {"plain": [], "kernel": []}
+    with torch.no_grad():
+        for arm in ("plain", "kernel", "kernel", "plain"):
+            m = model if arm == "kernel" else plain
+            ms = cuda_ms(lambda: m.forward_test(clips), iters=5, warmup=2)
+            rates[arm].append(n * 1000.0 / ms)
+    for arm in ("kernel", "plain"):
+        r = rates[arm]
+        print(f"videos/s {arm} arm (TimeSformer ViT-B/16 joint bf16 + RNN "
+              f"decoder, {FRAMES}x224^2 normalised clips, B={n}): "
+              f"{np.mean(r):.2f} (runs {r[0]:.2f}, {r[1]:.2f}) on {card}")
+    return rates
+
+
 def kernel_json(results, launches) -> dict:
     """The kernels line: bf16 errors over every case of a kernel, times
     of its main-path case."""
     main_case = {"fused_attention_sublayer_compact": "compact vision",
                  "fused_attention_sublayer": "rank-3 causal text",
-                 "fused_mlp_sublayer": "mlp vision"}
+                 "fused_mlp_sublayer": "mlp vision",
+                 "flash_attention": next(iter(FLASH_CASES))}
     sources = {"fused_attention_sublayer_compact": "attention_core.cu",
                "fused_attention_sublayer": "attention_core.cu",
-               "fused_mlp_sublayer": "gemm.cu"}
-    tpu_lines = {"fused_attention_sublayer_compact": 354,
-                 "fused_attention_sublayer": 132,
-                 "fused_mlp_sublayer": 479}
+               "fused_mlp_sublayer": "gemm.cu",
+               "flash_attention": "flash_attention.cu"}
+    replaces = {"fused_attention_sublayer_compact": f"{TPU_SRC}:354",
+                "fused_attention_sublayer": f"{TPU_SRC}:132",
+                "fused_mlp_sublayer": f"{TPU_SRC}:479",
+                "flash_attention": TPU_FLASH}
     kernels = []
     for name, case in main_case.items():
         bf16 = [r for r in results
@@ -323,7 +564,7 @@ def kernel_json(results, launches) -> dict:
         main = next(r for r in bf16 if r["case"] == case)
         kernels.append({
             "name": name, "route": "cuda", "source": SRC + sources[name],
-            "replaces": f"{TPU_SRC}:{tpu_lines[name]}",
+            "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": max(r["err"] for r in bf16),
             "ms": main["ms"], "plain_ms": main["plain_ms"]})
@@ -368,9 +609,9 @@ def main() -> int:
             print("  ptxas:", line.strip())
 
     # -- 3. each kernel against its plain version ---------------------------
-    results = check_kernels(dev)
+    results = check_kernels(dev) + check_flash(dev)
 
-    # -- 4. the main path ---------------------------------------------------
+    # -- 4. the CLIP path ---------------------------------------------------
     cfg = CLIPConfig(**VIT_B32)
     t0 = time.perf_counter()
     sd = random_state_dict(cfg, seed=0)
@@ -386,11 +627,23 @@ def main() -> int:
     rng = np.random.default_rng(1)
     launches, index, ids = drive_main_path(model, plain, cfg, dev, rng)
 
-    # -- 5. videos/s and query latency --------------------------------------
+    # -- 5. CLIP videos/s and query latency ---------------------------------
     throughput(model, plain, cfg, dev, rng, card)
     query_latency(model, plain, index, ids, card)
+    del model, plain, index
+    torch.cuda.empty_cache()
 
-    # -- 6. results ---------------------------------------------------------
+    # -- 6. the caption path ------------------------------------------------
+    ts_model, ts_plain = build_timesformer(dev)
+    clips = normalised_clips(rng, CLIPS, dev)
+    launches["flash_attention"] = drive_caption_path(ts_model, ts_plain,
+                                                     clips)
+    divided_caption_config(dev, clips)
+
+    # -- 7. TimeSformer videos/s --------------------------------------------
+    caption_throughput(ts_model, ts_plain, clips, card)
+
+    # -- 8. results ---------------------------------------------------------
     print(json.dumps(kernel_json(results, launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

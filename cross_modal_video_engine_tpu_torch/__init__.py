@@ -8,7 +8,10 @@ with a plain PyTorch version beside it that CPU tensors run.
 
 Ported so far: the CLIP ViT-B/32 video-embedding and search path
 (ops/preprocess, ops/pallas_preprocess, ops/similarity.l2norm,
-ops/attention_sublayer, models/clip, retrieval/index, convert/from_jax).
+ops/attention_sublayer, models/clip, retrieval/index, convert/from_jax)
+and the TimeSformer recognition and caption path (ops/flash_attention,
+models/timesformer, models/decoder_head, models/recognizer,
+utils/precision, api).
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,3 @@
-from .from_jax import clip_state_dict_from_jax
+from .from_jax import (clip_state_dict_from_jax,
+                       recognizer_state_dict_from_jax,
+                       timesformer_state_dict_from_jax)

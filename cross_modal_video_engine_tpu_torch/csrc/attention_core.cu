@@ -126,25 +126,6 @@ constexpr int MMA_MAX_KEYS = 128;
 constexpr int KS_STRIDE = MMA_HD + 8;        // bank-spread padding
 constexpr int VT_STRIDE = MMA_MAX_KEYS + 8;
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __global__ void __launch_bounds__(ATT_THREADS)
     attention_core_mma_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,

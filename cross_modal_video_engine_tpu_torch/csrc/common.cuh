@@ -1,5 +1,6 @@
-// Helpers shared by the sublayer kernels: dtype codes, conversions that
-// reproduce the TPU kernels' rounding points, and warp reductions.
+// Helpers shared by the kernels: dtype codes, conversions that reproduce
+// the TPU kernels' rounding points, warp reductions, and the cp.async,
+// ldmatrix and mma.sync wrappers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,6 +45,65 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// -- tensor-core building blocks (gemm.cu, attention_core.cu,
+//    flash_attention.cu) ------------------------------------------------------
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two floats rounded to bf16 (nearest even), packed low then high
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16 bytes global -> shared without passing through registers; zero-fills
+// when !pred (src is then only a valid address, not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 b16 matrices; lane l supplies the address of one matrix row
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// the same, each matrix transposed: lane l receives rows 2(l%4), 2(l%4)+1
+// of column l/4
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace cmve

@@ -62,40 +62,6 @@ template <typename T> constexpr int smem_bytes() {
   return STAGES * (BM + BN) * (Tile<T>::BK + Tile<T>::PAD) * (int)sizeof(T);
 }
 
-// 16 bytes global -> shared without passing through registers; zero-fills
-// when !pred (src is then only a valid address, not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 b16 matrices; lane l supplies the address of one matrix row
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // bf16: two blocks per SM, so at most 128 registers a thread
 template <typename T, int EPI>
 __global__ void __launch_bounds__(THREADS, sizeof(T) == 2 ? 2 : 1)

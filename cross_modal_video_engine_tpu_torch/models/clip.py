@@ -28,6 +28,7 @@ hand-written kernels; on the CPU, their plain versions.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -38,6 +39,7 @@ from torch import nn
 from ..ops.attention_sublayer import (fused_attention_sublayer,
                                       fused_attention_sublayer_compact,
                                       fused_mlp_sublayer)
+from ..ops.flash_attention import flash_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,12 +119,18 @@ class LayerNormF32(nn.Module):
 class MHA(nn.Module):
     """Self-attention in nn.MultiheadAttention's parameter layout
     (in_proj_weight (3D, D), in_proj_bias, out_proj), unfused: scores and
-    softmax in fp32, probabilities rounded to the compute dtype."""
+    softmax in fp32, probabilities rounded to the compute dtype.
+
+    With `use_flash` an unmasked call goes through
+    ops/flash_attention.flash_attention instead (the CUDA kernel on a CUDA
+    tensor), as the JAX MHA(use_flash=True) does; a call with a mask
+    keeps the plain path."""
 
     def __init__(self, width: int, heads: int, dtype: torch.dtype,
-                 device=None):
+                 device=None, use_flash: bool = False):
         super().__init__()
         self.width, self.heads, self.dtype = width, heads, dtype
+        self.use_flash = use_flash
         self.in_proj_weight = nn.Parameter(
             torch.empty(3 * width, width, dtype=dtype, device=device))
         self.in_proj_bias = nn.Parameter(
@@ -148,11 +156,15 @@ class MHA(nn.Module):
         q = heads_first(F.linear(x, wq, bq))
         k = heads_first(F.linear(x, wk, bk))
         v = heads_first(F.linear(x, wv, bv))
-        logits = (q.float() @ k.float().transpose(-1, -2)) * float(hd ** -0.5)
-        if mask is not None:
-            logits = logits + mask
-        w = torch.softmax(logits, dim=-1).to(dt)
-        out = (w.float() @ v.float()).to(dt)
+        scale = 1.0 / math.sqrt(hd)
+        if self.use_flash and mask is None:
+            out = flash_attention(q, k, v, scale).to(dt)
+        else:
+            logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+            if mask is not None:
+                logits = logits + mask
+            w = torch.softmax(logits, dim=-1).to(dt)
+            out = (w.float() @ v.float()).to(dt)
         return self.out_proj(out.transpose(1, 2).reshape(b, l, d))
 
 

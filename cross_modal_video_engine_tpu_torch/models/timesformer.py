@@ -1,0 +1,298 @@
+"""TimeSformer video backbone (divided / joint / space-only attention) in
+PyTorch.
+
+Counterpart of cross_modal_video_engine_tpu/models/timesformer.py, with the
+same token layout and numerics: one CLS token, then patch-major (p t)
+patch tokens; the spatial position embedding added per frame and the
+temporal one per patch; divided blocks run attention over time per patch
+(through a zero-initialised `temporal_fc`), then over the patches of each
+frame with the CLS token broadcast in and its responses averaged; joint
+and space-only blocks are pre-norm ViT blocks.  With
+`use_flash_attention` the joint and space-only blocks' attention runs
+through ops/flash_attention (the CUDA kernel on the card), as in the JAX
+package.
+
+Parameters live in the configured dtype, which is where the JAX package
+has them after `init_recognizer`'s bf16 cast (utils/precision.py): every
+matrix product runs in that dtype, LayerNorms take fp32 statistics with
+their scale and bias applied in fp32 (eps 1e-6), and the output is
+rounded back to the activation dtype.
+
+Parameter names follow the mmaction/mmcv TimeSformer state dict:
+`patch_embed.projection`, `cls_token`, `pos_embed`, `time_embed`, `norm`
+and `transformer_layers.layers.{i}`.  A divided block has the keys that
+cross_modal_video_engine_tpu.convert.torch_import.convert_timesformer
+reads (`attentions.0.{norm,attn,temporal_fc}`, `attentions.1.{norm,attn}`,
+`ffns.0.{norm,layers.0.0,layers.1}`), so one state dict loads into both
+packages.  A joint or space-only block is mmcv's BaseTransformerLayer
+with operation order (norm, self_attn, norm, ffn): `norms.0`,
+`attentions.0.attn`, `norms.1`, `ffns.0.layers.0.0`, `ffns.0.layers.1`.
+Attention modules keep nn.MultiheadAttention's `in_proj_weight` layout.
+
+Serving only: stochastic depth and dropout are the identity, as at
+inference in the JAX package; `remat` only shapes a training backward
+pass and changes nothing here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .clip import MHA
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeSformerConfig:
+    """The JAX package's TimeSformerConfig, field for field, so its config
+    dicts load here."""
+
+    num_frames: int = 8
+    img_size: int = 224
+    patch_size: int = 16
+    embed_dims: int = 768
+    num_heads: int = 12
+    num_layers: int = 12
+    attention_type: str = "divided_space_time"  # | 'joint_space_time' | 'space_only'
+    dropout_ratio: float = 0.0
+    drop_path_max: float = 0.1
+    dtype: str = "float32"
+    # > 1: the patch embed is a 3D conv over (tubelet, p, p) and the
+    # temporal axis shrinks to num_frames // tubelet_size
+    tubelet_size: int = 1
+    # joint / space-only attention through the flash kernel
+    use_flash_attention: bool = False
+    remat: bool = False
+
+    @property
+    def num_patches(self) -> int:
+        return (self.img_size // self.patch_size) ** 2
+
+    @property
+    def time_tokens(self) -> int:
+        return self.num_frames // self.tubelet_size
+
+    def torch_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: the identity at inference (the training slice
+    adds the random drop)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+class LN(nn.Module):
+    """flax LayerNorm(epsilon=1e-6, dtype=float32) on fp32 activations:
+    fp32 statistics, scale and bias applied in fp32, output in x.dtype.
+    The scale and bias are stored in the activation dtype, so torch's
+    layer_norm, which computes in fp32 and rounds once, does exactly that
+    in one pass, without an fp32 copy of x."""
+
+    def __init__(self, dim: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.weight.shape, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), 1e-6)
+
+
+class _Attention(nn.Module):
+    """One mmcv attention entry: the attention, with the divided blocks'
+    pre-norm and (temporal only) the projection after it."""
+
+    def __init__(self, cfg: TimeSformerConfig, device=None, *,
+                 norm: bool = False, temporal_fc: bool = False,
+                 use_flash: bool = False):
+        super().__init__()
+        dt, d = cfg.torch_dtype(), cfg.embed_dims
+        if norm:
+            self.norm = LN(d, dt, device)
+        self.attn = MHA(d, cfg.num_heads, dt, device, use_flash=use_flash)
+        if temporal_fc:
+            self.temporal_fc = nn.Linear(d, d, dtype=dt, device=device)
+
+
+class FFN(nn.Module):
+    """Linear -> exact GELU -> Linear, in mmcv FFN's key layout."""
+
+    def __init__(self, cfg: TimeSformerConfig, device=None, *,
+                 norm: bool = False):
+        super().__init__()
+        dt, d = cfg.torch_dtype(), cfg.embed_dims
+        if norm:
+            self.norm = LN(d, dt, device)
+        self.layers = nn.Sequential(
+            nn.Sequential(nn.Linear(d, 4 * d, dtype=dt, device=device)),
+            nn.Linear(4 * d, d, dtype=dt, device=device))
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return self.layers[1](F.gelu(self.layers[0][0](h)))
+
+
+class DividedSTBlock(nn.Module):
+    def __init__(self, cfg: TimeSformerConfig, drop_path: float = 0.0,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.attentions = nn.ModuleList([
+            _Attention(cfg, device, norm=True, temporal_fc=True),
+            _Attention(cfg, device, norm=True)])
+        self.ffns = nn.ModuleList([FFN(cfg, device, norm=True)])
+        self.drop_path = DropPath(drop_path)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, 1 + P*T, D), patch-major (p t) token order."""
+        cfg = self.cfg
+        b = x.shape[0]
+        p, t, d = cfg.num_patches, cfg.time_tokens, cfg.embed_dims
+        temporal, spatial = self.attentions
+
+        # attention over time, per patch
+        cls0, patches = x[:, :1], x[:, 1:]
+        rt = temporal.attn(temporal.norm(patches.reshape(b * p, t, d)))
+        rt = temporal.temporal_fc(self.drop_path(rt.reshape(b, p * t, d)))
+        patches = patches + rt
+        # the spatial residual includes the temporal update
+        x = torch.cat([cls0, patches], 1)
+
+        # attention over the patches of each frame, CLS broadcast in
+        ps = patches.reshape(b, p, t, d).transpose(1, 2).reshape(b * t, p, d)
+        cls_rep = cls0.expand(b, t, d).reshape(b * t, 1, d)
+        rs = self.drop_path(spatial.attn(spatial.norm(
+            torch.cat([cls_rep, ps], 1))))
+        cls_res = rs[:, 0].reshape(b, t, d).mean(1, keepdim=True)
+        patch_res = rs[:, 1:].reshape(b, t, p, d).transpose(1, 2) \
+            .reshape(b, p * t, d)
+        x = x + torch.cat([cls_res, patch_res], 1)
+
+        ffn = self.ffns[0]
+        return x + self.drop_path(ffn(ffn.norm(x)))
+
+
+class JointBlock(nn.Module):
+    """Pre-norm ViT block over all tokens (joint) or one frame's tokens
+    (space-only)."""
+
+    def __init__(self, cfg: TimeSformerConfig, drop_path: float = 0.0,
+                 device=None):
+        super().__init__()
+        dt, d = cfg.torch_dtype(), cfg.embed_dims
+        self.norms = nn.ModuleList([LN(d, dt, device), LN(d, dt, device)])
+        self.attentions = nn.ModuleList([_Attention(
+            cfg, device, use_flash=cfg.use_flash_attention)])
+        self.ffns = nn.ModuleList([FFN(cfg, device)])
+        self.drop_path = DropPath(drop_path)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.drop_path(self.attentions[0].attn(self.norms[0](x)))
+        return x + self.drop_path(self.ffns[0](self.norms[1](x)))
+
+
+class TimeSformer(nn.Module):
+    def __init__(self, cfg: TimeSformerConfig, device=None):
+        super().__init__()
+        if cfg.attention_type not in ("divided_space_time",
+                                      "joint_space_time", "space_only"):
+            raise ValueError(f"attention_type {cfg.attention_type!r}")
+        self.cfg = cfg
+        dt, d, ps = cfg.torch_dtype(), cfg.embed_dims, cfg.patch_size
+        self.patch_embed = nn.Module()
+        if cfg.tubelet_size > 1:
+            k = (cfg.tubelet_size, ps, ps)
+            self.patch_embed.projection = nn.Conv3d(
+                3, d, k, stride=k, dtype=dt, device=device)
+        else:
+            self.patch_embed.projection = nn.Conv2d(
+                3, d, ps, stride=ps, dtype=dt, device=device)
+        self.cls_token = nn.Parameter(
+            torch.zeros(1, 1, d, dtype=dt, device=device))
+        self.pos_embed = nn.Parameter(
+            torch.zeros(1, cfg.num_patches + 1, d, dtype=dt, device=device))
+        if cfg.attention_type != "space_only":
+            self.time_embed = nn.Parameter(
+                torch.zeros(1, cfg.time_tokens, d, dtype=dt, device=device))
+        block = (DividedSTBlock if cfg.attention_type == "divided_space_time"
+                 else JointBlock)
+        rates = torch.linspace(0, cfg.drop_path_max, cfg.num_layers).tolist()
+        self.transformer_layers = nn.Module()
+        self.transformer_layers.layers = nn.ModuleList(
+            block(cfg, rate, device) for rate in rates)
+        self.norm = LN(d, dt, device)
+
+    @property
+    def blocks(self) -> nn.ModuleList:
+        return self.transformer_layers.layers
+
+    def _pool(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        if cfg.attention_type == "space_only":
+            # mean over time first, then the final norm (reference order)
+            x = x.reshape(-1, cfg.time_tokens, cfg.num_patches + 1,
+                          cfg.embed_dims).mean(1)
+        x = self.norm(x)
+        return x, x[:, 0].float()
+
+    def embed_tokens(self, videos: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, 3) -> the layer-0 token sequence: patch embedding,
+        CLS, spatial and (unless space-only) temporal embeddings."""
+        cfg = self.cfg
+        dt = cfg.torch_dtype()
+        b, t_in = videos.shape[:2]
+        if t_in != cfg.num_frames:
+            raise ValueError(f"{t_in} frames for a model of "
+                             f"{cfg.num_frames}")
+        p, d, t = cfg.num_patches, cfg.embed_dims, cfg.time_tokens
+        proj = self.patch_embed.projection
+        if cfg.tubelet_size > 1:                 # (B, 3, T, H, W)
+            x = proj(videos.to(dt).permute(0, 4, 1, 2, 3))
+            x = x.permute(0, 2, 3, 4, 1).reshape(b * t, p, d)
+        else:                                    # (B*T, 3, H, W)
+            x = proj(videos.to(dt).flatten(0, 1).permute(0, 3, 1, 2))
+            x = x.flatten(2).transpose(1, 2)
+        x = torch.cat([self.cls_token.expand(b * t, 1, d), x], 1) \
+            + self.pos_embed
+        if cfg.attention_type != "space_only":
+            cls_tokens = x.reshape(b, t, p + 1, d)[:, 0, :1]  # frame 0's
+            patches = x[:, 1:].reshape(b, t, p, d).transpose(1, 2) \
+                + self.time_embed
+            x = torch.cat([cls_tokens, patches.reshape(b, p * t, d)], 1)
+        return x
+
+    def forward(self, videos: torch.Tensor, *, return_tokens: bool = False,
+                capture_layers: Tuple[int, ...] = ()):
+        """videos: (B, T, H, W, 3) -> cls feature (B, D) in fp32; with
+        `return_tokens` also the final token sequence (fp32), and with
+        `capture_layers` a dict {layer: tokens after that block (fp32)},
+        returned last."""
+        x = self.embed_tokens(videos)
+        captured: Dict[int, torch.Tensor] = {}
+        for i, blk in enumerate(self.blocks):
+            x = blk(x)
+            if i in capture_layers:
+                captured[i] = x.float()
+        x, cls_feat = self._pool(x)
+        out = (cls_feat, x.float()) if return_tokens else (cls_feat,)
+        if capture_layers:
+            out = out + (captured,)
+        return out if len(out) > 1 else cls_feat
+
+    def forward_from(self, tokens: torch.Tensor, layer: int) -> torch.Tensor:
+        """Continue from the tokens after block `layer` to the cls feature
+        (the explain stack's gradient target)."""
+        x = tokens.to(self.cfg.torch_dtype())
+        for blk in list(self.blocks)[layer + 1:]:
+            x = blk(x)
+        return self._pool(x)[1]

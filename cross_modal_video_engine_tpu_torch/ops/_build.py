@@ -2,7 +2,8 @@
 
 The sources in `csrc/` have a plain C interface, so they compile in
 seconds with nvcc alone (no PyTorch headers) into one shared library for
-Hopper (`sm_90a`).  The build runs on first use, into
+Hopper (`sm_90a`): one nvcc per source, all started together, then one
+link.  The build runs on first use, into
 `build/kernels/<hash>/` at the root of the checkout, keyed by a hash of the
 sources and flags, so an edited kernel is rebuilt and an unchanged one is
 loaded as it is.  Nothing here runs at import time.
@@ -24,20 +25,25 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libcmve_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # (name, restype, argtypes) of every C entry in csrc/
 _SIGNATURES = (
-    ("cmve_layernorm", _I, [_I, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P]),
+    ("cmve_layernorm", _I, [_I, _P, _P, _P, _P, _I, _I, _F, _P]),
     ("cmve_gemm", _I,
      [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
       _P]),
     ("cmve_attention_core", _I,
-     [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-      _P]),
+     [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    # (dtype, q, k, v, o, B, H, Sq, Skv, hd, int64[12] strides, scale,
+    #  causal, stream)
+    ("cmve_flash_attention", _I,
+     [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+      ctypes.POINTER(ctypes.c_longlong), _F, _I, _P]),
 )
 
 
@@ -80,25 +86,44 @@ def _find_nvcc() -> str:
         if home and (Path(home) / "bin" / "nvcc").is_file():
             return str(Path(home) / "bin" / "nvcc")
     raise RuntimeError(
-        "nvcc not found: the CUDA sublayer kernels are compiled on first "
-        "use; put the CUDA toolkit's nvcc on PATH or set CUDA_HOME")
+        "nvcc not found: the CUDA kernels are compiled on first use; put "
+        "the CUDA toolkit's nvcc on PATH or set CUDA_HOME")
 
 
 def _compile(out_dir: Path, sources) -> str:
+    """One nvcc per .cu, run in parallel, then one link into the library;
+    returns the compilers' output (ptxas registers, spills, smem)."""
     nvcc = _find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) building {LIB_NAME}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out_dir / LIB_NAME)   # atomic: no half-written library
-    log = proc.stdout + proc.stderr
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        jobs = []
+        for src in (p for p in sources if p.suffix == ".cu"):
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                   "-o", str(tmp / f"{src.stem}.o")]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = "", []
+        for cmd, proc in jobs:
+            out = proc.communicate()[0]
+            log += f"$ {' '.join(cmd)}\n{out}"
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed building "
+                               f"{LIB_NAME}:\n" + "\n".join(failed))
+        so = tmp / LIB_NAME
+        cmd = [nvcc, "-shared", "-o", str(so),
+               *sorted(str(o) for o in tmp.glob("*.o"))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed linking {LIB_NAME}:\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(so, out_dir / LIB_NAME)   # atomic: no half-written library
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     (out_dir / "build.log").write_text(log)
     return log
 

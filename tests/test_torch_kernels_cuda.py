@@ -1,4 +1,5 @@
-"""The CUDA sublayer kernels against their plain versions, on the card.
+"""The CUDA kernels (sublayers, flash attention) against their plain
+versions, on the card.
 
 Skips without CUDA.  The repository's conftest imports jax, which the
 machine with the card does not have, so run this file there with:
@@ -11,12 +12,17 @@ imports neither jax nor the JAX package.
 Tolerances: f32 1e-4 absolute (summation order only).  bf16 3e-2
 absolute: outputs stay under 4 in magnitude, where one bf16 step is
 1.6e-2, and a one-step flip of an intermediate rounding may reach them.
+Flash attention takes q, k, v drawn N(0, 1) at the same tolerances,
+except where a bf16 output reaches |x| >= 4 (causal first rows, which
+average one or two rows of v): there one bf16 step is 3.1e-2, and the
+bound is that one step.
 """
 
 import pytest
 import torch
 
 from cross_modal_video_engine_tpu_torch.ops import attention_sublayer as asl
+from cross_modal_video_engine_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +124,86 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         asl.fused_mlp_sublayer(x, *[t.cpu() for t in p])
     with pytest.raises(ValueError, match="LayerNorm"):
         asl.fused_mlp_sublayer(x, p[0][:32], *p[1:])
+
+
+def _flash_close(got, want, dtype):
+    """_close, with one bf16 step of the plain output as the bound where
+    that step exceeds the tolerance (|want| >= 4)."""
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs()
+    tol = torch.full_like(err, TOL[dtype])
+    if dtype == torch.bfloat16:
+        step = torch.ldexp(torch.ones_like(err), torch.frexp(want.float())[1] - 8)
+        tol = torch.maximum(tol, step)
+    assert (err <= tol).all(), err.max().item()
+
+
+# chip_smoke.py's flash cases: (B, H, Sq, Skv, D, causal)
+FLASH_CASES = {
+    "joint 1569": (4, 12, 1569, 1569, 64, False),
+    "space-only 197": (16 * 8, 12, 197, 197, 64, False),
+    "causal 1000 hd128": (2, 8, 1000, 1000, 128, True),
+    "causal 197 vs 1569": (4, 12, 197, 1569, 64, True),
+}
+
+
+def _qkv(gen, dev, dtype, b, h, sq, skv, d):
+    return [_randn(gen, dev, *s).to(dtype)
+            for s in ((b, h, sq, d), (b, h, skv, d), (b, h, skv, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernel(dev, dtype, case):
+    b, h, sq, skv, d, causal = FLASH_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = _qkv(gen, dev, dtype, b, h, sq, skv, d)
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v, d ** -0.5, causal)
+        want = fa._reference_attention(q, k, v, d ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    _flash_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 48, 80, 96, 112])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_head_dims(dev, dtype, d, causal):
+    gen = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = _qkv(gen, dev, dtype, 2, 3, 77, 131, d)
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v, 0.3, causal)
+        want = fa._reference_attention(q, k, v, 0.3, causal)
+    torch.cuda.synchronize()
+    _flash_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_views(dev, dtype):
+    """MHA's layout: q/k/v are head-transposed views of (B, S, 3·H·D)
+    rows, read in place; the output's head merge is a view."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = _randn(gen, dev, 3, 300, 3 * 4 * 64).to(dtype)
+    q, k, v = (t.reshape(3, 300, 4, 64).transpose(1, 2)
+               for t in x.split(256, -1))
+    with torch.no_grad():
+        got = fa.mha_flash(*x.split(256, -1), heads=4)
+        want = fa._reference_attention(q, k, v, 64 ** -0.5, False)
+    torch.cuda.synchronize()
+    _flash_close(got, want.transpose(1, 2).reshape(3, 300, 256), dtype)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = _qkv(gen, dev, torch.float32, 1, 2, 16, 16, 64)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.detach(), k.cpu(), v)
