@@ -8,9 +8,14 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
    source, in parallel);
 3. checks each kernel against its plain PyTorch version on the card, in
    bf16 and f32, with times: the sublayers at the CLIP ViT-B/32
-   main-path shapes, flash attention at the TimeSformer shapes (joint
-   8x224 with 1569 tokens, space-only 197, causal 1000 at head dim 128,
-   causal 197 queries against 1569 keys);
+   main-path shapes, the whole-block kernel at its main-path shape
+   (51200, 768), at (6400, 768) (f32: (800, 768)) and at a small shape,
+   also against the two-kernel chain; flash
+   attention at the TimeSformer shapes (joint 8x224 with 1569 tokens,
+   space-only 197, causal 1000 at head dim 128, causal 197 queries
+   against 1569 keys), with `scaled_dot_product_attention` timed beside
+   it as a yardstick; then one backward through each of the five kernel
+   wrappers, gradients against the plain version's autograd;
 4. CLIP path: builds ViT-B/32 (widths 768/512, 12+12 layers, bf16) with
    random weights from a numpy seed and drives it once with the launch
    counters zeroed: uint8 videos through `encode_video_u8`, a bf16
@@ -31,10 +36,19 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
    tolerance, label flips of steps 1-4 counted; then the shipped divided
    space-time caption config (bf16, no kernel on its path) at 2 clips;
 7. times videos/s of both TimeSformer arms at 16 clips;
-8. prints a JSON line of kernel results and, last, a JSON line naming
-   the device.
+8. bench path: `entry()` once; the 12-layer compact stack of
+   bench/block_ab.py at (51200, 768) bf16 through the two-kernel chain
+   and through the whole-block kernel with the launch counters zeroed (12
+   block launches), outputs compared by cosine and by the kernels' bf16
+   bound, both timed; the headline bench at B=128 with few steps;
+9. index: 1M x 512 rows drawn on the card, stored as bf16 and as int8,
+   64 queries, top-10: bf16 equal to brute force, int8 recall@10 against
+   the exact answer, search times and the peak memory of a search;
+10. prints a JSON line of kernel results (launches on the main paths,
+    error, time, plain time, bound, library time) and, last, a JSON line
+    naming the device.
 
-Nothing is cut: both models run at full width and depth.  Exits
+Nothing is cut: the models run at full width and depth.  Exits
 non-zero, printing no result, when CUDA is unavailable or any check
 fails.
 """
@@ -43,7 +57,6 @@ from __future__ import annotations
 
 import json
 import runpy
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -61,6 +74,12 @@ PACKAGE = ROOT / "cross_modal_video_engine_tpu_torch"
 # v, one bf16 step is 3.1e-2, and the bound there is that one step)
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 COSINE_MIN = 0.999                          # kernel arm vs plain arm
+GRAD_TOL = 1e-4                             # f32 gradients, kernel vs plain
+INT8_RECALL_MIN = 0.9                       # recall@10 of int8 rows
+# the card's published peaks: dense bf16 tensor-core rate and memory rate
+PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+BIG_INDEX_ROWS, BIG_INDEX_QUERIES = 1_000_000, 64
+HEADLINE_BATCH, HEADLINE_STEPS, STACK_STEPS = 128, 3, 3
 SRC = "cross_modal_video_engine_tpu_torch/csrc/"
 TPU_SRC = "cross_modal_video_engine_tpu/ops/attention_sublayer.py"
 TPU_FLASH = "cross_modal_video_engine_tpu/ops/flash_attention.py:151"
@@ -80,34 +99,16 @@ TS_JOINT = dict(num_frames=8, img_size=224, patch_size=16, embed_dims=768,
                 attention_type="joint_space_time", dtype="bfloat16",
                 use_flash_attention=True)
 RELSEQ_CONFIG = ROOT / "configs" / "seq_generate" / "timesformer_relseq.py"
-# bench.py's model: CLIP ViT-B/32, bf16
-VIT_B32 = dict(embed_dim=512, image_resolution=224, vision_width=768,
-               vision_layers=12, vision_heads=12, patch_size=32,
-               context_length=77, vocab_size=49408, text_width=512,
-               text_heads=8, text_layers=12, dtype="bfloat16")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+# the stack of bench/block_ab.py: sequences, tokens, width, heads, layers
+BLOCK_MAIN_CASE = "block stack"
+STACK = dict(nseq=1024, seq_len=50, width=768, heads=12, layers=12)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() in ms, by CUDA events after warm-up."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    from cross_modal_video_engine_tpu_torch.utils.profiling import (
+        device_time)
+    return device_time(fn, steps=iters, warmup=warmup, device="cuda") * 1e3
 
 
 def sublayer_cases(dev):
@@ -140,23 +141,41 @@ def sublayer_cases(dev):
     n_vis = VIDEOS * FRAMES * 50
     cases = []
 
-    def add(name, kernel, shape, make, run_kernel, run_ref, valid=None):
+    def add(name, kernel, shape, make, run_kernel, run_ref, valid=None,
+            shape_f32=None, run_chain=None, bound=None, f32=True):
         cases.append(dict(name=name, kernel=kernel, shape=shape, make=make,
                           run_kernel=run_kernel, run_ref=run_ref,
-                          valid=valid))
+                          valid=valid, shape_f32=shape_f32,
+                          run_chain=run_chain, bound=bound, f32=f32))
+
+    # the least a call must do, from its shapes: (flops, bytes) in bf16,
+    # each input read once and the output written once
+    def attn_work(rows, d, keys):
+        return (8 * rows * d * d + 4 * rows * keys * d,
+                2 * (2 * rows * d + 4 * d * d + 6 * d))
+
+    def mlp_work(rows, d):
+        return (16 * rows * d * d, 2 * (2 * rows * d + 8 * d * d + 7 * d))
+
+    def block_work(rows, d, keys):
+        fa, ba = attn_work(rows, d, keys)
+        fm, bm = mlp_work(rows, d)
+        return fa + fm, ba + bm - 2 * 2 * rows * d     # y1 stays on chip
 
     add("compact vision", "fused_attention_sublayer_compact", (n_vis, 768),
         lambda g: attn_params(g, 768),
         lambda x, p: asl.fused_attention_sublayer_compact(
             x, *p, heads=12, seq_len=50),
         lambda x, p: asl._attn_ref_flat(x, *p, heads=12, seq_len=50,
-                                        causal=False))
+                                        causal=False),
+        bound=attn_work(n_vis, 768, 50))
     add("rank-3 causal text", "fused_attention_sublayer", (8, 77, 512),
         lambda g: attn_params(g, 512),
         lambda x, p: asl.fused_attention_sublayer(
             x, *p, heads=8, valid_len=77, causal=True),
         lambda x, p: asl._attn_ref(x, *p, heads=8, valid_len=77,
-                                   causal=True))
+                                   causal=True),
+        bound=attn_work(8 * 77, 512, 77))
     add("rank-3 padded 80/77", "fused_attention_sublayer", (8, 80, 512),
         lambda g: attn_params(g, 512),
         lambda x, p: asl.fused_attention_sublayer(
@@ -166,11 +185,35 @@ def sublayer_cases(dev):
     add("mlp vision", "fused_mlp_sublayer", (n_vis, 768),
         lambda g: mlp_params(g, 768),
         lambda x, p: asl.fused_mlp_sublayer(x, *p),
-        lambda x, p: asl._mlp_ref(x, *p))
+        lambda x, p: asl._mlp_ref(x, *p), bound=mlp_work(n_vis, 768))
     add("mlp text", "fused_mlp_sublayer", (8, 77, 512),
         lambda g: mlp_params(g, 512),
         lambda x, p: asl.fused_mlp_sublayer(x, *p),
         lambda x, p: asl._mlp_ref(x, *p))
+
+    def block_case(name, shape, d, heads, seq_len, causal, **kw):
+        def chain(x, p):
+            y1 = asl.fused_attention_sublayer_compact(
+                x, *p[:10], heads=heads, seq_len=seq_len, causal=causal)
+            return asl.fused_mlp_sublayer(y1, *p[10:])
+        add(name, "fused_block_sublayer_compact", shape,
+            lambda g: attn_params(g, d) + mlp_params(g, d),
+            lambda x, p: asl.fused_block_sublayer_compact(
+                x, *p, heads=heads, seq_len=seq_len, causal=causal),
+            lambda x, p: asl._block_ref_flat(
+                x, *p, heads=heads, seq_len=seq_len, causal=causal),
+            run_chain=chain, **kw)
+
+    # the shape the 12-layer stack gives it: 1024 thread blocks
+    n_stack = STACK["nseq"] * STACK["seq_len"]
+    block_case(BLOCK_MAIN_CASE, (n_stack, STACK["width"]), STACK["width"],
+               STACK["heads"], STACK["seq_len"], False, f32=False,
+               bound=block_work(n_stack, STACK["width"], STACK["seq_len"]))
+    block_case("block vision", (n_vis, 768), 768, 12, 50, False,
+               shape_f32=(800, 768))
+    block_case("block vision causal", (n_vis, 768), 768, 12, 50, True,
+               shape_f32=(800, 768))
+    block_case("block small L=10", (160, 64), 64, 4, 10, False)
     return cases
 
 
@@ -180,10 +223,13 @@ def check_kernels(dev):
     import torch
     results, failures = [], []
     for i, case in enumerate(sublayer_cases(dev)):
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float32)[:1 + case["f32"]]:
             gen = torch.Generator(device=dev).manual_seed(1000 + i)
             params = case["make"](gen)
-            x = (torch.randn(*case["shape"], generator=gen, device=dev)
+            shape = case["shape"]
+            if dtype == torch.float32 and case["shape_f32"]:
+                shape = case["shape_f32"]
+            x = (torch.randn(*shape, generator=gen, device=dev)
                  * 0.5).to(dtype)
             with torch.no_grad():
                 got = case["run_kernel"](x, params)
@@ -194,24 +240,107 @@ def check_kernels(dev):
                 if v is not None:        # pad rows: finite, not compared
                     got, want = got[:, :v], want[:, :v]
                 err = float((got.float() - want.float()).abs().max())
+                chain_err = chain_ms = None
+                if case["run_chain"]:   # the two-kernel chain, same inputs
+                    chain = case["run_chain"](x, params)
+                    chain_err = float((got.float() - chain.float())
+                                      .abs().max())
+                    chain_ms = cuda_ms(
+                        lambda: case["run_chain"](x, params))
                 ms = cuda_ms(lambda: case["run_kernel"](x, params))
                 plain_ms = cuda_ms(lambda: case["run_ref"](x, params))
             name = str(dtype).removeprefix("torch.")
-            ok = finite and err <= TOL[name]
+            ok = (finite and err <= TOL[name]
+                  and (chain_err is None or chain_err <= TOL[name]))
             print(f"kernel {case['name']:22s} {name:8s} shape "
-                  f"{tuple(case['shape'])}: max_abs_err {err:.3e} "
+                  f"{tuple(shape)}: max_abs_err {err:.3e} "
                   f"(tol {TOL[name]:g}) {'ok' if ok else 'FAIL'}; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-                  flush=True)
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                  + ("" if chain_err is None else
+                     f"; vs two-kernel chain {chain_err:.3e}, chain "
+                     f"{chain_ms:.4f} ms"), flush=True)
             results.append(dict(case=case["name"], kernel=case["kernel"],
                                 dtype=name, err=err, ms=ms,
-                                plain_ms=plain_ms))
+                                plain_ms=plain_ms, bound=case["bound"],
+                                library_ms=None))
             if not ok:
                 failures.append(f"{case['name']} {name}: err {err} "
-                                f"finite {finite}")
+                                f"chain {chain_err} finite {finite}")
     if failures:
         raise SystemExit("kernel checks failed: " + "; ".join(failures))
     return results
+
+
+def check_backward(dev):
+    """One backward through each of the five kernel wrappers at a small
+    shape in f32: the forward launches the kernel, the backward recomputes
+    the plain version; gradients against the plain version's own
+    autograd."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.ops import attention_sublayer as asl
+    from cross_modal_video_engine_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(77)
+
+    def leaf(*shape, std=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std
+                + shift).requires_grad_()
+
+    def attn(d):
+        p = [leaf(d, std=0.1, shift=1.0), leaf(d, std=0.1)]
+        for _ in range(4):
+            p += [leaf(d, d, std=d ** -0.5), leaf(d, std=0.02)]
+        return p
+
+    def mlp(d):
+        return [leaf(d, std=0.1, shift=1.0), leaf(d, std=0.1),
+                leaf(4 * d, d, std=d ** -0.5), leaf(4 * d, std=0.02),
+                leaf(d, 4 * d, std=(4 * d) ** -0.5), leaf(d, std=0.02)]
+
+    d, h, l = 64, 4, 10
+    cases = [
+        (asl.fused_attention_sublayer,
+         lambda *a: asl.fused_attention_sublayer(*a, heads=h, valid_len=13,
+                                                 causal=True),
+         lambda *a: asl._attn_ref(*a, heads=h, valid_len=13, causal=True),
+         [leaf(3, 16, d, std=0.5)] + attn(d), 13),
+        (asl.fused_attention_sublayer_compact,
+         lambda *a: asl.fused_attention_sublayer_compact(*a, heads=h,
+                                                         seq_len=l),
+         lambda *a: asl._attn_ref_flat(*a, heads=h, seq_len=l, causal=False),
+         [leaf(4 * l, d, std=0.5)] + attn(d), None),
+        (asl.fused_mlp_sublayer, asl.fused_mlp_sublayer, asl._mlp_ref,
+         [leaf(37, d, std=0.5)] + mlp(d), None),
+        (asl.fused_block_sublayer_compact,
+         lambda *a: asl.fused_block_sublayer_compact(*a, heads=h, seq_len=l,
+                                                     causal=True),
+         lambda *a: asl._block_ref_flat(*a, heads=h, seq_len=l, causal=True),
+         [leaf(4 * l, d, std=0.5)] + attn(d) + mlp(d), None),
+        (fa.flash_attention,
+         lambda *a: fa.flash_attention(*a, 0.25, True),
+         lambda *a: fa._reference_attention(*a, 0.25, True),
+         [leaf(2, 3, 70, 32), leaf(2, 3, 70, 32), leaf(2, 3, 70, 32)], None),
+    ]
+    failures = []
+    for wrapper, kernel, plain, args, valid in cases:
+        before = wrapper.launches
+        out = kernel(*args)
+        want = plain(*args)
+        g = torch.randn(out.shape, generator=gen, device=dev)
+        if valid is not None:        # pad rows carry no gradient contract
+            g[:, valid:] = 0
+        got_g = torch.autograd.grad(out, args, g)
+        want_g = torch.autograd.grad(want, args, g)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got_g, want_g))
+        ok = (err <= GRAD_TOL and wrapper.launches == before + 1
+              and all(bool(torch.isfinite(a).all()) for a in got_g))
+        print(f"backward {wrapper.__name__:34s} f32: max gradient err "
+              f"{err:.3e} over {len(args)} inputs (tol {GRAD_TOL:g}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"{wrapper.__name__}: {err}")
+    if failures:
+        raise SystemExit("backward checks failed: " + "; ".join(failures))
 
 
 def flash_err(got, want, dtype_name: str):
@@ -254,14 +383,27 @@ def check_flash(dev):
                                                         causal))
                 plain_ms = cuda_ms(lambda: fa._reference_attention(
                     q, k, v, scale, causal), iters=5, warmup=1)
+                # the one PyTorch call that computes the same function: a
+                # yardstick, used nowhere in the port (its causal mask is
+                # top-left aligned only when Sq == Skv)
+                library_ms = None
+                if sq == skv:
+                    library_ms = cuda_ms(
+                        lambda: torch.nn.functional
+                        .scaled_dot_product_attention(
+                            q, k, v, is_causal=causal, scale=scale))
             print(f"kernel flash {case:20s} {name:8s} (B,H,Sq,Skv,D)="
                   f"{(b, h, sq, skv, d)} causal={causal}: max_abs_err "
                   f"{err:.3e} (tol {TOL[name]:g}) {'ok' if ok else 'FAIL'};"
-                  f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-                  flush=True)
-            results.append(dict(case=case, kernel="flash_attention",
-                                dtype=name, err=err, ms=ms,
-                                plain_ms=plain_ms))
+                  f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"scaled_dot_product_attention "
+                  + ("not comparable" if library_ms is None
+                     else f"{library_ms:.4f} ms"), flush=True)
+            work = 4 * b * h * sq * skv * d // (2 if causal else 1)
+            results.append(dict(
+                case=case, kernel="flash_attention", dtype=name, err=err,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound=(work, 2 * b * h * d * (2 * sq + 2 * skv))))
             if not ok:
                 failures.append(f"flash {case} {name}: err {err}")
     if failures:
@@ -542,32 +684,161 @@ def caption_throughput(model, plain, clips, card):
     return rates
 
 
+def drive_bench_path(dev, card):
+    """The bench entry points' path once with the launch counters zeroed
+    just before and read just after: `entry()`, then the 12-layer compact
+    stack at (51200, 768) through the two-kernel chain and through the
+    whole-block kernel.  Then the checks, and the times of both stacks and
+    of the headline bench.  Returns the block kernel's launches."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import block_ab, headline
+    from cross_modal_video_engine_tpu_torch.entry import entry
+    from cross_modal_video_engine_tpu_torch.ops import attention_sublayer as asl
+
+    layers, heads, seq_len = (STACK[k] for k in ("layers", "heads", "seq_len"))
+    x, params = block_ab.build_stack(STACK["nseq"], seq_len, STACK["width"],
+                                     layers, dev)
+    fn, (model, clip) = entry(dev)
+    counters = (asl.fused_attention_sublayer_compact, asl.fused_mlp_sublayer,
+                asl.fused_block_sublayer_compact)
+    for c in counters:
+        c.launches = 0
+    high = fn(model, clip)
+    two = block_ab.stack_two(x, params, heads=heads, seq_len=seq_len)
+    blk = block_ab.stack_block(x, params, heads=heads, seq_len=seq_len)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+
+    cos = cosine_min(blk, two)
+    err = float((blk.float() - two.float()).abs().max())
+    print(f"bench path: entry() high {tuple(high.shape)}; stack of {layers} "
+          f"layers at {tuple(x.shape)} bf16, whole-block vs two-kernel "
+          f"chain: min cosine {cos:.6f} (need >= {COSINE_MIN}), max abs "
+          f"diff {err:.3e} (tol {TOL['bfloat16']:g}); launches {json.dumps(launches)}")
+    checks = {
+        "entry shape": tuple(high.shape) == (2, 8, 512),
+        "finite": bool(torch.isfinite(high).all()
+                       and torch.isfinite(blk.float()).all()),
+        "block launches": launches["fused_block_sublayer_compact"] == layers,
+        "chain launches": (
+            launches["fused_attention_sublayer_compact"] == 2 * layers
+            and launches["fused_mlp_sublayer"] == 2 * layers),
+        "block vs chain": cos >= COSINE_MIN and err <= TOL["bfloat16"],
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"bench-path checks failed: {failed}")
+    del two, blk, model, clip
+
+    rows = block_ab.bench_op_level(steps=STACK_STEPS, device=dev)
+    print(f"stack{layers} at {tuple(x.shape)} bf16: two kernels "
+          f"{rows[0]['value']:.3f} ms, whole block {rows[1]['value']:.3f} ms "
+          f"(speedup {rows[1]['speedup_vs_two_kernels']:.3f}) on {card}")
+    row = headline.bench_headline(batch=HEADLINE_BATCH, steps=HEADLINE_STEPS,
+                                  device=dev)
+    print(f"headline B={HEADLINE_BATCH}: kernel arm {row['value']:.2f} "
+          f"videos/s, plain arm {row['plain']:.2f} videos/s on {card}")
+    return launches["fused_block_sublayer_compact"]
+
+
+def check_big_index(dev, card):
+    """1M x 512 rows drawn on the card, as bf16 and as int8: top-10 of 64
+    queries against brute force in float64 over the stored rows (bf16:
+    equal) and over the exact rows (int8: recall@10); search times; the
+    peak memory a search adds."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.retrieval.index import (
+        RetrievalIndex, _normalize_queries)
+    n, d, nq, k = BIG_INDEX_ROWS, 512, BIG_INDEX_QUERIES, 10
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = _normalize_queries(torch.randn((n, d), generator=gen, device=dev))
+    qn = _normalize_queries(torch.randn((nq, d), generator=gen, device=dev))
+    q_host = qn.cpu().numpy()
+
+    def brute(stored, q):                 # float64, a chunk of rows at a time
+        sims = torch.cat([q.double() @ c.double().t()
+                          for c in stored.split(131072)], 1)
+        return sims, sims.topk(k, dim=1).indices.cpu().numpy()
+
+    _, exact_ids = brute(rows, qn)
+    failures = []
+    for dtype in (torch.bfloat16, torch.int8):
+        name = str(dtype).removeprefix("torch.")
+        index = RetrievalIndex(rows, normalize=False, capacity=n, dtype=dtype,
+                               device=dev)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        vals, ids = index.search(q_host, k)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        search = index.searcher()
+        ms = cuda_ms(lambda: search(index.emb, index.scales, index.valid,
+                                    qn, k), iters=10)
+        recall = float(np.mean([len(set(a) & set(b)) / k
+                                for a, b in zip(exact_ids, ids)]))
+        line = (f"index {n} x {d} {name} rows ({index.emb.nbytes / 2**20:.0f} "
+                f"MiB), {nq} queries, top-{k}: search {ms:.3f} ms on {card}; "
+                f"a search adds {peak / 2**20:.0f} MiB at its peak (an fp32 "
+                f"copy of the rows would be {n * d * 4 / 2**20:.0f} MiB); "
+                f"recall@{k} vs exact f32 rows {recall:.4f}")
+        if dtype == torch.bfloat16:
+            sims, brute_ids = brute(index.emb, qn.to(dtype))
+            same = all(set(a) == set(b) for a, b in zip(ids, brute_ids))
+            val_err = float((torch.from_numpy(vals).to(dev).double()
+                             - sims.gather(1, torch.from_numpy(ids).to(dev))
+                             ).abs().max())
+            line += (f"; vs brute force over the stored rows: "
+                     f"{'equal' if same else 'DIFFERENT'}, max score err "
+                     f"{val_err:.2e}")
+            if not (same and val_err < 1e-4):
+                failures.append("bf16 search != brute force")
+        elif recall < INT8_RECALL_MIN:
+            failures.append(f"int8 recall@{k} {recall} < {INT8_RECALL_MIN}")
+        if peak >= n * d * 4:
+            failures.append(f"{name} search peaked at {peak} bytes")
+        print(line, flush=True)
+        del index
+    if failures:
+        raise SystemExit("index checks failed: " + "; ".join(failures))
+
+
 def kernel_json(results, launches) -> dict:
-    """The kernels line: bf16 errors over every case of a kernel, times
-    of its main-path case."""
+    """The kernels line: bf16 errors over every case of a kernel; times,
+    bound and library time of its main-path case.  `bound_ms` is the
+    larger of the case's bytes over the card's memory rate and its
+    operations over the bf16 tensor-core peak."""
     main_case = {"fused_attention_sublayer_compact": "compact vision",
                  "fused_attention_sublayer": "rank-3 causal text",
                  "fused_mlp_sublayer": "mlp vision",
+                 "fused_block_sublayer_compact": BLOCK_MAIN_CASE,
                  "flash_attention": next(iter(FLASH_CASES))}
     sources = {"fused_attention_sublayer_compact": "attention_core.cu",
                "fused_attention_sublayer": "attention_core.cu",
                "fused_mlp_sublayer": "gemm.cu",
+               "fused_block_sublayer_compact": "block_sublayer.cu",
                "flash_attention": "flash_attention.cu"}
     replaces = {"fused_attention_sublayer_compact": f"{TPU_SRC}:354",
                 "fused_attention_sublayer": f"{TPU_SRC}:132",
                 "fused_mlp_sublayer": f"{TPU_SRC}:479",
+                "fused_block_sublayer_compact": f"{TPU_SRC}:617",
                 "flash_attention": TPU_FLASH}
     kernels = []
     for name, case in main_case.items():
         bf16 = [r for r in results
                 if r["kernel"] == name and r["dtype"] == "bfloat16"]
         main = next(r for r in bf16 if r["case"] == case)
+        flops, nbytes = main["bound"]
+        by_ops, by_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
         kernels.append({
             "name": name, "route": "cuda", "source": SRC + sources[name],
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": max(r["err"] for r in bf16),
-            "ms": main["ms"], "plain_ms": main["plain_ms"]})
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "library_ms": main["library_ms"]})
     return {"kernels": kernels}
 
 
@@ -586,8 +857,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     from cross_modal_video_engine_tpu_torch.models.clip import (
-        CLIPConfig, CLIPModel, enable_fused_inference, random_state_dict)
+        CLIPModel, enable_fused_inference, flagship_config,
+        random_state_dict)
     from cross_modal_video_engine_tpu_torch.ops._build import load_kernels
+    from cross_modal_video_engine_tpu_torch.utils.device import card_line
 
     # plain f32 arms: full-f32 matmuls and convs (cuDNN would use TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -610,9 +883,10 @@ def main() -> int:
 
     # -- 3. each kernel against its plain version ---------------------------
     results = check_kernels(dev) + check_flash(dev)
+    check_backward(dev)
 
     # -- 4. the CLIP path ---------------------------------------------------
-    cfg = CLIPConfig(**VIT_B32)
+    cfg = flagship_config()
     t0 = time.perf_counter()
     sd = random_state_dict(cfg, seed=0)
     model = CLIPModel(enable_fused_inference(cfg, device=dev), device=dev)
@@ -643,7 +917,17 @@ def main() -> int:
     # -- 7. TimeSformer videos/s --------------------------------------------
     caption_throughput(ts_model, ts_plain, clips, card)
 
-    # -- 8. results ---------------------------------------------------------
+    del ts_model, ts_plain, clips
+    torch.cuda.empty_cache()
+
+    # -- 8. the bench entry points' path --------------------------------------
+    launches["fused_block_sublayer_compact"] = drive_bench_path(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 9. the 1M-row index ---------------------------------------------------
+    check_big_index(dev, card)
+
+    # -- 10. results -----------------------------------------------------------
     print(json.dumps(kernel_json(results, launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@ and of the model half of cli/caption_inference.py's `caption_video`:
   non-TimeSformer caption backbones are not ported yet.
 * `caption_clips(model, clips)` runs `forward_test` on normalised clips
   and thresholds the per-step probabilities.  Video decoding and the
-  test pipeline stay host code (cross_modal_video_engine_tpu.data).
+  test pipeline are host code the port does not have yet; when it needs
+  them it keeps its own copy (the port imports nothing of the JAX
+  package).
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ from .utils.precision import maybe_cast_bf16
 
 
 def init_recognizer(cfg_d: dict, state_dict: Dict[str, torch.Tensor],
-                    device="cpu"):
-    """Returns (model, cfg_d)."""
+                    device=None):
+    """Returns (model, cfg_d); device=None builds on the CUDA device."""
     bb_kw = {k: tuple(v) if isinstance(v, list) else v
              for k, v in cfg_d["backbone"].items()}
     btype = bb_kw.pop("type", "TimeSformer")

@@ -1,0 +1,1 @@
+"""Bench entry points of the port: `headline`, `block_ab`, `extra`."""

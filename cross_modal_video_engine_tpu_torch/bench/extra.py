@@ -1,0 +1,232 @@
+"""Secondary benchmarks: the index and tower rows.
+
+    python -m cross_modal_video_engine_tpu_torch.bench.extra [ROW ...]
+
+The rows of the JAX package's bench_extra.py that the port has code for,
+one JSON line per metric; with no argument, every row in order:
+
+* `retrieval_p50`: top-10 of 64 queries over 1M x 512 bf16 rows, p50 of
+  the device time over repeats; then the same over int8 rows, with
+  recall@10 against the bf16 index;
+* `int8_capacity`: 4M x 512 int8 rows, p50 and recall@10 against the exact
+  f32 answer over the same rows;
+* `flash_sweep`: flash attention TFLOP/s against the plain attention at
+  the same shapes;
+* `text_tower`: CLIP ViT-B/32 text tower, captions/s at 256 captions;
+* `u8_ingest`: the flagship tower fed uint8 frames through
+  `encode_video_u8`, videos/s.
+
+Rows are drawn from a seed on the device.  Where a row has a plain arm,
+`vs_baseline` is the kernel arm over the plain arm.  Not carried over: the
+host-feed row (needs the native decoder), the flatten_tokens A/B (a TPU
+layout) and the train-step rows (training slices).
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models.clip import CLIPConfig
+from ..ops.flash_attention import _reference_attention, flash_attention
+from ..retrieval.index import RetrievalIndex, _normalize_queries
+from ..utils.device import resolve_device
+from ..utils.profiling import device_time
+from .common import (clip_arms, emit, flagship_config, per, time_arms,
+                     where)
+
+
+def _random_rows(n_rows: int, dim: int, seed: int, device) -> torch.Tensor:
+    """(n_rows, dim) N(0, 1) rows drawn on the device, half a million at a
+    time."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows = torch.empty((n_rows, dim), dtype=torch.float32, device=device)
+    for i in range(0, n_rows, 500_000):
+        part = rows[i:i + 500_000]
+        part.copy_(torch.randn(part.shape, generator=gen, device=device))
+    return rows
+
+
+def _search_p50(index: RetrievalIndex, qn: torch.Tensor, k: int, trials: int,
+                steps: int) -> float:
+    """p50 over `trials` of the device ms of one search (normalized
+    queries on the device in, device results out)."""
+    search = index.searcher()
+    kk = min(k, index.n_active)
+    times = [device_time(lambda: search(index.emb, index.scales, index.valid,
+                                        qn, kk),
+                         steps=steps, device=index.device)
+             for _ in range(trials)]
+    return float(np.percentile(times, 50)) * 1e3
+
+
+def _recall(ids_ref: np.ndarray, ids: np.ndarray) -> float:
+    return float(np.mean([len(set(a) & set(b)) / len(a)
+                          for a, b in zip(ids_ref, ids)]))
+
+
+def bench_retrieval_p50(n_rows: int = 1_000_000, dim: int = 512,
+                        n_queries: int = 64, k: int = 10, trials: int = 5,
+                        steps: int = 20, device=None) -> list:
+    device = resolve_device(device)
+    rows = _random_rows(n_rows, dim, 0, device)
+    q = _random_rows(n_queries, dim, 1, device)
+    qn = _normalize_queries(q)
+    q_host = q.cpu().numpy()
+    info = where(device)
+    name = f"retrieval_p50_{n_rows // 1000}k_rows_q{n_queries}"
+
+    index = RetrievalIndex(rows, capacity=n_rows, dtype=torch.bfloat16,
+                           device=device)
+    p50 = _search_p50(index, qn, k, trials, steps)
+    ids_ref = index.search(q_host, k)[1]
+    nbytes = index.emb.nbytes
+    del index
+    out = [emit({"metric": name, "value": p50,
+                 "unit": per("ms", device, "device"),
+                 "vs_baseline": 1.0, "index_bytes": nbytes, **info})]
+
+    idx8 = RetrievalIndex(rows, capacity=n_rows, dtype=torch.int8,
+                          device=device)
+    p50_8 = _search_p50(idx8, qn, k, trials, steps)
+    ids_8 = idx8.search(q_host, k)[1]
+    out.append(emit({"metric": name + "_int8", "value": p50_8,
+                     "unit": per("ms", device, "device"),
+                     "vs_baseline": p50 / p50_8,
+                     "recall_at_k_vs_bf16": _recall(ids_ref, ids_8),
+                     "index_bytes": idx8.emb.nbytes + idx8.scales.nbytes,
+                     **info}))
+    return out
+
+
+def bench_int8_capacity(n_rows: int = 4_000_000, dim: int = 512,
+                        n_queries: int = 64, k: int = 10, trials: int = 5,
+                        steps: int = 10, device=None) -> dict:
+    """int8 rows at the size they exist for: p50, and recall@k against the
+    exact f32 answer over the same rows."""
+    device = resolve_device(device)
+    rows = _random_rows(n_rows, dim, 4, device)
+    q = _random_rows(n_queries, dim, 5, device)
+    qn = _normalize_queries(q)
+    q_host = q.cpu().numpy()
+
+    idx8 = RetrievalIndex(rows, capacity=n_rows, dtype=torch.int8,
+                          device=device)
+    p50_8 = _search_p50(idx8, qn, k, trials, steps)
+    ids_8 = idx8.search(q_host, k)[1]
+    bytes8 = idx8.emb.nbytes + idx8.scales.nbytes
+    del idx8       # before the f32 reference: both would double the peak
+
+    ref = RetrievalIndex(rows, capacity=n_rows, dtype=torch.float32,
+                         device=device)
+    del rows
+    ids_ref = ref.search(q_host, k)[1]
+    return emit({
+        "metric": f"int8_index_p50_{n_rows / 1e6:g}M_rows_q{n_queries}",
+        "value": p50_8, "unit": per("ms", device, "device"),
+        "vs_baseline": None,
+        "recall_at_k_vs_f32": _recall(ids_ref, ids_8),
+        "index_bytes_int8": bytes8, "index_bytes_f32": ref.emb.nbytes,
+        **where(device)})
+
+
+def bench_flash_sweep(batch: int = 4, heads: int = 8, head_dim: int = 128,
+                      seq_lens: Sequence[int] = (512, 1024, 2048, 4096, 8192),
+                      steps: int = 10, device=None) -> list:
+    device = resolve_device(device)
+    info = where(device)
+    scale = 1.0 / math.sqrt(head_dim)
+    out = []
+    for s in seq_lens:
+        gen = torch.Generator(device=device).manual_seed(1)
+        q = torch.randn((batch, heads, s, head_dim), generator=gen,
+                        device=device).to(torch.bfloat16)
+        flops = 4.0 * batch * heads * s * s * head_dim       # q k^T and P v
+        rate = {}
+        with torch.no_grad():
+            for name, fn in (("flash", flash_attention),
+                             ("plain", _reference_attention)):
+                dt = device_time(lambda: fn(q, q, q, scale, False),
+                                 steps=steps, device=device)
+                rate[name] = flops / dt / 1e12
+        for name in ("flash", "plain"):
+            out.append(emit({"metric": f"attention_{name}_S{s}_bf16",
+                             "value": rate[name], "unit": "TFLOP/s",
+                             "vs_baseline": rate[name] / rate["plain"],
+                             **info}))
+    return out
+
+
+def _token_ids(rng, n: int, length: int, vocab: int) -> np.ndarray:
+    return rng.integers(1, vocab, (n, length)).astype(np.int64)
+
+
+def bench_text_tower(batch: int = 256, steps: int = 20, device=None,
+                     cfg: Optional[CLIPConfig] = None) -> dict:
+    device = resolve_device(device)
+    cfg = cfg or flagship_config()
+    kernel, plain = clip_arms(cfg, device)
+    ids = torch.from_numpy(_token_ids(np.random.default_rng(2), batch,
+                                      cfg.context_length,
+                                      cfg.vocab_size)).to(device)
+
+    def embed(model):
+        with torch.no_grad():
+            return model.encode_text(ids)
+
+    value, base, rates = time_arms(embed, kernel, plain, batch, steps)
+    return emit({"metric": "text_embed_throughput_vitb32_bf16",
+                 "value": value, "unit": per("captions/sec", device),
+                 "vs_baseline": value / base, "plain": base, "runs": rates,
+                 **where(device)})
+
+
+def bench_u8_ingest(batch: int = 32, frames: int = 8, steps: int = 20,
+                    device=None, cfg: Optional[CLIPConfig] = None) -> dict:
+    device = resolve_device(device)
+    cfg = cfg or flagship_config()
+    kernel, plain = clip_arms(cfg, device)
+    res = cfg.image_resolution
+    gen = torch.Generator(device=device).manual_seed(3)
+    clip = torch.randint(0, 256, (batch, frames, res, res, 3), generator=gen,
+                         device=device, dtype=torch.uint8)
+
+    def embed(model):
+        with torch.no_grad():
+            return model.encode_video_u8(clip)[0]
+
+    value, base, rates = time_arms(embed, kernel, plain, batch, steps)
+    return emit({"metric": "video_embed_u8_ingest_vitb32_bf16_8f224",
+                 "value": value, "unit": per("videos/sec", device),
+                 "vs_baseline": value / base, "plain": base, "runs": rates,
+                 **where(device)})
+
+
+_BENCHES = [
+    ("retrieval_p50", bench_retrieval_p50),
+    ("int8_capacity", bench_int8_capacity),
+    ("flash_sweep", bench_flash_sweep),
+    ("text_tower", bench_text_tower),
+    ("u8_ingest", bench_u8_ingest),
+]
+
+
+def main(argv=None) -> None:
+    """No args: every row in order.  With args: only the named rows."""
+    names = list(sys.argv[1:] if argv is None else argv)
+    table = dict(_BENCHES)
+    unknown = [n for n in names if n not in table]
+    if unknown:
+        raise SystemExit(f"unknown bench(es) {unknown}; choose from "
+                         f"{[n for n, _ in _BENCHES]}")
+    for name, fn in _BENCHES:
+        if not names or name in names:
+            fn()
+
+
+if __name__ == "__main__":
+    main()

@@ -48,7 +48,7 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // -- tensor-core building blocks (gemm.cu, attention_core.cu,
-//    flash_attention.cu) ------------------------------------------------------
+//    block_sublayer.cu, flash_attention.cu) ------------------------------------------------------
 
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -82,6 +82,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+
+// two 8x8 b16 matrices; lanes 0-15 supply the row addresses
+__device__ __forceinline__ void ldmatrix_x2(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
 }
 
 // the same, each matrix transposed: lane l receives rows 2(l%4), 2(l%4)+1

@@ -40,6 +40,7 @@ from ..ops.attention_sublayer import (fused_attention_sublayer,
                                       fused_attention_sublayer_compact,
                                       fused_mlp_sublayer)
 from ..ops.flash_attention import flash_attention
+from ..utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,15 +78,16 @@ class CLIPConfig:
 
 
 def enable_fused_inference(cfg: CLIPConfig, enable: Optional[bool] = None,
-                           device="cpu") -> CLIPConfig:
+                           device=None) -> CLIPConfig:
     """Turn on the fused sublayers for inference.
 
     Exact math and identical parameters, so configs saved without the
     flags still load.  enable=None selects: on when the model's `device`
-    is CUDA (the hand-written kernels), off elsewhere (on the CPU the
-    fused path runs the plain versions, which buy nothing there)."""
+    (None: the CUDA device) is CUDA (the hand-written kernels), off
+    elsewhere (on the CPU the fused path runs the plain versions, which
+    buy nothing there)."""
     if enable is None:
-        enable = torch.device(device).type == "cuda"
+        enable = resolve_device(device).type == "cuda"
     if not enable:
         return cfg
     return dataclasses.replace(cfg, fused_attn=True, fused_mlp=True,
@@ -359,6 +361,8 @@ class CLIPModel(TextTower):
     """Both towers and the logit scale, in the OpenAI state-dict layout."""
 
     def __init__(self, cfg: CLIPConfig, device=None):
+        """device=None builds the model on the CUDA device."""
+        device = resolve_device(device)
         super().__init__(cfg, device)
         self.visual = VisionTower(cfg, device)
         self.logit_scale = nn.Parameter(
@@ -470,3 +474,26 @@ def random_state_dict(cfg: CLIPConfig, seed: int) -> Dict[str, torch.Tensor]:
             a = int(np.prod(shape[1:])) ** -0.5 * rng.standard_normal(shape)
         out[name] = torch.from_numpy(np.asarray(a, np.float32))
     return out
+
+
+# CLIP ViT-B/32, bf16: the flagship program
+VIT_B32 = dict(embed_dim=512, image_resolution=224, vision_width=768,
+               vision_layers=12, vision_heads=12, patch_size=32,
+               context_length=77, vocab_size=49408, text_width=512,
+               text_heads=8, text_layers=12, dtype="bfloat16")
+
+
+def flagship_config(**overrides) -> CLIPConfig:
+    return CLIPConfig(**{**VIT_B32, **overrides})
+
+
+def seeded_state_dict(cfg: CLIPConfig, seed: int = 0,
+                      std: float = 0.02) -> Dict[str, torch.Tensor]:
+    """Every entry of the CLIP state dict drawn std * N(0, 1) from
+    np.random.default_rng(seed), in state-dict order (the weights of
+    `entry()` and the bench programs; no checkpoint is read)."""
+    rng = np.random.default_rng(seed)
+    shapes = CLIPModel(cfg, device="meta").state_dict()
+    return {name: torch.from_numpy(np.asarray(
+                rng.standard_normal(tuple(t.shape)) * std, np.float32))
+            for name, t in shapes.items()}

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.device import resolve_device
 from .decoder_head import RNNDecoderConfig, RNNDecoderHead
 from .timesformer import LN, TimeSformer, TimeSformerConfig
 
@@ -59,6 +60,7 @@ class Recognizer3D(nn.Module):
     def __init__(self, backbone_cfg: TimeSformerConfig, num_classes: int,
                  device=None):
         super().__init__()
+        device = resolve_device(device)   # None: the CUDA device
         self.backbone = TimeSformer(backbone_cfg, device)
         self.cls_head = TimeSformerHead(num_classes, backbone_cfg.embed_dims,
                                         backbone_cfg.torch_dtype(), device)
@@ -90,6 +92,7 @@ class Recognizer3DRelseq(nn.Module):
     def __init__(self, backbone_cfg: TimeSformerConfig,
                  decoder_cfg: RNNDecoderConfig, device=None):
         super().__init__()
+        device = resolve_device(device)   # None: the CUDA device
         self.backbone = TimeSformer(backbone_cfg, device)
         self.cls_head = RNNDecoderHead(decoder_cfg,
                                        backbone_cfg.torch_dtype(), device)

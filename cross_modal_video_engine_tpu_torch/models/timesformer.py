@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.device import resolve_device
 from .clip import MHA
 
 
@@ -204,6 +205,7 @@ class JointBlock(nn.Module):
 class TimeSformer(nn.Module):
     def __init__(self, cfg: TimeSformerConfig, device=None):
         super().__init__()
+        device = resolve_device(device)   # None: the CUDA device
         if cfg.attention_type not in ("divided_space_time",
                                       "joint_space_time", "space_only"):
             raise ValueError(f"attention_type {cfg.attention_type!r}")

@@ -44,6 +44,12 @@ _SIGNATURES = (
     ("cmve_flash_attention", _I,
      [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
       ctypes.POINTER(ctypes.c_longlong), _F, _I, _P]),
+    # (dtype, n, D, heads, hidden, seq_len) -> bytes of scratch, -1: refused
+    ("cmve_block_scratch_bytes", ctypes.c_longlong, [_I] * 6),
+    # (dtype, x, 16 parameters, y, scratch, n, D, heads, hidden, seq_len,
+    #  causal, eps, scale, stream)
+    ("cmve_block_sublayer", _I,
+     [_I] + [_P] * 19 + [_I] * 6 + [_F, _F, _P]),
 )
 
 
@@ -62,8 +68,8 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def _key(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _key(sources, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in sources:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -90,7 +96,7 @@ def _find_nvcc() -> str:
         "the CUDA toolkit's nvcc on PATH or set CUDA_HOME")
 
 
-def _compile(out_dir: Path, sources) -> str:
+def _compile(out_dir: Path, sources, flags) -> str:
     """One nvcc per .cu, run in parallel, then one link into the library;
     returns the compilers' output (ptxas registers, spills, smem)."""
     nvcc = _find_nvcc()
@@ -99,7 +105,7 @@ def _compile(out_dir: Path, sources) -> str:
     try:
         jobs = []
         for src in (p for p in sources if p.suffix == ".cu"):
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+            cmd = [nvcc, *flags, "-I", str(CSRC), "-c", str(src),
                    "-o", str(tmp / f"{src.stem}.o")]
             jobs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -129,15 +135,18 @@ def _compile(out_dir: Path, sources) -> str:
 
 
 @functools.cache
-def load_kernels() -> Kernels:
-    """Build (once per source hash) and load the CUDA library."""
+def load_kernels(defines: tuple = ()) -> Kernels:
+    """Build (once per hash of sources and flags) and load the CUDA
+    library.  `defines` are extra `-D...` flags of an instrumented build
+    (see block_sublayer.cu); the package itself passes none."""
     t0 = time.perf_counter()
     sources = _sources()
-    out_dir = BUILD_ROOT / _key(sources)
+    flags = (*NVCC_FLAGS, *defines)
+    out_dir = BUILD_ROOT / _key(sources, flags)
     so = out_dir / LIB_NAME
     built = not so.is_file()
     if built:
-        log = _compile(out_dir, sources)
+        log = _compile(out_dir, sources, flags)
     else:
         log_file = out_dir / "build.log"
         log = log_file.read_text() if log_file.is_file() else ""

@@ -10,17 +10,26 @@ Counterpart of cross_modal_video_engine_tpu/ops/attention_sublayer.py:
   L rows (the vision tower).
 * `fused_mlp_sublayer`: y = x + W2·quick_gelu(W1·LN(x) + b1) + b2 per
   token, over any leading shape.
+* `fused_block_sublayer_compact`: the compact attention sublayer, then the
+  MLP sublayer, as one kernel launch per block: x is read from device
+  memory once and y written once per layer.  It takes no `g`: how many
+  sequences a thread block owns is the kernel's business.
 
 Weights are in torch Linear layout, (out_features, in_features) — the
 OpenAI CLIP state dict's — where the JAX functions take (in, out) kernels.
 
 Dispatch: a CPU tensor goes to the plain version (`_attn_ref`,
-`_attn_ref_flat`, `_mlp_ref`); a CUDA tensor goes to the kernels in
-`csrc/` or the call raises.  Nothing falls back.  The kernels are
-inference only: on a tensor that requires grad with grad mode on they
-raise NotImplementedError (the JAX custom_vjp's backward comes with the
-training slice).  Each public function carries `launches`, a plain int
-that counts the calls which launched its kernels.
+`_attn_ref_flat`, `_mlp_ref`, `_block_ref_flat`); a CUDA tensor goes to
+the kernels in `csrc/` or the call raises.  Nothing falls back.  Each
+public function carries `launches`, a plain int that counts the calls
+which launched its kernels.
+
+Gradients: as the JAX custom_vjps do, the forward launches the kernel and
+the backward recomputes the plain version and differentiates that (one
+extra unfused forward in the backward pass): `_PlainBackward`, used only
+when grad mode is on and an input requires grad.  No kernel has a
+backward kernel.  On the CPU the plain version's own autograd is the
+gradient.
 
 The plain versions follow the Pallas kernels' rounding points, not those
 of the JAX `_attn_ref`/`_mlp_ref`: every weight, bias and the LN
@@ -115,6 +124,54 @@ def _mlp_ref(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
             + b2.to(dt).float()).to(dt) + x
 
 
+def _block_ref_flat(x, ln1s, ln1b, wq, bq, wk, bk, wv, bv, wo, bo, ln2s,
+                    ln2b, w1, b1, w2, b2, *, heads: int, seq_len: int,
+                    causal: bool, eps: float = 1e-5) -> torch.Tensor:
+    """A whole block in plain torch: the compact attention sublayer, then
+    the MLP sublayer on its output y1, which is in x.dtype (rounded where
+    the two-kernel chain rounds it)."""
+    y1 = _attn_ref_flat(x, ln1s, ln1b, wq, bq, wk, bk, wv, bv, wo, bo,
+                        heads=heads, seq_len=seq_len, causal=causal,
+                        eps=eps)
+    return _mlp_ref(y1, ln2s, ln2b, w1, b1, w2, b2, eps=eps)
+
+
+# ---------------------------------------------------------------------------
+# gradients: kernel forward, plain-version backward
+# ---------------------------------------------------------------------------
+
+class _PlainBackward(torch.autograd.Function):
+    """forward(launch, plain, *tensors) returns launch(*tensors) and saves
+    the tensors; backward recomputes plain(*tensors) with grad mode on and
+    returns its gradients (the JAX custom_vjp over the `_*_ref` math)."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, *tensors):
+        ctx.plain = plain
+        ctx.save_for_backward(*tensors)
+        return launch(*tensors)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need)
+                      for t, need in zip(ctx.saved_tensors, needs)]
+            out = ctx.plain(*leaves)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in leaves if t.requires_grad], grad))
+        return (None, None,
+                *[next(grads) if need else None for need in needs])
+
+
+def _launch(launch, plain, *tensors):
+    """launch(*tensors), differentiable through `plain` when grad mode is
+    on and a tensor requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _PlainBackward.apply(launch, plain, *tensors)
+    return launch(*tensors)
+
+
 # ---------------------------------------------------------------------------
 # CUDA path
 # ---------------------------------------------------------------------------
@@ -133,11 +190,6 @@ def _prepare(x: torch.Tensor, *params: torch.Tensor):
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"sublayer kernels take float32 or bfloat16, "
                         f"not {x.dtype}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *params)):
-        raise NotImplementedError(
-            "the CUDA sublayer kernels have no backward yet; call them "
-            "under torch.no_grad()")
     x = x.contiguous()
     out = []
     for p in params:
@@ -256,18 +308,21 @@ def fused_attention_sublayer(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv,
                              eps: float = 1e-5) -> torch.Tensor:
     """x: (B, LP, D) -> (B, LP, D); rows >= valid_len are padding (masked
     as keys, passed through as queries)."""
-    if _on_cpu(x):
-        return _attn_ref(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo,
-                         bo, heads=heads, valid_len=valid_len,
+    def plain(*a):
+        return _attn_ref(*a, heads=heads, valid_len=valid_len,
                          causal=causal, eps=eps)
-    x, params = _prepare(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo,
-                         bo)
-    b, lp, d = x.shape
-    y = _attn_cuda(x.reshape(b * lp, d), params, heads=heads,
-                   seq_stride=lp, rows=lp, valid_len=valid_len,
-                   causal=causal, eps=eps)
-    fused_attention_sublayer.launches += 1
-    return y.reshape(b, lp, d)
+
+    def launch(*a):
+        xc, params = _prepare(*a)
+        b, lp, d = xc.shape
+        y = _attn_cuda(xc.reshape(b * lp, d), params, heads=heads,
+                       seq_stride=lp, rows=lp, valid_len=valid_len,
+                       causal=causal, eps=eps)
+        fused_attention_sublayer.launches += 1
+        return y.reshape(b, lp, d)
+
+    args = (x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo)
+    return plain(*args) if _on_cpu(x) else _launch(launch, plain, *args)
 
 
 fused_attention_sublayer.launches = 0
@@ -281,16 +336,21 @@ def fused_attention_sublayer_compact(x, ln_scale, ln_bias, wq, bq, wk, bk,
     if x.shape[0] % seq_len:
         raise ValueError(f"seq_len {seq_len} must divide the row count "
                          f"{x.shape[0]}")
-    if _on_cpu(x):
-        return _attn_ref_flat(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv,
-                              wo, bo, heads=heads, seq_len=seq_len,
+
+    def plain(*a):
+        return _attn_ref_flat(*a, heads=heads, seq_len=seq_len,
                               causal=causal, eps=eps)
-    x, params = _prepare(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo,
-                         bo)
-    y = _attn_cuda(x, params, heads=heads, seq_stride=seq_len,
-                   rows=seq_len, valid_len=seq_len, causal=causal, eps=eps)
-    fused_attention_sublayer_compact.launches += 1
-    return y
+
+    def launch(*a):
+        xc, params = _prepare(*a)
+        y = _attn_cuda(xc, params, heads=heads, seq_stride=seq_len,
+                       rows=seq_len, valid_len=seq_len, causal=causal,
+                       eps=eps)
+        fused_attention_sublayer_compact.launches += 1
+        return y
+
+    args = (x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo)
+    return plain(*args) if _on_cpu(x) else _launch(launch, plain, *args)
 
 
 fused_attention_sublayer_compact.launches = 0
@@ -299,16 +359,102 @@ fused_attention_sublayer_compact.launches = 0
 def fused_mlp_sublayer(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
                        eps: float = 1e-5) -> torch.Tensor:
     """y = x + W2·quick_gelu(W1·LN(x) + b1) + b2, any leading shape."""
-    if _on_cpu(x):
-        return _mlp_ref(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps)
-    x, (lns, lnb, w1, b1, w2, b2) = _prepare(x, ln_scale, ln_bias, w1, b1,
-                                             w2, b2)
-    shape = x.shape
-    x2 = x.reshape(-1, shape[-1])
-    h = _gemm(_layernorm(x2, lns, lnb, eps), _EPI_GELU, ((w1, b1),))[0]
-    y = _gemm(h, _EPI_RESID, ((w2, b2),), resid=x2)[0]
-    fused_mlp_sublayer.launches += 1
-    return y.reshape(shape)
+    def plain(*a):
+        return _mlp_ref(*a, eps=eps)
+
+    def launch(*a):
+        xc, (lns, lnb, w1c, b1c, w2c, b2c) = _prepare(*a)
+        x2 = xc.reshape(-1, xc.shape[-1])
+        h = _gemm(_layernorm(x2, lns, lnb, eps), _EPI_GELU,
+                  ((w1c, b1c),))[0]
+        y = _gemm(h, _EPI_RESID, ((w2c, b2c),), resid=x2)[0]
+        fused_mlp_sublayer.launches += 1
+        return y.reshape(xc.shape)
+
+    args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
+    return plain(*args) if _on_cpu(x) else _launch(launch, plain, *args)
 
 
 fused_mlp_sublayer.launches = 0
+
+# what csrc/block_sublayer.cu takes
+BLOCK_MAX_SEQ, BLOCK_MAX_WIDTH, BLOCK_MAX_HEAD_DIM = 64, 768, 64
+
+
+def _check_block_shapes(x, wq, w1, heads: int, seq_len: int) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"the block sublayer takes flat (B·seq_len, D) "
+                         f"rows, got {tuple(x.shape)}")
+    n, d = x.shape
+    hidden = w1.shape[0]
+    if not 1 <= seq_len <= BLOCK_MAX_SEQ or n % seq_len:
+        raise ValueError(f"the block kernel takes 1 <= seq_len <= "
+                         f"{BLOCK_MAX_SEQ} dividing the row count, got "
+                         f"seq_len={seq_len} rows={n}")
+    if d % 64 or not 64 <= d <= BLOCK_MAX_WIDTH:
+        raise ValueError(f"the block kernel takes widths that are multiples "
+                         f"of 64 up to {BLOCK_MAX_WIDTH}, got {d}")
+    if heads < 1 or d % heads or (d // heads) % 16 \
+            or d // heads > BLOCK_MAX_HEAD_DIM:
+        raise ValueError(f"the block kernel takes head dims that are "
+                         f"multiples of 16 up to {BLOCK_MAX_HEAD_DIM}, got "
+                         f"width {d} over {heads} heads")
+    if hidden % 64 or w1.shape != (hidden, d) or wq.shape != (d, d):
+        raise ValueError(f"the block kernel takes a hidden width that is a "
+                         f"multiple of 64, got w1 {tuple(w1.shape)} and wq "
+                         f"{tuple(wq.shape)} for width {d}")
+
+
+def _block_cuda(x, params, *, heads, seq_len, causal, eps):
+    """csrc/block_sublayer.cu: one launch for the whole block.  float32
+    stages its tiles through a per-block scratch allocated here; bf16
+    keeps everything on chip."""
+    from ._build import load_kernels
+    lib = load_kernels().lib
+    n, d = x.shape
+    hidden = params[12].shape[0]
+    code = _DTYPE_CODES[x.dtype]
+    nbytes = lib.cmve_block_scratch_bytes(code, n, d, heads, hidden, seq_len)
+    if nbytes < 0:
+        raise ValueError(f"block kernel refuses rows={n} width={d} "
+                         f"heads={heads} hidden={hidden} seq_len={seq_len}")
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+               if nbytes else None)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.cmve_block_sublayer(
+            code, x.data_ptr(), *[p.data_ptr() for p in params],
+            y.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            n, d, heads, hidden, seq_len, int(causal), eps,
+            float(np.float32(1.0 / np.sqrt(d // heads))), _stream(x))
+    _check(err, "block sublayer kernel")
+    return y
+
+
+def fused_block_sublayer_compact(x, ln1s, ln1b, wq, bq, wk, bk, wv, bv, wo,
+                                 bo, ln2s, ln2b, w1, b1, w2, b2, *,
+                                 heads: int, seq_len: int,
+                                 causal: bool = False,
+                                 eps: float = 1e-5) -> torch.Tensor:
+    """A whole transformer block on FLAT (B·seq_len, D) rows:
+    fused_attention_sublayer_compact, then fused_mlp_sublayer, in one
+    kernel launch."""
+    _check_block_shapes(x, wq, w1, heads, seq_len)
+
+    def plain(*a):
+        return _block_ref_flat(*a, heads=heads, seq_len=seq_len,
+                               causal=causal, eps=eps)
+
+    def launch(*a):
+        xc, params = _prepare(*a)
+        y = _block_cuda(xc, params, heads=heads, seq_len=seq_len,
+                        causal=causal, eps=eps)
+        fused_block_sublayer_compact.launches += 1
+        return y
+
+    args = (x, ln1s, ln1b, wq, bq, wk, bk, wv, bv, wo, bo, ln2s, ln2b, w1,
+            b1, w2, b2)
+    return plain(*args) if _on_cpu(x) else _launch(launch, plain, *args)
+
+
+fused_block_sublayer_compact.launches = 0

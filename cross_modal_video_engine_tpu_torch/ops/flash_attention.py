@@ -11,11 +11,11 @@ statistics, never materialising the (Sq, Skv) scores on the card.
 
 Dispatch, as in ops/attention_sublayer.py: a CPU tensor runs the plain
 version (`_reference_attention`); a CUDA tensor launches csrc/
-flash_attention.cu or the call raises.  Nothing falls back.  The kernel
-is inference only: on a tensor that requires grad, with grad mode on, it
-raises NotImplementedError (the JAX custom_vjp's backward comes with the
-training slice).  `flash_attention.launches` counts the calls that
-launched the kernel.
+flash_attention.cu or the call raises.  Nothing falls back.  With grad
+mode on and an input that requires grad, the forward still launches the
+kernel and the backward differentiates the plain version, as the JAX
+custom_vjp does (`_PlainBackward`); there is no backward kernel.
+`flash_attention.launches` counts the calls that launched the kernel.
 
 The kernel takes float32 or bfloat16 and head dims that are multiples of
 16 up to 128.  It reads strided (B, H, S, D) views whose head dimension
@@ -38,7 +38,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .attention_sublayer import _DTYPE_CODES, _check, _stream
+from .attention_sublayer import (_DTYPE_CODES, _check, _launch,
+                                 _stream)
 
 # the JAX kernel's mask: finite, so exp(mask - m) is exactly 0
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -101,10 +102,6 @@ def _flash_cuda(q, k, v, sm_scale: float, causal: bool) -> torch.Tensor:
     if d % 16 or not 16 <= d <= 128:
         raise ValueError(f"the flash kernel takes head dims that are "
                          f"multiples of 16 up to 128, not {d}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the CUDA flash kernel has no backward yet; call it under "
-            "torch.no_grad()")
     q, k, v, out, strides = _kernel_operands(q, k, v)
     b, h, sq, _ = q.shape
     with torch.cuda.device(q.device):
@@ -132,9 +129,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _reference_attention(q, k, v, sm_scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
-    out = _flash_cuda(q, k, v, sm_scale, causal)
-    flash_attention.launches += 1
-    return out
+
+    def launch(*a):
+        out = _flash_cuda(*a, sm_scale, causal)
+        flash_attention.launches += 1
+        return out
+
+    return _launch(launch,
+                   lambda *a: _reference_attention(*a, sm_scale, causal),
+                   q, k, v)
 
 
 flash_attention.launches = 0

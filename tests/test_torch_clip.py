@@ -68,7 +68,7 @@ def _models(weights, dtype, fused):
     sd, variables = weights
     flags = dict(dtype=dtype, fused_attn=fused, fused_mlp=fused)
     jm = jclip.CLIPModel(jclip.CLIPConfig(**SMALL, **flags))
-    tm = tclip.CLIPModel(tclip.CLIPConfig(**SMALL, **flags))
+    tm = tclip.CLIPModel(tclip.CLIPConfig(**SMALL, **flags), device="cpu")
     tm.load_state_dict(sd)
     return jm, variables, tm
 
@@ -150,7 +150,8 @@ def test_state_dict_layout_loads_strictly(weights):
     """The port's own parameters are exactly the OpenAI layout the JAX
     importer reads: a strict load neither misses nor leaves a key."""
     sd, _ = weights
-    model = tclip.CLIPModel(tclip.CLIPConfig(**SMALL, dtype="bfloat16"))
+    model = tclip.CLIPModel(tclip.CLIPConfig(**SMALL, dtype="bfloat16"),
+                            device="cpu")
     model.load_state_dict(sd, strict=True)
     assert model.visual.proj.dtype == torch.bfloat16
     assert model.visual.ln_pre.weight.dtype == torch.float32
@@ -167,7 +168,8 @@ def test_jax_config_dict_loads_and_flatten_refused():
 
 def test_enable_fused_inference_cuda_rule():
     cfg = tclip.CLIPConfig(dtype="bfloat16", flatten_tokens=True)
-    assert tclip.enable_fused_inference(cfg) is cfg            # cpu default
+    # no device named: the CUDA device, so the kernels are on
+    assert tclip.enable_fused_inference(cfg).fused_attn
     assert tclip.enable_fused_inference(cfg, device="cpu") is cfg
     on = tclip.enable_fused_inference(cfg, device="cuda:0")
     assert on.fused_attn and on.fused_mlp and not on.flatten_tokens

@@ -1,7 +1,9 @@
 """The port's RetrievalIndex against the JAX RetrievalIndex (on the
 8-device CPU mesh) over the cases of test_retrieval_index.py: the same
 rows and queries give the same ids, and scores within 1e-5 (both score
-in fp32 over the same stored rows, summing in different orders)."""
+in fp32 over the same stored rows, summing in different orders; int8
+rows and queries quantize to the same integers on both sides, and the
+int32 products are exact)."""
 
 import numpy as np
 import pytest
@@ -25,13 +27,14 @@ def _one_thread_own_rng():
     torch.set_num_threads(threads)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+          "bfloat16": (jnp.bfloat16, torch.bfloat16),
+          "int8": (jnp.int8, torch.int8)}
 
 
 def _pair(emb, dtype="float32", **kw):
     jdt, tdt = DTYPES[dtype]
     return (JIndex(emb, mesh=make_mesh(), dtype=jdt, **kw),
-            RetrievalIndex(emb, dtype=tdt, **kw))
+            RetrievalIndex(emb, dtype=tdt, device="cpu", **kw))
 
 
 def _same_search(j, t, q, k):
@@ -42,7 +45,7 @@ def _same_search(j, t, q, k):
     return ti
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("n,k", [(103, 5), (9, 9), (10, 50), (8192, 7)])
 def test_search_matches_jax(n, k, dtype):
     """Includes k past the live rows (capped, no padding returned) and
@@ -124,12 +127,111 @@ def test_searcher_on_device_tensors():
     """searcher() scores L2-normalized query tensors without a host trip."""
     rng = np.random.default_rng(5)
     emb = rng.standard_normal((50, 16)).astype(np.float32)
-    t = RetrievalIndex(emb, dtype=torch.bfloat16)
+    t = RetrievalIndex(emb, dtype=torch.bfloat16, device="cpu")
     q = torch.nn.functional.normalize(
         torch.from_numpy(rng.standard_normal((4, 16)).astype(np.float32)))
-    vals, idx = t.searcher()(t.emb, t.valid, q, 6)
+    vals, idx = t.searcher()(t.emb, t.scales, t.valid, q, 6)
     want_v, want_i = t.search(q.numpy(), 6)
     np.testing.assert_array_equal(idx.numpy(), want_i)
     np.testing.assert_allclose(vals.numpy(), want_v, rtol=0, atol=1e-6)
     with pytest.raises(IndexError):
         t.remove([50])
+
+
+def test_int8_rows_match_jax_encoding():
+    """Per-row amax/127 scales and the same int8 rows as the JAX index."""
+    rng = np.random.default_rng(6)
+    emb = rng.standard_normal((40, 24)).astype(np.float32)
+    j, t = _pair(emb, "int8")
+    assert t.emb.dtype == torch.int8 and t.capacity % 8 == 0
+    np.testing.assert_array_equal(t.emb[:40].numpy(), np.asarray(j.emb)[:40])
+    np.testing.assert_allclose(t.scales[:40].numpy(),
+                               np.asarray(j.scales)[:40], rtol=0, atol=0)
+    q = rng.standard_normal((5, 24)).astype(np.float32)
+    np.testing.assert_allclose(t.full_errors(q), j.full_errors(q), rtol=0,
+                               atol=1e-5)
+
+
+def test_int8_add_remove_compact_match_jax():
+    rng = np.random.default_rng(7)
+    emb = rng.standard_normal((30, 16)).astype(np.float32)
+    names = [f"v{i}" for i in range(30)]
+    j, t = _pair(emb, "int8", ids=names, capacity=32)
+    q = rng.standard_normal((4, 16)).astype(np.float32)
+    _same_search(j, t, q, 6)
+    new = rng.standard_normal((2, 16)).astype(np.float32)
+    for idx in (j, t):
+        idx.add(new, ids=["n0", "n1"])           # in place
+        idx.remove([5, 30])
+    assert (t.n, t.n_active, t.capacity) == (32, 30, 32)
+    ids = _same_search(j, t, q, 30)
+    assert 5 not in ids and 30 not in ids
+    more = rng.standard_normal((9, 16)).astype(np.float32)
+    for idx in (j, t):
+        idx.add(more, ids=[f"m{i}" for i in range(9)])   # grows, re-encodes
+    assert t.capacity > 32 and (t.n, t.n_active) == (41, 39)
+    _same_search(j, t, q, 8)
+    for idx in (j, t):
+        idx.compact()
+    assert (t.n, t.n_active) == (39, 39) and t.ids == j.ids
+    _same_search(j, t, q, 8)
+    assert t.search_ids(q, k=2)[1] == j.search_ids(q, k=2)[1]
+
+
+def test_int8_recall_against_exact_rows():
+    """Quantization may reorder near-ties only: recall@10 against the f32
+    index over the same rows stays high."""
+    rng = np.random.default_rng(8)
+    emb = rng.standard_normal((4096, 64)).astype(np.float32)
+    q = rng.standard_normal((16, 64)).astype(np.float32)
+    exact = RetrievalIndex(emb, device="cpu").search(q, 10)[1]
+    got = RetrievalIndex(emb, device="cpu", dtype=torch.int8).search(q, 10)[1]
+    recall = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(exact, got)])
+    assert recall >= 0.9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_rows_given_as_tensors_and_scored_in_chunks(dtype, monkeypatch):
+    """A tensor builds the same index as the numpy array, and chunked
+    scoring (more rows than one chunk) gives the same answer as one
+    chunk."""
+    import cross_modal_video_engine_tpu_torch.retrieval.index as tindex
+    rng = np.random.default_rng(9)
+    emb = rng.standard_normal((300, 16)).astype(np.float32)
+    q = rng.standard_normal((3, 16)).astype(np.float32)
+    a = RetrievalIndex(emb, device="cpu", dtype=dtype)
+    want_v, want_i = a.search(q, 7)
+    monkeypatch.setattr(tindex, "_CHUNK_ROWS", 64)
+    b = RetrievalIndex(torch.from_numpy(emb), device="cpu", dtype=dtype)
+    got_v, got_i = b.search(q, 7)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_allclose(got_v, want_v, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(b.full_errors(q), a.full_errors(q), rtol=0,
+                               atol=1e-6)
+
+
+def test_search_makes_no_fp32_copy_of_the_rows(monkeypatch):
+    """Scoring reads the rows in their stored dtype: nothing widens the
+    whole matrix."""
+    rng = np.random.default_rng(10)
+    emb = rng.standard_normal((5000, 16)).astype(np.float32)
+    t = RetrievalIndex(emb, device="cpu", dtype=torch.bfloat16)
+    import cross_modal_video_engine_tpu_torch.retrieval.index as tindex
+    monkeypatch.setattr(tindex, "_CHUNK_ROWS", 512)
+    widened = []
+    orig = torch.Tensor.float
+
+    def spy(self, *a, **kw):
+        if self.dim() == 2 and self.dtype == torch.bfloat16:
+            widened.append(self.shape[0])
+        return orig(self, *a, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "float", spy)
+    t.search(rng.standard_normal((2, 16)).astype(np.float32), 5)
+    assert widened and max(widened) <= 512
+
+
+def test_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="int8"):
+        RetrievalIndex(np.zeros((2, 4), np.float32), device="cpu",
+                       dtype=torch.float16)

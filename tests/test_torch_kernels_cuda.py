@@ -1,5 +1,6 @@
-"""The CUDA kernels (sublayers, flash attention) against their plain
-versions, on the card.
+"""The CUDA kernels (sublayers, whole block, flash attention) against
+their plain versions, on the card, and their gradients (kernel forward,
+plain-version backward) against the plain versions' autograd.
 
 Skips without CUDA.  The repository's conftest imports jax, which the
 machine with the card does not have, so run this file there with:
@@ -117,9 +118,6 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     x = _randn(gen, dev, 4, 64)
     with pytest.raises(TypeError):
         asl.fused_mlp_sublayer(x.half(), *p)
-    w = p[2].clone().requires_grad_()
-    with pytest.raises(NotImplementedError):
-        asl.fused_mlp_sublayer(x, p[0], p[1], w, *p[3:])
     with pytest.raises(ValueError):
         asl.fused_mlp_sublayer(x, *[t.cpu() for t in p])
     with pytest.raises(ValueError, match="LayerNorm"):
@@ -203,7 +201,146 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(q[..., :24], k[..., :24], v[..., :24])
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q.requires_grad_(), k, v)
     with pytest.raises(ValueError):
-        fa.flash_attention(q.detach(), k.cpu(), v)
+        fa.flash_attention(q, k.cpu(), v)
+
+
+# -- the whole-block kernel ---------------------------------------------------
+
+def _block(x, p, **kw):
+    return asl.fused_block_sublayer_compact(x, *p, **kw)
+
+
+def _chain(x, p, **kw):
+    y1 = asl.fused_attention_sublayer_compact(x, *p[:10], **kw)
+    return asl.fused_mlp_sublayer(y1, *p[10:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("nseq,seq_len,d,heads", [
+    (16, 10, 64, 4),        # the CPU tests' shape: six sequences a tile
+    (7, 50, 768, 12),       # the vision tower's: one sequence a tile
+    (3, 64, 128, 8),        # a full tile, head dim 16
+    (5, 33, 256, 4),        # head dim 64, a ragged last tile
+    (9, 1, 64, 1)])         # one-row sequences
+def test_block_kernel(dev, dtype, causal, nseq, seq_len, d, heads):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p = _attn_params(gen, dev, d) + _mlp_params(gen, dev, d)
+    x = (_randn(gen, dev, nseq * seq_len, d, std=0.5)).to(dtype)
+    kw = dict(heads=heads, seq_len=seq_len, causal=causal)
+    before = asl.fused_block_sublayer_compact.launches
+    with torch.no_grad():
+        got = _block(x, p, **kw)
+        want = asl._block_ref_flat(x, *p, **kw)
+        chain = _chain(x, p, **kw)
+    torch.cuda.synchronize()
+    assert asl.fused_block_sublayer_compact.launches == before + 1
+    _close(got, want, dtype)
+    _close(got, chain, dtype)       # the two-kernel chain, same inputs
+
+
+def test_block_kernel_hidden_not_a_multiple_of_its_chunk(dev):
+    """hidden = 320: one chunk of 192 columns and one of 128."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    d, hid = 64, 320
+    p = _attn_params(gen, dev, d) + [
+        1.0 + _randn(gen, dev, d, std=0.1), _randn(gen, dev, d, std=0.1),
+        _randn(gen, dev, hid, d, std=d ** -0.5),
+        _randn(gen, dev, hid, std=0.02),
+        _randn(gen, dev, d, hid, std=0.5 * hid ** -0.5),
+        _randn(gen, dev, d, std=0.02)]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (_randn(gen, dev, 40, d, std=0.5)).to(dtype)
+        with torch.no_grad():
+            got = _block(x, p, heads=4, seq_len=10)
+            want = asl._block_ref_flat(x, *p, heads=4, seq_len=10,
+                                       causal=False)
+        torch.cuda.synchronize()
+        _close(got, want, dtype)
+
+
+def test_block_kernel_refuses_what_it_does_not_take(dev):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    p = _attn_params(gen, dev, 64) + _mlp_params(gen, dev, 64)
+    x = _randn(gen, dev, 130, 64)
+    with pytest.raises(ValueError, match="seq_len"):
+        _block(x, p, heads=4, seq_len=65)
+    with pytest.raises(ValueError, match="seq_len"):
+        _block(x, p, heads=4, seq_len=7)
+    with pytest.raises(ValueError, match="head dims"):
+        _block(x, p, heads=8, seq_len=10)
+    with pytest.raises(ValueError, match="widths"):
+        _block(x[:, :32], p, heads=2, seq_len=10)
+    with pytest.raises(TypeError):
+        _block(x.half(), p, heads=4, seq_len=10)
+
+
+# -- gradients: kernel forward, plain-version backward ------------------------
+
+def _leaves(tensors):
+    return [t.detach().clone().requires_grad_() for t in tensors]
+
+
+def _same_grads(kernel, plain, args, wrapper, mask=None):
+    before = wrapper.launches
+    out = kernel(*args)
+    assert wrapper.launches == before + 1          # the forward launched
+    want = plain(*args)
+    g = torch.randn_like(out)
+    if mask is not None:
+        g = g * mask
+    got_g = torch.autograd.grad(out, args, g)
+    want_g = torch.autograd.grad(want, args, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got_g, want_g):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+def test_sublayer_gradients(dev):
+    gen = torch.Generator(device=dev).manual_seed(10)
+    d, h, l = 64, 4, 10
+    a = _attn_params(gen, dev, d)
+    m = _mlp_params(gen, dev, d)
+    x2 = _randn(gen, dev, 4 * l, d, std=0.5)
+    _same_grads(lambda *t: asl.fused_attention_sublayer_compact(
+                    *t, heads=h, seq_len=l, causal=True),
+                lambda *t: asl._attn_ref_flat(*t, heads=h, seq_len=l,
+                                              causal=True),
+                _leaves([x2] + a), asl.fused_attention_sublayer_compact)
+    _same_grads(asl.fused_mlp_sublayer, asl._mlp_ref, _leaves([x2] + m),
+                asl.fused_mlp_sublayer)
+    _same_grads(lambda *t: asl.fused_block_sublayer_compact(
+                    *t, heads=h, seq_len=l),
+                lambda *t: asl._block_ref_flat(*t, heads=h, seq_len=l,
+                                               causal=False),
+                _leaves([x2] + a + m), asl.fused_block_sublayer_compact)
+    x3 = _randn(gen, dev, 3, 16, d, std=0.5)
+    mask = torch.zeros(3, 16, 1, device=dev)
+    mask[:, :13] = 1                  # pad rows carry no gradient contract
+    _same_grads(lambda *t: asl.fused_attention_sublayer(
+                    *t, heads=h, valid_len=13, causal=True),
+                lambda *t: asl._attn_ref(*t, heads=h, valid_len=13,
+                                         causal=True),
+                _leaves([x3] + a), asl.fused_attention_sublayer, mask)
+
+
+def test_flash_gradients(dev):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = _leaves(_qkv(gen, dev, torch.float32, 2, 3, 70, 90, 32))
+    _same_grads(lambda *t: fa.flash_attention(*t, 0.2, True),
+                lambda *t: fa._reference_attention(*t, 0.2, True),
+                [q, k, v], fa.flash_attention)
+
+
+def test_gradient_only_for_inputs_that_ask(dev):
+    """Frozen weights get no gradient; under no_grad nothing is saved."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    m = _mlp_params(gen, dev, 64)
+    x = _randn(gen, dev, 8, 64).requires_grad_()
+    out = asl.fused_mlp_sublayer(x, *m)
+    out.sum().backward()
+    assert x.grad is not None and all(t.grad is None for t in m)
+    with torch.no_grad():
+        assert not asl.fused_mlp_sublayer(x, *m).requires_grad

@@ -80,7 +80,7 @@ def _relseq(backbone, seed):
 def _port_relseq(backbone, sd, dtype="float32"):
     tm = trec.Recognizer3DRelseq(
         tts.TimeSformerConfig(**backbone, dtype=dtype),
-        tdec.RNNDecoderConfig(**DECODER))
+        tdec.RNNDecoderConfig(**DECODER), device="cpu")
     tm.load_state_dict(sd)
     return tm
 
@@ -92,7 +92,7 @@ def classifier():
     variables = random_variables(
         jm.init(jax.random.key(0), jnp.asarray(_videos(2))), 31)
     tm = trec.Recognizer3D(tts.TimeSformerConfig(**JOINT_FLASH),
-                           num_classes=6)
+                           num_classes=6, device="cpu")
     tm.load_state_dict(recognizer_state_dict_from_jax(
         variables, tm.backbone.cfg))
     return jm, variables, tm
@@ -192,7 +192,7 @@ def test_init_recognizer_bf16_cast_matches_jax():
     jm, variables, sd = _relseq(JOINT_FLASH, 61)
     cfg_d = {"backbone": dict(JOINT_FLASH, dtype="bfloat16"),
              "decoder": dict(DECODER)}
-    model, got_cfg = api.init_recognizer(cfg_d, sd)
+    model, got_cfg = api.init_recognizer(cfg_d, sd, device="cpu")
     assert got_cfg is cfg_d and not model.training
     assert isinstance(model, trec.Recognizer3DRelseq)
     for name, p in model.named_parameters():
@@ -217,7 +217,7 @@ def test_init_recognizer_classifier_f32(classifier):
     jm, variables, tm = classifier
     cfg_d = {"backbone": dict(JOINT_FLASH, type="TimeSformer"),
              "num_classes": 6}
-    model, _ = api.init_recognizer(cfg_d, tm.state_dict())
+    model, _ = api.init_recognizer(cfg_d, tm.state_dict(), device="cpu")
     assert isinstance(model, trec.Recognizer3D)
     assert model.cls_head.fc_cls.weight.dtype == torch.float32
     v = _videos(2)
@@ -228,7 +228,7 @@ def test_init_recognizer_classifier_f32(classifier):
                                rtol=0, atol=1e-4)
     with pytest.raises(NotImplementedError, match="X3D"):
         api.init_recognizer({"backbone": {"type": "X3D"},
-                             "decoder": DECODER}, {})
+                             "decoder": DECODER}, {}, device="cpu")
 
 
 def test_caption_clips_matches_caption_video():
@@ -236,7 +236,7 @@ def test_caption_clips_matches_caption_video():
     averaged over them, labels where they pass the threshold."""
     jm, variables, sd = _relseq(DIVIDED, 47)
     cfg_d = {"backbone": DIVIDED, "decoder": DECODER}
-    model, _ = api.init_recognizer(cfg_d, sd)
+    model, _ = api.init_recognizer(cfg_d, sd, device="cpu")
     v = _videos(3)
     want = np.asarray(jm.apply(variables, jnp.asarray(v), num_segs=3,
                                method="forward_test"))[0]

@@ -79,7 +79,7 @@ def _pair(variant, videos, dtype="float32", seed=3):
     jm = jts.TimeSformer(jts.TimeSformerConfig(**kw))
     params = random_variables(
         jm.init(jax.random.key(0), jnp.asarray(videos)), seed)["params"]
-    tm = tts.TimeSformer(tts.TimeSformerConfig(**kw))
+    tm = tts.TimeSformer(tts.TimeSformerConfig(**kw), device="cpu")
     tm.load_state_dict(timesformer_state_dict_from_jax(
         params, tm.cfg, prefix=""))
     variables = {"params": params}
@@ -170,7 +170,8 @@ def test_convert_timesformer_state_dict_loads_into_port(videos):
     variables = convert_timesformer(sd, jcfg)
     want = jrec.Recognizer3D(jcfg, num_classes=5).apply(
         variables, jnp.asarray(videos))
-    tm = trec.Recognizer3D(tts.TimeSformerConfig(**cfg), num_classes=5)
+    tm = trec.Recognizer3D(tts.TimeSformerConfig(**cfg), num_classes=5,
+                           device="cpu")
     tm.load_state_dict(sd, strict=True)
     with torch.no_grad():
         got = tm(torch.from_numpy(videos))
@@ -205,6 +206,6 @@ def test_jax_config_dict_loads_and_errors():
     with pytest.raises(ValueError, match="attention_type"):
         tts.TimeSformer(dataclasses.replace(cfg, attention_type="local"),
                         device="meta")
-    model = tts.TimeSformer(tts.TimeSformerConfig(**SMALL))
+    model = tts.TimeSformer(tts.TimeSformerConfig(**SMALL), device="cpu")
     with pytest.raises(ValueError, match="frames"):
         model(torch.zeros(1, 3, 16, 16, 3))
