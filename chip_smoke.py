@@ -7,15 +7,20 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
 2. builds the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
    source, in parallel);
 3. checks each kernel against its plain PyTorch version on the card, in
-   bf16 and f32, with times: the sublayers at the CLIP ViT-B/32
-   main-path shapes, the whole-block kernel at its main-path shape
-   (51200, 768), at (6400, 768) (f32: (800, 768)) and at a small shape,
-   also against the two-kernel chain; flash
-   attention at the TimeSformer shapes (joint 8x224 with 1569 tokens,
-   space-only 197, causal 1000 at head dim 128, causal 197 queries
-   against 1569 keys), with `scaled_dot_product_attention` timed beside
-   it as a yardstick; then one backward through each of the five kernel
-   wrappers, gradients against the plain version's autograd;
+   bf16 and f32, with times: one 64 x 64 x 64 tile through TMA and wgmma
+   (both operand layouts) against torch.matmul; the GEMM of gemm.cu by
+   itself, each epilogue at the main-path shapes and at ragged ones, with
+   TFLOP/s and `F.linear`'s time printed beside it as a yardstick; the
+   sublayers at the CLIP ViT-B/32 main-path shapes, the whole-block
+   kernel at its main-path shape (51200, 768), at (6400, 768) (f32:
+   (800, 768)) and at a small shape, also against the two-kernel chain;
+   flash attention at the TimeSformer shapes (joint 8x224 with 1569
+   tokens, space-only 197, causal 1000 at head dim 128, causal 197
+   queries against 1569 keys), at a head dim that stays on the mma.sync
+   path and on the strided views an attention layer hands it, with
+   `scaled_dot_product_attention` timed beside it as a yardstick; then
+   one backward through each of the five kernel wrappers, gradients
+   against the plain version's autograd;
 4. CLIP path: builds ViT-B/32 (widths 768/512, 12+12 layers, bf16) with
    random weights from a numpy seed and drives it once with the launch
    counters zeroed: uint8 videos through `encode_video_u8`, a bf16
@@ -39,8 +44,9 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
 8. bench path: `entry()` once; the 12-layer compact stack of
    bench/block_ab.py at (51200, 768) bf16 through the two-kernel chain
    and through the whole-block kernel with the launch counters zeroed (12
-   block launches), outputs compared by cosine and by the kernels' bf16
-   bound, both timed; the headline bench at B=128 with few steps;
+   block launches), outputs compared by cosine and, layer by layer on the
+   chain's input, by the kernels' bf16 bound, both timed; the headline
+   bench at B=128 with few steps;
 9. index: 1M x 512 rows drawn on the card, stored as bf16 and as int8,
    64 queries, top-10: bf16 equal to brute force, int8 recall@10 against
    the exact answer, search times and the peak memory of a search;
@@ -92,6 +98,24 @@ FLASH_CASES = {
     "causal 1000 hd128": ((2, 8, 1000, 1000, 128), True),
     "causal 197 vs 1569": ((4, 12, 197, 1569, 64), True),
 }
+# beside them: a head dim the mma.sync path serves, and the joint shape
+# as head-transposed views of one (B, S, 3·H·D) projection, read in place
+FLASH_EXTRA = {
+    "head dim 96 (mma.sync)": ((2, 8, 1000, 1000, 96), False),
+    "strided views (1569)": ((4, 12, 1569, 1569, 64), False),
+}
+FLASH_STRIDED = "strided views (1569)"
+# gemm.cu by itself: name -> (M, K, N, epilogue, products sharing A); the
+# first three are the launches of the ViT-B/32 sublayers at 16 videos
+GEMM_CASES = {
+    "mlp up, gelu": (6400, 768, 3072, "gelu", 1),
+    "mlp down, residual": (6400, 3072, 768, "residual", 1),
+    "q|k|v, bias": (6400, 768, 768, "bias", 3),
+    "text wave, gelu": (616, 512, 2048, "gelu", 1),
+    "ragged M=300 K=2048": (300, 2048, 512, "residual", 1),
+    "ragged N=40": (300, 768, 40, "bias", 1),
+    "ragged M=616 N=512 x3": (616, 512, 512, "bias", 3),
+}
 CLIPS = 16                                  # TimeSformer clips per call
 # the caption path's backbone: TimeSformer ViT-B/16, joint space-time
 TS_JOINT = dict(num_frames=8, img_size=224, patch_size=16, embed_dims=768,
@@ -109,6 +133,86 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     from cross_modal_video_engine_tpu_torch.utils.profiling import (
         device_time)
     return device_time(fn, steps=iters, warmup=warmup, device="cuda") * 1e3
+
+
+def check_selfcheck(dev, kern):
+    """One 64 x 64 x 64 tile through the TMA and wgmma helpers of
+    common.cuh (csrc/wgmma_selfcheck.cu) against torch.matmul: a b^T with
+    both operands K-major, then bf16(a b^T) v with v as the transposed
+    operand and the first product's accumulators as the register
+    operand."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(500)
+    a, b, v = (torch.randn(64, 64, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    d1 = torch.empty(64, 64, device=dev)
+    d2 = torch.empty(64, 64, device=dev)
+    err = kern.lib.cmve_wgmma_selfcheck(
+        a.data_ptr(), b.data_ptr(), v.data_ptr(), d1.data_ptr(),
+        d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    want1 = a.float() @ b.float().t()
+    want2 = want1.to(torch.bfloat16).float() @ v.float()
+    e1 = float((d1 - want1).abs().max())
+    e2 = float((d2 - want2).abs().max() / want2.abs().max())
+    # fp32 sums of 64 exact bf16 products: the order of summation only
+    ok = err == 0 and e1 <= 1e-4 and e2 <= 1e-5
+    print(f"wgmma/TMA self-check, one 64x64x64 tile: return code {err}, "
+          f"a b^T max_abs_err {e1:.3e} (tol 1e-4), bf16(a b^T) v max "
+          f"relative err {e2:.3e} (tol 1e-5) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit("wgmma/TMA self-check failed")
+
+
+def check_gemm(dev):
+    """csrc/gemm.cu by itself against its plain version (`_gemm_ref`) at
+    GEMM_CASES, bf16 (the wgmma kernel) and f32; prints ms and TFLOP/s,
+    and beside the bf16 time that of `F.linear` per product: a yardstick
+    only, the port never calls it."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.ops import attention_sublayer as asl
+    epi = {"bias": asl._EPI_BIAS, "gelu": asl._EPI_GELU,
+           "residual": asl._EPI_RESID}
+    failures = []
+    for i, (case, (m, k, n, e, nmat)) in enumerate(GEMM_CASES.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(3000 + i)
+
+            def randn(*shape, std=1.0):
+                return (torch.randn(*shape, generator=gen, device=dev)
+                        * std).to(dtype)
+
+            a = randn(m, k, std=0.5)
+            mats = [(randn(n, k, std=k ** -0.5), randn(n, std=0.02))
+                    for _ in range(nmat)]
+            resid = randn(m, n, std=0.5) if e == "residual" else None
+            name = str(dtype).removeprefix("torch.")
+            with torch.no_grad():
+                got = asl._gemm(a, epi[e], mats, resid)
+                want = asl._gemm_ref(a, epi[e], mats, resid)
+                torch.cuda.synchronize()
+                err = max(float((g.float() - w.float()).abs().max())
+                          for g, w in zip(got, want))
+                finite = all(bool(torch.isfinite(g.float()).all())
+                             for g in got)
+                del got, want
+                ms = cuda_ms(lambda: asl._gemm(a, epi[e], mats, resid))
+                line = ""
+                if dtype == torch.bfloat16:
+                    lin = cuda_ms(lambda: [torch.nn.functional.linear(a, w, b)
+                                           for w, b in mats])
+                    line = f", F.linear (bias only) {lin:.4f} ms"
+            ok = finite and err <= TOL[name]
+            print(f"kernel gemm {case:22s} {name:8s} (M,K,N)={(m, k, n)} "
+                  f"x{nmat} {e}: max_abs_err {err:.3e} (tol {TOL[name]:g}) "
+                  f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms = "
+                  f"{2 * m * n * k * nmat / ms / 1e9:.1f} TFLOP/s{line}",
+                  flush=True)
+            if not ok:
+                failures.append(f"gemm {case} {name}: err {err}")
+    if failures:
+        raise SystemExit("gemm checks failed: " + "; ".join(failures))
 
 
 def sublayer_cases(dev):
@@ -359,18 +463,25 @@ def flash_err(got, want, dtype_name: str):
 
 
 def check_flash(dev):
-    """The flash kernel against its plain version at FLASH_CASES; returns
-    the per-case results and prints one line per case."""
+    """The flash kernel against its plain version at FLASH_CASES and
+    FLASH_EXTRA; returns the per-case results and prints one line per
+    case."""
     import torch
     from cross_modal_video_engine_tpu_torch.ops import flash_attention as fa
     results, failures = [], []
     for i, (case, ((b, h, sq, skv, d), causal)) in enumerate(
-            FLASH_CASES.items()):
+            {**FLASH_CASES, **FLASH_EXTRA}.items()):
         for dtype in (torch.bfloat16, torch.float32):
             gen = torch.Generator(device=dev).manual_seed(2000 + i)
-            q, k, v = (torch.randn(*shape, generator=gen, device=dev)
-                       .to(dtype) for shape in
-                       ((b, h, sq, d), (b, h, skv, d), (b, h, skv, d)))
+            if case == FLASH_STRIDED:   # what mha_flash hands the kernel
+                x = torch.randn(b, sq, 3 * h * d, generator=gen,
+                                device=dev).to(dtype)
+                q, k, v = (t.reshape(b, sq, h, d).transpose(1, 2)
+                           for t in x.split(h * d, -1))
+            else:
+                q, k, v = (torch.randn(*shape, generator=gen, device=dev)
+                           .to(dtype) for shape in
+                           ((b, h, sq, d), (b, h, skv, d), (b, h, skv, d)))
             scale = d ** -0.5
             name = str(dtype).removeprefix("torch.")
             with torch.no_grad():
@@ -711,10 +822,34 @@ def drive_bench_path(dev, card):
 
     cos = cosine_min(blk, two)
     err = float((blk.float() - two.float()).abs().max())
+    # Layer by layer on the chain's own input, so that no layer carries the
+    # flips of the ones before it (the two routes round at the same points
+    # but their products sum in different orders): each sublayer rounds its
+    # output once, so a layer may differ by two bf16 steps of its output.
+    layer_err, layers_ok, xi = 0.0, True, x
+    with torch.no_grad():
+        for attn, mlp in params:
+            nxt = asl.fused_mlp_sublayer(
+                asl.fused_attention_sublayer_compact(
+                    xi, *attn, heads=heads, seq_len=seq_len), *mlp)
+            got = asl.fused_block_sublayer_compact(
+                xi, *attn, *mlp, heads=heads, seq_len=seq_len)
+            diff = (got.float() - nxt.float()).abs()
+            step = torch.ldexp(torch.ones_like(diff),
+                               torch.frexp(nxt.float())[1] - 8)
+            layers_ok &= bool((diff <= torch.clamp(
+                2 * step, min=TOL["bfloat16"])).all())
+            layer_err = max(layer_err, float(diff.max()))
+            xi = nxt
+    del xi, nxt, got, diff, step
+    torch.cuda.synchronize()
     print(f"bench path: entry() high {tuple(high.shape)}; stack of {layers} "
           f"layers at {tuple(x.shape)} bf16, whole-block vs two-kernel "
           f"chain: min cosine {cos:.6f} (need >= {COSINE_MIN}), max abs "
-          f"diff {err:.3e} (tol {TOL['bfloat16']:g}); launches {json.dumps(launches)}")
+          f"diff after {layers} layers {err:.3e} (reported); layer by layer "
+          f"on the chain's input: max abs diff {layer_err:.3e} (tol "
+          f"{TOL['bfloat16']:g} or two bf16 steps of the output) "
+          f"{'ok' if layers_ok else 'FAIL'}; launches {json.dumps(launches)}")
     checks = {
         "entry shape": tuple(high.shape) == (2, 8, 512),
         "finite": bool(torch.isfinite(high).all()
@@ -723,7 +858,7 @@ def drive_bench_path(dev, card):
         "chain launches": (
             launches["fused_attention_sublayer_compact"] == 2 * layers
             and launches["fused_mlp_sublayer"] == 2 * layers),
-        "block vs chain": cos >= COSINE_MIN and err <= TOL["bfloat16"],
+        "block vs chain": cos >= COSINE_MIN and layers_ok,
     }
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -878,10 +1013,13 @@ def main() -> int:
     print(f"kernels {'built' if kern.built else 'loaded'} in "
           f"{kern.seconds:.1f} s: {kern.path}")
     for line in kern.log.splitlines():
-        if "registers" in line or "spill" in line or "entry function" in line:
+        if ("registers" in line or "spill" in line or "entry function" in line
+                or "Potential Performance Loss" in line):
             print("  ptxas:", line.strip())
 
     # -- 3. each kernel against its plain version ---------------------------
+    check_selfcheck(dev, kern)
+    check_gemm(dev)
     results = check_kernels(dev) + check_flash(dev)
     check_backward(dev)
 

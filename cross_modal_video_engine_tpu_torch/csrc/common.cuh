@@ -1,8 +1,10 @@
 // Helpers shared by the kernels: dtype codes, conversions that reproduce
-// the TPU kernels' rounding points, warp reductions, and the cp.async,
-// ldmatrix and mma.sync wrappers.
+// the TPU kernels' rounding points, warp reductions, the cp.async, ldmatrix
+// and mma.sync wrappers, and Hopper's asynchronous building blocks
+// (mbarrier, TMA tensor maps and loads, wgmma).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums: types only, no libcuda symbol
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,6 +47,15 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// 2^x on the special-function unit: one MUFU.EX2, relative error near
+// 2^-22, denormal results flushed to zero (without .ftz the compiler adds a
+// range test and two multiplies around it)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // -- tensor-core building blocks (gemm.cu, attention_core.cu,
@@ -112,6 +123,374 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// -- Hopper (sm_90a) building blocks: gemm.cu, flash_attention.cu,
+//    wgmma_selfcheck.cu ---------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarrier: a 64-bit word in shared memory that counts arrivals and the
+// bytes of TMA loads; a phase completes when both reach zero.  init by one
+// thread, then mbar_init_fence() and a block barrier before any use.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(arrivals)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// one arrival that also announces `bytes` of TMA traffic to come
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// spin until the phase of the given parity has completed.  A new barrier
+// counts as having completed a phase of parity 1, so a producer's first
+// wait on an "empty" barrier (parity 1) passes at once.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// dynamic shared memory is only 16-byte aligned by contract: the first
+// 1024-byte boundary at or after p (the launch asks for 1024 bytes more)
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// bar.sync over `threads` threads on hardware barrier `id` (1..15; 0 is
+// __syncthreads'): a barrier of one warpgroup, not of the block
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// register hand-over between warpgroups (all four warps execute it; the
+// counts are multiples of 8 in [24, 256]); the roles must never reconverge
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// TMA: one thread asks for a box of a tensor map to be copied to shared
+// memory; the bytes are reported to `bar`.  Out-of-range elements arrive
+// as zeros and count as bytes all the same.  `dst` is 128-byte aligned
+// (1024 where wgmma reads it through a 128-byte-swizzle descriptor).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma: fence before the first product of a batch (and after any other
+// write to the accumulator registers), commit the batch as a group, wait
+// until at most N groups are still running
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins N accumulator registers at this point of the program: the compiler
+// sees wgmma only as an asm statement that is done when started, so without
+// this it may move a read of the accumulators above the wait that makes them
+// valid, or sink arithmetic meant to run under a product below that wait.
+template <int N> __device__ __forceinline__ void wgmma_pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  The tile is what a
+// TMA box with CU_TENSOR_MAP_SWIZZLE_128B and an inner extent of 64 bf16
+// leaves in shared memory: rows of 128 bytes, row r at r * 128, its 16-byte
+// pieces XORed with r % 8; the tile starts on a 1024-byte boundary.
+//  * K-major operand (rows are M or N, the 128 bytes run along K): groups
+//    of 8 rows lie `sbo` = 1024 bytes apart; `lbo` is not read.  A k-step of
+//    16 inside the 64 advances the start address by 32 bytes.
+//  * MN-major operand (rows are K, the 128 bytes run along N; wgmma's
+//    transpose bit set): groups of 8 k-rows lie `sbo` = 1024 bytes apart,
+//    blocks of 64 columns `lbo` bytes apart.  A k-step of 16 advances the
+//    start address by 16 rows = 2048 bytes.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* tile,
+                                                     uint32_t lbo_bytes,
+                                                     uint32_t sbo_bytes) {
+  return (uint64_t)((smem_u32(tile) & 0x3ffffu) >> 4) |
+         ((uint64_t)(lbo_bytes >> 4) << 16) |
+         ((uint64_t)(sbo_bytes >> 4) << 32) | (1ull << 62);
+}
+// the descriptor's start address moved by `bytes` (a multiple of 16)
+__device__ __forceinline__ uint64_t wgmma_desc_advance(uint64_t desc,
+                                                       uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+// d (64 x N fp32, N/2 registers a thread) = a (64 x 16 bf16) b (16 x N bf16)
+// + (scale_d ? d : 0), started by the four warps of a warpgroup together and
+// asynchronous until wgmma_wait.  Thread t of the warpgroup holds rows
+// 16 (t / 32) + (t % 32) / 4 (registers 4j, 4j+1) and that row + 8
+// (4j+2, 4j+3), columns 8j + 2 (t % 4) and the next: the mma.sync C
+// fragment, repeated over N / 8 column tiles.
+//  _ss: a and b from shared memory by descriptor (a K-major).
+//  _rs: a from registers, the mma.sync m16n8k16 A fragment of the thread's
+//       two rows, so packed accumulators of one product feed the next.
+//  TRANS_B = 0: b K-major (N rows of K); 1: b MN-major (K rows of N).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float* d, uint64_t da,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
+// -- host side: tensor maps --------------------------------------------------------
+
+// cuTensorMapEncodeTiled lives in libcuda; it is looked up at run time
+// through the runtime library, so the link does not name libcuda.
+typedef CUresult (*TensorMapEncodeFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline TensorMapEncodeFn tensor_map_encoder() {
+  static TensorMapEncodeFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<TensorMapEncodeFn>(p);
+  }();
+  return fn;
+}
+
+// A bf16 tensor of `rank` dimensions (innermost first; the innermost is
+// contiguous) as a map whose boxes land in shared memory with the 128-byte
+// swizzle.  strides: bytes of dimensions 1 .. rank-1, multiples of 16; base
+// 16-byte aligned; box[0] <= 64 elements (128 bytes), every box extent <=
+// 256.  Elements outside the tensor read as zero.  Returns 0, or a CUDA
+// error code for the wrapper to raise.
+inline int make_tensor_map_bf16(CUtensorMap* map, const void* base, int rank,
+                                const cuuint64_t* dims,
+                                const cuuint64_t* strides,
+                                const cuuint32_t* box) {
+  const TensorMapEncodeFn encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+      const_cast<void*>(base), dims, strides, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace cmve

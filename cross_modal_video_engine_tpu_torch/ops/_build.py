@@ -50,6 +50,9 @@ _SIGNATURES = (
     #  causal, eps, scale, stream)
     ("cmve_block_sublayer", _I,
      [_I] + [_P] * 19 + [_I] * 6 + [_F, _F, _P]),
+    # (a, b, v: (64, 64) bf16; d1 = a b^T, d2 = bf16(d1) v: (64, 64) f32;
+    #  stream)
+    ("cmve_wgmma_selfcheck", _I, [_P] * 6),
 )
 
 

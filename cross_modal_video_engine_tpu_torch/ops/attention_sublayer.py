@@ -71,6 +71,22 @@ def _dense(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             + b.to(dt).float()).to(dt)
 
 
+def _gemm_ref(a, epi, mats, resid=None):
+    """What one launch of csrc/gemm.cu computes (`_gemm`), in plain torch:
+    out_i = epi(a @ w_i.T + b_i), fp32 accumulation and bias, quick_gelu in
+    fp32 before the rounding, the residual added to the rounded
+    projection in a.dtype."""
+    dt = a.dtype
+    outs = []
+    for w, b in mats:
+        h = a.float() @ w.to(dt).float().t() + b.to(dt).float()
+        if epi == _EPI_GELU:
+            h = h * torch.sigmoid(1.702 * h)
+        h = h.to(dt)
+        outs.append(h + resid if epi == _EPI_RESID else h)
+    return outs
+
+
 def _key_mask(lp: int, valid_len: int, causal: bool,
               device: torch.device) -> torch.Tensor:
     """The kernels' additive mask: -1e30 (not -inf) on masked keys."""
@@ -232,7 +248,10 @@ def _layernorm(x2, lns, lnb, eps):
 
 def _gemm(a, epi, mats, resid=None):
     """One launch of csrc/gemm.cu: out_i = epi(a @ w_i.T + b_i) for up to
-    three (w_i, b_i) that share a; returns the outputs."""
+    three (w_i, b_i) that share a; returns the outputs.  bfloat16 runs the
+    wgmma kernel (TMA ring, persistent tiles), float32 the CUDA-core
+    kernel: the dtype alone decides, before the launch.  Plain version:
+    `_gemm_ref`."""
     from ._build import load_kernels
     m, k = a.shape
     n = mats[0][0].shape[0]

@@ -18,10 +18,18 @@ custom_vjp does (`_PlainBackward`); there is no backward kernel.
 `flash_attention.launches` counts the calls that launched the kernel.
 
 The kernel takes float32 or bfloat16 and head dims that are multiples of
-16 up to 128.  It reads strided (B, H, S, D) views whose head dimension
-is contiguous, so the transposed q/k/v of an attention layer need no
-copy, and returns a (B, H, Sq, D) view of (B, Sq, H, D) memory, so the
-head merge that follows is a view as well.
+16 up to 128.  `kernel_path` says which of its three paths serves a dtype
+and head dim: bfloat16 at head dim 64 or 128 runs the Hopper design
+(wgmma for both products, K/V tiles of 128 keys arriving by TMA on
+mbarriers, a producer warpgroup and two consumer warpgroups of 64 query
+rows); bfloat16 at the other head dims runs the mma.sync kernel;
+float32 runs on the CUDA cores.  The routing is decided before the
+launch from dtype and head dim alone.  The kernel reads strided
+(B, H, S, D) views whose head dimension is contiguous, so the transposed
+q/k/v of an attention layer need no copy (the TMA path reads them as 4-D
+tensor maps, whose strides are multiples of 16 bytes), and returns a
+(B, H, Sq, D) view of (B, Sq, H, D) memory, so the head merge that
+follows is a view as well.
 
 The plain version has `_reference_attention`'s semantics: fp32 scores
 and softmax, P rounded to v.dtype after normalising, fp32-accumulated
@@ -70,17 +78,35 @@ def _check_shapes(q, k, v) -> None:
                          f"k {tuple(k.shape)}")
 
 
+def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
+    """The path of csrc/flash_attention.cu that serves (dtype, head dim):
+    "wgmma" (bfloat16, head dim 64 or 128: TMA ring, warp-specialised),
+    "mma.sync" (bfloat16, the other head dims) or "fma" (float32, CUDA
+    cores).  Raises for what no path takes."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the flash kernel takes float32 or bfloat16, not "
+                        f"{dtype}")
+    if head_dim % 16 or not 16 <= head_dim <= 128:
+        raise ValueError(f"the flash kernel takes head dims that are "
+                         f"multiples of 16 up to 128, not {head_dim}")
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if head_dim in (64, 128) else "mma.sync"
+
+
 def _kernel_operands(q, k, v):
     """What the kernel reads and writes: q, k, v as they are when their
-    head dim is contiguous and the other strides and the address keep
-    16-byte rows (else a contiguous copy), the output as a (B, H, Sq, D)
-    view of (B, Sq, H, D) memory, and the 12 element strides."""
+    head dim is contiguous and the other strides (positive) and the
+    address keep 16-byte rows, which is also what a TMA tensor map asks
+    (else a contiguous copy), the output as a (B, H, Sq, D) view of
+    (B, Sq, H, D) memory, and the 12 element strides."""
     vec = 16 // q.element_size()
 
     def fit(t):
         s = t.stride()
-        if s[3] != 1 or any(x % vec for x in s[:3]) or t.data_ptr() % 16:
-            return t.contiguous()
+        if (s[3] != 1 or any(x % vec or x < 1 for x in s[:3])
+                or t.data_ptr() % 16):   # a fresh, aligned allocation
+            return t.clone(memory_format=torch.contiguous_format)
         return t
 
     q, k, v = fit(q), fit(k), fit(v)
@@ -93,15 +119,15 @@ def _kernel_operands(q, k, v):
 def _flash_cuda(q, k, v, sm_scale: float, causal: bool) -> torch.Tensor:
     """csrc/flash_attention.cu on CUDA tensors."""
     from ._build import load_kernels
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the flash kernel takes float32 or bfloat16 q, k, v "
-                        f"of one dtype, not {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the flash kernel takes q, k, v of one dtype, not "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
     d = q.shape[3]
-    if d % 16 or not 16 <= d <= 128:
-        raise ValueError(f"the flash kernel takes head dims that are "
-                         f"multiples of 16 up to 128, not {d}")
+    kernel_path(q.dtype, d)             # raises for what no path takes
+    if sm_scale < 0:    # the kernel takes sm_scale >= 0: the sign moves
+        q, sm_scale = -q, -sm_scale     # into q, which is exact
     q, k, v, out, strides = _kernel_operands(q, k, v)
     b, h, sq, _ = q.shape
     with torch.cuda.device(q.device):
@@ -121,8 +147,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, H, Sq, D); k, v: (B, H, Skv, D) -> (B, H, Sq, D).
 
     block_q and block_k are kept for the JAX signature and not used: the
-    CUDA kernel tiles by itself, 64 queries against 64 keys in bf16 (32
-    keys above head dim 64) and 32 against 32 in float32."""
+    CUDA kernel tiles by itself (`kernel_path`): 128 queries against 128
+    keys on the wgmma path, 64 against 64 on the mma.sync path (32 keys
+    above head dim 64) and 32 against 32 in float32."""
     del block_q, block_k
     _check_shapes(q, k, v)
     if q.device.type == "cpu":

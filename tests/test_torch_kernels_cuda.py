@@ -1,6 +1,8 @@
-"""The CUDA kernels (sublayers, whole block, flash attention) against
-their plain versions, on the card, and their gradients (kernel forward,
-plain-version backward) against the plain versions' autograd.
+"""The CUDA kernels (the GEMM, sublayers, whole block, flash attention)
+against their plain versions, on the card, and their gradients (kernel
+forward, plain-version backward) against the plain versions' autograd;
+first of all one tile through the TMA and wgmma helpers every Hopper path
+is built from.
 
 Skips without CUDA.  The repository's conftest imports jax, which the
 machine with the card does not have, so run this file there with:
@@ -22,6 +24,7 @@ bound is that one step.
 import pytest
 import torch
 
+from cross_modal_video_engine_tpu_torch.ops import _build
 from cross_modal_video_engine_tpu_torch.ops import attention_sublayer as asl
 from cross_modal_video_engine_tpu_torch.ops import flash_attention as fa
 
@@ -62,6 +65,53 @@ def _close(got, want, dtype):
     assert torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[dtype], err
+
+
+def test_wgmma_tma_selfcheck(dev):
+    """csrc/wgmma_selfcheck.cu: a 64 x 64 x 64 tile loaded by TMA (128-byte
+    swizzle) on an mbarrier; a b^T by wgmma with both operands K-major from
+    shared memory, then bf16(a b^T) v with the accumulators as the register
+    operand and v as the transposed (MN-major) one.  fp32 sums of exact
+    bf16 products: only the order of summation differs from torch."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    a, b, v = (_randn(gen, dev, 64, 64).to(torch.bfloat16) for _ in range(3))
+    d1, d2 = torch.empty(64, 64, device=dev), torch.empty(64, 64, device=dev)
+    err = _build.load_kernels().lib.cmve_wgmma_selfcheck(
+        a.data_ptr(), b.data_ptr(), v.data_ptr(), d1.data_ptr(),
+        d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    want1 = a.float() @ b.float().t()
+    want2 = want1.to(torch.bfloat16).float() @ v.float()
+    assert (d1 - want1).abs().max().item() <= 1e-4
+    assert ((d2 - want2).abs().max() / want2.abs().max()).item() <= 1e-5
+
+
+# csrc/gemm.cu by itself: (M, K, N); ragged against the 128-row tiles, the
+# 128- and 256-column tiles and the 64-deep k-tiles, and the sublayers' own
+GEMM_SHAPES = [(6400, 768, 3072), (6400, 3072, 768), (616, 512, 512),
+               (300, 2048, 512), (300, 768, 40), (129, 40, 264), (5, 8, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nmat", [1, 3])
+@pytest.mark.parametrize("epi", ["bias", "gelu", "residual"])
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+def test_gemm_kernel(dev, m, k, n, epi, nmat, dtype):
+    gen = torch.Generator(device=dev).manual_seed(21)
+    code = {"bias": asl._EPI_BIAS, "gelu": asl._EPI_GELU,
+            "residual": asl._EPI_RESID}[epi]
+    a = _randn(gen, dev, m, k, std=0.5).to(dtype)
+    mats = [(_randn(gen, dev, n, k, std=k ** -0.5).to(dtype),
+             _randn(gen, dev, n, std=0.02).to(dtype)) for _ in range(nmat)]
+    resid = _randn(gen, dev, m, n, std=0.5).to(dtype) \
+        if epi == "residual" else None
+    got = asl._gemm(a, code, mats, resid)
+    want = asl._gemm_ref(a, code, mats, resid)
+    torch.cuda.synchronize()
+    assert len(got) == nmat
+    for g, w in zip(got, want):
+        _close(g, w, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -179,6 +229,52 @@ def test_flash_kernel_head_dims(dev, dtype, d, causal):
     _flash_close(got, want, dtype)
 
 
+# the wgmma path's tiles are 128 queries x 128 keys: one below, at and one
+# above a tile, two tiles and one row, Sq != Skv both ways (under the causal
+# mask, rows past Skv see every key)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,skv", [(127, 127), (128, 128), (129, 129),
+                                    (257, 257), (129, 257), (257, 127),
+                                    (1, 1), (300, 1)])
+def test_flash_kernel_tile_edges(dev, dtype, d, causal, sq, skv):
+    gen = torch.Generator(device=dev).manual_seed(sq + skv)
+    q, k, v = _qkv(gen, dev, dtype, 2, 3, sq, skv, d)
+    with torch.no_grad():
+        got = fa.flash_attention(q, k, v, d ** -0.5, causal)
+        want = fa._reference_attention(q, k, v, d ** -0.5, causal)
+    torch.cuda.synchronize()
+    _flash_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [48, 64])
+def test_flash_kernel_negative_and_zero_scale(dev, dtype, d):
+    """A negative sm_scale moves into q; sm_scale = 0 averages v."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = _qkv(gen, dev, dtype, 1, 2, 150, 150, d)
+    for scale in (-0.2, 0.0):
+        with torch.no_grad():
+            got = fa.flash_attention(q, k, v, scale, True)
+            want = fa._reference_attention(q, k, v, scale, True)
+        torch.cuda.synchronize()
+        _flash_close(got, want, dtype)
+
+
+def test_flash_kernel_many_items_a_block(dev):
+    """More (batch, head, query tile) items than the card has SMs: each
+    persistent block walks several through one K/V ring."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for causal in (False, True):
+        q, k, v = _qkv(gen, dev, torch.bfloat16, 7, 12, 700, 700, 64)
+        with torch.no_grad():
+            got = fa.flash_attention(q, k, v, 0.125, causal)
+            want = fa._reference_attention(q, k, v, 0.125, causal)
+        torch.cuda.synchronize()
+        _flash_close(got, want, torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_reads_strided_views(dev, dtype):
     """MHA's layout: q/k/v are head-transposed views of (B, S, 3·H·D)
@@ -201,6 +297,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(q[..., :24], k[..., :24], v[..., :24])
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.flash_attention(q.bfloat16(), k, v)
     with pytest.raises(ValueError):
         fa.flash_attention(q, k.cpu(), v)
 
