@@ -8,12 +8,17 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
    source, in parallel);
 3. checks each kernel against its plain PyTorch version on the card, in
    bf16 and f32, with times: one 64 x 64 x 64 tile through TMA and wgmma
-   (both operand layouts) against torch.matmul; the GEMM of gemm.cu by
-   itself, each epilogue at the main-path shapes and at ragged ones, with
+   (both operand layouts, then the 3-D box and 80-key tile of the
+   attention core) against torch.matmul; the GEMM of gemm.cu by itself,
+   each epilogue at the main-path shapes and at ragged ones, with
    TFLOP/s and `F.linear`'s time printed beside it as a yardstick; the
-   sublayers at the CLIP ViT-B/32 main-path shapes, the whole-block
-   kernel at its main-path shape (51200, 768), at (6400, 768) (f32:
-   (800, 768)) and at a small shape, also against the two-kernel chain;
+   attention core by itself at (6400 and 51200 rows, L=50, 12 heads),
+   (616 rows, L=77, causal, 8 heads) and padded rank-3 rows (80 of which
+   77 valid) with its bytes bound and the kernel `core_path` names; the
+   sublayers at the CLIP ViT-B/32 main-path shapes with the host time of
+   one call, the whole-block kernel at its main-path shape (51200, 768),
+   at (6400, 768) (f32: (800, 768)) and at a small shape, also against
+   the two-kernel chain;
    flash attention at the TimeSformer shapes (joint 8x224 with 1569
    tokens, space-only 197, causal 1000 at head dim 128, causal 197
    queries against 1569 keys), at a head dim that stays on the mma.sync
@@ -29,7 +34,8 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
    (fused_attn=fused_mlp=False), the search against brute force, and the
    counters;
 5. times videos/s of both CLIP arms at B=32, and one query wave (text
-   tower of each arm, then the search);
+   tower of each arm with its sublayer calls and kernel launches counted,
+   then the search);
 6. caption path: the joint space-time TimeSformer ViT-B/16 (8x224,
    patch 16, width 768, 12 heads, 12 layers, bf16, flash attention)
    with the RNN decoder of configs/seq_generate/timesformer_relseq.py,
@@ -81,6 +87,7 @@ PACKAGE = ROOT / "cross_modal_video_engine_tpu_torch"
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 COSINE_MIN = 0.999                          # kernel arm vs plain arm
 GRAD_TOL = 1e-4                             # f32 gradients, kernel vs plain
+LAYER_OUTLIERS = 1e-6     # share of a layer's elements past the block bound
 INT8_RECALL_MIN = 0.9                       # recall@10 of int8 rows
 # the card's published peaks: dense bf16 tensor-core rate and memory rate
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -115,6 +122,15 @@ GEMM_CASES = {
     "ragged M=300 K=2048": (300, 2048, 512, "residual", 1),
     "ragged N=40": (300, 768, 40, "bias", 1),
     "ragged M=616 N=512 x3": (616, 512, 512, "bias", 3),
+}
+# csrc/attention_core.cu by itself: name -> (sequences, seq_stride, rows,
+# valid_len, heads, causal); what the vision tower gives it at 16 and at
+# 128 videos, what the text tower gives it, and rank-3 rows with pad rows
+CORE_CASES = {
+    "vision 6400 rows": (128, 50, 50, 50, 12, False),
+    "vision 51200 rows": (1024, 50, 50, 50, 12, False),
+    "text 616 rows causal": (8, 77, 77, 77, 8, True),
+    "rank-3 padded 80/77": (8, 80, 80, 77, 8, True),
 }
 CLIPS = 16                                  # TimeSformer clips per call
 # the caption path's backbone: TimeSformer ViT-B/16, joint space-time
@@ -163,6 +179,31 @@ def check_selfcheck(dev, kern):
           flush=True)
     if not ok:
         raise SystemExit("wgmma/TMA self-check failed")
+    # what csrc/attention_core.cu adds: sequence 1 of (2, 80, 64) buffers
+    # through 3-D maps bounded at 77 rows, everything behind the bound inf
+    k, v = (torch.full((2, 80, 64), float("inf"), device=dev,
+                       dtype=torch.bfloat16) for _ in range(2))
+    k[1, :77], v[1, :77] = (torch.randn(77, 64, generator=gen, device=dev)
+                            .to(torch.bfloat16) for _ in range(2))
+    d1 = torch.empty(64, 80, device=dev)
+    err = kern.lib.cmve_wgmma_selfcheck_keys(
+        a.data_ptr(), k.data_ptr(), v.data_ptr(), d1.data_ptr(),
+        d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    want1 = torch.zeros(64, 80, device=dev)
+    want1[:, :77] = a.float() @ k[1, :77].float().t()
+    want2 = want1[:, :77].to(torch.bfloat16).float() @ v[1, :77].float()
+    finite = bool(torch.isfinite(d1).all() and torch.isfinite(d2).all())
+    e1 = float((d1 - want1).abs().max())
+    e2 = float((d2 - want2).abs().max() / want2.abs().max())
+    ok = err == 0 and finite and e1 <= 1e-4 and e2 <= 1e-5
+    print(f"wgmma/TMA self-check, one 64x80x64 tile through 3-D maps "
+          f"bounded at 77 of 80 rows (inf behind the bound): return code "
+          f"{err}, a k^T max_abs_err {e1:.3e} (tol 1e-4), bf16(a k^T) v max "
+          f"relative err {e2:.3e} (tol 1e-5) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit("wgmma/TMA key-tile self-check failed")
 
 
 def check_gemm(dev):
@@ -215,9 +256,77 @@ def check_gemm(dev):
         raise SystemExit("gemm checks failed: " + "; ".join(failures))
 
 
+def host_us(fn, calls: int = 100) -> float:
+    """Host time of one fn() in us, calls enqueued back to back."""
+    from cross_modal_video_engine_tpu_torch.utils.profiling import host_time
+    return host_time(fn, calls, warmup=5) * 1e6
+
+
+def check_core(dev):
+    """csrc/attention_core.cu by itself against the plain version of one
+    core launch (`_attention_core_ref`) at CORE_CASES, bf16 (the wgmma
+    kernel) and f32 (the CUDA-core kernel); prints the kernel `core_path`
+    names, ms, the bytes bound (q, k, v read and the output written once)
+    and `scaled_dot_product_attention` on the same rows as a yardstick.
+    Returns the bf16 results by case."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.ops import attention_sublayer as asl
+    out, failures = {}, []
+    for i, (case, (nseq, stride, rows, valid, heads, causal)) in enumerate(
+            CORE_CASES.items()):
+        d = heads * 64
+        for dtype in (torch.bfloat16, torch.float32):
+            gen = torch.Generator(device=dev).manual_seed(4000 + i)
+            q, k, v = (torch.randn(nseq * stride, d, generator=gen,
+                                   device=dev).to(dtype) for _ in range(3))
+            kw = dict(heads=heads, seq_stride=stride, rows=rows,
+                      valid_len=valid, causal=causal)
+            name = str(dtype).removeprefix("torch.")
+            path = asl.core_path(dtype, 64, valid)
+            att = torch.zeros_like(q)
+            got = asl._attention_core(q, k, v, att, **kw)
+            want = asl._attention_core_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err, ok = flash_err(got, want, name)
+            ms = cuda_ms(lambda: asl._attention_core(q, k, v, att, **kw))
+            plain_ms = cuda_ms(lambda: asl._attention_core_ref(q, k, v, **kw),
+                               iters=5, warmup=1)
+            library_ms = None
+            if rows == valid:            # one call computes the same function
+                q4, k4, v4 = (t.view(nseq, stride, heads, 64).transpose(1, 2)
+                              for t in (q, k, v))
+                library_ms = cuda_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q4, k4, v4, is_causal=causal))
+            esize = 2 if dtype == torch.bfloat16 else 4
+            bound_ms = (nseq * (2 * rows + 2 * valid) * d * esize
+                        / PEAK_BYTES * 1e3)
+            ok = ok and path == ("wgmma" if dtype == torch.bfloat16
+                                 else "fma")
+            print(f"kernel core {case:22s} {name:8s} path {path:5s} "
+                  f"(seqs,rows,valid,heads)={(nseq, rows, valid, heads)} "
+                  f"causal={causal}: max_abs_err {err:.3e} (tol "
+                  f"{TOL[name]:g}) {'ok' if ok else 'FAIL'}; kernel "
+                  f"{ms:.4f} ms, bytes bound {bound_ms:.4f} ms "
+                  f"({bound_ms / ms:.1%}), plain {plain_ms:.4f} ms, "
+                  f"scaled_dot_product_attention "
+                  + ("not comparable" if library_ms is None
+                     else f"{library_ms:.4f} ms"), flush=True)
+            if dtype == torch.bfloat16:
+                out[case] = dict(ms=ms, bound_ms=bound_ms, err=err,
+                                 plain_ms=plain_ms, library_ms=library_ms)
+            if not ok:
+                failures.append(f"core {case} {name}: err {err} path {path}")
+    if failures:
+        raise SystemExit("attention core checks failed: "
+                         + "; ".join(failures))
+    return out
+
+
 def sublayer_cases(dev):
     """The checks at the main-path shapes: each names the kernel, the
-    input shape, how to make its parameters on the card from a generator,
+    input shape, how to make its parameters on the card from a generator
+    (in the types the models store them in),
     the kernel call and the plain call, and (for padded rows) how many
     leading rows are compared."""
     import torch
@@ -228,19 +337,21 @@ def sublayer_cases(dev):
 
     # lecun-normal scales, the output projections at half of it so that
     # the outputs (x at std 0.5 plus the sublayer) stay under 4
-    def attn_params(gen, d):
+    # As the models store them: LayerNorm scale and bias in float32,
+    # weights and biases in the compute dtype.
+    def attn_params(gen, d, dtype):
         p = [1.0 + randn(gen, d, std=0.1), randn(gen, d, std=0.1)]
         for scale in (1.0, 1.0, 1.0, 0.5):
-            p += [randn(gen, d, d, std=scale * d ** -0.5),
-                  randn(gen, d, std=0.02)]
+            p += [randn(gen, d, d, std=scale * d ** -0.5).to(dtype),
+                  randn(gen, d, std=0.02).to(dtype)]
         return p
 
-    def mlp_params(gen, d):
+    def mlp_params(gen, d, dtype):
         return [1.0 + randn(gen, d, std=0.1), randn(gen, d, std=0.1),
-                randn(gen, 4 * d, d, std=d ** -0.5),
-                randn(gen, 4 * d, std=0.02),
-                randn(gen, d, 4 * d, std=0.5 * (4 * d) ** -0.5),
-                randn(gen, d, std=0.02)]
+                randn(gen, 4 * d, d, std=d ** -0.5).to(dtype),
+                randn(gen, 4 * d, std=0.02).to(dtype),
+                randn(gen, d, 4 * d, std=0.5 * (4 * d) ** -0.5).to(dtype),
+                randn(gen, d, std=0.02).to(dtype)]
 
     n_vis = VIDEOS * FRAMES * 50
     cases = []
@@ -267,31 +378,31 @@ def sublayer_cases(dev):
         return fa + fm, ba + bm - 2 * 2 * rows * d     # y1 stays on chip
 
     add("compact vision", "fused_attention_sublayer_compact", (n_vis, 768),
-        lambda g: attn_params(g, 768),
+        lambda g, dt: attn_params(g, 768, dt),
         lambda x, p: asl.fused_attention_sublayer_compact(
             x, *p, heads=12, seq_len=50),
         lambda x, p: asl._attn_ref_flat(x, *p, heads=12, seq_len=50,
                                         causal=False),
         bound=attn_work(n_vis, 768, 50))
     add("rank-3 causal text", "fused_attention_sublayer", (8, 77, 512),
-        lambda g: attn_params(g, 512),
+        lambda g, dt: attn_params(g, 512, dt),
         lambda x, p: asl.fused_attention_sublayer(
             x, *p, heads=8, valid_len=77, causal=True),
         lambda x, p: asl._attn_ref(x, *p, heads=8, valid_len=77,
                                    causal=True),
         bound=attn_work(8 * 77, 512, 77))
     add("rank-3 padded 80/77", "fused_attention_sublayer", (8, 80, 512),
-        lambda g: attn_params(g, 512),
+        lambda g, dt: attn_params(g, 512, dt),
         lambda x, p: asl.fused_attention_sublayer(
             x, *p, heads=8, valid_len=77, causal=True),
         lambda x, p: asl._attn_ref(x, *p, heads=8, valid_len=77,
                                    causal=True), valid=77)
     add("mlp vision", "fused_mlp_sublayer", (n_vis, 768),
-        lambda g: mlp_params(g, 768),
+        lambda g, dt: mlp_params(g, 768, dt),
         lambda x, p: asl.fused_mlp_sublayer(x, *p),
         lambda x, p: asl._mlp_ref(x, *p), bound=mlp_work(n_vis, 768))
     add("mlp text", "fused_mlp_sublayer", (8, 77, 512),
-        lambda g: mlp_params(g, 512),
+        lambda g, dt: mlp_params(g, 512, dt),
         lambda x, p: asl.fused_mlp_sublayer(x, *p),
         lambda x, p: asl._mlp_ref(x, *p))
 
@@ -301,7 +412,7 @@ def sublayer_cases(dev):
                 x, *p[:10], heads=heads, seq_len=seq_len, causal=causal)
             return asl.fused_mlp_sublayer(y1, *p[10:])
         add(name, "fused_block_sublayer_compact", shape,
-            lambda g: attn_params(g, d) + mlp_params(g, d),
+            lambda g, dt: attn_params(g, d, dt) + mlp_params(g, d, dt),
             lambda x, p: asl.fused_block_sublayer_compact(
                 x, *p, heads=heads, seq_len=seq_len, causal=causal),
             lambda x, p: asl._block_ref_flat(
@@ -329,7 +440,7 @@ def check_kernels(dev):
     for i, case in enumerate(sublayer_cases(dev)):
         for dtype in (torch.bfloat16, torch.float32)[:1 + case["f32"]]:
             gen = torch.Generator(device=dev).manual_seed(1000 + i)
-            params = case["make"](gen)
+            params = case["make"](gen, dtype)
             shape = case["shape"]
             if dtype == torch.float32 and case["shape_f32"]:
                 shape = case["shape_f32"]
@@ -353,20 +464,22 @@ def check_kernels(dev):
                         lambda: case["run_chain"](x, params))
                 ms = cuda_ms(lambda: case["run_kernel"](x, params))
                 plain_ms = cuda_ms(lambda: case["run_ref"](x, params))
+                call_us = host_us(lambda: case["run_kernel"](x, params))
             name = str(dtype).removeprefix("torch.")
             ok = (finite and err <= TOL[name]
                   and (chain_err is None or chain_err <= TOL[name]))
             print(f"kernel {case['name']:22s} {name:8s} shape "
                   f"{tuple(shape)}: max_abs_err {err:.3e} "
                   f"(tol {TOL[name]:g}) {'ok' if ok else 'FAIL'}; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                  f"kernel {ms:.4f} ms (host {call_us:.1f} us a call), "
+                  f"plain {plain_ms:.4f} ms"
                   + ("" if chain_err is None else
                      f"; vs two-kernel chain {chain_err:.3e}, chain "
                      f"{chain_ms:.4f} ms"), flush=True)
             results.append(dict(case=case["name"], kernel=case["kernel"],
                                 dtype=name, err=err, ms=ms,
                                 plain_ms=plain_ms, bound=case["bound"],
-                                library_ms=None))
+                                library_ms=None, host_us=call_us))
             if not ok:
                 failures.append(f"{case['name']} {name}: err {err} "
                                 f"chain {chain_err} finite {finite}")
@@ -617,14 +730,29 @@ def query_latency(model, plain, index, ids, card):
     """ms per query wave of QUERIES texts: the text tower of each arm,
     then the index search (host queries in, host results out)."""
     import torch
+    from cross_modal_video_engine_tpu_torch.ops import attention_sublayer as asl
     with torch.no_grad():
         text = {arm: cuda_ms(lambda: m.encode_text(ids), iters=10)
                 for arm, m in (("kernel", model), ("plain", plain))}
+        asl.fused_attention_sublayer.launches = 0
+        asl.fused_mlp_sublayer.launches = 0
         q = model.encode_text(ids).cpu().numpy()
+        attn = asl.fused_attention_sublayer.launches
+        mlp = asl.fused_mlp_sublayer.launches
+        wave_us = host_us(lambda: model.encode_text(ids), calls=20)
     search = cuda_ms(lambda: index.search(q, k=10), iters=10)
     print(f"query wave of {QUERIES} (ms): text tower kernel arm "
           f"{text['kernel']:.3f}, plain arm {text['plain']:.3f}; search "
           f"top-10 of {index.n} bf16 rows {search:.3f} on {card}")
+    # an attention sublayer call enqueues 4 kernels, an MLP call 3
+    print(f"text wave of {QUERIES}: {attn} attention + {mlp} MLP sublayer "
+          f"calls, one crossing into C each ({attn + mlp} crossings), "
+          f"{4 * attn + 3 * mlp} sublayer kernel launches; host "
+          f"{wave_us / 1e3:.3f} ms a wave")
+    layers = model.cfg.text_layers
+    if attn != layers or mlp != layers:
+        raise SystemExit(f"text wave made {attn} attention and {mlp} MLP "
+                         f"sublayer calls, not {layers} each")
 
 
 def throughput(model, plain, cfg, dev, rng, card):
@@ -824,31 +952,48 @@ def drive_bench_path(dev, card):
     err = float((blk.float() - two.float()).abs().max())
     # Layer by layer on the chain's own input, so that no layer carries the
     # flips of the ones before it (the two routes round at the same points
-    # but their products sum in different orders): each sublayer rounds its
-    # output once, so a layer may differ by two bf16 steps of its output.
-    layer_err, layers_ok, xi = 0.0, True, x
+    # but their products sum in different orders).  A layer rounds four
+    # times: each sublayer's projection before its residual add, and each
+    # sum (y1 = x + attention projection, y = y1 + MLP projection).  The
+    # residuals carry a flip of any of them to y unchanged, so a layer may
+    # differ by one bf16 step of each of the four values, which may lie in
+    # higher binades than y itself.  Beyond that, flips of y1 elsewhere in
+    # a row move the MLP's projection a little before it is rounded (the
+    # plain version shows the same when it is fed either y1), which can
+    # put it across a binade edge: up to one element in a million may pass
+    # the bound, none by more than twice.
+    def bf16_step(t):
+        return torch.ldexp(torch.ones_like(t), torch.frexp(t)[1] - 8)
+
+    layer_err, layers_ok, over, xi = 0.0, True, 0, x
     with torch.no_grad():
         for attn, mlp in params:
-            nxt = asl.fused_mlp_sublayer(
-                asl.fused_attention_sublayer_compact(
-                    xi, *attn, heads=heads, seq_len=seq_len), *mlp)
+            y1 = asl.fused_attention_sublayer_compact(
+                xi, *attn, heads=heads, seq_len=seq_len)
+            nxt = asl.fused_mlp_sublayer(y1, *mlp)
             got = asl.fused_block_sublayer_compact(
                 xi, *attn, *mlp, heads=heads, seq_len=seq_len)
             diff = (got.float() - nxt.float()).abs()
-            step = torch.ldexp(torch.ones_like(diff),
-                               torch.frexp(nxt.float())[1] - 8)
-            layers_ok &= bool((diff <= torch.clamp(
-                2 * step, min=TOL["bfloat16"])).all())
+            xf, y1f, yf = xi.float(), y1.float(), nxt.float()
+            tol = (bf16_step(y1f - xf) + bf16_step(y1f)
+                   + bf16_step(yf - y1f) + bf16_step(yf))
+            tol = torch.clamp(tol, min=TOL["bfloat16"])
+            beyond = int((diff > tol).sum())
+            layers_ok &= (beyond <= diff.numel() * LAYER_OUTLIERS
+                          and bool((diff <= 2 * tol).all()))
+            over += beyond
             layer_err = max(layer_err, float(diff.max()))
             xi = nxt
-    del xi, nxt, got, diff, step
+    del xi, y1, nxt, got, diff, tol, xf, y1f, yf
     torch.cuda.synchronize()
     print(f"bench path: entry() high {tuple(high.shape)}; stack of {layers} "
           f"layers at {tuple(x.shape)} bf16, whole-block vs two-kernel "
           f"chain: min cosine {cos:.6f} (need >= {COSINE_MIN}), max abs "
           f"diff after {layers} layers {err:.3e} (reported); layer by layer "
           f"on the chain's input: max abs diff {layer_err:.3e} (tol "
-          f"{TOL['bfloat16']:g} or two bf16 steps of the output) "
+          f"{TOL['bfloat16']:g} or a bf16 step of each of a layer's four "
+          f"roundings; {over} of {layers * x.numel()} elements beyond it, "
+          f"none beyond twice) "
           f"{'ok' if layers_ok else 'FAIL'}; launches {json.dumps(launches)}")
     checks = {
         "entry shape": tuple(high.shape) == (2, 8, 512),
@@ -938,11 +1083,15 @@ def check_big_index(dev, card):
         raise SystemExit("index checks failed: " + "; ".join(failures))
 
 
-def kernel_json(results, launches) -> dict:
+def kernel_json(results, launches, core) -> dict:
     """The kernels line: bf16 errors over every case of a kernel; times,
     bound and library time of its main-path case.  `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
-    operations over the bf16 tensor-core peak."""
+    operations over the bf16 tensor-core peak.  The attention sublayers
+    also carry the host time of one call and their core kernel by itself
+    at the same rows (`core_ms`, beside its bytes bound)."""
+    core_case = {"fused_attention_sublayer_compact": "vision 6400 rows",
+                 "fused_attention_sublayer": "text 616 rows causal"}
     main_case = {"fused_attention_sublayer_compact": "compact vision",
                  "fused_attention_sublayer": "rank-3 causal text",
                  "fused_mlp_sublayer": "mlp vision",
@@ -974,6 +1123,11 @@ def kernel_json(results, launches) -> dict:
             "bound_ms": max(by_ops, by_bytes) * 1e3,
             "bound_by": "operations" if by_ops >= by_bytes else "bytes",
             "library_ms": main["library_ms"]})
+        if name in core_case:
+            c = core[core_case[name]]
+            kernels[-1].update(host_us=main["host_us"], core_ms=c["ms"],
+                               core_bound_ms=c["bound_ms"],
+                               core_library_ms=c["library_ms"])
     return {"kernels": kernels}
 
 
@@ -1020,6 +1174,7 @@ def main() -> int:
     # -- 3. each kernel against its plain version ---------------------------
     check_selfcheck(dev, kern)
     check_gemm(dev)
+    core = check_core(dev)
     results = check_kernels(dev) + check_flash(dev)
     check_backward(dev)
 
@@ -1066,7 +1221,7 @@ def main() -> int:
     check_big_index(dev, card)
 
     # -- 10. results -----------------------------------------------------------
-    print(json.dumps(kernel_json(results, launches)))
+    print(json.dumps(kernel_json(results, launches, core)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,8 +13,9 @@ rows time the plain versions and say so in their unit.
 `arms` (text, card only): device time by kernel over one call of the CLIP
 kernel arm (`encode_video_u8` at B=32, `encode_text` of 8) and of the
 caption kernel arm (`forward_test`, 16 clips), from torch.profiler, with
-the wall time of a call, the idle share, and the host time of one kernel
-launch through the wrappers.
+the wall time of a call, the idle share, the host time of one kernel
+launch through the wrappers, and the host time of one call of each public
+sublayer wrapper beside its time back to back.
 
 `ablation` (text, card and nvcc only): what each part of the flash
 kernel's key-tile loop costs.  Copies of the package under
@@ -38,7 +39,7 @@ import torch
 from ..ops import attention_sublayer as asl
 from ..ops.flash_attention import flash_attention
 from ..utils.device import card_line, resolve_device
-from ..utils.profiling import device_time
+from ..utils.profiling import device_time, host_time
 from .common import clip_arms, emit, flagship_config, per, where
 
 # (M, K, N, epilogue, products sharing A): the ViT-B/32 sublayers at 16
@@ -164,15 +165,51 @@ def _kernel_table(fn, calls: int, label: str) -> None:
 
 
 def _host_us(fn, calls: int = 500) -> float:
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / calls * 1e6
+    return host_time(fn, calls) * 1e6
+
+
+def _sublayer_calls(device, gen) -> None:
+    """Host us and device ms of one call of each public sublayer wrapper,
+    parameters in the types the models store them in (LayerNorm float32,
+    weights bfloat16), at the vision tower's rows for 16 videos and the
+    text tower's for 8 queries."""
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=device)
+                * std).to(dtype)
+
+    def ln(d):
+        return [1.0 + randn(d, std=0.1, dtype=torch.float32),
+                randn(d, std=0.1, dtype=torch.float32)]
+
+    def attn(d):
+        return ln(d) + [t for _ in range(4) for t in
+                        (randn(d, d, std=d ** -0.5), randn(d, std=0.02))]
+
+    def mlp(d):
+        return ln(d) + [randn(4 * d, d, std=d ** -0.5),
+                        randn(4 * d, std=0.02),
+                        randn(d, 4 * d, std=(4 * d) ** -0.5),
+                        randn(d, std=0.02)]
+
+    xv, xt = randn(6400, 768, std=0.5), randn(8, 77, 512, std=0.5)
+    pv, pt, mv, mt = attn(768), attn(512), mlp(768), mlp(512)
+    calls = {
+        "fused_attention_sublayer_compact (6400, 768) L=50":
+            lambda: asl.fused_attention_sublayer_compact(
+                xv, *pv, heads=12, seq_len=50),
+        "fused_attention_sublayer (8, 77, 512) causal":
+            lambda: asl.fused_attention_sublayer(
+                xt, *pt, heads=8, valid_len=77, causal=True),
+        "fused_mlp_sublayer (6400, 768)":
+            lambda: asl.fused_mlp_sublayer(xv, *mv),
+        "fused_mlp_sublayer (8, 77, 512)":
+            lambda: asl.fused_mlp_sublayer(xt, *mt),
+    }
+    with torch.no_grad():
+        for name, fn in calls.items():
+            ms = device_time(fn, steps=20, device=device) * 1e3
+            print(f"one call of {name}: host {_host_us(fn, 100):.1f} us, "
+                  f"back to back {ms:.4f} ms a call")
 
 
 def profile_arms(device=None) -> None:
@@ -190,6 +227,7 @@ def profile_arms(device=None) -> None:
               f"{us:.1f} us")
     print(f"host time of one _layernorm launch: "
           f"{_host_us(lambda: asl._layernorm(a, b, b, 1e-5)):.1f} us")
+    _sublayer_calls(device, gen)
 
     cfg = flagship_config()
     model, _ = clip_arms(cfg, device)

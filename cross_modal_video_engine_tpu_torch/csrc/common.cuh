@@ -11,10 +11,16 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace cmve {
 
 // dtype codes passed from the Python wrappers (ops/attention_sublayer.py)
 enum DTypeCode { kFloat32 = 0, kBFloat16 = 1 };
+// epilogue codes of gemm.cu, passed from the wrappers too
+enum Epilogue { kBias = 0, kBiasQuickGelu = 1, kBiasResidual = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -126,7 +132,7 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
 }
 
 // -- Hopper (sm_90a) building blocks: gemm.cu, flash_attention.cu,
-//    wgmma_selfcheck.cu ---------------------------------------------------------
+//    attention_core.cu, wgmma_selfcheck.cu ---------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -203,6 +209,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
@@ -389,6 +405,147 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
+// The widths between: 64 x N for N = 16 .. 112 in steps of 16 (the key tiles
+// of attention_core.cu; N / 2 registers a thread, the same fragment).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float* d, uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, %11;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float* d, uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n48k16_ss(float* d, uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, %27;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n80k16_ss(float* d, uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, %43;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n96k16_ss(float* d, uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, %51;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n112k16_ss(float* d, uint64_t da,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %58, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "%56, %57, p, 1, 1, 0, %59;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a,
                                                    uint64_t db, int scale_d) {
@@ -491,6 +648,46 @@ inline int make_tensor_map_bf16(CUtensorMap* map, const void* base, int rank,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 2-D map (dims[0] contiguous, rows `stride` bytes apart), kept by
+// (base, shape, stride, box) for operands whose address does not change from
+// call to call: the weights.  A map encodes the address and the layout,
+// never the contents, so a weight updated in place needs no new map, and a
+// map for memory that was freed and handed out again in the same shape is
+// still the right map.
+inline int cached_tensor_map_2d(CUtensorMap* map, const void* base,
+                                const cuuint64_t* dims, cuuint64_t stride,
+                                const cuuint32_t* box) {
+  using Key = std::tuple<const void*, cuuint64_t, cuuint64_t, cuuint64_t,
+                         cuuint32_t, cuuint32_t>;
+  static std::map<Key, CUtensorMap> cache;
+  static std::mutex lock;
+  const Key key{base, dims[0], dims[1], stride, box[0], box[1]};
+  std::lock_guard<std::mutex> hold(lock);
+  const auto found = cache.find(key);
+  if (found != cache.end()) {
+    *map = found->second;
+    return 0;
+  }
+  if (int err = make_tensor_map_bf16(map, base, 2, dims, &stride, box))
+    return err;
+  if (cache.size() >= 4096) cache.clear();  // a bound no model reaches
+  cache.emplace(key, *map);
+  return 0;
+}
+
+// the card's SM count, asked once per device (persistent kernels launch one
+// block an SM); 0 on failure
+inline int sm_count() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms[dev] = 0;
+  return sms[dev];
 }
 
 }  // namespace cmve

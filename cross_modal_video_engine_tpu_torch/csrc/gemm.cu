@@ -44,8 +44,6 @@
 
 namespace cmve {
 
-enum Epilogue { kBias = 0, kBiasQuickGelu = 1, kBiasResidual = 2 };
-
 // up to three products sharing the A operand (q, k, v)
 struct GemmBatch {
   const void* w[3];     // (N, K) row-major
@@ -270,7 +268,8 @@ template <int BN>
 static int dispatch(int epilogue, const void* a, const void* resid,
                     const GemmBatch& batch, int nmat, int M, int N, int K,
                     int sms, cudaStream_t stream) {
-  // the maps are made per call: base pointers and shapes change
+  // the activations' map is made per call; the weights' maps are kept by
+  // address, shape and box (a map encodes no contents)
   CUtensorMap maps[4];
   const cuuint64_t stride[1] = {(cuuint64_t)K * 2};
   const cuuint64_t dims_a[2] = {(cuuint64_t)K, (cuuint64_t)M};
@@ -279,9 +278,8 @@ static int dispatch(int epilogue, const void* a, const void* resid,
   if (int err = make_tensor_map_bf16(&maps[0], a, 2, dims_a, stride, box_a))
     return err;
   for (int i = 0; i < 3; ++i)  // unused products repeat the first
-    if (int err = make_tensor_map_bf16(&maps[1 + i],
-                                       batch.w[i < nmat ? i : 0], 2, dims_w,
-                                       stride, box_w))
+    if (int err = cached_tensor_map_2d(&maps[1 + i], batch.w[i < nmat ? i : 0],
+                                       dims_w, stride[0], box_w))
       return err;
   switch (epilogue) {
     case kBias:
@@ -299,12 +297,8 @@ static int dispatch(int epilogue, const void* a, const void* resid,
 static int run(int epilogue, const void* a, const void* resid,
                const GemmBatch& batch, int nmat, int M, int N, int K,
                cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      sms <= 0)
-    return (int)cudaErrorInvalidDevice;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
   if (waves_cost(256, nmat, M, N, sms) < waves_cost(128, nmat, M, N, sms))
     return dispatch<256>(epilogue, a, resid, batch, nmat, M, N, K, sms, stream);
   return dispatch<128>(epilogue, a, resid, batch, nmat, M, N, K, sms, stream);

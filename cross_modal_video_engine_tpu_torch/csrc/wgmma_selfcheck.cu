@@ -1,13 +1,19 @@
 // One 64 x 64 x 64 tile through the Hopper building blocks of common.cuh,
 // so that a wrong tensor map, swizzle or descriptor shows at the smallest
-// size and not inside gemm.cu or flash_attention.cu:
+// size and not inside gemm.cu, flash_attention.cu or attention_core.cu:
 //   d1 = a b^T      a (64, 64) and b (64, 64) row-major, both K-major: three
 //                   TMA boxes on one mbarrier, wgmma from shared memory;
 //   d2 = bf16(d1) v v (64, 64) row-major is the MN-major B operand (wgmma's
 //                   transpose bit), and the A operand is the first product's
 //                   accumulators packed to bf16 in registers: the P v
 //                   product of flash attention.
-// Replaces no TPU kernel; tests/test_torch_kernels_cuda.py holds it against
+// and, for attention_core.cu, one 64 x 80 x 64 tile through what is new there:
+//   d1 = a k^T      k is sequence 1 of a (2, 80, 64) buffer, read through a
+//                   3-D tensor map (channels, rows bounded at 77, sequences)
+//                   with a box of 80 rows: the hardware zero-fills rows 77-79
+//                   whatever the buffer holds there; wgmma m64n80k16;
+//   d2 = bf16(d1) v v read the same way, five 16-key steps of the P v form.
+// Replaces no TPU kernel; tests/test_torch_kernels_cuda.py holds both against
 // torch.matmul.
 
 #include "common.cuh"
@@ -77,6 +83,79 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// the key-tile forms of attention_core.cu: a 3-D box bounded below its
+// extent, a 64 x 80 product, five k-steps of the register-operand product
+constexpr int SC_KT = 80, SC_VALID = 77;
+
+__global__ void __launch_bounds__(128)
+    wgmma_selfcheck_keys_kernel(const __grid_constant__ CUtensorMap map_a,
+                                const __grid_constant__ CUtensorMap map_k,
+                                const __grid_constant__ CUtensorMap map_v,
+                                float* __restrict__ d1,
+                                float* __restrict__ d2) {
+  constexpr int A_BYTES = 64 * 128, KV_BYTES = SC_KT * 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const tiles = align_1024(smem_raw);
+  __shared__ uint64_t full;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(&full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&full, A_BYTES + 2 * KV_BYTES);
+    tma_load_3d(tiles, &map_a, &full, 0, 0, 0);
+    tma_load_3d(tiles + A_BYTES, &map_k, &full, 0, 0, 1);
+    tma_load_3d(tiles + A_BYTES + KV_BYTES, &map_v, &full, 0, 0, 1);
+  }
+  mbar_wait(&full, 0);
+
+  const uint64_t da = wgmma_desc_sw128(tiles, 16, 1024);
+  const uint64_t dk = wgmma_desc_sw128(tiles + A_BYTES, 16, 1024);
+  const uint64_t dv = wgmma_desc_sw128(tiles + A_BYTES + KV_BYTES, 16, 1024);
+  float s[SC_KT / 2], o[32];
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_m64n80k16_ss<0>(s, wgmma_desc_advance(da, 32 * ks),
+                          wgmma_desc_advance(dk, 32 * ks), ks > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_pin<SC_KT / 2>(s);
+
+  uint32_t pf[SC_KT / 4];
+#pragma unroll
+  for (int i = 0; i < SC_KT / 4; ++i) pf[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < SC_KT / 16; ++ks)
+    wgmma_m64n64k16_rs<1>(o, pf + 4 * ks, wgmma_desc_advance(dv, 2048 * ks),
+                          ks > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_pin<32>(o);
+
+  const int row = warp * 16 + (lane >> 2), col = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < SC_KT / 8; ++j) {
+    const int c = 8 * j + col;
+    d1[row * SC_KT + c] = s[4 * j];
+    d1[row * SC_KT + c + 1] = s[4 * j + 1];
+    d1[(row + 8) * SC_KT + c] = s[4 * j + 2];
+    d1[(row + 8) * SC_KT + c + 1] = s[4 * j + 3];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = 8 * j + col;
+    d2[row * 64 + c] = o[4 * j];
+    d2[row * 64 + c + 1] = o[4 * j + 1];
+    d2[(row + 8) * 64 + c] = o[4 * j + 2];
+    d2[(row + 8) * 64 + c + 1] = o[4 * j + 3];
+  }
+}
+
 }  // namespace cmve
 
 // C entry: a, b, v are contiguous (64, 64) bf16, d1 and d2 (64, 64) fp32.
@@ -99,5 +178,31 @@ extern "C" int cmve_wgmma_selfcheck(const void* a, const void* b,
   wgmma_selfcheck_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
       maps[0], maps[1], maps[2], static_cast<float*>(d1),
       static_cast<float*>(d2));
+  return (int)cudaGetLastError();
+}
+
+// C entry: a is contiguous (64, 64) bf16, k and v contiguous (2, 80, 64) bf16
+// of which rows 0-76 of sequence 1 are read; d1 (64, 80) and d2 (64, 64)
+// fp32.  Returns 0, the tensor-map encoder's error, or cudaGetLastError().
+extern "C" int cmve_wgmma_selfcheck_keys(const void* a, const void* k,
+                                         const void* v, void* d1, void* d2,
+                                         void* stream) {
+  using namespace cmve;
+  const cuuint64_t strides[2] = {128, (cuuint64_t)SC_KT * 128};
+  const cuuint64_t dims_a[3] = {64, 64, 1}, dims_kv[3] = {64, SC_VALID, 2};
+  const cuuint32_t box_a[3] = {64, 64, 1}, box_kv[3] = {64, SC_KT, 1};
+  CUtensorMap ma, mk, mv;
+  if (int err = make_tensor_map_bf16(&ma, a, 3, dims_a, strides, box_a))
+    return err;
+  if (int err = make_tensor_map_bf16(&mk, k, 3, dims_kv, strides, box_kv))
+    return err;
+  if (int err = make_tensor_map_bf16(&mv, v, 3, dims_kv, strides, box_kv))
+    return err;
+  constexpr int smem = 64 * 128 + 2 * SC_KT * 128 + 1024;
+  cudaFuncSetAttribute(wgmma_selfcheck_keys_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  wgmma_selfcheck_keys_kernel<<<1, 128, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      ma, mk, mv, static_cast<float*>(d1), static_cast<float*>(d2));
   return (int)cudaGetLastError();
 }

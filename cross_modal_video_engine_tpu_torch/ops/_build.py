@@ -33,12 +33,22 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # (name, restype, argtypes) of every C entry in csrc/
 _SIGNATURES = (
-    ("cmve_layernorm", _I, [_I, _P, _P, _P, _P, _I, _I, _F, _P]),
+    # (dtype, dtype of scale and bias, x, scale, bias, out, M, K, eps,
+    #  stream)
+    ("cmve_layernorm", _I, [_I, _I, _P, _P, _P, _P, _I, _I, _F, _P]),
     ("cmve_gemm", _I,
      [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
       _P]),
     ("cmve_attention_core", _I,
      [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    # (dtype, dtype of the LayerNorm scale and bias, x, 10 parameters,
+    #  workspace, y, n, D, heads, seq_stride, rows, valid_len, causal, eps,
+    #  scale, stream)
+    ("cmve_attention_sublayer", _I,
+     [_I, _I] + [_P] * 13 + [_I] * 7 + [_F, _F, _P]),
+    # (dtype, dtype of the LayerNorm scale and bias, x, 6 parameters,
+    #  workspace, y, n, D, hidden, eps, stream)
+    ("cmve_mlp_sublayer", _I, [_I, _I] + [_P] * 9 + [_I] * 3 + [_F, _P]),
     # (dtype, q, k, v, o, B, H, Sq, Skv, hd, int64[12] strides, scale,
     #  causal, stream)
     ("cmve_flash_attention", _I,
@@ -53,6 +63,10 @@ _SIGNATURES = (
     # (a, b, v: (64, 64) bf16; d1 = a b^T, d2 = bf16(d1) v: (64, 64) f32;
     #  stream)
     ("cmve_wgmma_selfcheck", _I, [_P] * 6),
+    # (a: (64, 64), k, v: (2, 80, 64) bf16 read through 3-D maps bounded at
+    #  77 rows; d1 = a k[1]^T: (64, 80), d2 = bf16(d1) v[1]: (64, 64) f32;
+    #  stream)
+    ("cmve_wgmma_selfcheck_keys", _I, [_P] * 6),
 )
 
 

@@ -24,6 +24,24 @@ the kernels in `csrc/` or the call raises.  Nothing falls back.  Each
 public function carries `launches`, a plain int that counts the calls
 which launched its kernels.
 
+The two attention sublayers replace `_attn_pallas` (`_kernel`) and
+`_attn_pallas_compact` (`_kernel_compact` / `_attn_body_compact`) of the
+JAX module.  On the H100 they are four kernels behind one host call
+(`cmve_attention_sublayer` in csrc/sublayer.cu): LayerNorm, the q|k|v
+product, the attention core, the output projection with the residual.
+What bounds them at the main-path shapes is not arithmetic: the core
+moves q, k, v and its output once through device memory (bytes), and
+the call as a whole is short enough that host time per call showed as
+device idle time.  So the core (csrc/attention_core.cu) is a persistent
+TMA/wgmma kernel that keeps loads in flight, and the host side does one
+crossing into C per sublayer, allocates one workspace, reads LayerNorm's
+fp32 scale and bias in the kernel instead of casting them, and keeps the
+weights' tensor maps on the C side.  `fused_mlp_sublayer` takes the same
+single-call shape (`cmve_mlp_sublayer`).  `core_path` names which core
+kernel serves a call.  The step-by-step path (`_layernorm`, `_gemm`,
+`_attention_core`: one crossing per kernel) stays for tests and for
+timing the pieces.
+
 Gradients: as the JAX custom_vjps do, the forward launches the kernel and
 the backward recomputes the plain version and differentiates that (one
 extra unfused forward in the backward pass): `_PlainBackward`, used only
@@ -40,6 +58,8 @@ residual add in x.dtype.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -87,6 +107,12 @@ def _gemm_ref(a, epi, mats, resid=None):
     return outs
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_scale(hd: int) -> float:
+    """1 / sqrt(hd) as the float32 the JAX kernels multiply by."""
+    return float(np.float32(1.0 / np.sqrt(hd)))
+
+
 def _key_mask(lp: int, valid_len: int, causal: bool,
               device: torch.device) -> torch.Tensor:
     """The kernels' additive mask: -1e30 (not -inf) on masked keys."""
@@ -96,6 +122,35 @@ def _key_mask(lp: int, valid_len: int, causal: bool,
         row = torch.arange(lp, device=device)[:, None]
         mask = mask + torch.where(col[None, :] <= row, 0.0, -1e30)
     return mask.float()
+
+
+def _attention_core_ref(q, k, v, *, heads: int, seq_stride: int, rows: int,
+                        valid_len: int, causal: bool) -> torch.Tensor:
+    """What one launch of csrc/attention_core.cu computes (`_attention_core`),
+    in plain torch: q, k, v are (n, D); sequence s owns rows
+    [s * seq_stride, s * seq_stride + rows) and attends to its first
+    valid_len rows.  fp32 scores and softmax, P rounded to q.dtype, fp32
+    accumulation, the output rounded to q.dtype.  Rows of k and v past
+    valid_len read as zeros, as the Pallas kernels zero them and the
+    tensor maps' bound does, so what lies there (inf, NaN) reaches
+    nothing.  Rows the kernel does not write (past `rows` in a sequence)
+    come back as zeros."""
+    n, d = q.shape
+    hd = d // heads
+    dt = q.dtype
+    q4, k4, v4 = (t.reshape(n // seq_stride, seq_stride, heads, hd)[:, :rows]
+                  for t in (q, k, v))
+    if valid_len < rows:
+        pad = (torch.arange(rows, device=q.device) >= valid_len)[:, None, None]
+        k4, v4 = k4.masked_fill(pad, 0.0), v4.masked_fill(pad, 0.0)
+    sc = torch.einsum("bqhc,bkhc->bhqk", q4.float(), k4.float())
+    sc = sc * _sm_scale(hd)
+    pr = torch.softmax(sc + _key_mask(rows, valid_len, causal, q.device),
+                       dim=-1).to(dt)
+    att = torch.einsum("bhqk,bkhc->bqhc", pr.float(), v4.float()).to(dt)
+    out = q.new_zeros(n // seq_stride, seq_stride, d)
+    out[:, :rows] = att.reshape(-1, rows, d)
+    return out.reshape(n, d)
 
 
 def _attn_ref(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
@@ -110,7 +165,7 @@ def _attn_ref(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, *,
     k = _dense(ln, wk, bk).reshape(b, lp, heads, hd)
     v = _dense(ln, wv, bv).reshape(b, lp, heads, hd)
     sc = torch.einsum("bqhc,bkhc->bhqk", q.float(), k.float())
-    sc = sc * float(np.float32(1.0 / np.sqrt(hd)))
+    sc = sc * _sm_scale(hd)
     pr = torch.softmax(sc + _key_mask(lp, valid_len, causal, x.device),
                        dim=-1).to(dt)
     att = torch.einsum("bhqk,bkhc->bqhc", pr.float(), v.float()).to(dt)
@@ -200,18 +255,26 @@ def _on_cpu(x: torch.Tensor) -> bool:
     return False
 
 
-def _prepare(x: torch.Tensor, *params: torch.Tensor):
-    """Check what the kernels take; return x contiguous and the params
-    rounded to x.dtype, contiguous, on x's device."""
+def _prepare(x: torch.Tensor, *params: torch.Tensor, ln=(0, 1)):
+    """Check what the kernels take; return x contiguous and the params in
+    x.dtype, contiguous, on x's device.  A parameter that already is all
+    that comes back as the same object, at no cost.  The LayerNorm scale
+    and bias (the positions in `ln`) may also stay float32: layernorm.cu
+    reads them as stored and rounds them to x.dtype itself."""
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"sublayer kernels take float32 or bfloat16, "
                         f"not {x.dtype}")
-    x = x.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
     out = []
-    for p in params:
+    for i, p in enumerate(params):
         if p.device != x.device:
             raise ValueError(f"parameter on {p.device}, input on {x.device}")
-        out.append(p.to(x.dtype).contiguous())
+        if p.dtype != x.dtype and not (p.dtype == torch.float32 and i in ln):
+            p = p.to(x.dtype)
+        if not p.is_contiguous():
+            p = p.contiguous()
+        out.append(p)
     for t in (x, *out):
         if t.data_ptr() % 16:
             raise ValueError("sublayer kernels need 16-byte aligned tensors")
@@ -219,7 +282,13 @@ def _prepare(x: torch.Tensor, *params: torch.Tensor):
 
 
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The raw handle of x's device's current stream.  Asked of the C layer
+    directly: `torch.cuda.current_stream(...).cuda_stream` builds a Stream
+    object first, a tenth of a sublayer call's host time."""
+    index = x.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _check(err: int, what: str) -> None:
@@ -227,32 +296,20 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} refused the launch: CUDA error {err}")
 
 
-def _layernorm(x2, lns, lnb, eps):
-    """csrc/layernorm.cu: LN(x2) with fp32 statistics, in x2.dtype."""
-    from ._build import load_kernels
-    m, k = x2.shape
+def _check_ln(x2, lns, lnb) -> None:
+    k = x2.shape[1]
     if k % 8:
         raise ValueError(f"LayerNorm kernel needs a width divisible by 8, "
                          f"got {k}")
     if lns.shape != (k,) or lnb.shape != (k,):
         raise ValueError(f"LayerNorm scale {tuple(lns.shape)} and bias "
                          f"{tuple(lnb.shape)} for width {k}")
-    out = torch.empty_like(x2)
-    with torch.cuda.device(x2.device):
-        err = load_kernels().lib.cmve_layernorm(
-            _DTYPE_CODES[x2.dtype], x2.data_ptr(), lns.data_ptr(),
-            lnb.data_ptr(), out.data_ptr(), m, k, eps, _stream(x2))
-    _check(err, "layernorm kernel")
-    return out
+    if lns.dtype != lnb.dtype or lns.dtype not in (x2.dtype, torch.float32):
+        raise TypeError(f"LayerNorm scale {lns.dtype} and bias {lnb.dtype} "
+                        f"must both be {x2.dtype} or float32")
 
 
-def _gemm(a, epi, mats, resid=None):
-    """One launch of csrc/gemm.cu: out_i = epi(a @ w_i.T + b_i) for up to
-    three (w_i, b_i) that share a; returns the outputs.  bfloat16 runs the
-    wgmma kernel (TMA ring, persistent tiles), float32 the CUDA-core
-    kernel: the dtype alone decides, before the launch.  Plain version:
-    `_gemm_ref`."""
-    from ._build import load_kernels
+def _check_gemm(a, mats, resid=None) -> None:
     m, k = a.shape
     n = mats[0][0].shape[0]
     if k % 8 or n % 8:
@@ -265,6 +322,81 @@ def _gemm(a, epi, mats, resid=None):
     if resid is not None and resid.shape != (m, n):
         raise ValueError(f"residual {tuple(resid.shape)} for a GEMM output "
                          f"of {(m, n)}")
+
+
+# what csrc/attention_core.cu takes
+CORE_MAX_KEYS, CORE_WGMMA_HEAD_DIM, CORE_WGMMA_MAX_KEYS = 256, 64, 128
+_CORE_SMEM = 227 * 1024
+
+
+def core_path(dtype: torch.dtype, head_dim: int, valid_len: int) -> str:
+    """Which kernel of csrc/attention_core.cu serves a call, by dtype, head
+    dim and key count alone: "wgmma" (bfloat16, head dim 64, at most 128
+    keys: TMA ring, persistent blocks) or "fma" (everything else the core
+    takes: CUDA cores, K and V of one head in shared memory as fp32).
+    Raises for what neither takes."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"attention core takes float32 or bfloat16, "
+                        f"not {dtype}")
+    if head_dim < 1 or not 1 <= valid_len <= CORE_MAX_KEYS:
+        raise ValueError(f"attention core takes a head dim >= 1 and 1 <= "
+                         f"valid_len <= {CORE_MAX_KEYS}, got head dim "
+                         f"{head_dim}, valid_len={valid_len}")
+    if (dtype == torch.bfloat16 and head_dim == CORE_WGMMA_HEAD_DIM
+            and valid_len <= CORE_WGMMA_MAX_KEYS):
+        return "wgmma"
+    # K (rows padded by one), V, and a q row and a P row for each of 4 warps
+    smem = 4 * (valid_len * (2 * head_dim + 1) + 4 * (head_dim + valid_len))
+    if smem > _CORE_SMEM:
+        raise ValueError(f"attention core: head dim {head_dim} with "
+                         f"{valid_len} keys needs {smem} bytes of shared "
+                         f"memory as fp32, above {_CORE_SMEM}")
+    return "fma"
+
+
+def _check_core(q, heads, seq_stride, rows, valid_len) -> int:
+    """The shapes one core launch takes; returns the head dim."""
+    n, d = q.shape
+    hd = d // heads
+    if heads < 1 or heads * hd != d:
+        raise ValueError(f"heads={heads} does not divide width {d}")
+    if not 1 <= rows <= seq_stride or n % seq_stride:
+        raise ValueError(f"attention core takes 1 <= rows <= seq_stride "
+                         f"dividing the row count, got rows={rows} "
+                         f"seq_stride={seq_stride} for {n} rows")
+    if valid_len > rows:
+        raise ValueError(f"attention core takes valid_len <= rows, got "
+                         f"valid_len={valid_len} rows={rows}")
+    core_path(q.dtype, hd, valid_len)
+    return hd
+
+
+def _layernorm(x2, lns, lnb, eps):
+    """csrc/layernorm.cu: LN(x2) with fp32 statistics, in x2.dtype; scale
+    and bias in x2.dtype or float32."""
+    from ._build import load_kernels
+    _check_ln(x2, lns, lnb)
+    m, k = x2.shape
+    out = torch.empty_like(x2)
+    with torch.cuda.device(x2.device):
+        err = load_kernels().lib.cmve_layernorm(
+            _DTYPE_CODES[x2.dtype], _DTYPE_CODES[lns.dtype], x2.data_ptr(),
+            lns.data_ptr(), lnb.data_ptr(), out.data_ptr(), m, k, eps,
+            _stream(x2))
+    _check(err, "layernorm kernel")
+    return out
+
+
+def _gemm(a, epi, mats, resid=None):
+    """One launch of csrc/gemm.cu: out_i = epi(a @ w_i.T + b_i) for up to
+    three (w_i, b_i) that share a; returns the outputs.  bfloat16 runs the
+    wgmma kernel (TMA ring, persistent tiles), float32 the CUDA-core
+    kernel: the dtype alone decides, before the launch.  Plain version:
+    `_gemm_ref`."""
+    from ._build import load_kernels
+    _check_gemm(a, mats, resid)
+    m, k = a.shape
+    n = mats[0][0].shape[0]
     outs = [a.new_empty((m, n)) for _ in mats]
     ptrs = []
     for i in range(3):
@@ -281,40 +413,104 @@ def _gemm(a, epi, mats, resid=None):
 
 def _attention_core(q, k, v, att, *, heads, seq_stride, rows, valid_len,
                     causal):
-    """csrc/attention_core.cu into `att`.  The kernel refuses a head dim
-    whose fp32 keys and values would not fit in shared memory."""
+    """One launch of csrc/attention_core.cu into `att`; `core_path` names
+    the kernel.  Plain version: `_attention_core_ref`."""
     from ._build import load_kernels
-    lib = load_kernels().lib
+    hd = _check_core(q, heads, seq_stride, rows, valid_len)
     n, d = q.shape
-    hd = d // heads
-    if heads * hd != d:
-        raise ValueError(f"heads={heads} does not divide width {d}")
-    if not 1 <= valid_len <= min(rows, 256):
-        raise ValueError(f"attention core takes 1 <= valid_len <= "
-                         f"min(rows, 256), got valid_len={valid_len} "
-                         f"rows={rows}")
     with torch.cuda.device(q.device):
-        err = lib.cmve_attention_core(
+        err = load_kernels().lib.cmve_attention_core(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             att.data_ptr(), n // seq_stride, heads, d, hd, seq_stride, rows,
-            valid_len, int(causal), float(np.float32(1.0 / np.sqrt(hd))),
-            _stream(q))
+            valid_len, int(causal), _sm_scale(hd), _stream(q))
     _check(err, "attention core kernel")
     return att
 
 
-def _attn_cuda(x2, params, *, heads, seq_stride, rows, valid_len, causal,
-               eps):
+def _check_attn(x2, params, heads, seq_stride, rows, valid_len) -> int:
     lns, lnb, wq, bq, wk, bk, wv, bv, wo, bo = params
     if wq.shape[0] != x2.shape[1]:
         raise ValueError(f"q/k/v projections {tuple(wq.shape)} for width "
                          f"{x2.shape[1]}")
+    _check_ln(x2, lns, lnb)
+    _check_gemm(x2, ((wq, bq), (wk, bk), (wv, bv)))
+    _check_gemm(x2, ((wo, bo),), resid=x2)
+    return _check_core(x2, heads, seq_stride, rows, valid_len)
+
+
+def _attn_cuda_steps(x2, params, *, heads, seq_stride, rows, valid_len,
+                     causal, eps):
+    """The attention sublayer kernel by kernel, one crossing into C each:
+    what `_attn_cuda` enqueues in one."""
+    lns, lnb, wq, bq, wk, bk, wv, bv, wo, bo = params
+    _check_attn(x2, params, heads, seq_stride, rows, valid_len)
     ln = _layernorm(x2, lns, lnb, eps)
     q, k, v = _gemm(ln, _EPI_BIAS, ((wq, bq), (wk, bk), (wv, bv)))
     att = _attention_core(q, k, v, torch.empty_like(x2), heads=heads,
                           seq_stride=seq_stride, rows=rows,
                           valid_len=valid_len, causal=causal)
     return _gemm(att, _EPI_RESID, ((wo, bo),), resid=x2)[0]
+
+
+def _attn_cuda(x2, params, *, heads, seq_stride, rows, valid_len, causal,
+               eps):
+    """csrc/sublayer.cu, `cmve_attention_sublayer`: LayerNorm, q|k|v, the
+    core and the output projection enqueued by one call, on one workspace
+    of five (n, D) planes (LN(x), q, k, v, the attention output)."""
+    from ._build import load_kernels
+    hd = _check_attn(x2, params, heads, seq_stride, rows, valid_len)
+    n, d = x2.shape
+    work = x2.new_empty((5, n, d))
+    y = torch.empty_like(x2)
+    with torch.cuda.device(x2.device):
+        err = load_kernels().lib.cmve_attention_sublayer(
+            _DTYPE_CODES[x2.dtype], _DTYPE_CODES[params[0].dtype],
+            x2.data_ptr(), *[p.data_ptr() for p in params], work.data_ptr(),
+            y.data_ptr(), n, d, heads, seq_stride, rows, valid_len,
+            int(causal), eps, _sm_scale(hd), _stream(x2))
+    _check(err, "attention sublayer")
+    return y
+
+
+def _check_mlp(x2, params) -> None:
+    lns, lnb, w1, b1, w2, b2 = params
+    _check_ln(x2, lns, lnb)
+    _check_gemm(x2, ((w1, b1),))
+    if w2.shape != (x2.shape[1], w1.shape[0]):
+        raise ValueError(f"MLP projections {tuple(w1.shape)} then "
+                         f"{tuple(w2.shape)} for width {x2.shape[1]}")
+    if w2.shape[1] % 8 or b2.shape != (w2.shape[0],):
+        raise ValueError(f"GEMM shapes: w {tuple(w2.shape)} b "
+                         f"{tuple(b2.shape)} for a hidden width "
+                         f"{w1.shape[0]}")
+
+
+def _mlp_cuda_steps(x2, params, *, eps):
+    """The MLP sublayer kernel by kernel: what `_mlp_cuda` enqueues in one
+    call."""
+    lns, lnb, w1, b1, w2, b2 = params
+    _check_mlp(x2, params)
+    h = _gemm(_layernorm(x2, lns, lnb, eps), _EPI_GELU, ((w1, b1),))[0]
+    return _gemm(h, _EPI_RESID, ((w2, b2),), resid=x2)[0]
+
+
+def _mlp_cuda(x2, params, *, eps):
+    """csrc/sublayer.cu, `cmve_mlp_sublayer`: LayerNorm, the up projection
+    with quick_gelu and the down projection with the residual enqueued by
+    one call; the workspace holds LN(x) and the hidden activation."""
+    from ._build import load_kernels
+    _check_mlp(x2, params)
+    n, d = x2.shape
+    hidden = params[2].shape[0]
+    work = x2.new_empty(n * (d + hidden))
+    y = torch.empty_like(x2)
+    with torch.cuda.device(x2.device):
+        err = load_kernels().lib.cmve_mlp_sublayer(
+            _DTYPE_CODES[x2.dtype], _DTYPE_CODES[params[0].dtype],
+            x2.data_ptr(), *[p.data_ptr() for p in params], work.data_ptr(),
+            y.data_ptr(), n, d, hidden, eps, _stream(x2))
+    _check(err, "mlp sublayer")
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -382,11 +578,8 @@ def fused_mlp_sublayer(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
         return _mlp_ref(*a, eps=eps)
 
     def launch(*a):
-        xc, (lns, lnb, w1c, b1c, w2c, b2c) = _prepare(*a)
-        x2 = xc.reshape(-1, xc.shape[-1])
-        h = _gemm(_layernorm(x2, lns, lnb, eps), _EPI_GELU,
-                  ((w1c, b1c),))[0]
-        y = _gemm(h, _EPI_RESID, ((w2c, b2c),), resid=x2)[0]
+        xc, params = _prepare(*a)
+        y = _mlp_cuda(xc.reshape(-1, xc.shape[-1]), params, eps=eps)
         fused_mlp_sublayer.launches += 1
         return y.reshape(xc.shape)
 
@@ -445,7 +638,7 @@ def _block_cuda(x, params, *, heads, seq_len, causal, eps):
             code, x.data_ptr(), *[p.data_ptr() for p in params],
             y.data_ptr(), None if scratch is None else scratch.data_ptr(),
             n, d, heads, hidden, seq_len, int(causal), eps,
-            float(np.float32(1.0 / np.sqrt(d // heads))), _stream(x))
+            _sm_scale(d // heads), _stream(x))
     _check(err, "block sublayer kernel")
     return y
 
@@ -465,7 +658,7 @@ def fused_block_sublayer_compact(x, ln1s, ln1b, wq, bq, wk, bk, wv, bv, wo,
                                causal=causal, eps=eps)
 
     def launch(*a):
-        xc, params = _prepare(*a)
+        xc, params = _prepare(*a, ln=())   # block_sublayer.cu: all in x.dtype
         y = _block_cuda(xc, params, heads=heads, seq_len=seq_len,
                         causal=causal, eps=eps)
         fused_block_sublayer_compact.launches += 1

@@ -8,6 +8,8 @@ Counterpart of cross_modal_video_engine_tpu/utils/profiling.py:
   and the JAX version's carried dependency has no counterpart here.  Where
   no argument lies on a card, the host clock; without arguments the caller
   names the device.
+* `host_time(fn, calls=100)`: host seconds per call of `fn()` when calls are
+  enqueued back to back on the card: what a launch costs the host.
 * `StageTimer`: per-stage host timing that synchronizes the card before
   stamping.
 """
@@ -59,6 +61,23 @@ def device_time(fn: Callable, *args, steps: int = 10, warmup: int = 2,
         end.record()
         torch.cuda.synchronize(dev)
         return start.elapsed_time(end) * 1e-3 / steps
+
+
+def host_time(fn: Callable, calls: int = 100, warmup: int = 10) -> float:
+    """Host seconds per call of `fn()`: the card is waited for before the
+    first call and after the clock is read, so the time is that of
+    enqueueing.  Keep `calls` times the kernels a call launches below the
+    launch queue's depth (about a thousand), or the card's pace is what
+    is timed."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls
 
 
 class StageTimer:

@@ -87,6 +87,32 @@ def test_wgmma_tma_selfcheck(dev):
     assert ((d2 - want2).abs().max() / want2.abs().max()).item() <= 1e-5
 
 
+def test_wgmma_tma_selfcheck_key_tile(dev):
+    """The forms csrc/attention_core.cu adds: a 3-D tensor map (channels,
+    rows of one sequence bounded at 77, sequences) with a box of 80 rows,
+    a 64 x 80 product, five 16-key steps of the register-operand product.
+    Everything behind the bound (rows 77-79 of the sequence read, all of
+    the other sequence) is inf: the hardware's zero fill must keep it out."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    a = _randn(gen, dev, 64, 64).to(torch.bfloat16)
+    k, v = (torch.full((2, 80, 64), float("inf"), device=dev,
+                       dtype=torch.bfloat16) for _ in range(2))
+    k[1, :77] = _randn(gen, dev, 77, 64).to(torch.bfloat16)
+    v[1, :77] = _randn(gen, dev, 77, 64).to(torch.bfloat16)
+    d1, d2 = torch.empty(64, 80, device=dev), torch.empty(64, 64, device=dev)
+    err = _build.load_kernels().lib.cmve_wgmma_selfcheck_keys(
+        a.data_ptr(), k.data_ptr(), v.data_ptr(), d1.data_ptr(),
+        d2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    want1 = torch.zeros(64, 80, device=dev)
+    want1[:, :77] = a.float() @ k[1, :77].float().t()
+    want2 = want1[:, :77].to(torch.bfloat16).float() @ v[1, :77].float()
+    assert torch.isfinite(d1).all() and torch.isfinite(d2).all()
+    assert (d1 - want1).abs().max().item() <= 1e-4
+    assert ((d2 - want2).abs().max() / want2.abs().max()).item() <= 1e-5
+
+
 # csrc/gemm.cu by itself: (M, K, N); ragged against the 128-row tiles, the
 # 128- and 256-column tiles and the 64-deep k-tiles, and the sublayers' own
 GEMM_SHAPES = [(6400, 768, 3072), (6400, 3072, 768), (616, 512, 512),
@@ -160,6 +186,177 @@ def test_mlp_kernel(dev, dtype, shape):
         want = asl._mlp_ref(x, *p)
     torch.cuda.synchronize()
     _close(got, want, dtype)
+
+
+# -- the attention core by itself ---------------------------------------------
+
+# the wgmma core's tiles: 16-key steps, 64 query rows a warpgroup, one
+# warpgroup an item up to 64 rows and two above
+CORE_LENGTHS = [1, 8, 9, 50, 56, 57, 64, 65, 77, 80, 128]
+
+
+def _core_inputs(gen, dev, dtype, nseq, seq_stride, d):
+    return [_randn(gen, dev, nseq * seq_stride, d).to(dtype)
+            for _ in range(3)]
+
+
+def _core_close(got, want, dtype, nseq, seq_stride, rows):
+    d = got.shape[-1]
+    got = got.reshape(nseq, seq_stride, d)[:, :rows]
+    want = want.reshape(nseq, seq_stride, d)[:, :rows]
+    _flash_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("length", CORE_LENGTHS)
+def test_attention_core_compact_layout(dev, dtype, causal, length):
+    """Flat rows, no pad rows: rows == valid_len == seq_stride; more items
+    than one wave of blocks at the short lengths."""
+    gen = torch.Generator(device=dev).manual_seed(30 + length)
+    nseq, heads = (40, 12) if length <= 64 else (9, 8)
+    q, k, v = _core_inputs(gen, dev, dtype, nseq, length, heads * 64)
+    kw = dict(heads=heads, seq_stride=length, rows=length, valid_len=length,
+              causal=causal)
+    got = asl._attention_core(q, k, v, torch.empty_like(q), **kw)
+    want = asl._attention_core_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _core_close(got, want, dtype, nseq, length, length)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("length", CORE_LENGTHS)
+def test_attention_core_padded_strided_layout(dev, dtype, causal, length):
+    """Rank-3 rows with pad rows (rows = valid_len rounded up to 16, pad
+    rows pass as queries) inside a seq_stride larger than rows."""
+    gen = torch.Generator(device=dev).manual_seed(60 + length)
+    rows = -(-length // 16) * 16
+    stride, nseq, heads = rows + 5, 7, 3
+    q, k, v = _core_inputs(gen, dev, dtype, nseq, stride, heads * 64)
+    kw = dict(heads=heads, seq_stride=stride, rows=rows, valid_len=length,
+              causal=causal)
+    got = asl._attention_core(q, k, v, torch.zeros_like(q), **kw)
+    want = asl._attention_core_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _core_close(got, want, dtype, nseq, stride, rows)
+    # rows past `rows` in a sequence are not the kernel's to write
+    assert (got.reshape(nseq, stride, -1)[:, rows:] == 0).all()
+
+
+@pytest.mark.parametrize("rows,valid", [(50, 50), (80, 77), (128, 100),
+                                        (80, 50), (128, 16), (200, 100),
+                                        (300, 7)])
+def test_attention_core_reads_no_key_past_its_bound(dev, rows, valid):
+    """inf in every row of the neighbour sequences, in the pad rows of k
+    and v past valid_len and in the rows between `rows` and seq_stride
+    reaches no valid output (0 x inf would be NaN): the wgmma core reads
+    K and V through tensor maps bounded at valid_len."""
+    gen = torch.Generator(device=dev).manual_seed(90 + rows)
+    stride, heads = rows + 3, 4
+    q, k, v = _core_inputs(gen, dev, torch.bfloat16, 3, stride, heads * 64)
+    kw = dict(heads=heads, seq_stride=stride, rows=rows, valid_len=valid,
+              causal=False)
+    clean = asl._attention_core(q, k, v, torch.zeros_like(q), **kw)
+    torch.cuda.synchronize()
+    for t in (k, v):
+        t3 = t.reshape(3, stride, -1)
+        t3[0] = float("inf")
+        t3[2] = float("inf")
+        t3[1, valid:] = float("inf")
+    got = asl._attention_core(q, k, v, torch.zeros_like(q), **kw)
+    torch.cuda.synchronize()
+    got1 = got.reshape(3, stride, -1)[1, :rows]
+    assert torch.isfinite(got1.float()).all()
+    assert torch.equal(got1, clean.reshape(3, stride, -1)[1, :rows])
+    # and what it computed is right: two warpgroups on few keys too
+    q3, k3, v3 = (t.reshape(3, stride, -1)[1].contiguous() for t in (q, k, v))
+    want = asl._attention_core_ref(q3, k3, v3, **kw)
+    _core_close(got1, want[:rows], torch.bfloat16, 1, rows, rows)
+
+
+def test_attention_core_other_shapes_keep_the_cuda_core_kernel(dev):
+    """bf16 at another head dim, and more than 128 keys."""
+    gen = torch.Generator(device=dev).manual_seed(95)
+    for heads, d, length in ((4, 128, 50), (2, 128, 200)):
+        assert asl.core_path(torch.bfloat16, d // heads, length) == "fma"
+        q, k, v = _core_inputs(gen, dev, torch.bfloat16, 5, length, d)
+        kw = dict(heads=heads, seq_stride=length, rows=length,
+                  valid_len=length, causal=True)
+        got = asl._attention_core(q, k, v, torch.empty_like(q), **kw)
+        want = asl._attention_core_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        _core_close(got, want, torch.bfloat16, 5, length, length)
+
+
+# -- one host call per sublayer -------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_call_sublayers_equal_the_step_by_step_path(dev, dtype):
+    """cmve_attention_sublayer and cmve_mlp_sublayer enqueue the same
+    kernels on the same inputs as the one-crossing-per-kernel path: equal
+    bit for bit, with fp32 LayerNorm parameters and with cast ones."""
+    gen = torch.Generator(device=dev).manual_seed(96)
+    d, heads, length = 256, 4, 50
+    x = _randn(gen, dev, 6 * length, d, std=0.5).to(dtype)
+    for cast_ln in (False, True):
+        xa, pa = asl._prepare(x, *_attn_params(gen, dev, d))
+        xm, pm = asl._prepare(x, *_mlp_params(gen, dev, d))
+        if cast_ln:
+            pa[:2] = [t.to(dtype) for t in pa[:2]]
+            pm[:2] = [t.to(dtype) for t in pm[:2]]
+        kw = dict(heads=heads, seq_stride=length, rows=length,
+                  valid_len=length, causal=True, eps=1e-5)
+        one = asl._attn_cuda(xa, pa, **kw)
+        steps = asl._attn_cuda_steps(xa, pa, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(one, steps)
+        assert torch.equal(asl._mlp_cuda(xm, pm, eps=1e-5),
+                           asl._mlp_cuda_steps(xm, pm, eps=1e-5))
+
+
+def test_layernorm_kernel_rounds_fp32_parameters_itself(dev):
+    """fp32 scale and bias read by the kernel give what casting them
+    first gives: the same rounding point."""
+    gen = torch.Generator(device=dev).manual_seed(97)
+    x = _randn(gen, dev, 300, 512, std=0.5).to(torch.bfloat16)
+    lns, lnb = 1.0 + _randn(gen, dev, 512, std=0.1), _randn(gen, dev, 512)
+    got = asl._layernorm(x, lns, lnb, 1e-5)
+    cast = asl._layernorm(x, lns.bfloat16(), lnb.bfloat16(), 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cast)
+    _close(got, asl._ln_f32(x, lns.bfloat16(), lnb.bfloat16(), 1e-5),
+           torch.bfloat16)
+
+
+def test_weight_updated_in_place_changes_the_result(dev):
+    """The weights' tensor maps are kept on the C side by address and
+    shape; a map encodes no contents, so an in-place update is seen."""
+    gen = torch.Generator(device=dev).manual_seed(98)
+    d = 256
+    p = _attn_params(gen, dev, d)
+    p = p[:2] + [t.to(torch.bfloat16) for t in p[2:]]
+    x = _randn(gen, dev, 100, d, std=0.5).to(torch.bfloat16)
+    kw = dict(heads=4, seq_len=50)
+    with torch.no_grad():
+        first = asl.fused_attention_sublayer_compact(x, *p, **kw)
+        p[8].mul_(-1.0)                       # the output projection
+        p[2].copy_(_randn(gen, dev, d, d, std=d ** -0.5))
+        second = asl.fused_attention_sublayer_compact(x, *p, **kw)
+        want = asl._attn_ref_flat(x, *p, causal=False, **kw)
+    torch.cuda.synchronize()
+    assert not torch.equal(first, second)
+    _close(second, want, torch.bfloat16)
+
+
+def test_prepared_parameters_are_not_copied(dev):
+    gen = torch.Generator(device=dev).manual_seed(99)
+    p = _attn_params(gen, dev, 64)
+    p = p[:2] + [t.to(torch.bfloat16) for t in p[2:]]
+    x = _randn(gen, dev, 20, 64).to(torch.bfloat16)
+    xc, out = asl._prepare(x, *p)
+    assert xc is x and all(a is b for a, b in zip(out, p))
+    assert out[0].dtype == torch.float32        # read as stored
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
