@@ -119,11 +119,12 @@ class LayerNormF32(nn.Module):
 
 
 class MHA(nn.Module):
-    """Self-attention in nn.MultiheadAttention's parameter layout
-    (in_proj_weight (3D, D), in_proj_bias, out_proj), unfused: scores and
-    softmax in fp32, probabilities rounded to the compute dtype.
+    """Self- or cross-attention (`kv=`) in nn.MultiheadAttention's
+    parameter layout (in_proj_weight (3D, D), in_proj_bias, out_proj),
+    unfused: scores and softmax in fp32, probabilities rounded to the
+    compute dtype.
 
-    With `use_flash` an unmasked call goes through
+    With `use_flash` an unmasked self-attention call goes through
     ops/flash_attention.flash_attention instead (the CUDA kernel on a CUDA
     tensor), as the JAX MHA(use_flash=True) does; a call with a mask
     keeps the plain path."""
@@ -146,20 +147,25 @@ class MHA(nn.Module):
         return (w[:d], b[:d], w[d:2 * d], b[d:2 * d], w[2 * d:], b[2 * d:])
 
     def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: (B, L, D); mask: (L, L) additive fp32 mask."""
+                mask: Optional[torch.Tensor] = None,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (B, L, D) queries; kv: (B, S, D) keys and values for cross
+        attention (None: x); mask: (L, S) additive fp32 mask."""
+        is_self = kv is None
+        kv = x if is_self else kv
         b, l, d = x.shape
+        s = kv.shape[1]
         h, hd, dt = self.heads, d // self.heads, self.dtype
         wq, bq, wk, bk, wv, bv = (p.to(dt) for p in self.qkv_params())
 
-        def heads_first(t):
-            return t.reshape(b, l, h, hd).transpose(1, 2)
+        def heads_first(t, n):
+            return t.reshape(b, n, h, hd).transpose(1, 2)
 
-        q = heads_first(F.linear(x, wq, bq))
-        k = heads_first(F.linear(x, wk, bk))
-        v = heads_first(F.linear(x, wv, bv))
+        q = heads_first(F.linear(x, wq, bq), l)
+        k = heads_first(F.linear(kv, wk, bk), s)
+        v = heads_first(F.linear(kv, wv, bv), s)
         scale = 1.0 / math.sqrt(hd)
-        if self.use_flash and mask is None:
+        if self.use_flash and is_self and mask is None:
             out = flash_attention(q, k, v, scale).to(dt)
         else:
             logits = (q.float() @ k.float().transpose(-1, -2)) * scale

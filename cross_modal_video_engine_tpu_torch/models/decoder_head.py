@@ -13,8 +13,11 @@ The steps are a Python loop over `max_len` (the JAX package's lax.scan).
 The GRU input is concat(current labels, encoder feature).  All of it runs
 in fp32 on the parameters' values, as the JAX head does: its encoder
 feature is fp32, so the products promote to fp32 even when the
-parameters were cast to bf16.  Input dropout is a training feature and
-is not applied.
+parameters were cast to bf16.  In train mode (`self.training`, the JAX
+head's `train=True`) each step's GRU input is dropped elementwise with
+probability `input_dropout_p` and scaled by 1/keep, drawn from
+`generator` (None: torch's default generator).  The head is built in
+eval mode, the JAX default.
 
 Parameter names are those of the reference head's state dict, which
 cross_modal_video_engine_tpu.convert.torch_import.convert_rnn_decoder_head
@@ -38,7 +41,7 @@ class RNNDecoderConfig:
     in_channels: int = 768          # encoder feature dim (the GRU width)
     max_len: int = 5
     threshold: float = 0.5
-    input_dropout_p: float = 0.1    # training only
+    input_dropout_p: float = 0.1    # train mode only
 
 
 class GRUCell(nn.Module):
@@ -71,13 +74,16 @@ class GRUCell(nn.Module):
 
 class RNNDecoderHead(nn.Module):
     def __init__(self, cfg: RNNDecoderConfig,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        self.generator = generator
         c, h = cfg.num_classes, cfg.in_channels
         self.start_emb = nn.Embedding(1, c, dtype=dtype, device=device)
         self.rnn = GRUCell(c + h, h, dtype, device)
         self.out = nn.Linear(h, c, dtype=dtype, device=device)
+        self.eval()   # the JAX default (train=False); .train() for dropout
 
     def forward(self, encoder_outputs: torch.Tensor,
                 targets_emb: Optional[torch.Tensor] = None,
@@ -100,7 +106,13 @@ class RNNDecoderHead(nn.Module):
             if i > 0:
                 current = (targets_emb[:, i].float() if mode == "train"
                            else (steps[-1] > cfg.threshold).float())
-            h = self.rnn(h, torch.cat([current, enc], -1))
+            x = torch.cat([current, enc], -1)
+            if self.training and cfg.input_dropout_p > 0:
+                keep = 1.0 - cfg.input_dropout_p
+                mask = torch.rand(x.shape, generator=self.generator,
+                                  device=x.device) < keep
+                x = torch.where(mask, x / keep, torch.zeros_like(x))
+            h = self.rnn(h, x)
             steps.append(torch.sigmoid(F.linear(h, w_out, b_out)))
         return torch.stack(steps, 1)
 

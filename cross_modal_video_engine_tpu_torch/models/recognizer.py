@@ -64,6 +64,7 @@ class Recognizer3D(nn.Module):
         self.backbone = TimeSformer(backbone_cfg, device)
         self.cls_head = TimeSformerHead(num_classes, backbone_cfg.embed_dims,
                                         backbone_cfg.torch_dtype(), device)
+        self.eval()   # the JAX default (train=False); .train() for dropout
 
     def extract_feat(self, videos: torch.Tensor) -> torch.Tensor:
         return self.backbone(videos)
@@ -96,6 +97,7 @@ class Recognizer3DRelseq(nn.Module):
         self.backbone = TimeSformer(backbone_cfg, device)
         self.cls_head = RNNDecoderHead(decoder_cfg,
                                        backbone_cfg.torch_dtype(), device)
+        self.eval()   # the JAX default (train=False); .train() for dropout
 
     def extract_feat(self, videos: torch.Tensor) -> torch.Tensor:
         return self.backbone(videos)

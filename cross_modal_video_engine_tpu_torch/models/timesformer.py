@@ -29,15 +29,17 @@ with operation order (norm, self_attn, norm, ffn): `norms.0`,
 `attentions.0.attn`, `norms.1`, `ffns.0.layers.0.0`, `ffns.0.layers.1`.
 Attention modules keep nn.MultiheadAttention's `in_proj_weight` layout.
 
-Serving only: stochastic depth and dropout are the identity, as at
-inference in the JAX package; `remat` only shapes a training backward
-pass and changes nothing here.
+Stochastic depth (`DropPath`) and the dropouts after the position and
+time embeddings act in train mode, as `train=True` does in the JAX
+package, and are the identity in eval mode, in which the model is built
+(the JAX default, `train=False`).  `remat` only shapes a training
+backward pass and changes nothing here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -82,15 +84,25 @@ class TimeSformerConfig:
 
 
 class DropPath(nn.Module):
-    """Stochastic depth: the identity at inference (the training slice
-    adds the random drop)."""
+    """Stochastic depth: in train mode each sample (leading index) is
+    dropped whole with probability `rate` and the others are scaled by
+    1/keep; the identity in eval mode or at rate 0.  The draw takes
+    `generator` (None: torch's default generator)."""
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.rate = rate
+        self.generator = generator
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.rand(shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class LN(nn.Module):
@@ -226,6 +238,8 @@ class TimeSformer(nn.Module):
         if cfg.attention_type != "space_only":
             self.time_embed = nn.Parameter(
                 torch.zeros(1, cfg.time_tokens, d, dtype=dt, device=device))
+        self.drop_after_pos = nn.Dropout(cfg.dropout_ratio)
+        self.drop_after_time = nn.Dropout(cfg.dropout_ratio)
         block = (DividedSTBlock if cfg.attention_type == "divided_space_time"
                  else JointBlock)
         rates = torch.linspace(0, cfg.drop_path_max, cfg.num_layers).tolist()
@@ -233,6 +247,7 @@ class TimeSformer(nn.Module):
         self.transformer_layers.layers = nn.ModuleList(
             block(cfg, rate, device) for rate in rates)
         self.norm = LN(d, dt, device)
+        self.eval()   # the JAX default (train=False); .train() for dropout
 
     @property
     def blocks(self) -> nn.ModuleList:
@@ -264,12 +279,14 @@ class TimeSformer(nn.Module):
         else:                                    # (B*T, 3, H, W)
             x = proj(videos.to(dt).flatten(0, 1).permute(0, 3, 1, 2))
             x = x.flatten(2).transpose(1, 2)
-        x = torch.cat([self.cls_token.expand(b * t, 1, d), x], 1) \
-            + self.pos_embed
+        x = self.drop_after_pos(
+            torch.cat([self.cls_token.expand(b * t, 1, d), x], 1)
+            + self.pos_embed)
         if cfg.attention_type != "space_only":
             cls_tokens = x.reshape(b, t, p + 1, d)[:, 0, :1]  # frame 0's
-            patches = x[:, 1:].reshape(b, t, p, d).transpose(1, 2) \
-                + self.time_embed
+            patches = self.drop_after_time(
+                x[:, 1:].reshape(b, t, p, d).transpose(1, 2)
+                + self.time_embed)
             x = torch.cat([cls_tokens, patches.reshape(b, p * t, d)], 1)
         return x
 

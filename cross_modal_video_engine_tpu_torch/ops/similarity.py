@@ -118,15 +118,12 @@ def cal_error(videos, captions, measure: str = "cosine", block: int = 0,
     """Error (lower = better) matrix of shape (n_captions, n_videos) in
     fp32.  `block` > 0 scores the captions in chunks of that many rows, to
     bound the (block, n_videos, d) temporaries of the broadcast measures.
-    Tensors stay where they are; other inputs go to `device` (None: the
-    CUDA device)."""
-    def place(a):
-        if isinstance(a, torch.Tensor):
-            return a.float()
-        return torch.as_tensor(a, dtype=torch.float32,
-                               device=resolve_device(device))
-
-    vid, cap = place(videos), place(captions)
+    Both inputs go to one device: that of the first tensor among them,
+    else `device` (None: the CUDA device)."""
+    tensors = [a for a in (videos, captions) if isinstance(a, torch.Tensor)]
+    dev = tensors[0].device if tensors else resolve_device(device)
+    vid, cap = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in (videos, captions))
     if block and cap.shape[0] > block:
         return torch.cat([_errors(c, vid, measure)
                           for c in cap.split(block)], 0)

@@ -187,3 +187,74 @@ def test_port_imports_no_jax():
     root = __file__.rsplit("/tests/", 1)[0]
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
                    timeout=120)
+
+
+def _mha_pair(seed, d=32, heads=4):
+    """JAX MHA params and the port's MHA state dict, from one numpy seed."""
+    rng = np.random.default_rng(seed)
+    p = {name: {"kernel": (rng.standard_normal((d, d)) / np.sqrt(d))
+                .astype(np.float32),
+                "bias": (0.1 * rng.standard_normal(d)).astype(np.float32)}
+         for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
+    sd = {"in_proj_weight": np.concatenate(
+              [p[n]["kernel"].T for n in ("q_proj", "k_proj", "v_proj")]),
+          "in_proj_bias": np.concatenate(
+              [p[n]["bias"] for n in ("q_proj", "k_proj", "v_proj")]),
+          "out_proj.weight": p["out_proj"]["kernel"].T,
+          "out_proj.bias": p["out_proj"]["bias"]}
+    return {"params": p}, {k: torch.from_numpy(np.ascontiguousarray(a))
+                           for k, a in sd.items()}
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_mha_cross_attention_matches_jax(dtype, tol, masked):
+    """MHA(kv=...): q from x, k and v from kv (S != L), against the JAX MHA
+    with kv on one set of weights; with an additive (L, S) mask too."""
+    d, heads, b, l, s = 32, 4, 2, 5, 7
+    variables, sd = _mha_pair(17, d, heads)
+    rng = np.random.default_rng(18)
+    x = rng.standard_normal((b, l, d)).astype(np.float32)
+    kv = rng.standard_normal((b, s, d)).astype(np.float32)
+    mask = np.where(rng.random((l, s)) < 0.3, -np.inf, 0.0) \
+        .astype(np.float32) if masked else None
+    if masked:
+        mask[:, 0] = 0.0                        # every row sees a key
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jm = jclip.MHA(d, heads, jdt)
+    want = jm.apply(variables, jnp.asarray(x, jdt),
+                    None if mask is None else jnp.asarray(mask),
+                    kv=jnp.asarray(kv, jdt))
+    tm = tclip.MHA(d, heads, tdt, device="cpu")
+    tm.load_state_dict({k: v.to(tdt) for k, v in sd.items()})
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x).to(tdt),
+                 None if mask is None else torch.from_numpy(mask),
+                 kv=torch.from_numpy(kv).to(tdt))
+    assert tuple(got.shape) == (b, l, d) and got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=0, atol=tol)
+
+
+def test_mha_cross_attention_skips_flash(monkeypatch):
+    """With use_flash, a call with kv keeps the plain path (as in JAX):
+    the flash wrapper is never reached, and the result equals the plain
+    module's."""
+    variables, sd = _mha_pair(19)
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 32)).astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 9, 32)).astype(np.float32))
+    plain = tclip.MHA(32, 4, torch.float32, device="cpu")
+    flash = tclip.MHA(32, 4, torch.float32, device="cpu", use_flash=True)
+    plain.load_state_dict(sd)
+    flash.load_state_dict(sd)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("flash path taken with kv")
+
+    monkeypatch.setattr(tclip, "flash_attention", refuse)
+    with torch.no_grad():
+        torch.testing.assert_close(flash(x, kv=kv), plain(x, kv=kv),
+                                   rtol=0, atol=0)

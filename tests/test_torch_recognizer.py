@@ -186,6 +186,38 @@ def test_decoder_head_modes_match_jax():
         th(e, mode="train")
 
 
+def test_decoder_head_input_dropout_in_train_mode():
+    """input_dropout_p acts in train mode only: eval mode (and p = 0 in
+    train mode) give the dropout-free result and draw nothing; train mode
+    with p > 0 differs from it, repeats under one generator seed, and
+    leaves the global RNG alone when given a generator."""
+    rng = np.random.default_rng(61)
+    enc = torch.from_numpy(rng.standard_normal((3, 32)).astype(np.float32))
+    tgt = torch.from_numpy((rng.random((3, 4, 7)) > 0.5).astype(np.float32))
+    cfg = tdec.RNNDecoderConfig(**dict(DECODER, input_dropout_p=0.5))
+    th = tdec.RNNDecoderHead(cfg)
+    g = torch.Generator().manual_seed(62)
+    for prm in th.parameters():
+        with torch.no_grad():
+            prm.copy_(torch.randn(prm.shape, generator=g))
+    th0 = tdec.RNNDecoderHead(tdec.RNNDecoderConfig(
+        **dict(DECODER, input_dropout_p=0.0)))
+    th0.load_state_dict(th.state_dict())
+    state = torch.random.get_rng_state()     # construction draws; calls don't
+    with torch.no_grad():
+        ref = th.eval()(enc, tgt, mode="train")
+        torch.testing.assert_close(th0.train()(enc, tgt, mode="train"), ref,
+                                   rtol=0, atol=0)
+        th.train()
+        th.generator = torch.Generator().manual_seed(63)
+        a = th(enc, tgt, mode="train")
+        th.generator = torch.Generator().manual_seed(63)
+        b = th(enc, tgt, mode="train")
+    assert torch.equal(torch.random.get_rng_state(), state)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (a - ref).abs().max() > 1e-3
+
+
 def test_init_recognizer_bf16_cast_matches_jax():
     """A bf16 caption config: the port's init_recognizer casts and loads,
     the JAX side runs its maybe_cast_bf16 tree, and both compute bf16."""

@@ -66,6 +66,31 @@ def test_cal_error_keeps_tensors_where_they_are():
     assert got.device.type == "cpu" and tuple(got.shape) == (5, 7)
 
 
+@pytest.mark.parametrize("tensor_arg", ["videos", "captions"])
+def test_cal_error_places_mixed_inputs_on_the_tensors_device(tensor_arg):
+    """A CPU tensor beside a numpy array: both go to the tensor's device
+    (no `device` given, which would otherwise mean the card), and the
+    matrix is the one the two numpy arrays give."""
+    vid, cap = _inputs("cosine", seed=3)
+    want = tsim.cal_error(vid, cap, device="cpu")
+    args = ((torch.from_numpy(vid), cap) if tensor_arg == "videos"
+            else (vid, torch.from_numpy(cap)))
+    got = tsim.cal_error(*args)
+    assert got.device.type == "cpu" and tuple(got.shape) == (5, 7)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jsim.cal_error(vid, cap)), rtol=TOL, atol=TOL)
+
+
+def test_cal_error_two_arrays_go_to_the_device_asked():
+    vid, cap = _inputs("l2", seed=4)
+    got = tsim.cal_error(vid, cap, measure="l2", device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.float32
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jsim.cal_error(vid, cap, measure="l2")),
+        rtol=TOL, atol=TOL)
+
+
 def test_unknown_names_raise():
     with pytest.raises(KeyError, match="unknown similarity"):
         tsim.get_sim("manhattan")

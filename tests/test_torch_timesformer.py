@@ -209,3 +209,76 @@ def test_jax_config_dict_loads_and_errors():
     model = tts.TimeSformer(tts.TimeSformerConfig(**SMALL), device="cpu")
     with pytest.raises(ValueError, match="frames"):
         model(torch.zeros(1, 3, 16, 16, 3))
+
+
+def _drop_share(out, x, keep):
+    """Per sample: all zeros, or exactly x / keep; returns the share
+    dropped."""
+    out, x = np.asarray(out), np.asarray(x)
+    dropped = np.all(out == 0, axis=(1, 2))
+    kept = np.all(out == (x / np.float32(keep)), axis=(1, 2))
+    assert np.all(dropped | kept)
+    return dropped.mean()
+
+
+def test_drop_path_port_and_jax_drop_whole_samples():
+    """Eval mode and rate 0 are the identity; in train mode each sample
+    is all zeros or exactly x/keep, dropped with probability `rate`, in
+    the port (seeded generator) and in the JAX DropPath alike."""
+    rate, n = 0.3, 4000
+    x = np.random.default_rng(31).standard_normal((n, 3, 4)) \
+        .astype(np.float32) + 5.0                 # no element is 0
+    xt = torch.from_numpy(x)
+    dp = tts.DropPath(rate, generator=torch.Generator().manual_seed(32))
+    dp.eval()
+    assert dp(xt) is xt
+    dp0 = tts.DropPath(0.0).train()
+    assert dp0(xt) is xt
+    dp.train()
+    share = _drop_share(dp(xt).numpy(), x, 1.0 - rate)
+    assert abs(share - rate) < 0.03, share
+    jdp = jts.DropPath(rate)
+    want = jdp.apply({}, jnp.asarray(x), train=True,
+                     rngs={"dropout": jax.random.key(33)})
+    jshare = _drop_share(want, x, 1.0 - rate)
+    assert abs(jshare - rate) < 0.03, jshare
+    np.testing.assert_array_equal(
+        np.asarray(jdp.apply({}, jnp.asarray(x), train=False)), x)
+
+
+def test_drop_path_generator_repeats_and_leaves_global_rng():
+    x = torch.ones(64, 2, 3)
+    state = torch.random.get_rng_state()
+    a = tts.DropPath(0.5, torch.Generator().manual_seed(7)).train()(x)
+    b = tts.DropPath(0.5, torch.Generator().manual_seed(7)).train()(x)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert torch.equal(torch.random.get_rng_state(), state)
+
+
+@pytest.mark.parametrize("variant", ["divided", "joint"])
+def test_train_mode_dropouts_act_and_eval_is_untouched(pairs, videos,
+                                                       variant):
+    """The model in eval mode equals the JAX forward and draws nothing from
+    the global RNG; in train mode the embedding dropouts and DropPath
+    change the output, and with every rate at 0 train mode is eval mode."""
+    jm, variables, tm = pairs[variant]
+    v = torch.from_numpy(videos)
+    want = np.asarray(jm.apply(variables, jnp.asarray(videos)))
+    state = torch.random.get_rng_state()
+    with torch.no_grad():
+        got = tm.eval()(v)
+    assert torch.equal(torch.random.get_rng_state(), state)
+    _close(to_np(got), want)
+
+    kw = dict(SMALL, **VARIANTS[variant])
+    for rates, changes in (
+            (dict(dropout_ratio=0.0, drop_path_max=0.0), False),
+            (dict(dropout_ratio=0.5, drop_path_max=0.0), True),
+            (dict(dropout_ratio=0.0, drop_path_max=0.9), True)):
+        m = tts.TimeSformer(tts.TimeSformerConfig(**kw, **rates),
+                            device="cpu")
+        m.load_state_dict(tm.state_dict())
+        with torch.no_grad(), torch.random.fork_rng(devices=[]):
+            torch.manual_seed(41)
+            trained = m.train()(torch.cat([v] * 8))[:2]
+        assert bool((trained - got).abs().max() > 1e-3) == changes, rates
