@@ -26,12 +26,12 @@ from .block_ab import build_stack
 
 SEQ_LEN, WIDTH, HEADS = 50, 768, 12
 # the kernel's BLK_MARK indices: its top level, then inside the steps
-PHASES = ("x and its statistics", "q|k|v products", "q|k|v epilogue",
-          "softmax(q k^T) v", "output projection", "y1 and its statistics",
+PHASES = ("x and LN1(x)", "q|k|v products", "q|k|v epilogue",
+          "softmax(q k^T) v", "output projection", "y1 and LN2(y1)",
           "hidden chunk products", "gelu epilogue", "second MLP product",
-          "y", "up: products of a slab", "up: wait + barrier",
-          "up: start loads + LayerNorm slab", "down: products of a step",
-          "down: wait + barrier", "down: start loads")
+          "y", "up: products of a slab", "up: wait for the tile",
+          "up: release (and refill)", "down: products of a tile",
+          "down: wait for the tile", "down: release (and refill)")
 TOP_LEVEL = 10
 
 

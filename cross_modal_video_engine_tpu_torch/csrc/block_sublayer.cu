@@ -1,7 +1,6 @@
 // A whole transformer block in one launch: y1 = x + W_o MHA(LN1(x)) + b_o,
 // then y = y1 + W2 quick_gelu(W1 LN2(y1) + b1) + b2, on flat (B*L, D) rows
-// of whole sequences.  x is read from device memory once and y written
-// once per layer; no intermediate leaves the SM (bf16).
+// of whole sequences (bf16: no intermediate but y1 leaves the SM).
 //
 // Replaces _block_kernel_compact / _block_pallas_compact
 // (fused_block_sublayer_compact) of
@@ -13,46 +12,41 @@
 // quick_gelu in fp32 before the cast, each residual added in x.dtype to
 // the rounded projection.
 //
-// bf16 design.  One 512-thread block owns a tile of up to 64 rows: as many
-// whole sequences as fit (one at L = 50).  Shared memory (226.5 KB at
-// D = 768) holds the residual stream (x, then y1, then y), a staging area
-// (q | k | v^T of one head, or 192 hidden columns), a ring of weight tiles
-// filled by cp.async, two 64-column slabs of LayerNorm output, and the
-// LayerNorm's scale, bias and row statistics.  The
-// D-wide output sum of a sublayer (64 x D fp32) stays in registers, 48
-// columns a warp, while its operand arrives in pieces:
-//   attention half, head by head: q, k, v of one head (64 x 3hd, K = D)
-//     -> softmax(q k^T) v on four warps -> out += att_h W_o[:, head]^T;
-//   MLP half, 192 hidden columns at a time: gelu(LN2 W1^T + b1)
-//     -> out += hidden_chunk W2[:, chunk]^T.
-// A projection step ("up") walks K in 64-column slabs: the weights of slab
-// s + 2 are in flight while LN(x) of slab s + 1 is normalised from the
-// residual stream and the row statistics (there is no room for a whole
-// LayerNorm tile) and slab s is multiplied.  An accumulation step
-// ("down") walks K 16 columns at a time over all D weight rows, two
-// stages.  Every product is mma.sync m16n8k16 bf16 with both operands
-// read from shared memory by ldmatrix.  Pad rows of k and v are written
-// as zeros and masked as keys; the softmax of one tile covers several
-// sequences by a block-diagonal mask.
+// What bounds it on the H100.  One 512-thread block owns a tile of up to 64
+// rows (as many whole sequences as fit: one at L = 50), and every block
+// streams all of the layer's weights, 14.16 MB at D = 768, from L2: at
+// (51200, 768) that is 1024 blocks and 14.5 GB through L2 for 0.73 TFLOP.
+// So the weight stream, not the tensor cores, sets the pace; the 64 x D
+// fp32 output sum of a sublayer takes 96 of a thread's 128 registers.
 //
-// What bounds it on the H100: every block streams all of the block's
-// weights (14.2 MB at D = 768) from L2, so at (51200, 768) a layer reads
-// 1024 x 14.2 MB through L2 for 0.73 TFLOP of work, and the 64 x D output
-// sum takes three quarters of the register file (96 of a thread's 128
-// registers), which leaves one block per SM and makes ptxas spill.  The
-// first version read the weights as 4-byte fragment loads (eight cache
-// lines an instruction) and ran 7x slower than the two-kernel chain; there
-// L2 latency was not yet the limit (with the weight loads confined to L1
-// it was no faster).  The cp.async ring halves its time, and now the
-// weight traffic is the first limit (per-phase cycles:
-// bench/block_profile.py, PERF.md): issuing and waiting for the loads is
-// half of the product steps' cycles, and no warp overlaps them with
-// products, since one block per SM is in step at a barrier every 64
-// columns of K.  Next come the shared-memory re-reads of the A tile (every
-// warp reads it for its 24 columns) and the spills.  A faster design
-// shares each weight tile over more rows (clusters with multicast TMA),
-// feeds wgmma from shared memory, and splits the warps into producers and
-// consumers.
+// bf16 design.  The layer's weight tiles are used in an order fixed before
+// the launch (`issue_tile`): per head the q|k|v rows of the head in 64-
+// column slabs of K, then its W_o columns, one tile per output quarter;
+// then per chunk of 192 hidden columns its W1 slabs and its W2 tiles.  All
+// six matrices are 2-D TMA tensor maps with the 128-byte swizzle; tiles of
+// up to 192 x 64 arrive in a ring of NSLOT slots on full mbarriers, and the
+// warp that finishes the last read of a slot starts the tile that takes the
+// slot next, so the ring runs NSLOT tiles ahead across heads, steps and
+// the two halves, and no block barrier sits between the slabs of a step.
+// The block barriers left hand the staging area (q | k | v^T of a head, or
+// a hidden chunk) and the LayerNorm tile between steps.  LN(x) of the whole
+// tile is made once per sublayer into shared memory (96 KB), where the
+// products read it; x itself is read again from device memory for the
+// residual, and y1 goes to y and is read back by the MLP half: 0.24 GB a
+// layer at (51200, 768) against the 14.5 GB of weights, for no LayerNorm
+// work inside the steps and a ring of four 24 KB slots.  Products are
+// mma.sync m16n8k16 with both operands read by ldmatrix at swizzled
+// addresses; 16 warps: an up step (q|k|v of a head, a hidden chunk) is
+// 2 row halves x 8 column groups, a down step (into the output sum) gives
+// warp w output columns 48 w .. 48 w + 47.  Softmax(q k^T) v of one head
+// runs on four warps; pad rows of k and v are written as zeros and masked
+// as keys; the softmax of one tile covers several sequences by a
+// block-diagonal mask.
+//
+// -DCMVE_BLK_PROFILE stamps cycles by phase (bench/block_profile.py);
+// -DCMVE_BLK_NO_MMA skips the products of the weight stream (up and down
+// steps) and keeps the launch, the schedule and every load: its time is the
+// load-side ceiling of this design.
 //
 // f32 exists to separate algorithm from rounding.  Its tiles do not fit in
 // shared memory, so only the residual stream lives there; LN, q, k, v, the
@@ -72,37 +66,29 @@ constexpr int BLK_WARPS = BLK_THREADS / 32;
 constexpr int F32_THREADS = 256;
 constexpr int BLK_MAX_D = 768;
 constexpr int BLK_MAX_HD = 64;
-constexpr int BLK_PAD = 8;                      // bank-spread row padding
-constexpr int BLK_HS = BLK_MAX_HD + BLK_PAD;    // q, k, v^T rows of a head
-constexpr int BLK_CHUNK = 192;                  // hidden columns per step
-constexpr int BLK_CS = BLK_CHUNK + BLK_PAD;
-// staging: q | k | v^T of one head, or one hidden chunk
-constexpr int BLK_STAGE = 3 * BLK_ROWS * BLK_HS;
-static_assert(BLK_STAGE >= BLK_ROWS * BLK_CS, "hidden chunk fits staging");
-static_assert(3 * BLK_MAX_HD <= BLK_CHUNK, "q | k | v is one up step");
-// up step: K in slabs of UP_KS columns; the weight ring holds UP_STAGES
-// slabs of BLK_CHUNK rows; warps are 2 (row halves) x UP_NG (column groups
-// of UP_NT 8-column tiles)
-constexpr int UP_KS = 64;
-constexpr int UP_KSP = UP_KS + BLK_PAD;
-constexpr int UP_STAGES = 3;
-constexpr int UP_STAGE = BLK_CHUNK * UP_KSP;    // elements
-constexpr int UP_NG = BLK_WARPS / 2;
-constexpr int UP_NT = BLK_CHUNK / 8 / UP_NG;
-constexpr int LN_SLAB = BLK_ROWS * UP_KSP;      // elements
-static_assert(UP_NT * UP_NG * 8 == BLK_CHUNK, "the up step's warp tiling");
-static_assert((BLK_ROWS * UP_KS / 8) % BLK_THREADS == 0,
-              "whole 8-element vectors of a LayerNorm slab per thread");
-// down step: K 16 columns at a time over all D weight rows, two stages;
-// a warp owns OUT_NT neighbouring 8-column tiles of the output
-constexpr int DOWN_KP = 16 + BLK_PAD;
-constexpr int DOWN_STAGE = BLK_MAX_D * DOWN_KP;  // elements
-constexpr int OUT_NT = BLK_MAX_D / 8 / BLK_WARPS;
-static_assert(OUT_NT * BLK_WARPS * 8 == BLK_MAX_D && OUT_NT % 2 == 0,
-              "the output is covered, two tiles an ldmatrix");
-constexpr int BLK_RING =
-    UP_STAGES * UP_STAGE > 2 * DOWN_STAGE ? UP_STAGES * UP_STAGE
-                                          : 2 * DOWN_STAGE;  // elements
+// hidden columns of an MLP step, and output columns of a quarter (the
+// columns of four warps)
+constexpr int BLK_CHUNK = 192;
+constexpr int SUB = BLK_ROWS * 64;   // elements of a 64 x 64 tile: 8 KB
+constexpr int SLOT = BLK_CHUNK * 64; // elements of a ring slot: 24 KB
+constexpr int NSLOT = 4;             // ring slots
+constexpr int UP_NT = BLK_CHUNK / 8 / 8;             // mma up step: tiles of a warp
+constexpr int OUT_NT = BLK_CHUNK / 4 / 8;            // mma down step: the same
+static_assert(3 * BLK_MAX_HD <= BLK_CHUNK, "q | k | v of a head is one slot");
+static_assert(UP_NT == 3 && OUT_NT == 6, "the mma tilings below");
+static_assert(BLK_MAX_D == 4 * BLK_CHUNK, "four output quarters at most");
+
+// the layer's tile schedule (see issue_tile), made on the host
+struct Sched {
+  int ks;          // D / 64: slabs of an up step
+  int nq;          // output quarters: ceil(D / 192)
+  int per_head;    // ks + nq
+  int attn_tiles;  // heads * per_head
+  int per_chunk;   // ks + 3 nq: tiles of a full hidden chunk
+  int total;       // tiles of the layer
+  int o_rows;      // rows of a wo / w2 box: min(192, D)
+  int w1_rows;     // rows of a w1 box: min(192, hidden)
+};
 
 struct BlockParams {
   const void* x;
@@ -112,6 +98,7 @@ struct BlockParams {
   float* scratch;       // f32 only: per-block LN, q, k, v, att, hidden
   int n, D, heads, hd, hidden, seq_len, rows_per_block, causal;
   float eps, scale;
+  Sched sched;          // bf16 only
 };
 
 // float32 path: LayerNorm of the tile's 64 rows, src -> dst, one warp per
@@ -157,7 +144,7 @@ __device__ __forceinline__ void ln_tile_f32(const float* src, float* dst,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores, everything on chip
+// bf16: the weight stream on TMA, tensor cores for the products
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void st_u32(bf16* p, uint32_t v) {
@@ -178,276 +165,164 @@ __device__ __forceinline__ void blk_mark(long long* prof, int chain, int i,
     prof[16 + chain] = now;
   }
 }
-#define BLK_MARK(chain, i) blk_mark(sm.prof, chain, i, tid)
+#define BLK_MARK(chain, i) blk_mark(blk_prof, chain, i, tid)
 #else
 #define BLK_MARK(chain, i)
 #endif
 
-// the block's shared memory
-struct BlockSmem {
-  bf16* XS;       // [64][D + 8]: x, then y1, then y
-  bf16* ST;       // staging: q | k | v^T of a head, or a hidden chunk
-  bf16* LNS;      // two LayerNorm slabs [64][UP_KSP]
-  bf16* LNP;      // LayerNorm scale [D], then bias [D]
-  bf16* RING;     // weight tiles
-  float2* stats;  // per row: mean, rsqrt(var + eps)
-#ifdef CMVE_BLK_PROFILE
-  long long* prof;  // 16 phase sums, then the two chains' last stamps
-#endif
+// The six weight matrices as 2-D tensor maps (columns, rows), 128-byte
+// swizzle, boxes of 64 columns: wq, wk, wv (hd rows), wo, w1, w2 (up to 192
+// rows).
+struct WeightMaps {
+  const CUtensorMap* m[6];
 };
 
-// fp32 statistics of the tile's 64 rows, one warp per row; the arithmetic
-// and its order are layernorm.cu's
-__device__ __forceinline__ void row_stats(const bf16* src, int stride, int D,
-                                          float eps, float2* stats, int warp,
-                                          int lane) {
+// The ring: NSLOT slots of SLOT elements, a full barrier each (one arrival
+// with the bytes, then the TMA bytes), and a count of the warps done with
+// the slot's tile.
+struct Ring {
+  bf16* slots;
+  uint64_t* full;
+  int* done;
+};
+
+// Starts the loads of tile t of the layer's schedule into its slot.  The
+// schedule, in the order the products use the tiles:
+//   for each head h:  ks tiles "U": rows h*hd .. of wq | wk | wv, columns
+//                       64 s .. 64 s + 63 (three boxes of hd rows);
+//                     nq tiles "O": rows 192 j .. of wo, columns h*hd ..
+//                       h*hd + 63, for the output quarter j;
+//   for each hidden chunk c of 192:  ks tiles "W1": rows 192 c .. of w1,
+//                       columns 64 s ..;  then for each 64 columns k of the
+//                       chunk, nq tiles "W2": rows 192 j .. of w2, columns
+//                       192 c + 64 k ...
+// Rows and columns past a matrix's end arrive as zeros.
+__device__ __forceinline__ void issue_tile(const BlockParams& p,
+                                           const WeightMaps& w,
+                                           const Ring& r, int t) {
+  const Sched& s = p.sched;
+  bf16* dst = r.slots + (t % NSLOT) * SLOT;
+  uint64_t* bar = r.full + t % NSLOT;
+  if (t < s.attn_tiles) {
+    const int h = t / s.per_head, i = t - h * s.per_head;
+    if (i < s.ks) {
+      mbar_expect_tx(bar, 3 * p.hd * 128);
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+        tma_load_2d(dst + m * p.hd * 64, w.m[m], bar, 64 * i, h * p.hd);
+    } else {
+      mbar_expect_tx(bar, s.o_rows * 128);
+      tma_load_2d(dst, w.m[3], bar, h * p.hd, BLK_CHUNK * (i - s.ks));
+    }
+  } else {
+    const int u = t - s.attn_tiles, c = u / s.per_chunk,
+              i = u - c * s.per_chunk;
+    if (i < s.ks) {
+      mbar_expect_tx(bar, s.w1_rows * 128);
+      tma_load_2d(dst, w.m[4], bar, 64 * i, BLK_CHUNK * c);
+    } else {
+      const int m = i - s.ks, k = m / s.nq, j = m - k * s.nq;
+      mbar_expect_tx(bar, s.o_rows * 128);
+      tma_load_2d(dst, w.m[5], bar, BLK_CHUNK * c + 64 * k, BLK_CHUNK * j);
+    }
+  }
+}
+
+__device__ __forceinline__ const bf16* tile_wait(const Ring& r, int t) {
+  mbar_wait(&r.full[t % NSLOT], (t / NSLOT) & 1);
+  return r.slots + (t % NSLOT) * SLOT;
+}
+
+// A warp is done with tile t.  Every warp waits for every tile and releases
+// it, those of the other output quarters too (at once): a warp that skipped
+// a fill of a slot could take a later phase of the same parity for the one
+// it waits for.  The warp that completes the count starts the tile that
+// takes the slot next, so the ring runs NSLOT tiles ahead of the slowest
+// warp, across steps and phases, with no block barrier.
+__device__ __forceinline__ void tile_release(const BlockParams& p,
+                                             const WeightMaps& w,
+                                             const Ring& r, int t, int lane) {
+  __syncwarp();
+  if (lane == 0) {
+    const int slot = t % NSLOT;
+    __threadfence_block();
+    if (atomicAdd(&r.done[slot], 1) + 1 == BLK_WARPS) {
+      r.done[slot] = 0;
+      if (t + NSLOT < p.sched.total) issue_tile(p, w, r, t + NSLOT);
+    }
+  }
+  __syncwarp();
+}
+
+// LN(rows row0 .. row0 + nrows - 1 of src) into the LayerNorm tile (D / 64
+// sub-tiles), one warp per row; rows past nrows are zero rows.  fp32
+// statistics by two passes over the row held in registers, in
+// layernorm.cu's order; scale and bias in x.dtype.  `ro`: src is read-only
+// for the kernel's lifetime (x), else it was written by this block (y1).
+__device__ __forceinline__ void ln_tile(const bf16* src, bool ro, int row0,
+                                        int nrows, int D,
+                                        const bf16* __restrict__ scale,
+                                        const bf16* __restrict__ bias,
+                                        float eps, bf16* LN, int warp,
+                                        int lane) {
+  constexpr int NV = BLK_MAX_D / 8 / 32;  // 8-element vectors per lane
   const int nvec = D / 8;
   for (int r = warp; r < BLK_ROWS; r += BLK_WARPS) {
-    const bf16* xr = src + r * stride;
-    float s = 0.f;
-    for (int v = lane; v < nvec; v += 32) {
-      alignas(16) bf16 e[8];
-      *reinterpret_cast<uint4*>(e) = reinterpret_cast<const uint4*>(xr)[v];
+    alignas(16) bf16 e[NV][8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s += to_f32(e[j]);
+    for (int i = 0; i < NV; ++i) {
+      const int v = lane + 32 * i;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (v < nvec && r < nrows) {
+        const uint4* g =
+            reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D) + v;
+        u = ro ? __ldg(g) : *g;
+      }
+      *reinterpret_cast<uint4*>(e[i]) = u;
     }
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (lane + 32 * i < nvec)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s += to_f32(e[i][j]);
     const float mu = warp_sum(s) / (float)D;
     float s2 = 0.f;
-    for (int v = lane; v < nvec; v += 32) {
-      alignas(16) bf16 e[8];
-      *reinterpret_cast<uint4*>(e) = reinterpret_cast<const uint4*>(xr)[v];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float d = to_f32(e[j]) - mu;
-        s2 += d * d;
-      }
-    }
+    for (int i = 0; i < NV; ++i)
+      if (lane + 32 * i < nvec)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float d = to_f32(e[i][j]) - mu;
+          s2 += d * d;
+        }
     const float rs = rsqrtf(warp_sum(s2) / (float)D + eps);
-    if (lane == 0) stats[r] = make_float2(mu, rs);
-  }
-}
-
-// columns [k0, k0 + 64) of LN(rows of XS) into a slab, 8-element vectors
-__device__ __forceinline__ void ln_slab(const BlockSmem& sm, int DP, int D,
-                                        int k0, bf16* slab, int tid) {
 #pragma unroll
-  for (int j = 0; j < BLK_ROWS * UP_KS / 8 / BLK_THREADS; ++j) {
-    const int idx = tid + j * BLK_THREADS, r = idx >> 3, c = (idx & 7) * 8;
-    alignas(16) bf16 e[8], sc[8], bi[8];
-    *reinterpret_cast<uint4*>(e) =
-        *reinterpret_cast<const uint4*>(sm.XS + r * DP + k0 + c);
-    *reinterpret_cast<uint4*>(sc) =
-        *reinterpret_cast<const uint4*>(sm.LNP + k0 + c);
-    *reinterpret_cast<uint4*>(bi) =
-        *reinterpret_cast<const uint4*>(sm.LNP + D + k0 + c);
-    const float2 st = sm.stats[r];
+    for (int i = 0; i < NV; ++i) {
+      const int v = lane + 32 * i;
+      if (v < nvec) {
+        alignas(16) bf16 sc[8], bi[8];
+        *reinterpret_cast<uint4*>(sc) =
+            __ldg(reinterpret_cast<const uint4*>(scale) + v);
+        *reinterpret_cast<uint4*>(bi) =
+            __ldg(reinterpret_cast<const uint4*>(bias) + v);
 #pragma unroll
-    for (int q = 0; q < 8; ++q)
-      e[q] = from_f32<bf16>((to_f32(e[q]) - st.x) * st.y * to_f32(sc[q]) +
-                            to_f32(bi[q]));
-    *reinterpret_cast<uint4*>(slab + r * UP_KSP + c) =
-        *reinterpret_cast<uint4*>(e);
-  }
-}
-
-// the LayerNorm's scale and bias into shared memory, once per sublayer
-__device__ __forceinline__ void load_ln_params(const BlockSmem& sm, int D,
-                                               const bf16* __restrict__ scale,
-                                               const bf16* __restrict__ bias,
-                                               int tid) {
-  for (int i = tid; i < D / 8; i += BLK_THREADS) {
-    reinterpret_cast<uint4*>(sm.LNP)[i] =
-        __ldg(reinterpret_cast<const uint4*>(scale) + i);
-    reinterpret_cast<uint4*>(sm.LNP + D)[i] =
-        __ldg(reinterpret_cast<const uint4*>(bias) + i);
-  }
-}
-
-// acc = LN(XS)[64 x D] W^T for the nB (<= 192, a multiple of 8) weight rows
-// rowptr(0 .. nB - 1), each D long.  Warp (mh, ng) owns rows 32 mh .. + 31
-// and the 8-column tiles 3 ng .. 3 ng + 2 (those below nB / 8).  Ends with
-// every warp's products started; the caller synchronises before the ring,
-// the slabs or the staging area change hands.
-template <typename RowPtr>
-__device__ __forceinline__ void up_phase(float (&acc)[2][UP_NT][4],
-                                         const BlockSmem& sm, int DP, int D,
-                                         RowPtr rowptr, int nB, int tid) {
-  const int warp = tid >> 5, lane = tid & 31;
-  const int mh = warp / UP_NG, ng = warp % UP_NG;
-  const int cnt = min(max(nB / 8 - UP_NT * ng, 0), UP_NT);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int i = 0; i < UP_NT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][i][e] = 0.f;
-
-  // 16-byte pieces of weight rows, global -> ring stage, by cp.async
-  auto load_slab = [&](int s) {
-    bf16* stage = sm.RING + (s % UP_STAGES) * UP_STAGE;
-#pragma unroll
-    for (int j = 0; j < BLK_CHUNK * (UP_KS / 8) / BLK_THREADS; ++j) {
-      const int idx = tid + j * BLK_THREADS, R = idx >> 3, c = (idx & 7) * 8;
-      if (R < nB)
-        cp_async16(stage + R * UP_KSP + c, rowptr(R) + s * UP_KS + c, true);
-    }
-  };
-  const int ns = D / UP_KS;
-  BLK_MARK(1, -1);
-  load_slab(0);
-  cp_async_commit();
-  if (ns > 1) load_slab(1);
-  cp_async_commit();
-  ln_slab(sm, DP, D, 0, sm.LNS, tid);
-  BLK_MARK(1, 12);
-
-  for (int s = 0; s < ns; ++s) {
-    // slab s has landed; every warp is done with slab s - 1, whose ring
-    // stage and LayerNorm slab are written next
-    cp_async_wait<1>();
-    __syncthreads();
-    BLK_MARK(1, 11);
-    if (s + 2 < ns) load_slab(s + 2);
-    cp_async_commit();
-    if (s + 1 < ns)
-      ln_slab(sm, DP, D, (s + 1) * UP_KS, sm.LNS + ((s + 1) & 1) * LN_SLAB,
-              tid);
-    BLK_MARK(1, 12);
-    if (cnt > 0) {
-      const bf16* A = sm.LNS + (s & 1) * LN_SLAB +
-                      (32 * mh + (lane & 15)) * UP_KSP + (lane >> 4) * 8;
-      const bf16* B = sm.RING + (s % UP_STAGES) * UP_STAGE +
-                      (UP_NT * ng * 8 + (lane & 7)) * UP_KSP +
-                      ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int kk = 0; kk < UP_KS; kk += 16) {
-        uint32_t af[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4(af[mi], A + mi * 16 * UP_KSP + kk);
-        // two tiles an ldmatrix (lanes 16-31 address the second), then
-        // the odd last one
-#pragma unroll
-        for (int pr = 0; pr < UP_NT / 2; ++pr)
-          if (2 * pr < cnt) {
-            uint32_t b[4];
-            ldmatrix_x4(b, B + (2 * pr + (lane >> 4)) * 8 * UP_KSP + kk);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-              mma_bf16_16816(acc[mi][2 * pr], af[mi], b);
-              if (2 * pr + 1 < cnt)
-                mma_bf16_16816(acc[mi][2 * pr + 1], af[mi], b + 2);
-            }
-          }
-        if (UP_NT % 2 && cnt == UP_NT) {
-          uint32_t b[2];
-          ldmatrix_x2(b, B + (UP_NT - 1) * 8 * UP_KSP + kk);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-            mma_bf16_16816(acc[mi][UP_NT - 1], af[mi], b);
-        }
+        for (int j = 0; j < 8; ++j)
+          e[i][j] = from_f32<bf16>((to_f32(e[i][j]) - mu) * rs *
+                                       to_f32(sc[j]) +
+                                   to_f32(bi[j]));
+        *reinterpret_cast<uint4*>(LN + (v >> 3) * SUB + swz(r, (v & 7) * 8)) =
+            *reinterpret_cast<const uint4*>(e[i]);
       }
     }
-    BLK_MARK(1, 10);
   }
-}
-
-// oacc += S[64 x kw] W[:, koff : koff + kw]^T, kw a multiple of 16.
-// S: shared memory, row stride lds.  W: (D, ldw) row-major.  A warp owns
-// the output tiles OUT_NT warp .. + OUT_NT - 1 (those below D / 8).  Ends
-// synchronised: the ring and S are free.
-__device__ __forceinline__ void down_phase(float (&oacc)[4][OUT_NT][4],
-                                           const BlockSmem& sm, const bf16* S,
-                                           int lds, int kw,
-                                           const bf16* __restrict__ W,
-                                           int ldw, int koff, int D,
-                                           int tid) {
-  const int warp = tid >> 5, lane = tid & 31;
-  const int cnt = min(max(D / 8 - OUT_NT * warp, 0), OUT_NT);
-  auto load_step = [&](int s) {
-    bf16* stage = sm.RING + (s & 1) * DOWN_STAGE;
-#pragma unroll
-    for (int j = 0; j < BLK_MAX_D * 2 / BLK_THREADS; ++j) {
-      const int idx = tid + j * BLK_THREADS, R = idx >> 1, c = (idx & 1) * 8;
-      if (R < D)
-        cp_async16(stage + R * DOWN_KP + c,
-                   W + (size_t)R * ldw + koff + 16 * s + c, true);
-    }
-  };
-  const int nk = kw / 16;
-  BLK_MARK(1, -1);
-  load_step(0);
-  cp_async_commit();
-  BLK_MARK(1, 15);
-  for (int s = 0; s < nk; ++s) {
-    // step s has landed; every warp is done with step s - 1
-    cp_async_wait<0>();
-    __syncthreads();
-    BLK_MARK(1, 14);
-    if (s + 1 < nk) load_step(s + 1);
-    cp_async_commit();
-    BLK_MARK(1, 15);
-    if (cnt > 0) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], S + (mi * 16 + (lane & 15)) * lds + 16 * s +
-                                (lane >> 4) * 8);
-      const bf16* B = sm.RING + (s & 1) * DOWN_STAGE +
-                      (OUT_NT * warp * 8 + (lane & 7) + ((lane >> 4) << 3)) *
-                          DOWN_KP +
-                      ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int pr = 0; pr < OUT_NT / 2; ++pr)
-        if (2 * pr < cnt) {
-          uint32_t b[4];  // tiles 2 pr and 2 pr + 1
-          ldmatrix_x4(b, B + pr * 16 * DOWN_KP);
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) {
-            mma_bf16_16816(oacc[mi][2 * pr], af[mi], b);
-            if (2 * pr + 1 < cnt)
-              mma_bf16_16816(oacc[mi][2 * pr + 1], af[mi], b + 2);
-          }
-        }
-    }
-    BLK_MARK(1, 13);
-  }
-  __syncthreads();
-  BLK_MARK(1, 14);
-}
-
-// XS[r][c] = round(round(oacc + bias[c]) + XS[r][c]) for the warp's output
-// tiles, in place; oacc is zeroed
-__device__ __forceinline__ void residual_epilogue(
-    float (&oacc)[4][OUT_NT][4], const bf16* __restrict__ bias, bf16* XS,
-    int stride, int D, int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int cnt = min(max(D / 8 - OUT_NT * warp, 0), OUT_NT);
-#pragma unroll
-  for (int i = 0; i < OUT_NT; ++i)
-    if (i < cnt) {
-      const int c = (OUT_NT * warp + i) * 8 + 2 * t;
-      const float b0 = to_f32(bias[c]), b1 = to_f32(bias[c + 1]);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          bf16* p = XS + (mi * 16 + g + 8 * half) * stride + c;
-          const float2 x = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(p));
-          const float p0 = round_to<bf16>(oacc[mi][i][2 * half] + b0);
-          const float p1 = round_to<bf16>(oacc[mi][i][2 * half + 1] + b1);
-          st_u32(p, pack_bf16(p0 + x.x, p1 + x.y));
-          oacc[mi][i][2 * half] = 0.f;
-          oacc[mi][i][2 * half + 1] = 0.f;
-        }
-    }
 }
 
 // softmax(q k^T * scale) v of one head for 16 query rows (one warp), the
 // tile's rows being whole sequences of L rows: row r sees the keys of its
-// own sequence (and, when causal, none after itself).  q is read from QS
-// and the result written over the same rows.
+// own sequence (and, when causal, none after itself).  q, k: [row][c], v^T:
+// [c][key], swizzled tiles; the result is written over the warp's q rows,
+// which is where the output projection reads it.
 __device__ __forceinline__ void attend_rows(bf16* QS, const bf16* KS,
                                             const bf16* VT, int mt, int hd,
                                             int L, int nrows, int causal,
@@ -458,8 +333,8 @@ __device__ __forceinline__ void attend_rows(bf16* QS, const bf16* KS,
 #pragma unroll
   for (int ks = 0; ks < BLK_MAX_HD / 16; ++ks)
     if (ks * 16 < hd)
-      ldmatrix_x4(qf[ks], QS + (mt * 16 + (lane & 15)) * BLK_HS + ks * 16 +
-                              (lane >> 4) * 8);
+      ldmatrix_x4(qf[ks], QS + swz(mt * 16 + (lane & 15),
+                                   ks * 16 + (lane >> 4) * 8));
   float sc[BLK_ROWS / 8][4];
 #pragma unroll
   for (int nt = 0; nt < BLK_ROWS / 8; ++nt) {
@@ -468,8 +343,9 @@ __device__ __forceinline__ void attend_rows(bf16* QS, const bf16* KS,
 #pragma unroll
     for (int ks = 0; ks < BLK_MAX_HD / 16; ++ks)
       if (ks * 16 < hd) {
-        const bf16* kp = KS + (nt * 8 + g) * BLK_HS + ks * 16 + 2 * t;
-        const uint32_t b[2] = {ld_u32(kp), ld_u32(kp + 8)};
+        const int kr = nt * 8 + g, kc = ks * 16 + 2 * t;
+        const uint32_t b[2] = {ld_u32(KS + swz(kr, kc)),
+                               ld_u32(KS + swz(kr, kc + 8))};
         mma_bf16_16816(sc[nt], qf[ks], b);
       }
   }
@@ -532,8 +408,9 @@ __device__ __forceinline__ void attend_rows(bf16* QS, const bf16* KS,
 #pragma unroll
     for (int ct = 0; ct < BLK_MAX_HD / 8; ++ct)
       if (ct * 8 < hd) {
-        const bf16* vp = VT + (ct * 8 + g) * BLK_HS + kt * 16 + 2 * t;
-        const uint32_t b[2] = {ld_u32(vp), ld_u32(vp + 8)};
+        const int vr = ct * 8 + g, vc = kt * 16 + 2 * t;
+        const uint32_t b[2] = {ld_u32(VT + swz(vr, vc)),
+                               ld_u32(VT + swz(vr, vc + 8))};
         mma_bf16_16816(o[ct], pf, b);
       }
   }
@@ -541,180 +418,330 @@ __device__ __forceinline__ void attend_rows(bf16* QS, const bf16* KS,
 #pragma unroll
   for (int ct = 0; ct < BLK_MAX_HD / 8; ++ct)
     if (ct * 8 < hd) {
-      st_u32(QS + ra * BLK_HS + ct * 8 + 2 * t, pack_bf16(o[ct][0], o[ct][1]));
-      st_u32(QS + rb * BLK_HS + ct * 8 + 2 * t, pack_bf16(o[ct][2], o[ct][3]));
+      st_u32(QS + swz(ra, ct * 8 + 2 * t), pack_bf16(o[ct][0], o[ct][1]));
+      st_u32(QS + swz(rb, ct * 8 + 2 * t), pack_bf16(o[ct][2], o[ct][3]));
     }
 }
 
+// -- products on mma.sync (route "mma") -------------------------------------
+//
+// Up step: warp (mh, ng) = (warp / 8, warp % 8) owns rows 32 mh .. + 31 and
+// the 8-column tiles 3 ng .. 3 ng + 2 (those below nB / 8) of the 64 x nB
+// result.  Down step: warp w owns output columns 48 w .. 48 w + 47, which
+// are rows 48 (w % 4) .. of the slot of its quarter w / 4.
+
+struct MmaUp {
+  float acc[2][UP_NT][4];
+};
+struct MmaOut {
+  float acc[4][OUT_NT][4];
+};
+
+// acc (+)= A_s[64 x 64] B^T, B the nB rows of a slot; cnt: the warp's tiles
+__device__ __forceinline__ void mma_up_slab(MmaUp& u, const bf16* A,
+                                            const bf16* B, int cnt, int mh,
+                                            int ng, int lane) {
+#ifndef CMVE_BLK_NO_MMA
+  if (cnt <= 0) return;
+#pragma unroll
+  for (int kk = 0; kk < 64; kk += 16) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldmatrix_x4(af[mi], A + swz(32 * mh + 16 * mi + (lane & 15),
+                                  kk + (lane >> 4) * 8));
+    const int bc = kk + ((lane >> 3) & 1) * 8;
+    {  // tiles 0 and 1 of the warp (lanes 16-31 address the second)
+      uint32_t b[4];
+      ldmatrix_x4(b, B + swz((UP_NT * ng + (lane >> 4)) * 8 + (lane & 7), bc));
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma_bf16_16816(u.acc[mi][0], af[mi], b);
+        if (cnt > 1) mma_bf16_16816(u.acc[mi][1], af[mi], b + 2);
+      }
+    }
+    if (cnt > 2) {
+      uint32_t b[2];
+      ldmatrix_x2(b, B + swz((UP_NT * ng + 2) * 8 + (lane & 7), bc));
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma_bf16_16816(u.acc[mi][2], af[mi], b);
+    }
+  }
+#endif
+}
+
+// out += A[64 x kw] B^T over the warp's 48 rows of the slot B; A one
+// swizzled 64-column tile, kw <= 64 a multiple of 16
+__device__ __forceinline__ void mma_down(MmaOut& o, const bf16* A, int kw,
+                                         const bf16* B, int cnt, int wl,
+                                         int lane) {
+#ifndef CMVE_BLK_NO_MMA
+  if (cnt <= 0) return;
+  for (int kk = 0; kk < kw; kk += 16) {
+    uint32_t af[4][4];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+      ldmatrix_x4(af[mi], A + swz(16 * mi + (lane & 15), kk + (lane >> 4) * 8));
+    const int br = 48 * wl + (lane & 7) + ((lane >> 4) << 3);
+    const int bc = kk + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int pr = 0; pr < OUT_NT / 2; ++pr)
+      if (2 * pr < cnt) {
+        uint32_t b[4];  // tiles 2 pr and 2 pr + 1
+        ldmatrix_x4(b, B + swz(br + 16 * pr, bc));
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          mma_bf16_16816(o.acc[mi][2 * pr], af[mi], b);
+          if (2 * pr + 1 < cnt)
+            mma_bf16_16816(o.acc[mi][2 * pr + 1], af[mi], b + 2);
+        }
+      }
+  }
+#endif
+}
+
+// The result element (row, column) of each accumulator, for the epilogues:
+// f(row, col, v0, v1) for the pair (col, col + 1).
+template <typename F>
+__device__ __forceinline__ void mma_up_each(MmaUp& u, int cnt, int mh, int ng,
+                                            int lane, F f) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < UP_NT; ++i)
+    if (i < cnt)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          f(32 * mh + 16 * mi + g + 8 * half, (UP_NT * ng + i) * 8 + 2 * t,
+            u.acc[mi][i][2 * half], u.acc[mi][i][2 * half + 1]);
+}
+
+template <typename F>
+__device__ __forceinline__ void mma_out_each(MmaOut& o, int cnt, int warp,
+                                             int lane, F f) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < OUT_NT; ++i)
+    if (i < cnt)
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          f(16 * mi + g + 8 * half, (OUT_NT * warp + i) * 8 + 2 * t,
+            o.acc[mi][i][2 * half], o.acc[mi][i][2 * half + 1]);
+}
+
+// y[r][c] = round(round(out + bias[c]) + res[r][c]) for the rows of the
+// block (r < nrows); out is zeroed.  res: x (read-only) or y1 (this
+// block's own writes to y, read back by the thread that wrote them).
+template <typename Out, typename Each>
+__device__ __forceinline__ void residual_out(Out& o, Each each,
+                                             const bf16* __restrict__ bias,
+                                             const bf16* res, bool ro,
+                                             bf16* y, int row0, int nrows,
+                                             int D) {
+  each(o, [&](int r, int c, float& v0, float& v1) {
+    if (r < nrows) {
+      const size_t off = (size_t)(row0 + r) * D + c;
+      const uint32_t* rp = reinterpret_cast<const uint32_t*>(res + off);
+      const uint32_t rv = ro ? __ldg(rp) : *rp;
+      const float2 x =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv));
+      const float p0 = round_to<bf16>(v0 + to_f32(bias[c]));
+      const float p1 = round_to<bf16>(v1 + to_f32(bias[c + 1]));
+      st_u32(y + off, pack_bf16(p0 + x.x, p1 + x.y));
+    }
+    v0 = 0.f;
+    v1 = 0.f;
+  });
+}
+
+template <bool WG>
 __global__ void __launch_bounds__(BLK_THREADS, 1)
-    block_kernel_bf16(const BlockParams p) {
-  extern __shared__ __align__(16) unsigned char blk_smem[];
-  const int D = p.D, DP = D + BLK_PAD, hd = p.hd, L = p.seq_len;
-  BlockSmem sm;
-  sm.XS = reinterpret_cast<bf16*>(blk_smem);
-  sm.ST = sm.XS + BLK_ROWS * DP;
-  sm.LNS = sm.ST + BLK_STAGE;
-  sm.LNP = sm.LNS + 2 * LN_SLAB;
-  sm.RING = sm.LNP + 2 * D;
-  sm.stats = reinterpret_cast<float2*>(sm.RING + BLK_RING);
+    block_kernel_bf16(const __grid_constant__ CUtensorMap map_wq,
+                      const __grid_constant__ CUtensorMap map_wk,
+                      const __grid_constant__ CUtensorMap map_wv,
+                      const __grid_constant__ CUtensorMap map_wo,
+                      const __grid_constant__ CUtensorMap map_w1,
+                      const __grid_constant__ CUtensorMap map_w2,
+                      const BlockParams p) {
+  extern __shared__ unsigned char blk_smem_raw[];
+  const int D = p.D, hd = p.hd, L = p.seq_len;
+  const Sched& S = p.sched;
+  bf16* const LN = reinterpret_cast<bf16*>(align_1024(blk_smem_raw));
+  bf16* const ST = LN + (D / 64) * SUB;   // staging: three sub-tiles
+  bf16* const QS = ST;                    // q, then the attention output
+  bf16* const KS = ST + SUB;              // k: [key][c]
+  bf16* const VT = ST + 2 * SUB;          // v^T: [c][key]
+  bf16* const HS = ST;                    // a hidden chunk: 192 columns
+  Ring ring;
+  ring.slots = ST + 3 * SUB;
+  ring.full = reinterpret_cast<uint64_t*>(ring.slots + NSLOT * SLOT);
+  ring.done = reinterpret_cast<int*>(ring.full + NSLOT);
+  const WeightMaps wm{{&map_wq, &map_wk, &map_wv, &map_wo, &map_w1, &map_w2}};
 #ifdef CMVE_BLK_PROFILE
   __shared__ long long blk_prof[18];
-  sm.prof = blk_prof;
   if (threadIdx.x == 0)
     for (int i = 0; i < 18; ++i) blk_prof[i] = 0;
 #endif
-  bf16* const QS = sm.ST;                       // q, then att: [row][c]
-  bf16* const KS = QS + BLK_ROWS * BLK_HS;      // k: [key][c]
-  bf16* const VT = KS + BLK_ROWS * BLK_HS;      // v^T: [c][key]
-  bf16* const HS = sm.ST;                       // hidden chunk
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mh = warp / UP_NG, ng = warp % UP_NG;  // the up step's tiling
   const int row0 = blockIdx.x * p.rows_per_block;
   const int nrows = min(p.rows_per_block, p.n - row0);
+  const int quarter = warp >> 2;               // of the output columns
   const bf16* x = static_cast<const bf16*>(p.x);
-  const bf16* wq = static_cast<const bf16*>(p.wq);
-  const bf16* wk = static_cast<const bf16*>(p.wk);
-  const bf16* wv = static_cast<const bf16*>(p.wv);
+  bf16* y = static_cast<bf16*>(p.y);
   const bf16* bq = static_cast<const bf16*>(p.bq);
   const bf16* bk = static_cast<const bf16*>(p.bk);
   const bf16* bv = static_cast<const bf16*>(p.bv);
-  const bf16* w1 = static_cast<const bf16*>(p.w1);
   const bf16* b1 = static_cast<const bf16*>(p.b1);
-  BLK_MARK(0, -1);
 
-  // x, read once; pad rows are zeros
-  const int vpr = D / 8;
-  for (int i = tid; i < BLK_ROWS * vpr; i += BLK_THREADS) {
-    const int r = i / vpr, c = (i % vpr) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows)
-      v = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * D + c));
-    *reinterpret_cast<uint4*>(sm.XS + r * DP + c) = v;
+  if (tid == 0) {
+    for (int i = 0; i < NSLOT; ++i) {
+      mbar_init(&ring.full[i], 1);
+      ring.done[i] = 0;
+    }
+    mbar_init_fence();
+    for (int t = 0; t < min(NSLOT, S.total); ++t) issue_tile(p, wm, ring, t);
   }
+  BLK_MARK(0, -1);
+  // LN1(x) while the first tiles arrive
+  ln_tile(x, true, row0, nrows, D, static_cast<const bf16*>(p.ln1s),
+          static_cast<const bf16*>(p.ln1b), p.eps, LN, warp, lane);
+  fence_proxy_async();
   __syncthreads();
-  row_stats(sm.XS, DP, D, p.eps, sm.stats, warp, lane);
-  load_ln_params(sm, D, static_cast<const bf16*>(p.ln1s),
-                 static_cast<const bf16*>(p.ln1b), tid);
-  __syncthreads();
-  BLK_MARK(0, 0);  // x and its statistics
+  BLK_MARK(0, 0);  // x and LN1(x)
 
-  float oacc[4][OUT_NT][4];
+  const int mh = warp >> 3, ng = warp & 7;     // the mma up step's tiling
+  const int out_cnt = min(max(D / 8 - OUT_NT * warp, 0), OUT_NT);
+  MmaOut out;
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
     for (int i = 0; i < OUT_NT; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[mi][i][e] = 0.f;
+      for (int e = 0; e < 4; ++e) out.acc[mi][i][e] = 0.f;
+  auto out_each = [&](MmaOut& o, auto f) {
+    mma_out_each(o, out_cnt, warp, lane, f);
+  };
 
+  // acc = LN-tile . (the nB rows of tiles t0 .. t0 + ks - 1)^T
+  auto up_step = [&](MmaUp& u, int t0, int nB) {
+    const int cnt = min(max(nB / 8 - UP_NT * ng, 0), UP_NT);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int i = 0; i < UP_NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) u.acc[mi][i][e] = 0.f;
+    BLK_MARK(1, -1);
+    for (int s = 0; s < S.ks; ++s) {
+      const bf16* B = tile_wait(ring, t0 + s);
+      BLK_MARK(1, 11);
+      mma_up_slab(u, LN + s * SUB, B, cnt, mh, ng, lane);
+      BLK_MARK(1, 10);
+      tile_release(p, wm, ring, t0 + s, lane);
+      BLK_MARK(1, 12);
+    }
+    return cnt;
+  };
+  // out += A_k[64 x kw] . (this warp's rows of its quarter's tile)^T for
+  // k < nk: the tiles t0 + k nq + j, one per output quarter j
+  auto down_step = [&](const bf16* A, int kw, int t0, int nk) {
+    BLK_MARK(1, -1);
+    for (int k = 0; k < nk; ++k)
+      for (int j = 0; j < S.nq; ++j) {
+        const int t = t0 + k * S.nq + j;
+        const bf16* B = tile_wait(ring, t);
+        BLK_MARK(1, 14);
+        if (j == quarter)
+          mma_down(out, A + k * SUB, kw, B, out_cnt, warp & 3, lane);
+        BLK_MARK(1, 13);
+        tile_release(p, wm, ring, t, lane);
+        BLK_MARK(1, 15);
+      }
+  };
+
+  int t = 0;  // the schedule's next tile
   // -- attention half, head by head -----------------------------------------
-  const int tph = hd / 8;  // 8-column tiles of one head
   for (int h = 0; h < p.heads; ++h) {
     {
-      float acc[2][UP_NT][4];
-      // weight row R of [q | k | v] of this head
-      auto rowptr = [&](int R) {
-        const int m = R / hd, rr = R - m * hd;
-        return (m == 0 ? wq : m == 1 ? wk : wv) + (size_t)(h * hd + rr) * D;
-      };
-      up_phase(acc, sm, DP, D, rowptr, 3 * hd, tid);
+      MmaUp u;
+      const int cnt = up_step(u, t, 3 * hd);
+      t += S.ks;
       BLK_MARK(0, 1);  // q | k | v products
-#pragma unroll
-      for (int i = 0; i < UP_NT; ++i) {
-        const int j = UP_NT * ng + i;  // tile of [q | k | v]
-        if (j < 3 * tph) {
-          const int m = j / tph, c = (j % tph) * 8 + 2 * t;
-          const bf16* bm = (m == 0 ? bq : m == 1 ? bk : bv) + h * hd + c;
-          const float c0 = to_f32(bm[0]), c1 = to_f32(bm[1]);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int r = 32 * mh + 16 * mi + g + 8 * half;
-              const float v0 = acc[mi][i][2 * half] + c0;
-              const float v1 = acc[mi][i][2 * half + 1] + c1;
-              const bool live = r < nrows;  // pad rows of k and v: zeros
-              if (m == 0) {
-                st_u32(QS + r * BLK_HS + c, pack_bf16(v0, v1));
-              } else if (m == 1) {
-                st_u32(KS + r * BLK_HS + c, live ? pack_bf16(v0, v1) : 0u);
-              } else {
-                VT[c * BLK_HS + r] = from_f32<bf16>(live ? v0 : 0.f);
-                VT[(c + 1) * BLK_HS + r] = from_f32<bf16>(live ? v1 : 0.f);
-              }
-            }
+      __syncthreads();  // the staging area is free (last head's down step)
+      mma_up_each(u, cnt, mh, ng, lane,
+                  [&](int r, int C, float v0, float v1) {
+        const int m = C / hd, c = C - m * hd;
+        const bf16* bm = (m == 0 ? bq : m == 1 ? bk : bv) + h * hd + c;
+        v0 += to_f32(bm[0]);
+        v1 += to_f32(bm[1]);
+        const bool live = r < nrows;  // pad rows of k and v: zeros
+        if (m == 0) {
+          st_u32(QS + swz(r, c), pack_bf16(v0, v1));
+        } else if (m == 1) {
+          st_u32(KS + swz(r, c), live ? pack_bf16(v0, v1) : 0u);
+        } else {
+          VT[swz(c, r)] = from_f32<bf16>(live ? v0 : 0.f);
+          VT[swz(c + 1, r)] = from_f32<bf16>(live ? v1 : 0.f);
         }
-      }
+      });
     }
     __syncthreads();
     BLK_MARK(0, 2);  // their epilogue
     if (warp < BLK_ROWS / 16)
       attend_rows(QS, KS, VT, warp, hd, L, nrows, p.causal, p.scale, lane);
+    fence_proxy_async();
     __syncthreads();
     BLK_MARK(0, 3);  // softmax(q k^T) v
-    down_phase(oacc, sm, QS, BLK_HS, hd, static_cast<const bf16*>(p.wo), D,
-               h * hd, D, tid);
+    down_step(QS, hd, t, 1);
+    t += S.nq;
     BLK_MARK(0, 4);  // output projection
   }
-  // y1 = x + (att W_o^T + b_o), in place
-  residual_epilogue(oacc, static_cast<const bf16*>(p.bo), sm.XS, DP, D, warp,
-                    lane);
+  // y1 = x + (att W_o^T + b_o), into y
+  residual_out(out, out_each, static_cast<const bf16*>(p.bo), x, true, y,
+               row0, nrows, D);
   __syncthreads();
 
   // -- MLP half, a chunk of hidden columns at a time -------------------------
-  row_stats(sm.XS, DP, D, p.eps, sm.stats, warp, lane);
-  load_ln_params(sm, D, static_cast<const bf16*>(p.ln2s),
-                 static_cast<const bf16*>(p.ln2b), tid);
+  ln_tile(y, false, row0, nrows, D, static_cast<const bf16*>(p.ln2s),
+          static_cast<const bf16*>(p.ln2b), p.eps, LN, warp, lane);
+  fence_proxy_async();
   __syncthreads();
-  BLK_MARK(0, 5);  // y1 and its statistics
+  BLK_MARK(0, 5);  // y1 and LN2(y1)
   for (int h0 = 0; h0 < p.hidden; h0 += BLK_CHUNK) {
     const int cw = min(BLK_CHUNK, p.hidden - h0);
     {
-      float acc[2][UP_NT][4];
-      auto rowptr = [&](int R) { return w1 + (size_t)(h0 + R) * D; };
-      up_phase(acc, sm, DP, D, rowptr, cw, tid);
+      MmaUp u;
+      const int cnt = up_step(u, t, cw);
+      t += S.ks;
       BLK_MARK(0, 6);  // hidden chunk products
-#pragma unroll
-      for (int i = 0; i < UP_NT; ++i) {
-        const int c = (UP_NT * ng + i) * 8 + 2 * t;
-        if (c < cw) {
-          const float c0 = to_f32(b1[h0 + c]), c1 = to_f32(b1[h0 + c + 1]);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int r = 32 * mh + 16 * mi + g + 8 * half;
-              float v0 = acc[mi][i][2 * half] + c0;
-              float v1 = acc[mi][i][2 * half + 1] + c1;
-              v0 = v0 * (1.0f / (1.0f + expf(-1.702f * v0)));
-              v1 = v1 * (1.0f / (1.0f + expf(-1.702f * v1)));
-              st_u32(HS + r * BLK_CS + c, pack_bf16(v0, v1));
-            }
-        }
-      }
+      __syncthreads();  // the staging area is free (last chunk's down step)
+      mma_up_each(u, cnt, mh, ng, lane,
+                  [&](int r, int c, float v0, float v1) {
+        v0 += to_f32(b1[h0 + c]);
+        v1 += to_f32(b1[h0 + c + 1]);
+        v0 = v0 * (1.0f / (1.0f + expf(-1.702f * v0)));
+        v1 = v1 * (1.0f / (1.0f + expf(-1.702f * v1)));
+        st_u32(HS + (c >> 6) * SUB + swz(r, c & 63), pack_bf16(v0, v1));
+      });
     }
+    fence_proxy_async();
     __syncthreads();
     BLK_MARK(0, 7);  // gelu epilogue
-    down_phase(oacc, sm, HS, BLK_CS, cw, static_cast<const bf16*>(p.w2),
-               p.hidden, h0, D, tid);
+    down_step(HS, 64, t, cw / 64);
+    t += (cw / 64) * S.nq;
     BLK_MARK(0, 8);  // second MLP product
   }
-  // y = y1 + (hidden W2^T + b2), in place, then written once in 16-byte
-  // pieces
-  residual_epilogue(oacc, static_cast<const bf16*>(p.b2), sm.XS, DP, D, warp,
-                    lane);
-  __syncthreads();
-  bf16* y = static_cast<bf16*>(p.y);
-  for (int i = tid; i < nrows * vpr; i += BLK_THREADS) {
-    const int r = i / vpr, c = (i % vpr) * 8;
-    *reinterpret_cast<uint4*>(y + (size_t)(row0 + r) * D + c) =
-        *reinterpret_cast<const uint4*>(sm.XS + r * DP + c);
-  }
+  // y = y1 + (hidden W2^T + b2), over y1 in y
+  residual_out(out, out_each, static_cast<const bf16*>(p.b2), y, false, y,
+               row0, nrows, D);
   BLK_MARK(0, 9);  // y
 #ifdef CMVE_BLK_PROFILE
   if (tid == 0 && blockIdx.x == 0 && p.scratch != nullptr)
-    for (int i = 0; i < 16; ++i) p.scratch[i] = (float)sm.prof[i];
+    for (int i = 0; i < 16; ++i) p.scratch[i] = (float)blk_prof[i];
 #endif
 }
 
@@ -911,12 +938,47 @@ extern "C" int cmve_block_sublayer(
   const int grid = (n + p.rows_per_block - 1) / p.rows_per_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) {
-    const int smem = (BLK_ROWS * (D + BLK_PAD) + BLK_STAGE + 2 * LN_SLAB +
-                      2 * D + BLK_RING) * (int)sizeof(bf16) +
-                     BLK_ROWS * (int)sizeof(float2);
-    cudaFuncSetAttribute(block_kernel_bf16,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    block_kernel_bf16<<<grid, BLK_THREADS, smem, s>>>(p);
+    const int hd = p.hd;
+    Sched& S = p.sched;
+    S.ks = D / 64;
+    S.nq = (D + BLK_CHUNK - 1) / BLK_CHUNK;
+    S.per_head = S.ks + S.nq;
+    S.attn_tiles = heads * S.per_head;
+    S.per_chunk = S.ks + (BLK_CHUNK / 64) * S.nq;
+    S.total = S.attn_tiles;
+    for (int h0 = 0; h0 < hidden; h0 += BLK_CHUNK)
+      S.total += S.ks + (min(BLK_CHUNK, hidden - h0) / 64) * S.nq;
+    S.o_rows = min(BLK_CHUNK, D);
+    S.w1_rows = min(BLK_CHUNK, hidden);
+    // the weights' maps, kept by (address, shape, box) across calls
+    CUtensorMap maps[6];
+    const cuuint64_t dd[2] = {(cuuint64_t)D, (cuuint64_t)D};
+    const cuuint64_t d1[2] = {(cuuint64_t)D, (cuuint64_t)hidden};
+    const cuuint64_t d2[2] = {(cuuint64_t)hidden, (cuuint64_t)D};
+    const cuuint32_t box_h[2] = {64, (cuuint32_t)hd};
+    const cuuint32_t box_o[2] = {64, (cuuint32_t)S.o_rows};
+    const cuuint32_t box_1[2] = {64, (cuuint32_t)S.w1_rows};
+    const void* wqkv[3] = {wq, wk, wv};
+    for (int i = 0; i < 3; ++i)
+      if (int err = cached_tensor_map_2d(&maps[i], wqkv[i], dd, 2ull * D,
+                                         box_h))
+        return err;
+    if (int err = cached_tensor_map_2d(&maps[3], wo, dd, 2ull * D, box_o))
+      return err;
+    if (int err = cached_tensor_map_2d(&maps[4], w1, d1, 2ull * D, box_1))
+      return err;
+    if (int err = cached_tensor_map_2d(&maps[5], w2, d2, 2ull * hidden,
+                                       box_o))
+      return err;
+    // LayerNorm tile, staging, ring, barriers, counts; 1024 for alignment
+    const int smem = 1024 + ((D / 64) * SUB + 3 * SUB + NSLOT * SLOT) *
+                                (int)sizeof(bf16) +
+                     NSLOT * (int)(sizeof(uint64_t) + sizeof(int));
+    auto kernel = block_kernel_bf16<false>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    kernel<<<grid, BLK_THREADS, smem, s>>>(maps[0], maps[1], maps[2], maps[3],
+                                           maps[4], maps[5], p);
   } else if (dtype == kFloat32) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     const int smem = BLK_ROWS * D * (int)sizeof(float);

@@ -11,9 +11,9 @@ Counterpart of cross_modal_video_engine_tpu/ops/attention_sublayer.py:
 * `fused_mlp_sublayer`: y = x + W2·quick_gelu(W1·LN(x) + b1) + b2 per
   token, over any leading shape.
 * `fused_block_sublayer_compact`: the compact attention sublayer, then the
-  MLP sublayer, as one kernel launch per block: x is read from device
-  memory once and y written once per layer.  It takes no `g`: how many
-  sequences a thread block owns is the kernel's business.
+  MLP sublayer, as one kernel launch per block (`block_path` names the
+  kernel of csrc/block_sublayer.cu that serves a call).  It takes no
+  `g`: how many sequences a thread block owns is the kernel's business.
 
 Weights are in torch Linear layout, (out_features, in_features) — the
 OpenAI CLIP state dict's — where the JAX functions take (in, out) kernels.
@@ -617,14 +617,41 @@ def _check_block_shapes(x, wq, w1, heads: int, seq_len: int) -> None:
                          f"{tuple(wq.shape)} for width {d}")
 
 
+def block_path(dtype: torch.dtype, width: int, head_dim: int, hidden: int,
+               seq_len: int) -> str:
+    """Which kernel of csrc/block_sublayer.cu serves a call, by dtype and
+    shape alone: "mma" (bfloat16: the weights through a TMA ring, mma.sync
+    products) or "fma" (float32: CUDA cores, a per-block scratch in device
+    memory).  Raises for what the kernel does not take."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the block kernel takes float32 or bfloat16, not "
+                        f"{dtype}")
+    if not 1 <= seq_len <= BLOCK_MAX_SEQ:
+        raise ValueError(f"the block kernel takes 1 <= seq_len <= "
+                         f"{BLOCK_MAX_SEQ}, got seq_len={seq_len}")
+    if width % 64 or not 64 <= width <= BLOCK_MAX_WIDTH:
+        raise ValueError(f"the block kernel takes widths that are multiples "
+                         f"of 64 up to {BLOCK_MAX_WIDTH}, got {width}")
+    if head_dim < 16 or head_dim % 16 or head_dim > BLOCK_MAX_HEAD_DIM \
+            or width % head_dim:
+        raise ValueError(f"the block kernel takes head dims that are "
+                         f"multiples of 16 up to {BLOCK_MAX_HEAD_DIM} "
+                         f"dividing the width, got {head_dim} for {width}")
+    if hidden < 64 or hidden % 64:
+        raise ValueError(f"the block kernel takes a hidden width that is a "
+                         f"multiple of 64, got {hidden}")
+    return "fma" if dtype == torch.float32 else "mma"
+
+
 def _block_cuda(x, params, *, heads, seq_len, causal, eps):
-    """csrc/block_sublayer.cu: one launch for the whole block.  float32
-    stages its tiles through a per-block scratch allocated here; bf16
-    keeps everything on chip."""
+    """csrc/block_sublayer.cu: one launch for the whole block; `block_path`
+    names the kernel.  float32 stages its tiles through a per-block scratch
+    allocated here; bf16 keeps all but y1 on chip."""
     from ._build import load_kernels
     lib = load_kernels().lib
     n, d = x.shape
     hidden = params[12].shape[0]
+    block_path(x.dtype, d, d // heads, hidden, seq_len)
     code = _DTYPE_CODES[x.dtype]
     nbytes = lib.cmve_block_scratch_bytes(code, n, d, heads, hidden, seq_len)
     if nbytes < 0:
