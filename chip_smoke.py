@@ -9,7 +9,8 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
 3. checks each kernel against its plain PyTorch version on the card, in
    bf16 and f32, with times: one 64 x 64 x 64 tile through TMA and wgmma
    (both operand layouts, then the 3-D box and 80-key tile of the
-   attention core) against torch.matmul; the GEMM of gemm.cu by itself,
+   attention core, then the block kernel's 192-row box with an N = 32
+   slice) against torch.matmul; the GEMM of gemm.cu by itself,
    each epilogue at the main-path shapes and at ragged ones, with
    TFLOP/s and `F.linear`'s time printed beside it as a yardstick; the
    attention core by itself at (6400 and 51200 rows, L=50, 12 heads),
@@ -18,7 +19,8 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
    sublayers at the CLIP ViT-B/32 main-path shapes with the host time of
    one call, the whole-block kernel at its main-path shape (51200, 768),
    at (6400, 768) (f32: (800, 768)) and at a small shape, also against
-   the two-kernel chain;
+   the two-kernel chain, with the route `block_path` names for each and
+   ptxas's registers and spills of both bf16 routes;
    flash attention at the TimeSformer shapes (joint 8x224 with 1569
    tokens, space-only 197, causal 1000 at head dim 128, causal 197
    queries against 1569 keys), at a head dim that stays on the mma.sync
@@ -51,8 +53,10 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
    bench/block_ab.py at (51200, 768) bf16 through the two-kernel chain
    and through the whole-block kernel with the launch counters zeroed (12
    block launches), outputs compared by cosine and, layer by layer on the
-   chain's input, by the kernels' bf16 bound, both timed; the headline
-   bench at B=128 with few steps;
+   chain's input, by the kernels' bf16 bound, both timed; the block
+   kernel built with -DCMVE_BLK_NO_MMA (built beside the checks), its time
+   at (51200, 768) and the rate at which L2 then hands every block all of
+   a layer's weights; the headline bench at B=128 with few steps;
 9. index: 1M x 512 rows drawn on the card, stored as bf16 and as int8,
    64 queries, top-10: bf16 equal to brute force, int8 recall@10 against
    the exact answer, search times and the peak memory of a search;
@@ -68,8 +72,10 @@ fails.
 from __future__ import annotations
 
 import json
+import re
 import runpy
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -204,6 +210,24 @@ def check_selfcheck(dev, kern):
           flush=True)
     if not ok:
         raise SystemExit("wgmma/TMA key-tile self-check failed")
+    # what csrc/block_sublayer.cu adds: A written by the threads at swizzled
+    # addresses, one 192-row box read whole and 32 rows into it
+    b = torch.randn(192, 128, generator=gen, device=dev).to(torch.bfloat16)
+    d1 = torch.empty(64, 192, device=dev)
+    d2 = torch.empty(64, 32, device=dev)
+    err = kern.lib.cmve_wgmma_selfcheck_block(
+        a.data_ptr(), b.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    e1 = float((d1 - a.float() @ b[:, 64:].float().t()).abs().max())
+    e2 = float((d2 - a.float() @ b[32:64, 64:].float().t()).abs().max())
+    ok = err == 0 and e1 <= 1e-4 and e2 <= 1e-4
+    print(f"wgmma/TMA self-check, the block kernel's forms (A by st.shared "
+          f"at swizzled addresses; a 192-row box, N = 192 and an N = 32 "
+          f"slice 32 rows in): return code {err}, max_abs_err {e1:.3e} and "
+          f"{e2:.3e} (tol 1e-4) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("wgmma/TMA block-form self-check failed")
 
 
 def check_gemm(dev):
@@ -357,11 +381,13 @@ def sublayer_cases(dev):
     cases = []
 
     def add(name, kernel, shape, make, run_kernel, run_ref, valid=None,
-            shape_f32=None, run_chain=None, bound=None, f32=True):
+            shape_f32=None, run_chain=None, bound=None, f32=True,
+            route=None):
         cases.append(dict(name=name, kernel=kernel, shape=shape, make=make,
                           run_kernel=run_kernel, run_ref=run_ref,
                           valid=valid, shape_f32=shape_f32,
-                          run_chain=run_chain, bound=bound, f32=f32))
+                          run_chain=run_chain, bound=bound, f32=f32,
+                          route=route))
 
     # the least a call must do, from its shapes: (flops, bytes) in bf16,
     # each input read once and the output written once
@@ -417,7 +443,9 @@ def sublayer_cases(dev):
                 x, *p, heads=heads, seq_len=seq_len, causal=causal),
             lambda x, p: asl._block_ref_flat(
                 x, *p, heads=heads, seq_len=seq_len, causal=causal),
-            run_chain=chain, **kw)
+            run_chain=chain,
+            route=lambda dt: asl.block_path(dt, d, d // heads, 4 * d,
+                                            seq_len), **kw)
 
     # the shape the 12-layer stack gives it: 1024 thread blocks
     n_stack = STACK["nseq"] * STACK["seq_len"]
@@ -468,8 +496,11 @@ def check_kernels(dev):
             name = str(dtype).removeprefix("torch.")
             ok = (finite and err <= TOL[name]
                   and (chain_err is None or chain_err <= TOL[name]))
+            route = case["route"](dtype) if case["route"] else None
             print(f"kernel {case['name']:22s} {name:8s} shape "
-                  f"{tuple(shape)}: max_abs_err {err:.3e} "
+                  f"{tuple(shape)}"
+                  + ("" if route is None else f" route {route}")
+                  + f": max_abs_err {err:.3e} "
                   f"(tol {TOL[name]:g}) {'ok' if ok else 'FAIL'}; "
                   f"kernel {ms:.4f} ms (host {call_us:.1f} us a call), "
                   f"plain {plain_ms:.4f} ms"
@@ -479,7 +510,8 @@ def check_kernels(dev):
             results.append(dict(case=case["name"], kernel=case["kernel"],
                                 dtype=name, err=err, ms=ms,
                                 plain_ms=plain_ms, bound=case["bound"],
-                                library_ms=None, host_us=call_us))
+                                library_ms=None, host_us=call_us,
+                                route=route))
             if not ok:
                 failures.append(f"{case['name']} {name}: err {err} "
                                 f"chain {chain_err} finite {finite}")
@@ -923,12 +955,63 @@ def caption_throughput(model, plain, clips, card):
     return rates
 
 
-def drive_bench_path(dev, card):
+def block_ptxas(log: str) -> dict:
+    """Registers and bytes of spills of each bf16 route of the block
+    kernel, from ptxas's report in the build log."""
+    out, route = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            route = ("wgmma" if "block_kernel_bf16ILb1E" in line else
+                     "mma" if "block_kernel_bf16ILb0E" in line else None)
+        elif route and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            out.setdefault(route, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif route and "Used" in line and "registers" in line:
+            out.setdefault(route, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            route = None
+    return out
+
+
+def block_ablation(dev, card, lib, chain_layer_ms) -> dict:
+    """The block kernel built with -DCMVE_BLK_NO_MMA (the same launch,
+    schedule and weight stream, every product of the weight stream
+    skipped) at the stack's shape: its time is the load-side ceiling of
+    64 rows a block, read as the rate at which L2 hands every block all of
+    a layer's weights (bench/block_profile.py --variants does the same)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import block_ab
+    from cross_modal_video_engine_tpu_torch.bench import block_profile as bp
+    from cross_modal_video_engine_tpu_torch.ops import attention_sublayer as asl
+    heads, seq_len, d = STACK["heads"], STACK["seq_len"], STACK["width"]
+    x, params = block_ab.build_stack(STACK["nseq"], seq_len, d, 1, dev)
+    flat = [*params[0][0], *params[0][1]]
+    y = torch.empty_like(x)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: bp.launch(lib, x, flat, y, heads=heads,
+                                       seq_len=seq_len), iters=5, warmup=1)
+        kernel_ms = cuda_ms(lambda: asl.fused_block_sublayer_compact(
+            x, *flat, heads=heads, seq_len=seq_len), iters=5, warmup=1)
+    l2_bytes = bp.weight_bytes_through_l2(x, flat, seq_len)
+    rate = l2_bytes / (ms * 1e-3) / 1e12
+    print(f"block ablation (-DCMVE_BLK_NO_MMA) at {tuple(x.shape)} bf16: "
+          f"{ms:.4f} ms a layer, {l2_bytes / 1e9:.2f} GB of weights through "
+          f"L2 = {rate:.2f} TB/s; the kernel {kernel_ms:.4f} ms, the "
+          f"two-kernel chain {chain_layer_ms:.4f} ms a layer, on {card}",
+          flush=True)
+    return {"ablation_ms": ms, "ablation_l2_tb_s": rate}
+
+
+def drive_bench_path(dev, card, ablation):
     """The bench entry points' path once with the launch counters zeroed
     just before and read just after: `entry()`, then the 12-layer compact
     stack at (51200, 768) through the two-kernel chain and through the
-    whole-block kernel.  Then the checks, and the times of both stacks and
-    of the headline bench.  Returns the block kernel's launches."""
+    whole-block kernel.  Then the checks, the times of both stacks, the
+    block kernel's ablation (`ablation()` gives its library) and the
+    headline bench.  Returns the block kernel's launches and the
+    ablation's numbers."""
     import torch
     from cross_modal_video_engine_tpu_torch.bench import block_ab, headline
     from cross_modal_video_engine_tpu_torch.entry import entry
@@ -1014,11 +1097,13 @@ def drive_bench_path(dev, card):
     print(f"stack{layers} at {tuple(x.shape)} bf16: two kernels "
           f"{rows[0]['value']:.3f} ms, whole block {rows[1]['value']:.3f} ms "
           f"(speedup {rows[1]['speedup_vs_two_kernels']:.3f}) on {card}")
+    extra = block_ablation(dev, card, ablation(), rows[0]["value"] / layers)
+    extra.update(stack_ms=rows[1]["value"], chain_stack_ms=rows[0]["value"])
     row = headline.bench_headline(batch=HEADLINE_BATCH, steps=HEADLINE_STEPS,
                                   device=dev)
     print(f"headline B={HEADLINE_BATCH}: kernel arm {row['value']:.2f} "
           f"videos/s, plain arm {row['plain']:.2f} videos/s on {card}")
-    return launches["fused_block_sublayer_compact"]
+    return launches["fused_block_sublayer_compact"], extra
 
 
 def check_big_index(dev, card):
@@ -1083,13 +1168,15 @@ def check_big_index(dev, card):
         raise SystemExit("index checks failed: " + "; ".join(failures))
 
 
-def kernel_json(results, launches, core) -> dict:
+def kernel_json(results, launches, core, block_extra) -> dict:
     """The kernels line: bf16 errors over every case of a kernel; times,
     bound and library time of its main-path case.  `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
     also carry the host time of one call and their core kernel by itself
-    at the same rows (`core_ms`, beside its bytes bound)."""
+    at the same rows (`core_ms`, beside its bytes bound); the block kernel
+    its route, ptxas's registers and spills of both bf16 routes, the
+    12-layer stack beside the chain's, and its ablation."""
     core_case = {"fused_attention_sublayer_compact": "vision 6400 rows",
                  "fused_attention_sublayer": "text 616 rows causal"}
     main_case = {"fused_attention_sublayer_compact": "compact vision",
@@ -1123,6 +1210,8 @@ def kernel_json(results, launches, core) -> dict:
             "bound_ms": max(by_ops, by_bytes) * 1e3,
             "bound_by": "operations" if by_ops >= by_bytes else "bytes",
             "library_ms": main["library_ms"]})
+        if name == "fused_block_sublayer_compact":
+            kernels[-1].update(route=main["route"], **block_extra)
         if name in core_case:
             c = core[core_case[name]]
             kernels[-1].update(host_us=main["host_us"], core_ms=c["ms"],
@@ -1170,6 +1259,19 @@ def main() -> int:
         if ("registers" in line or "spill" in line or "entry function" in line
                 or "Potential Performance Loss" in line):
             print("  ptxas:", line.strip())
+    ptxas = block_ptxas(kern.log)
+    print(f"block kernel ptxas by route: {json.dumps(ptxas)}", flush=True)
+    # the block kernel's ablation builds beside the checks (its own nvcc
+    # per source, all started together); drive_bench_path waits for it
+    built = {}
+    builder = threading.Thread(target=lambda: built.update(lib=load_kernels(
+        defines=("-DCMVE_BLK_NO_MMA",)).lib))
+    builder.start()
+
+    def ablation():
+        builder.join()
+        return built.get("lib") or load_kernels(
+            defines=("-DCMVE_BLK_NO_MMA",)).lib
 
     # -- 3. each kernel against its plain version ---------------------------
     check_selfcheck(dev, kern)
@@ -1214,14 +1316,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 8. the bench entry points' path --------------------------------------
-    launches["fused_block_sublayer_compact"] = drive_bench_path(dev, card)
+    launches["fused_block_sublayer_compact"], block_extra = drive_bench_path(
+        dev, card, ablation)
+    block_extra["ptxas"] = ptxas
     torch.cuda.empty_cache()
 
     # -- 9. the 1M-row index ---------------------------------------------------
     check_big_index(dev, card)
 
     # -- 10. results -----------------------------------------------------------
-    print(json.dumps(kernel_json(results, launches, core)))
+    print(json.dumps(kernel_json(results, launches, core, block_extra)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,37 +16,49 @@
 // rows (as many whole sequences as fit: one at L = 50), and every block
 // streams all of the layer's weights, 14.16 MB at D = 768, from L2: at
 // (51200, 768) that is 1024 blocks and 14.5 GB through L2 for 0.73 TFLOP.
-// So the weight stream, not the tensor cores, sets the pace; the 64 x D
+// So the weight stream, not the tensor cores, sets the pace, and the 64 x D
 // fp32 output sum of a sublayer takes 96 of a thread's 128 registers.
 //
 // bf16 design.  The layer's weight tiles are used in an order fixed before
-// the launch (`issue_tile`): per head the q|k|v rows of the head in 64-
-// column slabs of K, then its W_o columns, one tile per output quarter;
-// then per chunk of 192 hidden columns its W1 slabs and its W2 tiles.  All
-// six matrices are 2-D TMA tensor maps with the 128-byte swizzle; tiles of
-// up to 192 x 64 arrive in a ring of NSLOT slots on full mbarriers, and the
-// warp that finishes the last read of a slot starts the tile that takes the
-// slot next, so the ring runs NSLOT tiles ahead across heads, steps and
-// the two halves, and no block barrier sits between the slabs of a step.
-// The block barriers left hand the staging area (q | k | v^T of a head, or
-// a hidden chunk) and the LayerNorm tile between steps.  LN(x) of the whole
-// tile is made once per sublayer into shared memory (96 KB), where the
-// products read it; x itself is read again from device memory for the
-// residual, and y1 goes to y and is read back by the MLP half: 0.24 GB a
-// layer at (51200, 768) against the 14.5 GB of weights, for no LayerNorm
-// work inside the steps and a ring of four 24 KB slots.  Products are
-// mma.sync m16n8k16 with both operands read by ldmatrix at swizzled
-// addresses; 16 warps: an up step (q|k|v of a head, a hidden chunk) is
-// 2 row halves x 8 column groups, a down step (into the output sum) gives
-// warp w output columns 48 w .. 48 w + 47.  Softmax(q k^T) v of one head
-// runs on four warps; pad rows of k and v are written as zeros and masked
-// as keys; the softmax of one tile covers several sequences by a
-// block-diagonal mask.
+// the launch (`issue_tile`): per head the q|k rows of the head in 64-column
+// slabs of K, then its v rows, then its W_o columns, one tile per output
+// quarter of 192 columns; then per chunk of 128 hidden columns its W1 slabs
+// and its W2 tiles.  The six matrices are 2-D TMA tensor maps with the
+// 128-byte swizzle, kept on the host by (address, shape, box); tiles of up
+// to 192 x 64 arrive in a ring of three 24 KB slots on full mbarriers, and
+// the warp that finishes the last read of a slot starts the tile that
+// takes the slot next: the ring runs ahead across heads, steps and the two
+// halves, with no producer warp (a thread's 128 registers are all taken)
+// and no block barrier between the slabs of a step.  The block barriers
+// left hand the staging area (q | k | v^T of a head, or a hidden chunk)
+// and the LayerNorm tile between steps.  LN(x) of the whole tile is made
+// once per sublayer into shared memory (96 KB), where the products read
+// it; x is read again from device memory for the residual, and y1 goes to
+// y and is read back by the MLP half: 0.24 GB a layer at (51200, 768)
+// against the 14.5 GB of weights, for no LayerNorm work inside the steps.
+// An up step's result is at most 64 x 128 (16 registers a thread), and a
+// thread parks 16 of its output sum's 96 registers in shared memory from
+// before an up step to the down step that needs them (see PARK).  Two
+// routes share all of this and differ in the products (`block_path` in
+// ops/attention_sublayer.py names them):
+//  * "wgmma" (width a multiple of 192, head dim 64): four consumer
+//    warpgroups; an up step is wgmma m64n32k16 (m64n16k16 for v) a
+//    warpgroup, A the LayerNorm tile by descriptor; a down step (into the
+//    output sum) is m64n192k16 on the warpgroup's output quarter, A the
+//    attention output or the hidden chunk, written swizzled by the
+//    epilogues;
+//  * "mma" (the other shapes): mma.sync m16n8k16, both operands by
+//    ldmatrix at swizzled addresses, 16 warps.
+// Softmax(q k^T) v of one head runs on four warps with mma.sync (under 2%
+// of the operations; on 16 warps, four a row tile, it was slower); pad rows
+// of k and v are written as zeros and masked as keys, and the softmax of
+// one tile covers several sequences by a block-diagonal mask.
 //
 // -DCMVE_BLK_PROFILE stamps cycles by phase (bench/block_profile.py);
 // -DCMVE_BLK_NO_MMA skips the products of the weight stream (up and down
 // steps) and keeps the launch, the schedule and every load: its time is the
-// load-side ceiling of this design.
+// load-side ceiling of this design; -DCMVE_BLK_NO_WGMMA keeps every shape
+// on mma.sync, to time the two routes in one call.
 //
 // f32 exists to separate algorithm from rounding.  Its tiles do not fit in
 // shared memory, so only the residual stream lives there; LN, q, k, v, the
@@ -66,28 +78,31 @@ constexpr int BLK_WARPS = BLK_THREADS / 32;
 constexpr int F32_THREADS = 256;
 constexpr int BLK_MAX_D = 768;
 constexpr int BLK_MAX_HD = 64;
-// hidden columns of an MLP step, and output columns of a quarter (the
-// columns of four warps)
-constexpr int BLK_CHUNK = 192;
+// output columns of a quarter (of four warps, or one warpgroup), and the
+// most rows of a ring slot
+constexpr int QUARTER = 192;
+// the most columns of an up step's result: q | k of a head, v of a head,
+// or a chunk of hidden columns (an MLP step)
+constexpr int UPW = 128;
 constexpr int SUB = BLK_ROWS * 64;   // elements of a 64 x 64 tile: 8 KB
-constexpr int SLOT = BLK_CHUNK * 64; // elements of a ring slot: 24 KB
-constexpr int NSLOT = 4;             // ring slots
-constexpr int UP_NT = BLK_CHUNK / 8 / 8;             // mma up step: tiles of a warp
-constexpr int OUT_NT = BLK_CHUNK / 4 / 8;            // mma down step: the same
-static_assert(3 * BLK_MAX_HD <= BLK_CHUNK, "q | k | v of a head is one slot");
-static_assert(UP_NT == 3 && OUT_NT == 6, "the mma tilings below");
-static_assert(BLK_MAX_D == 4 * BLK_CHUNK, "four output quarters at most");
+constexpr int SLOT = QUARTER * 64;   // elements of a ring slot: 24 KB
+constexpr int NSLOT = 3;             // ring slots
+constexpr int UP_NT = UPW / 8 / 8;          // mma up step: tiles of a warp
+constexpr int OUT_NT = QUARTER / 4 / 8;     // mma down step: the same
+static_assert(2 * BLK_MAX_HD <= UPW, "q | k of a head is one up step");
+static_assert(UP_NT == 2 && OUT_NT == 6, "the mma tilings below");
+static_assert(BLK_MAX_D == 4 * QUARTER, "four output quarters at most");
 
 // the layer's tile schedule (see issue_tile), made on the host
 struct Sched {
   int ks;          // D / 64: slabs of an up step
   int nq;          // output quarters: ceil(D / 192)
-  int per_head;    // ks + nq
+  int per_head;    // 2 ks + nq
   int attn_tiles;  // heads * per_head
-  int per_chunk;   // ks + 3 nq: tiles of a full hidden chunk
+  int per_chunk;   // ks + 2 nq: tiles of a full hidden chunk
   int total;       // tiles of the layer
   int o_rows;      // rows of a wo / w2 box: min(192, D)
-  int w1_rows;     // rows of a w1 box: min(192, hidden)
+  int w1_rows;     // rows of a w1 box: min(128, hidden)
 };
 
 struct BlockParams {
@@ -157,15 +172,15 @@ __device__ __forceinline__ void st_u32(bf16* p, uint32_t v) {
 // the kernel's top level (chain 0), 10-12 split the up steps and 13-15 the
 // down steps (chain 1).  A stamp costs some tens of cycles: read shares.
 #ifdef CMVE_BLK_PROFILE
-__device__ __forceinline__ void blk_mark(long long* prof, int chain, int i,
-                                         int tid) {
-  if (tid == 0) {
+__shared__ long long blk_prof[18];  // 16 phase sums, the chains' last stamps
+__device__ __forceinline__ void blk_mark(int chain, int i) {
+  if (threadIdx.x == 0) {
     const long long now = clock64();
-    if (i >= 0) prof[i] += now - prof[16 + chain];
-    prof[16 + chain] = now;
+    if (i >= 0) blk_prof[i] += now - blk_prof[16 + chain];
+    blk_prof[16 + chain] = now;
   }
 }
-#define BLK_MARK(chain, i) blk_mark(blk_prof, chain, i, tid)
+#define BLK_MARK(chain, i) blk_mark(chain, i)
 #else
 #define BLK_MARK(chain, i)
 #endif
@@ -188,14 +203,15 @@ struct Ring {
 
 // Starts the loads of tile t of the layer's schedule into its slot.  The
 // schedule, in the order the products use the tiles:
-//   for each head h:  ks tiles "U": rows h*hd .. of wq | wk | wv, columns
-//                       64 s .. 64 s + 63 (three boxes of hd rows);
+//   for each head h:  ks tiles "QK": rows h*hd .. of wq | wk, columns 64 s ..
+//                       64 s + 63 (two boxes of hd rows);
+//                     ks tiles "V": the same of wv (one box);
 //                     nq tiles "O": rows 192 j .. of wo, columns h*hd ..
 //                       h*hd + 63, for the output quarter j;
-//   for each hidden chunk c of 192:  ks tiles "W1": rows 192 c .. of w1,
+//   for each hidden chunk c of 128:  ks tiles "W1": rows 128 c .. of w1,
 //                       columns 64 s ..;  then for each 64 columns k of the
 //                       chunk, nq tiles "W2": rows 192 j .. of w2, columns
-//                       192 c + 64 k ...
+//                       128 c + 64 k ...
 // Rows and columns past a matrix's end arrive as zeros.
 __device__ __forceinline__ void issue_tile(const BlockParams& p,
                                            const WeightMaps& w,
@@ -206,24 +222,26 @@ __device__ __forceinline__ void issue_tile(const BlockParams& p,
   if (t < s.attn_tiles) {
     const int h = t / s.per_head, i = t - h * s.per_head;
     if (i < s.ks) {
-      mbar_expect_tx(bar, 3 * p.hd * 128);
-#pragma unroll
-      for (int m = 0; m < 3; ++m)
-        tma_load_2d(dst + m * p.hd * 64, w.m[m], bar, 64 * i, h * p.hd);
+      mbar_expect_tx(bar, 2 * p.hd * 128);
+      tma_load_2d(dst, w.m[0], bar, 64 * i, h * p.hd);
+      tma_load_2d(dst + p.hd * 64, w.m[1], bar, 64 * i, h * p.hd);
+    } else if (i < 2 * s.ks) {
+      mbar_expect_tx(bar, p.hd * 128);
+      tma_load_2d(dst, w.m[2], bar, 64 * (i - s.ks), h * p.hd);
     } else {
       mbar_expect_tx(bar, s.o_rows * 128);
-      tma_load_2d(dst, w.m[3], bar, h * p.hd, BLK_CHUNK * (i - s.ks));
+      tma_load_2d(dst, w.m[3], bar, h * p.hd, QUARTER * (i - 2 * s.ks));
     }
   } else {
     const int u = t - s.attn_tiles, c = u / s.per_chunk,
               i = u - c * s.per_chunk;
     if (i < s.ks) {
       mbar_expect_tx(bar, s.w1_rows * 128);
-      tma_load_2d(dst, w.m[4], bar, 64 * i, BLK_CHUNK * c);
+      tma_load_2d(dst, w.m[4], bar, 64 * i, UPW * c);
     } else {
       const int m = i - s.ks, k = m / s.nq, j = m - k * s.nq;
       mbar_expect_tx(bar, s.o_rows * 128);
-      tma_load_2d(dst, w.m[5], bar, BLK_CHUNK * c + 64 * k, BLK_CHUNK * j);
+      tma_load_2d(dst, w.m[5], bar, UPW * c + 64 * k, QUARTER * j);
     }
   }
 }
@@ -391,158 +409,243 @@ __device__ __forceinline__ void attend_rows(bf16* QS, const bf16* KS,
   if (suma == 0.f) suma = 1.f;
   if (sumb == 0.f) sumb = 1.f;
 
-  float o[BLK_MAX_HD / 8][4];
-#pragma unroll
-  for (int ct = 0; ct < BLK_MAX_HD / 8; ++ct)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[ct][e] = 0.f;
+  // P rounded to bf16: the S fragments of keys 16 kt .. 16 kt + 15 are the
+  // A fragment of P v step kt
+  uint32_t pf[BLK_ROWS / 16][4];
 #pragma unroll
   for (int kt = 0; kt < BLK_ROWS / 16; ++kt) {
-    // P rounded to bf16: the S fragments of keys 16 kt .. 16 kt + 15 are
-    // the A fragment of this step
-    const uint32_t pf[4] = {
-        pack_bf16(sc[2 * kt][0] / suma, sc[2 * kt][1] / suma),
-        pack_bf16(sc[2 * kt][2] / sumb, sc[2 * kt][3] / sumb),
-        pack_bf16(sc[2 * kt + 1][0] / suma, sc[2 * kt + 1][1] / suma),
-        pack_bf16(sc[2 * kt + 1][2] / sumb, sc[2 * kt + 1][3] / sumb)};
-#pragma unroll
-    for (int ct = 0; ct < BLK_MAX_HD / 8; ++ct)
-      if (ct * 8 < hd) {
-        const int vr = ct * 8 + g, vc = kt * 16 + 2 * t;
-        const uint32_t b[2] = {ld_u32(VT + swz(vr, vc)),
-                               ld_u32(VT + swz(vr, vc + 8))};
-        mma_bf16_16816(o[ct], pf, b);
-      }
+    pf[kt][0] = pack_bf16(sc[2 * kt][0] / suma, sc[2 * kt][1] / suma);
+    pf[kt][1] = pack_bf16(sc[2 * kt][2] / sumb, sc[2 * kt][3] / sumb);
+    pf[kt][2] = pack_bf16(sc[2 * kt + 1][0] / suma, sc[2 * kt + 1][1] / suma);
+    pf[kt][3] = pack_bf16(sc[2 * kt + 1][2] / sumb, sc[2 * kt + 1][3] / sumb);
   }
   __syncwarp();  // every lane has its q fragments before the rows change
+  // P v, 32 channels at a time (fewer live registers beside the output sum)
 #pragma unroll
-  for (int ct = 0; ct < BLK_MAX_HD / 8; ++ct)
-    if (ct * 8 < hd) {
-      st_u32(QS + swz(ra, ct * 8 + 2 * t), pack_bf16(o[ct][0], o[ct][1]));
-      st_u32(QS + swz(rb, ct * 8 + 2 * t), pack_bf16(o[ct][2], o[ct][3]));
+  for (int c0 = 0; c0 < BLK_MAX_HD; c0 += 32)
+    if (c0 < hd) {
+      float o[4][4];
+#pragma unroll
+      for (int ct = 0; ct < 4; ++ct)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[ct][e] = 0.f;
+#pragma unroll
+      for (int kt = 0; kt < BLK_ROWS / 16; ++kt)
+#pragma unroll
+        for (int ct = 0; ct < 4; ++ct)
+          if (c0 + ct * 8 < hd) {
+            const int vr = c0 + ct * 8 + g, vc = kt * 16 + 2 * t;
+            const uint32_t b[2] = {ld_u32(VT + swz(vr, vc)),
+                                   ld_u32(VT + swz(vr, vc + 8))};
+            mma_bf16_16816(o[ct], pf[kt], b);
+          }
+#pragma unroll
+      for (int ct = 0; ct < 4; ++ct)
+        if (c0 + ct * 8 < hd) {
+          const int c = c0 + ct * 8 + 2 * t;
+          st_u32(QS + swz(ra, c), pack_bf16(o[ct][0], o[ct][1]));
+          st_u32(QS + swz(rb, c), pack_bf16(o[ct][2], o[ct][3]));
+        }
     }
 }
 
-// -- products on mma.sync (route "mma") -------------------------------------
+// -- the products ------------------------------------------------------------
 //
-// Up step: warp (mh, ng) = (warp / 8, warp % 8) owns rows 32 mh .. + 31 and
-// the 8-column tiles 3 ng .. 3 ng + 2 (those below nB / 8) of the 64 x nB
-// result.  Down step: warp w owns output columns 48 w .. 48 w + 47, which
-// are rows 48 (w % 4) .. of the slot of its quarter w / 4.
+// Two routes share the weight stream and the schedule and differ in the
+// products.  Accumulators are flat register arrays: the output sum `oacc`
+// (96 fp32: 64 rows x 48 columns a warp, or 64 x 192 a warpgroup) and an
+// up step's `acc` (16 fp32: 64 x 128 over the block).
+//  * "mma" (WG = false): mma.sync m16n8k16, both operands by ldmatrix.  Up
+//    step: warp (mh, ng) = (warp / 8, warp % 8) owns rows 32 mh .. + 31 and
+//    the 8-column tiles 2 ng, 2 ng + 1 (those below nB / 8) of the 64 x nB
+//    result, acc[(mi * 2 + i) * 4 + e].  Down step: warp w owns output
+//    columns 48 w .. 48 w + 47, rows 48 (w % 4) .. of its quarter's slot,
+//    oacc[(mi * 6 + i) * 4 + e].
+//  * "wgmma" (WG = true; width a multiple of 192, head dim 64): warpgroup
+//    wg = warp / 4.  Up step: m64nNk16 on slot rows N wg .. N wg + N - 1
+//    (N = nB / 4: 32, or 16 for v of a head), A the LayerNorm tile by
+//    descriptor.  Down step: m64n192k16 on its quarter's slot, A the
+//    attention output or a hidden chunk by descriptor.  Element j of a
+//    thread's accumulators is row 16 (warp % 4) + lane / 4 + 8 ((j / 2) %
+//    2), column 8 (j / 4) + 2 (lane % 4) + j % 2 of the warpgroup's result
+//    (the mma.sync C fragment, repeated).
 
-struct MmaUp {
-  float acc[2][UP_NT][4];
-};
-struct MmaOut {
-  float acc[4][OUT_NT][4];
-};
+constexpr int UP_ACC = 2 * UP_NT * 4;   // 16
+constexpr int OUT_ACC = 4 * OUT_NT * 4; // 96
+static_assert(UP_ACC == UPW / 4 / 2 && OUT_ACC == QUARTER / 2,
+              "the two routes hold the same registers");
+// The output sum and an up step's accumulators would be 112 of a thread's
+// 128 registers, and a wgmma's accumulators must be one run of registers.
+// ptxas, left to itself, serialized every wgmma and swapped the up step's
+// accumulators with part of the output sum through local memory at every
+// slab (L2 traffic: with this much shared memory, L1 is small).  So a
+// thread parks the last PARK registers of its output sum in shared memory
+// from before each up step until the down step that needs them.
+constexpr int PARK = 16;
 
-// acc (+)= A_s[64 x 64] B^T, B the nB rows of a slot; cnt: the warp's tiles
-__device__ __forceinline__ void mma_up_slab(MmaUp& u, const bf16* A,
-                                            const bf16* B, int cnt, int mh,
-                                            int ng, int lane) {
+__device__ __forceinline__ void park(const float (&oacc)[OUT_ACC], float* pk,
+                                     int tid) {
+#pragma unroll
+  for (int j = 0; j < PARK; ++j)
+    pk[j * BLK_THREADS + tid] = oacc[OUT_ACC - PARK + j];
+}
+__device__ __forceinline__ void unpark(float (&oacc)[OUT_ACC],
+                                       const float* pk, int tid) {
+#pragma unroll
+  for (int j = 0; j < PARK; ++j)
+    oacc[OUT_ACC - PARK + j] = pk[j * BLK_THREADS + tid];
+}
+
+// mma: acc (+)= A_s[64 x 64] B^T, B the nB rows of a slot; cnt the warp's
+// tiles
+__device__ __forceinline__ void mma_up_slab(float (&acc)[UP_ACC],
+                                            const bf16* A, const bf16* B,
+                                            int cnt, int mh, int ng,
+                                            int lane) {
 #ifndef CMVE_BLK_NO_MMA
   if (cnt <= 0) return;
+  const int ar = 32 * mh + (lane & 15), ac = (lane >> 4) * 8;
+  // tiles 2 ng and 2 ng + 1: lanes 16-31 address the second
+  const int br = (UP_NT * ng + (lane >> 4)) * 8 + (lane & 7);
+  const int bc = ((lane >> 3) & 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < 64; kk += 16) {
-    uint32_t af[2][4];
+    uint32_t af[2][4], b[4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
-      ldmatrix_x4(af[mi], A + swz(32 * mh + 16 * mi + (lane & 15),
-                                  kk + (lane >> 4) * 8));
-    const int bc = kk + ((lane >> 3) & 1) * 8;
-    {  // tiles 0 and 1 of the warp (lanes 16-31 address the second)
-      uint32_t b[4];
-      ldmatrix_x4(b, B + swz((UP_NT * ng + (lane >> 4)) * 8 + (lane & 7), bc));
+      ldmatrix_x4(af[mi], A + swz(ar + 16 * mi, kk + ac));
+    ldmatrix_x4(b, B + swz(br, kk + bc));
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        mma_bf16_16816(u.acc[mi][0], af[mi], b);
-        if (cnt > 1) mma_bf16_16816(u.acc[mi][1], af[mi], b + 2);
-      }
-    }
-    if (cnt > 2) {
-      uint32_t b[2];
-      ldmatrix_x2(b, B + swz((UP_NT * ng + 2) * 8 + (lane & 7), bc));
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) mma_bf16_16816(u.acc[mi][2], af[mi], b);
+    for (int mi = 0; mi < 2; ++mi) {
+      mma_bf16_16816(&acc[(mi * UP_NT + 0) * 4], af[mi], b);
+      if (cnt > 1) mma_bf16_16816(&acc[(mi * UP_NT + 1) * 4], af[mi], b + 2);
     }
   }
 #endif
 }
 
-// out += A[64 x kw] B^T over the warp's 48 rows of the slot B; A one
+// mma: oacc += A[64 x kw] B^T over the warp's 48 rows of the slot B; A one
 // swizzled 64-column tile, kw <= 64 a multiple of 16
-__device__ __forceinline__ void mma_down(MmaOut& o, const bf16* A, int kw,
-                                         const bf16* B, int cnt, int wl,
-                                         int lane) {
+__device__ __forceinline__ void mma_down(float (&oacc)[OUT_ACC], const bf16* A,
+                                         int kw, const bf16* B, int cnt,
+                                         int wl, int lane) {
 #ifndef CMVE_BLK_NO_MMA
   if (cnt <= 0) return;
-  for (int kk = 0; kk < kw; kk += 16) {
-    uint32_t af[4][4];
+  const int br = 48 * wl + (lane & 7) + ((lane >> 4) << 3);
+  const int bc = ((lane >> 3) & 1) * 8;
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-      ldmatrix_x4(af[mi], A + swz(16 * mi + (lane & 15), kk + (lane >> 4) * 8));
-    const int br = 48 * wl + (lane & 7) + ((lane >> 4) << 3);
-    const int bc = kk + ((lane >> 3) & 1) * 8;
+  for (int kk = 0; kk < BLK_MAX_HD; kk += 16)
+    if (kk < kw) {
+      uint32_t af[4][4];
 #pragma unroll
-    for (int pr = 0; pr < OUT_NT / 2; ++pr)
-      if (2 * pr < cnt) {
-        uint32_t b[4];  // tiles 2 pr and 2 pr + 1
-        ldmatrix_x4(b, B + swz(br + 16 * pr, bc));
+      for (int mi = 0; mi < 4; ++mi)
+        ldmatrix_x4(af[mi],
+                    A + swz(16 * mi + (lane & 15), kk + (lane >> 4) * 8));
 #pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma_bf16_16816(o.acc[mi][2 * pr], af[mi], b);
-          if (2 * pr + 1 < cnt)
-            mma_bf16_16816(o.acc[mi][2 * pr + 1], af[mi], b + 2);
+      for (int pr = 0; pr < OUT_NT / 2; ++pr)
+        if (2 * pr < cnt) {
+          uint32_t b[4];  // tiles 2 pr and 2 pr + 1
+          ldmatrix_x4(b, B + swz(br + 16 * pr, kk + bc));
+#pragma unroll
+          for (int mi = 0; mi < 4; ++mi) {
+            mma_bf16_16816(&oacc[(mi * OUT_NT + 2 * pr) * 4], af[mi], b);
+            if (2 * pr + 1 < cnt)
+              mma_bf16_16816(&oacc[(mi * OUT_NT + 2 * pr + 1) * 4], af[mi],
+                             b + 2);
+          }
         }
-      }
-  }
+    }
 #endif
 }
 
-// The result element (row, column) of each accumulator, for the epilogues:
-// f(row, col, v0, v1) for the pair (col, col + 1).
-template <typename F>
-__device__ __forceinline__ void mma_up_each(MmaUp& u, int cnt, int mh, int ng,
-                                            int lane, F f) {
-  const int g = lane >> 2, t = lane & 3;
+// wgmma: acc (+)= A_s[64 x 64] B_wg^T, B_wg slot rows N wg .. N wg + N - 1
+// (N = 32 or 16); waits (the slot is free after it, and no accumulator is in
+// flight while the release runs)
+template <int N>
+__device__ __forceinline__ void wg_up_slab(float (&acc)[UP_ACC],
+                                           const bf16* A, const bf16* B,
+                                           int wg, bool first) {
+#ifndef CMVE_BLK_NO_MMA
+  const uint64_t da = wgmma_desc_sw128(A, 16, 1024);
+  const uint64_t db = wgmma_desc_sw128(B + N * wg * 64, 16, 1024);
+  wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < UP_NT; ++i)
-    if (i < cnt)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-          f(32 * mh + 16 * mi + g + 8 * half, (UP_NT * ng + i) * 8 + 2 * t,
-            u.acc[mi][i][2 * half], u.acc[mi][i][2 * half + 1]);
+  for (int k = 0; k < 4; ++k) {
+    const uint64_t a = wgmma_desc_advance(da, 32 * k);
+    const uint64_t b = wgmma_desc_advance(db, 32 * k);
+    if constexpr (N == 32)
+      wgmma_m64n32k16_ss<0>(acc, a, b, !first || k > 0);
+    else
+      wgmma_m64n16k16_ss<0>(acc, a, b, !first || k > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_pin<N / 2>(acc);
+#endif
 }
 
-template <typename F>
-__device__ __forceinline__ void mma_out_each(MmaOut& o, int cnt, int warp,
-                                             int lane, F f) {
-  const int g = lane >> 2, t = lane & 3;
+// wgmma: oacc += A[64 x kw] B^T, B the 192 rows of the quarter's slot; waits
+__device__ __forceinline__ void wg_down(float (&oacc)[OUT_ACC], const bf16* A,
+                                        int kw, const bf16* B) {
+#ifndef CMVE_BLK_NO_MMA
+  const uint64_t da = wgmma_desc_sw128(A, 16, 1024);
+  const uint64_t db = wgmma_desc_sw128(B, 16, 1024);
+  wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < OUT_NT; ++i)
-    if (i < cnt)
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-          f(16 * mi + g + 8 * half, (OUT_NT * warp + i) * 8 + 2 * t,
-            o.acc[mi][i][2 * half], o.acc[mi][i][2 * half + 1]);
+  for (int k = 0; k < BLK_MAX_HD / 16; ++k)
+    if (16 * k < kw)
+      wgmma_m64n192k16_ss<0>(oacc, wgmma_desc_advance(da, 32 * k),
+                             wgmma_desc_advance(db, 32 * k), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_pin<OUT_ACC>(oacc);
+#endif
 }
 
-// y[r][c] = round(round(out + bias[c]) + res[r][c]) for the rows of the
-// block (r < nrows); out is zeroed.  res: x (read-only) or y1 (this
-// block's own writes to y, read back by the thread that wrote them).
-template <typename Out, typename Each>
-__device__ __forceinline__ void residual_out(Out& o, Each each,
+// f(row, col, v0, v1) for each pair (col, col + 1) of an up step's 64 x nB
+// result that this thread holds (col < nB)
+template <bool WG, typename F>
+__device__ __forceinline__ void up_each(const float (&acc)[UP_ACC], int nB,
+                                        int warp, int lane, F f) {
+  const int g = lane >> 2, t = lane & 3;
+  if constexpr (WG) {
+    const int n = nB > 64 ? 32 : 16;    // the warpgroup's columns
+    const int r0 = 16 * (warp & 3) + g, c0 = n * (warp >> 2) + 2 * t;
+#pragma unroll
+    for (int i = 0; i < UP_ACC / 4; ++i)
+      if (8 * i < n && c0 + 8 * i < nB)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          f(r0 + 8 * half, c0 + 8 * i, acc[4 * i + 2 * half],
+            acc[4 * i + 2 * half + 1]);
+  } else {
+    const int mh = warp >> 3, ng = warp & 7;
+#pragma unroll
+    for (int i = 0; i < UP_NT; ++i)
+      if ((UP_NT * ng + i) * 8 < nB)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            f(32 * mh + 16 * mi + g + 8 * half, (UP_NT * ng + i) * 8 + 2 * t,
+              acc[(mi * UP_NT + i) * 4 + 2 * half],
+              acc[(mi * UP_NT + i) * 4 + 2 * half + 1]);
+  }
+}
+
+// y[r][c] = round(round(oacc + bias[c]) + res[r][c]) for the rows of the
+// block (r < nrows) and the columns this thread holds; oacc is zeroed.
+// res: x (read-only) or y1 (this block's own writes to y, read back by the
+// thread that wrote them).
+template <bool WG>
+__device__ __forceinline__ void residual_out(float (&oacc)[OUT_ACC],
                                              const bf16* __restrict__ bias,
                                              const bf16* res, bool ro,
                                              bf16* y, int row0, int nrows,
-                                             int D) {
-  each(o, [&](int r, int c, float& v0, float& v1) {
-    if (r < nrows) {
+                                             int D, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  auto one = [&](int r, int c, float v0, float v1) {
+    if (r < nrows && c < D) {
       const size_t off = (size_t)(row0 + r) * D + c;
       const uint32_t* rp = reinterpret_cast<const uint32_t*>(res + off);
       const uint32_t rv = ro ? __ldg(rp) : *rp;
@@ -552,9 +655,88 @@ __device__ __forceinline__ void residual_out(Out& o, Each each,
       const float p1 = round_to<bf16>(v1 + to_f32(bias[c + 1]));
       st_u32(y + off, pack_bf16(p0 + x.x, p1 + x.y));
     }
-    v0 = 0.f;
-    v1 = 0.f;
-  });
+  };
+  if constexpr (WG) {
+    const int r0 = 16 * (warp & 3) + g, c0 = QUARTER * (warp >> 2) + 2 * t;
+#pragma unroll
+    for (int i = 0; i < OUT_ACC / 4; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        one(r0 + 8 * half, c0 + 8 * i, oacc[4 * i + 2 * half],
+            oacc[4 * i + 2 * half + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < OUT_NT; ++i)
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          one(16 * mi + g + 8 * half, (OUT_NT * warp + i) * 8 + 2 * t,
+              oacc[(mi * OUT_NT + i) * 4 + 2 * half],
+              oacc[(mi * OUT_NT + i) * 4 + 2 * half + 1]);
+  }
+#pragma unroll
+  for (int j = 0; j < OUT_ACC; ++j) oacc[j] = 0.f;
+}
+
+// acc = LN-tile . (the nB rows of tiles t0 .. t0 + ks - 1)^T, the
+// products of one up step; every warp waits for and releases every tile
+template <bool WG>
+__device__ __forceinline__ void up_step(float (&acc)[UP_ACC], const bf16* LN,
+                                        const BlockParams& p,
+                                        const WeightMaps& wm, const Ring& ring,
+                                        int t0, int nB, int warp, int lane) {
+  const int ks = p.sched.ks;
+#pragma unroll
+  for (int j = 0; j < UP_ACC; ++j) acc[j] = 0.f;
+  BLK_MARK(1, -1);
+  const int mh = warp >> 3, ng = warp & 7;
+  const int cnt = min(max(nB / 8 - UP_NT * ng, 0), UP_NT);
+  for (int s = 0; s < ks; ++s) {
+    const bf16* B = tile_wait(ring, t0 + s);
+    BLK_MARK(1, 11);
+    if constexpr (WG) {
+      if (nB > 64)
+        wg_up_slab<32>(acc, LN + s * SUB, B, warp >> 2, s == 0);
+      else
+        wg_up_slab<16>(acc, LN + s * SUB, B, warp >> 2, s == 0);
+    } else {
+      mma_up_slab(acc, LN + s * SUB, B, cnt, mh, ng, lane);
+    }
+    BLK_MARK(1, 10);
+    tile_release(p, wm, ring, t0 + s, lane);
+    BLK_MARK(1, 12);
+  }
+}
+
+// oacc += A_k[64 x kw] . (this warp's part of its quarter's tile)^T for
+// k < nk, over the tiles t0 + k nq + j, one per output quarter j: each warp
+// waits for and releases them all, and multiplies its quarter's
+template <bool WG>
+__device__ __forceinline__ void down_step(float (&oacc)[OUT_ACC],
+                                          const bf16* A, int kw,
+                                          const BlockParams& p,
+                                          const WeightMaps& wm,
+                                          const Ring& ring, int t0, int nk,
+                                          int warp, int lane) {
+  const int nq = p.sched.nq, quarter = warp >> 2;
+  const int cnt = min(max(p.D / 8 - OUT_NT * warp, 0), OUT_NT);
+  BLK_MARK(1, -1);
+  for (int k = 0; k < nk; ++k)
+    for (int j = 0; j < nq; ++j) {
+      const int t = t0 + k * nq + j;
+      const bf16* B = tile_wait(ring, t);
+      BLK_MARK(1, 14);
+      if (j == quarter) {
+        if constexpr (WG)
+          wg_down(oacc, A + k * SUB, kw, B);
+        else
+          mma_down(oacc, A + k * SUB, kw, B, cnt, warp & 3, lane);
+      }
+      BLK_MARK(1, 13);
+      tile_release(p, wm, ring, t, lane);
+      BLK_MARK(1, 15);
+    }
 }
 
 template <bool WG>
@@ -574,29 +756,25 @@ __global__ void __launch_bounds__(BLK_THREADS, 1)
   bf16* const QS = ST;                    // q, then the attention output
   bf16* const KS = ST + SUB;              // k: [key][c]
   bf16* const VT = ST + 2 * SUB;          // v^T: [c][key]
-  bf16* const HS = ST;                    // a hidden chunk: 192 columns
+  bf16* const HS = ST;                    // a hidden chunk: 128 columns
+  float* const PK = reinterpret_cast<float*>(ST + 3 * SUB);  // parked sums
   Ring ring;
-  ring.slots = ST + 3 * SUB;
+  ring.slots = ST + 3 * SUB + PARK * BLK_THREADS * 2;
   ring.full = reinterpret_cast<uint64_t*>(ring.slots + NSLOT * SLOT);
   ring.done = reinterpret_cast<int*>(ring.full + NSLOT);
   const WeightMaps wm{{&map_wq, &map_wk, &map_wv, &map_wo, &map_w1, &map_w2}};
-#ifdef CMVE_BLK_PROFILE
-  __shared__ long long blk_prof[18];
-  if (threadIdx.x == 0)
-    for (int i = 0; i < 18; ++i) blk_prof[i] = 0;
-#endif
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.x * p.rows_per_block;
   const int nrows = min(p.rows_per_block, p.n - row0);
-  const int quarter = warp >> 2;               // of the output columns
   const bf16* x = static_cast<const bf16*>(p.x);
   bf16* y = static_cast<bf16*>(p.y);
-  const bf16* bq = static_cast<const bf16*>(p.bq);
-  const bf16* bk = static_cast<const bf16*>(p.bk);
-  const bf16* bv = static_cast<const bf16*>(p.bv);
   const bf16* b1 = static_cast<const bf16*>(p.b1);
 
+#ifdef CMVE_BLK_PROFILE
+  if (tid == 0)
+    for (int i = 0; i < 18; ++i) blk_prof[i] = 0;
+#endif
   if (tid == 0) {
     for (int i = 0; i < NSLOT; ++i) {
       mbar_init(&ring.full[i], 1);
@@ -613,96 +791,69 @@ __global__ void __launch_bounds__(BLK_THREADS, 1)
   __syncthreads();
   BLK_MARK(0, 0);  // x and LN1(x)
 
-  const int mh = warp >> 3, ng = warp & 7;     // the mma up step's tiling
-  const int out_cnt = min(max(D / 8 - OUT_NT * warp, 0), OUT_NT);
-  MmaOut out;
+  float oacc[OUT_ACC];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int i = 0; i < OUT_NT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) out.acc[mi][i][e] = 0.f;
-  auto out_each = [&](MmaOut& o, auto f) {
-    mma_out_each(o, out_cnt, warp, lane, f);
-  };
+  for (int j = 0; j < OUT_ACC; ++j) oacc[j] = 0.f;
 
-  // acc = LN-tile . (the nB rows of tiles t0 .. t0 + ks - 1)^T
-  auto up_step = [&](MmaUp& u, int t0, int nB) {
-    const int cnt = min(max(nB / 8 - UP_NT * ng, 0), UP_NT);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int i = 0; i < UP_NT; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) u.acc[mi][i][e] = 0.f;
-    BLK_MARK(1, -1);
-    for (int s = 0; s < S.ks; ++s) {
-      const bf16* B = tile_wait(ring, t0 + s);
-      BLK_MARK(1, 11);
-      mma_up_slab(u, LN + s * SUB, B, cnt, mh, ng, lane);
-      BLK_MARK(1, 10);
-      tile_release(p, wm, ring, t0 + s, lane);
-      BLK_MARK(1, 12);
+  // q | k | v column C of a head, plus its bias, into the staging area
+  auto store_qkv = [&](int h, int r, int C, float v0, float v1) {
+    const int m = C / hd, c = C - m * hd;
+    const bf16* bm = static_cast<const bf16*>(m == 0 ? p.bq : m == 1 ? p.bk
+                                                                     : p.bv) +
+                     h * hd + c;
+    v0 += to_f32(bm[0]);
+    v1 += to_f32(bm[1]);
+    const bool live = r < nrows;  // pad rows of k and v: zeros
+    if (m == 0) {
+      st_u32(QS + swz(r, c), pack_bf16(v0, v1));
+    } else if (m == 1) {
+      st_u32(KS + swz(r, c), live ? pack_bf16(v0, v1) : 0u);
+    } else {
+      // a key of another sequence has P = 0, and 0 x inf is NaN: a value
+      // that is not finite is stored as 0 (its own sequence's scores are
+      // NaN then, as in the plain version)
+      VT[swz(c, r)] = from_f32<bf16>(live && isfinite(v0) ? v0 : 0.f);
+      VT[swz(c + 1, r)] = from_f32<bf16>(live && isfinite(v1) ? v1 : 0.f);
     }
-    return cnt;
-  };
-  // out += A_k[64 x kw] . (this warp's rows of its quarter's tile)^T for
-  // k < nk: the tiles t0 + k nq + j, one per output quarter j
-  auto down_step = [&](const bf16* A, int kw, int t0, int nk) {
-    BLK_MARK(1, -1);
-    for (int k = 0; k < nk; ++k)
-      for (int j = 0; j < S.nq; ++j) {
-        const int t = t0 + k * S.nq + j;
-        const bf16* B = tile_wait(ring, t);
-        BLK_MARK(1, 14);
-        if (j == quarter)
-          mma_down(out, A + k * SUB, kw, B, out_cnt, warp & 3, lane);
-        BLK_MARK(1, 13);
-        tile_release(p, wm, ring, t, lane);
-        BLK_MARK(1, 15);
-      }
   };
 
   int t = 0;  // the schedule's next tile
   // -- attention half, head by head -----------------------------------------
   for (int h = 0; h < p.heads; ++h) {
+    park(oacc, PK, tid);
     {
-      MmaUp u;
-      const int cnt = up_step(u, t, 3 * hd);
+      float acc[UP_ACC];
+      up_step<WG>(acc, LN, p, wm, ring, t, 2 * hd, warp, lane);  // q | k
       t += S.ks;
       BLK_MARK(0, 1);  // q | k | v products
       __syncthreads();  // the staging area is free (last head's down step)
-      mma_up_each(u, cnt, mh, ng, lane,
+      up_each<WG>(acc, 2 * hd, warp, lane,
                   [&](int r, int C, float v0, float v1) {
-        const int m = C / hd, c = C - m * hd;
-        const bf16* bm = (m == 0 ? bq : m == 1 ? bk : bv) + h * hd + c;
-        v0 += to_f32(bm[0]);
-        v1 += to_f32(bm[1]);
-        const bool live = r < nrows;  // pad rows of k and v: zeros
-        if (m == 0) {
-          st_u32(QS + swz(r, c), pack_bf16(v0, v1));
-        } else if (m == 1) {
-          st_u32(KS + swz(r, c), live ? pack_bf16(v0, v1) : 0u);
-        } else {
-          VT[swz(c, r)] = from_f32<bf16>(live ? v0 : 0.f);
-          VT[swz(c + 1, r)] = from_f32<bf16>(live ? v1 : 0.f);
-        }
+                    store_qkv(h, r, C, v0, v1);
+                  });
+      BLK_MARK(0, 2);  // their epilogue
+      up_step<WG>(acc, LN, p, wm, ring, t, hd, warp, lane);  // v
+      t += S.ks;
+      BLK_MARK(0, 1);
+      up_each<WG>(acc, hd, warp, lane, [&](int r, int C, float v0, float v1) {
+        store_qkv(h, r, 2 * hd + C, v0, v1);
       });
     }
     __syncthreads();
-    BLK_MARK(0, 2);  // their epilogue
+    BLK_MARK(0, 2);
     if (warp < BLK_ROWS / 16)
       attend_rows(QS, KS, VT, warp, hd, L, nrows, p.causal, p.scale, lane);
     fence_proxy_async();
     __syncthreads();
     BLK_MARK(0, 3);  // softmax(q k^T) v
-    down_step(QS, hd, t, 1);
+    unpark(oacc, PK, tid);
+    down_step<WG>(oacc, QS, hd, p, wm, ring, t, 1, warp, lane);
     t += S.nq;
     BLK_MARK(0, 4);  // output projection
   }
   // y1 = x + (att W_o^T + b_o), into y
-  residual_out(out, out_each, static_cast<const bf16*>(p.bo), x, true, y,
-               row0, nrows, D);
+  residual_out<WG>(oacc, static_cast<const bf16*>(p.bo), x, true, y, row0,
+                   nrows, D, warp, lane);
   __syncthreads();
 
   // -- MLP half, a chunk of hidden columns at a time -------------------------
@@ -711,16 +862,16 @@ __global__ void __launch_bounds__(BLK_THREADS, 1)
   fence_proxy_async();
   __syncthreads();
   BLK_MARK(0, 5);  // y1 and LN2(y1)
-  for (int h0 = 0; h0 < p.hidden; h0 += BLK_CHUNK) {
-    const int cw = min(BLK_CHUNK, p.hidden - h0);
+  for (int h0 = 0; h0 < p.hidden; h0 += UPW) {
+    const int cw = min(UPW, p.hidden - h0);
+    park(oacc, PK, tid);
     {
-      MmaUp u;
-      const int cnt = up_step(u, t, cw);
+      float acc[UP_ACC];
+      up_step<WG>(acc, LN, p, wm, ring, t, cw, warp, lane);
       t += S.ks;
       BLK_MARK(0, 6);  // hidden chunk products
       __syncthreads();  // the staging area is free (last chunk's down step)
-      mma_up_each(u, cnt, mh, ng, lane,
-                  [&](int r, int c, float v0, float v1) {
+      up_each<WG>(acc, cw, warp, lane, [&](int r, int c, float v0, float v1) {
         v0 += to_f32(b1[h0 + c]);
         v1 += to_f32(b1[h0 + c + 1]);
         v0 = v0 * (1.0f / (1.0f + expf(-1.702f * v0)));
@@ -731,13 +882,14 @@ __global__ void __launch_bounds__(BLK_THREADS, 1)
     fence_proxy_async();
     __syncthreads();
     BLK_MARK(0, 7);  // gelu epilogue
-    down_step(HS, 64, t, cw / 64);
+    unpark(oacc, PK, tid);
+    down_step<WG>(oacc, HS, 64, p, wm, ring, t, cw / 64, warp, lane);
     t += (cw / 64) * S.nq;
     BLK_MARK(0, 8);  // second MLP product
   }
   // y = y1 + (hidden W2^T + b2), over y1 in y
-  residual_out(out, out_each, static_cast<const bf16*>(p.b2), y, false, y,
-               row0, nrows, D);
+  residual_out<WG>(oacc, static_cast<const bf16*>(p.b2), y, false, y, row0,
+                   nrows, D, warp, lane);
   BLK_MARK(0, 9);  // y
 #ifdef CMVE_BLK_PROFILE
   if (tid == 0 && blockIdx.x == 0 && p.scratch != nullptr)
@@ -881,6 +1033,18 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
            });
 }
 
+// The bf16 route (ops/attention_sublayer.block_path): wgmma where every
+// output quarter is whole and a head's q | k | v is one 192-row slot, else
+// mma.sync.  -DCMVE_BLK_NO_WGMMA keeps mma.sync everywhere (to time the two
+// in one build's call).
+static bool block_route_wgmma(int D, int hd) {
+#ifdef CMVE_BLK_NO_WGMMA
+  return false;
+#else
+  return D % QUARTER == 0 && hd == 64;
+#endif
+}
+
 static int rows_per_block(int seq_len) {
   return (BLK_ROWS / seq_len) * seq_len;
 }
@@ -941,15 +1105,15 @@ extern "C" int cmve_block_sublayer(
     const int hd = p.hd;
     Sched& S = p.sched;
     S.ks = D / 64;
-    S.nq = (D + BLK_CHUNK - 1) / BLK_CHUNK;
-    S.per_head = S.ks + S.nq;
+    S.nq = (D + QUARTER - 1) / QUARTER;
+    S.per_head = 2 * S.ks + S.nq;
     S.attn_tiles = heads * S.per_head;
-    S.per_chunk = S.ks + (BLK_CHUNK / 64) * S.nq;
+    S.per_chunk = S.ks + (UPW / 64) * S.nq;
     S.total = S.attn_tiles;
-    for (int h0 = 0; h0 < hidden; h0 += BLK_CHUNK)
-      S.total += S.ks + (min(BLK_CHUNK, hidden - h0) / 64) * S.nq;
-    S.o_rows = min(BLK_CHUNK, D);
-    S.w1_rows = min(BLK_CHUNK, hidden);
+    for (int h0 = 0; h0 < hidden; h0 += UPW)
+      S.total += S.ks + (min(UPW, hidden - h0) / 64) * S.nq;
+    S.o_rows = min(QUARTER, D);
+    S.w1_rows = min(UPW, hidden);
     // the weights' maps, kept by (address, shape, box) across calls
     CUtensorMap maps[6];
     const cuuint64_t dd[2] = {(cuuint64_t)D, (cuuint64_t)D};
@@ -973,8 +1137,10 @@ extern "C" int cmve_block_sublayer(
     // LayerNorm tile, staging, ring, barriers, counts; 1024 for alignment
     const int smem = 1024 + ((D / 64) * SUB + 3 * SUB + NSLOT * SLOT) *
                                 (int)sizeof(bf16) +
+                     PARK * BLK_THREADS * (int)sizeof(float) +
                      NSLOT * (int)(sizeof(uint64_t) + sizeof(int));
-    auto kernel = block_kernel_bf16<false>;
+    auto kernel = block_route_wgmma(D, hd) ? block_kernel_bf16<true>
+                                           : block_kernel_bf16<false>;
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem);
     kernel<<<grid, BLK_THREADS, smem, s>>>(maps[0], maps[1], maps[2], maps[3],

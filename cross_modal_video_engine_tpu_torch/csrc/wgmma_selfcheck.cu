@@ -13,6 +13,14 @@
 //                   with a box of 80 rows: the hardware zero-fills rows 77-79
 //                   whatever the buffer holds there; wgmma m64n80k16;
 //   d2 = bf16(d1) v v read the same way, five 16-key steps of the P v form.
+// and, for block_sublayer.cu, its two product forms:
+//   d1 = a b^T      a (64, 64) written into shared memory by the threads at
+//                   `swz` addresses (as the kernel writes LN(x), the attention
+//                   output and the hidden chunk), b columns 64-127 of a
+//                   (192, 128) matrix, one TMA box of 192 rows: wgmma
+//                   m64n192k16, the down step's output quarter;
+//   d2 = a b'^T     b' rows 32-63 of the same box: m64n32k16 from a
+//                   descriptor 32 rows into the tile, an up step's slice.
 // Replaces no TPU kernel; tests/test_torch_kernels_cuda.py holds both against
 // torch.matmul.
 
@@ -156,6 +164,73 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// block_sublayer.cu's forms: A by st.shared at swizzled addresses, a
+// 192-row box, N = 192 and an N = 32 slice 32 rows into it
+__global__ void __launch_bounds__(128)
+    wgmma_selfcheck_block_kernel(const __grid_constant__ CUtensorMap map_b,
+                                 const __nv_bfloat16* __restrict__ a,
+                                 float* __restrict__ d1,
+                                 float* __restrict__ d2) {
+  constexpr int A_BYTES = 64 * 128, B_ROWS = 192;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const tiles = align_1024(smem_raw);
+  __nv_bfloat16* const A = reinterpret_cast<__nv_bfloat16*>(tiles);
+  __shared__ uint64_t full;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(&full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(&full, B_ROWS * 128);
+    tma_load_2d(tiles + A_BYTES, &map_b, &full, 64, 0);
+  }
+  for (int i = tid; i < 64 * 8; i += 128)
+    *reinterpret_cast<uint4*>(A + swz(i >> 3, (i & 7) * 8)) =
+        reinterpret_cast<const uint4*>(a)[i];
+  fence_proxy_async();
+  __syncthreads();
+  mbar_wait(&full, 0);
+
+  const uint64_t da = wgmma_desc_sw128(tiles, 16, 1024);
+  const uint64_t db = wgmma_desc_sw128(tiles + A_BYTES, 16, 1024);
+  const uint64_t db32 = wgmma_desc_sw128(tiles + A_BYTES + 32 * 128, 16, 1024);
+  float s[96], o[16];
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_m64n192k16_ss<0>(s, wgmma_desc_advance(da, 32 * ks),
+                           wgmma_desc_advance(db, 32 * ks), ks > 0);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_m64n32k16_ss<0>(o, wgmma_desc_advance(da, 32 * ks),
+                          wgmma_desc_advance(db32, 32 * ks), ks > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_pin<96>(s);
+  wgmma_pin<16>(o);
+
+  const int row = warp * 16 + (lane >> 2), col = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 24; ++j) {
+    const int c = 8 * j + col;
+    d1[row * 192 + c] = s[4 * j];
+    d1[row * 192 + c + 1] = s[4 * j + 1];
+    d1[(row + 8) * 192 + c] = s[4 * j + 2];
+    d1[(row + 8) * 192 + c + 1] = s[4 * j + 3];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = 8 * j + col;
+    d2[row * 32 + c] = o[4 * j];
+    d2[row * 32 + c + 1] = o[4 * j + 1];
+    d2[(row + 8) * 32 + c] = o[4 * j + 2];
+    d2[(row + 8) * 32 + c + 1] = o[4 * j + 3];
+  }
+}
+
 }  // namespace cmve
 
 // C entry: a, b, v are contiguous (64, 64) bf16, d1 and d2 (64, 64) fp32.
@@ -204,5 +279,26 @@ extern "C" int cmve_wgmma_selfcheck_keys(const void* a, const void* k,
   wgmma_selfcheck_keys_kernel<<<1, 128, smem,
                                 static_cast<cudaStream_t>(stream)>>>(
       ma, mk, mv, static_cast<float*>(d1), static_cast<float*>(d2));
+  return (int)cudaGetLastError();
+}
+
+// C entry: a contiguous (64, 64) bf16, b contiguous (192, 128) bf16; d1 =
+// a b[:, 64:]^T (64, 192) and d2 = a b[32:64, 64:]^T (64, 32) fp32.  Returns
+// 0, the tensor-map encoder's error, or cudaGetLastError().
+extern "C" int cmve_wgmma_selfcheck_block(const void* a, const void* b,
+                                          void* d1, void* d2, void* stream) {
+  using namespace cmve;
+  const cuuint64_t dims[2] = {128, 192}, strides[1] = {256};
+  const cuuint32_t box[2] = {64, 192};
+  CUtensorMap mb;
+  if (int err = make_tensor_map_bf16(&mb, b, 2, dims, strides, box))
+    return err;
+  constexpr int smem = 64 * 128 + 192 * 128 + 1024;
+  cudaFuncSetAttribute(wgmma_selfcheck_block_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  wgmma_selfcheck_block_kernel<<<1, 128, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      mb, static_cast<const __nv_bfloat16*>(a), static_cast<float*>(d1),
+      static_cast<float*>(d2));
   return (int)cudaGetLastError();
 }

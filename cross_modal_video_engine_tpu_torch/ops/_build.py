@@ -67,6 +67,9 @@ _SIGNATURES = (
     #  77 rows; d1 = a k[1]^T: (64, 80), d2 = bf16(d1) v[1]: (64, 64) f32;
     #  stream)
     ("cmve_wgmma_selfcheck_keys", _I, [_P] * 6),
+    # (a: (64, 64), b: (192, 128) bf16; d1 = a b[:, 64:]^T: (64, 192) and
+    #  d2 = a b[32:64, 64:]^T: (64, 32) f32; stream)
+    ("cmve_wgmma_selfcheck_block", _I, [_P] * 5),
 )
 
 

@@ -589,8 +589,9 @@ def fused_mlp_sublayer(x, ln_scale, ln_bias, w1, b1, w2, b2, *,
 
 fused_mlp_sublayer.launches = 0
 
-# what csrc/block_sublayer.cu takes
+# what csrc/block_sublayer.cu takes, and where its wgmma route applies
 BLOCK_MAX_SEQ, BLOCK_MAX_WIDTH, BLOCK_MAX_HEAD_DIM = 64, 768, 64
+BLOCK_WGMMA_QUARTER, BLOCK_WGMMA_HEAD_DIM = 192, 64
 
 
 def _check_block_shapes(x, wq, w1, heads: int, seq_len: int) -> None:
@@ -620,9 +621,11 @@ def _check_block_shapes(x, wq, w1, heads: int, seq_len: int) -> None:
 def block_path(dtype: torch.dtype, width: int, head_dim: int, hidden: int,
                seq_len: int) -> str:
     """Which kernel of csrc/block_sublayer.cu serves a call, by dtype and
-    shape alone: "mma" (bfloat16: the weights through a TMA ring, mma.sync
-    products) or "fma" (float32: CUDA cores, a per-block scratch in device
-    memory).  Raises for what the kernel does not take."""
+    shape alone: "wgmma" (bfloat16, width a multiple of 192 and head dim
+    64: the weights through a TMA ring, wgmma products), "mma" (the other
+    bfloat16 shapes: the same ring, mma.sync products) or "fma" (float32:
+    CUDA cores, a per-block scratch in device memory).  Raises for what the
+    kernel does not take."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the block kernel takes float32 or bfloat16, not "
                         f"{dtype}")
@@ -640,7 +643,11 @@ def block_path(dtype: torch.dtype, width: int, head_dim: int, hidden: int,
     if hidden < 64 or hidden % 64:
         raise ValueError(f"the block kernel takes a hidden width that is a "
                          f"multiple of 64, got {hidden}")
-    return "fma" if dtype == torch.float32 else "mma"
+    if dtype == torch.float32:
+        return "fma"
+    if width % BLOCK_WGMMA_QUARTER == 0 and head_dim == BLOCK_WGMMA_HEAD_DIM:
+        return "wgmma"
+    return "mma"
 
 
 def _block_cuda(x, params, *, heads, seq_len, causal, eps):

@@ -278,3 +278,17 @@ def test_device_time_wants_a_device_for_a_closure():
     with pytest.raises(TypeError, match="device="):
         device_time(lambda: None, steps=1)
     assert device_time(lambda: None, steps=1, device="cpu") >= 0
+
+
+@pytest.mark.parametrize("nseq,seq_len,blocks", [(3, 50, 3), (13, 10, 3),
+                                                 (2, 64, 2)])
+def test_block_weight_bytes_through_l2(nseq, seq_len, blocks):
+    """bench/block_profile.py's L2 bytes of a layer: every thread block
+    (64 rows of whole sequences, the last one short) streams all six
+    weight matrices, 4 D^2 + 2 D hidden bf16."""
+    from cross_modal_video_engine_tpu_torch.bench import block_profile
+    d = 64
+    x, params = block_ab.build_stack(nseq, seq_len, d, 1, device="cpu")
+    flat = [*params[0][0], *params[0][1]]
+    got = block_profile.weight_bytes_through_l2(x, flat, seq_len)
+    assert got == blocks * 2 * (4 * d * d + 2 * d * 4 * d)

@@ -152,3 +152,39 @@ def test_block_raises_on_a_device_without_a_kernel():
     with pytest.raises(ValueError, match="no sublayer kernel"):
         tasl.fused_block_sublayer_compact(torch.zeros(B * L, D).to("meta"),
                                           *p, heads=H, seq_len=L)
+
+
+WGMMA_SHAPES = [(192, 64), (384, 64), (576, 64), (768, 64)]
+MMA_SHAPES = [(64, 16), (64, 32), (64, 64), (128, 16), (256, 32), (256, 64),
+              (512, 32), (512, 64), (768, 16), (768, 32), (768, 48)]
+
+
+@pytest.mark.parametrize("width,head_dim", WGMMA_SHAPES + MMA_SHAPES)
+@pytest.mark.parametrize("seq_len", [1, 50, 64])
+def test_block_path_routing(width, head_dim, seq_len):
+    """csrc/block_sublayer.cu's route by dtype and shape alone: wgmma where
+    every 192-column output quarter is whole and a head's q|k|v fills one
+    192-row slot, mma.sync for the other bf16 shapes, CUDA cores for f32;
+    the hidden width plays no part."""
+    want = "wgmma" if (width, head_dim) in WGMMA_SHAPES else "mma"
+    for hidden in (64, 320, 4 * width):
+        assert tasl.block_path(torch.bfloat16, width, head_dim, hidden,
+                               seq_len) == want
+        assert tasl.block_path(torch.float32, width, head_dim, hidden,
+                               seq_len) == "fma"
+
+
+@pytest.mark.parametrize("args,exc,match", [
+    ((torch.float16, 768, 64, 3072, 50), TypeError, "float32 or bfloat16"),
+    ((torch.bfloat16, 768, 64, 3072, 0), ValueError, "seq_len"),
+    ((torch.bfloat16, 768, 64, 3072, 65), ValueError, "seq_len"),
+    ((torch.bfloat16, 96, 32, 384, 10), ValueError, "widths"),
+    ((torch.bfloat16, 832, 64, 3328, 10), ValueError, "widths"),
+    ((torch.bfloat16, 768, 96, 3072, 10), ValueError, "head dims"),
+    ((torch.bfloat16, 768, 24, 3072, 10), ValueError, "head dims"),
+    ((torch.bfloat16, 320, 48, 1280, 10), ValueError, "head dims"),
+    ((torch.bfloat16, 768, 64, 3000, 10), ValueError, "hidden"),
+    ((torch.bfloat16, 768, 64, 0, 10), ValueError, "hidden")])
+def test_block_path_refuses(args, exc, match):
+    with pytest.raises(exc, match=match):
+        tasl.block_path(*args)

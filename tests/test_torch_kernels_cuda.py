@@ -571,6 +571,166 @@ def test_block_kernel_refuses_what_it_does_not_take(dev):
         _block(x.half(), p, heads=4, seq_len=10)
 
 
+# -- the whole-block kernel's routes (block_path) -----------------------------
+
+def _bf16_step(t):
+    return torch.ldexp(torch.ones_like(t), torch.frexp(t)[1] - 8)
+
+
+def _within_layer_bound(got, x, p, **kw):
+    """The block against the two-kernel chain as chip_smoke.py bounds a
+    layer: 3e-2, or one bf16 step of each of the layer's four roundings
+    (both sublayers' projections and both residual sums)."""
+    y1 = asl.fused_attention_sublayer_compact(x, *p[:10], **kw)
+    y = asl.fused_mlp_sublayer(y1, *p[10:])
+    xf, y1f, yf = x.float(), y1.float(), y.float()
+    tol = (_bf16_step(y1f - xf) + _bf16_step(y1f) + _bf16_step(yf - y1f)
+           + _bf16_step(yf)).clamp(min=TOL[torch.bfloat16])
+    return bool(((got.float() - yf).abs() <= tol).all())
+
+
+def _block_case(dev, d, hd, seq_len, nseq, seed=11, hidden=None):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = _attn_params(gen, dev, d) + _mlp_params(gen, dev, d)
+    if hidden is not None:
+        p[12] = _randn(gen, dev, hidden, d, std=d ** -0.5)
+        p[13] = _randn(gen, dev, hidden, std=0.02)
+        p[14] = _randn(gen, dev, d, hidden, std=0.5 * hidden ** -0.5)
+    x = _randn(gen, dev, nseq * seq_len, d, std=0.5).to(torch.bfloat16)
+    return x, p, dict(heads=d // hd, seq_len=seq_len)
+
+
+@pytest.mark.parametrize("d,hd", [(d, hd) for d in (64, 256, 512, 768)
+                                  for hd in (16, 32, 64)])
+@pytest.mark.parametrize("seq_len", [1, 10, 50, 64])
+@pytest.mark.parametrize("causal", [False, True])
+def test_block_routes_against_plain_and_chain(dev, d, hd, seq_len, causal):
+    """bf16 over widths, head dims and sequence lengths: the routed kernel
+    (wgmma at 768 / 64, mma.sync elsewhere) against the plain version at
+    3e-2 and against the two-kernel chain within a layer's bound."""
+    nseq = max(3, 130 // seq_len)      # a few tiles, the last one short
+    x, p, kw = _block_case(dev, d, hd, seq_len, nseq)
+    kw["causal"] = causal
+    route = asl.block_path(torch.bfloat16, d, hd, 4 * d, seq_len)
+    assert route == ("wgmma" if (d, hd) == (768, 64) else "mma")
+    with torch.no_grad():
+        got = _block(x, p, **kw)
+        want = asl._block_ref_flat(x, *p, **kw)
+        torch.cuda.synchronize()
+        _close(got, want, torch.bfloat16)
+        assert _within_layer_bound(got, x, p, **kw)
+
+
+@pytest.mark.parametrize("dtype,d,hd,route", [
+    (torch.bfloat16, 768, 64, "wgmma"), (torch.bfloat16, 384, 64, "wgmma"),
+    (torch.bfloat16, 192, 64, "wgmma"), (torch.bfloat16, 576, 64, "wgmma"),
+    (torch.bfloat16, 768, 32, "mma"), (torch.bfloat16, 512, 64, "mma"),
+    (torch.float32, 768, 64, "fma"), (torch.float32, 128, 16, "fma")])
+def test_block_every_route(dev, dtype, d, hd, route):
+    """Each route of block_path launches (the counter moves) and matches
+    the plain version; hidden 320 gives a short last chunk."""
+    x, p, kw = _block_case(dev, d, hd, 10, 13, seed=12, hidden=320)
+    x = x.to(dtype)
+    assert asl.block_path(dtype, d, hd, 320, 10) == route
+    before = asl.fused_block_sublayer_compact.launches
+    with torch.no_grad():
+        got = _block(x, p, **kw)
+        want = asl._block_ref_flat(x, *p, causal=False, **kw)
+    torch.cuda.synchronize()
+    assert asl.fused_block_sublayer_compact.launches == before + 1
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("d,hd", [(768, 64), (256, 32)])
+@pytest.mark.parametrize("seq_len", [10, 50])
+def test_block_neighbour_inf_stays_out(dev, d, hd, seq_len):
+    """inf in the rows of one sequence: every other sequence's output, in
+    the same tile (L = 10: six a tile) or the next, is bit-equal to the
+    kernel's output with those rows at zero; a tail tile too (13
+    sequences)."""
+    x, p, kw = _block_case(dev, d, hd, seq_len, 13, seed=13)
+    bad = slice(2 * seq_len, 3 * seq_len)
+    clean = x.clone()
+    clean[bad] = 0
+    dirty = x.clone()
+    dirty[bad] = float("inf")
+    with torch.no_grad():
+        want = _block(clean, p, **kw)
+        got = _block(dirty, p, **kw)
+    torch.cuda.synchronize()
+    keep = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+    keep[bad] = False
+    assert torch.isfinite(got[keep].float()).all()
+    assert torch.equal(got[keep], want[keep])
+
+
+@pytest.mark.parametrize("d,hd", [(768, 64), (256, 32)])
+def test_block_launches_repeat_bit_for_bit(dev, d, hd):
+    x, p, kw = _block_case(dev, d, hd, 50, 7, seed=14)
+    with torch.no_grad():
+        a = _block(x, p, **kw)
+        b = _block(x, p, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d,hd", [(768, 64), (256, 32)])
+def test_block_sees_weights_updated_in_place(dev, d, hd):
+    """The weights' tensor maps are kept by address on the C side; a map
+    holds the address, not the contents, so a weight changed in place
+    between two calls changes the result."""
+    x, p, kw = _block_case(dev, d, hd, 50, 5, seed=15)
+    with torch.no_grad():
+        first = _block(x, p, **kw)
+        for i in (2, 8, 12, 14):            # wq, wo, w1, w2
+            p[i].neg_()                     # same magnitudes, new values
+        second = _block(x, p, **kw)
+        want = asl._block_ref_flat(x, *p, causal=False, **kw)
+    torch.cuda.synchronize()
+    assert not torch.equal(first, second)
+    _close(second, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d,hd", [(768, 64), (256, 32)])
+def test_block_kernel_with_barrier_timeout_build(dev, d, hd):
+    """csrc/common.cuh's mbarrier waits built with -DCMVE_MBAR_TIMEOUT (a
+    wait that spins too long traps instead of hanging): the block kernel
+    runs to the end and gives the package build's output bit for bit."""
+    lib = _build.load_kernels(defines=("-DCMVE_MBAR_TIMEOUT",)).lib
+    x, p, kw = _block_case(dev, d, hd, 50, 9, seed=16)
+    p = [t.to(torch.bfloat16) for t in p]
+    with torch.no_grad():
+        want = _block(x, p, **kw)
+    got = torch.empty_like(x)
+    err = lib.cmve_block_sublayer(
+        1, x.data_ptr(), *[t.data_ptr() for t in p], got.data_ptr(), None,
+        x.shape[0], d, kw["heads"], p[12].shape[0], 50, 0, 1e-5,
+        asl._sm_scale(hd), torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(got, want)
+
+
+def test_wgmma_block_forms_selfcheck(dev):
+    """csrc/wgmma_selfcheck.cu, the block kernel's two product forms: A
+    written by the threads at swizzled addresses, a 192-row TMA box read
+    whole (m64n192k16) and 32 rows into it (m64n32k16)."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    a = _randn(gen, dev, 64, 64).to(torch.bfloat16)
+    b = _randn(gen, dev, 192, 128).to(torch.bfloat16)
+    d1 = torch.empty(64, 192, device=dev)
+    d2 = torch.empty(64, 32, device=dev)
+    err = _build.load_kernels().lib.cmve_wgmma_selfcheck_block(
+        a.data_ptr(), b.data_ptr(), d1.data_ptr(), d2.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    torch.testing.assert_close(d1, a.float() @ b[:, 64:].float().T,
+                               rtol=0, atol=1e-4)
+    torch.testing.assert_close(d2, a.float() @ b[32:64, 64:].float().T,
+                               rtol=0, atol=1e-4)
+
+
 # -- gradients: kernel forward, plain-version backward ------------------------
 
 def _leaves(tensors):
