@@ -1264,12 +1264,12 @@ def main() -> int:
     # the block kernel's ablation builds beside the checks (its own nvcc
     # per source, all started together); drive_bench_path waits for it
     built = {}
-    builder = threading.Thread(target=lambda: built.update(lib=load_kernels(
-        defines=("-DCMVE_BLK_NO_MMA",)).lib))
-    builder.start()
+    ablation_build = threading.Thread(target=lambda: built.update(
+        lib=load_kernels(defines=("-DCMVE_BLK_NO_MMA",)).lib))
+    ablation_build.start()
 
     def ablation():
-        builder.join()
+        ablation_build.join()
         return built.get("lib") or load_kernels(
             defines=("-DCMVE_BLK_NO_MMA",)).lib
 

@@ -20,7 +20,7 @@
 // fp32 output sum of a sublayer takes 96 of a thread's 128 registers.
 //
 // bf16 design.  The layer's weight tiles are used in an order fixed before
-// the launch (`issue_tile`): per head the q|k rows of the head in 64-column
+// the launch (`load_tile`): per head the q|k rows of the head in 64-column
 // slabs of K, then its v rows, then its W_o columns, one tile per output
 // quarter of 192 columns; then per chunk of 128 hidden columns its W1 slabs
 // and its W2 tiles.  The six matrices are 2-D TMA tensor maps with the
@@ -93,7 +93,7 @@ static_assert(2 * BLK_MAX_HD <= UPW, "q | k of a head is one up step");
 static_assert(UP_NT == 2 && OUT_NT == 6, "the mma tilings below");
 static_assert(BLK_MAX_D == 4 * QUARTER, "four output quarters at most");
 
-// the layer's tile schedule (see issue_tile), made on the host
+// the layer's tile schedule (see load_tile), made on the host
 struct Sched {
   int ks;          // D / 64: slabs of an up step
   int nq;          // output quarters: ceil(D / 192)
@@ -213,7 +213,7 @@ struct Ring {
 //                       chunk, nq tiles "W2": rows 192 j .. of w2, columns
 //                       128 c + 64 k ...
 // Rows and columns past a matrix's end arrive as zeros.
-__device__ __forceinline__ void issue_tile(const BlockParams& p,
+__device__ __forceinline__ void load_tile(const BlockParams& p,
                                            const WeightMaps& w,
                                            const Ring& r, int t) {
   const Sched& s = p.sched;
@@ -266,7 +266,7 @@ __device__ __forceinline__ void tile_release(const BlockParams& p,
     __threadfence_block();
     if (atomicAdd(&r.done[slot], 1) + 1 == BLK_WARPS) {
       r.done[slot] = 0;
-      if (t + NSLOT < p.sched.total) issue_tile(p, w, r, t + NSLOT);
+      if (t + NSLOT < p.sched.total) load_tile(p, w, r, t + NSLOT);
     }
   }
   __syncwarp();
@@ -781,7 +781,7 @@ __global__ void __launch_bounds__(BLK_THREADS, 1)
       ring.done[i] = 0;
     }
     mbar_init_fence();
-    for (int t = 0; t < min(NSLOT, S.total); ++t) issue_tile(p, wm, ring, t);
+    for (int t = 0; t < min(NSLOT, S.total); ++t) load_tile(p, wm, ring, t);
   }
   BLK_MARK(0, -1);
   // LN1(x) while the first tiles arrive
