@@ -60,7 +60,25 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
 9. index: 1M x 512 rows drawn on the card, stored as bf16 and as int8,
    64 queries, top-10: bf16 equal to brute force, int8 recall@10 against
    the exact answer, search times and the peak memory of a search;
-10. prints a JSON line of kernel results (launches on the main paths,
+10. LINAS retrieval serving at the full width of the shipped
+    DualEncodingConfig (1536-d common space, de+map student), everything
+    from numpy seeds: (a) a seeded state dict written with the port's
+    save_checkpoint (the JAX package's format) and read back through
+    restore_dual_encoding, bit-equal; (b) a collection of 1,000 videos of
+    3-64 frames x 2048 with 5 captions each written with write_bigfile,
+    embedded by build_video_index at batch 64 (videos/s); (c) its first
+    64 videos and 64 captions through the same model on the CPU,
+    L2-normalized embeddings within 1e-3, and retrieval_tester.evaluate
+    on both over those 64 videos and their 320 captions, error matrices
+    within 1e-3; (d) the server's index filled to 1,000,000 x
+    1536 f32 rows; (e) the HTTP server of cli/serve.py answering 16
+    captions as index.search_ids(embed_query(...)) does; (f)
+    bench/serve.py's batch-1 p50/p99 (also of the handler without
+    HTTP), conc-64 p50/p99 (clients in their own process) and GET
+    /metrics; (g)
+    one wave of 1 and of 8 rows by CUDA events and by the wall clock,
+    with the idle share; (h) a `serving` JSON line with those numbers;
+11. prints a JSON line of kernel results (launches on the main paths,
     error, time, plain time, bound, library time) and, last, a JSON line
     naming the device.
 
@@ -72,9 +90,11 @@ fails.
 from __future__ import annotations
 
 import json
+import os
 import re
 import runpy
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -1168,6 +1188,217 @@ def check_big_index(dev, card):
         raise SystemExit("index checks failed: " + "; ".join(failures))
 
 
+# LINAS serving step: collection, card-against-CPU sample, index rows, HTTP
+# checks, bench arms and timed waves
+LINAS_VIDEOS, LINAS_CAPTIONS, LINAS_SAMPLE = 1000, 5, 64
+LINAS_ROWS, LINAS_HTTP_CHECKS = 1_000_000, 16
+LINAS_SINGLE, LINAS_CLIENTS, LINAS_PER_CLIENT, LINAS_WAVE_CALLS = 200, 64, 20, 50
+# card vs CPU: cuDNN's GRU and the convolutions sum in another order
+LINAS_TOL = 1e-3
+# HTTP answers vs index.search_ids on the same card: the same f32 products
+SERVE_SCORE_TOL = 1e-5
+
+
+def check_linas_serving(dev, card) -> dict:
+    """Step 10 (items a-h of the docstring).  Every failed check raises.
+    Returns the `serving` JSON object."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli.common import (
+        collection_paths, load_dataset, restore_dual_encoding)
+    from cross_modal_video_engine_tpu_torch.cli.retrieval_inference import (
+        build_video_index, embed_query)
+    from cross_modal_video_engine_tpu_torch.cli.retrieval_tester import (
+        evaluate)
+    from cross_modal_video_engine_tpu_torch.data.provider import LinasDataset
+    from cross_modal_video_engine_tpu_torch.models.dual_encoding import (
+        DualEncoding, DualEncodingConfig)
+
+    t_step = time.perf_counter()
+    cfg = DualEncodingConfig()
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    line = {"card": card, "rows": LINAS_ROWS, "dim": cfg.common_dim,
+            "index_dtype": "float32", "config": "DualEncodingConfig()"}
+    with torch.no_grad(), tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        # a. the model, through the checkpoint format
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        sd = bserve.write_checkpoint(ckpt, cfg, seed=3)
+        t1 = time.perf_counter()
+        model, _ = restore_dual_encoding(ckpt, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        got = model.state_dict()
+        unequal = sorted(set(got) ^ set(sd)) + [
+            k for k in sd if k in got and not torch.equal(got[k].cpu(), sd[k])]
+        n_params = sum(v.numel() for k, v in sd.items()
+                       if "running" not in k and "num_batches" not in k)
+        size = os.path.getsize(os.path.join(ckpt, "params.msgpack"))
+        print(f"LINAS DualEncoding at full width: {n_params} parameters, "
+              f"params.msgpack {size / 2**20:.1f} MiB (state dict drawn "
+              f"from the seed and written in {t1 - t0:.2f} s), restored to "
+              f"the card in {t2 - t1:.2f} s; "
+              f"{len(sd) - len(unequal)}/{len(sd)} tensors bit-equal",
+              flush=True)
+        if unequal:
+            raise SystemExit(f"restored LINAS tensors differ: {unequal[:5]}")
+        line.update(parameters=n_params, checkpoint_mib=size / 2**20,
+                    checkpoint_draw_write_s=t1 - t0,
+                    checkpoint_read_s=t2 - t1)
+
+        # b. a collection on disk, embedded by build_video_index
+        info = bserve.write_collection(tmp, cfg, LINAS_VIDEOS,
+                                       LINAS_CAPTIONS, seed=4)
+        dataset = load_dataset(tmp, bserve.COLLECTION, bserve.FEATURE,
+                               device=dev)
+        warm, _ = next(dataset.video_batches(64))
+        model.embed_vis_distill(warm)
+        torch.cuda.synchronize()
+        cache = os.path.join(tmp, "video_index.npz")
+        t0 = time.perf_counter()
+        index = build_video_index(model, dataset, 64, cache=cache)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        embed_ms = cuda_ms(lambda: model.embed_vis_distill(warm), iters=5,
+                           warmup=1)
+        line.update(embed_videos_per_s=LINAS_VIDEOS / build_s,
+                    embed_device_videos_per_s=64e3 / embed_ms)
+        print(f"build_video_index: {LINAS_VIDEOS} videos ({info['frames']} "
+              f"frames x {cfg.visual_feat_dim}) at batch 64 in {build_s:.3f} "
+              f"s = {LINAS_VIDEOS / build_s:.1f} videos/s with the feature "
+              f"reads and batching; embed_vis_distill alone {embed_ms:.3f} "
+              f"ms a batch of 64 = {64e3 / embed_ms:.1f} videos/s on {card}",
+              flush=True)
+        if index.n != LINAS_VIDEOS or not bool(
+                torch.isfinite(index.emb[:index.n]).all()):
+            raise SystemExit("the video index is not finite or short")
+        del index
+
+        # c. the card against the CPU on the collection's first 64 videos
+        # and their captions (the first 64 of them embedded alone)
+        cpu = DualEncoding(cfg, device="cpu")
+        cpu.load_state_dict(sd)
+        with open(collection_paths(tmp, bserve.COLLECTION, bserve.FEATURE)
+                  ["cap_file"]) as f:
+            lines = f.read().splitlines()[:LINAS_SAMPLE * LINAS_CAPTIONS]
+        sample = os.path.join(tmp, "sample.caption.txt")
+        with open(sample, "w") as f:
+            f.write("\n".join(lines))
+        sets = {name: LinasDataset(sample, dataset.visual_feat,
+                                   dataset.video2frames, dataset.bow2vec,
+                                   dataset.vocab, device=d)
+                for name, d in (("card", dev), ("cpu", "cpu"))}
+        diffs = {}
+        for name, batches, embed in (
+                ("videos", lambda ds: ds.video_batches(LINAS_SAMPLE),
+                 "embed_vis_distill"),
+                ("captions", lambda ds: ds.text_batches(LINAS_SAMPLE),
+                 "embed_txt_distill")):
+            b_card, _ = next(batches(sets["card"]))
+            b_cpu, _ = next(batches(sets["cpu"]))
+            e_card = getattr(model, embed)(b_card).cpu()
+            e_cpu = getattr(cpu, embed)(b_cpu)
+            if e_card.shape != (LINAS_SAMPLE, cfg.common_dim):
+                raise SystemExit(f"{name} embeddings of shape {e_card.shape}")
+            diffs[name] = float((e_card - e_cpu).abs().max())
+        err_card, rep_card = evaluate(model, sets["card"], 64)
+        err_cpu, rep_cpu = evaluate(cpu, sets["cpu"], 64)
+        diffs["errors"] = float(np.abs(err_card - err_cpu).max())
+        print(f"card vs CPU, max |difference| (need < {LINAS_TOL}): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
+        print(f"retrieval_tester.evaluate on the card: {json.dumps(rep_card)}")
+        print(f"retrieval_tester.evaluate on the CPU:  {json.dumps(rep_cpu)}",
+              flush=True)
+        if not all(v < LINAS_TOL for v in diffs.values()) or \
+                not np.isfinite(err_card).all():
+            raise SystemExit(f"LINAS card vs CPU checks failed: {diffs}")
+        line["card_vs_cpu_max_abs"] = diffs
+        del cpu, sets
+
+        # d, e. the server, its index filled to LINAS_ROWS, over HTTP
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        server, handler = bserve.start_server(tmp, ckpt, dev, LINAS_ROWS,
+                                              index_cache=cache, seed=6)
+        torch.cuda.synchronize()
+        line["server_build_s"] = time.perf_counter() - t0
+        try:
+            ix = handler.index
+            print(f"server up in {line['server_build_s']:.2f} s: index "
+                  f"{ix.n} x {ix.dim} {str(ix.dtype)[6:]} rows, capacity "
+                  f"{ix.capacity}, {ix.emb.nbytes / 2**30:.2f} GiB on the "
+                  f"card", flush=True)
+            if (ix.n, ix.capacity, ix.dim, ix.dtype) != (
+                    LINAS_ROWS, LINAS_ROWS, cfg.common_dim, torch.float32):
+                raise SystemExit("the serving index is not 1M x 1536 f32")
+            port = server.server_address[1]
+            worst, same = 0.0, 0
+            for cap in info["captions"][:LINAS_HTTP_CHECKS * LINAS_CAPTIONS:
+                                        LINAS_CAPTIONS]:
+                _, ans = bserve.request(port, "retrieval",
+                                        {"query": cap, "topK": 10})
+                want_s, want_ids = ix.search_ids(
+                    embed_query(handler.model, handler.dataset, cap), k=10)
+                got_ids = [r["video"] for r in ans["results"]]
+                got_s = np.array([r["score"] for r in ans["results"]])
+                same += got_ids == list(want_ids[0])
+                worst = max(worst, float(np.abs(got_s - want_s[0]).max()))
+            print(f"HTTP /retrieval vs index.search_ids(embed_query(...)) for "
+                  f"{LINAS_HTTP_CHECKS} captions: {same} with the same top-10 "
+                  f"ids, max score difference {worst:.2e} (need "
+                  f"< {SERVE_SCORE_TOL})", flush=True)
+            if same != LINAS_HTTP_CHECKS or worst >= SERVE_SCORE_TOL:
+                raise SystemExit("HTTP answers differ from the direct search")
+
+            # f. latency over HTTP
+            caps = info["captions"]
+            lat = bserve.batch1(port, caps, LINAS_SINGLE)
+            line["batch1_ms"] = bserve.percentiles(lat)
+            line["handler_batch1_ms"] = bserve.percentiles(
+                bserve.direct(handler, caps, LINAS_SINGLE))
+            w0, r0 = handler.batcher.batches_run, handler.batcher.rows_run
+            lat = bserve.concurrent(port, caps, LINAS_CLIENTS,
+                                    LINAS_PER_CLIENT)
+            waves = handler.batcher.batches_run - w0
+            line["conc64_ms"] = bserve.percentiles(lat)
+            line["conc64_waves"] = waves
+            line["conc64_rows_per_wave"] = (handler.batcher.rows_run - r0
+                                            ) / waves
+            line["metrics"] = bserve.request(port, "metrics")[1]
+            print(f"HTTP retrieval at {LINAS_ROWS} x {cfg.common_dim} f32: "
+                  f"batch-1 p50 {line['batch1_ms']['p50']:.3f} ms, p99 "
+                  f"{line['batch1_ms']['p99']:.3f} ms ({LINAS_SINGLE} "
+                  f"requests; the handler without HTTP p50 "
+                  f"{line['handler_batch1_ms']['p50']:.3f}, p99 "
+                  f"{line['handler_batch1_ms']['p99']:.3f}); "
+                  f"conc-{LINAS_CLIENTS} (clients in their own process) p50 "
+                  f"{line['conc64_ms']['p50']:.3f} ms, p99 "
+                  f"{line['conc64_ms']['p99']:.3f} ms ({len(lat)} requests "
+                  f"in {waves} waves, {line['conc64_rows_per_wave']:.2f} "
+                  f"rows a wave) on {card}; /metrics "
+                  f"{json.dumps(line['metrics'])}", flush=True)
+
+            # g. one wave of 1 and of 8 rows, timed
+            for n in (1, 8):
+                t = bserve.wave_times(handler, bserve.wave_rows(
+                    handler, caps, n), LINAS_WAVE_CALLS)
+                line[f"wave{n}"] = t
+                print(f"wave of {n} at {LINAS_ROWS} rows: wall "
+                      f"{t['wall_ms']:.3f} ms, CUDA events "
+                      f"{t['events_ms']:.3f} ms, kernels busy "
+                      f"{t['busy_ms']:.3f} ms, idle share "
+                      f"{t['idle_share']:.3f} on {card}; longest kernels "
+                      f"(ms a wave): {json.dumps(t['top_kernels'])}",
+                      flush=True)
+        finally:
+            bserve.stop_server(server, handler)
+    line["step_s"] = time.perf_counter() - t_step
+    print(f"LINAS serving step: {line['step_s']:.1f} s", flush=True)
+    return line
+
+
 def kernel_json(results, launches, core, block_extra) -> dict:
     """The kernels line: bf16 errors over every case of a kernel; times,
     bound and library time of its main-path case.  `bound_ms` is the
@@ -1324,7 +1555,12 @@ def main() -> int:
     # -- 9. the 1M-row index ---------------------------------------------------
     check_big_index(dev, card)
 
-    # -- 10. results -----------------------------------------------------------
+    # -- 10. LINAS retrieval serving ---------------------------------------------
+    torch.cuda.empty_cache()
+    serving = check_linas_serving(dev, card)
+
+    # -- 11. results -----------------------------------------------------------
+    print(json.dumps({"serving": serving}))
     print(json.dumps(kernel_json(results, launches, core, block_extra)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,12 @@ Ported so far: the CLIP ViT-B/32 video-embedding and search path
 ops/attention_sublayer, models/clip, retrieval/index, convert/from_jax)
 and the TimeSformer recognition and caption path (ops/flash_attention,
 models/timesformer, models/decoder_head, models/recognizer,
-utils/precision, api).
+utils/precision, api), and LINAS text->video retrieval served over HTTP
+(models/layers, models/dual_encoding, io/flax_msgpack, io/bigfile,
+train/checkpoint, data/provider, utils/vocab, utils/text2vec,
+metrics/retrieval, retrieval/evaluation, service/batching, service/app,
+cli/common, cli/retrieval_inference, cli/retrieval_tester, cli/serve,
+bench/serve).
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
-"""Bench entry points of the port: `headline`, `block_ab`, `extra`."""
+"""Bench entry points of the port: `headline`, `block_ab`, `extra`,
+`serve`."""

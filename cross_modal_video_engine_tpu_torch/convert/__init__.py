@@ -1,3 +1,6 @@
 from .from_jax import (clip_state_dict_from_jax,
+                       dual_encoding_state_dict_from_jax,
+                       dual_encoding_variables_to_jax,
                        recognizer_state_dict_from_jax,
+                       reference_state_dicts,
                        timesformer_state_dict_from_jax)

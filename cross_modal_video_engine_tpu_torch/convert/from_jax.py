@@ -18,11 +18,17 @@ compute the same function.
   `transformer_layers.layers.{i}.norms.0`, `.attentions.0.attn`,
   `.norms.1`, `.ffns.0.layers.0.0`, `.ffns.0.layers.1`.  A tubelet
   patch embed is the Conv3d `patch_embed.projection`.
+* `dual_encoding_state_dict_from_jax` maps a JAX LINAS DualEncoding's
+  variables onto the port's state dict, which carries the reference torch
+  model's keys under the tower names (convert_linas_dual_encoding's
+  input); `dual_encoding_variables_to_jax` is its inverse and
+  `reference_state_dicts` splits the port's state dict into the reference
+  checkpoint's list of sub state dicts.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -157,3 +163,162 @@ def recognizer_state_dict_from_jax(variables_np: Dict[str, Any],
     sd["cls_head.out.weight"] = _t(np.asarray(head["out_kernel"]).T)
     sd["cls_head.out.bias"] = _t(head["out_bias"])
     return sd
+
+
+# -- LINAS DualEncoding -----------------------------------------------------
+# The port's DualEncoding carries the reference torch model's keys under
+# its tower names; the flax tree names the same weights as the JAX model
+# does.  These three functions map one onto the other both ways and hand
+# out the reference checkpoint's list of sub state dicts.
+
+# the reference BaseModel.state_dict order (LINAS-engine/model.py:385-403),
+# the list convert_linas_dual_encoding reads
+REFERENCE_ORDER = ("vid_encoding", "text_encoding", "vid_mapping",
+                   "text_mapping", "student_text_mapping",
+                   "student_text_encoding", "student_vid_mapping",
+                   "student_vid_encoding")
+
+
+def _f32(a) -> torch.Tensor:
+    """A numpy array or tensor (any float dtype) as a CPU f32 tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float32).clone()
+    return _t(a)
+
+
+def _np32(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _gru_from_jax(sd, prefix: str, p) -> None:
+    for jax_dir, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        sd[f"{prefix}weight_ih_l0{suffix}"] = _f32(p[f"{jax_dir}_wi"]).t()
+        sd[f"{prefix}weight_hh_l0{suffix}"] = _f32(p[f"{jax_dir}_wh"]).t()
+        sd[f"{prefix}bias_ih_l0{suffix}"] = _f32(p[f"{jax_dir}_bi"])
+        sd[f"{prefix}bias_hh_l0{suffix}"] = _f32(p[f"{jax_dir}_bh"])
+
+
+def _dense_from_jax(sd, prefix: str, p) -> None:
+    sd[f"{prefix}weight"] = _f32(p["kernel"]).t()
+    sd[f"{prefix}bias"] = _f32(p["bias"])
+
+
+def _encoding_from_jax(sd, prefix: str, p, kernel_sizes) -> None:
+    if "embed" in p:
+        sd[f"{prefix}embed.weight"] = _f32(p["embed"]["embedding"])
+    _gru_from_jax(sd, f"{prefix}rnn.", p["rnn"])
+    for i, w in enumerate(kernel_sizes):
+        conv = p["convs"][f"conv_w{w}"]
+        # flax (w, C, K) -> the reference Conv2d's (K, 1, w, C)
+        sd[f"{prefix}convs1.{i}.weight"] = \
+            _f32(conv["kernel"]).permute(2, 0, 1)[:, None]
+        sd[f"{prefix}convs1.{i}.bias"] = _f32(conv["bias"])
+    for name in ("k", "q"):
+        if name in p:
+            _dense_from_jax(sd, f"{prefix}{name}.", p[name])
+
+
+def _mapping_from_jax(sd, prefix: str, p, stats) -> None:
+    m = p["mapping"]
+    i = 1
+    while f"fc{i}" in m:
+        _dense_from_jax(sd, f"{prefix}mapping.fc{i}.", m[f"fc{i}"])
+        i += 1
+    if "bn_1" in m:
+        bn = f"{prefix}mapping.bn_1."
+        sd[bn + "weight"] = _f32(m["bn_1"]["scale"])
+        sd[bn + "bias"] = _f32(m["bn_1"]["bias"])
+        sd[bn + "running_mean"] = _f32(stats["mapping"]["bn_1"]["mean"])
+        sd[bn + "running_var"] = _f32(stats["mapping"]["bn_1"]["var"])
+        sd[bn + "num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def dual_encoding_state_dict_from_jax(variables_np: Dict[str, Any], cfg
+                                      ) -> Dict[str, torch.Tensor]:
+    """A JAX DualEncoding's variables ({"params", "batch_stats"}, leaves
+    numpy arrays or tensors) -> the port's f32 state dict.  cfg: a
+    DualEncodingConfig of either package."""
+    params = variables_np["params"]
+    stats = variables_np.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+    for name in REFERENCE_ORDER:
+        if name not in params:
+            continue
+        if name.endswith("mapping"):
+            _mapping_from_jax(sd, f"{name}.", params[name],
+                              stats.get(name, {}))
+        else:
+            sizes = (cfg.visual_kernel_sizes if "vid" in name
+                     else cfg.text_kernel_sizes)
+            _encoding_from_jax(sd, f"{name}.", params[name], sizes)
+    return sd
+
+
+def dual_encoding_variables_to_jax(state_dict: Dict[str, torch.Tensor]
+                                   ) -> Dict[str, Any]:
+    """The inverse: the port's state dict -> the JAX DualEncoding's
+    variables as numpy f32 arrays, {"params": ..., "batch_stats": ...},
+    which the JAX package's save_checkpoint and the port's write alike."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        tower, rest = key.split(".", 1)
+        p = params.setdefault(tower, {})
+        parts = rest.split(".")
+        if parts[0] == "rnn":
+            name = parts[1]
+            jax_dir = "bwd" if name.endswith("_reverse") else "fwd"
+            kind = {"weight_ih": "wi", "weight_hh": "wh", "bias_ih": "bi",
+                    "bias_hh": "bh"}[name.rsplit("_l0", 1)[0]]
+            a = _np32(t)
+            p.setdefault("rnn", {})[f"{jax_dir}_{kind}"] = \
+                a.T if kind.startswith("w") else a
+        elif parts[0] == "convs1":
+            w = t.shape[2] if parts[2] == "weight" else \
+                state_dict[f"{tower}.convs1.{parts[1]}.weight"].shape[2]
+            conv = p.setdefault("convs", {}).setdefault(f"conv_w{w}", {})
+            if parts[2] == "weight":       # (K, 1, w, C) -> (w, C, K)
+                conv["kernel"] = _np32(t[:, 0].permute(1, 2, 0))
+            else:
+                conv["bias"] = _np32(t)
+        elif parts[0] == "embed":
+            p["embed"] = {"embedding": _np32(t)}
+        elif parts[0] in ("k", "q"):
+            d = p.setdefault(parts[0], {})
+            d["kernel" if parts[1] == "weight" else "bias"] = \
+                _np32(t.t() if parts[1] == "weight" else t)
+        elif parts[0] == "mapping" and parts[1] == "bn_1":
+            field = parts[2]
+            if field == "num_batches_tracked":
+                continue
+            if field.startswith("running_"):
+                s = stats.setdefault(tower, {}).setdefault(
+                    "mapping", {}).setdefault("bn_1", {})
+                s[field[len("running_"):]] = _np32(t)
+            else:
+                bn = p.setdefault("mapping", {}).setdefault("bn_1", {})
+                bn["scale" if field == "weight" else "bias"] = _np32(t)
+        elif parts[0] == "mapping":
+            d = p.setdefault("mapping", {}).setdefault(parts[1], {})
+            d["kernel" if parts[2] == "weight" else "bias"] = \
+                _np32(t.t() if parts[2] == "weight" else t)
+        else:
+            raise KeyError(f"no JAX counterpart for {key}")
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out
+
+
+def reference_state_dicts(state_dict: Dict[str, torch.Tensor]
+                          ) -> List[Optional[Dict[str, torch.Tensor]]]:
+    """The port's state dict as the reference checkpoint's 'model' list:
+    one sub state dict per tower in REFERENCE_ORDER, None where the style
+    has no such tower (the list convert_linas_dual_encoding reads)."""
+    out: List[Optional[Dict[str, torch.Tensor]]] = []
+    for name in REFERENCE_ORDER:
+        prefix = name + "."
+        sub = {k[len(prefix):]: v for k, v in state_dict.items()
+               if k.startswith(prefix)}
+        out.append(sub or None)
+    return out

@@ -178,11 +178,22 @@ def test_enable_fused_inference_cuda_rule():
     assert tclip.enable_fused_inference(cfg, enable=True).fused_mlp
 
 
+# every module of the port's LINAS retrieval and serving slice
+LINAS_MODULES = (
+    "utils.vocab", "utils.text2vec", "io.bigfile", "io.flax_msgpack",
+    "models.layers", "models.dual_encoding", "train.checkpoint",
+    "data.provider", "cli.common", "retrieval.evaluation",
+    "metrics.retrieval", "cli.retrieval_inference", "cli.retrieval_tester",
+    "service.batching", "service.app", "cli.serve", "bench.serve")
+
+
 def test_port_imports_no_jax():
-    code = ("import sys, cross_modal_video_engine_tpu_torch.models.clip, "
-            "cross_modal_video_engine_tpu_torch.retrieval.index, "
-            "cross_modal_video_engine_tpu_torch.convert; "
+    modules = ("models.clip", "retrieval.index", "convert") + LINAS_MODULES
+    code = ("import sys; "
+            + "; ".join(f"import cross_modal_video_engine_tpu_torch.{m}"
+                        for m in modules) + "; "
             "assert 'jax' not in sys.modules and 'flax' not in sys.modules; "
+            "assert 'msgpack' not in sys.modules; "
             "assert 'cross_modal_video_engine_tpu' not in sys.modules")
     root = __file__.rsplit("/tests/", 1)[0]
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
