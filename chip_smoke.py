@@ -78,17 +78,36 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
     /metrics; (g)
     one wave of 1 and of 8 rows by CUDA events and by the wall clock,
     with the idle share; (h) a `serving` JSON line with those numbers;
-11. prints a JSON line of kernel results (launches on the main paths,
+11. LINAS training at the full width of the shipped DualEncodingConfig
+    (dropout 0, de+map student, LinasTrainConfig(): Adam, clip 2.0),
+    batch 128 with a support set of 8, on a seeded collection of 512
+    videos x 5 captions (validation: 128 more): (a) one train step on the
+    card and on the CPU from one seeded state dict and one batch: loss,
+    every gradient and the parameters after the Adam step; (b) each
+    similarity_type at B = 128, card against CPU (and how often cuSOLVER's
+    singular vectors have LAPACK's sign: 'svd' factorizes on the host);
+    (c) `retrieval_trainer.train()` for 2 epochs with an epoch state each:
+    the step losses (finite, the last four below the first four), the
+    loss and rsum an epoch, the validation time, then on the trained model
+    the step time by CUDA events, samples/s, the optimizer's share, the
+    host's batch assembly and the idle share of five steps
+    (torch.profiler); (d) a resume from epoch_0 against the uninterrupted
+    epoch 1; (e) model_best restored and served over HTTP, answers equal
+    to a direct search_ids; (f) text+video with the 'adapt' mask, a few
+    steps: pa moves, losses finite; (g) a `training` JSON line;
+12. prints a JSON line of kernel results (launches on the main paths,
     error, time, plain time, bound, library time) and, last, a JSON line
     naming the device.
 
-Nothing is cut: the models run at full width and depth.  Exits
+Nothing is cut: the models run at full width and depth (the LINAS
+training runs 2 epochs of a 2,560-caption collection).  Exits
 non-zero, printing no result, when CUDA is unavailable or any check
 fails.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -1399,6 +1418,478 @@ def check_linas_serving(dev, card) -> dict:
     return line
 
 
+# LINAS training step (tolerances stated before the first run on the card)
+TRAIN_VIDEOS, TRAIN_VAL_VIDEOS, TRAIN_CAPTIONS = 512, 128, 5
+TRAIN_BATCH, TRAIN_SUPPORT, TRAIN_EPOCHS = 128, 8, 2
+TRAIN_VAL_COLLECTION = "linasval"
+# (a) card vs CPU, one step: the loss; each gradient tensor within
+# REL of its norm plus FLOOR of the whole gradient's norm (the mappings'
+# fc1 biases have a gradient of exactly 0 in exact arithmetic: BatchNorm
+# subtracts their shift, so theirs is rounding noise on both sides); the
+# parameters after one Adam step, an update of lr * g / (|g| + 1e-8), within
+# PARAM_TOL where the CPU's gradient is above NOISE of its largest
+# element, and within 2 lr where it is below (there rounding noise picks
+# the sign, and eps the size)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR, TRAIN_NOISE = 1e-4, 1e-6, 1e-4
+TRAIN_PARAM_TOL = 1e-5
+# (b) each similarity_type at B = 128, card vs CPU: values; gradients by
+# relative L2 error ('svd': its backward divides by gaps between singular
+# values, down to 1e-4 at this size)
+SIM_VALUE_RTOL, SIM_GRAD_REL, SVD_GRAD_REL = 1e-4, 1e-4, 1e-3
+# (d) resumed epoch 1 vs the uninterrupted run, both on the card: the
+# epoch's mean loss; the share of parameters within PARAM_TOL (an element
+# whose gradient is rounding noise takes a +-lr Adam step the noise picks)
+# and every element within 2 lr a step
+RESUME_LOSS_RTOL, RESUME_PARAM_TOL, RESUME_PARAM_SHARE = 1e-4, 1e-4, 0.999
+TRAIN_HTTP_CHECKS, ADAPT_STEPS, TIMED_STEPS = 8, 4, 8
+
+
+def _grad_errors(card_model, cpu_model) -> dict:
+    """Per parameter: |card grad - CPU grad| and the CPU gradient's norm
+    (a missing gradient is zero)."""
+    import torch
+    out = {}
+    for (name, p), (_, q) in zip(card_model.named_parameters(),
+                                 cpu_model.named_parameters()):
+        g = torch.zeros_like(q) if p.grad is None else p.grad.cpu()
+        h = torch.zeros_like(q) if q.grad is None else q.grad
+        out[name] = (g, h)
+    return out
+
+
+def train_card_vs_cpu(dev, cfg, sd, batches) -> dict:
+    """Step 11a: one de+map step of the full-width model (dropout 0) on
+    the card and on the CPU from one state dict and one batch."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.models.dual_encoding import (
+        DualEncoding)
+    from cross_modal_video_engine_tpu_torch.train.linas_trainer import (
+        LinasTrainConfig, TrainState, make_optimizer, make_train_step)
+
+    tcfg = LinasTrainConfig()
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = DualEncoding(cfg, device=d)
+        model.load_state_dict(sd)
+        state = TrainState(model, make_optimizer(tcfg)(
+            list(model.named_parameters())))
+        t0 = time.perf_counter()
+        state, logs = make_train_step(model, tcfg, device=d)(
+            state, *batches[name][:3])
+        loss = float(logs["loss"])
+        runs[name] = (model, loss, time.perf_counter() - t0)
+    (card, card_loss, card_s), (cpu, cpu_loss, cpu_s) = (runs["card"],
+                                                         runs["cpu"])
+    grads = _grad_errors(card, cpu)
+    total = float(torch.sqrt(sum((h * h).sum() for _, h in grads.values())))
+    gmax = max(float(h.abs().max()) for _, h in grads.values())
+    worst, bad = 0.0, []
+    for name, (g, h) in grads.items():
+        err = float((g - h).norm())
+        bound = TRAIN_GRAD_REL * float(h.norm()) + TRAIN_GRAD_FLOOR * total
+        worst = max(worst, err / bound)
+        if err > bound:
+            bad.append(name)
+    lr = tcfg.learning_rate
+    p_worst, n_noise, noise_worst = 0.0, 0, 0.0
+    card_sd = card.state_dict()
+    for name, q in cpu.named_parameters():
+        _, h = grads[name]
+        noise = h.abs() < TRAIN_NOISE * gmax
+        diff = (card_sd[name].cpu() - q.detach()).abs()
+        if bool((~noise).any()):
+            p_worst = max(p_worst, float(diff[~noise].max()))
+        if bool(noise.any()):
+            noise_worst = max(noise_worst, float(diff[noise].max()))
+        g, _ = grads[name]
+        n_noise += int((noise & ((g != 0) | (h != 0))).sum())
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"11a one de+map step at batch {TRAIN_BATCH}, card vs CPU: loss "
+          f"{card_loss:.6f} vs {cpu_loss:.6f} (rel {loss_rel:.2e}, need <= "
+          f"{TRAIN_LOSS_RTOL}); gradients: worst error / bound "
+          f"{worst:.3f} (bound {TRAIN_GRAD_REL} of the tensor's norm + "
+          f"{TRAIN_GRAD_FLOOR} of the whole gradient's {total:.4f}); "
+          f"parameters after the step: max |difference| {p_worst:.2e} "
+          f"where the CPU's gradient is above {TRAIN_NOISE} of its largest "
+          f"element {gmax:.4f} (need <= {TRAIN_PARAM_TOL}), {noise_worst:.2e} "
+          f"below it (need <= {2 * lr:.0e}; {n_noise} elements with a "
+          f"nonzero gradient there); "
+          f"step {card_s:.2f} s on the card (first), {cpu_s:.2f} s on the "
+          f"CPU", flush=True)
+    if (loss_rel > TRAIN_LOSS_RTOL or bad or p_worst > TRAIN_PARAM_TOL
+            or noise_worst > 2 * lr or not np.isfinite(card_loss)):
+        raise SystemExit(f"11a card vs CPU failed: gradients {bad[:5]}")
+    return {"loss_card": card_loss, "loss_cpu": cpu_loss,
+            "loss_rel": loss_rel, "grad_worst_over_bound": worst,
+            "param_max_abs": p_worst, "noise_elements": n_noise,
+            "noise_param_max_abs": noise_worst}
+
+
+def similarity_card_vs_cpu(dev) -> dict:
+    """Step 11b: similarity_distill of each type at B = 128 (unit rows of
+    1536 from a numpy seed) on the card and on the CPU: the value, and the
+    gradient with respect to the student embeddings."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.losses.distill import (
+        similarity_distill)
+    from cross_modal_video_engine_tpu_torch.train.linas_trainer import (
+        mask_matrix)
+
+    rng = np.random.default_rng(17)
+    embs = []
+    for _ in range(4):
+        a = rng.standard_normal((TRAIN_BATCH, 1536)).astype(np.float32)
+        embs.append(a / np.linalg.norm(a, axis=1, keepdims=True))
+    # why 'svd' factorizes on the host: the card's own solver's signs
+    s1 = torch.tensor(embs[0] @ embs[1].T)
+    u_cpu = torch.linalg.svd(s1, full_matrices=False)[0]
+    u_card = torch.linalg.svd(s1.to(dev), full_matrices=False)[0].cpu()
+    agree = float((torch.sign((u_cpu * u_card).sum(0)) > 0).float().mean())
+    print(f"11b torch.linalg.svd of a {TRAIN_BATCH} x {TRAIN_BATCH} "
+          f"similarity matrix: the card's singular vectors have LAPACK's "
+          f"sign in {agree:.3f} of the pairs (the port's 'svd' factorizes "
+          f"on the host)", flush=True)
+    out, bad = {"cusolver_sign_agreement": agree}, []
+    for stype in (None, "diag", "maxdiag", "adapt", "svd", "eig"):
+        res = {}
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            x = [torch.tensor(a, device=d, requires_grad=i >= 2)
+                 for i, a in enumerate(embs)]
+            w = (mask_matrix(torch.tensor([1.3, 0.7], device=d),
+                             TRAIN_BATCH) if stype == "adapt" else None)
+            loss = similarity_distill(*x, stype, adapt_weight=w)
+            grads = (torch.autograd.grad(loss, x[2:]) if loss.requires_grad
+                     else None)
+            res[name] = (float(loss.detach()), None if grads is None else
+                         [g.cpu() for g in grads])
+        (v_card, g_card), (v_cpu, g_cpu) = res["card"], res["cpu"]
+        rel = abs(v_card - v_cpu) / abs(v_cpu)
+        g_rel = (None if g_cpu is None else
+                 max(float((a - b).norm() / b.norm())
+                     for a, b in zip(g_card, g_cpu)))
+        limit = SVD_GRAD_REL if stype == "svd" else SIM_GRAD_REL
+        key = stype or "plain"
+        out[key] = {"value_card": v_card, "value_cpu": v_cpu,
+                    "value_rel": rel, "grad_rel_l2": g_rel}
+        ok = rel <= SIM_VALUE_RTOL and (g_rel is None or g_rel <= limit) \
+            and (stype == "eig") == (g_rel is None)
+        print(f"11b similarity_distill {key}: card {v_card:.6f} CPU "
+              f"{v_cpu:.6f} (rel {rel:.2e}, need <= {SIM_VALUE_RTOL}); "
+              f"gradient rel L2 "
+              f"{'none (no gradient)' if g_rel is None else f'{g_rel:.2e}'}"
+              f" (need <= {limit})", flush=True)
+        if not ok:
+            bad.append(key)
+    if bad:
+        raise SystemExit(f"11b similarity types differ on the card: {bad}")
+    return out
+
+
+def _parse_step_losses(log: str):
+    """The per-step losses train() prints with log_every=1."""
+    return [float(m.group(1)) for m in
+            re.finditer(r"^epoch \d+ step \d+: loss=(\S+) ", log, re.M)]
+
+
+def _train_quiet(*args, **kw):
+    """train(...) with its printing kept: (state, history, best, log)."""
+    import contextlib
+    import io
+    from cross_modal_video_engine_tpu_torch.cli.retrieval_trainer import (
+        train)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state, history, best = train(*args, **kw)
+    return state, history, best, buf.getvalue()
+
+
+def time_steps(dev, state, tcfg, train_set, card) -> dict:
+    """Step 11c's timings on the trained model: a step over prebuilt
+    batches by CUDA events (median of the steady steps), the optimizer's
+    step alone, the host's batch assembly, and the idle share of five
+    steps of the real loop (assembly included) from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cross_modal_video_engine_tpu_torch.train.linas_trainer import (
+        make_train_step)
+
+    step = make_train_step(state.model, tcfg, device=dev)
+    batches = list(itertools.islice(
+        train_set.train_batches(TRAIN_BATCH, 99), TIMED_STEPS))
+    spans = []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, logs = step(state, *b[:3])
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    step_ms = float(np.median(spans[2:]))
+    opt_ms = cuda_ms(state.optimizer.step, iters=5, warmup=1)
+    it = train_set.train_batches(TRAIN_BATCH, 98)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        next(it)
+    torch.cuda.synchronize()
+    assembly_ms = (time.perf_counter() - t0) / 5 * 1e3
+    it = train_set.train_batches(TRAIN_BATCH, 97)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            state, logs = step(state, *next(it)[:3])
+        float(logs["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+    # device entries only, without the optimizer's annotated range (its
+    # kernels are counted as themselves)
+    kernels = sorted(((e.self_device_time_total / 5 / 1e3, e.key)
+                      for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")
+                      and not getattr(e, "is_user_annotation", False)
+                      and not e.key.startswith("Optimizer.")),
+                     reverse=True)
+    busy_ms = sum(ms for ms, _ in kernels)
+    line = {"step_ms": step_ms, "step_ms_all": spans,
+            "samples_per_s": TRAIN_BATCH * 1e3 / step_ms,
+            "optimizer_ms": opt_ms, "optimizer_share": opt_ms / step_ms,
+            "assembly_ms": assembly_ms, "loop_wall_ms": wall_ms,
+            "loop_samples_per_s": TRAIN_BATCH * 1e3 / wall_ms,
+            "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+            "top_kernels": [[k[:80], ms] for ms, k in kernels[:8]]}
+    print(f"11c de+map step at batch {TRAIN_BATCH}, support "
+          f"{TRAIN_SUPPORT}: {step_ms:.3f} ms by CUDA events (median of "
+          f"steps 3-{TIMED_STEPS} over prebuilt batches) = "
+          f"{line['samples_per_s']:.1f} samples/s; the optimizer's step "
+          f"alone {opt_ms:.3f} ms = {line['optimizer_share']:.3f} of a "
+          f"step; the host assembles a batch in {assembly_ms:.1f} ms; the "
+          f"loop with its assembly {wall_ms:.1f} ms a step = "
+          f"{line['loop_samples_per_s']:.1f} samples/s, kernels and copies "
+          f"busy {busy_ms:.3f} ms of it, idle share "
+          f"{line['idle_share']:.3f} on {card}; "
+          f"longest kernels (ms a step): {json.dumps(line['top_kernels'])}",
+          flush=True)
+    return line
+
+
+def check_linas_training(dev, card) -> dict:
+    """Step 11 (items a-f of the docstring).  Every failed check raises.
+    Returns the `training` JSON object."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli.common import load_dataset
+    from cross_modal_video_engine_tpu_torch.cli.retrieval_inference import (
+        embed_query)
+    from cross_modal_video_engine_tpu_torch.cli.retrieval_tester import (
+        evaluate)
+    from cross_modal_video_engine_tpu_torch.models.dual_encoding import (
+        DualEncoding, DualEncodingConfig, seeded_state_dict)
+    from cross_modal_video_engine_tpu_torch.ops import attention_sublayer
+    from cross_modal_video_engine_tpu_torch.ops import flash_attention
+    from cross_modal_video_engine_tpu_torch.train.linas_trainer import (
+        LinasTrainConfig, init_mask_state, init_train_state,
+        make_mask_optimizer, make_mask_train_step, make_optimizer,
+        make_train_step, mask_matrix)
+
+    t_step = time.perf_counter()
+    counted = [attention_sublayer.fused_attention_sublayer,
+               attention_sublayer.fused_attention_sublayer_compact,
+               attention_sublayer.fused_mlp_sublayer,
+               attention_sublayer.fused_block_sublayer_compact,
+               flash_attention.flash_attention]
+    for fn in counted:
+        fn.launches = 0
+    # dropout 0: the card-vs-CPU step and the resume are compared element
+    # for element, and a resumed run draws its dropout anew (as the JAX
+    # trainer's does)
+    cfg = DualEncodingConfig(dropout=0.0)
+    tcfg = LinasTrainConfig()
+    line = {"card": card, "config": "DualEncodingConfig(dropout=0.0)",
+            "train_config": "LinasTrainConfig()", "batch": TRAIN_BATCH,
+            "support": TRAIN_SUPPORT, "videos": TRAIN_VIDEOS,
+            "captions": TRAIN_VIDEOS * TRAIN_CAPTIONS}
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        info = bserve.write_collection(tmp, cfg, TRAIN_VIDEOS,
+                                       TRAIN_CAPTIONS, seed=8)
+        bserve.write_collection(tmp, cfg, TRAIN_VAL_VIDEOS, TRAIN_CAPTIONS,
+                                collection=TRAIN_VAL_COLLECTION, seed=9)
+        sets = {name: load_dataset(tmp, bserve.COLLECTION, bserve.FEATURE,
+                                   support_set_number=TRAIN_SUPPORT,
+                                   device=d)
+                for name, d in (("card", dev), ("cpu", "cpu"))}
+        val_set = load_dataset(tmp, TRAIN_VAL_COLLECTION, bserve.FEATURE,
+                               device=dev)
+
+        # a. one step, card against CPU
+        sd = seeded_state_dict(cfg, seed=12)
+        batches = {k: next(ds.train_batches(TRAIN_BATCH, 5))
+                   for k, ds in sets.items()}
+        line["card_vs_cpu"] = train_card_vs_cpu(dev, cfg, sd, batches)
+        del batches
+
+        # b. each similarity type, card against CPU
+        line["similarity"] = similarity_card_vs_cpu(dev)
+
+        # c. retrieval_trainer.train(), 2 epochs with a train state each
+        out = os.path.join(tmp, "run")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        state, history, best, log = _train_quiet(
+            cfg, tcfg, sets["card"], val_set, out, TRAIN_BATCH,
+            log_every=1, num_epochs=TRAIN_EPOCHS, checkpoint_interval=1,
+            device=dev)
+        train_s = time.perf_counter() - t0
+        losses = _parse_step_losses(log)
+        steps = len(losses)
+        first4, last4 = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+        print(f"11c retrieval_trainer.train(): {steps} steps in "
+              f"{TRAIN_EPOCHS} epochs, {train_s:.1f} s with validation and "
+              f"checkpoints; per epoch "
+              + "; ".join(f"epoch {h['epoch']} loss {h['loss']:.4f} rsum "
+                          f"{h['rsum']:.2f} {h['time']:.2f} s"
+                          for h in history)
+              + f"; mean loss of the first four steps {first4:.4f}, of the "
+              f"last four {last4:.4f}; model_best -> "
+              f"{os.path.basename(os.readlink(best))}", flush=True)
+        if (steps != TRAIN_EPOCHS * -(-TRAIN_VIDEOS * TRAIN_CAPTIONS
+                                      // TRAIN_BATCH)
+                or not np.isfinite(losses).all() or not last4 < first4):
+            raise SystemExit(f"11c training failed: {steps} steps, losses "
+                             f"{losses[:4]} ... {losses[-4:]}")
+        model = state.model.eval()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate(model, val_set, TRAIN_BATCH)
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+        line.update(train_s=train_s, steps=steps, step_losses=losses,
+                    epochs=history, validation_s=val_s,
+                    first4_loss=first4, last4_loss=last4)
+        print(f"11c validation (retrieval_tester.evaluate, "
+              f"{TRAIN_VAL_VIDEOS} videos, "
+              f"{TRAIN_VAL_VIDEOS * TRAIN_CAPTIONS} captions): "
+              f"{val_s:.2f} s", flush=True)
+        final = {k: v.detach().cpu().clone()
+                 for k, v in state.model.state_dict().items()}
+
+        # d. resume from epoch_0 for epoch 1
+        out2 = os.path.join(tmp, "resumed")
+        os.makedirs(out2)
+        rstate, rhist, _, _ = _train_quiet(
+            cfg, tcfg, sets["card"], val_set, out2, TRAIN_BATCH,
+            log_every=0, num_epochs=TRAIN_EPOCHS,
+            resume=os.path.join(out, "epoch_0"), device=dev)
+        loss_rel = abs(rhist[0]["loss"] - history[1]["loss"]) / abs(
+            history[1]["loss"])
+        within, n, worst = 0, 0, 0.0
+        bound = 2 * tcfg.learning_rate * (steps // TRAIN_EPOCHS)
+        for k, v in rstate.model.state_dict().items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            d = (v.detach().cpu() - final[k]).abs()
+            within += int((d <= RESUME_PARAM_TOL).sum())
+            n += d.numel()
+            worst = max(worst, float(d.max()))
+        share = within / n
+        line["resume"] = {"epoch1_loss": rhist[0]["loss"],
+                          "uninterrupted_loss": history[1]["loss"],
+                          "loss_rel": loss_rel, "rsum": rhist[0]["rsum"],
+                          "uninterrupted_rsum": history[1]["rsum"],
+                          "params_within_share": share,
+                          "param_max_abs": worst}
+        print(f"11d resumed from epoch_0: epoch 1 loss "
+              f"{rhist[0]['loss']:.6f} vs {history[1]['loss']:.6f} "
+              f"uninterrupted (rel {loss_rel:.2e}, need <= "
+              f"{RESUME_LOSS_RTOL}), rsum {rhist[0]['rsum']:.2f} vs "
+              f"{history[1]['rsum']:.2f}; parameters within "
+              f"{RESUME_PARAM_TOL}: {share:.6f} of {n} (need >= "
+              f"{RESUME_PARAM_SHARE}), max |difference| {worst:.2e} (need "
+              f"<= {bound:.1e})", flush=True)
+        if (rhist[0]["epoch"] != 1 or loss_rel > RESUME_LOSS_RTOL
+                or share < RESUME_PARAM_SHARE or worst > bound):
+            raise SystemExit("11d the resumed run differs")
+        del rstate, final
+
+        # c (timings), on the trained model
+        line["timing"] = time_steps(dev, state, tcfg, sets["card"], card)
+        del state, model
+        torch.cuda.empty_cache()
+
+        # e. model_best restored and served over HTTP
+        server, handler = bserve.start_server(tmp, best, dev, TRAIN_VIDEOS,
+                                              seed=10)
+        try:
+            ix, port = handler.index, server.server_address[1]
+            same, worst, own = 0, 0.0, 0
+            # the first caption of each of the first videos
+            caps = info["captions"][::TRAIN_CAPTIONS][:TRAIN_HTTP_CHECKS]
+            for i, cap in enumerate(caps):
+                _, ans = bserve.request(port, "retrieval",
+                                        {"query": cap, "topK": 10})
+                want_s, want_ids = ix.search_ids(
+                    embed_query(handler.model, handler.dataset, cap), k=10)
+                got_ids = [r["video"] for r in ans["results"]]
+                got_s = np.array([r["score"] for r in ans["results"]])
+                same += got_ids == list(want_ids[0])
+                worst = max(worst, float(np.abs(got_s - want_s[0]).max()))
+                own += got_ids[0] == f"video{i}"
+        finally:
+            bserve.stop_server(server, handler)
+        line["serve"] = {"same_top10": same, "checks": TRAIN_HTTP_CHECKS,
+                         "max_score_diff": worst, "own_video_top1": own}
+        print(f"11e model_best served over HTTP: {same}/{TRAIN_HTTP_CHECKS} "
+              f"answers with the top-10 ids of a direct search_ids, max "
+              f"score difference {worst:.2e} (need < {SERVE_SCORE_TOL}); "
+              f"{own} training captions find their own video first",
+              flush=True)
+        if same != TRAIN_HTTP_CHECKS or worst >= SERVE_SCORE_TOL:
+            raise SystemExit("11e served answers differ from the search")
+
+        # f. text+video with the 'adapt' mask, a few steps
+        acfg = DualEncodingConfig(student_model="text+video")
+        atcfg = LinasTrainConfig(distill_with_similarity=True,
+                                 similarity_type="adapt")
+        model = DualEncoding(acfg, device=dev)
+        astate = init_train_state(model, make_optimizer(atcfg), seed=13)
+        gen = torch.Generator(device=dev).manual_seed(14)
+        step = make_train_step(model, atcfg, gen, device=dev)
+        tx2 = make_mask_optimizer(atcfg)
+        mask = init_mask_state(tx2, dev)
+        mask_step = make_mask_train_step(model)
+        pa0 = mask.pa.detach().cpu().numpy().copy()
+        alosses, mlosses = [], []
+        t0 = time.perf_counter()
+        for b in itertools.islice(sets["card"].train_batches(TRAIN_BATCH, 6),
+                                  ADAPT_STEPS):
+            astate, logs = step(astate, *b[:3],
+                                mask_matrix(mask.pa, TRAIN_BATCH))
+            mask, mloss = mask_step(mask, astate, *b[:3])
+            alosses.append(float(logs["loss"]))
+            mlosses.append(mloss)
+        adapt_s = time.perf_counter() - t0
+        pa = mask.pa.detach().cpu().numpy()
+        line["adapt"] = {"losses": alosses, "mask_losses": mlosses,
+                         "pa": pa.tolist(), "s": adapt_s}
+        print(f"11f text+video with the adapt mask, {ADAPT_STEPS} steps in "
+              f"{adapt_s:.2f} s: losses {alosses}, mask losses {mlosses}, "
+              f"pa {pa0.tolist()} -> {pa.tolist()}", flush=True)
+        if (not np.isfinite(alosses + mlosses).all()
+                or np.allclose(pa, pa0)):
+            raise SystemExit("11f the adapt mask did not train")
+        del astate, model
+    launches = {fn.__name__: fn.launches for fn in counted}
+    line["kernel_launches"] = launches
+    line["step_s"] = time.perf_counter() - t_step
+    print(f"LINAS training step: {line['step_s']:.1f} s; launches of the "
+          f"five kernels during it (the LINAS model has none): "
+          f"{json.dumps(launches)}", flush=True)
+    return line
+
+
 def kernel_json(results, launches, core, block_extra) -> dict:
     """The kernels line: bf16 errors over every case of a kernel; times,
     bound and library time of its main-path case.  `bound_ms` is the
@@ -1559,8 +2050,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving = check_linas_serving(dev, card)
 
-    # -- 11. results -----------------------------------------------------------
+    # -- 11. LINAS training --------------------------------------------------------
+    torch.cuda.empty_cache()
+    training = check_linas_training(dev, card)
+
+    # -- 12. results -----------------------------------------------------------
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"training": training}))
     print(json.dumps(kernel_json(results, launches, core, block_extra)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,11 +24,19 @@ compute the same function.
   input); `dual_encoding_variables_to_jax` is its inverse and
   `reference_state_dicts` splits the port's state dict into the reference
   checkpoint's list of sub state dicts.
+* `linas_train_state_to_jax` and `linas_train_state_from_jax` carry the
+  LINAS trainer's whole state across: the model's state dict with the
+  optimizer's count, learning rate and moments (`OptaxOptimizer.
+  named_state`), as the tree the JAX package's TrainState serializes to
+  (`{"params", "batch_stats", "opt_state"}`, the optimizer as optax's
+  inject_hyperparams(chain(clip_by_global_norm, adam | rmsprop)) state);
+  `linas_mask_state_to_jax` and `linas_mask_state_from_jax` do the same
+  for the 'adapt' mask (pa with its chain(clip, adam) state).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -228,6 +236,8 @@ def _mapping_from_jax(sd, prefix: str, p, stats) -> None:
         bn = f"{prefix}mapping.bn_1."
         sd[bn + "weight"] = _f32(m["bn_1"]["scale"])
         sd[bn + "bias"] = _f32(m["bn_1"]["bias"])
+        if not stats:               # a tree of parameters only
+            return
         sd[bn + "running_mean"] = _f32(stats["mapping"]["bn_1"]["mean"])
         sd[bn + "running_var"] = _f32(stats["mapping"]["bn_1"]["var"])
         sd[bn + "num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
@@ -322,3 +332,82 @@ def reference_state_dicts(state_dict: Dict[str, torch.Tensor]
                if k.startswith(prefix)}
         out.append(sub or None)
     return out
+
+
+# -- the LINAS train state ----------------------------------------------------
+# optax's states as flax serializes them: a NamedTuple as a dict of its
+# fields in field order, a tuple as a dict keyed "0", "1", ..., an
+# EmptyState as {}; dict keys sorted, as jax.tree.map leaves them.
+
+def _moments_to_jax(moments: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """{parameter name: tensor} -> the JAX params tree of those tensors."""
+    return dual_encoding_variables_to_jax(moments)["params"]
+
+
+def _chain_state(named_state: Dict[str, Any], to_tree) -> Dict[str, Any]:
+    """chain(clip_by_global_norm, adam | rmsprop)'s state: (EmptyState,
+    (ScaleByAdamState(count, mu, nu) | ScaleByRmsState(nu), EmptyState))."""
+    if "mu" in named_state:
+        inner = {"count": np.asarray(named_state["count"], np.int32),
+                 "mu": to_tree(named_state["mu"]),
+                 "nu": to_tree(named_state["nu"])}
+    else:
+        inner = {"nu": to_tree(named_state["nu"])}
+    return {"0": {}, "1": {"0": inner, "1": {}}}
+
+
+def linas_train_state_to_jax(state_dict: Dict[str, torch.Tensor],
+                             named_state: Dict[str, Any]) -> Dict[str, Any]:
+    """The model's state dict and its optimizer's `named_state()` -> the
+    JAX TrainState's tree: params, batch_stats and the
+    inject_hyperparams state (count, hyperparams/learning_rate,
+    hyperparams_states, inner_state)."""
+    variables = dual_encoding_variables_to_jax(state_dict)
+    opt_state = {
+        "count": np.asarray(named_state["count"], np.int32),
+        "hyperparams": {"learning_rate": np.asarray(
+            named_state["learning_rate"], np.float32)},
+        "hyperparams_states": {},
+        "inner_state": _chain_state(named_state, _moments_to_jax)}
+    return {"params": variables["params"],
+            "batch_stats": variables.get("batch_stats", {}),
+            "opt_state": opt_state}
+
+
+def _moments_from_jax(tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    return dual_encoding_state_dict_from_jax({"params": tree}, cfg)
+
+
+def linas_train_state_from_jax(tree: Dict[str, Any], cfg
+                               ) -> Tuple[Dict[str, torch.Tensor],
+                                          Dict[str, Any]]:
+    """The inverse: the JAX TrainState's tree (leaves numpy arrays or
+    tensors) -> (the model's state dict, the optimizer's named state)."""
+    state_dict = dual_encoding_state_dict_from_jax(
+        {"params": tree["params"], "batch_stats": tree["batch_stats"]}, cfg)
+    opt = tree["opt_state"]
+    inner = opt["inner_state"]["1"]["0"]
+    named = {"count": int(np.asarray(opt["count"])),
+             "learning_rate": float(np.asarray(
+                 opt["hyperparams"]["learning_rate"]))}
+    for m in ("mu", "nu"):
+        if m in inner:
+            named[m] = _moments_from_jax(inner[m], cfg)
+    return state_dict, named
+
+
+def linas_mask_state_to_jax(pa: torch.Tensor, named_state: Dict[str, Any]
+                            ) -> Dict[str, Any]:
+    """The 'adapt' mask's (pa, chain(clip, adam) state) as the JAX
+    MaskState tuple serializes."""
+    return {"0": _np32(pa),
+            "1": _chain_state(named_state, lambda m: _np32(m["pa"]))}
+
+
+def linas_mask_state_from_jax(tree: Dict[str, Any]
+                              ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The inverse: (pa, the mask optimizer's named state)."""
+    inner = tree["1"]["1"]["0"]
+    named = {"count": int(np.asarray(inner["count"])),
+             "mu": {"pa": _f32(inner["mu"])}, "nu": {"pa": _f32(inner["nu"])}}
+    return _f32(tree["0"]), named

@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from ..utils.device import resolve_device
-from .layers import BiGRU, ConvBank1D, LatentMapping
+from .layers import BiGRU, ConvBank1D, Dropout, LatentMapping
 
 
 class VideoBatch(NamedTuple):
@@ -110,7 +110,7 @@ class VideoMultilevelEncoding(nn.Module):
         self.convs1 = ConvBank1D(2 * cfg.visual_rnn_size,
                                  cfg.visual_kernel_num,
                                  cfg.visual_kernel_sizes, device=device)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
 
     def forward(self, videos: VideoBatch) -> torch.Tensor:
         cfg = self.cfg
@@ -141,7 +141,7 @@ class TextMultilevelEncoding(nn.Module):
                          device=device)
         self.convs1 = ConvBank1D(2 * cfg.text_rnn_size, cfg.text_kernel_num,
                                  cfg.text_kernel_sizes, device=device)
-        self.dropout = nn.Dropout(cfg.dropout)
+        self.dropout = Dropout(cfg.dropout)
         if with_support:
             feat = cfg.text_feature_dim
             self.k = nn.Linear(feat, cfg.hidden_size, device=device)

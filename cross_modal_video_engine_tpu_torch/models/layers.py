@@ -22,6 +22,8 @@ so a sub state dict of the reference checkpoint loads as it is:
   train mode the biased batch variance E[x^2] - E[x]^2, for normalizing
   and for the running variance alike.
 * `LatentMapping` is MFC and the L2 norm into the common space.
+* `Dropout` draws its mask from the module's `generator` (None: torch's
+  default generator), which a trainer seeds.
 """
 
 from __future__ import annotations
@@ -82,6 +84,23 @@ class ConvBank1D(nn.ModuleList):
         return torch.cat(outs, dim=1)
 
 
+class Dropout(nn.Dropout):
+    """flax's Dropout: in train mode keep each element with probability
+    1 - p, drawn from `generator`, and scale it by 1 / (1 - p)."""
+
+    generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        keep_prob = 1.0 - self.p
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, 0.0)
+
+
 class FlaxBatchNorm1d(nn.BatchNorm1d):
     """BatchNorm1d with flax's statistics (see the module docstring); eval
     mode normalizes by the running statistics, as torch does."""
@@ -117,7 +136,7 @@ class MFC(nn.Module):
                     nn.Linear(dims[i], dims[i + 1], device=device))
         self.bn_1 = (FlaxBatchNorm1d(dims[-1], device=device)
                      if self.n_fc else None)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.n_fc:

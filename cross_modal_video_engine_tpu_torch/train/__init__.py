@@ -1,1 +1,2 @@
-"""Checkpoints in the JAX package's directory format."""
+"""Checkpoints in the JAX package's directory format, and the LINAS
+trainer with its optimizers and resume."""

@@ -12,7 +12,8 @@ A checkpoint either package writes loads in the other: `save_checkpoint`
 orders every dict's keys as `jax.tree.map` does before the JAX package
 serializes, so for the same tree both write the same bytes.  Trees hold
 numpy arrays or torch tensors (bfloat16 too); the loader gives CPU torch
-tensors.  `best_checkpoint_manager` comes with the trainer.
+tensors.  `best_checkpoint_manager` keeps only the best checkpoint, as the
+reference trainer does (trainer.py:413-419).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -74,3 +76,32 @@ def load_checkpoint(path: str) -> Tuple[Any, Dict, Dict]:
         data = f.read()
     return (flax_msgpack.restore(data), blob.get("config", {}),
             blob.get("meta", {}))
+
+
+def best_checkpoint_manager(root: str):
+    """Returns save_best(variables, config, score, meta) -> bool, which
+    writes `model_best_{score:.4f}` under root when score beats the best so
+    far, points the `model_best` symlink at it and deletes the old best."""
+    state = {"best": -np.inf, "path": None}
+
+    def save_best(variables, config, score, meta=None) -> bool:
+        if score <= state["best"]:
+            return False
+        new_path = os.path.join(root, f"model_best_{score:.4f}")
+        save_checkpoint(new_path, variables, config,
+                        dict(meta or {}, score=float(score)))
+        link = os.path.join(root, "model_best")
+        if os.path.islink(link):
+            os.unlink(link)
+        elif os.path.exists(link):
+            shutil.rmtree(link)
+        os.symlink(os.path.abspath(new_path), link)
+        # a new best whose score prints to the same name overwrote the
+        # directory in place: deleting the "old" path would delete it
+        if (state["path"] and state["path"] != new_path
+                and os.path.exists(state["path"])):
+            shutil.rmtree(state["path"])
+        state["best"], state["path"] = score, new_path
+        return True
+
+    return save_best

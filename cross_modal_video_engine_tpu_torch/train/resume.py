@@ -1,0 +1,105 @@
+"""The LINAS trainer's whole state, saved and resumed.
+
+Counterpart of cross_modal_video_engine_tpu/train/resume.py in the same
+files, so a run either package saved resumes in the other:
+
+* `train_state.msgpack`: flax's msgpack form (io/flax_msgpack.py) of
+  `{"state": TrainState, "mask": MaskState}` as the JAX package writes it:
+  /state/params/..., /state/batch_stats/..., /state/opt_state/{count,
+  hyperparams/learning_rate, hyperparams_states, inner_state/1/0/{count,
+  mu, nu}}, and for an 'adapt' run /mask/0 (pa) and /mask/1/1/0/{count,
+  mu, nu} (convert/from_jax.py's `linas_*_state_{to,from}_jax`);
+* `loop_state.json`: the host loop's {epoch, best, no_impr, since_halve}.
+
+`load_train_state` restores into the given states in place.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..convert.from_jax import (linas_mask_state_from_jax,
+                                linas_mask_state_to_jax,
+                                linas_train_state_from_jax,
+                                linas_train_state_to_jax)
+from ..io import flax_msgpack
+from .checkpoint import _host_tree
+
+STATE_FILE, LOOP_FILE = "train_state.msgpack", "loop_state.json"
+
+
+def _to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """The payload's tree in the JAX package's order: dict keys sorted, as
+    jax.tree.map leaves them, but TrainState's fields in field order (the
+    optax states' fields are sorted already), so both packages write the
+    same bytes for the same state."""
+    tree = {}
+    if "mask" in payload:
+        mask = payload["mask"]
+        tree["mask"] = linas_mask_state_to_jax(
+            mask.pa, mask.optimizer.named_state())
+    state = payload["state"]
+    tree["state"] = linas_train_state_to_jax(
+        state.model.state_dict(), state.optimizer.named_state())
+    tree = _host_tree(tree)
+    tree["state"] = {k: tree["state"][k]
+                     for k in ("params", "batch_stats", "opt_state")}
+    return tree
+
+
+def save_train_state(path: str, payload: Dict[str, Any],
+                     loop_state: Optional[Dict] = None) -> None:
+    """payload: {"state": TrainState[, "mask": MaskState]}."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, STATE_FILE), "wb") as f:
+        f.write(flax_msgpack.to_bytes(_to_tree(payload)))
+    with open(os.path.join(path, LOOP_FILE), "w") as f:
+        json.dump(loop_state or {}, f)
+
+
+def load_train_state(path: str, payload: Dict[str, Any]
+                     ) -> Tuple[Dict[str, Any], Dict]:
+    """payload: the states to restore into, {"state": TrainState[, "mask":
+    MaskState]}; each entry found in the file is loaded in place.  Returns
+    (the payload restored, loop state)."""
+    with open(os.path.join(path, STATE_FILE), "rb") as f:
+        tree = flax_msgpack.restore(f.read())
+    restored = {}
+    state = payload["state"]
+    sd, named = linas_train_state_from_jax(tree["state"], state.model.cfg)
+    state.model.load_state_dict(sd)
+    state.optimizer.load_named_state(named)
+    restored["state"] = state
+    if "mask" in payload and "mask" in tree:
+        mask = payload["mask"]
+        pa, named = linas_mask_state_from_jax(tree["mask"])
+        with torch.no_grad():
+            mask.pa.copy_(pa)
+        mask.optimizer.load_named_state(named)
+        restored["mask"] = mask
+    loop_state = {}
+    p = os.path.join(path, LOOP_FILE)
+    if os.path.exists(p):
+        with open(p) as f:
+            loop_state = json.load(f)
+    return restored, loop_state
+
+
+def latest_checkpoint(root: str, prefix: str = "epoch_") -> Optional[str]:
+    """The newest `{prefix}{n}` directory under root, or None."""
+    if not os.path.isdir(root):
+        return None
+    best, best_n = None, -1
+    for d in os.listdir(root):
+        if d.startswith(prefix):
+            try:
+                n = int(d[len(prefix):])
+            except ValueError:
+                continue
+            if n > best_n:
+                best_n, best = n, os.path.join(root, d)
+    return best
