@@ -95,14 +95,38 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
     epoch 1; (e) model_best restored and served over HTTP, answers equal
     to a direct search_ids; (f) text+video with the 'adapt' mask, a few
     steps: pa moves, losses finite; (g) a `training` JSON line;
-12. prints a JSON line of kernel results (launches on the main paths,
-    error, time, plain time, bound, library time) and, last, a JSON line
-    naming the device.
+12. composed retrieval, everything from numpy seeds and no video decode
+    (cv2 and h5py are not imported: the reference videos go to the route
+    already decoded, through its `decode` seam): (a) clip_preprocess on
+    the card against the CPU, a shrinking (360x480) and a growing
+    (120x160) size, each pad mode, 288 and 224; (b) the RN50x4 tower at
+    the full width of CLIPResNetConfig() (f32, TF32 off) restored from its
+    JAX-format checkpoint, card against CPU on 4 frames (high, middle,
+    encode_text), with its parameter and MAC counts; (c) the
+    /composed_retrieval route with RN50x4 and the conv4x4 Combiner at
+    CombinerConfig() widths over 1,000 candidates stored as npz feature
+    caches, 16 HTTP requests of a 64-frame 360x480 reference video and a
+    text, answers against a direct rank_index, batch-1 p50/p99, the
+    extraction's and one wave's times; (d) the same route with a ViT-B/32
+    checkpoint (fused sublayers) and CombinerConfig(clip_feature_dim=512)
+    over a second collection at width 512, the compact, MLP and rank-3
+    launch counters zeroed just before its requests and read just after,
+    the kernel arm's combine_features against the plain arm's by cosine;
+    (e) the combiner trainer on 512 triplets over that collection with
+    the route's ViT-B/32 text tower frozen: one step card against CPU at
+    dropout 0 (step 11a's bounds), 2 epochs with validation each epoch
+    (the last four step losses below the first four), composed_validate
+    on the card, model_best served by the route, the step's time by CUDA
+    events; (f) a `composed` JSON line;
+13. prints a JSON line of kernel results (launches on the main paths and
+    on the composed route, error, time, plain time, bound, library time)
+    and, last, a JSON line naming the device.
 
 Nothing is cut: the models run at full width and depth (the LINAS
-training runs 2 epochs of a 2,560-caption collection).  Exits
-non-zero, printing no result, when CUDA is unavailable or any check
-fails.
+training runs 2 epochs of a 2,560-caption collection; the composed
+route's candidates and the Combiner's triplets are stored features, as
+the route and the trainer read them).  Exits non-zero, printing no
+result, when CUDA is unavailable or any check fails.
 """
 
 from __future__ import annotations
@@ -1481,6 +1505,26 @@ def train_card_vs_cpu(dev, cfg, sd, batches) -> dict:
         runs[name] = (model, loss, time.perf_counter() - t0)
     (card, card_loss, card_s), (cpu, cpu_loss, cpu_s) = (runs["card"],
                                                          runs["cpu"])
+    line, bad, summary = step_agreement(card, cpu, card_loss, cpu_loss,
+                                        tcfg.learning_rate)
+    print(f"11a one de+map step at batch {TRAIN_BATCH}, card vs CPU: "
+          f"{summary}; step {card_s:.2f} s on the card (first), "
+          f"{cpu_s:.2f} s on the CPU", flush=True)
+    if bad:
+        raise SystemExit(f"11a card vs CPU failed: {bad[:5]}")
+    return line
+
+
+def step_agreement(card, cpu, card_loss: float, cpu_loss: float,
+                   lr: float):
+    """One train step of the same model from the same state on the card and
+    on the CPU, held to the bounds of step 11a: the loss within
+    TRAIN_LOSS_RTOL; each gradient tensor within TRAIN_GRAD_REL of its norm
+    plus TRAIN_GRAD_FLOOR of the whole gradient's norm; the parameters
+    after the Adam step within TRAIN_PARAM_TOL where the CPU's gradient is
+    above TRAIN_NOISE of its largest element, within 2 lr below.  Returns
+    (numbers, what failed, a summary for the log)."""
+    import torch
     grads = _grad_errors(card, cpu)
     total = float(torch.sqrt(sum((h * h).sum() for _, h in grads.values())))
     gmax = max(float(h.abs().max()) for _, h in grads.values())
@@ -1491,7 +1535,6 @@ def train_card_vs_cpu(dev, cfg, sd, batches) -> dict:
         worst = max(worst, err / bound)
         if err > bound:
             bad.append(name)
-    lr = tcfg.learning_rate
     p_worst, n_noise, noise_worst = 0.0, 0, 0.0
     card_sd = card.state_dict()
     for name, q in cpu.named_parameters():
@@ -1505,25 +1548,24 @@ def train_card_vs_cpu(dev, cfg, sd, batches) -> dict:
         g, _ = grads[name]
         n_noise += int((noise & ((g != 0) | (h != 0))).sum())
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    print(f"11a one de+map step at batch {TRAIN_BATCH}, card vs CPU: loss "
-          f"{card_loss:.6f} vs {cpu_loss:.6f} (rel {loss_rel:.2e}, need <= "
-          f"{TRAIN_LOSS_RTOL}); gradients: worst error / bound "
-          f"{worst:.3f} (bound {TRAIN_GRAD_REL} of the tensor's norm + "
-          f"{TRAIN_GRAD_FLOOR} of the whole gradient's {total:.4f}); "
-          f"parameters after the step: max |difference| {p_worst:.2e} "
-          f"where the CPU's gradient is above {TRAIN_NOISE} of its largest "
-          f"element {gmax:.4f} (need <= {TRAIN_PARAM_TOL}), {noise_worst:.2e} "
-          f"below it (need <= {2 * lr:.0e}; {n_noise} elements with a "
-          f"nonzero gradient there); "
-          f"step {card_s:.2f} s on the card (first), {cpu_s:.2f} s on the "
-          f"CPU", flush=True)
-    if (loss_rel > TRAIN_LOSS_RTOL or bad or p_worst > TRAIN_PARAM_TOL
-            or noise_worst > 2 * lr or not np.isfinite(card_loss)):
-        raise SystemExit(f"11a card vs CPU failed: gradients {bad[:5]}")
-    return {"loss_card": card_loss, "loss_cpu": cpu_loss,
-            "loss_rel": loss_rel, "grad_worst_over_bound": worst,
-            "param_max_abs": p_worst, "noise_elements": n_noise,
-            "noise_param_max_abs": noise_worst}
+    summary = (
+        f"loss {card_loss:.6f} vs {cpu_loss:.6f} (rel {loss_rel:.2e}, need "
+        f"<= {TRAIN_LOSS_RTOL}); gradients: worst error / bound "
+        f"{worst:.3f} (bound {TRAIN_GRAD_REL} of the tensor's norm + "
+        f"{TRAIN_GRAD_FLOOR} of the whole gradient's {total:.4f}); "
+        f"parameters after the step: max |difference| {p_worst:.2e} "
+        f"where the CPU's gradient is above {TRAIN_NOISE} of its largest "
+        f"element {gmax:.4f} (need <= {TRAIN_PARAM_TOL}), {noise_worst:.2e} "
+        f"below it (need <= {2 * lr:.0e}; {n_noise} elements with a "
+        f"nonzero gradient there)")
+    if loss_rel > TRAIN_LOSS_RTOL or not np.isfinite(card_loss):
+        bad.append("loss")
+    if p_worst > TRAIN_PARAM_TOL or noise_worst > 2 * lr:
+        bad.append("parameters")
+    return ({"loss_card": card_loss, "loss_cpu": cpu_loss,
+             "loss_rel": loss_rel, "grad_worst_over_bound": worst,
+             "param_max_abs": p_worst, "noise_elements": n_noise,
+             "noise_param_max_abs": noise_worst}, bad, summary)
 
 
 def similarity_card_vs_cpu(dev) -> dict:
@@ -1890,9 +1932,477 @@ def check_linas_training(dev, card) -> dict:
     return line
 
 
-def kernel_json(results, launches, core, block_extra) -> dict:
+# -- 12. composed retrieval (tolerances stated before the first run) ---------
+COMPOSED_VIDEOS, COMPOSED_REQUESTS, COMPOSED_REFS = 1000, 16, 4
+RN_CHECK_FRAMES, EXTRACT_CALLS, COMPOSED_TOPK = 4, 5, 10
+COMBINER_TRIPLETS, COMBINER_BATCH, COMBINER_EPOCHS = 512, 32, 2
+COMBINER_HTTP_CHECKS, COMBINER_TIMED_STEPS = 4, 8
+# (a) clip_preprocess card vs CPU: the same f32 arithmetic rounded to bf16;
+# where the two f32 values fall on two sides of a rounding boundary the
+# outputs differ by one bf16 step (2^-6 for |x| < 4), in at most PRE_SHARE
+# of the elements
+PRE_STEP, PRE_SHARE = 2.0 ** -6, 1e-2
+# (b) RN50x4 in f32 with TF32 off, card vs CPU on the same bf16 pixels: max
+# |difference| within RN_REL of the output's largest |value| (26
+# bottlenecks of f32 convolutions, whose algorithms cuDNN picks: Winograd
+# and FFT transforms round otherwise than a direct sum)
+RN_REL = 1e-3
+
+
+def composed_preprocess(dev) -> dict:
+    """Step 12a: clip_preprocess on the card against the CPU."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.ops.preprocess import (
+        clip_preprocess)
+    rng = np.random.default_rng(21)
+    worst_step, worst_share = 0.0, 0.0
+    for shape in ((4, 360, 480, 3), (4, 120, 160, 3)):     # shrink, grow
+        frames = torch.from_numpy(rng.integers(0, 256, shape, np.uint8))
+        for pad in ("targetpad", "squarepad", None):
+            for dim in (288, 224):
+                want = clip_preprocess(frames, dim, pad).float()
+                got = clip_preprocess(frames.to(dev), dim, pad).float().cpu()
+                diff = (got - want).abs()
+                worst_step = max(worst_step, float(diff.max()))
+                worst_share = max(worst_share, float((diff > 0).float()
+                                                     .mean()))
+    ok = worst_step <= PRE_STEP and worst_share <= PRE_SHARE
+    print(f"12a clip_preprocess card vs CPU (360x480 and 120x160, targetpad/"
+          f"squarepad/none, 288 and 224): max |difference| {worst_step:.4g} "
+          f"(need <= {PRE_STEP}), share of differing elements "
+          f"{worst_share:.2e} (need <= {PRE_SHARE})", flush=True)
+    if not ok:
+        raise SystemExit("12a clip_preprocess card vs CPU failed")
+    return {"max_abs": worst_step, "share": worst_share}
+
+
+def rn50x4_card_vs_cpu(card_model, clip_checkpoint, frames_u8) -> dict:
+    """Step 12b: the RN50x4 tower restored from the checkpoint on the CPU
+    against the route's model on the card: high, middle and encode_text."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import composed_inference as ci
+    from cross_modal_video_engine_tpu_torch.models.clip_resnet import (
+        CLIPResNetModel)
+    from cross_modal_video_engine_tpu_torch.ops.preprocess import (
+        clip_preprocess)
+
+    cpu_model, cfg = ci.load_clip_tower(clip_checkpoint, "cpu")
+    pixels = clip_preprocess(torch.from_numpy(frames_u8[:RN_CHECK_FRAMES]),
+                             cfg.image_resolution)
+    ids = torch.from_numpy(text_ids(np.random.default_rng(22), 4,
+                                    cfg.context_length, cfg.vocab_size))
+    dev = card_model.device
+    with torch.no_grad():
+        want = (*cpu_model.encode_image(pixels), cpu_model.encode_text(ids))
+        got = (*card_model.encode_image(pixels.to(dev)),
+               card_model.encode_text(ids.to(dev)))
+    errs = {}
+    for name, g, w in zip(("high", "middle", "text"), got, want):
+        errs[name] = float((g.cpu() - w).abs().max() / w.abs().max())
+    vis = sum(p.numel() for n, p in cpu_model.named_parameters()
+              if n.startswith("visual."))
+    txt = sum(p.numel() for n, p in cpu_model.named_parameters()
+              if not n.startswith("visual.") and n != "logit_scale")
+    macs = [0]
+
+    def count(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            macs[0] += out.numel() * mod.in_channels * mod.kernel_size[0] \
+                * mod.kernel_size[1] // mod.groups
+        elif isinstance(mod, torch.nn.Linear):
+            macs[0] += out.numel() * mod.in_features
+
+    # one frame through a copy of the tower on the meta device: shapes only
+    meta = CLIPResNetModel(cfg, device="meta").visual
+    for m in meta.modules():
+        m.register_forward_hook(count)
+    with torch.no_grad():
+        _, middle = meta(torch.empty(1, cfg.image_resolution,
+                                     cfg.image_resolution, 3, device="meta"))
+    line = {"rel_err": errs, "vision_params": vis, "text_params": txt,
+            "gmac_per_frame": macs[0] / 1e9,
+            "layer3_map": list(middle.shape[1:]),
+            "high_shape": list(got[0].shape),
+            "middle_shape": list(got[1].shape)}
+    print(f"12b RN50x4 (f32, TF32 off) card vs CPU on {RN_CHECK_FRAMES} "
+          f"frames at {cfg.image_resolution}: max |difference| / max "
+          f"|value|: {json.dumps(errs)} (need <= {RN_REL}); "
+          f"{vis / 1e6:.2f}M vision and {txt / 1e6:.2f}M text parameters, "
+          f"{macs[0] / 1e9:.2f} GMAC a frame (convolutions and products), "
+          f"layer3 map {tuple(middle.shape[1:])}", flush=True)
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    if max(errs.values()) > RN_REL or not finite:
+        raise SystemExit("12b RN50x4 card vs CPU failed")
+    return line
+
+
+def composed_requests(handler, port, refs, n: int, index_high) -> int:
+    """n requests over HTTP, one after another; each answer against a
+    direct rank_index on the route's models and the same features.
+    Returns how many answers differed."""
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli import composed_inference as ci
+
+    payloads = bserve.composed_payloads(sorted(refs), n, COMPOSED_TOPK)
+    answers = [bserve.request(port, "composed_retrieval", p,
+                              timeout=600.0)[1]["results"] for p in payloads]
+    ctx = handler.clip_cfg.context_length
+    differ = 0
+    for p, got in zip(payloads, answers):
+        h, m = handler.reference_features(refs[p["reference_video"]])
+        text = ci.encode_text(handler.clip_model, handler.tokenizer,
+                              p["text"], ctx)
+        order = ci.rank_index(handler.combiner, h, m, text, index_high)
+        differ += got != [handler.names[i] for i in order[:COMPOSED_TOPK]]
+    return differ
+
+
+def composed_route(dev, card, root, refs, clip_cfg, comb_cfg, counted=()):
+    """Steps 12c/12d: the fixtures in the JAX format, the route as
+    cli.serve builds it on the card, COMPOSED_REQUESTS requests over HTTP
+    (launch counters of `counted` zeroed just before, read just after),
+    answers against a direct rank, the batch-1 p50 and the extraction and
+    wave times.  Returns (line, launches, args, handler, server)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli import composed_inference as ci
+
+    t0 = time.perf_counter()
+    args = bserve.write_composed_fixtures(root, clip_cfg, comb_cfg,
+                                          COMPOSED_VIDEOS, seed=0)
+    args.device = str(dev)
+    fixtures_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server, handler = bserve.start_composed_server(args, refs.__getitem__)
+    start_s = time.perf_counter() - t0
+    port = server.server_address[1]
+    bserve.request(port, "composed_retrieval", bserve.composed_payloads(
+        sorted(refs), 1, COMPOSED_TOPK)[0], timeout=600.0)     # warm-up
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    lat = [bserve.request(port, "composed_retrieval", p, timeout=600.0)[0]
+           for p in bserve.composed_payloads(sorted(refs), COMPOSED_REQUESTS,
+                                             COMPOSED_TOPK)]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    _, index_high = ci.candidate_index(
+        handler.clip_model, handler.clip_cfg.image_resolution,
+        args.videos_dir, args.feature_cache)
+    differ = composed_requests(handler, port, refs, len(refs), index_high)
+    ext = bserve.extraction_times(handler, refs[sorted(refs)[0]],
+                                  EXTRACT_CALLS)
+    wave = bserve.wave_times(handler, bserve.composed_wave_rows(
+        handler, refs, 1), 10, device=dev)
+    p = bserve.percentiles(lat)
+    line = {"clip": type(clip_cfg).__name__, "clip_dim": clip_cfg.embed_dim,
+            "middle_mix": comb_cfg.middle_mix, "videos": COMPOSED_VIDEOS,
+            "requests": COMPOSED_REQUESTS, "ref_frames": bserve.REF_FRAMES,
+            "ref_size": [bserve.REF_HEIGHT, bserve.REF_WIDTH],
+            "batch1_p50_ms": p["p50"], "batch1_p99_ms": p["p99"],
+            "extract_wall_ms": ext["wall_ms"],
+            "extract_events_ms": ext["events_ms"],
+            "extract_busy_ms": ext.get("busy_ms"),
+            "extract_top_kernels": ext.get("top_kernels"),
+            "wave1_wall_ms": wave["wall_ms"],
+            "wave1_events_ms": wave["events_ms"],
+            "wave1_busy_ms": wave["busy_ms"],
+            "wave1_idle_share": wave["idle_share"],
+            "answers_differing": differ, "fixtures_s": fixtures_s,
+            "route_start_s": start_s, "card": card}
+    return line, launches, args, handler, server
+
+
+def vit_arms_agree(handler, clip_checkpoint, refs) -> float:
+    """Step 12d: the route's kernel arm against the plain arm (fused off,
+    same weights) through preprocess, the towers, pooling and
+    combine_features: the smallest cosine over the reference videos."""
+    import dataclasses
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli import composed_inference as ci
+    from cross_modal_video_engine_tpu_torch.convert.from_jax import (
+        clip_state_dict_from_jax)
+    from cross_modal_video_engine_tpu_torch.models.clip import CLIPModel
+    from cross_modal_video_engine_tpu_torch.train.checkpoint import (
+        load_checkpoint)
+
+    kernel = handler.clip_model
+    cfg = dataclasses.replace(handler.clip_cfg, fused_attn=False,
+                              fused_mlp=False)
+    variables, _, _ = load_checkpoint(clip_checkpoint)
+    plain = CLIPModel(cfg, device=kernel.logit_scale.device)
+    plain.load_state_dict(clip_state_dict_from_jax(variables, cfg))
+    plain.eval()
+    comb, dim = handler.combiner, handler.combiner.cfg.clip_feature_dim
+    cos = []
+    for p in bserve.composed_payloads(sorted(refs), len(refs),
+                                      COMPOSED_TOPK):
+        frames = refs[p["reference_video"]]
+        preds = []
+        for model in (kernel, plain):
+            h, m = ci.encode_video_frames(model, frames, cfg.image_resolution)
+            h, m = ci.build_combiner_inputs(h, m, dim=dim)
+            text = ci.encode_text(model, handler.tokenizer, p["text"],
+                                  cfg.context_length)
+            with torch.no_grad():
+                preds.append(comb.combine_features((h[None], m[None]), text))
+        cos.append(cosine_min(*preds))
+    del plain
+    return min(cos)
+
+
+def write_composed_triplets(path: str, names, n: int, seed: int = 31):
+    """n (reference, target, edit) triplets over the collection's names."""
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i in range(n):
+            a, b = rng.choice(len(names), 2, replace=False)
+            f.write(f"{names[a]}\t{names[b]}\t"
+                    f"{bserve.EDITS[i % len(bserve.EDITS)]}\n")
+
+
+def composed_training(dev, card, root, vit_args, vit_handler) -> dict:
+    """Step 12e: the combiner trainer at CombinerConfig(clip_feature_dim=
+    512) on the 512-wide collection with the route's ViT-B/32 text tower
+    (fused) frozen."""
+    import argparse
+    import contextlib
+    import io
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli import composed_inference as ci
+    from cross_modal_video_engine_tpu_torch.cli.combiner_trainer import (
+        encode_texts, train_combiner)
+    from cross_modal_video_engine_tpu_torch.cli.composed_validate import (
+        validate)
+    from cross_modal_video_engine_tpu_torch.data.composed_dataset import (
+        ComposedVideoDataset, FeatureStore)
+    from cross_modal_video_engine_tpu_torch.models.combiner import (
+        Combiner, CombinerConfig)
+    from cross_modal_video_engine_tpu_torch.train.combiner_trainer import (
+        CombinerTrainConfig, init_combiner_state, make_combiner_optimizer,
+        make_combiner_train_step)
+
+    tsv = os.path.join(root, "triplets.tsv")
+    write_composed_triplets(tsv, vit_handler.names, COMBINER_TRIPLETS)
+    dataset = ComposedVideoDataset(tsv, FeatureStore(
+        {"main": vit_args.feature_cache}))
+    clip_model, tok = vit_handler.clip_model, vit_handler.tokenizer
+
+    def text_fn(caps):
+        return encode_texts(clip_model, tok, caps,
+                            clip_model.cfg.context_length)
+
+    # (1) one step, card against CPU, dropout 0
+    cfg0 = CombinerConfig(clip_feature_dim=512, dropout=0.0)
+    tcfg = CombinerTrainConfig()
+    first = next(dataset.batches(COMBINER_BATCH))
+    text = text_fn(first["captions"])
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = Combiner(cfg0, device="meta").to_empty(device=d)
+        state = init_combiner_state(model, make_combiner_optimizer(tcfg), 7)
+        feats = [torch.from_numpy(first[k]).to(d) for k in (
+            "ref_high", "ref_middle", "target_high", "target_middle")]
+        state, loss = make_combiner_train_step(model)(
+            state, tuple(feats[:2]), text.to(d), tuple(feats[2:]))
+        runs[name] = (model, float(loss))
+    step_line, bad, summary = step_agreement(
+        runs["card"][0], runs["cpu"][0], runs["card"][1], runs["cpu"][1],
+        tcfg.learning_rate)
+    print(f"12e one combiner step at batch {COMBINER_BATCH}, card vs CPU: "
+          f"{summary}", flush=True)
+    if bad:
+        raise SystemExit(f"12e card vs CPU failed: {bad[:5]}")
+    del runs
+
+    # (2) two epochs with validation each epoch
+    out_dir = os.path.join(root, "combiner_out")
+    cfg = CombinerConfig(clip_feature_dim=512)
+    model = Combiner(cfg, device="meta").to_empty(device=dev)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        state, history = train_combiner(
+            model, dataset, text_fn,
+            CombinerTrainConfig(validation_frequency=1), out_dir,
+            COMBINER_BATCH, num_epochs=COMBINER_EPOCHS)
+    train_s = time.perf_counter() - t0
+    losses = [v for r in history for v in r["step_losses"]]
+    first4, last4 = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    print(f"12e train_combiner: {COMBINER_EPOCHS} epochs of "
+          f"{COMBINER_TRIPLETS} triplets at batch {COMBINER_BATCH} in "
+          f"{train_s:.1f} s with validation each epoch; epochs: "
+          + "; ".join(json.dumps({k: v for k, v in r.items()
+                                  if k != "step_losses"}) for r in history)
+          + f"; mean of the first four step losses {first4:.4f}, of the "
+          f"last four {last4:.4f}", flush=True)
+    if not (all(np.isfinite(losses)) and last4 < first4):
+        raise SystemExit("12e combiner training: losses not finite or not "
+                         "falling")
+
+    # (3) composed_validate on the card, from model_best
+    best_path = os.path.join(out_dir, "model_best")
+    best = ci.load_combiner(best_path, dev, require_config=True)
+    t0 = time.perf_counter()
+    order, report = validate(best, dataset, text_fn, 64)
+    validate_s = time.perf_counter() - t0
+    print(f"12e composed_validate of model_best on the card: "
+          f"{json.dumps(report)} in {validate_s:.2f} s", flush=True)
+    if (order.shape != (COMBINER_TRIPLETS, min(100, len(dataset.video_names)))
+            or report["n_queries"] != COMBINER_TRIPLETS):
+        raise SystemExit("12e composed_validate: wrong shape")
+
+    # (4) model_best served by the route
+    args = argparse.Namespace(**vars(vit_args))
+    args.combiner_checkpoint = best_path
+    refs = bserve.reference_videos(COMBINER_HTTP_CHECKS, seed=33)
+    server, handler = bserve.start_composed_server(args, refs.__getitem__)
+    try:
+        _, index_high = ci.candidate_index(
+            handler.clip_model, handler.clip_cfg.image_resolution,
+            args.videos_dir, args.feature_cache)
+        differ = composed_requests(handler, server.server_address[1],
+                                   refs, COMBINER_HTTP_CHECKS, index_high)
+    finally:
+        bserve.stop_server(server, handler)
+    print(f"12e model_best served over HTTP: {COMBINER_HTTP_CHECKS} answers, "
+          f"{differ} differing from a direct rank_index", flush=True)
+    if differ:
+        raise SystemExit("12e model_best route answers differ")
+
+    # (5) the step on the trained model by CUDA events
+    step = make_combiner_train_step(model, torch.Generator(
+        device=dev).manual_seed(1))
+    batches = list(itertools.islice(dataset.batches(
+        COMBINER_BATCH, shuffle=True, seed=9), COMBINER_TIMED_STEPS))
+    spans = []
+    for b in batches:
+        feats = [torch.from_numpy(b[k]).to(dev) for k in (
+            "ref_high", "ref_middle", "target_high", "target_middle")]
+        text = text_fn(b["captions"])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, tuple(feats[:2]), text, tuple(feats[2:]))
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    step_ms = float(np.median(spans[2:]))
+    prof = bserve.device_kernels(lambda: step(state, tuple(feats[:2]), text,
+                                              tuple(feats[2:])), 5)
+    opt_ms = cuda_ms(state.optimizer.step, iters=5, warmup=1)
+    print(f"12e combiner step at batch {COMBINER_BATCH} (Combiner only, "
+          f"text encoded before): {step_ms:.3f} ms by CUDA events (median "
+          f"of steps 3-{COMBINER_TIMED_STEPS}) = "
+          f"{COMBINER_BATCH * 1e3 / step_ms:.1f} samples/s; kernels busy "
+          f"{prof['busy_ms']:.3f} ms a step, the optimizer's step alone "
+          f"{opt_ms:.3f} ms; longest kernels (ms a step): "
+          f"{json.dumps(prof['top_kernels'])} on {card}", flush=True)
+    return {"step_card_vs_cpu": step_line, "epochs": [
+                {k: v for k, v in r.items() if k != "step_losses"}
+                for r in history],
+            "first4_loss": first4, "last4_loss": last4, "train_s": train_s,
+            "validate": report, "validate_s": validate_s,
+            "model_best_http_differing": differ, "step_ms": step_ms,
+            "step_ms_all": spans, "step_busy_ms": prof["busy_ms"],
+            "step_top_kernels": prof["top_kernels"], "optimizer_ms": opt_ms,
+            "samples_per_s": COMBINER_BATCH * 1e3 / step_ms}
+
+
+def check_composed(dev, card):
+    """Step 12 (items a-f of the docstring).  Every failed check raises.
+    Returns (the `composed` JSON object, the launches of the ViT-B/32
+    route's requests by kernel)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.models.clip import (
+        flagship_config)
+    from cross_modal_video_engine_tpu_torch.models.clip_resnet import (
+        CLIPResNetConfig)
+    from cross_modal_video_engine_tpu_torch.models.combiner import (
+        CombinerConfig)
+    from cross_modal_video_engine_tpu_torch.ops import (
+        attention_sublayer as asl)
+
+    t_step = time.perf_counter()
+    line = {"card": card, "preprocess": composed_preprocess(dev)}
+    refs = bserve.reference_videos(COMPOSED_REFS, seed=5)
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        # (b), (c): RN50x4 + the conv4x4 Combiner at CombinerConfig()
+        rn, _, rn_args, handler, server = composed_route(
+            dev, card, os.path.join(tmp, "rn50x4"), refs, CLIPResNetConfig(),
+            CombinerConfig(middle_mix="conv4x4"))
+        try:
+            line["rn50x4_tower"] = rn50x4_card_vs_cpu(
+                handler.clip_model, rn_args.clip_checkpoint,
+                refs[sorted(refs)[0]])
+        finally:
+            bserve.stop_server(server, handler)
+        line["rn50x4_route"] = rn
+        print(f"12c composed route, RN50x4 + conv4x4 Combiner, "
+              f"{COMPOSED_VIDEOS} candidates: {COMPOSED_REQUESTS} requests "
+              f"of a {bserve.REF_FRAMES}-frame {bserve.REF_HEIGHT}x"
+              f"{bserve.REF_WIDTH} reference video over HTTP, batch-1 p50 "
+              f"{rn['batch1_p50_ms']:.2f} ms, p99 {rn['batch1_p99_ms']:.2f} "
+              f"ms; extraction {rn['extract_wall_ms']:.2f} ms host, "
+              f"{rn['extract_events_ms']:.2f} ms device, kernels busy "
+              f"{rn['extract_busy_ms']:.2f} ms, longest "
+              f"{json.dumps(rn['extract_top_kernels'][:3])}; wave of 1 "
+              f"{rn['wave1_wall_ms']:.3f} ms host, busy "
+              f"{rn['wave1_busy_ms']:.3f} ms; {rn['answers_differing']} "
+              f"answers differing from a direct rank; fixtures "
+              f"{rn['fixtures_s']:.1f} s, route start "
+              f"{rn['route_start_s']:.1f} s on {card}", flush=True)
+        if rn["answers_differing"]:
+            raise SystemExit("12c route answers differ from a direct rank")
+        del handler, server
+        torch.cuda.empty_cache()
+
+        # (d): ViT-B/32 (fused) + CombinerConfig(clip_feature_dim=512)
+        counted = (asl.fused_attention_sublayer_compact,
+                   asl.fused_attention_sublayer, asl.fused_mlp_sublayer)
+        vit, launches, vit_args, handler, server = composed_route(
+            dev, card, os.path.join(tmp, "vit"), refs, flagship_config(),
+            CombinerConfig(clip_feature_dim=512), counted)
+        try:
+            vit["arms_min_cosine"] = vit_arms_agree(
+                handler, vit_args.clip_checkpoint, refs)
+            vit["launches"] = launches
+            print(f"12d composed route, ViT-B/32 (fused) + Combiner 512: "
+                  f"batch-1 p50 {vit['batch1_p50_ms']:.2f} ms, extraction "
+                  f"{vit['extract_events_ms']:.2f} ms device; launches over "
+                  f"the {COMPOSED_REQUESTS} requests {json.dumps(launches)}; "
+                  f"kernel arm vs plain arm combine_features min cosine "
+                  f"{vit['arms_min_cosine']:.6f} (need >= {COSINE_MIN}); "
+                  f"{vit['answers_differing']} answers differing from a "
+                  f"direct rank", flush=True)
+            if (vit["answers_differing"] or vit["arms_min_cosine"] < COSINE_MIN
+                    or min(launches.values()) <= 0):
+                raise SystemExit("12d ViT-B/32 composed route failed")
+            line["vit_route"] = vit
+            # (e): the combiner trainer
+            line["training"] = composed_training(dev, card,
+                                                 os.path.join(tmp, "vit"),
+                                                 vit_args, handler)
+        finally:
+            bserve.stop_server(server, handler)
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"12 composed retrieval checked in {line['seconds']:.1f} s",
+          flush=True)
+    return line, launches
+
+
+def kernel_json(results, launches, core, block_extra,
+                composed_launches) -> dict:
     """The kernels line: bf16 errors over every case of a kernel; times,
-    bound and library time of its main-path case.  `bound_ms` is the
+    bound and library time of its main-path case; `launches` on the main
+    path of steps 4, 6 and 8, `composed_launches` over the requests of the
+    ViT-B/32 composed route (step 12d).  `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
     also carry the host time of one call and their core kernel by itself
@@ -1927,6 +2437,7 @@ def kernel_json(results, launches, core, block_extra) -> dict:
             "name": name, "route": "cuda", "source": SRC + sources[name],
             "replaces": replaces[name],
             "launches": launches[name],
+            "composed_launches": composed_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in bf16),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": max(by_ops, by_bytes) * 1e3,
@@ -2054,10 +2565,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     training = check_linas_training(dev, card)
 
-    # -- 12. results -----------------------------------------------------------
+    # -- 12. composed retrieval ------------------------------------------------
+    torch.cuda.empty_cache()
+    composed, composed_launches = check_composed(dev, card)
+
+    # -- 13. results ------------------------------------------------------------
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
-    print(json.dumps(kernel_json(results, launches, core, block_extra)))
+    print(json.dumps({"composed": composed}))
+    print(json.dumps(kernel_json(results, launches, core, block_extra,
+                                 composed_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

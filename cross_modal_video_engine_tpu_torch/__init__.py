@@ -16,7 +16,13 @@ utils/precision, api), and LINAS text->video retrieval served over HTTP
 train/checkpoint, data/provider, utils/vocab, utils/text2vec,
 metrics/retrieval, retrieval/evaluation, service/batching, service/app,
 cli/common, cli/retrieval_inference, cli/retrieval_tester, cli/serve,
-bench/serve).
+bench/serve) with its trainer (losses/triplet, losses/distill,
+train/optim, train/linas_trainer, train/resume, cli/retrieval_trainer),
+and composed text+video retrieval (utils/bpe, ops/preprocess,
+models/clip_resnet, models/combiner, io/video_decode,
+data/composed_dataset, losses/contrastive, train/combiner_trainer,
+cli/composed_inference, cli/combiner_trainer, cli/composed_validate, the
+composed_retrieval route of cli/serve).
 """
 
 __version__ = "0.1.0"

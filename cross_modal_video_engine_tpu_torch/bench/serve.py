@@ -1,7 +1,9 @@
-"""LINAS text->video retrieval served over HTTP: latency at 1M rows.
+"""Retrieval served over HTTP: LINAS at 1M rows, and composed retrieval.
 
     python -m cross_modal_video_engine_tpu_torch.bench.serve \
         [--rows 1000000] [--videos 1000] [--device cpu]
+    python -m cross_modal_video_engine_tpu_torch.bench.serve --composed \
+        [--videos 1000] [--device cpu]
 
 The port's counterpart of the JAX package's bench_serve.py.  It writes,
 from a numpy seed, everything the retrieval route reads: a collection in
@@ -24,6 +26,21 @@ measures through HTTP on 127.0.0.1:
   its kernels' busy time from torch.profiler, and the idle share
   1 - busy / wall.
 
+The composed arm (`--composed`, `run_composed`) writes, from a numpy
+seed, a CLIP RN50x4 checkpoint (`CLIPResNetConfig()`, f32) and a Combiner
+in the reference checkpoint's conv4x4 layout (`CombinerConfig()`), both in
+the JAX package's format, a toy BPE merges table, and a candidate
+collection of `--videos` videos as the route's npz feature caches (high
+(8, 640) and pooled middle (8, 16, 640) f32; the video files themselves
+are empty names).  The reference videos are 64 frames of 360x480 uint8,
+drawn from the seed and handed to the route already decoded (its `decode`
+seam), so no video decode is timed.  It starts the `/composed_retrieval`
+route and measures: batch-1 and conc-64 per-request p50/p99 over HTTP;
+one wave of 1 and of 8 rows (text tower, Combiner, index product, one
+fetch) as above; and the extraction of one reference video (preprocess,
+RN50x4 over 64 frames, pooling), host ms with a synchronize and device ms
+by CUDA events.
+
 Prints one JSON line per row.  On the CPU (`--device cpu`) the rows say
 so and no device time is given.
 """
@@ -44,10 +61,17 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..convert.from_jax import dual_encoding_variables_to_jax
+from ..convert.from_jax import (clip_resnet_variables_to_jax,
+                                clip_variables_to_jax,
+                                combiner_variables_to_jax,
+                                dual_encoding_variables_to_jax)
+from ..data.composed_dataset import save_video_features
 from ..io.bigfile import write_bigfile
+from ..models import clip as clip_vit
+from ..models import clip_resnet, combiner
 from ..models.dual_encoding import DualEncodingConfig, seeded_state_dict
 from ..train.checkpoint import save_checkpoint
+from ..utils.bpe import write_toy_merges
 from ..utils.device import resolve_device
 from ..utils.vocab import SPECIAL_TOKENS, Vocabulary
 from .common import emit, per, where
@@ -280,13 +304,15 @@ def wave_rows(handler, queries: Sequence[str], n: int, top_k: int = 16):
     return rows
 
 
-def wave_times(handler, rows, calls: int = 50) -> dict:
+def wave_times(handler, rows, calls: int = 50, device=None) -> dict:
     """One wave of `rows`, as the batcher runs it (text batch to the
     device, text tower, search, one fetch), `calls` times: wall ms per
     wave (host clock), the card's span of a wave by CUDA events (from the
     first enqueue to the last kernel's end), the kernels' busy ms a wave
     (torch.profiler) with the six longest kernels, and the idle share
-    1 - busy / wall.  On the CPU only the wall is measured."""
+    1 - busy / wall.  On the CPU only the wall is measured.  device: where
+    the route computes (default: handler.model's device)."""
+    device = device or handler.model.device
     run = handler.batcher.fn
     for _ in range(3):
         run(rows)
@@ -297,7 +323,7 @@ def wave_times(handler, rows, calls: int = 50) -> dict:
     out = {"wave_rows": len(rows), "calls": calls, "wall_ms": wall,
            "events_ms": None, "busy_ms": None, "idle_share": None,
            "top_kernels": None}
-    if handler.model.device.type != "cuda":
+    if device.type != "cuda":
         return out
     spans = []
     for _ in range(calls):
@@ -308,20 +334,9 @@ def wave_times(handler, rows, calls: int = 50) -> dict:
         end.record()
         end.synchronize()
         spans.append(start.elapsed_time(end))
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            run(rows)
-        torch.cuda.synchronize()
-    # device entries only: aten entries carry their kernels' time too
-    kernels = sorted(((e.self_device_time_total / calls / 1e3, e.key)
-                      for e in prof.key_averages()
-                      if str(e.device_type).endswith("CUDA")), reverse=True)
-    busy = sum(ms for ms, _ in kernels)
-    out.update(events_ms=float(np.mean(spans)), busy_ms=busy,
-               idle_share=1.0 - busy / wall,
-               top_kernels=[[key[:80], ms] for ms, key in kernels[:6]])
+    kernels = device_kernels(lambda: run(rows), calls)
+    out.update(events_ms=float(np.mean(spans)),
+               idle_share=1.0 - kernels["busy_ms"] / wall, **kernels)
     return out
 
 
@@ -378,8 +393,264 @@ def run(rows: int = 1_000_000, videos: int = 1000, device=None,
     return out
 
 
+# -- composed retrieval -----------------------------------------------------
+
+REF_FRAMES, REF_HEIGHT, REF_WIDTH = 64, 360, 480
+# the candidates' stored features: frames, pooled middle tokens
+CAND_FRAMES, CAND_TOKENS = 8, 16
+EDITS = ["make it red", "the same scene at night", "with a dog instead",
+         "zoom in on the person", "now it is raining", "add a second car",
+         "show it from above", "the person is running"]
+
+
+def write_clip_checkpoint(path: str, cfg, seed: int = 0) -> None:
+    """A CLIP checkpoint of random weights from a numpy seed in the JAX
+    package's format: the ModifiedResNet tower for a CLIPResNetConfig,
+    else a ViT."""
+    if isinstance(cfg, clip_resnet.CLIPResNetConfig):
+        sd = clip_resnet.random_state_dict(cfg, seed)
+        variables = clip_resnet_variables_to_jax(sd, cfg)
+    else:
+        sd = clip_vit.random_state_dict(cfg, seed)
+        variables = clip_variables_to_jax(sd, cfg)
+    save_checkpoint(path, variables, cfg, {"seed": seed})
+
+
+def write_combiner_checkpoint(path: str, cfg, seed: int = 0) -> None:
+    sd = combiner.random_state_dict(cfg, seed)
+    save_checkpoint(path, combiner_variables_to_jax(sd, cfg), cfg,
+                    {"seed": seed})
+
+
+def write_candidates(videos_dir: str, cache_dir: str, n: int, dim: int,
+                     seed: int = 0) -> List[str]:
+    """n candidate videos as the route reads them: an empty `.mp4` name
+    each in videos_dir, and its npz feature cache in cache_dir with high
+    (8, dim) and pooled middle (8, 16, dim) f32 of N(0, 1) from a numpy
+    seed.  Returns the names."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(videos_dir, exist_ok=True)
+    os.makedirs(cache_dir, exist_ok=True)
+    names = [f"cand{i:05d}.mp4" for i in range(n)]
+    for name in names:
+        open(os.path.join(videos_dir, name), "w").close()
+        save_video_features(
+            os.path.join(cache_dir, name + ".npz"),
+            rng.standard_normal((CAND_FRAMES, dim), dtype=np.float32),
+            rng.standard_normal((CAND_FRAMES, CAND_TOKENS, dim),
+                                dtype=np.float32))
+    return names
+
+
+def reference_videos(n: int, seed: int = 0, frames: int = REF_FRAMES,
+                     height: int = REF_HEIGHT, width: int = REF_WIDTH
+                     ) -> Dict[str, np.ndarray]:
+    """n decoded reference videos, uint8 (frames, height, width, 3) from a
+    numpy seed, by name (`decode=videos.__getitem__` serves them)."""
+    rng = np.random.default_rng(seed)
+    return {f"ref{i}": rng.integers(0, 256, (frames, height, width, 3),
+                                    dtype=np.uint8) for i in range(n)}
+
+
+def write_composed_fixtures(root: str, clip_cfg, comb_cfg, videos: int,
+                            seed: int = 0) -> argparse.Namespace:
+    """Both checkpoints, the merges table and the candidates under root;
+    returns the route's arguments (device unset)."""
+    paths = argparse.Namespace(
+        clip_checkpoint=os.path.join(root, "clip"),
+        combiner_checkpoint=os.path.join(root, "combiner"),
+        merges=os.path.join(root, "merges.txt"),
+        videos_dir=os.path.join(root, "videos"),
+        feature_cache=os.path.join(root, "features"))
+    write_clip_checkpoint(paths.clip_checkpoint, clip_cfg, seed)
+    write_combiner_checkpoint(paths.combiner_checkpoint, comb_cfg, seed + 1)
+    write_toy_merges(paths.merges, EDITS, n_merges=64)
+    write_candidates(paths.videos_dir, paths.feature_cache, videos,
+                     comb_cfg.clip_feature_dim, seed + 2)
+    return paths
+
+
+def start_composed_server(args: argparse.Namespace, decode):
+    """The composed route as `cli.serve` builds it, on 127.0.0.1 (a free
+    port) from a thread.  Returns (server, handler)."""
+    from ..cli.serve import build_service
+    from ..service.app import create_server
+    service = build_service(args, decode=decode)
+    handler = service.handlers["composed_retrieval"]
+    server = create_server(service, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name="composed-server").start()
+    return server, handler
+
+
+def composed_payloads(refs: Sequence[str], n: int, top_k: int = 10
+                      ) -> List[dict]:
+    return [{"reference_video": refs[i % len(refs)],
+             "text": EDITS[i % len(EDITS)], "topK": top_k}
+            for i in range(n)]
+
+
+def _post_composed(port: int, payload: dict) -> float:
+    ms, out = request(port, "composed_retrieval", payload, timeout=600.0)
+    if len(out["results"]) != payload["topK"]:
+        raise RuntimeError(f"asked for {payload['topK']} results, got "
+                           f"{len(out['results'])}")
+    return ms
+
+
+def composed_wave_rows(handler, videos: Dict[str, np.ndarray], n: int):
+    """The batcher's rows of the first n payloads."""
+    rows = []
+    for p in composed_payloads(sorted(videos), n):
+        h, m = handler.reference_features(videos[p["reference_video"]])
+        rows.append((h, m, handler.tokenizer.tokenize(
+            p["text"], handler.clip_cfg.context_length)))
+    return rows
+
+
+def extraction_times(handler, frames_u8: np.ndarray, calls: int = 10
+                     ) -> dict:
+    """One reference video through the route's extraction (to the device,
+    preprocess, the vision tower, pooling), `calls` times after a warm-up:
+    host ms with a synchronize, and on a card device ms by CUDA events and
+    the kernels' busy ms a call (torch.profiler) with the six longest."""
+    device = next(handler.clip_model.parameters()).device
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    handler.reference_features(frames_u8)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        handler.reference_features(frames_u8)
+    sync()
+    out = {"frames": int(frames_u8.shape[0]),
+           "wall_ms": (time.perf_counter() - t0) / calls * 1e3,
+           "events_ms": None}
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            handler.reference_features(frames_u8)
+        end.record()
+        end.synchronize()
+        out["events_ms"] = start.elapsed_time(end) / calls
+        out.update(device_kernels(
+            lambda: handler.reference_features(frames_u8), calls))
+    return out
+
+
+def device_kernels(fn, calls: int) -> dict:
+    """The card's kernels over `calls` calls of fn() (torch.profiler,
+    device entries only: aten entries and annotations carry their
+    kernels' time too): busy ms a call and the six longest, ms a call."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted(((e.self_device_time_total / calls / 1e3, e.key)
+                      for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")
+                      and not getattr(e, "is_user_annotation", False)),
+                     reverse=True)
+    return {"busy_ms": sum(ms for ms, _ in kernels),
+            "top_kernels": [[key[:80], ms] for ms, key in kernels[:6]]}
+
+
+def run_composed(videos: int = 1000, device=None, root: Optional[str] = None,
+                 clip_cfg=None, comb_cfg=None, n_single: int = 32,
+                 clients: int = 64, per_client: int = 2,
+                 wave_calls: int = 20, n_refs: int = 4,
+                 ref_shape=(REF_FRAMES, REF_HEIGHT, REF_WIDTH),
+                 seed: int = 0) -> List[dict]:
+    device = resolve_device(device)
+    clip_cfg = clip_cfg or clip_resnet.CLIPResNetConfig()
+    comb_cfg = comb_cfg or combiner.CombinerConfig(middle_mix="conv4x4")
+    out: List[dict] = []
+    root = root or os.path.join(_REPO, "build")
+    os.makedirs(root, exist_ok=True)
+    refs = reference_videos(n_refs, seed + 3, *ref_shape)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        args = write_composed_fixtures(tmp, clip_cfg, comb_cfg, videos, seed)
+        args.device = str(device)
+        server, handler = start_composed_server(args, refs.__getitem__)
+        try:
+            port = server.server_address[1]
+            base = {"videos": videos, "ref_frames": ref_shape[0],
+                    "ref_size": list(ref_shape[1:]),
+                    "clip": type(clip_cfg).__name__,
+                    "middle_mix": comb_cfg.middle_mix, **where(device)}
+            names = sorted(refs)
+            k = min(10, videos)
+            _post_composed(port, composed_payloads(names, 1, k)[0])  # warm
+            lat = [_post_composed(port, p)
+                   for p in composed_payloads(names, n_single, k)]
+            p = percentiles(lat)
+            emit({"metric": "serve_composed_batch1", "value": p["p50"],
+                  "unit": per("ms", device), "p99": p["p99"],
+                  "n": len(lat), **base}, out)
+            w0, r0 = handler.batcher.batches_run, handler.batcher.rows_run
+            lat = _composed_clients(port, composed_payloads(
+                names, clients * per_client, k), clients)
+            waves = handler.batcher.batches_run - w0
+            p = percentiles(lat)
+            emit({"metric": f"serve_composed_conc{clients}",
+                  "value": p["p50"], "unit": per("ms", device),
+                  "p99": p["p99"], "n": len(lat), "waves": waves,
+                  "rows_per_wave": (handler.batcher.rows_run - r0) / waves,
+                  **base}, out)
+            for n in (1, 8):
+                t = wave_times(handler, composed_wave_rows(handler, refs, n),
+                               wave_calls, device=device)
+                emit({"metric": f"serve_composed_wave{n}",
+                      "value": t["wall_ms"], "unit": per("ms", device),
+                      **t, **base}, out)
+            t = extraction_times(handler, refs[names[0]])
+            emit({"metric": "serve_composed_extract", "value": t["wall_ms"],
+                  "unit": per("ms", device), **t, **base}, out)
+        finally:
+            stop_server(server, handler)
+    return out
+
+
+def _composed_clients(port: int, payloads: Sequence[dict],
+                      clients: int) -> List[float]:
+    """ms of every payload, sent by `clients` threads started together,
+    each posting its share in turn.  The work of a request is the route's
+    (the reference video is encoded on the server), so the threads share
+    this process."""
+    lat: List[float] = []
+    errors: List[BaseException] = []
+    lock = threading.Lock()
+    barrier = threading.Barrier(clients)
+
+    def client(c: int) -> None:
+        try:
+            barrier.wait()
+            for p in payloads[c::clients]:
+                ms = _post_composed(port, p)
+                with lock:
+                    lat.append(ms)
+        except BaseException as e:          # reported after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"concurrent clients failed: {errors[:1]}")
+    return lat
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--composed", action="store_true",
+                    help="the composed-retrieval arm instead of LINAS")
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--videos", type=int, default=1000)
     ap.add_argument("--device", default=None,
@@ -389,7 +660,10 @@ def main(argv=None) -> None:
                          "directory inside it; default: build/ of the "
                          "checkout)")
     args = ap.parse_args(argv)
-    run(args.rows, args.videos, args.device, args.root)
+    if args.composed:
+        run_composed(args.videos, args.device, args.root)
+    else:
+        run(args.rows, args.videos, args.device, args.root)
 
 
 if __name__ == "__main__":

@@ -1,19 +1,25 @@
-"""Engine HTTP server CLI, retrieval route.
+"""Engine HTTP server CLI: the retrieval and composed-retrieval routes.
 
-Counterpart of cross_modal_video_engine_tpu/cli/serve.py for the route
-ported so far: text->video retrieval with the LINAS dual encoder on the
-CUDA device (or `--device cpu`).  The caption, composed-retrieval and
-explain routes and the demo pages are not ported yet; their flags raise
-and name the ROADMAP.md item that ports them.
+Counterpart of cross_modal_video_engine_tpu/cli/serve.py for the routes
+ported so far, on the CUDA device (or `--device cpu`): text->video
+retrieval with the LINAS dual encoder (`/retrieval`), and composed
+text+video retrieval with a CLIP tower and the Combiner
+(`/composed_retrieval`).  The caption and explain routes and the demo
+pages are not ported yet; their flags raise and name the ROADMAP.md item
+that ports them.
 
   python -m cross_modal_video_engine_tpu_torch.cli.serve \
       --retrieval_checkpoint CKPT --rootpath R --collection C \
       --visual_feature F [--port 8765] [--device cpu]
+  python -m cross_modal_video_engine_tpu_torch.cli.serve \
+      --clip_checkpoint CKPT --combiner_checkpoint CKPT2 \
+      --videos_dir VIDEOS --merges merges.txt [--feature_cache DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import threading
 
 import numpy as np
 import torch
@@ -32,10 +38,6 @@ RETRIEVAL_MIN_BATCH = 1
 # the routes of the JAX server that the port does not serve yet
 NOT_PORTED = {
     "caption_checkpoint": "the caption route (ROADMAP.md queue 1 item 6)",
-    "clip_checkpoint": "the composed retrieval route (ROADMAP.md queue 1 "
-                       "item 5)",
-    "combiner_checkpoint": "the composed retrieval route (ROADMAP.md queue 1 "
-                           "item 5)",
     "explain_checkpoint": "the explain route (ROADMAP.md queue 1 item 7)",
     "demo": "the demo pages (ROADMAP.md queue 1 item 4)",
 }
@@ -84,7 +86,7 @@ def build_retrieval_handler(args):
                               cache=getattr(args, "index_cache", None),
                               dtype=getattr(args, "index_dtype", None),
                               capacity=getattr(args, "index_capacity", None))
-    max_batch = getattr(args, "max_batch", 32)
+    max_batch = getattr(args, "max_batch", None) or 32
     search = index.searcher()
 
     def run_wave(batch, k: int) -> torch.Tensor:
@@ -133,9 +135,100 @@ def build_retrieval_handler(args):
     return handler
 
 
-def build_service(args) -> EngineService:
-    """Register the retrieval route if its checkpoint was given; a flag of
-    a route that is not ported yet raises."""
+def build_composed_handler(args, decode=None):
+    """The composed-retrieval route (the inference.py:119-150 flow behind
+    one POST): payload {"reference_video", "text", "topK"} ->
+    {"results": names}.
+
+    The CLIP tower, the Combiner and the candidate index (the videos of
+    `args.videos_dir`, read from `args.feature_cache` where cached there)
+    go to the device once, here; the index is frame-meaned and
+    L2-normalized there once.  A request decodes its reference video with
+    `decode(path)` (default: composed_inference.decode_video_frames,
+    OpenCV) and encodes and pools it on the device in the request's
+    thread, one request at a time.  A wave of requests (micro-batched,
+    padded to a power of two by repeating row 0) is one `encode_text`, one
+    `combine_features`, one product with the index and one fetch of the
+    order.  The handler
+    carries `batcher`, `names`, `clip_model`, `clip_cfg`, `combiner`,
+    `tokenizer`, `reference_features(frames)` and `run_wave(highs,
+    middles, ids)` (the wave's distances on the device, before the
+    fetch) for measurement."""
+    from ..service.batching import MicroBatcher
+    from ..utils.bpe import BPETokenizer
+    from .composed_inference import (build_combiner_inputs, candidate_index,
+                                     decode_video_frames, encode_video_frames,
+                                     load_clip_tower, load_combiner,
+                                     normalized_index)
+
+    decode = decode or decode_video_frames
+    clip_model, clip_cfg = load_clip_tower(args.clip_checkpoint,
+                                           getattr(args, "device", None))
+    device = next(clip_model.parameters()).device
+    combiner = load_combiner(args.combiner_checkpoint, device)
+    tok = BPETokenizer(args.merges)
+    dim = clip_cfg.image_resolution
+    names, index_high = candidate_index(
+        clip_model, dim, args.videos_dir,
+        getattr(args, "feature_cache", None), decode)
+    index = normalized_index(index_high)
+    max_batch = getattr(args, "max_batch", None) or 8
+
+    # one extraction enqueued at a time: the card runs them in turn
+    # anyway, and the 64-frame activations of concurrent requests would
+    # otherwise all be alive at once
+    extract_lock = threading.Lock()
+
+    def reference_features(frames_u8):
+        with extract_lock:
+            rh, rm = encode_video_frames(clip_model, frames_u8, dim)
+            return build_combiner_inputs(rh, rm,
+                                         dim=combiner.cfg.clip_feature_dim)
+
+    def run_wave(highs, middles, ids) -> torch.Tensor:
+        with torch.no_grad():
+            text = clip_model.encode_text(ids).float()
+            pred = combiner.combine_features((highs, middles), text)
+            return 1.0 - pred @ index.t()
+
+    def rank_rows(rows):
+        # rows: [(ref_high (F, D), ref_middle (F, L, D), ids (1, S))]
+        rows, n = _pow2_rows(rows, max_batch)
+        ids = torch.from_numpy(np.concatenate([r[2] for r in rows])).to(
+            device, torch.int64)
+        dists = run_wave(torch.stack([r[0] for r in rows]),
+                         torch.stack([r[1] for r in rows]), ids)
+        order = torch.argsort(dists, dim=1).cpu().numpy()   # the one fetch
+        return [order[i] for i in range(n)]
+
+    batcher = MicroBatcher(rank_rows, max_batch=max_batch,
+                           max_wait_ms=getattr(args, "max_wait_ms", 5.0),
+                           name="composed-rank")
+
+    def handler(payload: dict) -> dict:
+        ref_high, ref_middle = reference_features(
+            decode(payload["reference_video"]))
+        ids = tok.tokenize(payload["text"], clip_cfg.context_length)
+        order = batcher.submit((ref_high, ref_middle, ids))
+        k = int(payload.get("topK", 1))
+        return {"results": [names[i] for i in order[:k]]}
+
+    handler.batcher = batcher
+    handler.names = names
+    handler.clip_model = clip_model
+    handler.clip_cfg = clip_cfg
+    handler.combiner = combiner
+    handler.tokenizer = tok
+    handler.reference_features = reference_features
+    handler.run_wave = run_wave
+    return handler
+
+
+def build_service(args, decode=None) -> EngineService:
+    """Register the retrieval route if its checkpoint was given, and the
+    composed-retrieval route if both of its checkpoints were (`decode`:
+    see build_composed_handler); a flag of a route that is not ported yet
+    raises."""
     for flag, what in NOT_PORTED.items():
         if getattr(args, flag, None):
             raise NotImplementedError(
@@ -143,6 +236,10 @@ def build_service(args) -> EngineService:
     service = EngineService()
     if getattr(args, "retrieval_checkpoint", None):
         service.register("retrieval", build_retrieval_handler(args))
+    if (getattr(args, "clip_checkpoint", None)
+            and getattr(args, "combiner_checkpoint", None)):
+        service.register("composed_retrieval",
+                         build_composed_handler(args, decode))
     return service
 
 
@@ -167,10 +264,20 @@ def main(argv=None):
                              "incremental-add headroom; set to the row "
                              "count for a frozen corpus to halve the "
                              "index's memory)")
-    # routes of the JAX server that are not ported yet: they raise
-    parser.add_argument("--caption_checkpoint")
+    parser.add_argument("--max_batch", type=int, default=None,
+                        help="rows a wave may hold (default: 32 for "
+                             "retrieval, 8 for composed retrieval)")
+    # composed retrieval
     parser.add_argument("--clip_checkpoint")
     parser.add_argument("--combiner_checkpoint")
+    parser.add_argument("--videos_dir")
+    parser.add_argument("--merges")
+    parser.add_argument("--feature_cache", default=None,
+                        help="per-video npz cache dir shared with "
+                             "composed_inference (skips re-encoding "
+                             "the corpus on restart)")
+    # routes of the JAX server that are not ported yet: they raise
+    parser.add_argument("--caption_checkpoint")
     parser.add_argument("--explain_checkpoint")
     parser.add_argument("--demo", action="store_true")
     args = parser.parse_args(argv)

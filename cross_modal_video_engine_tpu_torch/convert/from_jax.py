@@ -32,6 +32,13 @@ compute the same function.
   inject_hyperparams(chain(clip_by_global_norm, adam | rmsprop)) state);
   `linas_mask_state_to_jax` and `linas_mask_state_from_jax` do the same
   for the 'adapt' mask (pa with its chain(clip, adam) state).
+* `clip_resnet_state_dict_from_jax` inverts convert_clip_resnet (params
+  and the BatchNorms' `batch_stats`); `combiner_state_dict_from_jax`
+  inverts convert_combiner for middle_mix='conv4x4' and maps the 'dense'
+  tree (`m_remained` a Dense) onto the same keys with `m_remained` a
+  Linear.  `clip_variables_to_jax`, `clip_resnet_variables_to_jax` and
+  `combiner_variables_to_jax` go the other way, so the port writes
+  checkpoints the JAX package loads (`train/checkpoint.save_checkpoint`).
 """
 
 from __future__ import annotations
@@ -43,6 +50,9 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
+    """A numpy array or tensor (any float dtype) as a CPU f32 tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float32).clone()
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
@@ -187,11 +197,7 @@ REFERENCE_ORDER = ("vid_encoding", "text_encoding", "vid_mapping",
                    "student_vid_encoding")
 
 
-def _f32(a) -> torch.Tensor:
-    """A numpy array or tensor (any float dtype) as a CPU f32 tensor."""
-    if isinstance(a, torch.Tensor):
-        return a.detach().to("cpu", torch.float32).clone()
-    return _t(a)
+_f32 = _t
 
 
 def _np32(t) -> np.ndarray:
@@ -411,3 +417,216 @@ def linas_mask_state_from_jax(tree: Dict[str, Any]
     named = {"count": int(np.asarray(inner["count"])),
              "mu": {"pa": _f32(inner["mu"])}, "nu": {"pa": _f32(inner["nu"])}}
     return _f32(tree["0"]), named
+
+
+# -- composed retrieval: CLIP-RN, the Combiner, and the trees back ----------
+
+def _conv_from_jax(sd, name: str, p) -> None:
+    """flax conv kernel (kh, kw, I, O) -> torch Conv2d weight (O, I, kh,
+    kw), no bias."""
+    sd[f"{name}.weight"] = _f32(p["kernel"]).permute(3, 2, 0, 1).contiguous()
+
+
+def _bn_from_jax(sd, name: str, p, stats) -> None:
+    sd[f"{name}.weight"] = _f32(p["scale"])
+    sd[f"{name}.bias"] = _f32(p["bias"])
+    sd[f"{name}.running_mean"] = _f32(stats["mean"])
+    sd[f"{name}.running_var"] = _f32(stats["var"])
+    sd[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+
+def _text_from_jax(sd, txt, n_layers: int) -> None:
+    sd["token_embedding.weight"] = _t(txt["token_embedding"])
+    sd["positional_embedding"] = _t(txt["positional_embedding"])
+    sd["text_projection"] = _t(txt["text_projection"])
+    _ln(sd, "ln_final", txt["ln_final"])
+    for i in range(n_layers):
+        _resblock(sd, f"transformer.resblocks.{i}",
+                  txt["transformer"][f"resblock_{i}"])
+
+
+def clip_resnet_state_dict_from_jax(variables: Dict[str, Any], cfg
+                                    ) -> Dict[str, torch.Tensor]:
+    """A JAX CLIPResNetModel's variables ({"params", "batch_stats"}, leaves
+    numpy arrays or tensors) -> the port's f32 OpenAI-layout CLIP-RN state
+    dict.  cfg: a CLIPResNetConfig of either package."""
+    params = variables["params"]
+    vis, vstats = params["visual"], variables["batch_stats"]["visual"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in (1, 2, 3):
+        _conv_from_jax(sd, f"visual.conv{i}", vis[f"conv{i}"])
+        _bn_from_jax(sd, f"visual.bn{i}", vis[f"bn{i}"], vstats[f"bn{i}"])
+    for s, n in zip((1, 2, 3, 4), cfg.vision_layers):
+        for b in range(n):
+            p, st = vis[f"layer{s}_{b}"], vstats[f"layer{s}_{b}"]
+            prefix = f"visual.layer{s}.{b}"
+            for i in (1, 2, 3):
+                _conv_from_jax(sd, f"{prefix}.conv{i}", p[f"conv{i}"])
+                _bn_from_jax(sd, f"{prefix}.bn{i}", p[f"bn{i}"],
+                             st[f"bn{i}"])
+            if "conv_down" in p:
+                _conv_from_jax(sd, f"{prefix}.downsample.0", p["conv_down"])
+                _bn_from_jax(sd, f"{prefix}.downsample.1", p["bn_down"],
+                             st["bn_down"])
+    pool = vis["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = _t(
+        pool["positional_embedding"])
+    for n in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _linear(sd, f"visual.attnpool.{n}", pool[n])
+    _text_from_jax(sd, params["text"], cfg.text_layers)
+    sd["logit_scale"] = _t(params["logit_scale"])
+    return sd
+
+
+def combiner_state_dict_from_jax(variables: Dict[str, Any], cfg
+                                 ) -> Dict[str, torch.Tensor]:
+    """A JAX Combiner's variables (with or without the top-level "params"
+    key) -> the port's f32 state dict.  cfg: a CombinerConfig of either
+    package; its middle_mix says which tree it is."""
+    p = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for n in ("text_projection_layer", "image_projection_layer",
+              "combiner_layer", "output_layer", "m_residual"):
+        _linear(sd, n, p[n])
+    _linear(sd, "dynamic_scalar.0", p["dynamic_scalar_fc1"])
+    _linear(sd, "dynamic_scalar.3", p["dynamic_scalar_fc2"])
+    if cfg.middle_mix == "conv4x4":
+        # (C_in, C_out) -> the 1x1 Conv2d's (C_out, C_in, 1, 1)
+        sd["m_remained.weight"] = _t(p["m_remained_kernel"]).t()[
+            :, :, None, None].contiguous()
+        sd["m_remained.bias"] = _t(p["m_remained_bias"])
+    else:
+        _linear(sd, "m_remained", p["m_remained"])
+    at = p["self_attn_1"]
+    _ln(sd, "self_attn_1.ln_1", at["ln_1"])
+    _ln(sd, "self_attn_1.ln_2", at["ln_2"])
+    _mha(sd, "self_attn_1.attn", at["attn"])
+    _linear(sd, "self_attn_1.mlp.c_fc", at["c_fc"])
+    _linear(sd, "self_attn_1.mlp.c_proj", at["c_proj"])
+    return sd
+
+
+def _dense_to_jax(sd, name: str) -> Dict[str, np.ndarray]:
+    return {"kernel": _np32(sd[f"{name}.weight"]).T,
+            "bias": _np32(sd[f"{name}.bias"])}
+
+
+def _ln_to_jax(sd, name: str) -> Dict[str, Any]:
+    return {"ln": {"scale": _np32(sd[f"{name}.weight"]),
+                   "bias": _np32(sd[f"{name}.bias"])}}
+
+
+def _mha_to_jax(sd, name: str) -> Dict[str, Any]:
+    w = _np32(sd[f"{name}.in_proj_weight"])
+    b = _np32(sd[f"{name}.in_proj_bias"])
+    d = w.shape[1]
+    out = {n: {"kernel": w[i * d:(i + 1) * d].T, "bias": b[i * d:(i + 1) * d]}
+           for i, n in enumerate(("q_proj", "k_proj", "v_proj"))}
+    out["out_proj"] = _dense_to_jax(sd, f"{name}.out_proj")
+    return out
+
+
+def _resblock_to_jax(sd, prefix: str) -> Dict[str, Any]:
+    return {"ln_1": _ln_to_jax(sd, f"{prefix}.ln_1"),
+            "ln_2": _ln_to_jax(sd, f"{prefix}.ln_2"),
+            "attn": _mha_to_jax(sd, f"{prefix}.attn"),
+            "c_fc": _dense_to_jax(sd, f"{prefix}.mlp.c_fc"),
+            "c_proj": _dense_to_jax(sd, f"{prefix}.mlp.c_proj")}
+
+
+def _text_to_jax(sd, n_layers: int) -> Dict[str, Any]:
+    return {"token_embedding": _np32(sd["token_embedding.weight"]),
+            "positional_embedding": _np32(sd["positional_embedding"]),
+            "text_projection": _np32(sd["text_projection"]),
+            "ln_final": _ln_to_jax(sd, "ln_final"),
+            "transformer": {f"resblock_{i}": _resblock_to_jax(
+                sd, f"transformer.resblocks.{i}") for i in range(n_layers)}}
+
+
+def clip_variables_to_jax(sd: Dict[str, torch.Tensor], cfg
+                          ) -> Dict[str, Any]:
+    """The inverse of clip_state_dict_from_jax: an OpenAI-layout CLIP ViT
+    state dict -> the JAX CLIPModel's {"params": ...} as numpy f32."""
+    visual = {
+        "conv1": {"kernel": _np32(sd["visual.conv1.weight"]).transpose(
+            2, 3, 1, 0)},
+        "class_embedding": _np32(sd["visual.class_embedding"]),
+        "positional_embedding": _np32(sd["visual.positional_embedding"]),
+        "proj": _np32(sd["visual.proj"]),
+        "ln_pre": _ln_to_jax(sd, "visual.ln_pre"),
+        "ln_post": _ln_to_jax(sd, "visual.ln_post"),
+        "transformer": {f"resblock_{i}": _resblock_to_jax(
+            sd, f"visual.transformer.resblocks.{i}")
+            for i in range(cfg.vision_layers)}}
+    return {"params": {"visual": visual,
+                       "text": _text_to_jax(sd, cfg.text_layers),
+                       "logit_scale": _np32(sd["logit_scale"])}}
+
+
+def _conv_bn_to_jax(sd, conv: str, bn: str):
+    params = ({"kernel": _np32(sd[f"{conv}.weight"]).transpose(2, 3, 1, 0)},
+              {"scale": _np32(sd[f"{bn}.weight"]),
+               "bias": _np32(sd[f"{bn}.bias"])})
+    stats = {"mean": _np32(sd[f"{bn}.running_mean"]),
+             "var": _np32(sd[f"{bn}.running_var"])}
+    return params, stats
+
+
+def clip_resnet_variables_to_jax(sd: Dict[str, torch.Tensor], cfg
+                                 ) -> Dict[str, Any]:
+    """The inverse of clip_resnet_state_dict_from_jax: -> the JAX
+    CLIPResNetModel's {"params", "batch_stats"} as numpy f32."""
+    visual: Dict[str, Any] = {}
+    vstats: Dict[str, Any] = {}
+
+    def put(p, s, prefix, conv, bn, jconv, jbn):
+        (p[jconv], p[jbn]), s[jbn] = _conv_bn_to_jax(
+            sd, f"{prefix}{conv}", f"{prefix}{bn}")
+
+    for i in (1, 2, 3):
+        put(visual, vstats, "visual.", f"conv{i}", f"bn{i}", f"conv{i}",
+            f"bn{i}")
+    for s, n in zip((1, 2, 3, 4), cfg.vision_layers):
+        for b in range(n):
+            p, st = {}, {}
+            prefix = f"visual.layer{s}.{b}."
+            for i in (1, 2, 3):
+                put(p, st, prefix, f"conv{i}", f"bn{i}", f"conv{i}",
+                    f"bn{i}")
+            if f"{prefix}downsample.0.weight" in sd:
+                put(p, st, prefix, "downsample.0", "downsample.1",
+                    "conv_down", "bn_down")
+            visual[f"layer{s}_{b}"], vstats[f"layer{s}_{b}"] = p, st
+    visual["attnpool"] = {
+        "positional_embedding": _np32(
+            sd["visual.attnpool.positional_embedding"]),
+        **{n: _dense_to_jax(sd, f"visual.attnpool.{n}")
+           for n in ("q_proj", "k_proj", "v_proj", "c_proj")}}
+    return {"params": {"visual": visual,
+                       "text": _text_to_jax(sd, cfg.text_layers),
+                       "logit_scale": _np32(sd["logit_scale"])},
+            "batch_stats": {"visual": vstats}}
+
+
+def combiner_variables_to_jax(sd: Dict[str, torch.Tensor], cfg
+                              ) -> Dict[str, Any]:
+    """The inverse of combiner_state_dict_from_jax: the port's Combiner
+    state dict -> the JAX Combiner's {"params": ...} as numpy f32 (the
+    tree the JAX package's load_checkpoint hands Combiner.apply)."""
+    p: Dict[str, Any] = {n: _dense_to_jax(sd, n) for n in (
+        "text_projection_layer", "image_projection_layer", "combiner_layer",
+        "output_layer", "m_residual")}
+    p["dynamic_scalar_fc1"] = _dense_to_jax(sd, "dynamic_scalar.0")
+    p["dynamic_scalar_fc2"] = _dense_to_jax(sd, "dynamic_scalar.3")
+    if cfg.middle_mix == "conv4x4":
+        p["m_remained_kernel"] = _np32(sd["m_remained.weight"][:, :, 0, 0]).T
+        p["m_remained_bias"] = _np32(sd["m_remained.bias"])
+    else:
+        p["m_remained"] = _dense_to_jax(sd, "m_remained")
+    p["self_attn_1"] = {
+        "ln_1": _ln_to_jax(sd, "self_attn_1.ln_1"),
+        "ln_2": _ln_to_jax(sd, "self_attn_1.ln_2"),
+        "attn": _mha_to_jax(sd, "self_attn_1.attn"),
+        "c_fc": _dense_to_jax(sd, "self_attn_1.mlp.c_fc"),
+        "c_proj": _dense_to_jax(sd, "self_attn_1.mlp.c_proj")}
+    return {"params": p}

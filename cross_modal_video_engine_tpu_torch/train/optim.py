@@ -12,6 +12,7 @@ optimizers differ from optax on each point below, so none is used:
 * `clip_by_global_norm`: the gradients unchanged while their global norm
   is below `max_norm`, else g * max_norm / norm, with no epsilon
   (`clip_grad_norm_` divides by norm + 1e-6 and scales at any norm);
+  `max_norm=None` leaves the clip out of the chain;
 * Adam: b1 0.9, b2 0.999, eps 1e-8 outside the square root, eps_root 0,
   both moments bias-corrected with the float32 b**count;
 * RMSprop: decay 0.9, eps 1e-8 inside the square root, nu starting at 0,
@@ -25,7 +26,7 @@ makes them, so they can be read and written by name (`named_state`,
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +44,8 @@ class OptaxOptimizer(torch.optim.Optimizer):
     """named_params: (name, parameter) pairs; kind: 'adam' | 'rmsprop'."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
-                 lr: float, kind: str = "adam", max_norm: float = 2.0):
+                 lr: float, kind: str = "adam",
+                 max_norm: Optional[float] = 2.0):
         if kind not in ("adam", "rmsprop"):
             raise ValueError(f"unknown optimizer {kind!r}")
         named = list(named_params)
@@ -77,13 +79,14 @@ class OptaxOptimizer(torch.optim.Optimizer):
         params = self.params
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        # clip_by_global_norm, with no host sync: a factor of exactly 1
-        # below the bound
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
-        factor = torch.where(norm < self.max_norm, 1.0,
-                             self.max_norm / norm)
-        grads = torch._foreach_mul(grads, factor)
+        if self.max_norm is not None:
+            # clip_by_global_norm, with no host sync: a factor of exactly 1
+            # below the bound
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
+            factor = torch.where(norm < self.max_norm, 1.0,
+                                 self.max_norm / norm)
+            grads = torch._foreach_mul(grads, factor)
         self.count += 1
         if self.kind == "adam":
             mus = [self.state[p]["mu"] for p in params]

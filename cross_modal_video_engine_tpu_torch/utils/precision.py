@@ -34,3 +34,11 @@ def maybe_cast_bf16(state_dict: Dict[str, torch.Tensor],
     if cfg_d.get("backbone", {}).get("dtype") == "bfloat16":
         return cast_inference_state_dict(state_dict)
     return state_dict
+
+
+def no_tf32() -> None:
+    """f32 matmuls and cuDNN convolutions in f32, not TF32, in this
+    process (cuDNN's default is TF32), so the f32 models on the card agree
+    with the CPU and the JAX package to f32 tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -351,8 +351,7 @@ def test_wave_k_follows_the_jax_route():
     assert tserve.wave_k([10], 12) == 12
 
 
-@pytest.mark.parametrize("flag", ["caption_checkpoint", "clip_checkpoint",
-                                  "combiner_checkpoint",
+@pytest.mark.parametrize("flag", ["caption_checkpoint",
                                   "explain_checkpoint", "demo"])
 def test_routes_not_ported_raise(flag):
     args = argparse.Namespace(**{flag: "x" if flag != "demo" else True})
