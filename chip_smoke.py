@@ -70,7 +70,11 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
     64 videos and 64 captions through the same model on the CPU,
     L2-normalized embeddings within 1e-3, and retrieval_tester.evaluate
     on both over those 64 videos and their 320 captions, error matrices
-    within 1e-3; (d) the server's index filled to 1,000,000 x
+    within 1e-3; (c') cli.retrieval_inference, as a user runs it, over a
+    collection of those 64 videos in a fresh process on the card and in
+    one on the CPU, neither with this script's TF32 switch (the CLI turns
+    TF32 off itself): 3 queries, the same top-10 ids and scores within
+    1e-3, the error printed; (d) the server's index filled to 1,000,000 x
     1536 f32 rows; (e) the HTTP server of cli/serve.py answering 16
     captions as index.search_ids(embed_query(...)) does; (f)
     bench/serve.py's batch-1 p50/p99 (also of the handler without
@@ -118,9 +122,26 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
     (the last four step losses below the first four), composed_validate
     on the card, model_best served by the route, the step's time by CUDA
     events; (f) a `composed` JSON line;
-13. prints a JSON line of kernel results (launches on the main paths and
-    on the composed route, error, time, plain time, bound, library time)
-    and, last, a JSON line naming the device.
+13. the /caption route at full width: the joint space-time TimeSformer
+    ViT-B/16 of step 6 (bf16, flash on, 12 layers, 8x224²) with the
+    shipped decoder (36 classes, 5 steps), its checkpoint written in the
+    JAX package's format from a numpy seed, videos of 300 frames of
+    360x480 drawn frame by frame from a seed and handed to the route
+    through its `decode` seam (no cv2, no video file): (a) 16 batch-1
+    requests over HTTP and (b) one burst of 8 concurrent ones, every
+    launch counter zeroed just before each and read just after (12 flash
+    launches a wave, no other kernel), p50/p99 of both; (c) each answer
+    against `caption_clips` on the route's model and clips: step-0
+    labels equal outside the bf16 tolerance band around the threshold,
+    later-step flips counted; (d) the route's clips equal to those
+    `inference_recognizer` runs (TEST_PIPELINE), and its outputs; (e)
+    the host pipeline's ms a request beside a wave of 1 and of 8 (wall,
+    CUDA events, busy, idle share); (f) the shipped divided config
+    (timesformer_relseq.py, bf16) served once with no kernel launch;
+14. prints the JSON lines of steps 10-13 and of the kernel results
+    (launches on the main paths, on the composed route and on the caption
+    route, error, time, plain time, bound, library time) and, last, a
+    JSON line naming the device.
 
 Nothing is cut: the models run at full width and depth (the LINAS
 training runs 2 epochs of a 2,560-caption collection; the composed
@@ -141,6 +162,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 
@@ -174,11 +196,15 @@ FLASH_CASES = {
     "causal 1000 hd128": ((2, 8, 1000, 1000, 128), True),
     "causal 197 vs 1569": ((4, 12, 197, 1569, 64), True),
 }
-# beside them: a head dim the mma.sync path serves, and the joint shape
-# as head-transposed views of one (B, S, 3·H·D) projection, read in place
+# beside them: a head dim the mma.sync path serves, the joint shape as
+# head-transposed views of one (B, S, 3·H·D) projection, read in place,
+# and the caption route's waves of 1 and 8 rows (step 13; its bursts of 4
+# are the first case)
 FLASH_EXTRA = {
     "head dim 96 (mma.sync)": ((2, 8, 1000, 1000, 96), False),
     "strided views (1569)": ((4, 12, 1569, 1569, 64), False),
+    "caption wave of 1": ((1, 12, 1569, 1569, 64), False),
+    "caption wave of 8": ((8, 12, 1569, 1569, 64), False),
 }
 FLASH_STRIDED = "strided views (1569)"
 # gemm.cu by itself: name -> (M, K, N, epilogue, products sharing A); the
@@ -1242,6 +1268,102 @@ LINAS_TOL = 1e-3
 SERVE_SCORE_TOL = 1e-5
 
 
+# 10c': cli.retrieval_inference in fresh processes (no TF32 switch of this
+# script), card against CPU, over the sample's 64 videos
+LINAS_CLI_QUERIES = 3
+LINAS_CLI_SAMPLE = "linassample"
+LINAS_CLI_RUNS = (("card", []), ("cpu", ["--device", "cpu"]))
+# run in a fresh interpreter: the CLI's main once a query, every search's
+# scores kept at full precision, and the TF32 flags before and after
+LINAS_CLI_CODE = r"""
+import json, sys
+import torch
+from cross_modal_video_engine_tpu_torch.cli import retrieval_inference as ri
+from cross_modal_video_engine_tpu_torch.retrieval.index import RetrievalIndex
+before = [torch.backends.cuda.matmul.allow_tf32,
+          torch.backends.cudnn.allow_tf32]
+searches, search = [], RetrievalIndex.search_ids
+def kept(self, q, k=10):
+    scores, ids = search(self, q, k=k)
+    searches.append([[float(x) for x in scores[0]], [str(i) for i in ids[0]]])
+    return scores, ids
+RetrievalIndex.search_ids = kept
+argv, queries = json.loads(sys.argv[1])
+for q in queries:
+    ri.main(argv + ["--input", q])
+print("RESULT " + json.dumps({"searches": searches, "tf32_before": before,
+                              "tf32_after": [
+                                  torch.backends.cuda.matmul.allow_tf32,
+                                  torch.backends.cudnn.allow_tf32]}))
+"""
+
+
+def linas_cli_card_vs_cpu(root, ckpt, sample_lines, queries, card) -> dict:
+    """Step 10c': the LINAS CLI a user runs (`cli.retrieval_inference`,
+    its top-10 of each query over a collection of the sample's 64 videos)
+    in a fresh process on the card and in one on the CPU, neither with
+    this script's TF32 switch: the same ids, scores within LINAS_TOL."""
+    import subprocess
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli.common import (
+        collection_paths)
+
+    main = collection_paths(root, bserve.COLLECTION, bserve.FEATURE)
+    sample = os.path.join(root, LINAS_CLI_SAMPLE)
+    os.makedirs(os.path.join(sample, "TextData"))
+    os.symlink(os.path.dirname(main["feat_dir"]),
+               os.path.join(sample, "FeatureData"))
+    os.symlink(os.path.dirname(os.path.dirname(main["rnn_vocab"])),
+               os.path.join(sample, "TextData", "vocabulary"))
+    with open(collection_paths(root, LINAS_CLI_SAMPLE, bserve.FEATURE)
+              ["cap_file"], "w") as f:
+        f.write("\n".join(sample_lines))
+    runs = {}
+    for name, device in LINAS_CLI_RUNS:
+        argv = ["--checkpoint", ckpt, "--rootpath", root, "--collection",
+                LINAS_CLI_SAMPLE, "--visual_feature", bserve.FEATURE,
+                "--topK", "10", "--index_cache",
+                os.path.join(root, f"cli_index_{name}.npz")] + device
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", LINAS_CLI_CODE,
+             json.dumps([argv, list(queries)])],
+            capture_output=True, text=True, timeout=900, cwd=str(ROOT),
+            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        if out.returncode:
+            raise SystemExit(f"10c' the {name} CLI failed: "
+                             f"{out.stderr[-3000:]}")
+        result = next(json.loads(x[len("RESULT "):])
+                      for x in out.stdout.splitlines()
+                      if x.startswith("RESULT "))
+        result["seconds"] = time.perf_counter() - t0
+        runs[name] = result
+    card_s, cpu_s = runs["card"]["searches"], runs["cpu"]["searches"]
+    same_ids = sum(a[1] == b[1] for a, b in zip(card_s, cpu_s))
+    err = max(float(np.abs(np.subtract(a[0], b[0])).max())
+              for a, b in zip(card_s, cpu_s))
+    line = {"queries": len(queries), "same_top10": same_ids,
+            "max_abs_score": err,
+            "card_tf32_before": runs["card"]["tf32_before"],
+            "card_tf32_after": runs["card"]["tf32_after"],
+            "card_s": runs["card"]["seconds"],
+            "cpu_s": runs["cpu"]["seconds"]}
+    print(f"10c' cli.retrieval_inference in a fresh process (no TF32 switch "
+          f"here; the card's process read matmul/cuDNN TF32 "
+          f"{line['card_tf32_before']} at start, "
+          f"{line['card_tf32_after']} after the CLI) on the card and on the "
+          f"CPU, {len(queries)} queries over {LINAS_SAMPLE} videos: "
+          f"{same_ids}/{len(queries)} with the same top-10 ids, max "
+          f"|score difference| {err:.3e} (need < {LINAS_TOL}); "
+          f"{line['card_s']:.1f} s and {line['cpu_s']:.1f} s on {card}",
+          flush=True)
+    if (same_ids != len(queries) or len(card_s) != len(queries)
+            or not err < LINAS_TOL or any(runs["card"]["tf32_after"])):
+        raise SystemExit("10c' the LINAS CLI on the card disagrees with the "
+                         "CPU")
+    return line
+
+
 def check_linas_serving(dev, card) -> dict:
     """Step 10 (items a-h of the docstring).  Every failed check raises.
     Returns the `serving` JSON object."""
@@ -1358,6 +1480,10 @@ def check_linas_serving(dev, card) -> dict:
             raise SystemExit(f"LINAS card vs CPU checks failed: {diffs}")
         line["card_vs_cpu_max_abs"] = diffs
         del cpu, sets
+        line["cli_fresh_process"] = linas_cli_card_vs_cpu(
+            tmp, ckpt, lines, info["captions"][:LINAS_CLI_QUERIES
+                                               * LINAS_CAPTIONS:
+                                               LINAS_CAPTIONS], card)
 
         # d, e. the server, its index filled to LINAS_ROWS, over HTTP
         del model
@@ -2397,12 +2523,245 @@ def check_composed(dev, card):
     return line, launches
 
 
+# caption route step: videos (300 frames of 360x480, drawn on demand),
+# batch-1 requests, one burst of concurrent ones, timed waves
+CAPTION_VIDEOS, CAPTION_REQUESTS, CAPTION_BURST = 8, 16, 8
+CAPTION_WAVE_CALLS, CAPTION_PIPELINE_CALLS = 10, 8
+# the joint checkpoint's decoder output layer is scaled so that its step-0
+# probabilities spread away from the threshold; at most this share of the
+# step-0 labels may lie within the bf16 tolerance of it, unchecked
+CAPTION_LOGIT_SCALE, CAPTION_BAND_SHARE = 16.0, 0.1
+
+
+def caption_direct(handler, name):
+    """The route's model on the route's clips of one video, called
+    directly: (clips, steps, probs (max_len, C) on the host)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.api import caption_clips
+    clips = np.asarray(handler.pipeline({"filename": name, "start_index": 0})
+                       ["imgs"], np.float32)
+    steps, probs = caption_clips(handler.model, torch.from_numpy(clips).to(
+        next(handler.model.parameters()).device))
+    return clips, steps[0], probs[0].float().cpu().numpy()
+
+
+def caption_agreement(answers, direct, threshold: float = 0.5) -> dict:
+    """HTTP answers against the direct call on the same clips: step-0
+    labels must agree wherever the direct probability lies farther than
+    the bf16 tolerance from the threshold (a label inside that band may
+    flip with the wave's shapes: counted, and the caller bounds the
+    count); later steps follow greedy
+    feedback, so their flips are counted, not checked."""
+    band, step0_off, later, identical = 0, 0, 0, 0
+    for name, steps in answers:
+        _, want, probs = direct[name]
+        identical += steps == want
+        near = np.abs(probs[0] - threshold) <= TOL["bfloat16"]
+        band += int(near.sum())
+        got0 = np.zeros(probs.shape[1], bool)
+        got0[steps[0]] = True
+        step0_off += int(((got0 != (probs[0] > threshold)) & ~near).sum())
+        later += sum(len(set(a) ^ set(b)) for a, b in zip(steps[1:],
+                                                          want[1:]))
+    return {"answers": len(answers), "identical": identical,
+            "step0_disagree": step0_off, "step0_in_band": band,
+            "step0_labels": len(answers) * len(direct[answers[0][0]][2][0]),
+            "later_flips": later}
+
+
+def check_caption_route(dev, card) -> Tuple[dict, dict]:
+    """Step 13: the /caption route at full width (TS_JOINT, flash on, bf16,
+    the shipped decoder) from a checkpoint written in the JAX format,
+    videos through the `decode` seam; then the shipped divided config
+    served once.  Every failed check raises.  Returns (the `caption` JSON
+    object, the launches of the joint route's requests by kernel)."""
+    import argparse
+    import torch
+    from cross_modal_video_engine_tpu_torch.api import (
+        TEST_PIPELINE, inference_recognizer, run_pipeline)
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.data.pipelines import with_reader
+    from cross_modal_video_engine_tpu_torch.ops import (
+        attention_sublayer as asl, flash_attention as fa)
+
+    counted = (asl.fused_attention_sublayer_compact,
+               asl.fused_attention_sublayer, asl.fused_mlp_sublayer,
+               asl.fused_block_sublayer_compact, fa.flash_attention)
+    t_step = time.perf_counter()
+    model_cfg = relseq_model()
+    decoder = model_cfg["decoder"]
+    layers = TS_JOINT["num_layers"]
+    videos = bserve.seeded_videos(CAPTION_VIDEOS, seed=7)
+    names = sorted(videos)
+    line = {"card": card, "backbone": "TS_JOINT", "decoder": decoder,
+            "videos": CAPTION_VIDEOS, "video_frames": bserve.VIDEO_FRAMES,
+            "video_size": [bserve.VIDEO_HEIGHT, bserve.VIDEO_WIDTH]}
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        args = argparse.Namespace(
+            caption_checkpoint=os.path.join(tmp, "joint"), device=str(dev))
+        t0 = time.perf_counter()
+        bserve.write_caption_checkpoint(args.caption_checkpoint, TS_JOINT,
+                                        decoder, seed=4,
+                                        logit_scale=CAPTION_LOGIT_SCALE)
+        line["checkpoint_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        server, handler = bserve.start_caption_server(args,
+                                                      videos.__getitem__)
+        torch.cuda.synchronize()
+        line["route_start_s"] = time.perf_counter() - t0
+        try:
+            port = server.server_address[1]
+            bserve.post_caption(port, {"video": names[0]})      # warm-up
+            torch.cuda.synchronize()
+            # (a) batch-1 requests, the counters zeroed just before
+            for fn in counted:
+                fn.launches = 0
+            w0 = handler.batcher.batches_run
+            single = [bserve.request(port, "caption",
+                                     {"video": names[i % len(names)]},
+                                     timeout=600.0)
+                      for i in range(CAPTION_REQUESTS)]
+            torch.cuda.synchronize()
+            waves1 = handler.batcher.batches_run - w0
+            launches = {fn.__name__: fn.launches for fn in counted}
+            # (b) one burst of concurrent requests
+            for fn in counted:
+                fn.launches = 0
+            w0, r0 = handler.batcher.batches_run, handler.batcher.rows_run
+            burst = bserve.clients_in_threads(
+                port, [{"video": names[i % len(names)]}
+                       for i in range(CAPTION_BURST)], CAPTION_BURST,
+                lambda port, p: bserve.request(port, "caption", p,
+                                               timeout=600.0))
+            torch.cuda.synchronize()
+            waves8 = handler.batcher.batches_run - w0
+            burst_launches = {fn.__name__: fn.launches for fn in counted}
+            line.update(
+                batch1_ms=bserve.percentiles([ms for ms, _ in single]),
+                burst_ms=bserve.percentiles([ms for ms, _ in burst]),
+                batch1_waves=waves1, burst_waves=waves8,
+                burst_rows_per_wave=(handler.batcher.rows_run - r0) / waves8,
+                launches=launches, burst_launches=burst_launches)
+            print(f"13 caption route (TimeSformer ViT-B/16 joint bf16, flash "
+                  f"on, {decoder['num_classes']} classes x "
+                  f"{decoder['max_len']} steps; checkpoint written in "
+                  f"{line['checkpoint_write_s']:.1f} s, route up in "
+                  f"{line['route_start_s']:.1f} s): {CAPTION_REQUESTS} "
+                  f"batch-1 requests of {bserve.VIDEO_FRAMES}-frame "
+                  f"{bserve.VIDEO_HEIGHT}x{bserve.VIDEO_WIDTH} videos, p50 "
+                  f"{line['batch1_ms']['p50']:.2f} ms, p99 "
+                  f"{line['batch1_ms']['p99']:.2f} ms in {waves1} waves; "
+                  f"burst of {CAPTION_BURST} (conc-{CAPTION_BURST}) p50 "
+                  f"{line['burst_ms']['p50']:.2f} ms, p99 "
+                  f"{line['burst_ms']['p99']:.2f} ms in {waves8} waves "
+                  f"({line['burst_rows_per_wave']:.2f} rows a wave) on "
+                  f"{card}; launches {json.dumps(launches)} then "
+                  f"{json.dumps(burst_launches)} (need {layers} flash a "
+                  f"wave, no other kernel)", flush=True)
+            others = [k for k, v in {**launches, **burst_launches}.items()
+                      if v and k != "flash_attention"]
+            if (waves1 != CAPTION_REQUESTS or others
+                    or launches["flash_attention"] != layers * waves1
+                    or burst_launches["flash_attention"] != layers * waves8):
+                raise SystemExit("13 caption route launches are wrong")
+
+            # (c) answers against the route's model called directly
+            direct = {n: caption_direct(handler, n) for n in names}
+            asked = ([names[i % len(names)] for i in range(CAPTION_REQUESTS)]
+                     + [names[i % len(names)] for i in range(CAPTION_BURST)])
+            agree = caption_agreement(
+                [(n, a["steps"]) for n, (_, a) in zip(asked, single + burst)],
+                direct)
+            line["agreement"] = agree
+            # (d) the pipeline's clips and inference_recognizer's outputs
+            api_pipe = with_reader(TEST_PIPELINE, videos.__getitem__)
+            clips_equal, worst = 0, 0.0
+            for n in names:
+                clips, _, probs = direct[n]
+                clips_equal += np.array_equal(run_pipeline(api_pipe, n),
+                                              clips)
+                scores, _ = inference_recognizer(handler.model, n,
+                                                 pipeline=api_pipe)
+                worst = max(worst, float(np.abs(scores[0] - probs).max()))
+            line.update(pipeline_clips_equal=clips_equal,
+                        inference_recognizer_max_abs=worst)
+            band_limit = int(CAPTION_BAND_SHARE * agree["step0_labels"])
+            print(f"13 answers vs caption_clips on the route's model and "
+                  f"clips: {json.dumps(agree)} (step-0 labels within "
+                  f"{TOL['bfloat16']:g} of the threshold may flip: "
+                  f"{agree['step0_in_band']} of {agree['step0_labels']}, "
+                  f"limit {band_limit}, output layer x"
+                  f"{CAPTION_LOGIT_SCALE:g}); the "
+                  f"route's pipeline equals inference_recognizer's "
+                  f"(TEST_PIPELINE) on {clips_equal}/{len(names)} videos, "
+                  f"its probabilities vs caption_clips max |difference| "
+                  f"{worst:.3e}; video 0's steps "
+                  f"{single[0][1]['steps']}", flush=True)
+            if (agree["step0_disagree"] or clips_equal != len(names)
+                    or agree["step0_in_band"] > band_limit
+                    or worst > TOL["bfloat16"]):
+                raise SystemExit("13 caption answers disagree with the "
+                                 "direct call")
+
+            # (e) the host pipeline, op by op, beside the waves
+            line["pipeline"] = bserve.pipeline_times(handler, names,
+                                                     CAPTION_PIPELINE_CALLS)
+            for n in (1, CAPTION_BURST):
+                t = bserve.wave_times(handler, bserve.caption_wave_rows(
+                    handler, names, n), CAPTION_WAVE_CALLS, device=dev)
+                line[f"wave{n}"] = t
+                print(f"13 wave of {n}: wall {t['wall_ms']:.3f} ms, CUDA "
+                      f"events {t['events_ms']:.3f} ms, kernels busy "
+                      f"{t['busy_ms']:.3f} ms, idle share "
+                      f"{t['idle_share']:.3f}; host pipeline "
+                      f"{line['pipeline']['wall_ms']:.2f} ms a request, by "
+                      f"op {json.dumps(line['pipeline']['ops_ms'])} "
+                      f"(DecordDecode: the frame draw) on "
+                      f"{card}; longest kernels (ms a wave): "
+                      f"{json.dumps(t['top_kernels'])}", flush=True)
+        finally:
+            bserve.stop_server(server, handler)
+        del handler, server
+        torch.cuda.empty_cache()
+
+        # (f) the shipped divided config, served once: no kernel
+        div = argparse.Namespace(
+            caption_checkpoint=os.path.join(tmp, "divided"), device=str(dev))
+        bserve.write_caption_checkpoint(
+            div.caption_checkpoint,
+            {**model_cfg["backbone"], "dtype": "bfloat16"}, decoder, seed=5)
+        server, handler = bserve.start_caption_server(div, videos.__getitem__)
+        try:
+            port = server.server_address[1]
+            for fn in counted:
+                fn.launches = 0
+            ms, ans = bserve.request(port, "caption", {"video": names[0]},
+                                     timeout=600.0)
+            torch.cuda.synchronize()
+            div_launches = sum(fn.launches for fn in counted)
+        finally:
+            bserve.stop_server(server, handler)
+        line["divided"] = {"first_request_ms": ms, "launches": div_launches,
+                           "steps": ans["steps"]}
+        print(f"13 the shipped divided config (timesformer_relseq.py, bf16) "
+              f"served once: {ms:.1f} ms (first request), kernel launches "
+              f"{div_launches} (need 0), steps {ans['steps']}", flush=True)
+        if div_launches or len(ans["steps"]) != decoder["max_len"]:
+            raise SystemExit("13 the divided caption config failed")
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"13 caption route checked in {line['seconds']:.1f} s", flush=True)
+    return line, launches
+
+
 def kernel_json(results, launches, core, block_extra,
-                composed_launches) -> dict:
+                composed_launches, caption_launches) -> dict:
     """The kernels line: bf16 errors over every case of a kernel; times,
     bound and library time of its main-path case; `launches` on the main
     path of steps 4, 6 and 8, `composed_launches` over the requests of the
-    ViT-B/32 composed route (step 12d).  `bound_ms` is the
+    ViT-B/32 composed route (step 12d), `caption_launches` over the
+    batch-1 requests of the caption route (step 13).  `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
     also carry the host time of one call and their core kernel by itself
@@ -2438,6 +2797,7 @@ def kernel_json(results, launches, core, block_extra,
             "replaces": replaces[name],
             "launches": launches[name],
             "composed_launches": composed_launches.get(name, 0),
+            "caption_launches": caption_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in bf16),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": max(by_ops, by_bytes) * 1e3,
@@ -2569,12 +2929,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     composed, composed_launches = check_composed(dev, card)
 
-    # -- 13. results ------------------------------------------------------------
+    # -- 13. the caption route ----------------------------------------------------
+    torch.cuda.empty_cache()
+    caption, caption_launches = check_caption_route(dev, card)
+
+    # -- 14. results ------------------------------------------------------------
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"composed": composed}))
+    print(json.dumps({"caption": caption}))
     print(json.dumps(kernel_json(results, launches, core, block_extra,
-                                 composed_launches)))
+                                 composed_launches, caption_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

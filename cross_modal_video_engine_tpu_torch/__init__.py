@@ -22,7 +22,11 @@ and composed text+video retrieval (utils/bpe, ops/preprocess,
 models/clip_resnet, models/combiner, io/video_decode,
 data/composed_dataset, losses/contrastive, train/combiner_trainer,
 cli/composed_inference, cli/combiner_trainer, cli/composed_validate, the
-composed_retrieval route of cli/serve).
+composed_retrieval route of cli/serve), and caption inference served over
+HTTP (utils/registry, config, data/pipelines, data/datasets,
+metrics/accuracy, the decode ops of io/video_decode,
+api.inference_recognizer, cli/caption_inference, cli/caption_test, the
+caption route of cli/serve).
 """
 
 __version__ = "0.1.0"

@@ -1,44 +1,75 @@
 """High-level recognition and caption API.
 
-Counterpart of cross_modal_video_engine_tpu/api.py's `init_recognizer`
-and of the model half of cli/caption_inference.py's `caption_video`:
+Counterpart of cross_modal_video_engine_tpu/api.py (MCT mmaction/apis):
 
-* `init_recognizer(cfg_d, state_dict)` builds the recognizer a
-  checkpoint's config dict names (`backbone`, then `decoder` for a
-  caption model or `num_classes` for a classifier), applies the bf16
-  inference cast the JAX loader applies (utils/precision.py), loads the
-  weights, and returns the model ready to serve (eval mode, parameters
-  frozen).  Reading the JAX checkpoint files (`params.msgpack`) and the
-  non-TimeSformer caption backbones are not ported yet.
+* `init_recognizer(checkpoint)` rebuilds the recognizer a checkpoint in
+  the JAX package's format holds (`train/checkpoint.load_checkpoint`, the
+  variables through `convert.recognizer_state_dict_from_jax`), or the one
+  a config dict names with a state dict (`init_recognizer(cfg_d,
+  state_dict)`): `backbone`, then `decoder` for a caption model or
+  `num_classes` for a classifier.  It applies the bf16 inference cast the
+  JAX loader applies (utils/precision.py) and returns the model ready to
+  serve (eval mode, parameters frozen) on the card unless a device is
+  named.  Caption backbones other than TimeSformer come with slice 5.
+* `inference_recognizer(model, video, outputs=...)` runs the test
+  pipeline on a video and the recognizer on its clips, with the
+  `outputs=` layer capture, the `centercrop` toggle and the `shuffle_idx`
+  frame-permutation probe (apis/inference.py:56-192).
 * `caption_clips(model, clips)` runs `forward_test` on normalised clips
-  and thresholds the per-step probabilities.  Video decoding and the
-  test pipeline are host code the port does not have yet; when it needs
-  them it keeps its own copy (the port imports nothing of the JAX
-  package).
+  and thresholds the per-step probabilities.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .convert.from_jax import recognizer_state_dict_from_jax
+from .data.pipelines import build_pipeline
 from .models.decoder_head import RNNDecoderConfig
 from .models.recognizer import Recognizer3D, Recognizer3DRelseq
 from .models.timesformer import TimeSformerConfig
-from .utils.precision import maybe_cast_bf16
+from .train.checkpoint import load_checkpoint
+from .utils.precision import maybe_cast_bf16, no_tf32
+
+TEST_PIPELINE = [
+    dict(type="DecordInit"),
+    dict(type="SampleFrames", clip_len=8, frame_interval=32, num_clips=1,
+         test_mode=True),
+    dict(type="DecordDecode"),
+    dict(type="Resize", scale=(-1, 256)),
+    dict(type="CenterCrop", crop_size=224),
+    dict(type="Normalize", mean=[127.5] * 3, std=[127.5] * 3),
+    dict(type="FormatShape", input_format="NTHWC"),
+]
 
 
-def init_recognizer(cfg_d: dict, state_dict: Dict[str, torch.Tensor],
-                    device=None):
-    """Returns (model, cfg_d); device=None builds on the CUDA device."""
+def init_recognizer(checkpoint, state_dict: Optional[Dict[str, torch.Tensor]]
+                    = None, device=None):
+    """checkpoint: the directory of a checkpoint in the JAX package's
+    format, or a config dict given with `state_dict` (the port's keys).
+    Returns (model, cfg_d); device=None builds on the CUDA device.  The
+    f32 products run in f32 there: TF32 is turned off for the process."""
+    if isinstance(checkpoint, dict):
+        if state_dict is None:
+            raise ValueError("a config dict needs its state_dict")
+        cfg_d = checkpoint
+    else:
+        variables, cfg_d, _ = load_checkpoint(checkpoint)
     bb_kw = {k: tuple(v) if isinstance(v, list) else v
              for k, v in cfg_d["backbone"].items()}
     btype = bb_kw.pop("type", "TimeSformer")
     if btype != "TimeSformer":
-        raise NotImplementedError(f"backbone type {btype!r}: only TimeSformer "
-                                  f"recognizers are ported")
+        raise NotImplementedError(
+            f"backbone type {btype!r}: only TimeSformer recognizers are "
+            f"ported; the other caption backbones come with slice 5 "
+            f"(ROADMAP.md queue 1 item 8)")
     backbone = TimeSformerConfig(**bb_kw)
+    if state_dict is None:
+        state_dict = recognizer_state_dict_from_jax(variables, backbone)
+    no_tf32()
     if "decoder" in cfg_d:
         model = Recognizer3DRelseq(
             backbone, RNNDecoderConfig(**cfg_d["decoder"]), device=device)
@@ -47,6 +78,61 @@ def init_recognizer(cfg_d: dict, state_dict: Dict[str, torch.Tensor],
                              device=device)
     model.load_state_dict(maybe_cast_bf16(state_dict, cfg_d))
     return model.eval().requires_grad_(False), cfg_d
+
+
+def model_device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def run_pipeline(pipeline: Sequence[dict], video: str) -> np.ndarray:
+    """The pipeline over one video: its clips as float32
+    (num_clips, T, H, W, C)."""
+    r = build_pipeline(pipeline)({"filename": video, "start_index": 0})
+    return np.asarray(r["imgs"], np.float32)
+
+
+def inference_recognizer(model, video: str,
+                         outputs: Optional[Sequence[int]] = None,
+                         pipeline: Optional[list] = None,
+                         centercrop: bool = True,
+                         shuffle_idx: Optional[Sequence[int]] = None,
+                         return_scores: bool = True
+                         ) -> Tuple[Optional[np.ndarray],
+                                    Dict[int, np.ndarray]]:
+    """Run a video through the test pipeline and the recognizer, on the
+    model's device.  outputs: backbone block indices to capture (the
+    OutputHook equivalent, `forward_with_capture`).  Returns (scores or
+    None, {layer: tokens}) as float32 numpy."""
+    # copy the op dicts, not just the list: centercrop=False rewrites
+    # the Resize entry, which must not change the caller's pipeline
+    pipe_cfg = [dict(c) for c in (pipeline or TEST_PIPELINE)]
+    if not centercrop:
+        pipe_cfg = [c for c in pipe_cfg if c.get("type") != "CenterCrop"]
+        for c in pipe_cfg:
+            if c.get("type") == "Resize":
+                c["scale"] = (224, 224)
+                c["keep_ratio"] = False
+    if shuffle_idx is not None:
+        insert_at = next((i for i, c in enumerate(pipe_cfg)
+                          if c["type"] == "Resize"), None)
+        if insert_at is None:
+            raise ValueError(
+                "shuffle_idx needs a Resize op in the pipeline as its "
+                "insertion anchor; none found")
+        pipe_cfg.insert(insert_at,
+                        dict(type="RandomShuffleFrames",
+                             shuffle_idx=list(shuffle_idx)))
+    clips = torch.from_numpy(run_pipeline(pipe_cfg, video)).to(
+        model_device(model))
+    with torch.no_grad():
+        if outputs:
+            scores, captured = model.forward_with_capture(clips,
+                                                          tuple(outputs))
+            captured = {k: v.float().cpu().numpy()
+                        for k, v in captured.items()}
+        else:
+            scores, captured = model(clips), {}
+    return (scores.float().cpu().numpy() if return_scores else None), captured
 
 
 def caption_clips(model: Recognizer3DRelseq, clips: torch.Tensor,

@@ -1,7 +1,9 @@
-"""Retrieval served over HTTP: LINAS at 1M rows, and composed retrieval.
+"""Routes served over HTTP: LINAS at 1M rows, captions, composed retrieval.
 
     python -m cross_modal_video_engine_tpu_torch.bench.serve \
         [--rows 1000000] [--videos 1000] [--device cpu]
+    python -m cross_modal_video_engine_tpu_torch.bench.serve --caption \
+        [--device cpu]
     python -m cross_modal_video_engine_tpu_torch.bench.serve --composed \
         [--videos 1000] [--device cpu]
 
@@ -41,6 +43,20 @@ fetch) as above; and the extraction of one reference video (preprocess,
 RN50x4 over 64 frames, pooling), host ms with a synchronize and device ms
 by CUDA events.
 
+The caption arm (`--caption`, `run_caption`) writes, from a numpy seed, a
+caption checkpoint in the JAX package's format: the TimeSformer ViT-B/16
+with joint space-time attention through the flash kernel (8x224², width
+768, 12 heads, 12 layers, bf16) and the RNN decoder of
+configs/seq_generate/timesformer_relseq.py (36 classes, 5 steps).  Its
+videos are 300 frames of 360x480, each frame drawn from the seed when the
+pipeline asks for it (`SeededVideo`, handed to the route through its
+`decode` seam), so no file is decoded and no large array is kept.  It
+starts the `/caption` route and measures: batch-1 and conc-8 per-request
+p50/p99 over HTTP (the host pipeline, the batcher's wait, the wave); one
+wave of 1 and of 8 rows (clips to the device, forward_test, one fetch) as
+above; and the host pipeline of one request (frame draw, sampling,
+resize, crop, normalize) by itself.
+
 Prints one JSON line per row.  On the CPU (`--device cpu`) the rows say
 so and no device time is given.
 """
@@ -61,15 +77,20 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..config import Config
 from ..convert.from_jax import (clip_resnet_variables_to_jax,
                                 clip_variables_to_jax,
                                 combiner_variables_to_jax,
-                                dual_encoding_variables_to_jax)
+                                dual_encoding_variables_to_jax,
+                                recognizer_variables_to_jax)
 from ..data.composed_dataset import save_video_features
 from ..io.bigfile import write_bigfile
 from ..models import clip as clip_vit
 from ..models import clip_resnet, combiner
+from ..models.decoder_head import RNNDecoderConfig
 from ..models.dual_encoding import DualEncodingConfig, seeded_state_dict
+from ..models.recognizer import random_state_dict as recognizer_state_dict
+from ..models.timesformer import TimeSformerConfig
 from ..train.checkpoint import save_checkpoint
 from ..utils.bpe import write_toy_merges
 from ..utils.device import resolve_device
@@ -592,8 +613,8 @@ def run_composed(videos: int = 1000, device=None, root: Optional[str] = None,
                   "unit": per("ms", device), "p99": p["p99"],
                   "n": len(lat), **base}, out)
             w0, r0 = handler.batcher.batches_run, handler.batcher.rows_run
-            lat = _composed_clients(port, composed_payloads(
-                names, clients * per_client, k), clients)
+            lat = clients_in_threads(port, composed_payloads(
+                names, clients * per_client, k), clients, _post_composed)
             waves = handler.batcher.batches_run - w0
             p = percentiles(lat)
             emit({"metric": f"serve_composed_conc{clients}",
@@ -615,24 +636,22 @@ def run_composed(videos: int = 1000, device=None, root: Optional[str] = None,
     return out
 
 
-def _composed_clients(port: int, payloads: Sequence[dict],
-                      clients: int) -> List[float]:
-    """ms of every payload, sent by `clients` threads started together,
-    each posting its share in turn.  The work of a request is the route's
-    (the reference video is encoded on the server), so the threads share
+def clients_in_threads(port: int, payloads: Sequence[dict], clients: int,
+                       post) -> list:
+    """What post(port, payload) returns for every payload, in the
+    payloads' order, sent by `clients` threads started together, each
+    posting its share in turn.  The work of a request is the route's (the
+    video is decoded and encoded on the server), so the threads share
     this process."""
-    lat: List[float] = []
+    out: list = [None] * len(payloads)
     errors: List[BaseException] = []
-    lock = threading.Lock()
     barrier = threading.Barrier(clients)
 
     def client(c: int) -> None:
         try:
             barrier.wait()
-            for p in payloads[c::clients]:
-                ms = _post_composed(port, p)
-                with lock:
-                    lat.append(ms)
+            for i in range(c, len(payloads), clients):
+                out[i] = post(port, payloads[i])
         except BaseException as e:          # reported after the join
             errors.append(e)
 
@@ -644,13 +663,204 @@ def _composed_clients(port: int, payloads: Sequence[dict],
         t.join(timeout=900)
     if errors or any(t.is_alive() for t in threads):
         raise RuntimeError(f"concurrent clients failed: {errors[:1]}")
-    return lat
+    return out
+
+
+# -- captions ------------------------------------------------------------------
+
+# the caption route's model: TimeSformer ViT-B/16, joint space-time through
+# the flash kernel, bf16, with the shipped caption config's decoder
+CAPTION_BACKBONE = dict(num_frames=8, img_size=224, patch_size=16,
+                        embed_dims=768, num_heads=12, num_layers=12,
+                        attention_type="joint_space_time", dtype="bfloat16",
+                        use_flash_attention=True)
+CAPTION_CONFIG = os.path.join(_REPO, "configs", "seq_generate",
+                              "timesformer_relseq.py")
+VIDEO_FRAMES, VIDEO_HEIGHT, VIDEO_WIDTH = 300, 360, 480
+
+
+def shipped_caption_model() -> dict:
+    """The `model` tree of configs/seq_generate/timesformer_relseq.py."""
+    return Config.fromfile(CAPTION_CONFIG)["model"]
+
+
+def write_caption_checkpoint(path: str, backbone: dict, decoder: dict,
+                             seed: int = 0, logit_scale: float = 1.0
+                             ) -> Dict[str, torch.Tensor]:
+    """A caption checkpoint of random f32 weights from a numpy seed
+    (`models.recognizer.random_state_dict`) in the JAX package's format,
+    config {"backbone", "decoder"}; returns the state dict.  logit_scale
+    multiplies the decoder's output layer: at 1 the random model's step
+    probabilities gather near 0.5, where a label may flip with rounding;
+    a larger scale spreads them away from the threshold."""
+    cfg = TimeSformerConfig(**backbone)
+    sd = recognizer_state_dict(cfg, seed,
+                               decoder_cfg=RNNDecoderConfig(**decoder))
+    for key in [k for k in sd if k.startswith("cls_head.out.")]:
+        sd[key] = sd[key] * logit_scale
+    save_checkpoint(path, recognizer_variables_to_jax(sd, cfg),
+                    {"backbone": backbone, "decoder": decoder},
+                    {"seed": seed})
+    return sd
+
+
+class SeededVideo:
+    """A decord-alike reader (`__len__`, `fps`, `get_batch`, `release`)
+    of a video that exists only as a seed: frame i is uint8 (height,
+    width, 3) drawn from numpy's generator seeded with (seed, i) when it
+    is asked for.  Smooth colour ramps plus noise, so a resize sees both
+    edges and flat areas."""
+
+    def __init__(self, seed: int, frames: int = VIDEO_FRAMES,
+                 height: int = VIDEO_HEIGHT, width: int = VIDEO_WIDTH):
+        self.seed, self.n, self.shape = seed, frames, (height, width)
+        self.fps = 30.0
+
+    def __len__(self) -> int:
+        return self.n
+
+    def frame(self, i: int) -> np.ndarray:
+        h, w = self.shape
+        rng = np.random.default_rng((self.seed, int(i)))
+        ys = (np.arange(h)[:, None] * rng.uniform(0, 2, 3)) % 256
+        xs = (np.arange(w)[:, None] * rng.uniform(0, 2, 3)) % 256
+        noise = np.frombuffer(rng.bytes(h * w * 3), np.uint8).reshape(
+            h, w, 3) >> 2
+        # uint8 sums wrap around, as the ramps do
+        return (ys.astype(np.uint8)[:, None] + xs.astype(np.uint8)[None]
+                + noise)
+
+    def get_batch(self, indices) -> np.ndarray:
+        return np.stack([self.frame(i) for i in indices])
+
+    def release(self) -> None:
+        pass
+
+
+def seeded_videos(n: int, seed: int = 0, **shape) -> Dict[str, SeededVideo]:
+    """n seeded videos by name (`decode=videos.__getitem__` opens them)."""
+    return {f"video{i}.mp4": SeededVideo(seed * 1000 + i, **shape)
+            for i in range(n)}
+
+
+def start_caption_server(args: argparse.Namespace, decode):
+    """The caption route as `cli.serve` builds it, on 127.0.0.1 (a free
+    port) from a thread.  Returns (server, handler)."""
+    from ..cli.serve import build_service
+    from ..service.app import create_server
+    service = build_service(args, caption_decode=decode)
+    handler = service.handlers["caption"]
+    server = create_server(service, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name="caption-server").start()
+    return server, handler
+
+
+def post_caption(port: int, payload: dict) -> float:
+    """ms of one /caption request; an answer of the wrong length raises."""
+    ms, out = request(port, "caption", payload, timeout=600.0)
+    if not isinstance(out.get("steps"), list) or not out["steps"]:
+        raise RuntimeError(f"caption answer without steps: {out}")
+    return ms
+
+
+def caption_wave_rows(handler, names: Sequence[str], n: int):
+    """The batcher's rows (the pipeline's clips) of n requests."""
+    return [np.asarray(handler.pipeline({"filename": names[i % len(names)],
+                                         "start_index": 0})["imgs"],
+                       np.float32) for i in range(n)]
+
+
+def pipeline_times(handler, names: Sequence[str], calls: int = 10) -> dict:
+    """The route's host pipeline (frame draw or decode, sampling, resize,
+    crop, normalize) of one request on the host clock: ms a call, and ms
+    a call of each op (`ops_ms`, by op name; DecordDecode holds the
+    reader's get_batch)."""
+    ops = handler.pipeline.ops
+    spent = [0.0] * len(ops)
+    caption_wave_rows(handler, names, 1)                    # warm-up
+    t0 = time.perf_counter()
+    for i in range(calls):
+        results = {"filename": names[i % len(names)], "start_index": 0}
+        for j, op in enumerate(ops):
+            t = time.perf_counter()
+            results = op(results)
+            spent[j] += time.perf_counter() - t
+        np.asarray(results["imgs"], np.float32)
+    return {"calls": calls,
+            "wall_ms": (time.perf_counter() - t0) / calls * 1e3,
+            "ops_ms": {type(op).__name__: ms / calls * 1e3
+                       for op, ms in zip(ops, spent)}}
+
+
+def run_caption(device=None, root: Optional[str] = None,
+                backbone: Optional[dict] = None,
+                decoder: Optional[dict] = None, n_single: int = 32,
+                clients: int = 8, per_client: int = 4,
+                wave_calls: int = 20, n_videos: int = 8,
+                video_shape=(VIDEO_FRAMES, VIDEO_HEIGHT, VIDEO_WIDTH),
+                seed: int = 0) -> List[dict]:
+    device = resolve_device(device)
+    backbone = backbone or CAPTION_BACKBONE
+    decoder = decoder or shipped_caption_model()["decoder"]
+    out: List[dict] = []
+    root = root or os.path.join(_REPO, "build")
+    os.makedirs(root, exist_ok=True)
+    frames, height, width = video_shape
+    videos = seeded_videos(n_videos, seed + 1, frames=frames, height=height,
+                           width=width)
+    names = sorted(videos)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        args = argparse.Namespace(
+            caption_checkpoint=os.path.join(tmp, "caption"),
+            device=str(device))
+        write_caption_checkpoint(args.caption_checkpoint, backbone, decoder,
+                                 seed)
+        server, handler = start_caption_server(args, videos.__getitem__)
+        try:
+            port = server.server_address[1]
+            base = {"video_frames": frames, "video_size": [height, width],
+                    "attention_type": backbone["attention_type"],
+                    "dtype": backbone.get("dtype", "float32"),
+                    "layers": backbone["num_layers"], **where(device)}
+            payloads = [{"video": names[i % len(names)], "threshold": 0.5}
+                        for i in range(max(n_single, clients * per_client))]
+            post_caption(port, payloads[0])                    # warm-up
+            lat = [post_caption(port, p) for p in payloads[:n_single]]
+            p = percentiles(lat)
+            emit({"metric": "serve_caption_batch1", "value": p["p50"],
+                  "unit": per("ms", device), "p99": p["p99"],
+                  "n": len(lat), **base}, out)
+            w0, r0 = handler.batcher.batches_run, handler.batcher.rows_run
+            lat = clients_in_threads(port, payloads[:clients * per_client],
+                                      clients, post_caption)
+            waves = handler.batcher.batches_run - w0
+            p = percentiles(lat)
+            emit({"metric": f"serve_caption_conc{clients}",
+                  "value": p["p50"], "unit": per("ms", device),
+                  "p99": p["p99"], "n": len(lat), "waves": waves,
+                  "rows_per_wave": (handler.batcher.rows_run - r0) / waves,
+                  **base}, out)
+            for n in (1, 8):
+                t = wave_times(handler, caption_wave_rows(handler, names, n),
+                               wave_calls, device=device)
+                emit({"metric": f"serve_caption_wave{n}",
+                      "value": t["wall_ms"], "unit": per("ms", device),
+                      **t, **base}, out)
+            t = pipeline_times(handler, names)
+            emit({"metric": "serve_caption_pipeline", "value": t["wall_ms"],
+                  "unit": "ms/host", **t, **base}, out)
+        finally:
+            stop_server(server, handler)
+    return out
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--composed", action="store_true",
                     help="the composed-retrieval arm instead of LINAS")
+    ap.add_argument("--caption", action="store_true",
+                    help="the caption arm instead of LINAS")
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--videos", type=int, default=1000)
     ap.add_argument("--device", default=None,
@@ -662,6 +872,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.composed:
         run_composed(args.videos, args.device, args.root)
+    elif args.caption:
+        run_caption(args.device, args.root)
     else:
         run(args.rows, args.videos, args.device, args.root)
 

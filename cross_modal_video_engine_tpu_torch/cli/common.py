@@ -21,6 +21,7 @@ from ..data.provider import LinasDataset, read_video2frames
 from ..io.bigfile import BigFile
 from ..models.dual_encoding import DualEncoding, DualEncodingConfig
 from ..train.checkpoint import load_checkpoint
+from ..utils.precision import no_tf32
 from ..utils.text2vec import Bow2Vec
 from ..utils.vocab import Vocabulary
 
@@ -63,7 +64,10 @@ def restore_dual_encoding(checkpoint: str, device=None
     """Rebuild the model from the config embedded in the checkpoint (the
     reference stores the full argparse `opt` in the .pth.tar,
     trainer.py:288-295) and load its weights, on `device` (None: the CUDA
-    device), in eval mode.  Returns (model, {"config", "meta"})."""
+    device), in eval mode.  Returns (model, {"config", "meta"}).  The
+    model computes in f32 as the JAX package does: TF32 is turned off
+    for the process (cuDNN's convolutions and GRU default to it)."""
+    no_tf32()
     variables, config, meta = load_checkpoint(checkpoint)
     cfg_kwargs = dict(config)
     for key in ("visual_kernel_sizes", "text_kernel_sizes"):

@@ -36,6 +36,7 @@ from ..train.linas_trainer import (NO_MESH, EpochScheduler,
                                    mask_matrix)
 from ..train.resume import load_train_state, save_train_state
 from ..utils.device import resolve_device
+from ..utils.precision import no_tf32
 from .common import load_dataset
 from .retrieval_tester import evaluate
 
@@ -48,7 +49,8 @@ def train(model_cfg: DualEncodingConfig, train_cfg: LinasTrainConfig,
     """Trains on `device` (None: the CUDA device), where both datasets'
     batches must go.  The weights start from `seeded_state_dict(model_cfg,
     seed)`; dropout draws from a torch.Generator seeded with seed + 1.
-    Returns (state, history, path of model_best)."""
+    The model trains in f32 as the JAX package does: TF32 is turned off
+    for the process.  Returns (state, history, path of model_best)."""
     if mesh is not None:
         raise NotImplementedError(NO_MESH)
     dev = resolve_device(device)
@@ -56,6 +58,7 @@ def train(model_cfg: DualEncodingConfig, train_cfg: LinasTrainConfig,
         if ds.device.type != dev.type:
             raise ValueError(f"{name}'s batches go to {ds.device}, the "
                              f"model to {dev}")
+    no_tf32()
     model = DualEncoding(model_cfg, device=dev)
     state = init_train_state(model, make_optimizer(train_cfg), seed)
     generator = torch.Generator(device=dev).manual_seed(seed + 1)

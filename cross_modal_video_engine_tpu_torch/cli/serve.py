@@ -1,16 +1,20 @@
-"""Engine HTTP server CLI: the retrieval and composed-retrieval routes.
+"""Engine HTTP server CLI: the retrieval, caption and composed-retrieval
+routes.
 
 Counterpart of cross_modal_video_engine_tpu/cli/serve.py for the routes
 ported so far, on the CUDA device (or `--device cpu`): text->video
-retrieval with the LINAS dual encoder (`/retrieval`), and composed
-text+video retrieval with a CLIP tower and the Combiner
-(`/composed_retrieval`).  The caption and explain routes and the demo
-pages are not ported yet; their flags raise and name the ROADMAP.md item
-that ports them.
+retrieval with the LINAS dual encoder (`/retrieval`), label-sequence
+captions of a video with a TimeSformer recognizer and its RNN decoder
+(`/caption`), and composed text+video retrieval with a CLIP tower and the
+Combiner (`/composed_retrieval`).  The explain route and the demo pages
+are not ported yet; their flags raise and name the ROADMAP.md item that
+ports them.
 
   python -m cross_modal_video_engine_tpu_torch.cli.serve \
       --retrieval_checkpoint CKPT --rootpath R --collection C \
       --visual_feature F [--port 8765] [--device cpu]
+  python -m cross_modal_video_engine_tpu_torch.cli.serve \
+      --caption_checkpoint CKPT [--device cpu]
   python -m cross_modal_video_engine_tpu_torch.cli.serve \
       --clip_checkpoint CKPT --combiner_checkpoint CKPT2 \
       --videos_dir VIDEOS --merges merges.txt [--feature_cache DIR]
@@ -37,7 +41,6 @@ RETRIEVAL_MIN_BATCH = 1
 
 # the routes of the JAX server that the port does not serve yet
 NOT_PORTED = {
-    "caption_checkpoint": "the caption route (ROADMAP.md queue 1 item 6)",
     "explain_checkpoint": "the explain route (ROADMAP.md queue 1 item 7)",
     "demo": "the demo pages (ROADMAP.md queue 1 item 4)",
 }
@@ -135,6 +138,61 @@ def build_retrieval_handler(args):
     return handler
 
 
+def build_caption_handler(args, decode=None):
+    """The caption route: payload {"video", "threshold"} -> {"steps"}.
+
+    The recognizer (`api.init_recognizer` on `args.caption_checkpoint`)
+    goes to the device once, here.  A request decodes its video and runs
+    the test pipeline (cli/caption_inference.DEFAULT_PIPELINE) on the host
+    in the request's thread; `decode` (filename -> decord-alike reader,
+    default io/video_decode.open_video) is handed to the pipeline's
+    DecordInit.  A wave of requests (micro-batched, padded to a power of
+    two by repeating row 0, at most `max_batch` = 8 rows) is one copy of
+    the clips to the device, one `forward_test` and one fetch.  The
+    handler carries `batcher`, `model`, `pipeline` and `run_wave(clips,
+    num_segs)` (one wave on clips already on the device, returning the
+    device tensor before the fetch) for measurement."""
+    from ..api import init_recognizer, model_device
+    from ..data.pipelines import build_pipeline, with_reader
+    from ..service.batching import MicroBatcher
+    from .caption_inference import DEFAULT_PIPELINE
+
+    model, _ = init_recognizer(args.caption_checkpoint,
+                               device=getattr(args, "device", None))
+    device = model_device(model)
+    pipe = build_pipeline(with_reader(DEFAULT_PIPELINE, decode))
+    max_batch = getattr(args, "max_batch", None) or 8
+
+    def run_wave(clips: torch.Tensor, num_segs: int) -> torch.Tensor:
+        with torch.no_grad():
+            return model.forward_test(clips, num_segs=num_segs)
+
+    def model_rows(rows):
+        # rows: (num_clips, T, H, W, C) float32 arrays of one shape
+        num_segs = rows[0].shape[0]
+        rows, n = _pow2_rows(rows, max_batch)
+        clips = torch.from_numpy(np.concatenate(rows, axis=0)).to(device)
+        probs = run_wave(clips, num_segs).cpu().numpy()    # the one fetch
+        return [probs[i] for i in range(n)]
+
+    batcher = MicroBatcher(model_rows, max_batch=max_batch,
+                           max_wait_ms=getattr(args, "max_wait_ms", 5.0),
+                           name="caption-model")
+
+    def handler(payload: dict) -> dict:
+        r = pipe({"filename": payload["video"], "start_index": 0})
+        probs = batcher.submit(np.asarray(r["imgs"], np.float32))
+        threshold = float(payload.get("threshold", 0.5))
+        steps = [np.nonzero(p > threshold)[0] for p in probs]
+        return {"steps": [[int(i) for i in s] for s in steps]}
+
+    handler.batcher = batcher
+    handler.model = model
+    handler.pipeline = pipe
+    handler.run_wave = run_wave
+    return handler
+
+
 def build_composed_handler(args, decode=None):
     """The composed-retrieval route (the inference.py:119-150 flow behind
     one POST): payload {"reference_video", "text", "topK"} ->
@@ -224,11 +282,12 @@ def build_composed_handler(args, decode=None):
     return handler
 
 
-def build_service(args, decode=None) -> EngineService:
-    """Register the retrieval route if its checkpoint was given, and the
-    composed-retrieval route if both of its checkpoints were (`decode`:
-    see build_composed_handler); a flag of a route that is not ported yet
-    raises."""
+def build_service(args, decode=None, caption_decode=None) -> EngineService:
+    """Register the retrieval and caption routes if their checkpoints were
+    given, and the composed-retrieval route if both of its checkpoints
+    were (`decode`: see build_composed_handler; `caption_decode`: the
+    `decode` of build_caption_handler); a flag of a route that is not
+    ported yet raises."""
     for flag, what in NOT_PORTED.items():
         if getattr(args, flag, None):
             raise NotImplementedError(
@@ -236,6 +295,9 @@ def build_service(args, decode=None) -> EngineService:
     service = EngineService()
     if getattr(args, "retrieval_checkpoint", None):
         service.register("retrieval", build_retrieval_handler(args))
+    if getattr(args, "caption_checkpoint", None):
+        service.register("caption",
+                         build_caption_handler(args, caption_decode))
     if (getattr(args, "clip_checkpoint", None)
             and getattr(args, "combiner_checkpoint", None)):
         service.register("composed_retrieval",
@@ -266,7 +328,10 @@ def main(argv=None):
                              "index's memory)")
     parser.add_argument("--max_batch", type=int, default=None,
                         help="rows a wave may hold (default: 32 for "
-                             "retrieval, 8 for composed retrieval)")
+                             "retrieval, 8 for captions and composed "
+                             "retrieval)")
+    # captions
+    parser.add_argument("--caption_checkpoint")
     # composed retrieval
     parser.add_argument("--clip_checkpoint")
     parser.add_argument("--combiner_checkpoint")
@@ -277,7 +342,6 @@ def main(argv=None):
                              "composed_inference (skips re-encoding "
                              "the corpus on restart)")
     # routes of the JAX server that are not ported yet: they raise
-    parser.add_argument("--caption_checkpoint")
     parser.add_argument("--explain_checkpoint")
     parser.add_argument("--demo", action="store_true")
     args = parser.parse_args(argv)

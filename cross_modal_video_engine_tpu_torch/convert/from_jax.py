@@ -630,3 +630,63 @@ def combiner_variables_to_jax(sd: Dict[str, torch.Tensor], cfg
         "c_fc": _dense_to_jax(sd, "self_attn_1.mlp.c_fc"),
         "c_proj": _dense_to_jax(sd, "self_attn_1.mlp.c_proj")}
     return {"params": p}
+
+
+# -- the recognizers, back to the JAX tree ----------------------------------
+
+def _timesformer_block_to_jax(sd, prefix: str, divided: bool
+                              ) -> Dict[str, Any]:
+    if divided:
+        p = {"temporal_norm": _ln_to_jax(sd, f"{prefix}.attentions.0.norm"),
+             "temporal_attn": _mha_to_jax(sd, f"{prefix}.attentions.0.attn"),
+             "temporal_fc": _dense_to_jax(
+                 sd, f"{prefix}.attentions.0.temporal_fc"),
+             "spatial_norm": _ln_to_jax(sd, f"{prefix}.attentions.1.norm"),
+             "spatial_attn": _mha_to_jax(sd, f"{prefix}.attentions.1.attn"),
+             "ffn_norm": _ln_to_jax(sd, f"{prefix}.ffns.0.norm")}
+    else:
+        p = {"norm1": _ln_to_jax(sd, f"{prefix}.norms.0"),
+             "attn": _mha_to_jax(sd, f"{prefix}.attentions.0.attn"),
+             "norm2": _ln_to_jax(sd, f"{prefix}.norms.1")}
+    p["ffn_fc1"] = _dense_to_jax(sd, f"{prefix}.ffns.0.layers.0.0")
+    p["ffn_fc2"] = _dense_to_jax(sd, f"{prefix}.ffns.0.layers.1")
+    return p
+
+
+def recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], backbone_cfg
+                                ) -> Dict[str, Any]:
+    """The inverse of recognizer_state_dict_from_jax: the port's
+    Recognizer3D or Recognizer3DRelseq state dict -> the JAX recognizer's
+    {"params": {"backbone", "cls_head"}} as numpy f32.  backbone_cfg: a
+    TimeSformerConfig of either package."""
+    pre = "backbone."
+    kernel = _np32(sd[f"{pre}patch_embed.projection.weight"])
+    # torch (D, 3, ...) -> flax conv kernel (..., 3, D)
+    perm = (2, 3, 4, 1, 0) if kernel.ndim == 5 else (2, 3, 1, 0)
+    bb: Dict[str, Any] = {
+        "patch_embed": {"kernel": kernel.transpose(perm),
+                        "bias": _np32(sd[f"{pre}patch_embed.projection.bias"])},
+        "norm": _ln_to_jax(sd, f"{pre}norm")}
+    names = ["cls_token", "pos_embed"]
+    if backbone_cfg.attention_type != "space_only":
+        names.append("time_embed")
+    for n in names:
+        bb[n] = _np32(sd[pre + n])
+    for i in range(backbone_cfg.num_layers):
+        bb[f"block_{i}"] = _timesformer_block_to_jax(
+            sd, f"{pre}transformer_layers.layers.{i}",
+            backbone_cfg.attention_type == "divided_space_time")
+    if "cls_head.fc_cls.weight" in sd:
+        head = {"fc_cls": _dense_to_jax(sd, "cls_head.fc_cls")}
+    else:
+        head = {"start_emb": _np32(sd["cls_head.start_emb.weight"]),
+                "out_kernel": _np32(sd["cls_head.out.weight"]).T,
+                "out_bias": _np32(sd["cls_head.out.bias"])}
+        for torch_name, jax_name, transpose in (
+                ("weight_ih_l0", "rnn_wi", True),
+                ("bias_ih_l0", "rnn_bi", False),
+                ("weight_hh_l0", "rnn_wh", True),
+                ("bias_hh_l0", "rnn_bh", False)):
+            a = _np32(sd[f"cls_head.rnn.{torch_name}"])
+            head[jax_name] = a.T if transpose else a
+    return {"params": {"backbone": bb, "cls_head": head}}

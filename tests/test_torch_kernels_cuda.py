@@ -390,6 +390,9 @@ FLASH_CASES = {
     "space-only 197": (16 * 8, 12, 197, 197, 64, False),
     "causal 1000 hd128": (2, 8, 1000, 1000, 128, True),
     "causal 197 vs 1569": (4, 12, 197, 1569, 64, True),
+    # the /caption route's waves of one and of eight videos
+    "caption wave of 1 (1569)": (1, 12, 1569, 1569, 64, False),
+    "caption wave of 8 (1569)": (8, 12, 1569, 1569, 64, False),
 }
 
 

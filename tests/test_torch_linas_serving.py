@@ -353,7 +353,18 @@ def test_wave_k_follows_the_jax_route():
 
 @pytest.mark.parametrize("flag", ["caption_checkpoint",
                                   "explain_checkpoint", "demo"])
-def test_routes_not_ported_raise(flag):
+def test_routes_not_ported_raise(flag, tmp_path):
+    """The explain route and the demo pages raise, naming the ROADMAP.md
+    item; the caption route is ported and reads its checkpoint."""
+    if flag == "caption_checkpoint":
+        missing = str(tmp_path / "missing")
+        for build in (lambda: tserve.build_service(argparse.Namespace(
+                caption_checkpoint=missing, device="cpu")),
+                      lambda: tserve.main(["--caption_checkpoint", missing,
+                                           "--device", "cpu"])):
+            with pytest.raises(FileNotFoundError, match="missing"):
+                build()
+        return
     args = argparse.Namespace(**{flag: "x" if flag != "demo" else True})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tserve.build_service(args)
