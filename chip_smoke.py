@@ -138,9 +138,27 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
     the host pipeline's ms a request beside a wave of 1 and of 8 (wall,
     CUDA events, busy, idle share); (f) the shipped divided config
     (timesformer_relseq.py, bf16) served once with no kernel launch;
-14. prints the JSON lines of steps 10-13 and of the kernel results
-    (launches on the main paths, on the composed route and on the caption
-    route, error, time, plain time, bound, library time) and, last, a
+14. the /explain route at full width: the joint TimeSformer ViT-B/16 of
+    step 6 (bf16, flash on) with a 400-class head, its checkpoint written
+    in the JAX package's format from a numpy seed, concept banks from a
+    seed (`symbolic` 80 x 768, `cluster` 240 x 768), the gradient probe
+    at block 10, videos as in step 13: (a) 16 batch-1 requests over HTTP
+    and (b) one burst of 8, every launch counter zeroed just before each
+    and read just after (13 flash launches a wave: 12 in the capture
+    forward, 1 in the recomputation from block 10; no other kernel),
+    p50/p99 of both; (c) each answer and each wave's probe against
+    `grad_extract` + `concept_scores` on the route's model and clips
+    (prediction, probe cosine, top-k where the gaps clear the bf16
+    margin); (d) the card against the port on the CPU for 2 videos; (e)
+    the bf16 flash backward at (1 and 8, 12, 1569, 64), one launch each,
+    gradients finite and against the plain version's autograd; (f) one
+    request at target_layer 0 with its 23 launches and peak memory; (g)
+    the handler's ms without HTTP, the host pipeline's ms, a wave of 1
+    and of 8 (wall, CUDA events, busy, idle share, the capture forward
+    and the gradient pass apart, flash launches, peak memory);
+15. prints the JSON lines of steps 10-14 and of the kernel results
+    (launches on the main paths, on the composed, caption and explain
+    routes, error, time, plain time, bound, library time) and, last, a
     JSON line naming the device.
 
 Nothing is cut: the models run at full width and depth (the LINAS
@@ -2755,13 +2773,402 @@ def check_caption_route(dev, card) -> Tuple[dict, dict]:
     return line, launches
 
 
+# explain route step: the caption step's backbone with a 400-class head,
+# seeded concept banks, batch-1 requests, a burst, timed waves
+EXPLAIN_REQUESTS, EXPLAIN_BURST, EXPLAIN_CPU_VIDEOS = 16, 8, 2
+EXPLAIN_WAVE_CALLS, EXPLAIN_PHASE_CALLS = 10, 5
+# (a-c) route answers against a direct grad_extract + concept_scores on the
+# card: the predicted class equal and the probes' cosine at least
+# EXPLAIN_PROBE_COS wherever the direct top-2 class-score margin clears
+# EXPLAIN_MARGIN (in bf16 a wave of another size may flip a near-tie:
+# counted); a top-k position's concept equal wherever the direct concept
+# scores around it are more than EXPLAIN_MARGIN apart, and every score
+# within EXPLAIN_MARGIN of the direct one
+EXPLAIN_PROBE_COS, EXPLAIN_MARGIN = 0.999, 3e-2
+# (d) the card against the port on the CPU (bf16 on both, other
+# summation orders): probes by cosine, predictions beyond the margin
+EXPLAIN_CPU_COS = 0.99
+# (e) the flash backward at the route's waves of 1 and 8 rows, bf16
+EXPLAIN_FLASH_BWD = ((1, 12, 1569, 64), (8, 12, 1569, 64))
+
+
+def explain_direct(handler, name, banks) -> dict:
+    """The route's model on the route's clips of one video, called
+    directly on its device: clips, clip 0's class scores and prediction,
+    the probe and every level's concept scores (host numpy)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.explain.ctv import concept_scores
+    from cross_modal_video_engine_tpu_torch.explain.grads import (
+        grad_extract, normalized_cls_grad)
+    clips = np.asarray(handler.pipeline({"filename": name, "start_index": 0})
+                       ["imgs"], np.float32)
+    layer = handler.target_layer
+    g = grad_extract(handler.model, torch.from_numpy(clips).to(
+        next(handler.model.parameters()).device), [layer])
+    probe = normalized_cls_grad(g["gradients"][layer])
+    return {"clips": clips, "pred": int(g["pred"][0]), "scores": g["scores"],
+            "probe": probe,
+            "concepts": {level: concept_scores(m, probe)
+                         for level, (m, _) in banks.items()}}
+
+
+def top2_margin(scores: np.ndarray) -> float:
+    top = np.sort(scores)[-2:]
+    return float(top[1] - top[0])
+
+
+def explain_agreement(answers, direct, banks, recorded) -> dict:
+    """HTTP answers (name, answer) and the route's own wave results
+    (recorded (row, result) pairs, matched to a video by its clips)
+    against the direct calls; see the bounds above.  Returns the counts
+    and worst values; raises nothing."""
+    out = {"answers": len(answers), "near_ties": 0, "pred_disagree": 0,
+           "topk_checked": 0, "topk_disagree": 0, "score_err": 0.0,
+           "class_score_err": 0.0, "probe_cos_min": 1.0, "waves_rows": 0}
+    for name, ans in answers:
+        d = direct[name]
+        margin = top2_margin(d["scores"][0])
+        out["class_score_err"] = max(out["class_score_err"], float(np.abs(
+            np.asarray(ans["scores"]) - d["scores"][0]).max()))
+        if margin <= EXPLAIN_MARGIN:
+            out["near_ties"] += 1
+            continue
+        out["pred_disagree"] += ans["prediction"] != d["pred"]
+        for level, (_, names) in banks.items():
+            s = d["concepts"][level]
+            order = np.argsort(-s)
+            ranked = s[order]
+            for i, item in enumerate(ans[f"{level}_top"]):
+                out["score_err"] = max(out["score_err"], abs(
+                    item["score"] - float(s[names.index(item["concept"])])))
+                gaps = [ranked[i - 1] - ranked[i]] if i else []
+                if i + 1 < len(ranked):
+                    gaps.append(ranked[i] - ranked[i + 1])
+                if min(gaps) > EXPLAIN_MARGIN:
+                    out["topk_checked"] += 1
+                    out["topk_disagree"] += item["concept"] != names[order[i]]
+    for row, res in recorded:
+        name = next(n for n, d in direct.items()
+                    if np.array_equal(d["clips"], row))
+        d = direct[name]
+        out["waves_rows"] += 1
+        if top2_margin(d["scores"][0]) > EXPLAIN_MARGIN:
+            p, q = res["grad_probe"], d["probe"]
+            out["probe_cos_min"] = min(out["probe_cos_min"], float(
+                p @ q / (np.linalg.norm(p) * np.linalg.norm(q))))
+    return out
+
+
+def explain_flash_backward(dev) -> list:
+    """The flash wrapper's backward in bf16 at the route's shapes: the
+    forward launches the kernel once, the backward recomputes the plain
+    version; gradients finite and against the plain version's own
+    autograd, with the backward's time and peak memory."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.ops import flash_attention as fa
+    rows = []
+    for i, (b, h, s, d) in enumerate(EXPLAIN_FLASH_BWD):
+        gen = torch.Generator(device=dev).manual_seed(3000 + i)
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                   .to(torch.bfloat16).requires_grad_() for _ in range(3))
+        scale = d ** -0.5
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = fa.flash_attention.launches
+        out = fa.flash_attention(q, k, v, scale)
+        g = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = torch.autograd.grad(out, (q, k, v), g)
+        end.record()
+        end.synchronize()
+        launches = fa.flash_attention.launches - before
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        want = torch.autograd.grad(
+            fa._reference_attention(q, k, v, scale, False), (q, k, v), g)
+        err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(got, want))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        ok = finite and launches == 1 and err <= TOL["bfloat16"]
+        rows.append({"shape": [b, h, s, d], "launches": launches,
+                     "max_abs_err": err, "finite": finite,
+                     "backward_ms": start.elapsed_time(end),
+                     "peak_mb": peak})
+        print(f"14 flash backward bf16 (B,H,S,D)={(b, h, s, d)}: "
+              f"{launches} launch, gradients finite {finite}, against the "
+              f"plain version's autograd max |err| {err:.3e} (tol "
+              f"{TOL['bfloat16']:g}), backward {rows[-1]['backward_ms']:.3f}"
+              f" ms, peak {peak:.0f} MiB {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise SystemExit("14 the flash backward failed")
+        del q, k, v, out, g, got, want
+    return rows
+
+
+def check_explain_route(dev, card) -> Tuple[dict, dict]:
+    """Step 14: the /explain route at full width (TS_JOINT, flash on,
+    bf16, 400 classes) from a checkpoint written in the JAX format, seeded
+    concept banks, videos through the `decode` seam.  Every failed check
+    raises.  Returns (the `explain` JSON object, the launches of the
+    batch-1 requests by kernel)."""
+    import argparse
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli.explain_demo import (
+        load_explain_model)
+    from cross_modal_video_engine_tpu_torch.explain.grads import (
+        grad_extract, normalized_cls_grad)
+    from cross_modal_video_engine_tpu_torch.explain.model_layers import (
+        get_model_layers)
+    from cross_modal_video_engine_tpu_torch.ops import (
+        attention_sublayer as asl, flash_attention as fa)
+
+    counted = (asl.fused_attention_sublayer_compact,
+               asl.fused_attention_sublayer, asl.fused_mlp_sublayer,
+               asl.fused_block_sublayer_compact, fa.flash_attention)
+    t_step = time.perf_counter()
+    layers = TS_JOINT["num_layers"]
+    layer = get_model_layers("timesformer", layers)["target"]
+    per_wave = layers + (layers - 1 - layer)
+    videos = bserve.seeded_videos(CAPTION_VIDEOS, seed=9)
+    names = sorted(videos)
+    line = {"card": card, "backbone": "TS_JOINT",
+            "classes": bserve.EXPLAIN_CLASSES, "target_layer": layer,
+            "videos": CAPTION_VIDEOS, "video_frames": bserve.VIDEO_FRAMES,
+            "video_size": [bserve.VIDEO_HEIGHT, bserve.VIDEO_WIDTH]}
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+
+    def zero():
+        for fn in counted:
+            fn.launches = 0
+
+    def read():
+        return {fn.__name__: fn.launches for fn in counted}
+
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        args = argparse.Namespace(
+            explain_checkpoint=os.path.join(tmp, "explain"),
+            concept_banks=os.path.join(tmp, "banks.npz"),
+            target_layer=layer, device=str(dev))
+        t0 = time.perf_counter()
+        bserve.write_explain_checkpoint(args.explain_checkpoint, TS_JOINT,
+                                        seed=6)
+        banks = bserve.write_concept_banks(args.concept_banks,
+                                           TS_JOINT["embed_dims"], seed=8)
+        line["checkpoint_write_s"] = time.perf_counter() - t0
+        line["banks"] = {lvl: list(m.shape) for lvl, (m, _) in banks.items()}
+        t0 = time.perf_counter()
+        server, handler = bserve.start_route_server(
+            args, "explain", explain_decode=videos.__getitem__)
+        torch.cuda.synchronize()
+        line["route_start_s"] = time.perf_counter() - t0
+        recorded = []
+        wave_fn = handler.batcher.fn
+
+        def recording(rows):
+            outs = wave_fn(rows)
+            recorded.extend(zip(rows, outs))
+            return outs
+
+        try:
+            port = server.server_address[1]
+            bserve.post_explain(port, {"video": names[0]})      # warm-up
+            torch.cuda.synchronize()
+            handler.batcher.fn = recording
+            # (a) batch-1 requests, the counters zeroed just before
+            zero()
+            w0 = handler.batcher.batches_run
+            single = [bserve.request(port, "explain",
+                                     {"video": names[i % len(names)]},
+                                     timeout=600.0)
+                      for i in range(EXPLAIN_REQUESTS)]
+            torch.cuda.synchronize()
+            waves1 = handler.batcher.batches_run - w0
+            launches = read()
+            # (b) one burst of concurrent requests
+            zero()
+            w0, r0 = handler.batcher.batches_run, handler.batcher.rows_run
+            burst = bserve.clients_in_threads(
+                port, [{"video": names[i % len(names)]}
+                       for i in range(EXPLAIN_BURST)], EXPLAIN_BURST,
+                lambda port, p: bserve.request(port, "explain", p,
+                                               timeout=600.0))
+            torch.cuda.synchronize()
+            waves8 = handler.batcher.batches_run - w0
+            burst_launches = read()
+            handler.batcher.fn = wave_fn
+            line.update(
+                batch1_ms=bserve.percentiles([ms for ms, _ in single]),
+                burst_ms=bserve.percentiles([ms for ms, _ in burst]),
+                batch1_waves=waves1, burst_waves=waves8,
+                burst_rows_per_wave=(handler.batcher.rows_run - r0) / waves8,
+                launches=launches, burst_launches=burst_launches)
+            print(f"14 explain route (TimeSformer ViT-B/16 joint bf16, "
+                  f"flash on, {bserve.EXPLAIN_CLASSES} classes, probe at "
+                  f"block {layer}, banks {json.dumps(line['banks'])}; "
+                  f"checkpoint written in {line['checkpoint_write_s']:.1f} "
+                  f"s, route up in {line['route_start_s']:.1f} s): "
+                  f"{EXPLAIN_REQUESTS} batch-1 requests of "
+                  f"{bserve.VIDEO_FRAMES}-frame {bserve.VIDEO_HEIGHT}x"
+                  f"{bserve.VIDEO_WIDTH} videos, p50 "
+                  f"{line['batch1_ms']['p50']:.2f} ms, p99 "
+                  f"{line['batch1_ms']['p99']:.2f} ms in {waves1} waves; "
+                  f"burst of {EXPLAIN_BURST} p50 "
+                  f"{line['burst_ms']['p50']:.2f} ms, p99 "
+                  f"{line['burst_ms']['p99']:.2f} ms in {waves8} waves "
+                  f"({line['burst_rows_per_wave']:.2f} rows a wave) on "
+                  f"{card}; launches {json.dumps(launches)} then "
+                  f"{json.dumps(burst_launches)} (need {per_wave} flash a "
+                  f"wave, no other kernel)", flush=True)
+            others = [k for k, v in {**launches, **burst_launches}.items()
+                      if v and k != "flash_attention"]
+            if (waves1 != EXPLAIN_REQUESTS or others
+                    or launches["flash_attention"] != per_wave * waves1
+                    or burst_launches["flash_attention"]
+                    != per_wave * waves8):
+                raise SystemExit("14 explain route launches are wrong")
+
+            # (c) answers against the route's model called directly
+            direct = {n: explain_direct(handler, n, banks) for n in names}
+            asked = ([names[i % len(names)] for i in range(EXPLAIN_REQUESTS)]
+                     + [names[i % len(names)] for i in range(EXPLAIN_BURST)])
+            agree = explain_agreement(
+                [(n, a) for n, (_, a) in zip(asked, single + burst)],
+                direct, banks, recorded)
+            line["agreement"] = agree
+            print(f"14 answers vs grad_extract + concept_scores on the "
+                  f"route's model and clips: {json.dumps(agree)} (bounds: "
+                  f"prediction equal and probe cosine >= "
+                  f"{EXPLAIN_PROBE_COS:g} where the top-2 margin clears "
+                  f"{EXPLAIN_MARGIN:g}, top-k equal where the gaps clear "
+                  f"it, scores within it); video 0's answer: prediction "
+                  f"{single[0][1]['prediction']}, symbolic top "
+                  f"{json.dumps(single[0][1]['symbolic_top'][:3])}",
+                  flush=True)
+            if (agree["pred_disagree"] or agree["topk_disagree"]
+                    or agree["probe_cos_min"] < EXPLAIN_PROBE_COS
+                    or agree["score_err"] > EXPLAIN_MARGIN
+                    or agree["waves_rows"] != EXPLAIN_REQUESTS + EXPLAIN_BURST
+                    or agree["near_ties"] == agree["answers"]):
+                raise SystemExit("14 explain answers disagree with the "
+                                 "direct call")
+
+            # (d) the card against the port on the CPU, 2 videos
+            t0 = time.perf_counter()
+            cpu_model, _ = load_explain_model(args.explain_checkpoint,
+                                              device="cpu")
+            cpu = []
+            for n in names[:EXPLAIN_CPU_VIDEOS]:
+                d = direct[n]
+                g = grad_extract(cpu_model, torch.from_numpy(d["clips"]),
+                                 [layer])
+                p = normalized_cls_grad(g["gradients"][layer])
+                margin = top2_margin(g["scores"][0])
+                cpu.append({
+                    "probe_cos": float(p @ d["probe"] / (
+                        np.linalg.norm(p) * np.linalg.norm(d["probe"]))),
+                    "class_score_err": float(np.abs(
+                        g["scores"][0] - d["scores"][0]).max()),
+                    "margin": margin, "pred_cpu": int(g["pred"][0]),
+                    "pred_card": d["pred"]})
+            del cpu_model
+            line["card_vs_cpu"] = cpu
+            line["card_vs_cpu_s"] = time.perf_counter() - t0
+            print(f"14 card vs the port on the CPU (bf16 both, "
+                  f"{EXPLAIN_CPU_VIDEOS} videos, "
+                  f"{line['card_vs_cpu_s']:.1f} s): {json.dumps(cpu)} "
+                  f"(probe cosine >= {EXPLAIN_CPU_COS:g}, prediction equal "
+                  f"where the margin clears {EXPLAIN_MARGIN:g})", flush=True)
+            if any(c["probe_cos"] < EXPLAIN_CPU_COS
+                   or (c["margin"] > EXPLAIN_MARGIN
+                       and c["pred_cpu"] != c["pred_card"]) for c in cpu):
+                raise SystemExit("14 card and CPU disagree")
+
+            # (e) the flash backward at the route's shapes
+            line["flash_backward"] = explain_flash_backward(dev)
+
+            # (f) one request at block 0: the un-batched path
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero()
+            ms, ans0 = bserve.request(port, "explain", {"video": names[0],
+                                                        "target_layer": 0},
+                                      timeout=600.0)
+            torch.cuda.synchronize()
+            layer0 = {"ms": ms, "launches": read(),
+                      "peak_mb": torch.cuda.max_memory_allocated(dev)
+                      / 2 ** 20, "prediction": ans0["prediction"]}
+            line["layer0"] = layer0
+            need0 = layers + layers - 1
+            print(f"14 one request at target_layer 0 (un-batched): "
+                  f"{ms:.1f} ms, launches {json.dumps(layer0['launches'])} "
+                  f"(need {need0} flash), peak memory "
+                  f"{layer0['peak_mb']:.0f} MiB, prediction "
+                  f"{ans0['prediction']} (batch-1: "
+                  f"{single[0][1]['prediction']})", flush=True)
+            if (layer0["launches"]["flash_attention"] != need0
+                    or sum(layer0["launches"].values()) != need0
+                    or ans0["prediction"] != single[0][1]["prediction"]
+                    or not np.isfinite(ans0["scores"]).all()):
+                raise SystemExit("14 the target_layer 0 request failed")
+
+            # (g) the handler without HTTP, the host pipeline and the
+            # waves, timed
+            direct_ms = []
+            for n in names:
+                t0 = time.perf_counter()
+                handler({"video": n})
+                direct_ms.append((time.perf_counter() - t0) * 1e3)
+            line["handler_ms"] = bserve.percentiles(direct_ms)
+            line["pipeline"] = bserve.pipeline_times(handler, names,
+                                                     CAPTION_PIPELINE_CALLS)
+            print(f"14 the handler called without HTTP: p50 "
+                  f"{line['handler_ms']['p50']:.2f} ms, p99 "
+                  f"{line['handler_ms']['p99']:.2f} ms over {len(names)} "
+                  f"requests; the host pipeline "
+                  f"{line['pipeline']['wall_ms']:.2f} ms a request, by op "
+                  f"{json.dumps(line['pipeline']['ops_ms'])}", flush=True)
+            for n in (1, EXPLAIN_BURST):
+                rows = bserve.caption_wave_rows(handler, names, n)
+                t = bserve.wave_times(handler, rows, EXPLAIN_WAVE_CALLS,
+                                      device=dev)
+                t.update(bserve.explain_phase_times(
+                    handler, rows, EXPLAIN_PHASE_CALLS, dev))
+                line[f"wave{n}"] = t
+                print(f"14 wave of {n}: wall {t['wall_ms']:.3f} ms, CUDA "
+                      f"events {t['events_ms']:.3f} ms, kernels busy "
+                      f"{t['busy_ms']:.3f} ms, idle share "
+                      f"{t['idle_share']:.3f}; capture forward "
+                      f"{t['capture_ms']:.3f} ms, gradient pass "
+                      f"{t['grad_ms']:.3f} ms (CUDA events), flash "
+                      f"{t['flash_launches']} launches, peak "
+                      f"{t['peak_mb']:.0f} MiB on {card}; longest kernels "
+                      f"(ms a wave): "
+                      f"{json.dumps(t['top_kernels'])}", flush=True)
+                if t["flash_launches"] != per_wave:
+                    raise SystemExit("14 a timed wave's launches are wrong")
+        finally:
+            handler.batcher.fn = wave_fn
+            bserve.stop_server(server, handler)
+        del handler, server
+        torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"14 explain route checked in {line['seconds']:.1f} s", flush=True)
+    return line, launches
+
+
 def kernel_json(results, launches, core, block_extra,
-                composed_launches, caption_launches) -> dict:
+                composed_launches, caption_launches,
+                explain_launches) -> dict:
     """The kernels line: bf16 errors over every case of a kernel; times,
     bound and library time of its main-path case; `launches` on the main
     path of steps 4, 6 and 8, `composed_launches` over the requests of the
     ViT-B/32 composed route (step 12d), `caption_launches` over the
-    batch-1 requests of the caption route (step 13).  `bound_ms` is the
+    batch-1 requests of the caption route (step 13), `explain_launches`
+    over the batch-1 requests of the explain route (step 14).  `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
     also carry the host time of one call and their core kernel by itself
@@ -2798,6 +3205,7 @@ def kernel_json(results, launches, core, block_extra,
             "launches": launches[name],
             "composed_launches": composed_launches.get(name, 0),
             "caption_launches": caption_launches.get(name, 0),
+            "explain_launches": explain_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in bf16),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": max(by_ops, by_bytes) * 1e3,
@@ -2933,13 +3341,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     caption, caption_launches = check_caption_route(dev, card)
 
-    # -- 14. results ------------------------------------------------------------
+    # -- 14. the explain route ----------------------------------------------------
+    torch.cuda.empty_cache()
+    explain, explain_launches = check_explain_route(dev, card)
+
+    # -- 15. results ------------------------------------------------------------
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"composed": composed}))
     print(json.dumps({"caption": caption}))
+    print(json.dumps({"explain": explain}))
     print(json.dumps(kernel_json(results, launches, core, block_extra,
-                                 composed_launches, caption_launches)))
+                                 composed_launches, caption_launches,
+                                 explain_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

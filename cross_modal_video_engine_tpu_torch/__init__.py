@@ -26,7 +26,9 @@ composed_retrieval route of cli/serve), and caption inference served over
 HTTP (utils/registry, config, data/pipelines, data/datasets,
 metrics/accuracy, the decode ops of io/video_decode,
 api.inference_recognizer, cli/caption_inference, cli/caption_test, the
-caption route of cli/serve).
+caption route of cli/serve), and explainable recognition served over
+HTTP (explain/*, cli/explain_demo, the explain route of cli/serve, the
+demo pages of service/demo).
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""Routes served over HTTP: LINAS at 1M rows, captions, composed retrieval.
+"""Routes served over HTTP: LINAS at 1M rows, captions, composed retrieval,
+explainable recognition.
 
     python -m cross_modal_video_engine_tpu_torch.bench.serve \
         [--rows 1000000] [--videos 1000] [--device cpu]
@@ -6,6 +7,8 @@
         [--device cpu]
     python -m cross_modal_video_engine_tpu_torch.bench.serve --composed \
         [--videos 1000] [--device cpu]
+    python -m cross_modal_video_engine_tpu_torch.bench.serve --explain \
+        [--device cpu]
 
 The port's counterpart of the JAX package's bench_serve.py.  It writes,
 from a numpy seed, everything the retrieval route reads: a collection in
@@ -57,6 +60,17 @@ wave of 1 and of 8 rows (clips to the device, forward_test, one fetch) as
 above; and the host pipeline of one request (frame draw, sampling,
 resize, crop, normalize) by itself.
 
+The explain arm (`--explain`, `run_explain`) writes, from a numpy seed, a
+Recognizer3D checkpoint in the JAX package's format (the caption arm's
+backbone with a 400-class head) and concept banks (`symbolic` 80 x 768,
+`cluster` 240 x 768), and serves the `/explain` route on the caption
+arm's seeded videos through its `decode` seam.  It measures: batch-1
+p50/p99 and a burst of 8 concurrent requests over HTTP; one wave of 1 and
+of 8 rows (clips to the device, the capture forward, the class-score
+gradient at the route's layer, one fetch) as above, with the capture
+forward and the gradient timed apart, the flash launches of a wave and
+its peak memory; and the host pipeline of one request.
+
 Prints one JSON line per row.  On the CPU (`--device cpu`) the rows say
 so and no device time is given.
 """
@@ -84,6 +98,7 @@ from ..convert.from_jax import (clip_resnet_variables_to_jax,
                                 dual_encoding_variables_to_jax,
                                 recognizer_variables_to_jax)
 from ..data.composed_dataset import save_video_features
+from ..explain.model_layers import get_model_layers
 from ..io.bigfile import write_bigfile
 from ..models import clip as clip_vit
 from ..models import clip_resnet, combiner
@@ -743,17 +758,23 @@ def seeded_videos(n: int, seed: int = 0, **shape) -> Dict[str, SeededVideo]:
             for i in range(n)}
 
 
-def start_caption_server(args: argparse.Namespace, decode):
-    """The caption route as `cli.serve` builds it, on 127.0.0.1 (a free
-    port) from a thread.  Returns (server, handler)."""
+def start_route_server(args: argparse.Namespace, route: str, **decode):
+    """One route as `cli.serve.build_service(args, **decode)` builds it,
+    on 127.0.0.1 (a free port) from a thread.  Returns (server,
+    handler)."""
     from ..cli.serve import build_service
     from ..service.app import create_server
-    service = build_service(args, caption_decode=decode)
-    handler = service.handlers["caption"]
+    service = build_service(args, **decode)
+    handler = service.handlers[route]
     server = create_server(service, "127.0.0.1", 0)
     threading.Thread(target=server.serve_forever, daemon=True,
-                     name="caption-server").start()
+                     name=f"{route}-server").start()
     return server, handler
+
+
+def start_caption_server(args: argparse.Namespace, decode):
+    """The caption route with `decode` as its seam: (server, handler)."""
+    return start_route_server(args, "caption", caption_decode=decode)
 
 
 def post_caption(port: int, payload: dict) -> float:
@@ -855,12 +876,195 @@ def run_caption(device=None, root: Optional[str] = None,
     return out
 
 
+# -- explainable recognition ---------------------------------------------------
+
+# the explain route's model: the caption route's backbone (TimeSformer
+# ViT-B/16, joint space-time through the flash kernel, bf16) with a
+# Kinetics-400 classifier head
+EXPLAIN_CLASSES = 400
+# concept banks: one symbolic vector per object class of the detector
+# (YOLOv5's 80 COCO classes) and k cluster centres per class
+CONCEPT_OBJECTS, CONCEPT_CLUSTERS = 80, 3
+
+
+def write_explain_checkpoint(path: str, backbone: dict,
+                             num_classes: int = EXPLAIN_CLASSES,
+                             seed: int = 0) -> Dict[str, torch.Tensor]:
+    """A Recognizer3D checkpoint of random f32 weights from a numpy seed
+    (`models.recognizer.random_state_dict`) in the JAX package's format,
+    config {"backbone", "num_classes"}; returns the state dict."""
+    cfg = TimeSformerConfig(**backbone)
+    sd = recognizer_state_dict(cfg, seed, num_classes=num_classes)
+    save_checkpoint(path, recognizer_variables_to_jax(sd, cfg),
+                    {"backbone": backbone, "num_classes": num_classes},
+                    {"seed": seed})
+    return sd
+
+
+def write_concept_banks(path: str, dim: int, objects: int = CONCEPT_OBJECTS,
+                        clusters: int = CONCEPT_CLUSTERS, seed: int = 0
+                        ) -> Dict[str, tuple]:
+    """The npz `cli.explain_demo.load_concept_banks` reads, drawn N(0, 1)
+    from a numpy seed: 'symbolic' (objects, dim) named object{i}, and
+    'cluster' (objects * clusters, dim) named object{i}#c{j}, as
+    `explain.ctv.cluster_concept_vectors` names its centres.  Returns
+    {level: (matrix, names)}."""
+    rng = np.random.default_rng(seed)
+    names = [f"object{i}" for i in range(objects)]
+    banks = {
+        "symbolic": (rng.standard_normal((objects, dim), np.float32), names),
+        "cluster": (rng.standard_normal((objects * clusters, dim),
+                                        np.float32),
+                    [f"{n}#c{j}" for n in names for j in range(clusters)])}
+    arrays = {}
+    for level, (matrix, level_names) in banks.items():
+        arrays[f"{level}_matrix"] = matrix
+        arrays[f"{level}_names"] = np.array(level_names)
+    np.savez(path, **arrays)
+    return banks
+
+
+def post_explain(port: int, payload: dict) -> float:
+    """ms of one /explain request; an answer without a prediction
+    raises."""
+    ms, out = request(port, "explain", payload, timeout=600.0)
+    if "prediction" not in out or not out.get("scores"):
+        raise RuntimeError(f"explain answer without a prediction: {out}")
+    return ms
+
+
+def explain_phase_times(handler, rows, calls: int = 10, device=None
+                        ) -> dict:
+    """The two halves of a wave on rows (the pipeline's clips) already on
+    the device, `calls` times: the capture forward (`capture_ms`) and the
+    class-score gradient at the route's layer (`grad_ms`), by CUDA events
+    on the card and the host clock on the CPU; the flash launches of one
+    whole wave (`run_wave`) and, on the card, its peak memory
+    (`peak_mb`, max_memory_allocated)."""
+    from ..explain.grads import capture_forward, class_score_grads
+    from ..ops.flash_attention import flash_attention
+    device = device or next(handler.model.parameters()).device
+    model, layer = handler.model, (handler.target_layer,)
+    clips = torch.from_numpy(np.concatenate(rows)).to(device)
+    cuda = device.type == "cuda"
+
+    def mark():
+        if not cuda:
+            return time.perf_counter()
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def ms(a, b):
+        if not cuda:
+            return (b - a) * 1e3
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    scores, cls_idx, captured = capture_forward(model, clips, layer)
+    class_score_grads(model, captured, cls_idx, layer)         # warm-up
+    fwd, bwd = [], []
+    for _ in range(calls):
+        t0 = mark()
+        scores, cls_idx, captured = capture_forward(model, clips, layer)
+        t1 = mark()
+        class_score_grads(model, captured, cls_idx, layer)
+        t2 = mark()
+        fwd.append(ms(t0, t1))
+        bwd.append(ms(t1, t2))
+    del scores, cls_idx, captured
+    before = flash_attention.launches
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+    handler.run_wave(clips).cpu()
+    return {"capture_ms": float(np.mean(fwd)), "grad_ms": float(np.mean(bwd)),
+            "phase_clock": "cuda events" if cuda else "host",
+            "flash_launches": flash_attention.launches - before,
+            "peak_mb": (torch.cuda.max_memory_allocated(device) / 2 ** 20
+                        if cuda else None)}
+
+
+def run_explain(device=None, root: Optional[str] = None,
+                backbone: Optional[dict] = None,
+                num_classes: int = EXPLAIN_CLASSES, n_single: int = 32,
+                burst: int = 8, wave_calls: int = 20, n_videos: int = 8,
+                video_shape=(VIDEO_FRAMES, VIDEO_HEIGHT, VIDEO_WIDTH),
+                seed: int = 0) -> List[dict]:
+    device = resolve_device(device)
+    backbone = backbone or CAPTION_BACKBONE
+    out: List[dict] = []
+    root = root or os.path.join(_REPO, "build")
+    os.makedirs(root, exist_ok=True)
+    frames, height, width = video_shape
+    videos = seeded_videos(n_videos, seed + 1, frames=frames, height=height,
+                           width=width)
+    names = sorted(videos)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        # the grad probe's block: 10 of 12 (cli.serve's default)
+        layer = get_model_layers("timesformer",
+                                 backbone["num_layers"])["target"]
+        args = argparse.Namespace(
+            explain_checkpoint=os.path.join(tmp, "explain"),
+            concept_banks=os.path.join(tmp, "banks.npz"),
+            target_layer=layer, device=str(device))
+        write_explain_checkpoint(args.explain_checkpoint, backbone,
+                                 num_classes, seed)
+        write_concept_banks(args.concept_banks, backbone["embed_dims"],
+                            seed=seed + 2)
+        server, handler = start_route_server(args, "explain",
+                                             explain_decode=videos.__getitem__)
+        try:
+            port = server.server_address[1]
+            base = {"video_frames": frames, "video_size": [height, width],
+                    "attention_type": backbone["attention_type"],
+                    "dtype": backbone.get("dtype", "float32"),
+                    "layers": backbone["num_layers"],
+                    "target_layer": handler.target_layer,
+                    "classes": num_classes, **where(device)}
+            payloads = [{"video": names[i % len(names)]}
+                        for i in range(max(n_single, burst))]
+            post_explain(port, payloads[0])                    # warm-up
+            lat = [post_explain(port, p) for p in payloads[:n_single]]
+            p = percentiles(lat)
+            emit({"metric": "serve_explain_batch1", "value": p["p50"],
+                  "unit": per("ms", device), "p99": p["p99"],
+                  "n": len(lat), **base}, out)
+            w0, r0 = handler.batcher.batches_run, handler.batcher.rows_run
+            lat = clients_in_threads(port, payloads[:burst], burst,
+                                      post_explain)
+            waves = handler.batcher.batches_run - w0
+            p = percentiles(lat)
+            emit({"metric": f"serve_explain_burst{burst}", "value": p["p50"],
+                  "unit": per("ms", device), "p99": p["p99"],
+                  "n": len(lat), "waves": waves,
+                  "rows_per_wave": (handler.batcher.rows_run - r0) / waves,
+                  **base}, out)
+            for n in (1, 8):
+                rows = caption_wave_rows(handler, names, n)
+                t = wave_times(handler, rows, wave_calls, device=device)
+                t.update(explain_phase_times(handler, rows,
+                                             max(wave_calls // 2, 1),
+                                             device))
+                emit({"metric": f"serve_explain_wave{n}",
+                      "value": t["wall_ms"], "unit": per("ms", device),
+                      **t, **base}, out)
+            t = pipeline_times(handler, names)
+            emit({"metric": "serve_explain_pipeline", "value": t["wall_ms"],
+                  "unit": "ms/host", **t, **base}, out)
+        finally:
+            stop_server(server, handler)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--composed", action="store_true",
                     help="the composed-retrieval arm instead of LINAS")
     ap.add_argument("--caption", action="store_true",
                     help="the caption arm instead of LINAS")
+    ap.add_argument("--explain", action="store_true",
+                    help="the explain arm instead of LINAS")
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--videos", type=int, default=1000)
     ap.add_argument("--device", default=None,
@@ -874,6 +1078,8 @@ def main(argv=None) -> None:
         run_composed(args.videos, args.device, args.root)
     elif args.caption:
         run_caption(args.device, args.root)
+    elif args.explain:
+        run_explain(args.device, args.root)
     else:
         run(args.rows, args.videos, args.device, args.root)
 

@@ -1,14 +1,15 @@
-"""Engine HTTP server CLI: the retrieval, caption and composed-retrieval
-routes.
+"""Engine HTTP server CLI: the four capability routes and the demo pages.
 
-Counterpart of cross_modal_video_engine_tpu/cli/serve.py for the routes
-ported so far, on the CUDA device (or `--device cpu`): text->video
-retrieval with the LINAS dual encoder (`/retrieval`), label-sequence
-captions of a video with a TimeSformer recognizer and its RNN decoder
-(`/caption`), and composed text+video retrieval with a CLIP tower and the
-Combiner (`/composed_retrieval`).  The explain route and the demo pages
-are not ported yet; their flags raise and name the ROADMAP.md item that
-ports them.
+Counterpart of cross_modal_video_engine_tpu/cli/serve.py, on the CUDA
+device (or `--device cpu`): text->video retrieval with the LINAS dual
+encoder (`/retrieval`), label-sequence captions of a video with a
+TimeSformer recognizer and its RNN decoder (`/caption`), composed
+text+video retrieval with a CLIP tower and the Combiner
+(`/composed_retrieval`), and explainable recognition with a TimeSformer
+classifier, its gradient probe and concept banks (`/explain`).  Each
+route is served when its checkpoints are given; `--demo` also serves the
+static pages of service/demo/ (a page whose route is not served gets a
+404 from the API).
 
   python -m cross_modal_video_engine_tpu_torch.cli.serve \
       --retrieval_checkpoint CKPT --rootpath R --collection C \
@@ -18,6 +19,9 @@ ports them.
   python -m cross_modal_video_engine_tpu_torch.cli.serve \
       --clip_checkpoint CKPT --combiner_checkpoint CKPT2 \
       --videos_dir VIDEOS --merges merges.txt [--feature_cache DIR]
+  python -m cross_modal_video_engine_tpu_torch.cli.serve \
+      --explain_checkpoint CKPT [--concept_banks banks.npz] \
+      [--target_layer 10] [--label_names names.json] [--demo]
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import threading
 import numpy as np
 import torch
 
-from ..service.app import EngineService, create_server
+from ..service.app import DEMO_DIR, EngineService, create_server
 
 # The smallest wave the retrieval route runs.  The JAX route pads waves to
 # 8 rows because XLA lays a 1-row search out as a slow M=1 GEMV on the TPU.
@@ -38,12 +42,6 @@ from ..service.app import EngineService, create_server
 # waves are not padded up.  Results do not depend on it: padding repeats
 # row 0.
 RETRIEVAL_MIN_BATCH = 1
-
-# the routes of the JAX server that the port does not serve yet
-NOT_PORTED = {
-    "explain_checkpoint": "the explain route (ROADMAP.md queue 1 item 7)",
-    "demo": "the demo pages (ROADMAP.md queue 1 item 4)",
-}
 
 
 def _pow2_rows(rows, max_batch, min_batch=1):
@@ -282,16 +280,128 @@ def build_composed_handler(args, decode=None):
     return handler
 
 
-def build_service(args, decode=None, caption_decode=None) -> EngineService:
-    """Register the retrieval and caption routes if their checkpoints were
-    given, and the composed-retrieval route if both of its checkpoints
-    were (`decode`: see build_composed_handler; `caption_decode`: the
-    `decode` of build_caption_handler); a flag of a route that is not
-    ported yet raises."""
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag}: {what} is not ported to the PyTorch package yet")
+def build_explain_handler(args, decode=None):
+    """The explain route (the inference_demo.py flow behind one POST):
+    payload {"video", "target_layer", "topK"} -> {"prediction", "scores",
+    "<level>_top"}.
+
+    The classifier (`explain_demo.load_explain_model` on
+    `args.explain_checkpoint`: a caption checkpoint is refused) goes to
+    the device once, here; the concept banks (`args.concept_banks`) and
+    label names stay on the host.  A request runs the test pipeline
+    (cli/caption_inference.DEFAULT_PIPELINE) on the host in its own thread,
+    `decode` handed to its DecordInit as in build_caption_handler.  At
+    the default layer (`args.target_layer`) a wave of requests
+    (micro-batched, padded to a power of two by repeating row 0, at most
+    `max_batch` = 8 rows) is one copy of the clips to the device, the
+    capture forward, the class-score gradient at that layer under grad
+    mode (whatever the batcher's thread has set), and one fetch of the
+    scores, the predicted classes and the CLS token's gradients; the
+    concept scoring runs on the host.  A pad row adds to the summed class
+    score, but a sample's gradient depends on no other sample.  A request
+    that names another layer runs `explain_video` un-batched, one such
+    request at a time (its graph spans every block above the layer).  The
+    handler carries `batcher`, `model`, `pipeline`, `target_layer` and
+    `run_wave(clips)` (one wave on clips already on the device, returning
+    the packed device tensor before the fetch) for measurement."""
+    import json
+    from ..api import model_device
+    from ..data.pipelines import build_pipeline, with_reader
+    from ..explain.ctv import concept_scores, top_concepts
+    from ..explain.grads import (capture_forward, class_score_grads,
+                                 normalized_cls_grad)
+    from ..explain.pipeline import explain_video
+    from ..service.batching import MicroBatcher
+    from . import caption_inference
+    from .explain_demo import load_concept_banks, load_explain_model
+
+    model, _ = load_explain_model(args.explain_checkpoint,
+                                  getattr(args, "device", None))
+    device = model_device(model)
+    concept_banks = getattr(args, "concept_banks", None)
+    banks = load_concept_banks(concept_banks) if concept_banks else {}
+    label_names = None
+    if getattr(args, "label_names", None):
+        with open(args.label_names) as f:
+            label_names = json.load(f)
+    pipe = build_pipeline(with_reader(caption_inference.DEFAULT_PIPELINE,
+                                      decode))
+    max_batch = getattr(args, "max_batch", None) or 8
+    default_layer = getattr(args, "target_layer", 10)
+    classes = model.cls_head.fc_cls.out_features
+    custom_lock = threading.Lock()
+
+    def run_wave(clips: torch.Tensor) -> torch.Tensor:
+        """(rows, C + 1 + D) f32 on the device: the class scores, the
+        target class, the gradient at the CLS token after block
+        default_layer."""
+        scores, cls_idx, captured = capture_forward(model, clips,
+                                                    (default_layer,))
+        grads = class_score_grads(model, captured, cls_idx,
+                                  (default_layer,))
+        return torch.cat([scores.float(), cls_idx[:, None].float(),
+                          grads[default_layer][:, 0]], dim=1)
+
+    def grad_rows(rows):
+        # rows: (num_clips, T, H, W, C) float32 arrays of one shape; a
+        # request's probe is the mean over its own clips' rows
+        k = rows[0].shape[0]
+        rows, n = _pow2_rows(rows, max_batch)
+        clips = torch.from_numpy(np.concatenate(rows, axis=0)).to(device)
+        packed = run_wave(clips).cpu().numpy()             # the one fetch
+        scores = packed[:, :classes]
+        preds = packed[:, classes].astype(np.int64)
+        cls_grads = packed[:, classes + 1:]
+        return [dict(pred=preds[i * k:(i + 1) * k],
+                     scores=scores[i * k:(i + 1) * k],
+                     grad_probe=normalized_cls_grad(
+                         cls_grads[i * k:(i + 1) * k, None]))
+                for i in range(n)]
+
+    batcher = MicroBatcher(grad_rows, max_batch=max_batch,
+                           max_wait_ms=getattr(args, "max_wait_ms", 5.0),
+                           name="explain-grad")
+
+    def handler(payload: dict) -> dict:
+        r = pipe({"filename": payload["video"], "start_index": 0})
+        clips = np.asarray(r["imgs"], np.float32)
+        layer = int(payload.get("target_layer", default_layer))
+        topk = int(payload.get("topK", 5))
+        if layer == default_layer:
+            out = batcher.submit(clips)
+            for level, bank in banks.items():
+                s = concept_scores(bank.matrix, out["grad_probe"])
+                out[f"{level}_top"] = top_concepts(s, bank.names, topk)
+        else:       # another layer: the un-batched path
+            with custom_lock:
+                out = explain_video(model, clips, target_layer=layer,
+                                    concept_banks=banks, topk=topk)
+        pred = int(out["pred"][0])
+        resp = {
+            "prediction": label_names[pred] if label_names else pred,
+            "scores": [float(s) for s in np.asarray(out["scores"][0])],
+        }
+        for level in banks:
+            resp[f"{level}_top"] = [
+                {"concept": n, "score": float(s)}
+                for n, s in out[f"{level}_top"]]
+        return resp
+
+    handler.batcher = batcher
+    handler.model = model
+    handler.pipeline = pipe
+    handler.target_layer = default_layer
+    handler.run_wave = run_wave
+    return handler
+
+
+def build_service(args, decode=None, caption_decode=None,
+                  explain_decode=None) -> EngineService:
+    """Register the retrieval, caption and explain routes if their
+    checkpoints were given, and the composed-retrieval route if both of
+    its checkpoints were (`decode`: see build_composed_handler;
+    `caption_decode` and `explain_decode`: the `decode` of
+    build_caption_handler and build_explain_handler)."""
     service = EngineService()
     if getattr(args, "retrieval_checkpoint", None):
         service.register("retrieval", build_retrieval_handler(args))
@@ -302,6 +412,9 @@ def build_service(args, decode=None, caption_decode=None) -> EngineService:
             and getattr(args, "combiner_checkpoint", None)):
         service.register("composed_retrieval",
                          build_composed_handler(args, decode))
+    if getattr(args, "explain_checkpoint", None):
+        service.register("explain",
+                         build_explain_handler(args, explain_decode))
     return service
 
 
@@ -328,8 +441,8 @@ def main(argv=None):
                              "index's memory)")
     parser.add_argument("--max_batch", type=int, default=None,
                         help="rows a wave may hold (default: 32 for "
-                             "retrieval, 8 for captions and composed "
-                             "retrieval)")
+                             "retrieval, 8 for captions, composed "
+                             "retrieval and explain)")
     # captions
     parser.add_argument("--caption_checkpoint")
     # composed retrieval
@@ -341,15 +454,25 @@ def main(argv=None):
                         help="per-video npz cache dir shared with "
                              "composed_inference (skips re-encoding "
                              "the corpus on restart)")
-    # routes of the JAX server that are not ported yet: they raise
+    # explain
     parser.add_argument("--explain_checkpoint")
-    parser.add_argument("--demo", action="store_true")
+    parser.add_argument("--concept_banks", default=None,
+                        help="npz of {level}_matrix / {level}_names")
+    parser.add_argument("--target_layer", type=int, default=10,
+                        help="the block whose gradient the batched waves "
+                             "probe; a request may name another")
+    parser.add_argument("--label_names", default=None,
+                        help="json list of class names")
+    parser.add_argument("--demo", action="store_true",
+                        help="also serve the static demo pages at /demo")
     args = parser.parse_args(argv)
 
     service = build_service(args)
-    server = create_server(service, args.host, args.port)
+    server = create_server(service, args.host, args.port,
+                           demo_dir=DEMO_DIR if args.demo else None)
     print(f"serving on http://{args.host}:{server.server_address[1]} "
-          f"routes={sorted(service.handlers)}", flush=True)
+          f"routes={sorted(service.handlers)}"
+          + (" demo=/demo" if args.demo else ""), flush=True)
     server.serve_forever()
 
 

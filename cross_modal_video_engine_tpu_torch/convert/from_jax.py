@@ -39,6 +39,9 @@ compute the same function.
   Linear.  `clip_variables_to_jax`, `clip_resnet_variables_to_jax` and
   `combiner_variables_to_jax` go the other way, so the port writes
   checkpoints the JAX package loads (`train/checkpoint.save_checkpoint`).
+* `residual_head_state_dict_from_jax` and `residual_head_variables_to_jax`
+  carry the explain stack's concept-bottleneck head (explain/cbm.py)
+  both ways.
 """
 
 from __future__ import annotations
@@ -690,3 +693,26 @@ def recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], backbone_cfg
             a = _np32(sd[f"cls_head.rnn.{torch_name}"])
             head[jax_name] = a.T if transpose else a
     return {"params": {"backbone": bb, "cls_head": head}}
+
+
+# -- the concept-bottleneck head ----------------------------------------------
+
+_RESIDUAL_HEAD_DENSES = ("concept_hidden", "concept_fc", "embed_fc")
+
+
+def residual_head_state_dict_from_jax(variables: Dict[str, Any]
+                                      ) -> Dict[str, torch.Tensor]:
+    """The JAX explain/cbm.ResidualHead's {"params": ...} -> the port's
+    ResidualHead state dict (each flax Dense kernel transposed into its
+    nn.Linear weight)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in _RESIDUAL_HEAD_DENSES:
+        _linear(sd, name, variables["params"][name])
+    return sd
+
+
+def residual_head_variables_to_jax(sd: Dict[str, torch.Tensor]
+                                   ) -> Dict[str, Any]:
+    """The inverse of residual_head_state_dict_from_jax, as numpy f32."""
+    return {"params": {name: _dense_to_jax(sd, name)
+                       for name in _RESIDUAL_HEAD_DENSES}}

@@ -1,8 +1,7 @@
 """HTTP service backing the four demo capabilities.
 
-A copy of cross_modal_video_engine_tpu/service/app.py without the demo
-pages (they are not ported yet; `demo_dir` still serves a directory of
-them).
+A copy of cross_modal_video_engine_tpu/service/app.py; `DEMO_DIR` holds
+byte-for-byte copies of its static demo pages (service/demo/).
 
 The reference web demo (Video-engine-web/) is static Bootstrap pages with
 hard-coded results — no live backend (SURVEY §0).  This service is the
@@ -94,6 +93,7 @@ class EngineService:
         return out
 
 
+DEMO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demo")
 _DEMO_TYPES = {".html": "text/html; charset=utf-8",
                ".css": "text/css; charset=utf-8",
                ".js": "application/javascript; charset=utf-8"}

@@ -206,8 +206,9 @@ def test_serve_cli_registers_the_caption_route(world, monkeypatch):
     service.handlers["caption"].batcher.close()
     built = {}
 
-    def fake_create_server(service, host, port):
-        built.update(service=service, host=host, port=port)
+    def fake_create_server(service, host, port, demo_dir=None):
+        built.update(service=service, host=host, port=port,
+                     demo_dir=demo_dir)
         raise KeyboardInterrupt            # stop before serving
 
     monkeypatch.setattr(tserve, "create_server", fake_create_server)
@@ -216,7 +217,7 @@ def test_serve_cli_registers_the_caption_route(world, monkeypatch):
                      "--port", "0"])
     assert sorted(built["service"].handlers) == ["caption"]
     built["service"].handlers["caption"].batcher.close()
-    assert "caption_checkpoint" not in tserve.NOT_PORTED
+    assert built["demo_dir"] is None           # no --demo
 
 
 def test_caption_serving_bench_runs_on_the_cpu(tmp_path, capsys,

@@ -297,15 +297,15 @@ def test_composed_route_over_http_is_a_direct_rank(tmp_path):
 @pytest.mark.parametrize("flag", ["caption_checkpoint", "explain_checkpoint",
                                   "demo"])
 def test_serve_flags_of_unported_routes_still_raise(flag):
-    """The explain route and the demo pages still raise; the caption
-    route is ported: its flag builds the route from the checkpoint."""
+    """Every route of the JAX server is ported: the caption and explain
+    flags build their routes from the checkpoint (a missing one raises
+    FileNotFoundError), and `demo` alone registers no route (the pages
+    are served by create_server)."""
     args = argparse.Namespace(**{flag: "x" if flag != "demo" else True})
-    if flag == "caption_checkpoint":
-        assert flag not in tserve.NOT_PORTED
-        with pytest.raises(FileNotFoundError):
-            tserve.build_service(args)
+    if flag == "demo":
+        assert tserve.build_service(args).handlers == {}
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(FileNotFoundError):
         tserve.build_service(args)
 
 

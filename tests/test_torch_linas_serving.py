@@ -353,23 +353,29 @@ def test_wave_k_follows_the_jax_route():
 
 @pytest.mark.parametrize("flag", ["caption_checkpoint",
                                   "explain_checkpoint", "demo"])
-def test_routes_not_ported_raise(flag, tmp_path):
-    """The explain route and the demo pages raise, naming the ROADMAP.md
-    item; the caption route is ported and reads its checkpoint."""
-    if flag == "caption_checkpoint":
-        missing = str(tmp_path / "missing")
-        for build in (lambda: tserve.build_service(argparse.Namespace(
-                caption_checkpoint=missing, device="cpu")),
-                      lambda: tserve.main(["--caption_checkpoint", missing,
-                                           "--device", "cpu"])):
-            with pytest.raises(FileNotFoundError, match="missing"):
-                build()
+def test_routes_not_ported_raise(flag, tmp_path, monkeypatch):
+    """No route is left unported: the caption and explain routes read
+    their checkpoints (a missing one raises FileNotFoundError), and
+    `--demo` hands the demo pages' directory to create_server."""
+    if flag == "demo":
+        seen = {}
+
+        def fake_create_server(service, host, port, demo_dir=None):
+            seen.update(handlers=dict(service.handlers), demo_dir=demo_dir)
+            raise KeyboardInterrupt        # stop before serving
+
+        monkeypatch.setattr(tserve, "create_server", fake_create_server)
+        with pytest.raises(KeyboardInterrupt):
+            tserve.main(["--demo", "--device", "cpu"])
+        assert seen == {"handlers": {}, "demo_dir": tserve.DEMO_DIR}
         return
-    args = argparse.Namespace(**{flag: "x" if flag != "demo" else True})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tserve.build_service(args)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tserve.main([f"--{flag}"] + ([] if flag == "demo" else ["x"]))
+    missing = str(tmp_path / "missing")
+    for build in (lambda: tserve.build_service(argparse.Namespace(
+            **{flag: missing, "device": "cpu"})),
+                  lambda: tserve.main([f"--{flag}", missing,
+                                       "--device", "cpu"])):
+        with pytest.raises(FileNotFoundError, match="missing"):
+            build()
 
 
 def test_serving_bench_runs_on_the_cpu(tmp_path, capsys):
