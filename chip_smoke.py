@@ -156,13 +156,39 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
     the handler's ms without HTTP, the host pipeline's ms, a wave of 1
     and of 8 (wall, CUDA events, busy, idle share, the capture forward
     and the gradient pass apart, flash launches, peak memory);
-15. prints the JSON lines of steps 10-14 and of the kernel results
+15. TimeSformer training at full width (ViT-B/16, 8x224², 12 layers),
+    everything from numpy seeds and no video decode: 32 seeded videos of
+    300 frames of 360x480 go to the trainers' pipelines through the
+    `reader` seam: (a) one f32 step of the shipped caption config
+    (timesformer_relseq.py, 36 classes x 5 steps, TF32 off, dropouts 0)
+    at batch 2 on the card and on the CPU from one init: the loss, every
+    gradient and the parameters after the SGD step (the clip engaged),
+    step 11a's bounds; (b) `caption_train.train_from_config` on that
+    config, batch 8, 2 epochs with validation each epoch (losses finite),
+    a resume from epoch_0 against the uninterrupted epoch 1 (both on the
+    card), a repeat-the-same-batch run whose loss falls, and model_best
+    served by /caption, its answers equal to a direct `caption_clips`;
+    (c) the config with joint attention through the flash kernel (f32,
+    the fma path) at batch 8: the flash counter zeroed and read around
+    each step (12 a step, 24 with remat), gradients finite and against
+    the plain arm (flash off, same weights) and the remat arm by cosine;
+    (d) one bf16 step of the recognition config
+    (timesformer_divst_8x32_k400.py, 400 classes, f32 masters) at batch 2
+    card against CPU within bf16 bounds, then
+    `recognition_train.train_from_config` with bf16=True, batch 8, 1
+    epoch, and its model_best served once by /explain, the prediction
+    equal to a direct grad_extract; (e) each trainer's step by CUDA
+    events, videos/s, TFLOP/s, the optimizer's share, the host's batch
+    assembly, the idle share of five steps of the loop (torch.profiler),
+    peak memory, and bench/extra.py's train-step row;
+16. prints the JSON lines of steps 10-15 and of the kernel results
     (launches on the main paths, on the composed, caption and explain
-    routes, error, time, plain time, bound, library time) and, last, a
-    JSON line naming the device.
+    routes and in the training steps, error, time, plain time, bound,
+    library time) and, last, a JSON line naming the device.
 
 Nothing is cut: the models run at full width and depth (the LINAS
-training runs 2 epochs of a 2,560-caption collection; the composed
+training runs 2 epochs of a 2,560-caption collection, the TimeSformer
+trainers 2 and 1 epochs of 32 videos; the composed
 route's candidates and the Combiner's triplets are stored features, as
 the route and the trainer read them).  Exits non-zero, printing no
 result, when CUDA is unavailable or any check fails.
@@ -3160,15 +3186,631 @@ def check_explain_route(dev, card) -> Tuple[dict, dict]:
     return line, launches
 
 
+# -- step 15: TimeSformer training at full width ------------------------------
+# the recognition config the /explain route's checkpoints come from
+RECOGNITION_CONFIG = (ROOT / "configs" / "recognition"
+                      / "timesformer_divst_8x32_k400.py")
+# a seeded collection: TRAIN15_VIDEOS videos to train on, the first
+# TRAIN15_VAL of them to validate on; batch 8 as the configs say; the
+# card-vs-CPU steps at TRAIN15_CPU_BATCH (the CPU's time)
+TRAIN15_VIDEOS, TRAIN15_VAL, TRAIN15_BATCH, TRAIN15_CPU_BATCH = 32, 8, 8, 2
+# (a) one f32 caption step, card vs CPU, dropouts 0: step 11a's bounds
+# (the loss, each gradient tensor, the parameters after the SGD step); the
+# clip engaged by a max_norm below the gradient's norm
+TRAIN15_CLIP = 1e-3
+# (b) the repeat-the-same-batch run: AdamW at lr 1e-4, clip 1.0, REPEAT
+# steps on one batch, the last loss below the first; (b) resumed epoch 1
+# vs the uninterrupted one, both on the card: step 11d's bounds on the
+# loss and the epoch-1 parameters, seq_mAP within RESUME_LOSS_RTOL too
+TRAIN15_REPEAT = 8
+# (c) the joint flash variant in f32: per-tensor gradient cosine to the
+# plain arm >= COSINE_MIN, with remat too; flash launches a step
+TRAIN15_FLASH_STEPS = 3
+# (d) one bf16 recognition step, card vs CPU (bf16 on both, other
+# summation orders): the loss within BF16_LOSS_REL, each gradient's
+# cosine >= BF16_GRAD_COS (the CPU tests' bounds against JAX)
+BF16_LOSS_REL, BF16_GRAD_COS = 2e-2, 0.99
+# (e) steps timed by CUDA events (median of steps 3..), the loop profiled
+TRAIN15_TIMED, TRAIN15_PROFILED = 5, 5
+
+
+def shipped_training_config(path, **options):
+    """A shipped config as its file says, with `options` set (dotted
+    keys)."""
+    from cross_modal_video_engine_tpu_torch.config import Config
+    cfg = Config.fromfile(str(path))
+    for key, value in options.items():
+        cfg.set(key, value)
+    return cfg
+
+
+def write_training_split(root: str, names, kind: str, seed: int):
+    """A seeded split file over `names`: label sequences of 1-3 steps of
+    1-2 relations among 35 (the 36th is the end token) for 'relseq',
+    classes 0-399 for 'cls'."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for n in names:
+        if kind == "relseq":
+            steps = ["," .join(str(int(c)) for c in rng.choice(
+                35, int(rng.integers(1, 3)), replace=False))
+                for _ in range(int(rng.integers(1, 4)))]
+            lines.append(f"{n} {'->'.join(steps)}")
+        else:
+            lines.append(f"{n} {int(rng.integers(0, 400))}")
+    path = os.path.join(root, f"{kind}_{len(names)}.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def _grads_of(model) -> dict:
+    """Per parameter: its gradient on the host (zeros where it has
+    none)."""
+    import torch
+    return {n: (p.grad.detach().float().cpu() if p.grad is not None
+                else torch.zeros(p.shape))
+            for n, p in model.named_parameters()}
+
+
+def grad_cosines(a: dict, b: dict) -> dict:
+    """Per parameter: the cosine of a's gradient to b's (1 where both are
+    zero)."""
+    import torch
+    out = {}
+    for n in b:
+        x, y = a[n].flatten().double(), b[n].flatten().double()
+        nx, ny = float(x.norm()), float(y.norm())
+        out[n] = 1.0 if nx == ny == 0 else float(x @ y / (nx * ny + 1e-300))
+    return out
+
+
+def caption_step_card_vs_cpu(dev, cfg, names, pipe, targets) -> dict:
+    """15a: one f32 step of the shipped caption config (dropouts 0) on the
+    card and on the CPU from one init and one batch, the clip engaged."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli.caption_train import (
+        build_caption_model)
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_rec_optimizer,
+        make_seq_train_step)
+    clips = np.stack([pipe({"filename": n, "start_index": 0})["imgs"][0]
+                      for n in names[:TRAIN15_CPU_BATCH]]).astype(np.float32)
+    tg = [a[:TRAIN15_CPU_BATCH] for a in targets]
+    tcfg = RecognitionTrainConfig(**dict(cfg.get("optimizer", {}),
+                                         grad_clip=TRAIN15_CLIP))
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model, _, _ = build_caption_model(cfg, d)
+        state = init_rec_state(model, make_rec_optimizer(tcfg, 10))
+        step = make_seq_train_step(model, device=d)
+        t0 = time.perf_counter()
+        state, logs = step(state, torch.from_numpy(clips).to(d),
+                           torch.from_numpy(tg[0]).to(d),
+                           torch.from_numpy(tg[1]).to(d))
+        loss = float(logs["loss"])
+        norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                    for p in model.parameters())))
+        runs[name] = (model, loss, time.perf_counter() - t0, norm)
+    (card, card_loss, card_s, card_norm) = runs["card"]
+    (cpu, cpu_loss, cpu_s, cpu_norm) = runs["cpu"]
+    line, bad, summary = step_agreement(card, cpu, card_loss, cpu_loss,
+                                        tcfg.learning_rate)
+    line.update(grad_norm_card=card_norm, grad_norm_cpu=cpu_norm,
+                clip=TRAIN15_CLIP, card_s=card_s, cpu_s=cpu_s)
+    print(f"15a one f32 caption step (timesformer_relseq.py, divided "
+          f"ViT-B/16, dropouts 0) at batch {TRAIN15_CPU_BATCH}, card vs CPU: "
+          f"{summary}; gradient norm {card_norm:.4f} / {cpu_norm:.4f} above "
+          f"the clip {TRAIN15_CLIP} (engaged); {card_s:.2f} s on the card "
+          f"(first), {cpu_s:.2f} s on the CPU", flush=True)
+    if min(card_norm, cpu_norm) <= TRAIN15_CLIP:
+        bad.append("clip not engaged")
+    if bad:
+        raise SystemExit(f"15a card vs CPU failed: {bad[:5]}")
+    return line
+
+
+def _epoch_params(path: str) -> dict:
+    """The parameters of an epoch state a trainer wrote (flat name ->
+    tensor)."""
+    from cross_modal_video_engine_tpu_torch.io import flax_msgpack
+
+    def flat(tree, pre=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{pre}{k}/")
+            else:
+                yield f"{pre}{k}", v
+
+    with open(os.path.join(path, "train_state.msgpack"), "rb") as f:
+        tree = flax_msgpack.restore(f.read())
+    return dict(flat(tree["state"]["params"]))
+
+
+def caption_cli(dev, card, tmp, videos, names, line) -> None:
+    """15b: the caption CLI on the shipped config, its resume, the repeat
+    run and model_best served by /caption."""
+    import argparse
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli import caption_train
+    from cross_modal_video_engine_tpu_torch.data.datasets import (
+        VideoDatasetRelseq)
+    from cross_modal_video_engine_tpu_torch.data.pipelines import (
+        build_pipeline, with_reader)
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_rec_optimizer,
+        make_seq_train_step)
+
+    train_ann = write_training_split(tmp, names, "relseq", 51)
+    val_ann = write_training_split(tmp, names[:TRAIN15_VAL], "relseq", 51)
+    cfg = shipped_training_config(
+        RELSEQ_CONFIG, **{"data.train.ann_file": train_ann,
+                          "data.train.data_prefix": None,
+                          "data.val.ann_file": val_ann,
+                          "data.val.data_prefix": None,
+                          "data.videos_per_gpu": TRAIN15_BATCH,
+                          "total_epochs": 2, "eval_interval": 1})
+    work = os.path.join(tmp, "caption")
+    t0 = time.perf_counter()
+    history = caption_train.train_from_config(cfg, work, device=dev,
+                                              reader=videos.__getitem__)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    resumed_work = os.path.join(tmp, "caption_resumed")
+    t0 = time.perf_counter()
+    resumed = caption_train.train_from_config(
+        cfg, resumed_work, resume=os.path.join(work, "epoch_0"), device=dev,
+        reader=videos.__getitem__)
+    resume_s = time.perf_counter() - t0
+    a = _epoch_params(os.path.join(work, "epoch_1"))
+    b = _epoch_params(os.path.join(resumed_work, "epoch_1"))
+    diffs = torch.cat([(a[k].float() - b[k].float()).abs().flatten()
+                       for k in a])
+    lr = cfg["optimizer"]["learning_rate"]
+    one, two = history[1], resumed[0]
+    resume = {"loss_uninterrupted": one["loss"], "loss_resumed": two["loss"],
+              "loss_rel": abs(one["loss"] - two["loss"]) / abs(one["loss"]),
+              "seq_mAP": [one["seq_mAP"], two["seq_mAP"]],
+              "param_share_within": float(
+                  (diffs <= RESUME_PARAM_TOL).double().mean()),
+              "param_max_abs": float(diffs.max())}
+    losses = [h["loss"] for h in history]
+    line["cli"] = {"history": history, "seconds": cli_s,
+                   "resume_seconds": resume_s, "resume": resume}
+    print(f"15b caption_train.train_from_config (timesformer_relseq.py, "
+          f"divided f32, dropouts as shipped) over {len(names)} seeded "
+          f"videos, batch {TRAIN15_BATCH}, 2 epochs with validation on "
+          f"{TRAIN15_VAL}: {json.dumps(history)} in {cli_s:.1f} s; resumed "
+          f"from epoch_0 ({resume_s:.1f} s): {json.dumps(resume)} (need loss "
+          f"and seq_mAP within {RESUME_LOSS_RTOL}, {RESUME_PARAM_SHARE} of "
+          f"the parameters within {RESUME_PARAM_TOL}, all within "
+          f"{2 * lr:g})", flush=True)
+    if (not all(np.isfinite(losses)) or len(history) != 2
+            or [h["epoch"] for h in resumed] != [1]
+            or resume["loss_rel"] > RESUME_LOSS_RTOL
+            or abs(one["seq_mAP"] - two["seq_mAP"]) > RESUME_LOSS_RTOL
+            or resume["param_share_within"] < RESUME_PARAM_SHARE
+            or resume["param_max_abs"] > 2 * lr):
+        raise SystemExit("15b the caption CLI or its resume failed")
+
+    # the repeat-the-same-batch run lowers the loss
+    pipe = build_pipeline(with_reader(cfg["data.pipeline"],
+                                      videos.__getitem__))
+    ds = VideoDatasetRelseq(train_ann, pipe, num_classes=36, max_len=5)
+    clips, tg, mk, _, _ = next(caption_train._seq_batches(ds, TRAIN15_BATCH,
+                                                          dev))
+    model, _, _ = caption_train.build_caption_model(cfg, dev)
+    state = init_rec_state(model, make_rec_optimizer(RecognitionTrainConfig(
+        optimizer="adamw", learning_rate=1e-4, grad_clip=1.0)))
+    step = make_seq_train_step(
+        model, torch.Generator(device=dev).manual_seed(3), device=dev)
+    repeat = []
+    for _ in range(TRAIN15_REPEAT):
+        state, logs = step(state, clips, tg, mk)
+        repeat.append(float(logs["loss"]))
+    line["repeat_losses"] = repeat
+    print(f"15b {TRAIN15_REPEAT} AdamW steps (lr 1e-4, clip 1.0) on one "
+          f"batch of {TRAIN15_BATCH}: losses {json.dumps(repeat)} (need "
+          f"finite, the last below the first)", flush=True)
+    if not all(np.isfinite(repeat)) or repeat[-1] >= repeat[0]:
+        raise SystemExit("15b the repeat run did not lower the loss")
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # model_best served by /caption: answers equal to caption_clips
+    args = argparse.Namespace(
+        caption_checkpoint=os.path.join(work, "model_best"), device=str(dev))
+    server, handler = bserve.start_caption_server(args, videos.__getitem__)
+    try:
+        port = server.server_address[1]
+        asked = names[:4]
+        answers = [(n, bserve.request(port, "caption", {"video": n},
+                                      timeout=600.0)[1]["steps"])
+                   for n in asked]
+        direct = {n: caption_direct(handler, n) for n in asked}
+    finally:
+        bserve.stop_server(server, handler)
+    agree = caption_agreement(answers, direct)
+    line["served"] = agree
+    print(f"15b model_best served by /caption: {json.dumps(agree)} (need "
+          f"every answer identical to caption_clips on the route's model)",
+          flush=True)
+    if agree["identical"] != len(answers):
+        raise SystemExit("15b /caption answers differ from caption_clips")
+
+
+def joint_flash_steps(dev, names, pipe, targets) -> dict:
+    """15c: the caption config with joint attention through the flash
+    kernel (f32, the fma path), dropouts 0, batch 8: the flash counter
+    zeroed and read around each step (12 a step, 24 with remat); the
+    first step's gradients against the plain arm's (flash off, same
+    weights) and the remat arm's."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli.caption_train import (
+        build_caption_model)
+    from cross_modal_video_engine_tpu_torch.ops import flash_attention as fa
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_rec_optimizer,
+        make_seq_train_step)
+
+    clips = torch.from_numpy(np.stack([
+        pipe({"filename": n, "start_index": 0})["imgs"][0]
+        for n in names[:TRAIN15_BATCH]]).astype(np.float32)).to(dev)
+    tg, mk = (torch.from_numpy(a[:TRAIN15_BATCH]).to(dev) for a in targets)
+    base = {"model.backbone.attention_type": "joint_space_time",
+            "model.backbone.drop_path_max": 0.0,
+            "model.decoder.input_dropout_p": 0.0}
+    layers = shipped_training_config(RELSEQ_CONFIG)[
+        "model.backbone"]["num_layers"]
+    arms, out = {}, {"launches": {}}
+    for arm, extra in (("flash", {"model.backbone.use_flash_attention":
+                                  True}),
+                       ("plain", {}),
+                       ("remat", {"model.backbone.use_flash_attention": True,
+                                  "model.backbone.remat": True})):
+        cfg = shipped_training_config(RELSEQ_CONFIG, **base, **extra)
+        model, _, _ = build_caption_model(cfg, dev)
+        tcfg = RecognitionTrainConfig(**cfg.get("optimizer", {}))
+        state = init_rec_state(model, make_rec_optimizer(tcfg))
+        step = make_seq_train_step(model, device=dev)
+        counts, losses = [], []
+        for i in range(TRAIN15_FLASH_STEPS if arm == "flash" else 1):
+            torch.cuda.synchronize()
+            fa.flash_attention.launches = 0
+            state, logs = step(state, clips, tg, mk)
+            losses.append(float(logs["loss"]))
+            counts.append(fa.flash_attention.launches)
+            if i == 0:
+                arms[arm] = _grads_of(model)
+        out["launches"][arm] = counts
+        out[f"{arm}_losses"] = losses
+        del model, state, step
+        torch.cuda.empty_cache()
+    flash_vs_plain = grad_cosines(arms["flash"], arms["plain"])
+    remat_vs_flash = grad_cosines(arms["remat"], arms["flash"])
+    finite = all(bool(torch.isfinite(g).all()) for a in arms.values()
+                 for g in a.values())
+    out.update(grad_cos_min_vs_plain=min(flash_vs_plain.values()),
+               grad_cos_min_remat=min(remat_vs_flash.values()),
+               finite=finite)
+    print(f"15c joint ViT-B/16 caption steps in f32 with flash (fma path) at "
+          f"batch {TRAIN15_BATCH}: flash launches a step "
+          f"{json.dumps(out['launches'])} (need {layers} a step, "
+          f"{2 * layers} with remat, 0 in the plain arm); losses "
+          f"{json.dumps(out['flash_losses'])} (plain "
+          f"{out['plain_losses'][0]:.6f}, remat {out['remat_losses'][0]:.6f})"
+          f"; gradients finite {finite}, per-tensor cosine min "
+          f"{out['grad_cos_min_vs_plain']:.7f} to the plain arm, "
+          f"{out['grad_cos_min_remat']:.7f} remat to no remat (need >= "
+          f"{COSINE_MIN})", flush=True)
+    if (out["launches"]["flash"] != [layers] * TRAIN15_FLASH_STEPS
+            or out["launches"]["remat"] != [2 * layers]
+            or out["launches"]["plain"] != [0] or not finite
+            or out["grad_cos_min_vs_plain"] < COSINE_MIN
+            or out["grad_cos_min_remat"] < COSINE_MIN
+            or not all(np.isfinite(out["flash_losses"]))):
+        raise SystemExit("15c the joint flash caption steps failed")
+    return out
+
+
+def recognition_cli(dev, card, tmp, videos, names, line) -> None:
+    """15d: one bf16 recognition step card vs CPU, then the recognition
+    CLI's TimeSformer arm for an epoch with bf16=True, 400 classes, batch
+    8, and its model_best served once by /explain."""
+    import argparse
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli import recognition_train
+    from cross_modal_video_engine_tpu_torch.data.pipelines import (
+        build_pipeline, with_reader)
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_cls_train_step,
+        make_rec_optimizer)
+
+    train_ann = write_training_split(tmp, names, "cls", 52)
+    val_ann = write_training_split(tmp, names[:TRAIN15_VAL], "cls", 52)
+    cfg = shipped_training_config(
+        RECOGNITION_CONFIG, **{"optimizer.bf16": True,
+                               "data.train.ann_file": train_ann,
+                               "data.train.data_prefix": None,
+                               "data.val.ann_file": val_ann,
+                               "data.val.data_prefix": None,
+                               "data.videos_per_gpu": TRAIN15_BATCH,
+                               "total_epochs": 1, "eval_interval": 1})
+    pipe = build_pipeline(with_reader(cfg["data.pipeline"],
+                                      videos.__getitem__))
+    clips = np.stack([pipe({"filename": n, "start_index": 0})["imgs"][0]
+                      for n in names[:TRAIN15_CPU_BATCH]]).astype(np.float32)
+    labels = np.arange(TRAIN15_CPU_BATCH) * 7
+    no_drop = shipped_training_config(
+        RECOGNITION_CONFIG, **{"model.backbone.drop_path_max": 0.0})
+    tcfg = RecognitionTrainConfig(**dict(cfg["optimizer"]))
+    runs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = recognition_train.build_recognition_model(no_drop, d,
+                                                          "float32")
+        state = init_rec_state(model, make_rec_optimizer(tcfg, 10))
+        step = make_cls_train_step(model, bf16=True, device=d)
+        t0 = time.perf_counter()
+        state, logs = step(state, torch.from_numpy(clips).to(d),
+                           torch.from_numpy(labels).to(d))
+        runs[name] = (float(logs["loss"]), _grads_of(model),
+                      time.perf_counter() - t0)
+        del model, state, step
+    (card_loss, card_g, card_s), (cpu_loss, cpu_g, cpu_s) = (runs["card"],
+                                                             runs["cpu"])
+    cos = grad_cosines(card_g, cpu_g)
+    worst = min(cos, key=cos.get)
+    step_line = {"loss_card": card_loss, "loss_cpu": cpu_loss,
+                 "loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss),
+                 "grad_cos_min": cos[worst], "grad_cos_min_at": worst,
+                 "card_s": card_s, "cpu_s": cpu_s}
+    line["step_card_vs_cpu"] = step_line
+    print(f"15d one bf16 recognition step (timesformer_divst_8x32_k400.py, "
+          f"400 classes, f32 masters, dropouts 0) at batch "
+          f"{TRAIN15_CPU_BATCH}, card vs CPU: {json.dumps(step_line)} (need "
+          f"loss within {BF16_LOSS_REL}, every gradient's cosine >= "
+          f"{BF16_GRAD_COS})", flush=True)
+    if (step_line["loss_rel"] > BF16_LOSS_REL or cos[worst] < BF16_GRAD_COS
+            or not np.isfinite(card_loss)):
+        raise SystemExit("15d the bf16 step differs between card and CPU")
+
+    work = os.path.join(tmp, "recognition")
+    t0 = time.perf_counter()
+    _, history = recognition_train.train_from_config(
+        cfg, work, device=dev, reader=videos.__getitem__)
+    torch.cuda.synchronize()
+    line["cli"] = {"history": history,
+                   "seconds": time.perf_counter() - t0}
+    print(f"15d recognition_train.train_from_config (bf16=True, divided "
+          f"ViT-B/16, 400 classes) over {len(names)} seeded videos, batch "
+          f"{TRAIN15_BATCH}, 1 epoch with validation on {TRAIN15_VAL}: "
+          f"{json.dumps(history)} in {line['cli']['seconds']:.1f} s",
+          flush=True)
+    if len(history) != 1 or not np.isfinite(history[0]["loss"]):
+        raise SystemExit("15d the recognition CLI failed")
+
+    backbone = cfg["model.backbone"]
+    args = argparse.Namespace(
+        explain_checkpoint=os.path.join(work, "model_best"),
+        concept_banks=os.path.join(tmp, "banks.npz"),
+        target_layer=backbone["num_layers"] - 2, device=str(dev))
+    banks = bserve.write_concept_banks(args.concept_banks,
+                                       backbone["embed_dims"], seed=53)
+    server, handler = bserve.start_route_server(
+        args, "explain", explain_decode=videos.__getitem__)
+    try:
+        port = server.server_address[1]
+        ms, ans = bserve.request(port, "explain", {"video": names[0]},
+                                 timeout=600.0)
+        direct = explain_direct(handler, names[0], banks)
+    finally:
+        bserve.stop_server(server, handler)
+    line["served"] = {"ms": ms, "prediction": ans["prediction"],
+                      "direct": direct["pred"],
+                      "margin": top2_margin(direct["scores"][0])}
+    print(f"15d model_best served once by /explain ({ms:.1f} ms): "
+          f"{json.dumps(line['served'])} (need the prediction of a direct "
+          f"grad_extract)", flush=True)
+    if ans["prediction"] != direct["pred"]:
+        raise SystemExit("15d /explain disagrees with grad_extract")
+
+
+def training_times(dev, card, names, videos) -> dict:
+    """15e: each trainer's step by CUDA events over prebuilt batches (the
+    shipped caption config in f32, the recognition config in bf16), the
+    optimizer's step alone, the host's batch assembly, the idle share of
+    five steps of the real loop (torch.profiler), peak memory, and the
+    bench row."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cross_modal_video_engine_tpu_torch.bench.extra import (
+        bench_train_step_timesformer, timesformer_forward_flops)
+    from cross_modal_video_engine_tpu_torch.cli import (caption_train,
+                                                        recognition_train)
+    from cross_modal_video_engine_tpu_torch.data.datasets import (
+        VideoDataset, VideoDatasetRelseq)
+    from cross_modal_video_engine_tpu_torch.data.pipelines import (
+        build_pipeline, with_reader)
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_cls_train_step,
+        make_rec_optimizer, make_seq_train_step)
+
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        relseq = write_training_split(tmp, names, "relseq", 54)
+        cls = write_training_split(tmp, names, "cls", 55)
+        for name in ("caption", "recognition"):
+            if name == "caption":
+                cfg = shipped_training_config(RELSEQ_CONFIG)
+                pipe = build_pipeline(with_reader(cfg["data.pipeline"],
+                                                  videos.__getitem__))
+                ds = VideoDatasetRelseq(relseq, pipe, num_classes=36,
+                                        max_len=5)
+                model, _, _ = caption_train.build_caption_model(cfg, dev)
+                make = make_seq_train_step
+                batches = caption_train._seq_batches
+                extra = {}
+            else:
+                cfg = shipped_training_config(RECOGNITION_CONFIG)
+                pipe = build_pipeline(with_reader(cfg["data.pipeline"],
+                                                  videos.__getitem__))
+                ds = VideoDataset(cls, pipe)
+                model = recognition_train.build_recognition_model(cfg, dev)
+                make = make_cls_train_step
+                batches = recognition_train._label_batches
+                extra = {"bf16": True}
+            tcfg = RecognitionTrainConfig(**cfg.get("optimizer", {}))
+            state = init_rec_state(model, make_rec_optimizer(tcfg))
+            step = make(model,
+                        generator=torch.Generator(device=dev).manual_seed(5),
+                        device=dev, **extra)
+            b = next(batches(ds, TRAIN15_BATCH, dev))
+            args = b[:3] if name == "caption" else b[:2]
+            spans = []
+            torch.cuda.reset_peak_memory_stats(dev)
+            for _ in range(TRAIN15_TIMED):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, logs = step(state, *args)
+                end.record()
+                end.synchronize()
+                spans.append(start.elapsed_time(end))
+            peak = torch.cuda.max_memory_allocated(dev)
+            step_ms = float(np.median(spans[2:]))
+            opt_ms = cuda_ms(state.optimizer.step, iters=5, warmup=1)
+            it = batches(ds, TRAIN15_BATCH, dev)
+            t0 = time.perf_counter()
+            for _ in range(2):
+                next(it)
+            torch.cuda.synchronize()
+            assembly_ms = (time.perf_counter() - t0) / 2 * 1e3
+            it = batches(ds, TRAIN15_BATCH, dev, [
+                i % len(ds) for i in range(TRAIN15_PROFILED * TRAIN15_BATCH)])
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(TRAIN15_PROFILED):
+                    b = next(it)
+                    state, logs = step(state, *(b[:3] if name == "caption"
+                                                else b[:2]))
+                float(logs["loss"])
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) / TRAIN15_PROFILED * 1e3
+            kernels = sorted(
+                ((e.self_device_time_total / TRAIN15_PROFILED / 1e3, e.key)
+                 for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA")
+                 and not getattr(e, "is_user_annotation", False)
+                 and not e.key.startswith("Optimizer.")), reverse=True)
+            busy_ms = sum(ms for ms, _ in kernels)
+            flops = 3 * timesformer_forward_flops(
+                model.backbone.cfg, TRAIN15_BATCH,
+                36 if name == "caption" else 400)
+            t = {"dtype": "bfloat16" if extra else "float32",
+                 "step_ms": step_ms, "step_ms_all": spans,
+                 "videos_per_s": TRAIN15_BATCH * 1e3 / step_ms,
+                 "tflops_per_s": flops / step_ms / 1e9,
+                 "optimizer_ms": opt_ms, "optimizer_share": opt_ms / step_ms,
+                 "assembly_ms": assembly_ms, "loop_wall_ms": wall_ms,
+                 "loop_videos_per_s": TRAIN15_BATCH * 1e3 / wall_ms,
+                 "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+                 "peak_mib": peak / 2 ** 20,
+                 "top_kernels": [[k[:80], ms] for ms, k in kernels[:8]]}
+            out[name] = t
+            print(f"15e {name} step ({t['dtype']}, batch {TRAIN15_BATCH}): "
+                  f"{step_ms:.2f} ms by CUDA events (median of steps "
+                  f"3-{TRAIN15_TIMED} over a prebuilt batch) = "
+                  f"{t['videos_per_s']:.2f} videos/s, "
+                  f"{t['tflops_per_s']:.1f} TFLOP/s of the model's products; "
+                  f"the optimizer's step alone {opt_ms:.3f} ms = "
+                  f"{t['optimizer_share']:.4f} of a step; the host assembles "
+                  f"a batch in {assembly_ms:.1f} ms; the loop with its "
+                  f"assembly {wall_ms:.1f} ms a step = "
+                  f"{t['loop_videos_per_s']:.2f} videos/s, kernels busy "
+                  f"{busy_ms:.2f} ms of it, idle share "
+                  f"{t['idle_share']:.3f}; peak memory "
+                  f"{t['peak_mib']:.0f} MiB on {card}; longest kernels (ms a "
+                  f"step): {json.dumps(t['top_kernels'])}", flush=True)
+            if not np.isfinite(float(logs["loss"])):
+                raise SystemExit(f"15e the {name} loop's loss is not finite")
+            del model, state, step, b, args, it, prof
+            torch.cuda.empty_cache()
+    out["bench_row"] = bench_train_step_timesformer()
+    return out
+
+
+def check_timesformer_training(dev, card) -> Tuple[dict, dict]:
+    """Step 15 (items a-f of the docstring).  Every failed check raises.
+    Returns (the `timesformer_training` JSON object, flash launches over
+    the joint steps of 15c)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.data.datasets import (
+        VideoDatasetRelseq)
+    from cross_modal_video_engine_tpu_torch.data.pipelines import (
+        build_pipeline, with_reader)
+
+    t_step = time.perf_counter()
+    videos = bserve.seeded_videos(TRAIN15_VIDEOS, seed=15)
+    names = sorted(videos)
+    line = {"card": card, "videos": TRAIN15_VIDEOS, "batch": TRAIN15_BATCH,
+            "video_frames": bserve.VIDEO_FRAMES,
+            "video_size": [bserve.VIDEO_HEIGHT, bserve.VIDEO_WIDTH]}
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        cfg = shipped_training_config(
+            RELSEQ_CONFIG, **{"model.backbone.drop_path_max": 0.0,
+                              "model.decoder.input_dropout_p": 0.0})
+        pipe = build_pipeline(with_reader(cfg["data.pipeline"],
+                                          videos.__getitem__))
+        ann = write_training_split(tmp, names, "relseq", 50)
+        ds = VideoDatasetRelseq(ann, pipe, num_classes=36, max_len=5)
+        targets = (np.stack([it["label"] for it in ds.video_infos]),
+                   np.stack([it["mask"] for it in ds.video_infos]))
+        t0 = time.perf_counter()
+        line["caption_step"] = caption_step_card_vs_cpu(dev, cfg, names,
+                                                        pipe, targets)
+        line["caption_step"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        line["caption"] = {}
+        caption_cli(dev, card, tmp, videos, names, line["caption"])
+        line["caption"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        line["joint_flash"] = joint_flash_steps(dev, names, pipe, targets)
+        line["joint_flash"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        line["recognition"] = {}
+        recognition_cli(dev, card, tmp, videos, names, line["recognition"])
+        line["recognition"]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    line["times"] = training_times(dev, card, names, videos)
+    line["times"]["seconds"] = time.perf_counter() - t0
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"15 TimeSformer training checked in {line['seconds']:.1f} s",
+          flush=True)
+    launches = {"flash_attention": sum(
+        sum(v) for v in line["joint_flash"]["launches"].values())}
+    return line, launches
+
+
 def kernel_json(results, launches, core, block_extra,
                 composed_launches, caption_launches,
-                explain_launches) -> dict:
+                explain_launches, training_launches) -> dict:
     """The kernels line: bf16 errors over every case of a kernel; times,
     bound and library time of its main-path case; `launches` on the main
     path of steps 4, 6 and 8, `composed_launches` over the requests of the
     ViT-B/32 composed route (step 12d), `caption_launches` over the
     batch-1 requests of the caption route (step 13), `explain_launches`
-    over the batch-1 requests of the explain route (step 14).  `bound_ms` is the
+    over the batch-1 requests of the explain route (step 14),
+    `training_launches` over the joint caption steps of step 15c.
+    `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
     also carry the host time of one call and their core kernel by itself
@@ -3206,6 +3848,7 @@ def kernel_json(results, launches, core, block_extra,
             "composed_launches": composed_launches.get(name, 0),
             "caption_launches": caption_launches.get(name, 0),
             "explain_launches": explain_launches.get(name, 0),
+            "training_launches": training_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in bf16),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": max(by_ops, by_bytes) * 1e3,
@@ -3345,15 +3988,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     explain, explain_launches = check_explain_route(dev, card)
 
-    # -- 15. results ------------------------------------------------------------
+    # -- 15. TimeSformer training ------------------------------------------------
+    torch.cuda.empty_cache()
+    ts_training, training_launches = check_timesformer_training(dev, card)
+
+    # -- 16. results ------------------------------------------------------------
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"composed": composed}))
     print(json.dumps({"caption": caption}))
     print(json.dumps({"explain": explain}))
+    print(json.dumps({"timesformer_training": ts_training}))
     print(json.dumps(kernel_json(results, launches, core, block_extra,
                                  composed_launches, caption_launches,
-                                 explain_launches)))
+                                 explain_launches, training_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,12 +14,18 @@ one JSON line per metric; with no argument, every row in order:
   the same shapes;
 * `text_tower`: CLIP ViT-B/32 text tower, captions/s at 256 captions;
 * `u8_ingest`: the flagship tower fed uint8 frames through
-  `encode_video_u8`, videos/s.
+  `encode_video_u8`, videos/s;
+* `train_step_timesformer`: one recognition train step of the divided
+  TimeSformer ViT-B/16 (8x224, 400 classes) in bf16 with f32 masters
+  (`make_cls_train_step(bf16=True)`, SGD with momentum), videos/s by CUDA
+  events and TFLOP/s counted from the model's shapes.
 
 Rows are drawn from a seed on the device.  Where a row has a plain arm,
-`vs_baseline` is the kernel arm over the plain arm.  Not carried over: the
-host-feed row (needs the native decoder), the flatten_tokens A/B (a TPU
-layout) and the train-step rows (training slices).
+`vs_baseline` is the kernel arm over the plain arm (the train-step row:
+over the JAX row's 9 videos/s reference, per GPU of the reference's 8).
+Not carried over: the host-feed row (needs the native decoder), the
+flatten_tokens A/B (a TPU layout) and the other families' train-step
+rows (slice 5).
 """
 
 from __future__ import annotations
@@ -32,6 +38,10 @@ import numpy as np
 import torch
 
 from ..models.clip import CLIPConfig
+from ..models.recognizer import Recognizer3D
+from ..models.timesformer import TimeSformerConfig
+from ..train.optim import OptaxOptimizer
+from ..train.recognition_trainer import RecTrainState, make_cls_train_step
 from ..ops.flash_attention import _reference_attention, flash_attention
 from ..retrieval.index import RetrievalIndex, _normalize_queries
 from ..utils.device import resolve_device
@@ -206,12 +216,77 @@ def bench_u8_ingest(batch: int = 32, frames: int = 8, steps: int = 20,
                  **where(device)})
 
 
+def timesformer_forward_flops(cfg: TimeSformerConfig, batch: int,
+                              num_classes: int) -> float:
+    """Operations (2 per multiply-add) of the matrix products of one
+    forward of a TimeSformer classifier on `batch` videos: the patch
+    embedding, each block's projections, attention scores and mixes and
+    FFN, and the head.  A train step is 3x this (the backward computes two
+    products for each of the forward's)."""
+    d, t, p = cfg.embed_dims, cfg.time_tokens, cfg.num_patches
+    macs = t * p * 3 * cfg.patch_size ** 2 * cfg.tubelet_size * d
+
+    def attention(tokens: int, seqs: int, length: int) -> int:
+        """q|k|v and output projections, scores and mix."""
+        return tokens * 4 * d * d + seqs * 2 * length * length * d
+
+    n = 1 + p * t
+    if cfg.attention_type == "divided_space_time":
+        block = (attention(p * t, p, t) + p * t * d * d     # temporal_fc
+                 + attention(t * (p + 1), t, p + 1) + n * 8 * d * d)
+    elif cfg.attention_type == "joint_space_time":
+        block = attention(n, 1, n) + n * 8 * d * d
+    else:                                          # space-only, per frame
+        block = attention(t * (p + 1), t, p + 1) + t * (p + 1) * 8 * d * d
+    macs += cfg.num_layers * block + d * num_classes
+    return 2.0 * batch * macs
+
+
+def bench_train_step_timesformer(batch: int = 4, steps: int = 10,
+                                 device=None,
+                                 cfg: Optional[TimeSformerConfig] = None,
+                                 num_classes: int = 400) -> dict:
+    """Recognition train throughput: the divided TimeSformer 8x224 (the
+    JAX row's model, weights N(0, 0.02) from a numpy seed, dropouts 0),
+    forward, backward and SGD step (momentum 0.9, lr 0.005) in bf16 with
+    f32 masters."""
+    device = resolve_device(device)
+    cfg = cfg or TimeSformerConfig(drop_path_max=0.0, dropout_ratio=0.0)
+    model = Recognizer3D(cfg, num_classes, device=device)
+    rng = np.random.default_rng(5)
+    model.load_state_dict({
+        k: torch.from_numpy(rng.standard_normal(tuple(v.shape),
+                                                dtype=np.float32) * 0.02)
+        for k, v in model.state_dict().items()})
+    clips = torch.from_numpy(rng.standard_normal(
+        (batch, cfg.num_frames, cfg.img_size, cfg.img_size, 3))
+        .astype(np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, num_classes, batch)).to(device)
+    state = [RecTrainState(model, OptaxOptimizer(
+        model.named_parameters(), lr=0.005, kind="sgd", max_norm=None,
+        momentum=0.9), 0)]
+    step = make_cls_train_step(model, bf16=True, device=device)
+
+    def run():
+        state[0], _ = step(state[0], clips, labels)
+
+    seconds = device_time(run, steps=steps, device=device)
+    vps = batch / seconds
+    flops = 3 * timesformer_forward_flops(cfg, batch, num_classes)
+    return emit({"metric": f"train_step_timesformer_divst_8x224_b{batch}",
+                 "value": vps, "unit": per("videos/sec", device),
+                 "vs_baseline": vps / 9.0, "step_ms": seconds * 1e3,
+                 "tflops_per_sec": flops / seconds / 1e12,
+                 **where(device)})
+
+
 _BENCHES = [
     ("retrieval_p50", bench_retrieval_p50),
     ("int8_capacity", bench_int8_capacity),
     ("flash_sweep", bench_flash_sweep),
     ("text_tower", bench_text_tower),
     ("u8_ingest", bench_u8_ingest),
+    ("train_step_timesformer", bench_train_step_timesformer),
 ]
 
 

@@ -42,6 +42,11 @@ compute the same function.
 * `residual_head_state_dict_from_jax` and `residual_head_variables_to_jax`
   carry the explain stack's concept-bottleneck head (explain/cbm.py)
   both ways.
+* `rec_train_state_to_jax` and `rec_train_state_from_jax` carry the
+  recognition and caption trainers' state across: the recognizer's state
+  dict, the optimizer's count and moments, and the step, as the tree the
+  JAX package's RecTrainState serializes to (`{"params", "opt_state",
+  "step"}`, the optimizer as `make_rec_optimizer`'s optax chain state).
 """
 
 from __future__ import annotations
@@ -716,3 +721,70 @@ def residual_head_variables_to_jax(sd: Dict[str, torch.Tensor]
     """The inverse of residual_head_state_dict_from_jax, as numpy f32."""
     return {"params": {name: _dense_to_jax(sd, name)
                        for name in _RESIDUAL_HEAD_DENSES}}
+
+
+# -- the recognition trainers' state ------------------------------------------
+# make_rec_optimizer's chains as optax's init lays them out (read off
+# `tx.init` in tests/test_torch_recognition_train.py): chain(clip, inner)
+# -> {"0": {}, "1": inner}, without the clip inner alone;
+# sgd: inner = {"0": {} (add_decayed_weights), "1": {"0": {"trace"} | {}
+# (no momentum), "1": {"count"} (schedule) | {} (constant lr)}};
+# adamw: inner = {"0": {"count", "mu", "nu"}, "1": {} (decay), "2":
+# {"count"} | {}}.
+
+def _rec_chain_to_jax(named_state: Dict[str, Any], kind: str, clip: bool,
+                      schedule: bool, to_tree) -> Dict[str, Any]:
+    count = np.asarray(named_state["count"], np.int32)
+    lr_state = {"count": count} if schedule else {}
+    if kind == "adamw":
+        inner = {"0": {"count": count, "mu": to_tree(named_state["mu"]),
+                       "nu": to_tree(named_state["nu"])},
+                 "1": {}, "2": lr_state}
+    else:
+        trace = ({"trace": to_tree(named_state["trace"])}
+                 if "trace" in named_state else {})
+        inner = {"0": {}, "1": {"0": trace, "1": lr_state}}
+    return {"0": {}, "1": inner} if clip else inner
+
+
+def rec_train_state_to_jax(state_dict: Dict[str, torch.Tensor],
+                           named_state: Dict[str, Any], step: int,
+                           backbone_cfg, kind: str, clip: bool,
+                           schedule: bool) -> Dict[str, Any]:
+    """A recognizer's state dict, its OptaxOptimizer's `named_state()` and
+    the step count -> the JAX RecTrainState's tree.  kind: 'sgd' |
+    'adamw'; clip: a clip_by_global_norm leads the chain; schedule: the
+    learning rate is the warmup-cosine schedule (its count is kept)."""
+    def to_tree(moments):
+        return recognizer_variables_to_jax(moments, backbone_cfg)["params"]
+
+    return {"params": to_tree(state_dict),
+            "opt_state": _rec_chain_to_jax(named_state, kind, clip,
+                                           schedule, to_tree),
+            "step": np.asarray(step, np.int32)}
+
+
+def rec_train_state_from_jax(tree: Dict[str, Any], backbone_cfg, kind: str,
+                             clip: bool
+                             ) -> Tuple[Dict[str, torch.Tensor],
+                                        Dict[str, Any], int]:
+    """The inverse: the JAX RecTrainState's tree -> (state dict, the
+    optimizer's named state, step).  An optimizer state that keeps no
+    count (SGD at a constant learning rate) takes the step's."""
+    def from_tree(t):
+        return recognizer_state_dict_from_jax({"params": t}, backbone_cfg)
+
+    step = int(np.asarray(tree["step"]))
+    inner = tree["opt_state"]["1"] if clip else tree["opt_state"]
+    named: Dict[str, Any] = {"count": step}
+    if kind == "adamw":
+        adam = inner["0"]
+        named.update(count=int(np.asarray(adam["count"])),
+                     mu=from_tree(adam["mu"]), nu=from_tree(adam["nu"]))
+    else:
+        trace, lr_state = inner["1"]["0"], inner["1"]["1"]
+        if "count" in lr_state:
+            named["count"] = int(np.asarray(lr_state["count"]))
+        if "trace" in trace:
+            named["trace"] = from_tree(trace["trace"])
+    return from_tree(tree["params"]), named, step

@@ -1,17 +1,24 @@
-"""Recognition datasets: the label-sequence (caption) split.
+"""Recognition datasets and the epoch sampler.
 
-Counterpart of the part of cross_modal_video_engine_tpu/data/datasets.py
-that caption evaluation reads (mmaction datasets family):
+Counterpart of cross_modal_video_engine_tpu/data/datasets.py (mmaction
+datasets family):
 
 * `BaseVideoDataset` — annotation lines, decode and pipeline per sample,
   and `batches`: dense fixed-shape batches, the tail padded by repeating
   its first item, with the count of real items;
+* `VideoDataset` — `filename label` lines (video_dataset.py);
+* `RawframeDataset` — `frame_dir total_frames label` lines, frames read
+  as `img_{idx:05d}.jpg`, start_index 1 (rawframe_dataset.py);
 * `VideoDatasetRelseq` — `filename a,b->c->d` label-sequence annotations
   expanded to a (max_len, num_classes) multi-hot matrix and a per-step
-  mask (video_dataset_relseq.py:17-79).
+  mask (video_dataset_relseq.py:17-79);
+* `ShardedSampler` — the epoch's order: a permutation from
+  `np.random.default_rng(seed + epoch)`, padded cyclically (`np.resize`)
+  to a multiple of the world size, rank::world_size of it for each rank
+  (samplers/distributed_sampler.py:11-53), the same indices as the JAX
+  package's.
 
-`VideoDataset`, `RawframeDataset` and `ShardedSampler` come with caption
-training (ROADMAP.md queue 1 item 6b).
+`ClassSpecificSampler` comes with slice 5 (ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -59,6 +66,47 @@ class BaseVideoDataset:
             yield imgs, items, n
 
 
+class VideoDataset(BaseVideoDataset):
+    def load_annotations(self) -> List[Dict]:
+        infos = []
+        with open(self.ann_file) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                filename, label = parts[0], int(parts[1])
+                if self.data_prefix:
+                    filename = os.path.join(self.data_prefix, filename)
+                infos.append(dict(filename=filename, label=label))
+        return infos
+
+
+class RawframeDataset(BaseVideoDataset):
+    filename_tmpl = "img_{:05d}.jpg"
+
+    def __init__(self, *args, **kwargs):
+        # frames are 1-based on disk: start_index defaults to 1, and
+        # RawFrameDecode indexes the template directly
+        kwargs.setdefault("start_index", 1)
+        super().__init__(*args, **kwargs)
+
+    def load_annotations(self) -> List[Dict]:
+        infos = []
+        with open(self.ann_file) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                frame_dir, total, label = (parts[0], int(parts[1]),
+                                           int(parts[2]))
+                if self.data_prefix:
+                    frame_dir = os.path.join(self.data_prefix, frame_dir)
+                infos.append(dict(frame_dir=frame_dir, total_frames=total,
+                                  label=label,
+                                  filename_tmpl=self.filename_tmpl))
+        return infos
+
+
 class VideoDatasetRelseq(BaseVideoDataset):
     """Label-sequence dataset for the caption head."""
 
@@ -88,3 +136,27 @@ class VideoDatasetRelseq(BaseVideoDataset):
                     filename = os.path.join(self.data_prefix, filename)
                 infos.append(dict(filename=filename, label=mat, mask=mask))
         return infos
+
+
+class ShardedSampler:
+    """The deterministic shuffled shard of each (epoch, rank): every rank
+    computes the same permutation, pads it cyclically to equal length and
+    takes rank::world_size."""
+
+    def __init__(self, n: int, world_size: int = 1, rank: int = 0,
+                 shuffle: bool = True, seed: int = 0):
+        self.n = n
+        self.world_size = world_size
+        self.rank = rank
+        self.shuffle = shuffle
+        self.seed = seed
+
+    def indices(self, epoch: int) -> List[int]:
+        order = np.arange(self.n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        per = int(np.ceil(self.n / self.world_size))
+        # np.resize tiles cyclically, so even n < world_size fills every
+        # rank
+        padded = np.resize(order, per * self.world_size)
+        return [int(i) for i in padded[self.rank::self.world_size]]

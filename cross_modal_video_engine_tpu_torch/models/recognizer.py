@@ -9,7 +9,10 @@ cross_modal_video_engine_tpu/models/recognizer.py:
 * `Recognizer3D`: backbone -> head -> class scores, plus the explain
   surface (`forward_with_capture`, `score_from_layer`);
 * `Recognizer3DRelseq`: backbone -> RNNDecoderHead, greedy feedback at
-  inference, per-step probabilities averaged over clips.
+  inference, per-step probabilities averaged over clips; `forward_train`
+  is the teacher-forced SeqMLL loss in train mode;
+* `init_state_dict`: a training init drawn from a numpy seed with flax's
+  init schemes (what the JAX package's `model.init` draws).
 
 The heads compute in fp32 on the parameters' values: the backbone's CLS
 feature is fp32, and the JAX heads promote to it.  State-dict keys are
@@ -19,6 +22,7 @@ classification, the reference RNN head's names for captions).
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -26,7 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..losses.seqmll import seq_mll_loss
 from ..utils.device import resolve_device
+from .clip import MHA
 from .decoder_head import RNNDecoderConfig, RNNDecoderHead
 from .timesformer import LN, TimeSformer, TimeSformerConfig
 
@@ -107,6 +113,18 @@ class Recognizer3DRelseq(nn.Module):
                 mode: str = "inference") -> torch.Tensor:
         return self.cls_head(self.backbone(videos), targets_emb, mode=mode)
 
+    def forward_train(self, videos: torch.Tensor, targets_emb: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+        """The SeqMLL loss of a teacher-forced forward (JAX
+        recognizer.py:296-299).  Switches the model to train mode, as the
+        JAX method always runs with train=True: DropPath, the embedding
+        dropouts and the decoder's input dropout act.  The loss takes the
+        decoder's sigmoid probabilities, not logits, as the reference's
+        does (recognizer3d_relseq.py:75-91)."""
+        self.train()
+        probs = self(videos, targets_emb, mode="train")
+        return seq_mll_loss(probs, targets_emb, mask)
+
     def forward_test(self, videos: torch.Tensor,
                      num_segs: int = 1) -> torch.Tensor:
         """Greedy decode, per-step probabilities averaged over clips."""
@@ -148,3 +166,100 @@ def random_state_dict(backbone_cfg: TimeSformerConfig, seed: int, *,
             a = int(np.prod(shape[1:])) ** -0.5 * rng.standard_normal(shape)
         out[name] = torch.from_numpy(np.asarray(a, np.float32))
     return out
+
+
+# -- the training init: flax's init schemes, drawn with numpy ---------------
+
+# Φ(-2): the standard normal's mass below the truncation at -2
+_PHI_LO = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+
+
+def _truncated_normal(rng, shape, std: float) -> torch.Tensor:
+    """jax.random.truncated_normal(-2, 2) * std (a standard normal
+    truncated to [-2, 2], then scaled, not renormalised), by the inverse
+    CDF of numpy uniforms."""
+    u = torch.from_numpy(rng.random(tuple(shape), dtype=np.float32))
+    x = torch.special.erfinv(2.0 * (_PHI_LO + u * (1.0 - 2.0 * _PHI_LO))
+                             - 1.0) * math.sqrt(2.0)
+    return x.clamp_(-2.0, 2.0).mul_(std)
+
+
+def _lecun_normal(rng, shape, fan_in: int) -> torch.Tensor:
+    """flax's default kernel init, variance_scaling(1, 'fan_in',
+    'truncated_normal')."""
+    return _truncated_normal(rng, shape,
+                             (1.0 / fan_in) ** 0.5 / .87962566103423978)
+
+
+def _orthogonal(rng, rows: int, cols: int) -> torch.Tensor:
+    """jax.nn.initializers.orthogonal() of a (rows, cols) matrix (the QR
+    in float64)."""
+    a = rng.standard_normal((cols, rows) if rows < cols else (rows, cols))
+    q, r = np.linalg.qr(a)
+    q = q * np.sign(np.diag(r))
+    return torch.from_numpy(q.T if rows < cols else q)
+
+
+def init_state_dict(backbone_cfg: TimeSformerConfig, seed: int, *,
+                    num_classes: Optional[int] = None,
+                    decoder_cfg: Optional[RNNDecoderConfig] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """The fp32 state dict of a Recognizer3D (num_classes) or
+    Recognizer3DRelseq (decoder_cfg) as training starts, drawn from a
+    numpy seed with the schemes the JAX modules init with: Dense and conv
+    kernels lecun-normal (fan-in: the input width times the receptive
+    field) with zero biases (the attention projections included),
+    LayerNorm ones and zeros, `temporal_fc` zeros (JAX timesformer.py
+    :111-112), `cls_token`, `pos_embed`, `time_embed` and the class head
+    truncated-normal 0.02; the RNN decoder's start embedding normal(1),
+    its input kernel lecun-normal, its recurrent kernel orthogonal, its
+    output kernel truncated-normal 0.02, its biases zero
+    (decoder_head.py:82-94).  The same distributions as `model.init`,
+    not the same numbers; `random_state_dict` is the parity tests'
+    perturbed draw."""
+    if (num_classes is None) == (decoder_cfg is None):
+        raise ValueError("give num_classes or decoder_cfg")
+    model = (Recognizer3D(backbone_cfg, num_classes, device="meta")
+             if decoder_cfg is None else
+             Recognizer3DRelseq(backbone_cfg, decoder_cfg, device="meta"))
+    rng = np.random.default_rng(seed)
+    out: Dict[str, torch.Tensor] = {}
+    for owner, mod in model.named_modules():
+        pre = f"{owner}." if owner else ""
+        if isinstance(mod, LN):
+            out[pre + "weight"] = torch.ones(mod.weight.shape)
+            out[pre + "bias"] = torch.zeros(mod.bias.shape)
+        elif isinstance(mod, MHA):
+            d = mod.width
+            out[pre + "in_proj_weight"] = torch.cat(
+                [_lecun_normal(rng, (d, d), d) for _ in range(3)])
+            out[pre + "in_proj_bias"] = torch.zeros(3 * d)
+        elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+            if owner in ("cls_head.fc_cls", "cls_head.out"):
+                w = _truncated_normal(rng, mod.weight.shape, 0.02)
+            elif owner.endswith("temporal_fc"):
+                w = torch.zeros(mod.weight.shape)
+            else:
+                w = _lecun_normal(rng, mod.weight.shape,
+                                  int(np.prod(mod.weight.shape[1:])))
+            out[pre + "weight"] = w
+            out[pre + "bias"] = torch.zeros(mod.bias.shape)
+        elif isinstance(mod, RNNDecoderHead):
+            c, h = decoder_cfg.num_classes, decoder_cfg.in_channels
+            out[pre + "start_emb.weight"] = torch.from_numpy(
+                rng.standard_normal((1, c)))
+            out[pre + "rnn.weight_ih_l0"] = _lecun_normal(
+                rng, (3 * h, c + h), c + h)
+            out[pre + "rnn.weight_hh_l0"] = _orthogonal(rng, h, 3 * h).T
+            out[pre + "rnn.bias_ih_l0"] = torch.zeros(3 * h)
+            out[pre + "rnn.bias_hh_l0"] = torch.zeros(3 * h)
+    backbone = model.backbone
+    for name in ("cls_token", "pos_embed", "time_embed"):
+        if hasattr(backbone, name):
+            out[f"backbone.{name}"] = _truncated_normal(
+                rng, getattr(backbone, name).shape, 0.02)
+    missing = set(model.state_dict()) - set(out)
+    if missing:
+        raise KeyError(f"no init for {sorted(missing)[:5]}")
+    return {k: out[k].to(torch.float32).contiguous()
+            for k in model.state_dict()}

@@ -32,8 +32,18 @@ Attention modules keep nn.MultiheadAttention's `in_proj_weight` layout.
 Stochastic depth (`DropPath`) and the dropouts after the position and
 time embeddings act in train mode, as `train=True` does in the JAX
 package, and are the identity in eval mode, in which the model is built
-(the JAX default, `train=False`).  `remat` only shapes a training
-backward pass and changes nothing here.
+(the JAX default, `train=False`).  Each draws from its module's
+`generator` (None: torch's default generator), which a trainer sets.
+
+`remat` recomputes each block's activations in the backward pass
+(`torch.utils.checkpoint`, non-reentrant), as the JAX package's
+`nn.remat` does, whenever the model runs in train mode with grad on.  The
+recomputation replays torch's default generators only, so a block's
+DropPath masks are drawn before the checkpointed call and handed to it
+(`draw_keeps`): the recomputation applies the masks the forward applied,
+and the generator advances as it does without remat.  A joint block with
+flash attention then launches the kernel twice a step, once in the
+forward and once in the recomputation.
 """
 
 from __future__ import annotations
@@ -44,9 +54,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.device import resolve_device
 from .clip import MHA
+from .layers import Dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,14 +107,23 @@ class DropPath(nn.Module):
         self.rate = rate
         self.generator = generator
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def draw(self, rows: int, device) -> Optional[torch.Tensor]:
+        """The keep mask (rows,) of one call on `rows` samples, or None
+        where the module is the identity (eval mode, rate 0)."""
         if not self.training or self.rate == 0.0:
-            return x
-        keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=self.generator,
-                          device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+            return None
+        return torch.rand(rows, generator=self.generator,
+                          device=device) < 1.0 - self.rate
+
+    def forward(self, x: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """keep: a mask from `draw` (None: drawn here)."""
+        if keep is None:
+            keep = self.draw(x.shape[0], x.device)
+            if keep is None:
+                return x
+        keep = keep.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 class LN(nn.Module):
@@ -166,8 +187,19 @@ class DividedSTBlock(nn.Module):
         self.ffns = nn.ModuleList([FFN(cfg, device, norm=True)])
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, 1 + P*T, D), patch-major (p t) token order."""
+    def draw_keeps(self, b: int, device) -> Tuple:
+        """The DropPath masks of one forward on b samples, in the order
+        the forward draws them: temporal (b), spatial (b * frames), FFN
+        (b)."""
+        dp = self.drop_path
+        return (dp.draw(b, device),
+                dp.draw(b * self.cfg.time_tokens, device),
+                dp.draw(b, device))
+
+    def forward(self, x: torch.Tensor,
+                keeps: Tuple = (None, None, None)) -> torch.Tensor:
+        """x: (B, 1 + P*T, D), patch-major (p t) token order; keeps: the
+        masks of `draw_keeps` (None: drawn here)."""
         cfg = self.cfg
         b = x.shape[0]
         p, t, d = cfg.num_patches, cfg.time_tokens, cfg.embed_dims
@@ -176,7 +208,8 @@ class DividedSTBlock(nn.Module):
         # attention over time, per patch
         cls0, patches = x[:, :1], x[:, 1:]
         rt = temporal.attn(temporal.norm(patches.reshape(b * p, t, d)))
-        rt = temporal.temporal_fc(self.drop_path(rt.reshape(b, p * t, d)))
+        rt = temporal.temporal_fc(self.drop_path(rt.reshape(b, p * t, d),
+                                                 keeps[0]))
         patches = patches + rt
         # the spatial residual includes the temporal update
         x = torch.cat([cls0, patches], 1)
@@ -185,14 +218,14 @@ class DividedSTBlock(nn.Module):
         ps = patches.reshape(b, p, t, d).transpose(1, 2).reshape(b * t, p, d)
         cls_rep = cls0.expand(b, t, d).reshape(b * t, 1, d)
         rs = self.drop_path(spatial.attn(spatial.norm(
-            torch.cat([cls_rep, ps], 1))))
+            torch.cat([cls_rep, ps], 1))), keeps[1])
         cls_res = rs[:, 0].reshape(b, t, d).mean(1, keepdim=True)
         patch_res = rs[:, 1:].reshape(b, t, p, d).transpose(1, 2) \
             .reshape(b, p * t, d)
         x = x + torch.cat([cls_res, patch_res], 1)
 
         ffn = self.ffns[0]
-        return x + self.drop_path(ffn(ffn.norm(x)))
+        return x + self.drop_path(ffn(ffn.norm(x)), keeps[2])
 
 
 class JointBlock(nn.Module):
@@ -209,9 +242,17 @@ class JointBlock(nn.Module):
         self.ffns = nn.ModuleList([FFN(cfg, device)])
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop_path(self.attentions[0].attn(self.norms[0](x)))
-        return x + self.drop_path(self.ffns[0](self.norms[1](x)))
+    def draw_keeps(self, b: int, device) -> Tuple:
+        """The DropPath masks of one forward on b samples: attention,
+        FFN."""
+        return (self.drop_path.draw(b, device),
+                self.drop_path.draw(b, device))
+
+    def forward(self, x: torch.Tensor,
+                keeps: Tuple = (None, None)) -> torch.Tensor:
+        x = x + self.drop_path(self.attentions[0].attn(self.norms[0](x)),
+                               keeps[0])
+        return x + self.drop_path(self.ffns[0](self.norms[1](x)), keeps[1])
 
 
 class TimeSformer(nn.Module):
@@ -238,8 +279,8 @@ class TimeSformer(nn.Module):
         if cfg.attention_type != "space_only":
             self.time_embed = nn.Parameter(
                 torch.zeros(1, cfg.time_tokens, d, dtype=dt, device=device))
-        self.drop_after_pos = nn.Dropout(cfg.dropout_ratio)
-        self.drop_after_time = nn.Dropout(cfg.dropout_ratio)
+        self.drop_after_pos = Dropout(cfg.dropout_ratio)
+        self.drop_after_time = Dropout(cfg.dropout_ratio)
         block = (DividedSTBlock if cfg.attention_type == "divided_space_time"
                  else JointBlock)
         rates = torch.linspace(0, cfg.drop_path_max, cfg.num_layers).tolist()
@@ -252,6 +293,14 @@ class TimeSformer(nn.Module):
     @property
     def blocks(self) -> nn.ModuleList:
         return self.transformer_layers.layers
+
+    def _block(self, blk: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """One block, rematerialised in the backward pass under `remat`
+        in train mode with grad on (its DropPath masks drawn first)."""
+        if self.cfg.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(blk, x, blk.draw_keeps(x.shape[0], x.device),
+                              use_reentrant=False)
+        return blk(x)
 
     def _pool(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
@@ -299,7 +348,7 @@ class TimeSformer(nn.Module):
         x = self.embed_tokens(videos)
         captured: Dict[int, torch.Tensor] = {}
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = self._block(blk, x)
             if i in capture_layers:
                 captured[i] = x.float()
         x, cls_feat = self._pool(x)
@@ -313,5 +362,5 @@ class TimeSformer(nn.Module):
         (the explain stack's gradient target)."""
         x = tokens.to(self.cfg.torch_dtype())
         for blk in list(self.blocks)[layer + 1:]:
-            x = blk(x)
+            x = self._block(blk, x)
         return self._pool(x)[1]

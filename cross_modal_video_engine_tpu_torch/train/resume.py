@@ -1,15 +1,21 @@
-"""The LINAS trainer's whole state, saved and resumed.
+"""A trainer's whole state, saved and resumed.
 
 Counterpart of cross_modal_video_engine_tpu/train/resume.py in the same
 files, so a run either package saved resumes in the other:
 
-* `train_state.msgpack`: flax's msgpack form (io/flax_msgpack.py) of
-  `{"state": TrainState, "mask": MaskState}` as the JAX package writes it:
-  /state/params/..., /state/batch_stats/..., /state/opt_state/{count,
-  hyperparams/learning_rate, hyperparams_states, inner_state/1/0/{count,
-  mu, nu}}, and for an 'adapt' run /mask/0 (pa) and /mask/1/1/0/{count,
-  mu, nu} (convert/from_jax.py's `linas_*_state_{to,from}_jax`);
-* `loop_state.json`: the host loop's {epoch, best, no_impr, since_halve}.
+* `train_state.msgpack`: flax's msgpack form (io/flax_msgpack.py) of the
+  payload as the JAX package writes it, for
+  - the LINAS trainer, `{"state": TrainState, "mask": MaskState}`:
+    /state/params/..., /state/batch_stats/..., /state/opt_state/{count,
+    hyperparams/learning_rate, hyperparams_states, inner_state/1/0/{count,
+    mu, nu}}, and for an 'adapt' run /mask/0 (pa) and /mask/1/1/0/{count,
+    mu, nu} (convert/from_jax.py's `linas_*_state_{to,from}_jax`);
+  - the recognition and caption trainers, `{"state": RecTrainState,
+    "batch_stats": None}` as their CLIs write it: /batch_stats (nil: the
+    TimeSformer has no BatchNorm), /state/params/..., /state/opt_state/
+    (make_rec_optimizer's chain) and /state/step
+    (`rec_train_state_{to,from}_jax`);
+* `loop_state.json`: the host loop's state ({epoch, ...}).
 
 `load_train_state` restores into the given states in place.
 """
@@ -25,18 +31,41 @@ import torch
 from ..convert.from_jax import (linas_mask_state_from_jax,
                                 linas_mask_state_to_jax,
                                 linas_train_state_from_jax,
-                                linas_train_state_to_jax)
+                                linas_train_state_to_jax,
+                                rec_train_state_from_jax,
+                                rec_train_state_to_jax)
 from ..io import flax_msgpack
 from .checkpoint import _host_tree
+from .recognition_trainer import SLICE5, RecTrainState
 
 STATE_FILE, LOOP_FILE = "train_state.msgpack", "loop_state.json"
 
 
+def _chain(opt) -> Dict[str, Any]:
+    """The optimizer's chain: its kind and whether a clip leads it."""
+    return {"kind": opt.kind, "clip": opt.max_norm is not None}
+
+
+def _rec_to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
+    if payload.get("batch_stats") is not None:
+        raise NotImplementedError(SLICE5.format("batch_stats"))
+    state = payload["state"]
+    opt = state.optimizer
+    tree = _host_tree({"batch_stats": None, "state": rec_train_state_to_jax(
+        state.model.state_dict(), opt.named_state(), state.step,
+        state.model.backbone.cfg, schedule=opt.scheduled, **_chain(opt))})
+    tree["state"] = {k: tree["state"][k]
+                     for k in ("params", "opt_state", "step")}
+    return tree
+
+
 def _to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
     """The payload's tree in the JAX package's order: dict keys sorted, as
-    jax.tree.map leaves them, but TrainState's fields in field order (the
-    optax states' fields are sorted already), so both packages write the
-    same bytes for the same state."""
+    jax.tree.map leaves them, but TrainState's and RecTrainState's fields
+    in field order (the optax states' fields are sorted already), so both
+    packages write the same bytes for the same state."""
+    if isinstance(payload["state"], RecTrainState):
+        return _rec_to_tree(payload)
     tree = {}
     if "mask" in payload:
         mask = payload["mask"]
@@ -53,7 +82,8 @@ def _to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
 
 def save_train_state(path: str, payload: Dict[str, Any],
                      loop_state: Optional[Dict] = None) -> None:
-    """payload: {"state": TrainState[, "mask": MaskState]}."""
+    """payload: {"state": TrainState[, "mask": MaskState]} or {"state":
+    RecTrainState, "batch_stats": None}."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, STATE_FILE), "wb") as f:
         f.write(flax_msgpack.to_bytes(_to_tree(payload)))
@@ -64,16 +94,29 @@ def save_train_state(path: str, payload: Dict[str, Any],
 def load_train_state(path: str, payload: Dict[str, Any]
                      ) -> Tuple[Dict[str, Any], Dict]:
     """payload: the states to restore into, {"state": TrainState[, "mask":
-    MaskState]}; each entry found in the file is loaded in place.  Returns
-    (the payload restored, loop state)."""
+    MaskState]} or {"state": RecTrainState, "batch_stats": None}; each
+    entry found in the file is loaded in place.  Returns (the payload
+    restored, loop state); a RecTrainState comes back with the file's
+    step."""
     with open(os.path.join(path, STATE_FILE), "rb") as f:
         tree = flax_msgpack.restore(f.read())
     restored = {}
     state = payload["state"]
-    sd, named = linas_train_state_from_jax(tree["state"], state.model.cfg)
-    state.model.load_state_dict(sd)
-    state.optimizer.load_named_state(named)
-    restored["state"] = state
+    if isinstance(state, RecTrainState):
+        if tree.get("batch_stats") is not None:
+            raise NotImplementedError(SLICE5.format("batch_stats"))
+        opt = state.optimizer
+        sd, named, step = rec_train_state_from_jax(
+            tree["state"], state.model.backbone.cfg, **_chain(opt))
+        state.model.load_state_dict(sd)
+        opt.load_named_state(named)
+        restored.update(state=state._replace(step=step), batch_stats=None)
+    else:
+        sd, named = linas_train_state_from_jax(tree["state"],
+                                               state.model.cfg)
+        state.model.load_state_dict(sd)
+        state.optimizer.load_named_state(named)
+        restored["state"] = state
     if "mask" in payload and "mask" in tree:
         mask = payload["mask"]
         pa, named = linas_mask_state_from_jax(tree["mask"])

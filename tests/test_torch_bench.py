@@ -228,6 +228,44 @@ def test_tower_rows(capsys):
                        "video_embed_u8_ingest_vitb32_bf16_8f224"])
 
 
+def test_train_step_timesformer_row(capsys):
+    from cross_modal_video_engine_tpu_torch.models.timesformer import (
+        TimeSformerConfig)
+    cfg = TimeSformerConfig(num_frames=2, img_size=16, patch_size=8,
+                            embed_dims=16, num_heads=2, num_layers=1,
+                            drop_path_max=0.0)
+    with torch.random.fork_rng(devices=[]):
+        extra.bench_train_step_timesformer(batch=2, steps=1, device="cpu",
+                                           cfg=cfg, num_classes=5)
+    rows = _rows(capsys)
+    _check_rows(rows, ["train_step_timesformer_divst_8x224_b2"])
+    assert rows[0]["tflops_per_sec"] > 0
+
+
+@pytest.mark.parametrize("attention", ["divided_space_time",
+                                       "joint_space_time", "space_only"])
+def test_timesformer_flops_count_the_products(attention):
+    """The count against one made by hand for ViT-B/16 joint, and the
+    divided count against the joint one plus its extra products."""
+    from cross_modal_video_engine_tpu_torch.models.timesformer import (
+        TimeSformerConfig)
+    cfg = TimeSformerConfig(attention_type=attention)
+    got = extra.timesformer_forward_flops(cfg, 2, 400)
+    d, n = 768, 1 + 196 * 8
+    embed, head = 8 * 196 * 768 * 768, 768 * 400
+    joint_block = n * 12 * d * d + 2 * n * n * d
+    if attention == "joint_space_time":
+        assert got == 2 * 2 * (embed + 12 * joint_block + head)
+    elif attention == "divided_space_time":
+        temporal = 196 * 8 * 5 * d * d + 196 * 2 * 64 * d
+        spatial = 8 * 197 * 4 * d * d + 8 * 2 * 197 ** 2 * d
+        assert got == 2 * 2 * (embed + 12 * (temporal + spatial
+                                             + n * 8 * d * d) + head)
+    else:
+        assert got == 2 * 2 * (embed + 12 * (8 * 197 * 12 * d * d
+                                             + 8 * 2 * 197 ** 2 * d) + head)
+
+
 def test_extra_main_takes_row_names(monkeypatch):
     ran = []
     monkeypatch.setattr(extra, "_BENCHES",

@@ -3,7 +3,8 @@ CPU at a small size (2 layers, width 64, 4 heads, 8x32² clips, 5
 classes): `convert.recognizer_variables_to_jax`, `api.init_recognizer`
 on a checkpoint the JAX package wrote, `api.inference_recognizer`, the
 `caption_inference` and `caption_test` CLIs on videos written with
-OpenCV; and that every f32 entry point turns TF32 off.
+OpenCV; and that every f32 entry point (the training CLIs too) turns
+TF32 off.
 
 The JAX flash kernel runs in interpret mode, the port's flash attention
 its plain version.  Tolerances: f32 probabilities and scores within 1e-4
@@ -316,6 +317,31 @@ def write_split(root, videos):
     return cfg
 
 
+def write_train_config(root, videos, kind):
+    """A one-epoch training config over `videos` for the caption trainer
+    (kind 'caption': write_split's label sequences, the TS backbone with
+    DEC) or the recognition trainer ('recognition': classes 0-3)."""
+    data = os.path.dirname(videos[0])
+    if kind == "caption":
+        ann = os.path.join(root, "val.txt")
+        write_split(root, videos)
+        model = f"dict(backbone={TS!r}, decoder={DEC!r})"
+    else:
+        ann = os.path.join(root, "cls.txt")
+        with open(ann, "w") as f:
+            f.write("\n".join(f"{os.path.basename(v)} {i}"
+                              for i, v in enumerate(videos)))
+        model = f"dict(backbone={TS!r}, num_classes=4)"
+    cfg = os.path.join(root, f"{kind}_train.py")
+    split = f"dict(ann_file={ann!r}, data_prefix={data!r})"
+    with open(cfg, "w") as f:
+        f.write(f"model = {model}\n"
+                f"data = dict(videos_per_gpu=2, pipeline={PIPE!r},\n"
+                f"            train={split}, val={split})\n"
+                f"total_epochs = 1\n")
+    return cfg
+
+
 def test_caption_test_matches_jax(world, tmp_path, capsys):
     root, videos, ckpt = world
     cfg = write_split(str(tmp_path), videos)
@@ -402,7 +428,8 @@ def _route(builder, **args):
 
 def _entry_points():
     from cross_modal_video_engine_tpu_torch.cli import (
-        composed_inference, retrieval_inference, retrieval_tester, serve)
+        caption_train, composed_inference, recognition_train,
+        retrieval_inference, retrieval_tester, serve)
     from cross_modal_video_engine_tpu_torch.cli.common import (
         restore_dual_encoding)
     return {
@@ -435,6 +462,15 @@ def _entry_points():
             w["caption"][2], "--device", "cpu"]),
         "build_caption_handler": lambda w: _route(
             serve.build_caption_handler, caption_checkpoint=w["caption"][2]),
+        "caption_train.main": lambda w: caption_train.main([
+            write_train_config(str(w["tmp"]), w["caption"][1], "caption"),
+            "--work_dir", str(w["tmp"] / "caption_work"), "--device",
+            "cpu"]),
+        "recognition_train.main": lambda w: recognition_train.main([
+            write_train_config(str(w["tmp"]), w["caption"][1],
+                               "recognition"),
+            "--work_dir", str(w["tmp"] / "recognition_work"), "--device",
+            "cpu"]),
     }
 
 
@@ -443,7 +479,8 @@ ENTRY_POINTS = ["restore_dual_encoding", "retrieval_inference.main",
                 "build_retrieval_handler", "load_clip_tower",
                 "build_composed_handler", "init_recognizer",
                 "caption_inference.main", "caption_test.main",
-                "build_caption_handler"]
+                "build_caption_handler", "caption_train.main",
+                "recognition_train.main"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
