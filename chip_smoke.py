@@ -181,10 +181,36 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
     events, videos/s, TFLOP/s, the optimizer's share, the host's batch
     assembly, the idle share of five steps of the loop (torch.profiler),
     peak memory, and bench/extra.py's train-step row;
-16. prints the JSON lines of steps 10-15 and of the kernel results
+16. the concept detector and the concept-bank build at full width, from
+    numpy seeds and no decode: the shipped configs/detection/yolov5
+    yolov5s (depth 0.33, width 0.50, 80 classes, 640²), its segment
+    variant (nm 32, npr 256) and the classifier (1000 classes, 224²),
+    weights drawn in the ultralytics layout, two classes made to fire on
+    every image (YOLO_FIRE): (a) f32 with TF32 off, batch 16 of
+    letterboxed seeded 480x640 images, card against CPU: raw maps and
+    decoded predictions within YOLO_F32_REL, the NMS outputs matched in
+    the detect (conf 0.25) and val (conf 0.001, multi-label) protocols,
+    the TTA arm, the segment arm's prototypes and masks, the classifier's
+    logits; (b) `yolo_val.main` on the card over 64 seeded 480x640 .npy
+    images whose labels are the CPU's own detections, the detector read
+    from a `best/` directory in the JAX format: mAP@0.5 >= 0.99 and the
+    report within the bound of the same CLI on the CPU; then --augment
+    and the segment config; (c) `ctv_build.build_ctv_banks` with step
+    14's joint ViT-B/16 (bf16, flash, 400 classes) and the firing
+    detector over 8 seeded 300-frame 352x480 videos through the reader
+    seam, the flash counter read around each video (12 a video, 0 in the
+    detector), the banks against the CPU's build on 2 videos, the npz
+    served by /explain against a direct concept_scores, a 360x480 video
+    refused; (d) `explain_video` with the detector, card against CPU;
+    (e) the detector's forward at batch 16 (ms, images/s, TFLOP/s from
+    the convolutions' shapes), the host's NMS and letterbox, yolo_val's
+    images/s and idle share, ctv_build's seconds a video by phase, peak
+    memory; (f) a `concept_detector` JSON line;
+17. prints the JSON lines of steps 10-16 and of the kernel results
     (launches on the main paths, on the composed, caption and explain
-    routes and in the training steps, error, time, plain time, bound,
-    library time) and, last, a JSON line naming the device.
+    routes, in the training steps and in the bank build, error, time,
+    plain time, bound, library time) and, last, a JSON line naming the
+    device.
 
 Nothing is cut: the models run at full width and depth (the LINAS
 training runs 2 epochs of a 2,560-caption collection, the TimeSformer
@@ -3800,16 +3826,754 @@ def check_timesformer_training(dev, card) -> Tuple[dict, dict]:
     return line, launches
 
 
+# -- step 16: the concept detector and the concept-bank build ----------------
+YOLO_CONFIGS = ROOT / "configs" / "detection" / "yolov5"
+YOLO_DETECT_CONFIG = YOLO_CONFIGS / "yolov5s_coco_640.py"
+YOLO_SEGMENT_CONFIG = YOLO_CONFIGS / "yolov5s_seg_coco_640.py"
+YOLO_CLASSIFY_CONFIG = YOLO_CONFIGS / "yolov5s_cls_224.py"
+YOLO_BATCH, YOLO_IMAGE = 16, (480, 640)      # seeded images, letterboxed
+# the firing arm: on anchor 0 the logit of COCO class 0 (person), on anchor
+# 1 that of class 2 (car), is raised by 12 and every other class's lowered
+# by 12, with those anchors' objectness at stride 32 raised by 12
+# (models/yolo.random_state_dict(fire=...)): every image then holds both
+# classes, alone in their boxes of about 116x90 and 156x198 pixels
+YOLO_FIRE = (0, 2)
+# f32, TF32 off, card (cuDNN) against CPU (oneDNN): raw maps, prototypes,
+# logits and decoded xywh within YOLO_F32_REL of each group's largest
+# magnitude; probabilities (and mask values) within YOLO_F32_REL.  NMS
+# meets candidates in score order, and scores within the bound may come
+# in another order on the card: the CPU's boxes with the card's scores
+# must give the card's detections (nms_agreement)
+YOLO_F32_REL = 1e-4
+YOLO_CPU_TTA, YOLO_CPU_SEG = 4, 4            # images of the TTA and seg arms
+YOLO_VAL_IMAGES, YOLO_MAP_MIN = 64, 0.99
+# the card's and the CPU's yolo_val rows: NMS meets scores within the f32
+# bound in another order on each side (16a: a few percent of the
+# detections differ until the CPU takes the card's scores), which moves
+# mAP, precision and recall by up to this much
+YOLO_VAL_AGREE = 0.01
+# the segment config's run: its mask IoUs are (predictions x labels x
+# 640²) float64 products on the host, so it reads the first images only
+YOLO_SEG_VAL_IMAGES = 4
+# the labels are written from batches of the CLI's own size, so the CPU's
+# run reproduces them bit for bit
+YOLO_VAL_BATCH = 16
+YOLO_VAL_OPTIONS = [f"data.batch_size={YOLO_VAL_BATCH}",
+                    "data.max_targets=512"]
+YOLO_TIMED_CALLS = 20
+# ctv_build: step 14's backbone, seeded videos at a size on the 32 grid
+CTV_VIDEOS, CTV_CPU_VIDEOS, CTV_SIZE, CTV_REFUSED = 8, 2, (352, 480), \
+    (360, 480)
+# bf16 on both sides: an instance CTV (a difference of two CLS features)
+# from the card against the CPU's, and explain_video's video CTVs
+CTV_COS = 0.99
+
+
+def rows_cosine_min(a: np.ndarray, b: np.ndarray) -> float:
+    """Smallest cosine between matching rows of two numpy matrices."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                             * np.linalg.norm(b, axis=-1))
+    return float(cos.min())
+
+
+def _group_err(got: np.ndarray, want: np.ndarray) -> float:
+    """max |got - want| over the largest |want| (f32 group bound)."""
+    scale = max(float(np.abs(want).max()), 1e-12)
+    return float(np.abs(got - want).max()) / scale
+
+
+def decoded_errors(got: np.ndarray, want: np.ndarray, nc: int) -> dict:
+    """Decoded predictions (B, N, 5+nc[+nm]) by group: xywh relative to
+    their largest magnitude, objectness and class probabilities absolute,
+    mask coefficients relative."""
+    out = {"xywh": _group_err(got[..., :4], want[..., :4]),
+           "probs": float(np.abs(got[..., 4:5 + nc]
+                                 - want[..., 4:5 + nc]).max())}
+    if got.shape[-1] > 5 + nc:
+        out["coefs"] = _group_err(got[..., 5 + nc:], want[..., 5 + nc:])
+    return out
+
+
+def _iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:4], b[None, :, 2:4])
+    inter = np.prod(np.clip(rb - lt, 0, None), axis=2)
+    area = lambda x: np.prod(np.clip(x[:, 2:4] - x[:, :2], 0, None), axis=1)
+    return inter / np.maximum(area(a)[:, None] + area(b)[None] - inter, 1e-9)
+
+
+def match_detections(a: list, b: list) -> dict:
+    """Per image, each detection of `a` matched to one of `b` of its class
+    at IoU >= 0.99: the counts, the unmatched on each side, the worst
+    matched score and corner differences."""
+    out = {"a": 0, "b": 0, "matched": 0, "score_err": 0.0, "box_err": 0.0}
+    for x, y in zip(a, b):
+        out["a"] += len(x)
+        out["b"] += len(y)
+        if not len(x) or not len(y):
+            continue
+        ok = (_iou(x, y) >= 0.99) & (x[:, None, 5] == y[None, :, 5])
+        used = set()
+        for i in range(len(x)):
+            for j in np.nonzero(ok[i])[0]:
+                if j not in used:
+                    used.add(j)
+                    out["matched"] += 1
+                    out["score_err"] = max(out["score_err"],
+                                           float(abs(x[i, 4] - y[j, 4])))
+                    out["box_err"] = max(out["box_err"], float(np.abs(
+                        x[i, :4] - y[j, :4]).max()))
+                    break
+    out["unmatched"] = out["a"] + out["b"] - 2 * out["matched"]
+    return out
+
+
+def nms_agreement(card: np.ndarray, cpu: np.ndarray, nc: int, conf: float,
+                  iou_thres: float, multi: bool, post=None) -> dict:
+    """NMS of the card's and the CPU's decoded predictions (B, N, 5+nc..),
+    matched (`direct`).  NMS meets the candidates in score order, and
+    equal or near-equal scores (within YOLO_F32_REL) may come in another
+    order on each side, so a direct difference may follow from a gap
+    within the bound.  `reordered` runs the CPU's boxes with the card's
+    scores (each within the bound of the CPU's): the same order, so the
+    same detections unless an IoU lies at the threshold.  post: the
+    postprocess taking (preds, conf, iou, multi_label) (default:
+    models.yolo.postprocess)."""
+    from cross_modal_video_engine_tpu_torch.models import yolo as tyolo
+    post = post or (lambda p, c, i, m: tyolo.postprocess(p, c, i,
+                                                        multi_label=m))
+    swapped = cpu.copy()
+    swapped[..., 4:5 + nc] = card[..., 4:5 + nc]
+    got = post(card, conf, iou_thres, multi)
+    return {"score_gap_max": float(np.abs(card[..., 4:5 + nc]
+                                          - cpu[..., 4:5 + nc]).max()),
+            "direct": match_detections(got, post(cpu, conf, iou_thres,
+                                                 multi)),
+            "reordered": match_detections(got, post(swapped, conf,
+                                                     iou_thres, multi))}
+
+
+def _nms_ok(agree: dict) -> bool:
+    return (agree["score_gap_max"] <= YOLO_F32_REL
+            and agree["reordered"]["unmatched"] == 0)
+
+
+def seeded_images(n: int, seed: int, hw=YOLO_IMAGE) -> np.ndarray:
+    """(n, H, W, 3) uint8 frames drawn from a seed (bench/serve's seeded
+    video frames: colour ramps plus noise)."""
+    from cross_modal_video_engine_tpu_torch.bench.serve import SeededVideo
+    video = SeededVideo(seed, frames=n, height=hw[0], width=hw[1])
+    return np.stack([video.frame(i) for i in range(n)])
+
+
+def segment_state_dict(det_sd: dict, seg_cfg, seed: int) -> dict:
+    """The segment model's state dict: the detect model's trunk, neck and
+    box/class head rows, with seeded mask-coefficient rows and
+    prototypes, so its boxes are the detect model's."""
+    from cross_modal_video_engine_tpu_torch.models import yolo as tyolo
+    sd = tyolo.random_state_dict(seg_cfg, seed)
+    nc, nm = seg_cfg.num_classes, seg_cfg.masks
+    for k, v in det_sd.items():
+        if not k.startswith("model.24.m."):
+            sd[k] = v.clone()
+            continue
+        rows = sd[k].view(3, 5 + nc + nm, *sd[k].shape[1:])
+        rows[:, :5 + nc] = v.view(3, 5 + nc, *v.shape[1:])
+    return sd
+
+
+def yolo_models(dev):
+    """The shipped configs at full width: (configs, seeded state dicts,
+    card models, CPU models) for 'detect' (the firing arm), 'segment' and
+    'classify'."""
+    from cross_modal_video_engine_tpu_torch.cli.yolo_train import (
+        yolo_config)
+    from cross_modal_video_engine_tpu_torch.config import Config
+    from cross_modal_video_engine_tpu_torch.models import yolo as tyolo
+    cfgs = {"detect": yolo_config(Config.fromfile(str(YOLO_DETECT_CONFIG))),
+            "segment": yolo_config(Config.fromfile(
+                str(YOLO_SEGMENT_CONFIG))),
+            "classify": yolo_config(Config.fromfile(
+                str(YOLO_CLASSIFY_CONFIG)))}
+    sds = {"detect": tyolo.random_state_dict(cfgs["detect"], 16,
+                                             fire=YOLO_FIRE)}
+    sds["segment"] = segment_state_dict(sds["detect"], cfgs["segment"], 17)
+    sds["classify"] = tyolo.random_state_dict(cfgs["classify"], 18,
+                                              classifier=True)
+    card, cpu = {}, {}
+    for name, cfg in cfgs.items():
+        cls = tyolo.YoloClassifier if name == "classify" else tyolo.YoloV5
+        card[name], cpu[name] = cls(cfg, device=dev), cls(cfg, device="cpu")
+        card[name].load_state_dict(sds[name])
+        cpu[name].load_state_dict(sds[name])
+    return cfgs, sds, card, cpu
+
+
+def detector_card_vs_cpu(models, cfgs, x_u8) -> dict:
+    """16a: the three heads, the decode, both NMS protocols, the TTA arm
+    and the masks, card against CPU on the same letterboxed images."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import yolo_train as tyt
+    from cross_modal_video_engine_tpu_torch.models import yolo as tyolo
+    card, cpu = models
+    dev = next(card["detect"].parameters()).device
+    x = torch.from_numpy(x_u8).float() / 255.0
+    out = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        raw_card = [m.cpu().numpy() for m in card["detect"](x.to(dev))]
+        raw_cpu = [m.numpy() for m in cpu["detect"](x)]
+    out["raw_rel_err"] = max(_group_err(a, b)
+                             for a, b in zip(raw_card, raw_cpu))
+    cfg = cfgs["detect"]
+    dec = {}
+    for side, raw in (("card", raw_card), ("cpu", raw_cpu)):
+        dec[side] = tyolo.decode_predictions(
+            [torch.from_numpy(r) for r in raw], cfg).numpy()
+    out["decoded_err"] = decoded_errors(dec["card"], dec["cpu"],
+                                        cfg.num_classes)
+    protocols = {"detect (conf 0.25, argmax, iou 0.45)": (0.25, 0.45, False),
+                 "val (conf 0.001, multi-label, iou 0.6)": (0.001, 0.6,
+                                                            True)}
+    out["nms"] = {name: nms_agreement(dec["card"], dec["cpu"],
+                                      cfg.num_classes, *args)
+                  for name, args in protocols.items()}
+    out["detections_per_image"] = out["nms"][next(iter(protocols))][
+        "direct"]["a"] / len(x_u8)
+    # TTA on the first images
+    xt = x[:YOLO_CPU_TTA]
+    tta_card = tyt._det_infer_tta(card["detect"])(xt).cpu().numpy()
+    tta_cpu = tyt._det_infer_tta(cpu["detect"])(xt).numpy()
+    out["tta"] = {"rows": int(tta_card.shape[1]),
+                  "decoded_err": decoded_errors(tta_card, tta_cpu,
+                                                cfg.num_classes),
+                  "nms": nms_agreement(tta_card, tta_cpu, cfg.num_classes,
+                                       0.001, 0.6, True)}
+    # the segment head on the first images: prototypes, then the masks of
+    # matched detections where the mask values clear the bound
+    scfg = cfgs["segment"]
+    xs = x[:YOLO_CPU_SEG]
+    seg = {}
+    for side, m, xx in (("card", card["segment"], xs.to(dev)),
+                        ("cpu", cpu["segment"], xs)):
+        with torch.no_grad():
+            maps, proto = m(xx)
+        seg[side] = (tyolo.decode_predictions(maps, scfg).cpu().numpy(),
+                     proto.cpu().numpy())
+    size = (x.shape[1], x.shape[2])
+    out["segment"] = {
+        "proto_rel_err": _group_err(seg["card"][1], seg["cpu"][1]),
+        "decoded_err": decoded_errors(seg["card"][0], seg["cpu"][0],
+                                      scfg.num_classes)}
+    # the masks of the CPU's boxes with the card's scores (the same NMS
+    # order): pixel by pixel where the mask values clear the bound
+    nc = scfg.num_classes
+    cpu_reordered = seg["cpu"][0].copy()
+    cpu_reordered[..., 4:5 + nc] = seg["card"][0][..., 4:5 + nc]
+    out["segment"]["nms"] = nms_agreement(
+        seg["card"][0], seg["cpu"][0], nc, 0.25, 0.45, False,
+        post=lambda p, c, i, m: [d for d, _ in tyolo.postprocess_seg(
+            p, seg["cpu"][1], size, c, i, multi_label=m)])
+    outs = {"card": tyolo.postprocess_seg(*seg["card"], size),
+            "cpu": tyolo.postprocess_seg(cpu_reordered, seg["cpu"][1], size)}
+    differ = near = masks = 0
+    nm = scfg.masks
+    for b in range(len(xs)):
+        (dc, mc), (dp, mp) = outs["card"][b], outs["cpu"][b]
+        if not len(dc) or not len(dp):
+            continue
+        # the CPU detections' coefficient rows, as postprocess_seg keeps them
+        p = cpu_reordered[b]
+        bi, cls, score = tyolo._candidates(p[:, 4:5] * p[:, 5:5 + nc], 0.25,
+                                           False)
+        rows = bi[tyolo.nms(p[bi, :4], score, cls, 0.45, 300)]
+        iou = _iou(dc, dp)
+        for i in range(len(dc)):
+            j = int(iou[i].argmax())
+            if iou[i, j] < 0.99 or dc[i, 5] != dp[j, 5]:
+                continue
+            masks += 1
+            bad = mc[i] != mp[j]
+            if bad.any():
+                # the CPU's mask values before the threshold where they differ
+                soft = tyolo.process_mask(seg["cpu"][1][b],
+                                          p[rows[j:j + 1], -nm:],
+                                          dp[j:j + 1, :4], size,
+                                          threshold=None)[0]
+                differ += int(bad.sum())
+                near += int((np.abs(soft[bad] - 0.5) <= YOLO_F32_REL).sum())
+    out["segment"].update(masks_compared=masks, pixels_differing=differ,
+                          pixels_differing_within_bound=near)
+    # the classifier at 224²
+    xc = torch.from_numpy(seeded_images(YOLO_BATCH, 19, (224, 224))
+                          ).float() / 255.0
+    with torch.no_grad():
+        lc = card["classify"](xc.to(dev)).cpu().numpy()
+        lp = cpu["classify"](xc).numpy()
+    out["classify"] = {"logit_rel_err": _group_err(lc, lp),
+                       "top1_equal": int((lc.argmax(1) == lp.argmax(1)).sum()),
+                       "images": len(xc)}
+    out["seconds"] = time.perf_counter() - t0
+    nms_bad = not all(_nms_ok(a) for a in list(out["nms"].values())
+                      + [out["tta"]["nms"], out["segment"]["nms"]])
+    print(f"16a detector card vs CPU (yolov5s 80 classes at 640², f32, TF32 "
+          f"off, batch {len(x_u8)} of letterboxed {YOLO_IMAGE[0]}x"
+          f"{YOLO_IMAGE[1]} images, firing classes {list(YOLO_FIRE)}; "
+          f"{out['seconds']:.1f} s): raw maps {out['raw_rel_err']:.2e} of "
+          f"their largest, decoded {json.dumps(out['decoded_err'])}; NMS "
+          f"{json.dumps(out['nms'])}; TTA {json.dumps(out['tta'])}; segment "
+          f"{json.dumps(out['segment'])}; classifier "
+          f"{json.dumps(out['classify'])} (bound {YOLO_F32_REL:g})",
+          flush=True)
+    errs = [out["raw_rel_err"], out["tta"]["decoded_err"]["xywh"],
+            out["segment"]["proto_rel_err"], out["classify"]["logit_rel_err"]]
+    errs += list(out["decoded_err"].values())
+    errs += list(out["segment"]["decoded_err"].values())
+    if (max(errs) > YOLO_F32_REL or nms_bad
+            or out["detections_per_image"] < 2
+            or out["segment"]["pixels_differing"]
+            != out["segment"]["pixels_differing_within_bound"]
+            or not out["segment"]["masks_compared"]):
+        raise SystemExit("16a the detector on the card disagrees with the "
+                         "CPU")
+    return out
+
+
+def write_yolo_val_dir(root: str, model, n: int, seed: int):
+    """n seeded 480x640 `.npy` images; labels: the CPU model's detections
+    in the val protocol (conf 0.001, multi-label, NMS at 0.6) on the
+    letterboxed image, those scoring 0.25 or more, as normalized rows of
+    the original image, and the
+    same boxes as 4-point polygons for the segment head.  Returns
+    (img_dir, label_dir, seg_label_dir, boxes a image)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.models import yolo as tyolo
+    from cross_modal_video_engine_tpu_torch.train.yolo_trainer import (
+        letterbox)
+    dirs = [os.path.join(root, d) for d in ("images", "labels", "seg")]
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+    counts = []
+    imgs = seeded_images(n, seed)
+    for i0 in range(0, n, YOLO_VAL_BATCH):
+        chunk = imgs[i0:i0 + YOLO_VAL_BATCH]
+        lbs = [letterbox(im, model.cfg.img_size) for im in chunk]
+        x = torch.from_numpy(np.stack([lb for lb, _, _ in lbs])).float() \
+            / 255.0
+        with torch.no_grad():
+            preds = tyolo.decode_predictions(model(x), model.cfg).numpy()
+        # the val run's own detections (its candidate array decides the
+        # order NMS meets equal scores in), those at 0.25 and above kept
+        dets = [d[d[:, 4] >= 0.25] for d in tyolo.postprocess(
+            preds, 0.001, 0.6, multi_label=True)]
+        for k, (img, (_, r, (px, py)), det) in enumerate(zip(chunk, lbs,
+                                                             dets)):
+            h, w = img.shape[:2]
+            name = f"im{i0 + k:03d}"
+            np.save(os.path.join(dirs[0], name + ".npy"), img)
+            x1, x2 = ((det[:, [0, 2]] - px) / r / w).T
+            y1, y2 = ((det[:, [1, 3]] - py) / r / h).T
+            with open(os.path.join(dirs[1], name + ".txt"), "w") as f, \
+                    open(os.path.join(dirs[2], name + ".txt"), "w") as g:
+                for c, a, b, cc, d in zip(det[:, 5], x1, y1, x2, y2):
+                    f.write(f"{int(c)} {(a + cc) / 2:.6f} {(b + d) / 2:.6f} "
+                            f"{cc - a:.6f} {d - b:.6f}\n")
+                    g.write(f"{int(c)} {a:.6f} {b:.6f} {cc:.6f} {b:.6f} "
+                            f"{cc:.6f} {d:.6f} {a:.6f} {d:.6f}\n")
+            counts.append(len(det))
+    return dirs[0], dirs[1], dirs[2], float(np.mean(counts))
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its stdout kept out of this script's."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def _report_row(report: dict) -> dict:
+    keys = ("map50", "map", "precision", "recall")
+    if "boxes" in report:
+        return {part: _report_row(report[part]) for part in ("boxes",
+                                                            "masks")}
+    return {k: report[k] for k in keys}
+
+
+def yolo_val_card(dev, tmp, sds, cfgs, cpu_detect) -> dict:
+    """16b: `yolo_val.main` on the card over a seeded directory whose
+    labels are the CPU's own detections, the detector read from a `best/`
+    directory in the JAX format; the same CLI on the CPU; then --augment
+    and the segment config on the card."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench.serve import device_kernels
+    from cross_modal_video_engine_tpu_torch.cli import yolo_val
+    from cross_modal_video_engine_tpu_torch.models import yolo as tyolo
+    from cross_modal_video_engine_tpu_torch.train.resume import (
+        save_train_state)
+    t0 = time.perf_counter()
+    img_dir, label_dir, seg_dir, boxes = write_yolo_val_dir(
+        os.path.join(tmp, "val"), cpu_detect, YOLO_VAL_IMAGES, 20)
+    line = {"images": YOLO_VAL_IMAGES, "labels_per_image": boxes,
+            "write_s": time.perf_counter() - t0}
+    bests = {}
+    for name in ("detect", "segment"):
+        m = tyolo.YoloV5(cfgs[name], device="cpu")
+        m.load_state_dict(sds[name])
+        bests[name] = os.path.join(tmp, f"best_{name}")
+        save_train_state(bests[name], {"detector": m},
+                         {"epoch": 0, "fitness": 0.0})
+    opts = YOLO_VAL_OPTIONS + [f"data.val.img_dir={img_dir}"]
+    seg_img_dir = os.path.join(tmp, "val", "seg_images")
+    os.makedirs(seg_img_dir)
+    for name in sorted(os.listdir(img_dir))[:YOLO_SEG_VAL_IMAGES]:
+        os.symlink(os.path.join(img_dir, name),
+                   os.path.join(seg_img_dir, name))
+    argv = [str(YOLO_DETECT_CONFIG), "--checkpoint", bests["detect"],
+            "--cfg-options"] + opts + [f"data.val.label_dir={label_dir}"]
+    runs = {"card": argv + ["--device", str(dev)],
+            "cpu": argv + ["--device", "cpu"],
+            "card --augment": argv + ["--device", str(dev), "--augment"],
+            "card segment": [str(YOLO_SEGMENT_CONFIG), "--checkpoint",
+                             bests["segment"], "--cfg-options"]
+            + YOLO_VAL_OPTIONS + [f"data.val.img_dir={seg_img_dir}",
+                                  f"data.val.label_dir={seg_dir}",
+                                  "--device", str(dev)]}
+    reports = {}
+    for name, args in runs.items():
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        reports[name] = _quiet(yolo_val.main, args)
+        torch.cuda.synchronize()
+        line[name] = dict(_report_row(reports[name]),
+                          seconds=time.perf_counter() - s0)
+    wall = line["card"]["seconds"]
+    line["card"]["images_per_s"] = YOLO_VAL_IMAGES / wall
+    kernels = device_kernels(lambda: _quiet(yolo_val.main, runs["card"]), 1)
+    line["card"].update(busy_ms=kernels["busy_ms"],
+                        idle_share=1.0 - kernels["busy_ms"] / (wall * 1e3),
+                        top_kernels=kernels["top_kernels"])
+    diff = max(abs(reports["card"][k] - reports["cpu"][k])
+               for k in ("map50", "map", "precision", "recall"))
+    line["card_vs_cpu_max_diff"] = diff
+    print(f"16b yolo_val.main over {YOLO_VAL_IMAGES} seeded 480x640 .npy "
+          f"images ({boxes:.1f} labels an image: the CPU's own detections), "
+          f"the detector from a best/ directory in the JAX format: "
+          f"{json.dumps(line)} (need mAP@0.5 >= {YOLO_MAP_MIN} on the card "
+          f"and the CPU, the rows within {YOLO_VAL_AGREE:g}; the segment "
+          f"config on the first {YOLO_SEG_VAL_IMAGES} images, its boxes' "
+          f"mAP@0.5 >= {YOLO_MAP_MIN})", flush=True)
+    if (min(reports["card"]["map50"], reports["cpu"]["map50"])
+            < YOLO_MAP_MIN or diff > YOLO_VAL_AGREE
+            or boxes < 1 or reports["card segment"]["boxes"]["map50"]
+            < YOLO_MAP_MIN):
+        raise SystemExit("16b yolo_val failed")
+    return line
+
+
+def _flash():
+    from cross_modal_video_engine_tpu_torch.ops import flash_attention as fa
+    return fa.flash_attention
+
+
+def ctv_build_card(dev, card, tmp, det_card, det_cpu) -> Tuple[dict, int]:
+    """16c-d: ctv_build with step 14's backbone and the firing detector on
+    seeded 352x480 videos through the reader seam; the flash counter read
+    around each video and each detection; the banks against the CPU's
+    build on two videos; the npz served by /explain against a direct
+    concept_scores; a 360x480 video refused; explain_video with the
+    detector, card against CPU.  Returns (line, flash launches)."""
+    import argparse
+    import torch
+    from cross_modal_video_engine_tpu_torch.api import init_recognizer
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli import ctv_build
+    from cross_modal_video_engine_tpu_torch.cli.caption_inference import (
+        DEFAULT_PIPELINE)
+    from cross_modal_video_engine_tpu_torch.data.pipelines import (
+        build_pipeline, with_reader)
+    from cross_modal_video_engine_tpu_torch.explain.model_layers import (
+        get_model_layers)
+    from cross_modal_video_engine_tpu_torch.explain.pipeline import (
+        ConceptBank, explain_video)
+    flash = _flash()
+    layer = get_model_layers("timesformer", TS_JOINT["num_layers"])["target"]
+    names = [f"coco{i}" for i in range(80)]
+    videos = bserve.seeded_videos(CTV_VIDEOS, seed=16, height=CTV_SIZE[0],
+                                  width=CTV_SIZE[1])
+    order = sorted(videos)
+    ckpt = os.path.join(tmp, "explain")
+    bserve.write_explain_checkpoint(ckpt, TS_JOINT, seed=6)
+    model, _ = init_recognizer(ckpt, device=dev)
+    line = {"videos": CTV_VIDEOS, "video_size": list(CTV_SIZE),
+            "video_frames": bserve.VIDEO_FRAMES, "target_layer": layer}
+    marks = []
+    det_fn = ctv_build.make_detector_fn(det_card)
+
+    def detector(frames):
+        before = flash.launches
+        out = det_fn(frames)
+        marks.append((before, flash.launches))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = {}
+    flash.launches = 0
+    t0 = time.perf_counter()
+    banks = ctv_build.build_ctv_banks(model, order, detector, names, layer,
+                                      reader=videos.__getitem__, times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = flash.launches
+    starts = [a for a, _ in marks] + [total]
+    per_video = [b - a for a, b in zip(starts, starts[1:])]
+    in_detector = sum(b - a for a, b in marks)
+    line.update(seconds=wall, seconds_per_video=wall / CTV_VIDEOS,
+                phases_s_per_video={k: v / CTV_VIDEOS
+                                    for k, v in times.items()},
+                flash_per_video=per_video, flash_in_detector=in_detector,
+                peak_mb=torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+                banks={k: list(v.shape) for k, v in banks.items()
+                       if k.endswith("_matrix")},
+                concepts=sorted(set(banks["symbolic_names"].tolist())))
+    print(f"16c ctv_build (TimeSformer ViT-B/16 joint bf16 flash, probe at "
+          f"block {layer}; yolov5s firing on {list(YOLO_FIRE)}) over "
+          f"{CTV_VIDEOS} seeded {bserve.VIDEO_FRAMES}-frame {CTV_SIZE[0]}x"
+          f"{CTV_SIZE[1]} videos through the reader: {json.dumps(line)} on "
+          f"{card} (need 12 flash a video, 0 in the detector)", flush=True)
+    if (per_video != [TS_JOINT["num_layers"]] * CTV_VIDEOS or in_detector
+            or line["concepts"] != sorted(names[c] for c in YOLO_FIRE)):
+        raise SystemExit("16c ctv_build's launches or concepts are wrong")
+
+    # the CPU's build of the first videos against the card's
+    t0 = time.perf_counter()
+    cpu_model, _ = init_recognizer(ckpt, device="cpu")
+    sub = order[:CTV_CPU_VIDEOS]
+    card_sub = ctv_build.build_ctv_banks(
+        model, sub, det_fn, names, layer, reader=videos.__getitem__)
+    cpu_sub = ctv_build.build_ctv_banks(
+        cpu_model, sub, ctv_build.make_detector_fn(det_cpu), names, layer,
+        reader=videos.__getitem__)
+    cos = {}
+    for k in ("symbolic_matrix", "cluster_matrix", "instance_matrix"):
+        if list(card_sub[k.replace("matrix", "names")]) != list(
+                cpu_sub[k.replace("matrix", "names")]):
+            raise SystemExit(f"16c {k}: card and CPU name different rows")
+        cos[k] = rows_cosine_min(card_sub[k], cpu_sub[k])
+    line["card_vs_cpu"] = {"videos": CTV_CPU_VIDEOS, "cosine_min": cos,
+                           "seconds": time.perf_counter() - t0}
+    print(f"16c banks card vs the port on the CPU ({CTV_CPU_VIDEOS} videos, "
+          f"bf16 both): row cosine {json.dumps(cos)} (need >= {CTV_COS:g})",
+          flush=True)
+    if min(cos.values()) < CTV_COS:
+        raise SystemExit("16c the banks disagree with the CPU's")
+
+    # 360x480: refused before the detector runs
+    marks.clear()
+    refused = bserve.seeded_videos(1, seed=17, height=CTV_REFUSED[0],
+                                   width=CTV_REFUSED[1])
+    try:
+        ctv_build.build_ctv_banks(model, list(refused), detector, names,
+                                  layer, reader=refused.__getitem__)
+        raise SystemExit("16c a 360x480 video was not refused")
+    except ValueError as e:
+        line["refused"] = str(e)[:120]
+    if marks:
+        raise SystemExit("16c the detector ran on a refused video")
+
+    # the npz through /explain, one request against a direct call
+    npz = os.path.join(tmp, "ctv_banks.npz")
+    np.savez(npz, **banks)
+    args = argparse.Namespace(explain_checkpoint=ckpt, concept_banks=npz,
+                              target_layer=layer, device=str(dev))
+    server, handler = bserve.start_route_server(
+        args, "explain", explain_decode=videos.__getitem__)
+    try:
+        port = server.server_address[1]
+        _, ans = bserve.request(port, "explain", {"video": order[0],
+                                                  "topK": 3}, timeout=600.0)
+        levels = {lvl: (np.asarray(banks[f"{lvl}_matrix"], np.float32),
+                        [str(n) for n in banks[f"{lvl}_names"]])
+                  for lvl in ("symbolic", "cluster", "instance")}
+        d = explain_direct(handler, order[0], levels)
+    finally:
+        bserve.stop_server(server, handler)
+    served = {}
+    for lvl, (_, lnames) in levels.items():
+        s = d["concepts"][lvl]
+        want = [lnames[i] for i in np.argsort(-s)[:3]]
+        got = [item["concept"] for item in ans[f"{lvl}_top"]]
+        err = max(abs(item["score"] - float(s[lnames.index(item["concept"])]))
+                  for item in ans[f"{lvl}_top"])
+        gaps = np.diff(np.sort(s)[::-1][:4])
+        served[lvl] = {"top": got, "direct_top": want, "score_err": err,
+                       "gaps_clear": bool(np.all(np.abs(gaps)
+                                                 > EXPLAIN_MARGIN))}
+        if err > EXPLAIN_MARGIN or (served[lvl]["gaps_clear"]
+                                    and got != want):
+            raise SystemExit(f"16c /explain's {lvl} concepts disagree")
+    line["explain_route"] = {"prediction": ans["prediction"],
+                             "levels": served}
+    print(f"16c the banks served by /explain: {json.dumps(served)} "
+          f"(scores within {EXPLAIN_MARGIN:g} of a direct concept_scores, "
+          f"the top 3 equal where the gaps clear it)", flush=True)
+
+    # 16d: explain_video with the real detector, card against CPU
+    pipe = build_pipeline(with_reader(DEFAULT_PIPELINE, videos.__getitem__))
+    decode = build_pipeline(with_reader(
+        [c for c in DEFAULT_PIPELINE if c["type"] in ctv_build.DECODE_TYPES],
+        videos.__getitem__))
+    tail = build_pipeline([c for c in DEFAULT_PIPELINE
+                           if c["type"] not in ctv_build.DECODE_TYPES])
+    raw = np.stack(decode({"filename": order[0], "start_index": 0})["imgs"])
+    clips = np.asarray(pipe({"filename": order[0], "start_index": 0})
+                       ["imgs"], np.float32)
+
+    def prep(clip):
+        return np.asarray(tail({"imgs": list(clip), "clip_len": len(clip),
+                                "num_clips": 1})["imgs"][0], np.float32)
+
+    sym = {"symbolic": ConceptBank(*levels["symbolic"])}
+    kw = dict(raw_frames_u8=raw, class_names=names, preprocess_fn=prep,
+              min_frames=len(raw) - 1, topk=2)
+    t0 = time.perf_counter()
+    flash.launches = 0
+    got = explain_video(model, clips, layer, sym, detector_fn=det_fn, **kw)
+    ev_launches = flash.launches
+    want = explain_video(cpu_model, clips, layer, sym,
+                         detector_fn=ctv_build.make_detector_fn(det_cpu),
+                         **kw)
+    del cpu_model
+    ev = {"concepts": got["detected_concepts"],
+          "cosine_min": min(rows_cosine_min(got["video_ctvs"][c],
+                                            want["video_ctvs"][c])
+                            for c in want["video_ctvs"]),
+          "flash_launches": ev_launches,
+          "seconds": time.perf_counter() - t0}
+    line["explain_video"] = ev
+    print(f"16d explain_video with the detector, card vs CPU: "
+          f"{json.dumps(ev)} (need the same concepts, cosine >= "
+          f"{CTV_COS:g})", flush=True)
+    if (got["detected_concepts"] != want["detected_concepts"]
+            or not got["detected_concepts"] or ev["cosine_min"] < CTV_COS):
+        raise SystemExit("16d explain_video disagrees with the CPU")
+    del model
+    torch.cuda.empty_cache()
+    return line, total
+
+
+def conv_flops(model, x) -> float:
+    """Operations of one forward: 2 * MACs of every Conv2d, counted from
+    the shapes by forward hooks."""
+    import torch
+    total = [0.0]
+
+    def hook(mod, inp, out):
+        total[0] += 2.0 * out.numel() * (mod.in_channels // mod.groups) \
+            * mod.kernel_size[0] * mod.kernel_size[1]
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        model(x)
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+def detector_times(dev, card, det, x_u8) -> dict:
+    """16e: the detector's forward at batch 16 (CUDA events), its TFLOP/s
+    from the convolutions' shapes, the host's NMS in both protocols and
+    the letterbox."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.models import yolo as tyolo
+    from cross_modal_video_engine_tpu_torch.train.yolo_trainer import (
+        letterbox)
+    x = (torch.from_numpy(x_u8).float() / 255.0).to(dev)
+    flops = conv_flops(det, x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def fwd():
+        with torch.no_grad():
+            return tyolo.decode_predictions(det(x), det.cfg)
+
+    ms = cuda_ms(fwd, iters=YOLO_TIMED_CALLS)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    preds = fwd().cpu().numpy()
+    nms = {}
+    for name, (conf, iou, multi) in (("detect", (0.25, 0.45, False)),
+                                     ("val", (0.001, 0.6, True))):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tyolo.postprocess(preds, conf, iou, multi_label=multi)
+        nms[name] = (time.perf_counter() - t0) / 3 / len(preds) * 1e3
+    raw = seeded_images(4, 21)
+    t0 = time.perf_counter()
+    for im in raw:
+        letterbox(im, det.cfg.img_size)
+    out = {"batch": len(x_u8), "forward_ms": ms,
+           "images_per_s": len(x_u8) / ms * 1e3,
+           "gflop_per_image": flops / len(x_u8) / 1e9,
+           "tflops": flops / ms / 1e9, "peak_mb": peak,
+           "nms_ms_per_image": nms,
+           "letterbox_ms": (time.perf_counter() - t0) / len(raw) * 1e3}
+    print(f"16e detector times on {card}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def check_concept_detector(dev, card) -> Tuple[dict, dict]:
+    """Step 16 (a-f of the docstring).  Every failed check raises.
+    Returns (the `concept_detector` JSON object, flash launches of the
+    bank build)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.train.yolo_trainer import (
+        letterbox)
+    from cross_modal_video_engine_tpu_torch.utils.precision import no_tf32
+    t_step = time.perf_counter()
+    no_tf32()
+    cfgs, sds, card_m, cpu_m = yolo_models(dev)
+    line = {"card": card, "configs": {k: dataclass_fields(v)
+                                      for k, v in cfgs.items()},
+            "fire": list(YOLO_FIRE)}
+    x_u8 = np.stack([letterbox(im, cfgs["detect"].img_size)[0]
+                     for im in seeded_images(YOLO_BATCH, 15)])
+    line["card_vs_cpu"] = detector_card_vs_cpu((card_m, cpu_m), cfgs, x_u8)
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        line["yolo_val"] = yolo_val_card(dev, tmp, sds, cfgs,
+                                         cpu_m["detect"])
+        line["ctv_build"], flash = ctv_build_card(
+            dev, card, tmp, card_m["detect"], cpu_m["detect"])
+    line["times"] = detector_times(dev, card, card_m["detect"], x_u8)
+    del card_m, cpu_m
+    torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"16 concept detector checked in {line['seconds']:.1f} s",
+          flush=True)
+    return line, {"flash_attention": flash}
+
+
+def dataclass_fields(cfg) -> dict:
+    import dataclasses
+    return {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k != "anchors"}
+
+
 def kernel_json(results, launches, core, block_extra,
                 composed_launches, caption_launches,
-                explain_launches, training_launches) -> dict:
+                explain_launches, training_launches, ctv_launches) -> dict:
     """The kernels line: bf16 errors over every case of a kernel; times,
     bound and library time of its main-path case; `launches` on the main
     path of steps 4, 6 and 8, `composed_launches` over the requests of the
     ViT-B/32 composed route (step 12d), `caption_launches` over the
     batch-1 requests of the caption route (step 13), `explain_launches`
     over the batch-1 requests of the explain route (step 14),
-    `training_launches` over the joint caption steps of step 15c.
+    `training_launches` over the joint caption steps of step 15c,
+    `ctv_launches` over the bank build of step 16c.
     `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
@@ -3849,6 +4613,7 @@ def kernel_json(results, launches, core, block_extra,
             "caption_launches": caption_launches.get(name, 0),
             "explain_launches": explain_launches.get(name, 0),
             "training_launches": training_launches.get(name, 0),
+            "ctv_launches": ctv_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in bf16),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": max(by_ops, by_bytes) * 1e3,
@@ -3992,16 +4757,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     ts_training, training_launches = check_timesformer_training(dev, card)
 
-    # -- 16. results ------------------------------------------------------------
+    # -- 16. the concept detector and the bank build ---------------------------
+    torch.cuda.empty_cache()
+    detector, ctv_launches = check_concept_detector(dev, card)
+
+    # -- 17. results ------------------------------------------------------------
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"composed": composed}))
     print(json.dumps({"caption": caption}))
     print(json.dumps({"explain": explain}))
     print(json.dumps({"timesformer_training": ts_training}))
+    print(json.dumps({"concept_detector": detector}))
     print(json.dumps(kernel_json(results, launches, core, block_extra,
                                  composed_launches, caption_launches,
-                                 explain_launches, training_launches)))
+                                 explain_launches, training_launches,
+                                 ctv_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

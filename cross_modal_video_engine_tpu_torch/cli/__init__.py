@@ -1,1 +1,1 @@
-"""Command-line entry points of the port (retrieval and serving)."""
+"""Command-line entry points of the port."""

@@ -47,6 +47,11 @@ compute the same function.
   dict, the optimizer's count and moments, and the step, as the tree the
   JAX package's RecTrainState serializes to (`{"params", "opt_state",
   "step"}`, the optimizer as `make_rec_optimizer`'s optax chain state).
+* `yolo_state_dict_from_jax` and `yolo_cls_state_dict_from_jax` invert
+  convert_yolov5 and convert_yolov5_cls (the ultralytics layout, the
+  anchors buffer in grid units); `yolo_variables_to_jax` and
+  `yolo_cls_variables_to_jax` go the other way, so a detector checkpoint
+  either package writes loads in the other.
 """
 
 from __future__ import annotations
@@ -788,3 +793,164 @@ def rec_train_state_from_jax(tree: Dict[str, Any], backbone_cfg, kind: str,
         if "trace" in trace:
             named["trace"] = from_tree(trace["trace"])
     return from_tree(tree["params"]), named, step
+
+
+# -- the YOLOv5 detector and classifier, both ways ---------------------------
+# sequential index of the ultralytics layout -> the JAX module's name
+# (convert/torch_import.py _YOLO_IDX2NAME)
+_YOLO_IDX2NAME = {
+    0: "stem", 1: "down1", 2: "c3_1", 3: "down2", 4: "c3_2", 5: "down3",
+    6: "c3_3", 7: "down4", 8: "c3_4", 9: "sppf", 10: "up5_conv", 13: "n4",
+    14: "up4_conv", 17: "n3", 18: "pan3", 20: "n4b", 21: "pan4", 23: "n5b",
+}
+_YOLO_DETECT = 24
+
+
+def _yolo_convs(p) -> List[str]:
+    """The ConvBnSiLU children of a JAX C3 / SPPF / Proto tree, or [""]
+    for a ConvBnSiLU itself; C3's bottlenecks as 'm{j}.cv1', 'm{j}.cv2'."""
+    if "conv" in p:
+        return [""]
+    names = [cv for cv in ("cv1", "cv2", "cv3") if cv in p]
+    j = 0
+    while f"m{j}" in p:
+        names += [f"m{j}.cv1", f"m{j}.cv2"]
+        j += 1
+    return names
+
+
+def _jax_path(tree, dotted: str):
+    for part in filter(None, dotted.split(".")):
+        tree = tree[part]
+    return tree
+
+
+def _torch_key(dotted: str) -> str:
+    """'m0.cv1' -> 'm.0.cv1' (C3's bottlenecks sit in an nn.Sequential)."""
+    return ".".join(f"m.{p[1:]}" if p[:1] == "m" and p[1:].isdigit() else p
+                    for p in dotted.split(".") if p)
+
+
+def _yolo_block_from_jax(sd, prefix: str, params, stats) -> None:
+    for cv in _yolo_convs(params):
+        p, s = _jax_path(params, cv), _jax_path(stats, cv)
+        name = ".".join(filter(None, (prefix, _torch_key(cv))))
+        _conv_from_jax(sd, f"{name}.conv", p["conv"])
+        _bn_from_jax(sd, f"{name}.bn", p["bn"], s["bn"])
+
+
+def _yolo_block_to_jax(sd, prefix: str, template_params):
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for cv in _yolo_convs(template_params):
+        name = ".".join(filter(None, (prefix, _torch_key(cv))))
+        (conv, bn), st = _conv_bn_to_jax(sd, f"{name}.conv", f"{name}.bn")
+        node_p, node_s = params, stats
+        for part in filter(None, cv.split(".")):
+            node_p = node_p.setdefault(part, {})
+            node_s = node_s.setdefault(part, {})
+        node_p.update(conv=conv, bn=bn)
+        node_s["bn"] = st
+    return params, stats
+
+
+def _yolo_anchors(cfg) -> torch.Tensor:
+    a = torch.tensor(cfg.anchors, dtype=torch.float32)
+    return a / torch.tensor([8.0, 16.0, 32.0]).view(3, 1, 1)
+
+
+def yolo_state_dict_from_jax(variables_np: Dict[str, Any], cfg
+                             ) -> Dict[str, torch.Tensor]:
+    """A JAX YoloV5's variables ({"params", "batch_stats"}, numpy arrays or
+    tensors) -> the port's state dict in the ultralytics layout, the
+    inverse of convert_yolov5; the anchors buffer from cfg.anchors in grid
+    units.  cfg: a YoloConfig of either package."""
+    params, stats = variables_np["params"], variables_np["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for idx, name in _YOLO_IDX2NAME.items():
+        _yolo_block_from_jax(sd, f"model.{idx}", params[name], stats[name])
+    det = f"model.{_YOLO_DETECT}"
+    for i in range(3):
+        p = params[f"detect_{i}"]
+        sd[f"{det}.m.{i}.weight"] = _f32(p["kernel"]).permute(
+            3, 2, 0, 1).contiguous()
+        sd[f"{det}.m.{i}.bias"] = _f32(p["bias"])
+    sd[f"{det}.anchors"] = _yolo_anchors(cfg)
+    if cfg.masks > 0:
+        _yolo_block_from_jax(sd, f"{det}.proto", params["proto"],
+                             stats["proto"])
+    return sd
+
+
+def yolo_variables_to_jax(state_dict: Dict[str, torch.Tensor], cfg
+                          ) -> Dict[str, Any]:
+    """The port's YoloV5 state dict -> the JAX variables {"params",
+    "batch_stats"} (numpy f32), as convert_yolov5 builds them."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for idx, name in _YOLO_IDX2NAME.items():
+        pre = f"model.{idx}"
+        if f"{pre}.conv.weight" in state_dict:
+            template = {"conv": None}
+        else:
+            template = {cv: None for cv in ("cv1", "cv2", "cv3")
+                        if f"{pre}.{cv}.conv.weight" in state_dict}
+            j = 0
+            while f"{pre}.m.{j}.cv1.conv.weight" in state_dict:
+                template[f"m{j}"] = None
+                j += 1
+        params[name], stats[name] = _yolo_block_to_jax(state_dict, pre,
+                                                       template)
+    det = f"model.{_YOLO_DETECT}"
+    for i in range(3):
+        params[f"detect_{i}"] = {
+            "kernel": _np32(state_dict[f"{det}.m.{i}.weight"]).transpose(
+                2, 3, 1, 0),
+            "bias": _np32(state_dict[f"{det}.m.{i}.bias"])}
+    if cfg.masks > 0:
+        params["proto"], stats["proto"] = _yolo_block_to_jax(
+            state_dict, f"{det}.proto", {"cv1": 0, "cv2": 0, "cv3": 0})
+    return {"params": params, "batch_stats": stats}
+
+
+_YOLO_CLS_TRUNK = {i: n for i, n in _YOLO_IDX2NAME.items() if i <= 8}
+
+
+def yolo_cls_state_dict_from_jax(variables_np: Dict[str, Any], cfg
+                                 ) -> Dict[str, torch.Tensor]:
+    """A JAX YoloClassifier's variables -> the port's state dict (the
+    yolov5-cls layout convert_yolov5_cls reads: the trunk model.0-8,
+    Classify at model.9)."""
+    params, stats = variables_np["params"], variables_np["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for idx, name in _YOLO_CLS_TRUNK.items():
+        _yolo_block_from_jax(sd, f"model.{idx}", params[name], stats[name])
+    _yolo_block_from_jax(sd, "model.9.conv", params["classify_conv"],
+                         stats["classify_conv"])
+    lin = params["classify_linear"]
+    sd["model.9.linear.weight"] = _f32(lin["kernel"]).T.contiguous()
+    sd["model.9.linear.bias"] = _f32(lin["bias"])
+    return sd
+
+
+def yolo_cls_variables_to_jax(state_dict: Dict[str, torch.Tensor], cfg
+                              ) -> Dict[str, Any]:
+    """The inverse of yolo_cls_state_dict_from_jax."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for idx, name in _YOLO_CLS_TRUNK.items():
+        pre = f"model.{idx}"
+        if f"{pre}.conv.weight" in state_dict:
+            template = {"conv": None}
+        else:
+            template = {"cv1": 0, "cv2": 0, "cv3": 0}
+            j = 0
+            while f"{pre}.m.{j}.cv1.conv.weight" in state_dict:
+                template[f"m{j}"] = None
+                j += 1
+        params[name], stats[name] = _yolo_block_to_jax(state_dict, pre,
+                                                       template)
+    params["classify_conv"], stats["classify_conv"] = _yolo_block_to_jax(
+        state_dict, "model.9.conv", {"conv": None})
+    params["classify_linear"] = _dense_to_jax(state_dict, "model.9.linear")
+    return {"params": params, "batch_stats": stats}

@@ -1,1 +1,1 @@
-"""Retrieval metrics (numpy)."""
+"""Retrieval, accuracy and detection metrics (numpy)."""

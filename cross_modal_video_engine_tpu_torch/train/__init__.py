@@ -1,2 +1,2 @@
-"""Checkpoints in the JAX package's directory format, and the LINAS
-trainer with its optimizers and resume, and the Combiner's trainer."""
+"""Checkpoints in the JAX package's directory format, resume, the
+trainers with their optimizers, and the detector's letterbox."""

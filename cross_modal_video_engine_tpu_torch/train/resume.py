@@ -15,7 +15,12 @@ files, so a run either package saved resumes in the other:
     TimeSformer has no BatchNorm), /state/params/..., /state/opt_state/
     (make_rec_optimizer's chain) and /state/step
     (`rec_train_state_{to,from}_jax`);
-* `loop_state.json`: the host loop's state ({epoch, ...}).
+  - the detector's `best/` directory, `{"params", "batch_stats"}` as
+    the JAX `cli/yolo_train.py` writes its EMA weights there
+    (`yolo{,_cls}_{state_dict_from,variables_to}_jax`): the port's payload
+    is `{"detector": YoloV5 or YoloClassifier}`;
+* `loop_state.json`: the host loop's state ({epoch, ...}; a detector's
+  `anchors` in pixels, which `load_train_state` applies to the model).
 
 `load_train_state` restores into the given states in place.
 """
@@ -29,6 +34,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..convert.from_jax import (linas_mask_state_from_jax,
+                                yolo_cls_state_dict_from_jax,
+                                yolo_cls_variables_to_jax,
+                                yolo_state_dict_from_jax,
+                                yolo_variables_to_jax,
                                 linas_mask_state_to_jax,
                                 linas_train_state_from_jax,
                                 linas_train_state_to_jax,
@@ -59,11 +68,40 @@ def _rec_to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
     return tree
 
 
+def _is_classifier(model) -> bool:
+    return "model.9.linear.weight" in model.state_dict()
+
+
+def _detector_to_tree(model) -> Dict[str, Any]:
+    to_jax = (yolo_cls_variables_to_jax if _is_classifier(model)
+              else yolo_variables_to_jax)
+    return _host_tree(to_jax(model.state_dict(), model.cfg))
+
+
+def _load_detector(model, tree: Dict[str, Any], loop_state: Dict) -> None:
+    """The file's {"params", "batch_stats"} into the detector, after the
+    loop state's anchors (pixels) replace its config's."""
+    import dataclasses
+    if loop_state.get("anchors"):
+        anchors = tuple(tuple(tuple(a) for a in layer)
+                        for layer in loop_state["anchors"])
+        model.cfg = dataclasses.replace(model.cfg, anchors=anchors)
+    from_jax = (yolo_cls_state_dict_from_jax if _is_classifier(model)
+                else yolo_state_dict_from_jax)
+    sd = from_jax(tree, model.cfg)
+    model.load_state_dict(sd, strict=False)
+    missing = set(model.state_dict()) - set(sd)
+    if any(not k.endswith("num_batches_tracked") for k in missing):
+        raise KeyError(f"not in the checkpoint: {sorted(missing)[:5]}")
+
+
 def _to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
     """The payload's tree in the JAX package's order: dict keys sorted, as
     jax.tree.map leaves them, but TrainState's and RecTrainState's fields
     in field order (the optax states' fields are sorted already), so both
     packages write the same bytes for the same state."""
+    if "detector" in payload:
+        return _detector_to_tree(payload["detector"])
     if isinstance(payload["state"], RecTrainState):
         return _rec_to_tree(payload)
     tree = {}
@@ -82,8 +120,8 @@ def _to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
 
 def save_train_state(path: str, payload: Dict[str, Any],
                      loop_state: Optional[Dict] = None) -> None:
-    """payload: {"state": TrainState[, "mask": MaskState]} or {"state":
-    RecTrainState, "batch_stats": None}."""
+    """payload: {"state": TrainState[, "mask": MaskState]}, {"state":
+    RecTrainState, "batch_stats": None} or {"detector": model}."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, STATE_FILE), "wb") as f:
         f.write(flax_msgpack.to_bytes(_to_tree(payload)))
@@ -94,12 +132,22 @@ def save_train_state(path: str, payload: Dict[str, Any],
 def load_train_state(path: str, payload: Dict[str, Any]
                      ) -> Tuple[Dict[str, Any], Dict]:
     """payload: the states to restore into, {"state": TrainState[, "mask":
-    MaskState]} or {"state": RecTrainState, "batch_stats": None}; each
+    MaskState]}, {"state": RecTrainState, "batch_stats": None} or
+    {"detector": YoloV5 or YoloClassifier} (a detector's cfg takes the
+    loop state's anchors); each
     entry found in the file is loaded in place.  Returns (the payload
     restored, loop state); a RecTrainState comes back with the file's
     step."""
     with open(os.path.join(path, STATE_FILE), "rb") as f:
         tree = flax_msgpack.restore(f.read())
+    loop_state = {}
+    p = os.path.join(path, LOOP_FILE)
+    if os.path.exists(p):
+        with open(p) as f:
+            loop_state = json.load(f)
+    if "detector" in payload:
+        _load_detector(payload["detector"], tree, loop_state)
+        return {"detector": payload["detector"]}, loop_state
     restored = {}
     state = payload["state"]
     if isinstance(state, RecTrainState):
@@ -124,11 +172,6 @@ def load_train_state(path: str, payload: Dict[str, Any]
             mask.pa.copy_(pa)
         mask.optimizer.load_named_state(named)
         restored["mask"] = mask
-    loop_state = {}
-    p = os.path.join(path, LOOP_FILE)
-    if os.path.exists(p):
-        with open(p) as f:
-            loop_state = json.load(f)
     return restored, loop_state
 
 

@@ -38,7 +38,8 @@ from cross_modal_video_engine_tpu_torch import api
 from cross_modal_video_engine_tpu_torch.cli import caption_inference as tci
 from cross_modal_video_engine_tpu_torch.cli import caption_test as tct
 from cross_modal_video_engine_tpu_torch.convert import (
-    recognizer_state_dict_from_jax, recognizer_variables_to_jax)
+    recognizer_state_dict_from_jax, recognizer_variables_to_jax,
+    yolo_variables_to_jax)
 from cross_modal_video_engine_tpu_torch.models import recognizer as trec
 from cross_modal_video_engine_tpu_torch.models import timesformer as tts
 from cross_modal_video_engine_tpu_torch.models.decoder_head import (
@@ -399,6 +400,67 @@ def composed(tmp_path_factory):
     return bserve.write_composed_fixtures(root, rn, comb, 3)
 
 
+@pytest.fixture(scope="module")
+def detector(tmp_path_factory):
+    """Tiny detector fixtures: a yolov5-layout val directory of two .npy
+    images with its config and a `best/` directory; a detector checkpoint,
+    a classifier checkpoint, a video list, class names and seeded videos
+    for ctv_build (64x64 frames)."""
+    import dataclasses
+    from cross_modal_video_engine_tpu_torch.bench.serve import SeededVideo
+    from cross_modal_video_engine_tpu_torch.models import yolo as tyolo
+    from cross_modal_video_engine_tpu_torch.train.resume import (
+        save_train_state)
+    root = tmp_path_factory.mktemp("detector")
+    cfg = tyolo.YoloConfig(num_classes=3, width_multiple=0.125, img_size=64)
+    det = tyolo.YoloV5(cfg, device="cpu")
+    det.load_state_dict(tyolo.random_state_dict(cfg, 2, fire=(0, 2)))
+    (root / "images").mkdir()
+    (root / "labels").mkdir()
+    for i in range(2):
+        np.save(root / "images" / f"{i}.npy",
+                np.full((48, 64, 3), 60 * i, np.uint8))
+        (root / "labels" / f"{i}.txt").write_text("0 0.5 0.5 0.4 0.3\n")
+    model = {k: v for k, v in dataclasses.asdict(cfg).items()
+             if k in ("num_classes", "width_multiple", "img_size")}
+    config = root / "cfg.py"
+    config.write_text(f"model = {model!r}\ndata = dict(val=dict(img_dir="
+                      f"{str(root / 'images')!r}, label_dir="
+                      f"{str(root / 'labels')!r}), batch_size=2)\n")
+    save_train_state(str(root / "best"), {"detector": det})
+    save_checkpoint(str(root / "yolo"), yolo_variables_to_jax(
+        det.state_dict(), cfg), cfg)
+    ts = dict(TS, num_frames=8)
+    save_checkpoint(str(root / "rec"), recognizer_variables_to_jax(
+        trec.random_state_dict(tts.TimeSformerConfig(**ts), 4,
+                               num_classes=4), tts.TimeSformerConfig(**ts)),
+        {"backbone": ts, "num_classes": 4})
+    videos = {f"v{i}.mp4": SeededVideo(i, frames=40, height=64, width=64)
+              for i in range(2)}
+    (root / "list.txt").write_text("\n".join(videos))
+    (root / "names.json").write_text(json.dumps(["a", "b", "c"]))
+    return root, videos
+
+
+def _ctv_build(detector, tmp_path):
+    from cross_modal_video_engine_tpu_torch.cli import ctv_build
+    root, videos = detector
+    pipe = ctv_build.DEFAULT_PIPELINE
+    # one clip: ctv_build embeds each video's frames as one clip
+    ctv_build.DEFAULT_PIPELINE = [
+        dict(c, num_clips=1) if c["type"] == "SampleFrames" else c
+        for c in PIPE]
+    try:
+        ctv_build.main([
+            "--checkpoint", str(root / "rec"), "--video_list",
+            str(root / "list.txt"), "--detector_checkpoint",
+            str(root / "yolo"), "--class_names", str(root / "names.json"),
+            "--output", str(tmp_path / "banks.npz"), "--device", "cpu"],
+            reader=videos.__getitem__)
+    finally:
+        ctv_build.DEFAULT_PIPELINE = pipe
+
+
 def _linas_main(linas, module, extra):
     root, ckpt, _, bserve = linas
     return module.main(["--checkpoint", ckpt, "--rootpath", root,
@@ -429,7 +491,7 @@ def _route(builder, **args):
 def _entry_points():
     from cross_modal_video_engine_tpu_torch.cli import (
         caption_train, composed_inference, recognition_train,
-        retrieval_inference, retrieval_tester, serve)
+        retrieval_inference, retrieval_tester, serve, yolo_val)
     from cross_modal_video_engine_tpu_torch.cli.common import (
         restore_dual_encoding)
     return {
@@ -471,6 +533,10 @@ def _entry_points():
                                "recognition"),
             "--work_dir", str(w["tmp"] / "recognition_work"), "--device",
             "cpu"]),
+        "yolo_val.main": lambda w: yolo_val.main([
+            str(w["detector"][0] / "cfg.py"), "--checkpoint",
+            str(w["detector"][0] / "best"), "--device", "cpu"]),
+        "ctv_build.main": lambda w: _ctv_build(w["detector"], w["tmp"]),
     }
 
 
@@ -480,12 +546,13 @@ ENTRY_POINTS = ["restore_dual_encoding", "retrieval_inference.main",
                 "build_composed_handler", "init_recognizer",
                 "caption_inference.main", "caption_test.main",
                 "build_caption_handler", "caption_train.main",
-                "recognition_train.main"]
+                "recognition_train.main", "yolo_val.main", "ctv_build.main"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)
 def test_f32_entry_points_turn_tf32_off(entry, world, linas, composed,
-                                        tmp_path, monkeypatch, capsys):
+                                        detector, tmp_path, monkeypatch,
+                                        capsys):
     """With both TF32 flags set (torch's cuDNN default, and a caller's
     matmul setting), each entry point leaves them off, so its f32 convs,
     GRUs and products run in f32 on the card.  The flags are restored."""
@@ -497,7 +564,8 @@ def test_f32_entry_points_turn_tf32_off(entry, world, linas, composed,
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.backends.cudnn.allow_tf32 = True
         _entry_points()[entry]({"linas": linas, "composed": composed,
-                                "caption": world, "tmp": tmp_path})
+                                "caption": world, "detector": detector,
+                                "tmp": tmp_path})
         assert torch.backends.cuda.matmul.allow_tf32 is False
         assert torch.backends.cudnn.allow_tf32 is False
     finally:
