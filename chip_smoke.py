@@ -206,15 +206,38 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
     the convolutions' shapes), the host's NMS and letterbox, yolo_val's
     images/s and idle share, ctv_build's seconds a video by phase, peak
     memory; (f) a `concept_detector` JSON line;
-17. prints the JSON lines of steps 10-16 and of the kernel results
+17. the word-level caption transformer and the detector's training at
+    full width, from numpy seeds: (a) Recognizer3DCaption on step 13's
+    joint ViT-B/16 (bf16, flash) with the default CaptionConfig (vocab
+    10000, width 512, 8 heads, 4 layers, 24 tokens): teacher forcing,
+    `generate("greedy")` and `generate("beam", 4)` on 4 seeded clips, the
+    flash counter zeroed and read around each (12 a call), clip 0 against
+    the CPU (the logits by CAPTION17_REL and CAPTION17_COS, token
+    divergences counted), generate timed by CUDA events; (b)
+    `yolo_train.train_from_config` on configs/detection/yolov5/
+    yolov5s_coco_640.py as shipped (yolov5s, 640, batch 16, bf16, mosaic
+    and HSV) over 32 seeded 480x640 `.npy` images, 2 epochs with
+    AutoAnchor and validation on 16 more, every kernel counter zeroed and
+    read around it (no launch), a resume from epoch_0 against the
+    uninterrupted epoch 1, `best/` read by `yolo_val.main` (its mAP that
+    epoch's) and by ctv_build's loader, one step at batch 2 card against
+    CPU in f32 (YOLO17_F32) and in bf16 (YOLO17_BF16); (c) two steps each
+    of the shipped segment and classify configs (32 masks; 1000 classes
+    at batch 64) through their train_from_config, one f32 step of each
+    card against CPU; (d) each trainer's step by CUDA events (the
+    detector's and segmenter's through bench/extra.py's rows), images/s
+    and each loop's idle share (the host augments in numpy);
+18. prints the JSON lines of steps 10-17 and of the kernel results
     (launches on the main paths, on the composed, caption and explain
-    routes, in the training steps and in the bank build, error, time,
+    routes, in the training steps, in the bank build, in the caption
+    transformer's generates and in the detector's training, error, time,
     plain time, bound, library time) and, last, a JSON line naming the
     device.
 
 Nothing is cut: the models run at full width and depth (the LINAS
 training runs 2 epochs of a 2,560-caption collection, the TimeSformer
-trainers 2 and 1 epochs of 32 videos; the composed
+trainers 2 and 1 epochs of 32 videos, the detector's trainers 2 and 1
+epochs of 32 images and the classifier's 1 epoch of 128; the composed
 route's candidates and the Combiner's triplets are stored features, as
 the route and the trainer read them).  Exits non-zero, printing no
 result, when CUDA is unavailable or any check fails.
@@ -4557,6 +4580,655 @@ def check_concept_detector(dev, card) -> Tuple[dict, dict]:
     return line, {"flash_attention": flash}
 
 
+# -- 17. the caption transformer and the detector's training ----------------
+
+# 17a: the default CaptionConfig over step 13's joint ViT-B/16 backbone
+CAPTION17_CLIPS, CAPTION17_BEAM = 4, 4
+# bf16 backbone, card against CPU on clip 0: teacher-forcing logits within
+# this share of the largest CPU logit, and each position's logits at
+# cosine CAPTION17_COS or more
+CAPTION17_REL, CAPTION17_COS = 5e-2, 0.99
+CAPTION17_TIMED = 3
+# 17b-c: seeded splits; the shipped configs' batches give 2 steps an epoch
+YOLO17_TRAIN, YOLO17_VAL, YOLO17_SEG_VAL = 32, 16, 4
+YOLO17_EPOCHS = 2
+YOLO17_CLS_CLASSES, YOLO17_CLS_PER_CLASS = 16, 8     # 128 images: 2 steps
+YOLO17_STEP_BATCH = 2                   # one step, card against CPU
+# f32 with TF32 off, card against CPU after one step: the loss within
+# `loss` relative; each gradient and the velocity at cosine `cos` or
+# more (not by the largest element: SPPF's max pools route the gradient
+# of near-tied windows to another element on each side, which on a
+# mosaic batch moves a few percent of a tensor's largest gradient at
+# cosine 0.9999x; `worst_grads` prints them), each update and EMA move
+# at `update_cos` (the warmup's bias lr carries that into the small
+# BatchNorm biases); the BatchNorm statistics within `stats` of the
+# tensor's largest magnitude
+YOLO17_F32 = {"loss": 1e-4, "cos": 0.9999, "update_cos": 0.999,
+              "stats": 1e-3}
+# bf16 (f32 masters) against the CPU's f32 step: the loss within `loss`,
+# the running statistics within `stats`, each group's update at cosine
+# `cos` or more.  At batch 2 a bf16 step's update is far from the f32
+# one in either package (the CPU's own bf16 update, printed beside the
+# card's as the yardstick, sits at about 0.7-0.8 of its f32 update)
+YOLO17_BF16 = {"loss": 5e-3, "stats": 5e-2, "cos": 0.5}
+# a resumed epoch against the uninterrupted one on the card (cuDNN's
+# backward may sum in another order: the CPU test holds them equal)
+YOLO17_RESUME_REL = 1e-2
+YOLO17_TIMED_STEPS = 5
+
+
+def kernel_counters():
+    from cross_modal_video_engine_tpu_torch.ops import attention_sublayer
+    from cross_modal_video_engine_tpu_torch.ops import flash_attention
+    return {"fused_attention_sublayer":
+            attention_sublayer.fused_attention_sublayer,
+            "fused_attention_sublayer_compact":
+            attention_sublayer.fused_attention_sublayer_compact,
+            "fused_mlp_sublayer": attention_sublayer.fused_mlp_sublayer,
+            "fused_block_sublayer_compact":
+            attention_sublayer.fused_block_sublayer_compact,
+            "flash_attention": flash_attention.flash_attention}
+
+
+def caption_transformer_model(dev):
+    """Recognizer3DCaption on TS_JOINT with the default CaptionConfig,
+    weights from numpy seeds: (model, state dict)."""
+    from cross_modal_video_engine_tpu_torch.models import (
+        caption_transformer as ct)
+    from cross_modal_video_engine_tpu_torch.models.recognizer import (
+        Recognizer3DCaption, random_state_dict)
+    from cross_modal_video_engine_tpu_torch.models.timesformer import (
+        TimeSformerConfig)
+    bcfg = TimeSformerConfig(**TS_JOINT)
+    ccfg = ct.CaptionConfig(enc_dim=bcfg.embed_dims)
+    sd = {k: v for k, v in random_state_dict(bcfg, seed=17,
+                                             num_classes=1).items()
+          if k.startswith("backbone.")}
+    sd.update({f"caption_head.{k}": v
+               for k, v in ct.random_state_dict(ccfg, 18).items()})
+    model = Recognizer3DCaption(bcfg, ccfg, device=dev)
+    model.load_state_dict(sd)
+    return model, sd
+
+
+def check_caption_transformer(dev, card) -> Tuple[dict, int]:
+    """17a.  Returns (the line, flash launches of the two generates)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.models.recognizer import (
+        Recognizer3DCaption)
+    flash = _flash()
+    t0 = time.perf_counter()
+    model, sd = caption_transformer_model(dev)
+    ccfg = model.caption_head.cfg
+    layers = model.backbone.cfg.num_layers
+    rng = np.random.default_rng(17)
+    n = CAPTION17_CLIPS
+    clips = normalised_clips(rng, n, dev)
+    ids = np.concatenate([np.full((n, 1), ccfg.bos_id),
+                          rng.integers(3, ccfg.vocab_size,
+                                       (n, ccfg.max_len - 1))], 1)
+    ids = torch.from_numpy(ids).to(dev)
+    arms = {"teacher": lambda: model(clips, ids),
+            "greedy": lambda: model.generate(clips, "greedy"),
+            "beam": lambda: model.generate(clips, "beam", CAPTION17_BEAM)}
+    out, launches = {}, {}
+    with torch.no_grad():
+        for name, fn in arms.items():
+            torch.cuda.synchronize()
+            flash.launches = 0
+            out[name] = fn()
+            torch.cuda.synchronize()
+            launches[name] = flash.launches
+    cpu = Recognizer3DCaption(model.backbone.cfg, ccfg, device="cpu")
+    cpu.load_state_dict(sd)
+    c0 = clips[:1].cpu()
+    with torch.no_grad():
+        want = {"teacher": cpu(c0, ids[:1].cpu()),
+                "greedy": cpu.generate(c0, "greedy"),
+                "beam": cpu.generate(c0, "beam", CAPTION17_BEAM)}
+    del cpu
+    got_logits = out["teacher"][:1].float().cpu()
+    scale = float(want["teacher"].abs().max())
+    rel = float((got_logits - want["teacher"]).abs().max()) / scale
+    step0 = float((got_logits[:, 0] - want["teacher"][:, 0]).abs().max()
+                  ) / scale
+    cos = cosine_min(got_logits, want["teacher"])
+    divergences = {k: int((out[k][0][:1].cpu() != want[k][0]).sum())
+                   for k in ("greedy", "beam")}
+    first = {k: bool(out[k][0][0, 0].cpu() == want[k][0][0, 0])
+             for k in ("greedy", "beam")}
+    with torch.no_grad():
+        enc_ms = cuda_ms(lambda: model._enc_tokens(clips),
+                         iters=CAPTION17_TIMED, warmup=1)
+        greedy_ms = cuda_ms(arms["greedy"], iters=CAPTION17_TIMED, warmup=1)
+        beam_ms = cuda_ms(arms["beam"], iters=CAPTION17_TIMED, warmup=1)
+    line = {"card": card, "clips": n, "beam_width": CAPTION17_BEAM,
+            "caption_config": dataclass_fields(ccfg),
+            "flash_launches": launches,
+            "card_vs_cpu": {"logits_rel_err": rel, "step0_rel_err": step0,
+                            "logits_min_cosine": cos,
+                            "token_divergences_of_24": divergences,
+                            "first_token_equal": first},
+            "ms": {"encoder": enc_ms, "generate_greedy": greedy_ms,
+                   "generate_beam4": beam_ms},
+            "captions_per_s": {"greedy": n / greedy_ms * 1e3,
+                               "beam4": n / beam_ms * 1e3},
+            "seconds": time.perf_counter() - t0}
+    print(f"17a caption transformer (ViT-B/16 joint bf16 + CaptionConfig(), "
+          f"{n} clips): flash launches {launches} (need {layers} each); "
+          f"card vs CPU on clip 0: logits rel err {rel:.3e} (step 0 "
+          f"{step0:.3e}; tol {CAPTION17_REL:g}), min cosine {cos:.6f}; "
+          f"token divergences of {ccfg.max_len}: {divergences} (reported); "
+          f"generate greedy {greedy_ms:.2f} ms, beam {CAPTION17_BEAM} "
+          f"{beam_ms:.2f} ms, encoder {enc_ms:.2f} ms ({card})", flush=True)
+    v = ccfg.vocab_size
+    checks = {
+        "shapes": (tuple(out["teacher"].shape) == (n, ccfg.max_len, v)
+                   and tuple(out["greedy"][0].shape) == (n, ccfg.max_len)
+                   and tuple(out["beam"][0].shape) == (n, ccfg.max_len)),
+        "finite": all(bool(torch.isfinite(t).all()) for t in (
+            out["teacher"], out["greedy"][1], out["beam"][1])),
+        "ids in vocab": all(bool(((o[0] >= 0) & (o[0] < v)).all())
+                            for o in (out["greedy"], out["beam"])),
+        "flash launches": all(c == layers for c in launches.values()),
+        "logits vs CPU": rel <= CAPTION17_REL and cos >= CAPTION17_COS,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"17a caption transformer checks failed: {failed}")
+    del model, clips
+    torch.cuda.empty_cache()
+    return line, launches["greedy"] + launches["beam"]
+
+
+def write_yolo_split(root: str, n: int, seed: int, seg: bool) -> Tuple[str,
+                                                                       str]:
+    """n seeded 480x640 `.npy` images with 1-6 boxes each (normalized
+    `cls cx cy w h`, 80 classes), or for the segment head a polygon per
+    instance."""
+    rng = np.random.default_rng(seed)
+    img_dir, lab_dir = (os.path.join(root, d) for d in ("images", "labels"))
+    os.makedirs(img_dir)
+    os.makedirs(lab_dir)
+    for i, img in enumerate(seeded_images(n, seed)):
+        np.save(os.path.join(img_dir, f"{i:04d}.npy"), img)
+        rows = []
+        for _ in range(int(rng.integers(1, 7))):
+            cls = int(rng.integers(0, 80))
+            c = rng.uniform(0.2, 0.8, 2)
+            if seg:
+                r = rng.uniform(0.05, 0.2)
+                a = np.sort(rng.uniform(0, 2 * np.pi,
+                                        int(rng.integers(5, 12))))
+                p = (c + r * np.stack([np.cos(a), np.sin(a)], 1)).clip(
+                    0.01, 0.99)
+                vals = p.ravel()
+            else:
+                vals = (*c, *rng.uniform(0.05, 0.5, 2))
+            rows.append(" ".join([str(cls)] + [f"{v:.6f}" for v in vals]))
+        with open(os.path.join(lab_dir, f"{i:04d}.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return img_dir, lab_dir
+
+
+def write_image_folder(root: str, classes: int, per: int, seed: int) -> str:
+    for c in range(classes):
+        d = os.path.join(root, f"c{c:03d}")
+        os.makedirs(d)
+        for i, img in enumerate(seeded_images(per, seed + c, (256, 320))):
+            np.save(os.path.join(d, f"{i}.npy"), img)
+    return root
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-12)
+
+
+def _one_step(where, kind: str, model_fn, batch, bf16: bool):
+    """One train step of a fresh model (the training init, seed 0) on
+    `where`: (loss, gradients, the state's tensors, the params before)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.losses.yolo import YoloHyp
+    from cross_modal_video_engine_tpu_torch.train import yolo_trainer as yt
+    opt = yt.YoloOptHyp()
+    sched = yt.lr_momentum_at(50, 5, 10, 3, opt)
+    model = model_fn(where)
+    state = yt.init_yolo_train_state(model, seed=0)
+    p0 = {k: v.detach().clone().cpu() for k, v in model.state_dict().items()}
+    if kind == "classify":
+        step = yt.make_yolo_cls_train_step(model, opt, 5e-5, bf16=bf16,
+                                           device=where)
+        state, logs = step(state, *(t.to(where) for t in batch), *sched)
+    else:
+        step = yt.make_yolo_train_step(model, YoloHyp(), opt,
+                                       yt.scaled_weight_decay(opt, 2),
+                                       bf16=bf16, device=where)
+        images, targets, valid, *gt = (t.to(where) for t in batch)
+        extra = {"gt_masks": gt[0]} if gt else {}
+        state, logs = step(state, images, targets, valid, *sched, **extra)
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    tensors = {part: {k: v.detach().cpu() for k, v in d.items()}
+               for part, d in yt.state_tensors(state).items()}
+    return float(logs["loss"]), grads, tensors, p0, yt.param_groups(model)
+
+
+def _cos(a, b) -> float:
+    import torch
+    a, b = a.double().ravel(), b.double().ravel()
+    if not a.any() and not b.any():
+        return 1.0
+    return float(torch.nn.functional.cosine_similarity(a, b, 0))
+
+
+def _moves(tensors, p0) -> dict:
+    """Each parameter's update and EMA move (new - old), and velocity."""
+    return {"params": {k: v - p0[k] for k, v in tensors["params"].items()},
+            "ema_params": {k: v - p0[k]
+                           for k, v in tensors["ema_params"].items()},
+            "vel": tensors["vel"]}
+
+
+def yolo_steps_card_vs_cpu(dev, kind: str, model_fn, batch,
+                           with_bf16: bool = False) -> dict:
+    """One step from the training init on the card and on the CPU on the
+    same batch.  f32 (YOLO17_F32): the loss; each gradient, velocity,
+    update and EMA move by cosine (the worst three gradients by their
+    largest element also reported); the BatchNorm statistics by the
+    tensor's largest magnitude.  bf16 (YOLO17_BF16), against the CPU's
+    f32 step: the loss, the statistics, each group's update by cosine,
+    with the CPU's own bf16 step beside it as the yardstick."""
+    import torch
+    card = _one_step(dev, kind, model_fn, batch, False)
+    cpu = _one_step(torch.device("cpu"), kind, model_fn, batch, False)
+    (lc, gc, sc, p0, groups), (lp, gp, sp, _, _) = card, cpu
+    per = sorted((_rel_err(gc[k], gp[k]), k) for k in gp)
+    f32 = {"loss_card": lc, "loss_cpu": lp,
+           "loss_rel_err": abs(lc - lp) / abs(lp),
+           "grad_min_cosine": min(_cos(gc[k], gp[k]) for k in gp),
+           "worst_grads": [{"name": k, "rel_err": e,
+                            "cosine": _cos(gc[k], gp[k])}
+                           for e, k in per[-3:]]}
+    mc, mp = _moves(sc, p0), _moves(sp, p0)
+    f32["state_min_cosine"] = {part: min(_cos(v, mp[part][k])
+                                         for k, v in mc[part].items())
+                               for part in mc}
+    f32["stats_rel_err"] = max(_rel_err(v, sp[part][k])
+                               for part in ("batch_stats", "ema_stats")
+                               for k, v in sc[part].items())
+    cos = f32["state_min_cosine"]
+    f32["ok"] = (f32["loss_rel_err"] <= YOLO17_F32["loss"]
+                 and min(f32["grad_min_cosine"], cos["vel"])
+                 >= YOLO17_F32["cos"]
+                 and min(cos["params"], cos["ema_params"])
+                 >= YOLO17_F32["update_cos"]
+                 and f32["stats_rel_err"] <= YOLO17_F32["stats"])
+    out = {"f32": f32}
+    if with_bf16:
+        ref = _moves(sp, p0)["params"]
+
+        def group_cos(moves):
+            return {g: _cos(torch.cat([moves[k].ravel() for k in groups
+                                       if groups[k] == g]),
+                            torch.cat([ref[k].ravel() for k in groups
+                                       if groups[k] == g]))
+                    for g in (0, 1, 2)}
+
+        lb, _, sb, _, _ = _one_step(dev, kind, model_fn, batch, True)
+        lq, _, sq, _, _ = _one_step(torch.device("cpu"), kind, model_fn,
+                                    batch, True)
+        bf16 = {"loss_card": lb, "loss_cpu_f32": lp, "loss_cpu_bf16": lq,
+                "loss_rel_err": abs(lb - lp) / abs(lp),
+                "stats_rel_err": max(_rel_err(v, sp["batch_stats"][k])
+                                     for k, v in sb["batch_stats"].items()),
+                "update_cosine_vs_cpu_f32": group_cos(
+                    _moves(sb, p0)["params"]),
+                "cpu_bf16_update_cosine_vs_cpu_f32": group_cos(
+                    _moves(sq, p0)["params"]),
+                "dtypes_f32": all(v.dtype == torch.float32
+                                  for part in sb.values()
+                                  for v in part.values())}
+        bf16["ok"] = (bf16["loss_rel_err"] <= YOLO17_BF16["loss"]
+                      and bf16["dtypes_f32"]
+                      and bf16["stats_rel_err"] <= YOLO17_BF16["stats"]
+                      and min(bf16["update_cosine_vs_cpu_f32"].values())
+                      >= YOLO17_BF16["cos"])
+        out["bf16"] = bf16
+    return out
+
+
+class StepLog:
+    """on_step hook of the trainers: host seconds of each step (the loss
+    read, so the card has finished) and the clock between steps."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __call__(self, epoch, bi, state, logs, seconds):
+        self.rows.append((epoch, bi, seconds, time.perf_counter()))
+
+    def shares(self, step_device_s: float) -> dict:
+        """Over consecutive steps of one epoch: the interval (the next
+        batch's augmentation and assembly plus the step), the host's step
+        share and the card's idle share (1 - the step's device time by
+        CUDA events over the interval)."""
+        gaps = [(b[3] - a[3], b[2]) for a, b in zip(self.rows, self.rows[1:])
+                if a[0] == b[0]]
+        if not gaps:
+            return {}
+        interval = sum(g for g, _ in gaps) / len(gaps)
+        host = sum(s for _, s in gaps) / len(gaps)
+        return {"interval_ms": interval * 1e3, "host_step_ms": host * 1e3,
+                "assembly_ms": (interval - host) * 1e3,
+                "idle_share": max(0.0, 1.0 - step_device_s / interval)}
+
+
+def _quiet_call(fn, *args, **kw):
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def _history(hist) -> list:
+    return [{k: float(v) if isinstance(v, (float, np.floating)) else v
+             for k, v in r.items()} for r in hist]
+
+
+def detection_training(dev, card, tmp) -> Tuple[dict, dict]:
+    """17b.  Returns (line, the kernel counters over the trainer's run)."""
+    import shutil
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import (ctv_build, yolo_train,
+                                                        yolo_val)
+    from cross_modal_video_engine_tpu_torch.config import Config
+    from cross_modal_video_engine_tpu_torch.data.yolo_aug import YoloAugHyp
+    from cross_modal_video_engine_tpu_torch.models.yolo import YoloV5
+    tr = write_yolo_split(os.path.join(tmp, "det_train"), YOLO17_TRAIN, 171,
+                          False)
+    va = write_yolo_split(os.path.join(tmp, "det_val"), YOLO17_VAL, 172,
+                          False)
+    options = [f"data.train.img_dir={tr[0]}", f"data.train.label_dir={tr[1]}",
+               f"data.val.img_dir={va[0]}", f"data.val.label_dir={va[1]}"]
+    cfg = Config.fromfile(str(YOLO_DETECT_CONFIG)).merge_from_options(options)
+    shipped = {k: cfg.get(k) for k in ("bf16", "data.batch_size",
+                                       "model.img_size", "aug.mosaic",
+                                       "aug.hsv_s")}
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    work = os.path.join(tmp, "det_work")
+    log = StepLog()
+    t0 = time.perf_counter()
+    (state, hist), printed = _quiet_call(
+        yolo_train.train_from_config, cfg, work, num_epochs=YOLO17_EPOCHS,
+        device=dev, on_step=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    anchors_changed = '"autoanchor"' in printed
+    # a resumed epoch 1 against the uninterrupted one
+    rw = os.path.join(tmp, "det_resumed")
+    shutil.copytree(os.path.join(work, "epoch_0"),
+                    os.path.join(rw, "epoch_0"))
+    (resumed, rhist), _ = _quiet_call(
+        yolo_train.train_from_config, cfg, rw,
+        resume=os.path.join(rw, "epoch_0"), num_epochs=YOLO17_EPOCHS,
+        device=dev)
+    resume_loss = abs(rhist[0]["loss"] - hist[1]["loss"]) / abs(
+        hist[1]["loss"])
+    resume_ema = max(_rel_err(a, b) for a, b in zip(
+        resumed.ema.state_dict().values(), state.ema.state_dict().values())
+        if a.is_floating_point())
+    # best/ read by yolo_val and by ctv_build's loader
+    best = os.path.join(work, "best")
+    with open(os.path.join(best, "loop_state.json")) as f:
+        best_epoch = json.load(f)["epoch"]
+    report, _ = _quiet_call(yolo_val.main, [
+        str(YOLO_DETECT_CONFIG), "--checkpoint", best, "--device",
+        str(dev), "--cfg-options", *options])
+    ctv_det = ctv_build.load_detector_checkpoint(best, dev)
+    val_det = yolo_val.load_detector(cfg, best, dev)
+    same = all(torch.equal(a, b) for a, b in zip(
+        ctv_det.state_dict().values(), val_det.state_dict().values()))
+    dets = ctv_build.make_detector_fn(ctv_det)(
+        seeded_images(2, 173, (352, 480)))
+    del ctv_det, val_det
+    # one step, card against CPU, at batch 2 on one augmented batch
+    ds = yolo_train.YoloDetectionDataset(*tr)
+    batch = next(yolo_train.yolo_batches(
+        ds, YOLO17_STEP_BATCH, cfg["model.img_size"],
+        cfg["data.max_targets"], YoloAugHyp(**cfg["aug"]),
+        np.random.RandomState(7), order=[0, 1]))[:3]
+    mcfg = state.model.cfg
+    steps = yolo_steps_card_vs_cpu(dev, "detect",
+                                   lambda d: YoloV5(mcfg, device=d), batch,
+                                   with_bf16=True)
+    f32, bf16 = steps["f32"], steps["bf16"]
+    line = {"config": str(YOLO_DETECT_CONFIG.relative_to(ROOT)),
+            "shipped": shipped, "train_images": YOLO17_TRAIN,
+            "val_images": YOLO17_VAL, "epochs": YOLO17_EPOCHS,
+            "history": _history(hist), "anchors_changed": anchors_changed,
+            "anchors": [list(map(list, l)) for l in mcfg.anchors],
+            "wall_s": wall, "kernel_launches": launches,
+            "resume": {"loss_rel_err": resume_loss,
+                       "ema_rel_err": resume_ema},
+            "best_epoch": best_epoch, "yolo_val": report,
+            "ctv_build_reads_best": same,
+            "ctv_detector_boxes": [len(d) for d in dets],
+            "step_card_vs_cpu": steps,
+            "steps": log}
+    finite = all(np.isfinite(r["loss"]) for r in hist)
+    checks = {
+        "losses finite": finite,
+        "no kernel launched": not any(launches.values()),
+        "resumed epoch": (resume_loss <= YOLO17_RESUME_REL
+                          and resume_ema <= YOLO17_RESUME_REL),
+        "yolo_val reads best/": abs(report["map"]
+                                    - hist[best_epoch]["map"]) <= 1e-6,
+        "ctv_build reads best/": same,
+        "f32 step vs CPU": f32["ok"], "bf16 step vs CPU": bf16["ok"],
+    }
+    print(f"17b detection training ({line['config']}: yolov5s 640, batch "
+          f"{shipped['data.batch_size']}, bf16 {shipped['bf16']}): "
+          f"{YOLO17_EPOCHS} epochs of {YOLO17_TRAIN // 16} steps in "
+          f"{wall:.1f} s, losses {[round(r['loss'], 5) for r in hist]}, "
+          f"AutoAnchor changed {anchors_changed}; resume: loss rel err "
+          f"{resume_loss:.2e}, EMA rel err {resume_ema:.2e}; best/ (epoch "
+          f"{best_epoch}) yolo_val mAP {report['map']:.4f} vs "
+          f"{hist[best_epoch]['map']:.4f}; card vs CPU f32 step: loss "
+          f"{f32['loss_rel_err']:.2e}, gradient min cosine "
+          f"{f32['grad_min_cosine']:.6f}, state {f32['state_min_cosine']}, "
+          f"stats {f32['stats_rel_err']:.2e}; bf16 step vs CPU f32: loss "
+          f"{bf16['loss_rel_err']:.2e}, stats {bf16['stats_rel_err']:.2e}, "
+          f"update cosines {bf16['update_cosine_vs_cpu_f32']} (the CPU's "
+          f"bf16: {bf16['cpu_bf16_update_cosine_vs_cpu_f32']})", flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"17b detection training checks failed: {failed}")
+    return line, launches
+
+
+def segment_and_classify_training(dev, card, tmp) -> dict:
+    """17c: two steps each of the shipped segment and classify configs
+    through their train_from_config, and one step of each card against
+    CPU."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import (yolo_cls_train,
+                                                        yolo_train)
+    from cross_modal_video_engine_tpu_torch.config import Config
+    from cross_modal_video_engine_tpu_torch.data.yolo_aug import YoloAugHyp
+    from cross_modal_video_engine_tpu_torch.models.yolo import (
+        YoloClassifier, YoloV5)
+    line = {}
+    tr = write_yolo_split(os.path.join(tmp, "seg_train"), YOLO17_TRAIN, 174,
+                          True)
+    va = write_yolo_split(os.path.join(tmp, "seg_val"), YOLO17_SEG_VAL, 175,
+                          True)
+    options = [f"data.train.img_dir={tr[0]}", f"data.train.label_dir={tr[1]}",
+               f"data.val.img_dir={va[0]}", f"data.val.label_dir={va[1]}"]
+    cfg = Config.fromfile(str(YOLO_SEGMENT_CONFIG)).merge_from_options(
+        options)
+    seg_log = StepLog()
+    t0 = time.perf_counter()
+    (state, hist), _ = _quiet_call(
+        yolo_train.train_from_config, cfg, os.path.join(tmp, "seg_work"),
+        num_epochs=1, device=dev, on_step=seg_log)
+    seg_wall = time.perf_counter() - t0
+    ds = yolo_train.YoloSegDataset(*tr)
+    batch = next(yolo_train.yolo_seg_batches(
+        ds, YOLO17_STEP_BATCH, cfg["model.img_size"],
+        cfg["data.max_targets"], cfg["data.mask_ratio"],
+        YoloAugHyp(**cfg["aug"]), np.random.RandomState(8), order=[0, 1]))
+    batch = batch[:4]
+    mcfg = state.model.cfg
+    seg_f32 = yolo_steps_card_vs_cpu(dev, "segment",
+                                     lambda d: YoloV5(mcfg, device=d),
+                                     batch)["f32"]
+    line["segment"] = {"config": str(YOLO_SEGMENT_CONFIG.relative_to(ROOT)),
+                       "masks": mcfg.masks, "protos": mcfg.protos,
+                       "history": _history(hist), "wall_s": seg_wall,
+                       "step_card_vs_cpu": {"f32": seg_f32},
+                       "steps": seg_log}
+    del state
+    folder = write_image_folder(os.path.join(tmp, "cls_train"),
+                                YOLO17_CLS_CLASSES, YOLO17_CLS_PER_CLASS,
+                                176)
+    val = write_image_folder(os.path.join(tmp, "cls_val"),
+                             YOLO17_CLS_CLASSES, 1, 500)
+    cfg = Config.fromfile(str(YOLO_CLASSIFY_CONFIG)).merge_from_options(
+        [f"data.train_dir={folder}", f"data.val_dir={val}"])
+    cls_log = StepLog()
+    t0 = time.perf_counter()
+    (state, chist), _ = _quiet_call(
+        yolo_cls_train.train_from_config, cfg, os.path.join(tmp, "cls_work"),
+        num_epochs=1, device=dev, on_step=cls_log)
+    cls_wall = time.perf_counter() - t0
+    ds = yolo_cls_train.ImageFolderDataset(folder)
+    images, labels, _ = next(yolo_cls_train.cls_batches(
+        ds, YOLO17_STEP_BATCH, cfg["model.img_size"], True,
+        np.random.RandomState(9), order=[0, 8]))
+    ccfg = state.model.cfg
+    cls_f32 = yolo_steps_card_vs_cpu(
+        dev, "classify", lambda d: YoloClassifier(ccfg, device=d),
+        (images, labels))["f32"]
+    line["classify"] = {"config": str(YOLO_CLASSIFY_CONFIG.relative_to(ROOT)),
+                        "num_classes": ccfg.num_classes,
+                        "batch": cfg["data.batch_size"],
+                        "history": _history(chist), "wall_s": cls_wall,
+                        "step_card_vs_cpu": {"f32": cls_f32},
+                        "steps": cls_log}
+    steps = (len(seg_log.rows), len(cls_log.rows))
+    print(f"17c segment training: {steps[0]} steps in {seg_wall:.1f} s, "
+          f"loss {hist[0]['loss']:.5f}, card vs CPU f32 step: loss "
+          f"{seg_f32['loss_rel_err']:.2e}, gradient min cosine "
+          f"{seg_f32['grad_min_cosine']:.6f}; classify training "
+          f"({ccfg.num_classes} classes, batch {cfg['data.batch_size']}): "
+          f"{steps[1]} steps in {cls_wall:.1f} s, loss "
+          f"{chist[0]['loss']:.5f}, card vs CPU f32 step: loss "
+          f"{cls_f32['loss_rel_err']:.2e}, gradient min cosine "
+          f"{cls_f32['grad_min_cosine']:.6f}", flush=True)
+    checks = {"steps": steps == (YOLO17_TRAIN // 16,
+                                 YOLO17_CLS_CLASSES * YOLO17_CLS_PER_CLASS
+                                 // 64),
+              "finite": all(np.isfinite(h[0]["loss"]) for h in (hist, chist)),
+              "segment step vs CPU": seg_f32["ok"],
+              "classify step vs CPU": cls_f32["ok"]}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise SystemExit(f"17c checks failed: {failed}")
+    return line
+
+
+def cls_step_seconds(dev, steps: int = YOLO17_TIMED_STEPS) -> float:
+    """Device seconds of one bf16 train step of the shipped classifier
+    (yolov5s-cls, 1000 classes, 224²) at batch 64, by CUDA events."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.models.yolo import (
+        YoloClassifier, YoloConfig)
+    from cross_modal_video_engine_tpu_torch.train import yolo_trainer as yt
+    from cross_modal_video_engine_tpu_torch.utils.profiling import (
+        device_time)
+    model = YoloClassifier(YoloConfig(num_classes=1000, depth_multiple=0.33,
+                                      width_multiple=0.50, img_size=224),
+                           device=dev)
+    state = [yt.init_yolo_train_state(model, seed=0)]
+    step = yt.make_yolo_cls_train_step(model, yt.YoloOptHyp(lr0=0.001), 5e-5,
+                                       bf16=True, device=dev)
+    rng = np.random.default_rng(10)
+    images = torch.from_numpy(rng.standard_normal(
+        (64, 224, 224, 3), dtype=np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 1000, 64)).to(dev)
+
+    def run():
+        state[0], _ = step(state[0], images, labels, 0.001, 0.001, 0.9)
+
+    return device_time(run, steps=steps, device=dev)
+
+
+def yolo_training_times(dev, card, det_line, more) -> dict:
+    """17d: step ms and images/s of the three trainers (bench/extra.py's
+    rows for the detector and segmenter, CUDA events), and each loop's
+    idle share."""
+    from cross_modal_video_engine_tpu_torch.bench import extra
+    rows = {}
+    for name, fn in (("detect", extra.bench_train_step_yolov5),
+                     ("segment", extra.bench_train_step_yolov5_seg)):
+        row, _ = _quiet_call(fn, device=dev, steps=YOLO17_TIMED_STEPS)
+        rows[name] = {"step_ms": row["step_ms"], "images_per_s": row["value"],
+                      "batch": 16}
+    cls_s = cls_step_seconds(dev)
+    rows["classify"] = {"step_ms": cls_s * 1e3, "images_per_s": 64 / cls_s,
+                        "batch": 64}
+    logs = {"detect": det_line["steps"], "segment": more["segment"]["steps"],
+            "classify": more["classify"]["steps"]}
+    for name, log in logs.items():
+        rows[name]["loop"] = log.shares(rows[name]["step_ms"] / 1e3)
+    print("17d trainers (bf16, f32 masters; " + card + "): " + "; ".join(
+        f"{k} step {v['step_ms']:.2f} ms, {v['images_per_s']:.1f} images/s "
+        f"(batch {v['batch']}), loop idle share "
+        f"{v['loop'].get('idle_share', float('nan')):.3f}"
+        for k, v in rows.items()), flush=True)
+    return rows
+
+
+def check_yolo_training(dev, card) -> Tuple[dict, dict]:
+    """Step 17b-d.  Returns (the `yolo_training` line, the kernel counters
+    over the detection trainer's run)."""
+    import torch
+    t_step = time.perf_counter()
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        det, launches = detection_training(dev, card, tmp)
+        torch.cuda.empty_cache()
+        more = segment_and_classify_training(dev, card, tmp)
+    torch.cuda.empty_cache()
+    times = yolo_training_times(dev, card, det, more)
+    for part in (det, more["segment"], more["classify"]):
+        part["steps"] = [list(r) for r in part["steps"].rows]
+    line = {"card": card, "detect": det, **more, "times": times,
+            "seconds": time.perf_counter() - t_step}
+    return line, launches
+
+
+def check_step17(dev, card) -> Tuple[dict, int]:
+    """Step 17 (a-d).  Returns (the `caption_transformer_and_yolo_training`
+    JSON object, flash launches of the caption transformer's generates)."""
+    t0 = time.perf_counter()
+    caption, launches = check_caption_transformer(dev, card)
+    training, det_launches = check_yolo_training(dev, card)
+    line = {"caption_transformer": caption, "yolo_training": training,
+            "detector_training_launches": det_launches,
+            "seconds": time.perf_counter() - t0}
+    print(f"17 caption transformer and detector training checked in "
+          f"{line['seconds']:.1f} s", flush=True)
+    return line, launches
+
+
 def dataclass_fields(cfg) -> dict:
     import dataclasses
     return {k: v for k, v in dataclasses.asdict(cfg).items()
@@ -4565,7 +5237,9 @@ def dataclass_fields(cfg) -> dict:
 
 def kernel_json(results, launches, core, block_extra,
                 composed_launches, caption_launches,
-                explain_launches, training_launches, ctv_launches) -> dict:
+                explain_launches, training_launches, ctv_launches,
+                caption_transformer_launches, detector_training_launches
+                ) -> dict:
     """The kernels line: bf16 errors over every case of a kernel; times,
     bound and library time of its main-path case; `launches` on the main
     path of steps 4, 6 and 8, `composed_launches` over the requests of the
@@ -4573,7 +5247,10 @@ def kernel_json(results, launches, core, block_extra,
     batch-1 requests of the caption route (step 13), `explain_launches`
     over the batch-1 requests of the explain route (step 14),
     `training_launches` over the joint caption steps of step 15c,
-    `ctv_launches` over the bank build of step 16c.
+    `ctv_launches` over the bank build of step 16c,
+    `caption_transformer_launches` over the greedy and beam generates of
+    step 17a, `detector_training_launches` over the detection trainer's
+    run of step 17b.
     `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
@@ -4614,6 +5291,10 @@ def kernel_json(results, launches, core, block_extra,
             "explain_launches": explain_launches.get(name, 0),
             "training_launches": training_launches.get(name, 0),
             "ctv_launches": ctv_launches.get(name, 0),
+            "caption_transformer_launches":
+                caption_transformer_launches.get(name, 0),
+            "detector_training_launches":
+                detector_training_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in bf16),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": max(by_ops, by_bytes) * 1e3,
@@ -4761,7 +5442,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     detector, ctv_launches = check_concept_detector(dev, card)
 
-    # -- 17. results ------------------------------------------------------------
+    # -- 17. the caption transformer and the detector's training -------------
+    torch.cuda.empty_cache()
+    step17, caption_transformer_launches = check_step17(dev, card)
+
+    # -- 18. results ------------------------------------------------------------
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"composed": composed}))
@@ -4769,10 +5454,12 @@ def main() -> int:
     print(json.dumps({"explain": explain}))
     print(json.dumps({"timesformer_training": ts_training}))
     print(json.dumps({"concept_detector": detector}))
-    print(json.dumps(kernel_json(results, launches, core, block_extra,
-                                 composed_launches, caption_launches,
-                                 explain_launches, training_launches,
-                                 ctv_launches)))
+    print(json.dumps({"caption_transformer_and_yolo_training": step17}))
+    print(json.dumps(kernel_json(
+        results, launches, core, block_extra, composed_launches,
+        caption_launches, explain_launches, training_launches, ctv_launches,
+        {"flash_attention": caption_transformer_launches},
+        step17["detector_training_launches"])))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

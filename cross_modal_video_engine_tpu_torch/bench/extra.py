@@ -18,11 +18,17 @@ one JSON line per metric; with no argument, every row in order:
 * `train_step_timesformer`: one recognition train step of the divided
   TimeSformer ViT-B/16 (8x224, 400 classes) in bf16 with f32 masters
   (`make_cls_train_step(bf16=True)`, SGD with momentum), videos/s by CUDA
-  events and TFLOP/s counted from the model's shapes.
+  events and TFLOP/s counted from the model's shapes;
+* `train_step_yolov5`, `train_step_yolov5_seg`: one train step of yolov5s
+  (and yolov5s-seg, 32 masks) at 640 on 16 images in bf16 with f32
+  masters (`make_yolo_train_step(bf16=True)`: three-group SGD and EMA),
+  images/s by CUDA events.
 
 Rows are drawn from a seed on the device.  Where a row has a plain arm,
-`vs_baseline` is the kernel arm over the plain arm (the train-step row:
-over the JAX row's 9 videos/s reference, per GPU of the reference's 8).
+`vs_baseline` is the kernel arm over the plain arm (the TimeSformer
+train-step row: over the JAX row's 9 videos/s reference, per GPU of the
+reference's 8; the YOLO rows: over the 205 images/s of the JAX rows'
+reference, yolov5's "2 days on one V100 for 300 COCO epochs").
 Not carried over: the host-feed row (needs the native decoder), the
 flatten_tokens A/B (a TPU layout) and the other families' train-step
 rows (slice 5).
@@ -280,6 +286,72 @@ def bench_train_step_timesformer(batch: int = 4, steps: int = 10,
                  **where(device)})
 
 
+def _yolo_batch(rng, batch: int, img: int, max_targets: int, nc: int,
+                masks: bool, device):
+    cxy = rng.random((batch, max_targets, 2)) * 0.8 + 0.1
+    wh = rng.random((batch, max_targets, 2)) * 0.2 + 0.02
+    cls = rng.integers(0, nc, (batch, max_targets, 1))
+    out = [rng.random((batch, img, img, 3), np.float32),
+           np.concatenate([cls, cxy, wh], -1).astype(np.float32),
+           np.ones((batch, max_targets), bool)]
+    if masks:
+        out.append((rng.random((batch, max_targets, img // 4, img // 4))
+                    > 0.9).astype(np.float32))
+    return [torch.from_numpy(a).to(device) for a in out]
+
+
+def bench_train_step_yolov5(batch: int = 16, img: int = 640,
+                            max_targets: int = 32, steps: int = 8,
+                            bf16: bool = True, masks: int = 0, device=None,
+                            width: float = 0.50) -> dict:
+    """Detection (masks=0) or segmentation train throughput of yolov5s at
+    `img`: forward, backward, three-group SGD and EMA, in bf16 with f32
+    masters; weights from the training init (seed 0), boxes and masks
+    from a numpy seed."""
+    from ..losses.yolo import YoloHyp
+    from ..models.yolo import YoloConfig, YoloV5
+    from ..train.yolo_trainer import (YoloOptHyp, init_yolo_train_state,
+                                      make_yolo_train_step,
+                                      scaled_weight_decay)
+    device = resolve_device(device)
+    model = YoloV5(YoloConfig(depth_multiple=0.33, width_multiple=width,
+                              img_size=img, masks=masks), device=device)
+    state = [init_yolo_train_state(model, seed=0)]
+    opt = YoloOptHyp()
+    step = make_yolo_train_step(model, YoloHyp(), opt,
+                                scaled_weight_decay(opt, batch), bf16=bf16,
+                                device=device)
+    images, targets, valid, *gt = _yolo_batch(
+        np.random.default_rng(7), batch, img, max_targets, 80, masks > 0,
+        device)
+    extra = {"gt_masks": gt[0]} if gt else {}
+
+    def run():
+        state[0], _ = step(state[0], images, targets, valid, 0.01, 0.01,
+                           0.937, **extra)
+
+    seconds = device_time(run, steps=steps, device=device)
+    ips = batch / seconds
+    kind = "yolov5s_seg" if masks else "yolov5s"
+    return emit({"metric": "train_step_%s_%d_%s_b%d"
+                           % (kind, img, "bf16" if bf16 else "f32", batch),
+                 "value": ips, "unit": per("imgs/sec", device),
+                 "vs_baseline": ips / 205.0, "step_ms": seconds * 1e3,
+                 **where(device)})
+
+
+def bench_train_step_yolov5_seg(batch: int = 16, img: int = 640,
+                                max_targets: int = 32, steps: int = 8,
+                                bf16: bool = True, device=None,
+                                width: float = 0.50) -> dict:
+    """The segmentation row: yolov5s-seg, 32 masks on 128 prototypes
+    (npr width-scaled from 256), the per-instance mask BCE at stride 4."""
+    return bench_train_step_yolov5(batch=batch, img=img,
+                                   max_targets=max_targets, steps=steps,
+                                   bf16=bf16, masks=32, device=device,
+                                   width=width)
+
+
 _BENCHES = [
     ("retrieval_p50", bench_retrieval_p50),
     ("int8_capacity", bench_int8_capacity),
@@ -287,6 +359,8 @@ _BENCHES = [
     ("text_tower", bench_text_tower),
     ("u8_ingest", bench_u8_ingest),
     ("train_step_timesformer", bench_train_step_timesformer),
+    ("train_step_yolov5", bench_train_step_yolov5),
+    ("train_step_yolov5_seg", bench_train_step_yolov5_seg),
 ]
 
 

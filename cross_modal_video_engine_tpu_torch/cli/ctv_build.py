@@ -14,7 +14,10 @@ concept banks as the npz `explain_demo` and the `/explain` route load.
         --output banks.npz [--target_layer L] [--min_frames 10] \\
         [--device cpu]
 
-The detector sees the decoded frames at their own size, as in the JAX
+`--detector_checkpoint` takes a `save_checkpoint` directory (the JAX
+package's format, as its ctv_build reads) or a detector trainer's `best/`
+directory (cli/yolo_train.py).  The detector sees the decoded frames at
+their own size, as in the JAX
 package, so their height and width must be multiples of 32 (352x480, not
 360x480): other sizes are refused before the detector runs
 (models/yolo.SIZE_FAULT).
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -40,6 +44,7 @@ from ..explain.model_layers import get_model_layers
 from ..models.yolo import (SIZE_FAULT, YoloConfig, YoloV5,
                            decode_predictions, postprocess)
 from ..train.checkpoint import load_checkpoint
+from ..train.resume import LOOP_FILE, STATE_FILE, load_train_state
 from ..utils.precision import no_tf32
 from .caption_inference import DEFAULT_PIPELINE
 
@@ -151,14 +156,25 @@ def build_ctv_banks(model, video_paths, detector_fn, class_names,
 
 
 def load_detector_checkpoint(path: str, device=None) -> YoloV5:
-    """A detector `save_checkpoint` directory in the JAX package's format
-    (config.json holds the YoloConfig) -> YoloV5 on the card unless a
-    device is named; f32 with TF32 off."""
+    """A detector checkpoint directory -> YoloV5 on the card unless a
+    device is named; f32 with TF32 off.  Either a `save_checkpoint`
+    directory in the JAX package's format (config.json holds the
+    YoloConfig) or a trainer's `best/` directory (cli/yolo_train.py: the
+    config's `model` dict and the anchors in loop_state.json)."""
+    no_tf32()
+    if os.path.exists(os.path.join(path, STATE_FILE)):
+        from ..config import Config
+        from .yolo_train import yolo_config
+        with open(os.path.join(path, LOOP_FILE)) as f:
+            loop = json.load(f)
+        detector = YoloV5(yolo_config(Config({"model": loop["model"]})),
+                          device=device)
+        load_train_state(path, {"detector": detector})
+        return detector
     variables, ycfg_d, _ = load_checkpoint(path)
     ycfg = YoloConfig(**{k: tuple(tuple(map(tuple, v)) for v in vs)
                          if k == "anchors" else vs
                          for k, vs in ycfg_d.items()})
-    no_tf32()
     detector = YoloV5(ycfg, device=device)
     detector.load_state_dict(yolo_state_dict_from_jax(variables, ycfg))
     return detector

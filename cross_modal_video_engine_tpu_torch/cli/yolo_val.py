@@ -26,7 +26,9 @@ import json
 import os
 
 from ..config import Config
-from ..convert.from_jax import yolo_state_dict_from_jax
+from ..convert.from_jax import (yolo_cls_state_dict_from_jax,
+                                yolo_state_dict_from_jax)
+from ..models.yolo import YoloClassifier
 from ..train.checkpoint import load_checkpoint
 from ..train.resume import STATE_FILE, load_train_state
 from ..utils.precision import no_tf32
@@ -40,12 +42,22 @@ def load_detector(cfg: Config, checkpoint: str, device=None):
     directory (its loop state's anchors applied) or a `save_checkpoint`
     directory."""
     model = build_yolo_model(cfg, device=device)
+    model.load_state_dict(load_detector_weights(model, checkpoint))
+    return model
+
+
+def load_detector_weights(model, checkpoint: str):
+    """The state dict a checkpoint directory holds for `model` (a `best/`
+    directory loads into the model, its anchors applied, and hands back
+    the model's state dict)."""
     if os.path.exists(os.path.join(checkpoint, STATE_FILE)):
         load_train_state(checkpoint, {"detector": model})
-    else:
-        variables, _, _ = load_checkpoint(checkpoint)
-        model.load_state_dict(yolo_state_dict_from_jax(variables, model.cfg))
-    return model
+        return model.state_dict()
+    variables, _, _ = load_checkpoint(checkpoint)
+    from_jax = (yolo_cls_state_dict_from_jax
+                if isinstance(model, YoloClassifier)
+                else yolo_state_dict_from_jax)
+    return from_jax(variables, model.cfg)
 
 
 def main(argv=None):

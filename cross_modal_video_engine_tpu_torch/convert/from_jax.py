@@ -47,6 +47,15 @@ compute the same function.
   dict, the optimizer's count and moments, and the step, as the tree the
   JAX package's RecTrainState serializes to (`{"params", "opt_state",
   "step"}`, the optimizer as `make_rec_optimizer`'s optax chain state).
+* `caption_transformer_state_dict_from_jax` and
+  `caption_transformer_variables_to_jax` carry the word-level caption
+  decoder both ways (its parameters keep their JAX names and layouts);
+  `recognizer_caption_state_dict_from_jax` and
+  `recognizer_caption_variables_to_jax` do the same for
+  Recognizer3DCaption (the TimeSformer backbone plus `caption_head`).
+* `yolo_train_state_to_jax` and `yolo_train_state_from_jax` carry the
+  detector trainers' YoloTrainState (params, batch_stats, velocity, EMA
+  params and statistics, the update count) both ways.
 * `yolo_state_dict_from_jax` and `yolo_cls_state_dict_from_jax` invert
   convert_yolov5 and convert_yolov5_cls (the ultralytics layout, the
   anchors buffer in grid units); `yolo_variables_to_jax` and
@@ -666,12 +675,9 @@ def _timesformer_block_to_jax(sd, prefix: str, divided: bool
     return p
 
 
-def recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], backbone_cfg
-                                ) -> Dict[str, Any]:
-    """The inverse of recognizer_state_dict_from_jax: the port's
-    Recognizer3D or Recognizer3DRelseq state dict -> the JAX recognizer's
-    {"params": {"backbone", "cls_head"}} as numpy f32.  backbone_cfg: a
-    TimeSformerConfig of either package."""
+def _timesformer_to_jax(sd: Dict[str, torch.Tensor], backbone_cfg
+                        ) -> Dict[str, Any]:
+    """The JAX TimeSformer's params from the port's `backbone.*` keys."""
     pre = "backbone."
     kernel = _np32(sd[f"{pre}patch_embed.projection.weight"])
     # torch (D, 3, ...) -> flax conv kernel (..., 3, D)
@@ -689,6 +695,16 @@ def recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], backbone_cfg
         bb[f"block_{i}"] = _timesformer_block_to_jax(
             sd, f"{pre}transformer_layers.layers.{i}",
             backbone_cfg.attention_type == "divided_space_time")
+    return bb
+
+
+def recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], backbone_cfg
+                                ) -> Dict[str, Any]:
+    """The inverse of recognizer_state_dict_from_jax: the port's
+    Recognizer3D or Recognizer3DRelseq state dict -> the JAX recognizer's
+    {"params": {"backbone", "cls_head"}} as numpy f32.  backbone_cfg: a
+    TimeSformerConfig of either package."""
+    bb = _timesformer_to_jax(sd, backbone_cfg)
     if "cls_head.fc_cls.weight" in sd:
         head = {"fc_cls": _dense_to_jax(sd, "cls_head.fc_cls")}
     else:
@@ -703,6 +719,44 @@ def recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], backbone_cfg
             a = _np32(sd[f"cls_head.rnn.{torch_name}"])
             head[jax_name] = a.T if transpose else a
     return {"params": {"backbone": bb, "cls_head": head}}
+
+
+# -- the word-level caption transformer ---------------------------------------
+
+def caption_transformer_state_dict_from_jax(params: Dict[str, Any],
+                                            prefix: str = ""
+                                            ) -> Dict[str, torch.Tensor]:
+    """The JAX CaptionTransformer's params (with or without the "params"
+    key) -> the port's state dict: the same names under `prefix`."""
+    params = params.get("params", params)
+    return {prefix + k: _t(v) for k, v in params.items()}
+
+
+def caption_transformer_variables_to_jax(sd: Dict[str, torch.Tensor],
+                                         prefix: str = "") -> Dict[str, Any]:
+    """The inverse: {"params": {name: numpy f32}}."""
+    return {"params": {k[len(prefix):]: _np32(v) for k, v in sd.items()
+                       if k.startswith(prefix)}}
+
+
+def recognizer_caption_state_dict_from_jax(variables_np: Dict[str, Any],
+                                           backbone_cfg
+                                           ) -> Dict[str, torch.Tensor]:
+    """A JAX Recognizer3DCaption's variables -> the port's state dict
+    (`backbone.*`, `caption_head.*`)."""
+    params = variables_np.get("params", variables_np)
+    sd = timesformer_state_dict_from_jax(params["backbone"], backbone_cfg)
+    sd.update(caption_transformer_state_dict_from_jax(
+        params["caption_head"], "caption_head."))
+    return sd
+
+
+def recognizer_caption_variables_to_jax(sd: Dict[str, torch.Tensor],
+                                        backbone_cfg) -> Dict[str, Any]:
+    """The inverse of recognizer_caption_state_dict_from_jax."""
+    head = caption_transformer_variables_to_jax(sd, "caption_head.")
+    return {"params": {"backbone": _timesformer_to_jax(sd, backbone_cfg),
+                       "caption_head": head["params"]}}
 
 
 # -- the concept-bottleneck head ----------------------------------------------
@@ -954,3 +1008,57 @@ def yolo_cls_variables_to_jax(state_dict: Dict[str, torch.Tensor], cfg
         state_dict, "model.9.conv", {"conv": None})
     params["classify_linear"] = _dense_to_jax(state_dict, "model.9.linear")
     return {"params": params, "batch_stats": stats}
+
+
+# -- the detector trainers' state ----------------------------------------------
+
+_YOLO_BUFFERS = ("running_mean", "running_var", "num_batches_tracked",
+                 "anchors")
+
+
+def _yolo_to_jax(state_dict, cfg, classifier: bool) -> Dict[str, Any]:
+    return (yolo_cls_variables_to_jax if classifier
+            else yolo_variables_to_jax)(state_dict, cfg)
+
+
+def _yolo_from_jax(params, stats, cfg, classifier: bool
+                   ) -> Dict[str, torch.Tensor]:
+    return (yolo_cls_state_dict_from_jax if classifier
+            else yolo_state_dict_from_jax)(
+        {"params": params, "batch_stats": stats}, cfg)
+
+
+def yolo_train_state_to_jax(state_dict: Dict[str, torch.Tensor],
+                            vel: Dict[str, torch.Tensor],
+                            ema_state_dict: Dict[str, torch.Tensor],
+                            updates: int, cfg, classifier: bool = False
+                            ) -> Dict[str, Any]:
+    """The port's YoloTrainState parts (the model's state dict, the
+    velocity by parameter name, the EMA model's state dict, the update
+    count) -> the JAX YoloTrainState's fields {"params", "batch_stats",
+    "vel", "ema_params", "ema_stats", "updates"} as numpy."""
+    cur = _yolo_to_jax(state_dict, cfg, classifier)
+    ema = _yolo_to_jax(ema_state_dict, cfg, classifier)
+    vel_sd = dict(state_dict)
+    vel_sd.update(vel)
+    return {"params": cur["params"], "batch_stats": cur["batch_stats"],
+            "vel": _yolo_to_jax(vel_sd, cfg, classifier)["params"],
+            "ema_params": ema["params"], "ema_stats": ema["batch_stats"],
+            "updates": np.asarray(updates, np.int32)}
+
+
+def yolo_train_state_from_jax(tree: Dict[str, Any], cfg,
+                              classifier: bool = False
+                              ) -> Tuple[Dict[str, torch.Tensor],
+                                         Dict[str, torch.Tensor],
+                                         Dict[str, torch.Tensor], int]:
+    """The inverse: the JAX YoloTrainState's fields -> (state dict,
+    velocity by parameter name, EMA state dict, updates)."""
+    sd = _yolo_from_jax(tree["params"], tree["batch_stats"], cfg, classifier)
+    ema = _yolo_from_jax(tree["ema_params"], tree["ema_stats"], cfg,
+                         classifier)
+    vel_sd = _yolo_from_jax(tree["vel"], tree["batch_stats"], cfg,
+                            classifier)
+    vel = {k: v for k, v in vel_sd.items()
+           if k.rsplit(".", 1)[-1] not in _YOLO_BUFFERS}
+    return sd, vel, ema, int(np.asarray(tree["updates"]))

@@ -11,6 +11,9 @@ cross_modal_video_engine_tpu/models/recognizer.py:
 * `Recognizer3DRelseq`: backbone -> RNNDecoderHead, greedy feedback at
   inference, per-step probabilities averaged over clips; `forward_train`
   is the teacher-forced SeqMLL loss in train mode;
+* `Recognizer3DCaption`: backbone tokens -> the word-level
+  CaptionTransformer (models/caption_transformer.py), teacher forcing
+  and greedy or beam `generate`;
 * `init_state_dict`: a training init drawn from a numpy seed with flax's
   init schemes (what the JAX package's `model.init` draws).
 
@@ -32,6 +35,8 @@ from torch import nn
 
 from ..losses.seqmll import seq_mll_loss
 from ..utils.device import resolve_device
+from ..utils.registry import RECOGNIZERS
+from .caption_transformer import CaptionConfig, CaptionTransformer
 from .clip import MHA
 from .decoder_head import RNNDecoderConfig, RNNDecoderHead
 from .timesformer import LN, TimeSformer, TimeSformerConfig
@@ -62,6 +67,7 @@ def average_clip(scores: torch.Tensor, num_segs: int,
     raise ValueError(average_clips)
 
 
+@RECOGNIZERS.register("Recognizer3D")
 class Recognizer3D(nn.Module):
     def __init__(self, backbone_cfg: TimeSformerConfig, num_classes: int,
                  device=None):
@@ -95,6 +101,7 @@ class Recognizer3D(nn.Module):
         return self.cls_head(self.backbone.forward_from(tokens, layer))
 
 
+@RECOGNIZERS.register("Recognizer3DRelseq")
 class Recognizer3DRelseq(nn.Module):
     def __init__(self, backbone_cfg: TimeSformerConfig,
                  decoder_cfg: RNNDecoderConfig, device=None):
@@ -130,6 +137,37 @@ class Recognizer3DRelseq(nn.Module):
         """Greedy decode, per-step probabilities averaged over clips."""
         probs = self(videos, mode="inference")
         return probs.reshape(-1, num_segs, *probs.shape[1:]).mean(1)
+
+
+@RECOGNIZERS.register("Recognizer3DCaption")
+class Recognizer3DCaption(nn.Module):
+    """The backbone's final token sequence (fp32, CLS first) into the
+    word-level caption transformer (JAX recognizer.py:249-276).  State-dict
+    keys: `backbone.*` and `caption_head.<JAX parameter name>`."""
+
+    def __init__(self, backbone_cfg: TimeSformerConfig,
+                 caption_cfg: CaptionConfig, device=None):
+        super().__init__()
+        device = resolve_device(device)   # None: the CUDA device
+        self.backbone = TimeSformer(backbone_cfg, device)
+        self.caption_head = CaptionTransformer(caption_cfg, device)
+        self.eval()
+
+    def _enc_tokens(self, videos: torch.Tensor) -> torch.Tensor:
+        return self.backbone(videos, return_tokens=True)[1]
+
+    def forward(self, videos: torch.Tensor,
+                token_ids: torch.Tensor) -> torch.Tensor:
+        """Teacher forcing: (B, T, vocab) logits."""
+        return self.caption_head(self._enc_tokens(videos), token_ids,
+                                 mode="train")
+
+    def generate(self, videos: torch.Tensor, mode: str = "greedy",
+                 beam_width: int = 4):
+        """(ids (B, max_len), logprob (B,)) of the greedy decode or of the
+        best beam."""
+        return self.caption_head(self._enc_tokens(videos), None, mode=mode,
+                                 beam_width=beam_width)
 
 
 def random_state_dict(backbone_cfg: TimeSformerConfig, seed: int, *,

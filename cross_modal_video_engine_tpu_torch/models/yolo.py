@@ -16,12 +16,16 @@ both packages.  The modules compute in NCHW (cuDNN's layout) and take
 (B, H, W, 3) images in [0, 1]; the raw maps come back (B, Hi, Wi,
 3·(5+nc+nm)) as the JAX model returns them.
 
-Inference only: BatchNorm normalizes by its running statistics with eps
-1e-3 and `YoloV5(...).train()` raises (the detector's training is
-ROADMAP.md queue 1 item 7b-ii).  The Detect biases come from the weights;
-no prior is applied.  On the card cuDNN runs f32 convolutions in TF32
-unless it is turned off: the f32 entry points call
-utils/precision.no_tf32().
+Train mode (`model.train()`) follows flax's BatchNorm (JAX models/yolo.py
+:57-62): the batch statistics normalize, and the running statistics move
+by running = 0.97 * running + 0.03 * batch with the *biased* batch
+variance (torch's BatchNorm2d folds in the unbiased one; `BatchNorm`
+corrects that).  The raw maps come out in the same layout in both modes,
+which losses/yolo.py indexes.  In eval mode BatchNorm normalizes by its
+running statistics with eps 1e-3.  The Detect biases come from the
+weights (`init_state_dict` draws the training init with yolov5's priors).
+On the card cuDNN runs f32 convolutions in TF32 unless it is turned off:
+the f32 entry points call utils/precision.no_tf32().
 
 Frame sizes: the PANet concatenations need the stride-16 and stride-32
 maps to differ by exactly 2x, so a size that is not a multiple of 32
@@ -51,8 +55,6 @@ DEFAULT_ANCHORS = (
 )
 STRIDES = (8, 16, 32)
 
-TRAIN_ITEM = ("the detector's training is not ported yet (ROADMAP.md queue 1 "
-              "item 7b-ii)")
 SIZE_FAULT = ("the detector needs frames whose height and width are multiples "
               "of 32: the JAX package's YoloV5 fails in its PANet "
               "concatenation on other sizes, and its ctv_build hands decoded "
@@ -85,6 +87,32 @@ class YoloConfig:
         return int(np.ceil(c * self.width_multiple / 8) * 8)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d(eps 1e-3, momentum 0.03) whose train-mode update of the
+    running variance takes the biased batch variance, as flax's does.  The
+    normalization is torch's (cuDNN on the card); after torch's update
+    rv' = 0.97 rv + 0.03 var * n/(n-1) the excess is taken back out:
+    rv = 0.97 rv + (rv' - 0.97 rv) (n-1)/n.  A bf16 input keeps f32
+    weights and statistics (torch's mixed-type batch norm)."""
+
+    def __init__(self, c: int, device=None):
+        super().__init__(c, eps=1e-3, momentum=0.03, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        # torch updates copies (autograd keeps them for the backward)
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        with torch.no_grad():
+            kept = self.running_var * (1.0 - self.momentum)
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
+        return y
+
+
 class Conv(nn.Module):
     """ultralytics Conv: conv (no bias) + BatchNorm(eps 1e-3) + SiLU."""
 
@@ -93,8 +121,7 @@ class Conv(nn.Module):
         super().__init__()
         p = k // 2 if p < 0 else p
         self.conv = nn.Conv2d(cin, cout, k, s, p, bias=False, device=device)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-3, momentum=0.03,
-                                 device=device)
+        self.bn = BatchNorm(cout, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.silu(self.bn(self.conv(x)))
@@ -210,11 +237,6 @@ class _Inference(nn.Module):
                 elif isinstance(mod, Detect):
                     mod.anchors.copy_(_anchors_in_grid_units(cfg))
         self.eval()
-
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(TRAIN_ITEM)
-        return super().train(False)
 
 
 def _backbone(cfg: YoloConfig, meta) -> List[nn.Module]:
@@ -355,10 +377,7 @@ def random_state_dict(cfg: YoloConfig, seed: int = 0,
             a = 1.0 + 0.1 * z
         elif head and last == "bias":
             stride = STRIDES[int(name.split(".")[3])]
-            b = np.zeros((3, no), np.float32)
-            b[:, 4] = math.log(8.0 / (640.0 / stride) ** 2)
-            b[:, 5:5 + cfg.num_classes] = math.log(
-                0.6 / (cfg.num_classes - 0.999999))
+            b = detect_bias_prior(cfg, stride).reshape(3, no)
             if fire and stride == 32:
                 b[len(fire):, 4] -= 6.0
                 for j, c in enumerate(fire):
@@ -373,6 +392,51 @@ def random_state_dict(cfg: YoloConfig, seed: int = 0,
             a = int(np.prod(shape[1:])) ** -0.5 * z
         out[name] = torch.from_numpy(np.asarray(a, np.float32))
     return out
+
+
+def detect_bias_prior(cfg: YoloConfig, stride: int) -> np.ndarray:
+    """The Detect biases' priors (_initialize_biases, JAX
+    _detect_bias_init): objectness log(8 / (640/stride)^2), classes
+    log(0.6 / (nc - 0.999999)), (3 * no,) f32."""
+    b = np.zeros((3, 5 + cfg.num_classes + cfg.masks), np.float32)
+    b[:, 4] = math.log(8.0 / (640.0 / stride) ** 2)
+    b[:, 5:5 + cfg.num_classes] = math.log(0.6 / (cfg.num_classes - 0.999999))
+    return b.reshape(-1)
+
+
+def init_state_dict(cfg: YoloConfig, seed: int = 0,
+                    classifier: bool = False) -> Dict[str, torch.Tensor]:
+    """The state dict training starts from, drawn from a numpy seed with
+    the schemes the JAX modules init with: convolution and linear kernels
+    lecun-normal (truncated normal, fan-in the input channels times the
+    receptive field), BatchNorm scales one and biases zero, running means
+    zero and variances one, the Detect biases at their priors, the
+    classifier's linear bias zero.  The same distributions as
+    `model.init`, not the same numbers."""
+    from .recognizer import _lecun_normal
+    rng = np.random.default_rng(seed)
+    net = (YoloClassifier if classifier else YoloV5)(cfg, device="meta")
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in net.state_dict().items():
+        shape = tuple(t.shape)
+        owner, last = name.rsplit(".", 1)
+        if last == "num_batches_tracked":
+            out[name] = torch.zeros((), dtype=torch.int64)
+        elif last == "anchors":
+            out[name] = _anchors_in_grid_units(cfg)
+        elif last in ("running_mean", "bias") and not owner.startswith(
+                "model.24.m."):
+            out[name] = torch.zeros(shape)
+        elif last == "running_var" or (last == "weight" and
+                                       owner.endswith(".bn")):
+            out[name] = torch.ones(shape)
+        elif last == "bias":
+            out[name] = torch.from_numpy(detect_bias_prior(
+                cfg, STRIDES[int(owner.rsplit(".", 1)[1])]))
+        else:
+            out[name] = _lecun_normal(rng, shape, int(np.prod(shape[1:])))
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in out.items()}
 
 
 def decode_predictions(raw_maps: Sequence[torch.Tensor], cfg: YoloConfig

@@ -15,12 +15,17 @@ files, so a run either package saved resumes in the other:
     TimeSformer has no BatchNorm), /state/params/..., /state/opt_state/
     (make_rec_optimizer's chain) and /state/step
     (`rec_train_state_{to,from}_jax`);
+  - the detector trainers, `{"state": YoloTrainState}` as the JAX
+    `cli/yolo_train.py` and `cli/yolo_cls_train.py` write `tuple(state)`:
+    /state/0 params, /1 batch_stats, /2 vel, /3 ema_params, /4 ema_stats,
+    /5 updates (`yolo_train_state_{to,from}_jax`);
   - the detector's `best/` directory, `{"params", "batch_stats"}` as
     the JAX `cli/yolo_train.py` writes its EMA weights there
     (`yolo{,_cls}_{state_dict_from,variables_to}_jax`): the port's payload
     is `{"detector": YoloV5 or YoloClassifier}`;
 * `loop_state.json`: the host loop's state ({epoch, ...}; a detector's
-  `anchors` in pixels, which `load_train_state` applies to the model).
+  `anchors` in pixels, which `load_train_state` applies to the model;
+  the detector trainers' `best` fitness).
 
 `load_train_state` restores into the given states in place.
 """
@@ -42,10 +47,13 @@ from ..convert.from_jax import (linas_mask_state_from_jax,
                                 linas_train_state_from_jax,
                                 linas_train_state_to_jax,
                                 rec_train_state_from_jax,
-                                rec_train_state_to_jax)
+                                rec_train_state_to_jax,
+                                yolo_train_state_from_jax,
+                                yolo_train_state_to_jax)
 from ..io import flax_msgpack
 from .checkpoint import _host_tree
 from .recognition_trainer import SLICE5, RecTrainState
+from .yolo_trainer import YoloTrainState
 
 STATE_FILE, LOOP_FILE = "train_state.msgpack", "loop_state.json"
 
@@ -78,21 +86,58 @@ def _detector_to_tree(model) -> Dict[str, Any]:
     return _host_tree(to_jax(model.state_dict(), model.cfg))
 
 
-def _load_detector(model, tree: Dict[str, Any], loop_state: Dict) -> None:
-    """The file's {"params", "batch_stats"} into the detector, after the
-    loop state's anchors (pixels) replace its config's."""
+_YOLO_FIELDS = ("params", "batch_stats", "vel", "ema_params", "ema_stats",
+                "updates")
+
+
+def _yolo_state_to_tree(state: YoloTrainState) -> Dict[str, Any]:
+    """tuple(YoloTrainState) as flax writes a tuple: keys "0" ... "5"."""
+    fields = yolo_train_state_to_jax(
+        state.model.state_dict(), state.vel, state.ema.state_dict(),
+        state.updates, state.model.cfg, _is_classifier(state.model))
+    return {"state": _host_tree({str(i): fields[k]
+                                 for i, k in enumerate(_YOLO_FIELDS)})}
+
+
+def _load_yolo_state(state: YoloTrainState, tree: Dict[str, Any],
+                     loop_state: Dict) -> YoloTrainState:
+    for m in (state.model, state.ema):
+        _apply_anchors(m, loop_state)
+    fields = {k: tree[str(i)] for i, k in enumerate(_YOLO_FIELDS)}
+    sd, vel, ema, updates = yolo_train_state_from_jax(
+        fields, state.model.cfg, _is_classifier(state.model))
+    _load_strict(state.model, sd)
+    _load_strict(state.ema, ema)
+    with torch.no_grad():
+        for n, v in vel.items():
+            state.vel[n].copy_(v)
+    return state._replace(updates=updates)
+
+
+def _apply_anchors(model, loop_state: Dict) -> None:
+    """The loop state's anchors (pixels) replace the model config's, and
+    the Detect head's anchors buffer follows."""
     import dataclasses
-    if loop_state.get("anchors"):
+    if loop_state.get("anchors") and not _is_classifier(model):
         anchors = tuple(tuple(tuple(a) for a in layer)
                         for layer in loop_state["anchors"])
         model.cfg = dataclasses.replace(model.cfg, anchors=anchors)
-    from_jax = (yolo_cls_state_dict_from_jax if _is_classifier(model)
-                else yolo_state_dict_from_jax)
-    sd = from_jax(tree, model.cfg)
+
+
+def _load_strict(model, sd: Dict[str, torch.Tensor]) -> None:
     model.load_state_dict(sd, strict=False)
     missing = set(model.state_dict()) - set(sd)
     if any(not k.endswith("num_batches_tracked") for k in missing):
         raise KeyError(f"not in the checkpoint: {sorted(missing)[:5]}")
+
+
+def _load_detector(model, tree: Dict[str, Any], loop_state: Dict) -> None:
+    """The file's {"params", "batch_stats"} into the detector, after the
+    loop state's anchors (pixels) replace its config's."""
+    _apply_anchors(model, loop_state)
+    from_jax = (yolo_cls_state_dict_from_jax if _is_classifier(model)
+                else yolo_state_dict_from_jax)
+    _load_strict(model, from_jax(tree, model.cfg))
 
 
 def _to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
@@ -102,6 +147,8 @@ def _to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
     packages write the same bytes for the same state."""
     if "detector" in payload:
         return _detector_to_tree(payload["detector"])
+    if isinstance(payload["state"], YoloTrainState):
+        return _yolo_state_to_tree(payload["state"])
     if isinstance(payload["state"], RecTrainState):
         return _rec_to_tree(payload)
     tree = {}
@@ -121,7 +168,8 @@ def _to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
 def save_train_state(path: str, payload: Dict[str, Any],
                      loop_state: Optional[Dict] = None) -> None:
     """payload: {"state": TrainState[, "mask": MaskState]}, {"state":
-    RecTrainState, "batch_stats": None} or {"detector": model}."""
+    RecTrainState, "batch_stats": None}, {"state": YoloTrainState} or
+    {"detector": model}."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, STATE_FILE), "wb") as f:
         f.write(flax_msgpack.to_bytes(_to_tree(payload)))
@@ -132,12 +180,12 @@ def save_train_state(path: str, payload: Dict[str, Any],
 def load_train_state(path: str, payload: Dict[str, Any]
                      ) -> Tuple[Dict[str, Any], Dict]:
     """payload: the states to restore into, {"state": TrainState[, "mask":
-    MaskState]}, {"state": RecTrainState, "batch_stats": None} or
-    {"detector": YoloV5 or YoloClassifier} (a detector's cfg takes the
-    loop state's anchors); each
+    MaskState]}, {"state": RecTrainState, "batch_stats": None},
+    {"state": YoloTrainState} or {"detector": YoloV5 or YoloClassifier} (a
+    detector's cfg takes the loop state's anchors); each
     entry found in the file is loaded in place.  Returns (the payload
     restored, loop state); a RecTrainState comes back with the file's
-    step."""
+    step, a YoloTrainState with its update count."""
     with open(os.path.join(path, STATE_FILE), "rb") as f:
         tree = flax_msgpack.restore(f.read())
     loop_state = {}
@@ -150,6 +198,9 @@ def load_train_state(path: str, payload: Dict[str, Any]
         return {"detector": payload["detector"]}, loop_state
     restored = {}
     state = payload["state"]
+    if isinstance(state, YoloTrainState):
+        return {"state": _load_yolo_state(state, tree["state"],
+                                          loop_state)}, loop_state
     if isinstance(state, RecTrainState):
         if tree.get("batch_stats") is not None:
             raise NotImplementedError(SLICE5.format("batch_stats"))

@@ -4,7 +4,8 @@ Counterpart of cross_modal_video_engine_tpu/utils/registry.py: the same
 `Registry` class, so the config files' string keys (`type='Resize'`, ...)
 name the same components in both packages.  The port registers only what
 it has ported: the pipeline ops (data/pipelines.py, io/video_decode.py)
-in `PIPELINES`.
+in `PIPELINES`, the TimeSformer recognizers (models/recognizer.py) in
+`RECOGNIZERS`.
 """
 
 from __future__ import annotations
@@ -53,3 +54,4 @@ class Registry:
 
 
 PIPELINES = Registry("pipelines")
+RECOGNIZERS = Registry("recognizers")

@@ -242,6 +242,19 @@ def test_train_step_timesformer_row(capsys):
     assert rows[0]["tflops_per_sec"] > 0
 
 
+def test_train_step_yolov5_rows(capsys):
+    with torch.random.fork_rng(devices=[]):
+        extra.bench_train_step_yolov5(batch=2, img=64, max_targets=4,
+                                      steps=1, device="cpu", width=0.125)
+        extra.bench_train_step_yolov5_seg(batch=2, img=64, max_targets=4,
+                                          steps=1, device="cpu",
+                                          width=0.125)
+    rows = _rows(capsys)
+    _check_rows(rows, ["train_step_yolov5s_64_bf16_b2",
+                       "train_step_yolov5s_seg_64_bf16_b2"])
+    assert all(r["step_ms"] > 0 for r in rows)
+
+
 @pytest.mark.parametrize("attention", ["divided_space_time",
                                        "joint_space_time", "space_only"])
 def test_timesformer_flops_count_the_products(attention):

@@ -483,6 +483,35 @@ def _retrieval_trainer(linas, tmp_path):
         "--config_json", json.dumps(sizes), "--device", "cpu"])
 
 
+def _yolo_train(detector, tmp_path, classify=False):
+    """One epoch of one step of yolo_train (the detector fixture's two
+    images as the train split) or of yolo_cls_train (two classes of one
+    image each), width 0.125 at 64 px, f32."""
+    from cross_modal_video_engine_tpu_torch.cli import (yolo_cls_train,
+                                                        yolo_train)
+    root, _ = detector
+    model = ("model = dict(num_classes={}, width_multiple=0.125, "
+             "img_size=64)\n")
+    config = tmp_path / "yolo_cfg.py"
+    if classify:
+        for c in ("a", "b"):
+            (tmp_path / "folder" / c).mkdir(parents=True)
+            np.save(tmp_path / "folder" / c / "0.npy",
+                    np.full((40, 50, 3), 90, np.uint8))
+        config.write_text(model.format(2) + "data = dict(train_dir="
+                          f"{str(tmp_path / 'folder')!r}, batch_size=2)\n")
+        yolo_cls_train.main([str(config), "--work_dir",
+                             str(tmp_path / "cls_work"), "--total_epochs",
+                             "1", "--device", "cpu"])
+        return
+    config.write_text(model.format(3) + "data = dict(train=dict(img_dir="
+                      f"{str(root / 'images')!r}, label_dir="
+                      f"{str(root / 'labels')!r}), batch_size=2)\n"
+                      "autoanchor = False\n")
+    yolo_train.main([str(config), "--work_dir", str(tmp_path / "yolo_work"),
+                     "--total_epochs", "1", "--device", "cpu"])
+
+
 def _route(builder, **args):
     handler = builder(argparse.Namespace(device="cpu", **args))
     handler.batcher.close()
@@ -537,6 +566,9 @@ def _entry_points():
             str(w["detector"][0] / "cfg.py"), "--checkpoint",
             str(w["detector"][0] / "best"), "--device", "cpu"]),
         "ctv_build.main": lambda w: _ctv_build(w["detector"], w["tmp"]),
+        "yolo_train.main": lambda w: _yolo_train(w["detector"], w["tmp"]),
+        "yolo_cls_train.main": lambda w: _yolo_train(w["detector"], w["tmp"],
+                                                     classify=True),
     }
 
 
@@ -546,7 +578,8 @@ ENTRY_POINTS = ["restore_dual_encoding", "retrieval_inference.main",
                 "build_composed_handler", "init_recognizer",
                 "caption_inference.main", "caption_test.main",
                 "build_caption_handler", "caption_train.main",
-                "recognition_train.main", "yolo_val.main", "ctv_build.main"]
+                "recognition_train.main", "yolo_val.main", "ctv_build.main",
+                "yolo_train.main", "yolo_cls_train.main"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)

@@ -232,8 +232,20 @@ def test_both_packages_refuse_frames_off_the_32_grid(hw, ok):
 
 
 def test_train_mode_and_s2d_stem_are_refused():
-    with pytest.raises(NotImplementedError, match="7b-ii"):
-        tyolo.YoloV5(DETECT, device="cpu").train()
+    """Train mode is ported (flax's BatchNorm update: running = 0.97 *
+    running + 0.03 * batch with the biased variance); the s2d stem, a TPU
+    retiling, stays refused."""
+    model = tyolo.YoloV5(DETECT, device="cpu")
+    model.load_state_dict(tyolo.random_state_dict(DETECT, seed=1))
+    bn = model.model[0].bn
+    before = bn.running_var.clone(), bn.running_mean.clone()
+    x = torch.from_numpy(_images(2, 64, 64))
+    with torch.no_grad():
+        pre = model.model[0].conv(x.permute(0, 3, 1, 2))
+        model.train()(x)
+    var, mean = torch.var_mean(pre, dim=(0, 2, 3), unbiased=False)
+    torch.testing.assert_close(bn.running_mean, 0.97 * before[1] + 0.03 * mean)
+    torch.testing.assert_close(bn.running_var, 0.97 * before[0] + 0.03 * var)
     with pytest.raises(ValueError, match="s2d_stem"):
         tyolo.YoloConfig(s2d_stem=True)
 

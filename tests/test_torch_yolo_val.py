@@ -248,11 +248,14 @@ def test_reader_seam_and_refusals(tmp_path):
     img, labels = ds[0]
     assert seen == [str(img_dir / "a.jpg")] and img.shape == (40, 30, 3)
     assert labels.shape == (0, 5)
-    with pytest.raises(NotImplementedError, match="7b-ii"):
-        next(tyt.yolo_batches(ds, 2, SIZE, 4, aug=object()))
-    with pytest.raises(NotImplementedError, match="7b-ii"):
-        ds.shapes_and_labels()
-    with pytest.raises(NotImplementedError, match="7b-ii"):
+    # the training half is ported: the aug arm runs through the reader
+    # (a mosaic of four draws of the one image), and shapes_and_labels
+    # reads the shape through it
+    from cross_modal_video_engine_tpu_torch.data.yolo_aug import YoloAugHyp
+    images, *_ = next(tyt.yolo_batches(ds, 2, SIZE, 4, aug=YoloAugHyp(),
+                                       rng=np.random.RandomState(0)))
+    assert images.shape == (2, SIZE, SIZE, 3) and len(seen) == 9
+    shapes, labels = ds.shapes_and_labels()
+    assert shapes.tolist() == [[40.0, 30.0]] and len(seen) == 10
+    with pytest.raises(SystemExit):
         tyt.main([])
-    with pytest.raises(NotImplementedError, match="7b-ii"):
-        tyt.train_from_config(None, str(tmp_path))
