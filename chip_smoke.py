@@ -1,7 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Usage: python3 chip_smoke.py        (from the root of the repository)
+Usage: python3 chip_smoke.py [STEP ...]   (from the root of the repository)
+
+With no argument every step runs (the whole smoke run).  A list of
+step numbers ("18", "13 18" or "13,18") runs only those steps, always
+after the build (2) and the kernel checks (3) and before the results
+(19); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
+step did not run is null in the `kernels` line; the last line names the
+steps that ran and those skipped.
 
 1. prints the card's name and power limit and the torch/CUDA versions;
 2. builds the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
@@ -227,14 +234,41 @@ Usage: python3 chip_smoke.py        (from the root of the repository)
     card against CPU; (d) each trainer's step by CUDA events (the
     detector's and segmenter's through bench/extra.py's rows), images/s
     and each loop's idle share (the host augments in numpy);
-18. prints the JSON lines of steps 10-17 and of the kernel results
-    (launches on the main paths, on the composed, caption and explain
-    routes, in the training steps, in the bank build, in the caption
-    transformer's generates and in the detector's training, error, time,
-    plain time, bound, library time) and, last, a JSON line naming the
-    device.
+18. the 3D-CNN recognizers at full width, from numpy seeds and no
+    decode, every kernel counter zeroed before the step and read after
+    it (none may launch: no 3D-CNN path reaches a kernel): (a) each
+    shipped recipe (slowonly_r50_8x8, i3d_r50_32x2, i3d_nl_embedded,
+    csn_r50 ir, slowfast_r50_4x16 with its s2d fast stem, x3d_m; 400
+    classes, the training init) card against CPU at batch 1 in f32 (TF32
+    off), logits within CNN18_REL and cosine CNN18_COS, then its forward
+    at batch 8 in f32 and bf16 (ms, TFLOP/s of its products, peak
+    memory), and the fast pathway's s2d stem timed against the plain
+    stem conv (a finding; nothing switched); (b)
+    `recognition_train.train_from_config` on the shipped
+    slowfast_r50_4x16_k400.py (warmup 0: the recipe's 500 steps outlast a
+    4-step run) at batch 8 over 16 seeded 300-frame 360x480 videos
+    through the reader seam, 2 epochs with validation, a resume from
+    epoch_0 against the uninterrupted epoch 1 (parameters and
+    batch_stats), model_best with its batch_stats; one stats step at
+    batch 2 card against CPU in f32 and in bf16, from the training init
+    and from epoch_1, both held to float64 as closely as the CPU is,
+    with planted faults the check must refuse; bench/extra.py's
+    `train_step_slowfast` row at batch 8 and 32 (halved until it fits),
+    the shipped recipe's step by CUDA
+    events and its loop's idle share (torch.profiler), peak memory; (c)
+    `caption_train.train_from_config` on the shipped i3d_relseq.py, one
+    epoch, its model_best served over /caption (4 batch-1 requests and a
+    burst of 8, p50/p99), every answer against a direct `caption_clips`;
+    (d) the launch counters;
+19. prints the JSON lines of steps 10-18 that ran and of the kernel
+    results (launches on the main paths, on the composed, caption and
+    explain routes, in the training steps, in the bank build, in the
+    caption transformer's generates, in the detector's training and in
+    the 3D-CNN step, error, time, plain time, bound, library time) and,
+    last, a JSON line naming the device.
 
-Nothing is cut: the models run at full width and depth (the LINAS
+Nothing is cut: the models run at full width and depth (the 3D-CNN
+trainers 2 and 1 epochs of 16 videos; the LINAS
 training runs 2 epochs of a 2,560-caption collection, the TimeSformer
 trainers 2 and 1 epochs of 32 videos, the detector's trainers 2 and 1
 epochs of 32 images and the classifier's 1 epoch of 128; the composed
@@ -2638,10 +2672,11 @@ def caption_direct(handler, name):
     return clips, steps[0], probs[0].float().cpu().numpy()
 
 
-def caption_agreement(answers, direct, threshold: float = 0.5) -> dict:
+def caption_agreement(answers, direct, threshold: float = 0.5,
+                      band: float = TOL["bfloat16"]) -> dict:
     """HTTP answers against the direct call on the same clips: step-0
     labels must agree wherever the direct probability lies farther than
-    the bf16 tolerance from the threshold (a label inside that band may
+    `band` (the bf16 tolerance) from the threshold (a label inside it may
     flip with the wave's shapes: counted, and the caller bounds the
     count); later steps follow greedy
     feedback, so their flips are counted, not checked."""
@@ -2649,7 +2684,7 @@ def caption_agreement(answers, direct, threshold: float = 0.5) -> dict:
     for name, steps in answers:
         _, want, probs = direct[name]
         identical += steps == want
-        near = np.abs(probs[0] - threshold) <= TOL["bfloat16"]
+        near = np.abs(probs[0] - threshold) <= band
         band += int(near.sum())
         got0 = np.zeros(probs.shape[1], bool)
         got0[steps[0]] = True
@@ -5229,28 +5264,864 @@ def check_step17(dev, card) -> Tuple[dict, int]:
     return line, launches
 
 
+# -- step 18: the 3D-CNN recognizers -----------------------------------------
+CNN_CONFIGS = ROOT / "configs" / "recognition"
+# 18a: each shipped 3D-CNN recipe at full width, 400 classes, its own clip
+# length at 224²; weights: the training init (models/recognizer.
+# conv_init_state_dict, numpy seed 0)
+CNN18 = {"slowonly_r50_8x8": "slowonly_r50_8x8_k400.py",
+         "i3d_r50_32x2": "i3d_r50_32x2_k400.py",
+         "i3d_nl_r50_32x2": "i3d_nl_embedded_r50_32x2_k400.py",
+         "csn_r50_ir": "csn_r50_k400.py",
+         "slowfast_r50_4x16_s2d": "slowfast_r50_4x16_k400.py",
+         "x3d_m": "x3d_m_k400.py"}
+# card vs CPU at batch 1, f32, TF32 off: logits within CNN18_REL of the
+# largest and cosine >= CNN18_COS; forwards timed at CNN18_BATCH
+CNN18_REL, CNN18_COS, CNN18_BATCH, CNN18_TIMED = 1e-3, 0.999, 8, 10
+CNN18_SIZE = 224
+SLOWFAST18_CONFIG = CNN_CONFIGS / "slowfast_r50_4x16_k400.py"
+I3D_RELSEQ_CONFIG = ROOT / "configs" / "seq_generate" / "i3d_relseq.py"
+# 18b/c: a seeded collection of TRAIN18_VIDEOS (validation: the first
+# TRAIN18_VAL), batch TRAIN18_BATCH as the configs say; the card-vs-CPU
+# steps at TRAIN18_CPU_BATCH; the bench row at TRAIN18_BIG (halved until it
+# fits)
+TRAIN18_VIDEOS, TRAIN18_VAL, TRAIN18_BATCH, TRAIN18_CPU_BATCH = 16, 8, 8, 2
+TRAIN18_BIG, TRAIN18_TIMED, TRAIN18_PROFILED = 32, 6, 4
+# one step card vs CPU at full width, from the training init and from the
+# CLI's epoch_1 state (4 steps on), head dropout 0.  float64 on both
+# devices is the witness: every gradient and running statistic within
+# STEP18_F64 of its tensor's largest (the same arithmetic), and the
+# truth the f32 and bf16 steps are held to.  The CPU tests' bounds
+# against JAX (STEP18_TESTS) hold wherever f32 or bf16 arithmetic meets
+# them; on these videos it misses them at the init (train-mode
+# BatchNorm's backward cancels: the f32 gradients of the stems, the
+# first blocks and the deep slow-path convs lie percents of their
+# tensors' largest from float64 on either device, the bf16 ones at group
+# cosines 0.26-0.35), and per tensor from epoch_1 too, where the two
+# devices' summation orders leave some tensors four times farther from
+# float64 on one device than on the other.  So the card is held to float64 as
+# closely as the CPU is, where the two are compared in aggregate, and
+# to the CPU tests' bounds where the CPU meets them:
+# - f32: the loss within STEP18_LOSS; the whole gradient's 1 - cosine
+#   to float64 within 1 - STEP18_TESTS["grad_cos"] or STEP18_ACC times
+#   the CPU's (+ STEP18_FLOOR); by group (convs, BatchNorms, head) the
+#   L2 error from float64 within STEP18_TESTS["grad"] of the group's
+#   norm or STEP18_ACC times the CPU's;
+# - bf16: the loss within BF16_LOSS_REL; by group, 1 - cosine to
+#   float64 within 1 - BF16_GRAD_COS or STEP18_ACC times the CPU's (the
+#   cosine card vs CPU is a reading: two steps each 0.99 from float64
+#   may lie 0.98 from each other);
+# - both, each tensor: where the CPU's cosine to float64 is STEP18_SIGNAL
+#   times a random direction's (1/sqrt(size)), the card keeps
+#   STEP18_AGREE of it; where the CPU's L2 error is within
+#   STEP18_GROSS[0] of the tensor's norm, the card's is within
+#   STEP18_GROSS[1] (a zero, negated, doubled or random gradient fails
+#   either);
+# - both: the card's parameters moved by the optimizer's update of its
+#   own gradients, lr (clip(g) + wd p), within STEP18_UPDATE of each
+#   tensor's largest update plus STEP18_ULP of its largest parameter
+#   (the new parameters' f32 rounding); the running statistics within
+#   STEP18_STATS of each tensor's largest from the CPU's (f32), or from
+#   float64 within STEP18_ACC times the CPU's distance + STEP18_STATS
+#   (bf16).
+# Each run plants faults in the card's results (zero, random and
+# negated gradients, unmoved parameters, statistics left where they
+# were) and fails unless the check refuses every one; it also counts the
+# tensors in which one zeroed, negated or doubled gradient is refused.
+# The CPU tests' bounds card vs CPU (whole-gradient cosine, each
+# tensor's gradient, parameter and statistic within a share of its
+# largest) are printed beside the verdict as readings.
+STEP18_F64, STEP18_LOSS, STEP18_ACC, STEP18_FLOOR = 1e-9, 1e-5, 2.0, 1e-6
+STEP18_UPDATE, STEP18_ULP, STEP18_STATS = 1e-3, 4e-7, 1e-4
+STEP18_AGREE, STEP18_SIGNAL, STEP18_GROSS = 0.5, 10.0, (0.125, 0.5)
+STEP18_TESTS = {"grad_cos": 0.9999, "grad": 1e-3, "param": 1e-5,
+                "stats": 1e-5}
+# the served answers against caption_clips: f32, so only a label within
+# CAPTION18_BAND of the threshold may differ (the decoder of a model two
+# steps from its init puts its probabilities near 0.5)
+CAPTION18_SINGLE, CAPTION18_BURST, CAPTION18_BAND = 4, 8, 1e-4
+
+
+def _clip_len(cfg) -> int:
+    return next(c for c in cfg["data.pipeline"]
+                if c["type"] == "SampleFrames")["clip_len"]
+
+
+def _max_rel(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max())
+    return err / scale if scale else (0.0 if err == 0 else float("inf"))
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = float(a.norm()), float(b.norm())
+    return 1.0 if na == nb == 0 else float(a @ b / (na * nb + 1e-300))
+
+
+def cnn_forwards(dev, card) -> dict:
+    """18a: each shipped 3D-CNN at full width, card vs CPU at batch 1 (f32,
+    TF32 off), then its forward at batch 8 in f32 and in bf16 (ms by CUDA
+    events, TFLOP/s of its products, peak memory), and the SlowFast fast
+    pathway's s2d stem against the plain stem conv."""
+    import copy
+    import torch
+    import torch.nn.functional as F
+    from cross_modal_video_engine_tpu_torch.cli import recognition_train
+    from cross_modal_video_engine_tpu_torch.models.resnet3d import (
+        forward_flops)
+    from cross_modal_video_engine_tpu_torch.ops.s2d_stem import (
+        s2d_stem_conv)
+
+    out = {"card": card}
+    rng = np.random.default_rng(18)
+    for name, fname in CNN18.items():
+        cfg = shipped_training_config(CNN_CONFIGS / fname)
+        t = _clip_len(cfg)
+        x1 = torch.from_numpy(rng.standard_normal(
+            (1, t, CNN18_SIZE, CNN18_SIZE, 3), dtype=np.float32))
+        models = {}
+        for where_, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            models[where_] = recognition_train.build_recognition_model(
+                cfg, d).eval()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            want = models["cpu"](x1)
+            cpu_s = time.perf_counter() - t0
+            got = models["card"](x1.to(dev)).cpu()
+        del models["cpu"]
+        model = models["card"]
+        rec = {"frames": t, "params_m": sum(
+            p.numel() for p in model.parameters()) / 1e6,
+               "max_rel": _max_rel(got, want), "cosine": _cosine(got, want),
+               "cpu_s": cpu_s}
+        x8 = torch.from_numpy(rng.standard_normal(
+            (CNN18_BATCH, t, CNN18_SIZE, CNN18_SIZE, 3),
+            dtype=np.float32)).to(dev)
+        flops = forward_flops(model, x8)
+        bf = copy.deepcopy(model).to(torch.bfloat16)
+        for dtype, m, x in (("f32", model, x8),
+                            ("bf16", bf, x8.to(torch.bfloat16))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with torch.no_grad():
+                ms = cuda_ms(lambda: m(x), iters=CNN18_TIMED, warmup=2)
+            rec[dtype] = {"ms": ms, "videos_per_s": CNN18_BATCH * 1e3 / ms,
+                          "tflops_per_s": flops / ms / 1e9,
+                          "peak_mib": torch.cuda.max_memory_allocated(dev)
+                          / 2 ** 20}
+        rec["gflops_per_video"] = flops / CNN18_BATCH / 1e9
+        out[name] = rec
+        print(f"18a {name} ({fname}, {rec['params_m']:.2f}M parameters, "
+              f"{t}x{CNN18_SIZE}², 400 classes, training init): card vs CPU "
+              f"at batch "
+              f"1 f32 max |diff| / max |CPU| {rec['max_rel']:.2e} (need <= "
+              f"{CNN18_REL}), cosine {rec['cosine']:.7f} (need >= "
+              f"{CNN18_COS}); forward at batch {CNN18_BATCH}: f32 "
+              f"{rec['f32']['ms']:.2f} ms ({rec['f32']['tflops_per_s']:.1f} "
+              f"TFLOP/s, {rec['f32']['peak_mib']:.0f} MiB peak), bf16 "
+              f"{rec['bf16']['ms']:.2f} ms ({rec['bf16']['tflops_per_s']:.1f}"
+              f" TFLOP/s, {rec['bf16']['peak_mib']:.0f} MiB peak); "
+              f"{rec['gflops_per_video']:.1f} GFLOP a video; on {card}",
+              flush=True)
+        if (rec["max_rel"] > CNN18_REL or rec["cosine"] < CNN18_COS
+                or not torch.isfinite(got).all()):
+            raise SystemExit(f"18a {name}: the card disagrees with the CPU")
+        del model, bf, x8, x1
+        torch.cuda.empty_cache()
+
+    # the fast pathway's stem: (kt 5, 7, 7) 3 -> 8 channels, stride (1,
+    # 2, 2), on the view the backbone hands it, in f32 and bf16
+    x = torch.from_numpy(rng.standard_normal(
+        (CNN18_BATCH, 32, CNN18_SIZE, CNN18_SIZE, 3),
+        dtype=np.float32)).to(dev)
+    w = torch.from_numpy(0.1 * rng.standard_normal(
+        (8, 3, 5, 7, 7), dtype=np.float32)).to(dev)
+    stem = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xv, wv = x.to(dtype).permute(0, 4, 1, 2, 3), w.to(dtype)
+        with torch.no_grad():
+            plain = F.conv3d(xv, wv, stride=(1, 2, 2), padding=(2, 3, 3))
+            s2d = s2d_stem_conv(xv, wv)
+            err = _max_rel(s2d.float(), plain.float())
+            stem[str(dtype).split(".")[1]] = {
+                "plain_ms": cuda_ms(lambda: F.conv3d(
+                    xv, wv, stride=(1, 2, 2), padding=(2, 3, 3))),
+                "s2d_ms": cuda_ms(lambda: s2d_stem_conv(xv, wv)),
+                "max_rel": err}
+    out["fast_stem"] = stem
+    print(f"18a the SlowFast fast-pathway stem at ({CNN18_BATCH}, 3, 32, "
+          f"{CNN18_SIZE}, {CNN18_SIZE}) -> 8 channels, plain conv vs s2d "
+          f"(finding only, "
+          f"nothing switched): {json.dumps(stem)} on {card}", flush=True)
+    if max(v["max_rel"] for v in stem.values()) > TOL["bfloat16"]:
+        raise SystemExit("18a the s2d stem disagrees with the plain conv")
+    del x, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def _epoch_tree(path: str) -> dict:
+    """The parameters and batch_stats of an epoch state (flat name ->
+    tensor)."""
+    from cross_modal_video_engine_tpu_torch.io import flax_msgpack
+
+    def flat(tree, pre=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{pre}{k}/")
+            else:
+                yield f"{pre}{k}", v
+
+    with open(os.path.join(path, "train_state.msgpack"), "rb") as f:
+        tree = flax_msgpack.restore(f.read())
+    return dict(flat({"params": tree["state"]["params"],
+                      "batch_stats": tree["batch_stats"]}))
+
+
+def _group(name: str) -> str:
+    return ("head" if name.startswith("cls_head") else
+            "bn" if ".bn." in name else "conv")
+
+
+def _start_model(cfg, d, start):
+    """The config's classifier on device d at `start` (a state dict; None:
+    the training init), head dropout 0."""
+    from cross_modal_video_engine_tpu_torch.cli import recognition_train
+    model = recognition_train.build_recognition_model(cfg, d)
+    if start is not None:
+        model.load_state_dict(start)
+    model.cls_head.dropout.p = 0.0
+    return model
+
+
+def _grads64(model) -> dict:
+    import torch
+    return {n: (p.grad.detach().double().cpu() if p.grad is not None
+                else torch.zeros(p.shape, dtype=torch.float64))
+            for n, p in model.named_parameters()}
+
+
+def _stats64(model) -> dict:
+    return {k: v.detach().double().cpu()
+            for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _f64_run(cfg, d, start, clips, labels) -> dict:
+    """One train-mode forward and backward in float64 on device d: the
+    loss, the gradients and the running statistics after it."""
+    import torch
+    model = _start_model(cfg, d, start).double().train()
+    loss = torch.nn.functional.cross_entropy(
+        model(torch.from_numpy(clips).to(d, torch.float64)),
+        torch.from_numpy(labels).to(d))
+    loss.backward()
+    return {"loss": float(loss.detach()), "grads": _grads64(model),
+            "stats": _stats64(model)}
+
+
+def _step_run(cfg, d, start, clips, labels, bf16: bool) -> dict:
+    """One make_cls_train_step_stats step on device d: the loss, the
+    gradients, the parameters and statistics before and after it."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_cls_train_step_stats,
+        make_rec_optimizer)
+    model = _start_model(cfg, d, start)
+    state = init_rec_state(model, make_rec_optimizer(
+        RecognitionTrainConfig(**cfg["optimizer"]), 10))
+    step = make_cls_train_step_stats(model, bf16=bf16, device=d)
+    p0 = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
+    s0 = _stats64(model)
+    t0 = time.perf_counter()
+    state, logs = step(state, torch.from_numpy(clips).to(d),
+                       torch.from_numpy(labels).to(d))
+    loss = float(logs["loss"])
+    return {"loss": loss, "s": time.perf_counter() - t0,
+            "grads": _grads64(model), "p0": p0, "s0": s0,
+            "params": {n: p.detach().double().cpu()
+                       for n, p in model.named_parameters()},
+            "stats": _stats64(model)}
+
+
+def _update_over_bound(run, tcfg) -> float:
+    """The largest error of a run's parameter move against SGD's first
+    step from its own gradients, p - lr (clip(g) + wd p) (momentum's trace
+    starting at zero), over its STEP18_UPDATE/STEP18_ULP bound."""
+    g = run["grads"]
+    norm = float(sum((x ** 2).sum() for x in g.values())) ** 0.5
+    c = 1.0 if norm < tcfg.grad_clip else tcfg.grad_clip / norm
+    worst = 0.0
+    for n, p0 in run["p0"].items():
+        update = tcfg.learning_rate * (g[n] * c + tcfg.weight_decay * p0)
+        moved = p0 - run["params"][n]
+        scale = (STEP18_UPDATE * float(update.abs().max())
+                 + STEP18_ULP * float(p0.abs().max()))
+        if scale:
+            worst = max(worst, float((moved - update).abs().max()) / scale)
+    return worst
+
+
+def _sums(grads, truth, cpu) -> dict:
+    """Per tensor, in float64: |g|², g·truth, g·cpu and |g - truth|²; the
+    verdict and its planted faults read only these."""
+    out = {}
+    for n, t in truth.items():
+        g = grads[n]
+        out[n] = (float((g * g).sum()), float((g * t).sum()),
+                  float((g * cpu[n]).sum()), float(((g - t) ** 2).sum()))
+    return out
+
+
+def _sum_cos(dot, aa, bb) -> float:
+    return 1.0 if aa == bb == 0 else dot / ((aa * bb) ** 0.5 + 1e-300)
+
+
+def _tensor_ok(c, u, tt, numel) -> bool:
+    """One tensor's gradient from its sums (c: the card's, u: the CPU's,
+    tt: |truth|²): it keeps STEP18_AGREE of the CPU's cosine to float64
+    where that is STEP18_SIGNAL/sqrt(size) or more, and lies within
+    STEP18_GROSS[1] of the tensor's norm from float64 where the CPU's lies
+    within STEP18_GROSS[0]."""
+    card_c, cpu_c = _sum_cos(c[1], c[0], tt), _sum_cos(u[1], u[0], tt)
+    lo, hi = STEP18_GROSS
+    return ((cpu_c * numel ** 0.5 < STEP18_SIGNAL
+             or card_c >= STEP18_AGREE * cpu_c)
+            and (u[3] > lo * lo * tt or c[3] <= hi * hi * tt))
+
+
+def _reference(cpu, f64) -> dict:
+    """What the verdict needs of the CPU's run and of float64, once."""
+    truth = f64["grads"]
+    names = list(truth)
+    groups = {}
+    for n in names:
+        groups.setdefault(_group(n), []).append(n)
+    return {"truth": truth, "groups": groups,
+            "tt": {n: float((t * t).sum()) for n, t in truth.items()},
+            "numel": {n: t.numel() for n, t in truth.items()},
+            "cpu": _sums(cpu["grads"], truth, cpu["grads"])}
+
+
+def _step_verdict(card, cpu, f64, ref, tcfg, bf16: bool,
+                  sums=None) -> Tuple[list, dict]:
+    """The sub-checks the card's step run fails (loss, gradients, update,
+    statistics) and the readings they rest on; f64: the card's float64
+    run from the same start, ref: its _reference."""
+    truth, tt, numel = ref["truth"], ref["tt"], ref["numel"]
+    cs, us = sums or _sums(card["grads"], truth, cpu["grads"]), ref["cpu"]
+    failed, read = [], {}
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    read["loss_rel"] = loss_rel
+    if not (np.isfinite(card["loss"])
+            and loss_rel <= (BF16_LOSS_REL if bf16 else STEP18_LOSS)):
+        failed.append("loss")
+    ok = all(_tensor_ok(cs[n], us[n], tt[n], numel[n]) for n in truth)
+    read["worst_tensors"] = [dict(zip(
+        ("card_l2_err", "name", "cpu_l2_err", "card_f64_cos", "cpu_f64_cos"),
+        w)) for w in sorted(
+            ((cs[n][3] / tt[n]) ** 0.5 if tt[n] else cs[n][3] ** 0.5, n,
+             (us[n][3] / tt[n]) ** 0.5 if tt[n] else us[n][3] ** 0.5,
+             _sum_cos(cs[n][1], cs[n][0], tt[n]),
+             _sum_cos(us[n][1], us[n][0], tt[n]))
+            for n in truth)[::-1][:3]]
+
+    def total(sums, ns, i):
+        return sum(sums[n][i] for n in ns)
+
+    by_group = {}
+    for grp, ns in list(ref["groups"].items()) + [("all", list(truth))]:
+        t2 = sum(tt[n] for n in ns)
+        c2, u2 = total(cs, ns, 0), total(us, ns, 0)
+        row = {"card_f64_cos": _sum_cos(total(cs, ns, 1), c2, t2),
+               "cpu_f64_cos": _sum_cos(total(us, ns, 1), u2, t2),
+               "card_cpu_cos": _sum_cos(total(cs, ns, 2), c2, u2),
+               "card_l2_err": (total(cs, ns, 3) / t2) ** 0.5,
+               "cpu_l2_err": (total(us, ns, 3) / t2) ** 0.5}
+        by_group[grp] = row
+        if grp == "all":
+            if not bf16:
+                ok &= (1.0 - row["card_f64_cos"] <= max(
+                    1.0 - STEP18_TESTS["grad_cos"],
+                    STEP18_ACC * (1.0 - row["cpu_f64_cos"])) + STEP18_FLOOR)
+        elif bf16:
+            ok &= 1.0 - row["card_f64_cos"] <= max(
+                1.0 - BF16_GRAD_COS, STEP18_ACC * (1.0 - row["cpu_f64_cos"]))
+        else:
+            ok &= row["card_l2_err"] <= max(STEP18_TESTS["grad"],
+                                            STEP18_ACC * row["cpu_l2_err"])
+    read["by_group"] = by_group
+    if not ok:
+        failed.append("gradients")
+    read["update_over_bound"] = _update_over_bound(card, tcfg)
+    if read["update_over_bound"] > 1.0:
+        failed.append("update")
+    if bf16:
+        stats = max(_max_rel(card["stats"][k], f64["stats"][k])
+                    / (STEP18_ACC * _max_rel(cpu["stats"][k],
+                                             f64["stats"][k]) + STEP18_STATS)
+                    for k in f64["stats"])
+        read["stats_over_bound"] = stats
+        bad_stats = stats > 1.0
+    else:
+        stats = max(_max_rel(card["stats"][k], cpu["stats"][k])
+                    for k in cpu["stats"])
+        read["stats_max_rel"] = stats
+        bad_stats = stats > STEP18_STATS
+    if bad_stats:
+        failed.append("statistics")
+    return failed, read
+
+
+def _planted(card, cpu, f64, ref, tcfg, bf16: bool) -> dict:
+    """The sub-checks _step_verdict fails with each fault planted in the
+    card's run (every fault must fail its own sub-check), and the tensors
+    in which one zeroed, negated or doubled gradient is refused."""
+    import torch
+    gen = torch.Generator().manual_seed(18)
+
+    def rnd(g):
+        r = torch.randn(g.shape, generator=gen, dtype=torch.float64)
+        return r * (g.norm() / r.norm().clamp_min(1e-300))
+
+    grads = card["grads"]
+    faults = {
+        "zero gradients": ("gradients", {"grads": {
+            n: torch.zeros_like(g) for n, g in grads.items()}}),
+        "random gradients": ("gradients", {"grads": {
+            n: rnd(g) for n, g in grads.items()}}),
+        "negated gradients": ("gradients", {"grads": {
+            n: -g for n, g in grads.items()}}),
+        "unmoved parameters": ("update", {"params": card["p0"]}),
+        "stale statistics": ("statistics", {"stats": card["s0"]})}
+    real = _sums(grads, ref["truth"], cpu["grads"])
+    out = {}
+    for name, (must, change) in faults.items():
+        failed, _ = _step_verdict(
+            dict(card, **change), cpu, f64, ref, tcfg, bf16,
+            None if "grads" in change else real)
+        out[name] = {"failed": failed, "refused": must in failed}
+    # one tensor's gradient a times the card's: |a g|², a g·t, a g·u and
+    # |a g - t|² from the real sums
+    for name, a in (("one zero tensor", 0.0), ("one negated tensor", -1.0),
+                    ("one doubled tensor", 2.0)):
+        missed = []
+        for n, (gg, gt, gu, _) in real.items():
+            tt = ref["tt"][n]
+            faulty = (a * a * gg, a * gt, a * gu, a * a * gg - 2 * a * gt + tt)
+            if _tensor_ok(faulty, ref["cpu"][n], tt, ref["numel"][n]):
+                missed.append(n)
+        out[name] = {"refused_in": len(real) - len(missed), "of": len(real),
+                     "missed": missed[:3]}
+    return out
+
+
+def step_card_vs_cpu(dev, cfg, clips, labels, start) -> dict:
+    """One make_cls_train_step_stats step of the config's classifier from
+    `start` (None: the training init) on the card and on the CPU at
+    TRAIN18_CPU_BATCH, f32 and bf16, held to the float64 run of both
+    devices by the STEP18_* bounds, with the planted faults, and the
+    STEP18_TESTS readings."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig)
+    tcfg = RecognitionTrainConfig(**cfg["optimizer"])
+    cpu_dev = torch.device("cpu")
+    t0 = time.perf_counter()
+    f64 = {w: _f64_run(cfg, d, start, clips, labels)
+           for w, d in (("card", dev), ("cpu", cpu_dev))}
+    witness = max([_max_rel(f64["card"][k][n], f64["cpu"][k][n])
+                   for k in ("grads", "stats") for n in f64["cpu"][k]])
+    out = {"f64_max_rel": witness,
+           "f64_loss": [f64["card"]["loss"], f64["cpu"]["loss"]],
+           "f64_s": time.perf_counter() - t0}
+    failed = [] if witness <= STEP18_F64 else ["float64 witness"]
+    for bf16 in (False, True):
+        card = _step_run(cfg, dev, start, clips, labels, bf16)
+        cpu = _step_run(cfg, cpu_dev, start, clips, labels, bf16)
+        ref = _reference(cpu, f64["card"])
+        bad, read = _step_verdict(card, cpu, f64["card"], ref, tcfg, bf16)
+        planted = _planted(card, cpu, f64["card"], ref, tcfg, bf16)
+        names = list(cpu["grads"])
+        # the CPU tests' bounds, card vs CPU, as readings
+        grad = max((_max_rel(card["grads"][n], cpu["grads"][n]), n)
+                   for n in names)
+        param = max(_max_rel(card["params"][n], cpu["params"][n])
+                    for n in names)
+        stats = max(_max_rel(card["stats"][k], cpu["stats"][k])
+                    for k in cpu["stats"])
+        absolute = {"grad_cos": read["by_group"]["all"]["card_cpu_cos"],
+                    "grad": grad[0],
+                    "grad_worst": grad[1], "param": param, "stats": stats}
+        absolute["held"] = (absolute["grad_cos"] >= STEP18_TESTS["grad_cos"]
+                            and all(absolute[k] <= STEP18_TESTS[k]
+                                    for k in ("grad", "param", "stats")))
+        key = "bf16" if bf16 else "f32"
+        out[key] = dict(read, loss_card=card["loss"], loss_cpu=cpu["loss"],
+                        card_s=card["s"], cpu_s=cpu["s"], failed=bad,
+                        planted=planted, absolute=absolute)
+        failed += [f"{key} {b}" for b in bad]
+        failed += [f"{key} planted {k} not refused"
+                   for k, v in planted.items() if v.get("refused") is False]
+        del card, cpu
+    out["failed"] = failed
+    return out
+
+
+def slowfast_training(dev, card, tmp, videos, names) -> dict:
+    """18b: the shipped SlowFast-R50 4x16 recipe (fast s2d stem on)
+    trained by recognition_train.train_from_config at batch 8: 2 epochs,
+    a resume from epoch_0, model_best with batch_stats; one step card vs
+    CPU at batch 2 in f32 and in bf16 from the training init and from
+    epoch_1; the bench row's bf16 step at batch 8 and 32, the shipped
+    config's loop by CUDA events and the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cross_modal_video_engine_tpu_torch.bench.extra import (
+        bench_train_step_slowfast)
+    from cross_modal_video_engine_tpu_torch.cli import recognition_train
+    from cross_modal_video_engine_tpu_torch.data.datasets import VideoDataset
+    from cross_modal_video_engine_tpu_torch.data.pipelines import (
+        build_pipeline, with_reader)
+    from cross_modal_video_engine_tpu_torch.train.checkpoint import (
+        load_checkpoint)
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_cls_train_step_stats,
+        make_rec_optimizer)
+    from cross_modal_video_engine_tpu_torch.train.resume import (
+        load_train_state)
+
+    line = {"card": card}
+    train_ann = write_training_split(tmp, names, "cls", 56)
+    val_ann = write_training_split(tmp, names[:TRAIN18_VAL], "cls", 56)
+    # the recipe's 500-step warmup is longer than a 4-step run (the cosine
+    # schedule refuses it, in either package): the smoke run trains at the
+    # recipe's learning rate from step 0
+    cfg = shipped_training_config(
+        SLOWFAST18_CONFIG, **{"data.train.ann_file": train_ann,
+                              "data.train.data_prefix": None,
+                              "data.val.ann_file": val_ann,
+                              "data.val.data_prefix": None,
+                              "data.videos_per_gpu": TRAIN18_BATCH,
+                              "optimizer.warmup_steps": 0,
+                              "total_epochs": 2, "eval_interval": 1})
+    if not cfg["model.backbone"]["fast_s2d_stem"]:
+        raise SystemExit("18b the shipped SlowFast recipe lost its s2d stem")
+    pipe = build_pipeline(with_reader(cfg["data.pipeline"],
+                                      videos.__getitem__))
+    clips = np.stack([pipe({"filename": n, "start_index": 0})["imgs"][0]
+                      for n in names[:TRAIN18_CPU_BATCH]]).astype(np.float32)
+    labels = np.arange(TRAIN18_CPU_BATCH) * 7
+    work = os.path.join(tmp, "slowfast")
+    t0 = time.perf_counter()
+    _, history = recognition_train.train_from_config(
+        cfg, work, device=dev, reader=videos.__getitem__)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    resumed_work = os.path.join(tmp, "slowfast_resumed")
+    t0 = time.perf_counter()
+    _, resumed = recognition_train.train_from_config(
+        cfg, resumed_work, resume=os.path.join(work, "epoch_0"), device=dev,
+        reader=videos.__getitem__)
+    resume_s = time.perf_counter() - t0
+    a = _epoch_tree(os.path.join(work, "epoch_1"))
+    b = _epoch_tree(os.path.join(resumed_work, "epoch_1"))
+    diffs = torch.cat([(a[k].float() - b[k].float()).abs().flatten()
+                       for k in a])
+    lr = cfg["optimizer"]["learning_rate"]
+    one, two = history[1], resumed[0]
+    variables, saved, _ = load_checkpoint(os.path.join(work, "model_best"))
+    resume = {"loss_uninterrupted": one["loss"], "loss_resumed": two["loss"],
+              "loss_rel": abs(one["loss"] - two["loss"]) / abs(one["loss"]),
+              "state_share_within": float(
+                  (diffs <= RESUME_PARAM_TOL).double().mean()),
+              "state_max_abs": float(diffs.max()),
+              "batch_stats_leaves": sum(k.startswith("batch_stats/")
+                                        for k in a)}
+    line["cli"] = {"history": history, "seconds": cli_s,
+                   "resume_seconds": resume_s, "resume": resume,
+                   "model_best": sorted(variables)}
+    print(f"18b recognition_train.train_from_config (slowfast_r50_4x16_k400"
+          f".py, f32, warmup 0) over {len(names)} seeded videos, batch "
+          f"{TRAIN18_BATCH}, 2 epochs with validation on {TRAIN18_VAL}: "
+          f"{json.dumps(history)} in {cli_s:.1f} s; resumed from epoch_0 "
+          f"({resume_s:.1f} s): {json.dumps(resume)} (need the loss within "
+          f"{RESUME_LOSS_RTOL}, {RESUME_PARAM_SHARE} of the parameters and "
+          f"statistics within {RESUME_PARAM_TOL}, all within {2 * lr:g}); "
+          f"model_best holds {sorted(variables)} of a "
+          f"{saved['backbone']['type']}", flush=True)
+    if (len(history) != 2 or not all(np.isfinite(h["loss"])
+                                     for h in history)
+            or [h["epoch"] for h in resumed] != [1]
+            or resume["loss_rel"] > RESUME_LOSS_RTOL
+            or resume["state_share_within"] < RESUME_PARAM_SHARE
+            or resume["state_max_abs"] > 2 * lr
+            or not resume["batch_stats_leaves"]
+            or sorted(variables) != ["batch_stats", "params"]):
+        raise SystemExit("18b the SlowFast CLI, its resume or model_best "
+                         "failed")
+    torch.cuda.empty_cache()
+
+    # one step card vs CPU from the training init and from epoch_1
+    holder = recognition_train.build_recognition_model(cfg, "cpu")
+    load_train_state(os.path.join(work, "epoch_1"), {
+        "state": init_rec_state(holder, make_rec_optimizer(
+            RecognitionTrainConfig(**cfg["optimizer"]), 10)),
+        "batch_stats": holder})
+    for start_name, start in (("training init", None),
+                              ("epoch_1", holder.state_dict())):
+        step_line = step_card_vs_cpu(dev, cfg, clips, labels, start)
+        line[f"step_{start_name.split()[-1]}"] = step_line
+        print(f"18b one stats step of slowfast_r50_4x16_k400.py (400 "
+              f"classes, head dropout 0) from the {start_name} at batch "
+              f"{TRAIN18_CPU_BATCH}, card vs CPU in f32 and bf16: "
+              f"{json.dumps(step_line)} (need float64 gradients and "
+              f"statistics card vs CPU within {STEP18_F64}; f32: loss "
+              f"within {STEP18_LOSS}, the whole gradient's 1 - cosine to "
+              f"float64 within {1 - STEP18_TESTS['grad_cos']:g} or "
+              f"{STEP18_ACC}x the CPU's, each group's L2 error within "
+              f"{STEP18_TESTS['grad']} or {STEP18_ACC}x the CPU's; bf16: "
+              f"loss within {BF16_LOSS_REL}, each group's 1 - cosine to "
+              f"float64 within {1 - BF16_GRAD_COS:g} or {STEP18_ACC}x the "
+              f"CPU's; each tensor: "
+              f"{STEP18_AGREE} of the CPU's cosine to float64 where that "
+              f"is {STEP18_SIGNAL}/sqrt(size) or more, the L2 error within "
+              f"{STEP18_GROSS[1]} of its norm where the CPU's is within "
+              f"{STEP18_GROSS[0]}; the parameters moved by lr (clip(g) + "
+              f"wd p) within {STEP18_UPDATE} of each tensor's largest "
+              f"update + {STEP18_ULP} of its largest parameter; statistics "
+              f"within {STEP18_STATS} of the CPU's (f32), from float64 "
+              f"within {STEP18_ACC}x the CPU's + {STEP18_STATS} (bf16); "
+              f"every planted fault refused; readings at the CPU tests' "
+              f"bounds {STEP18_TESTS}) on "
+              f"{card}", flush=True)
+        if step_line["failed"]:
+            raise SystemExit(f"18b card vs CPU failed: {step_line['failed']}")
+        torch.cuda.empty_cache()
+    del holder
+
+    # the bench row's bf16 step at batch 8 and at 32 (halved until it fits)
+    rows = {}
+    for batch in (TRAIN18_BATCH, TRAIN18_BIG):
+        while True:
+            try:
+                torch.cuda.reset_peak_memory_stats(dev)
+                row = bench_train_step_slowfast(batch=batch, device=dev)
+                row["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+                rows[batch] = row
+                break
+            except torch.cuda.OutOfMemoryError:
+                torch.cuda.empty_cache()
+                batch //= 2
+                if batch < TRAIN18_BATCH:
+                    raise
+        torch.cuda.empty_cache()
+    line["bench_rows"] = rows
+    print(f"18b the bench row train_step_slowfast (bf16, f32 masters and "
+          f"statistics, SlowFastConfig(alpha=8), 32x224²) at batches "
+          f"{sorted(rows)}: {json.dumps(rows)} on {card}", flush=True)
+
+    # the shipped recipe's loop: the step by CUDA events over a prebuilt
+    # batch, then TRAIN18_PROFILED steps with their host batches profiled
+    tcfg = RecognitionTrainConfig(**cfg["optimizer"])
+    model = recognition_train.build_recognition_model(cfg, dev)
+    state = init_rec_state(model, make_rec_optimizer(tcfg))
+    step = make_cls_train_step_stats(
+        model, generator=torch.Generator(device=dev).manual_seed(5),
+        device=dev)
+    ds = VideoDataset(train_ann, pipe)
+    batches = recognition_train._label_batches
+    b = next(batches(ds, TRAIN18_BATCH, dev))
+    spans = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(TRAIN18_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, logs = step(state, *b[:2])
+        end.record()
+        end.synchronize()
+        spans.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = float(np.median(spans[2:]))
+    it = batches(ds, TRAIN18_BATCH, dev, [
+        i % len(ds) for i in range(TRAIN18_PROFILED * TRAIN18_BATCH)])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN18_PROFILED):
+            b = next(it)
+            state, logs = step(state, *b[:2])
+        float(logs["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / TRAIN18_PROFILED * 1e3
+    kernels = sorted(
+        ((e.self_device_time_total / TRAIN18_PROFILED / 1e3, e.key)
+         for e in prof.key_averages()
+         if str(e.device_type).endswith("CUDA")
+         and not getattr(e, "is_user_annotation", False)), reverse=True)
+    busy_ms = sum(ms for ms, _ in kernels)
+    line["loop"] = {"dtype": "float32", "step_ms": step_ms,
+                    "step_ms_all": spans,
+                    "videos_per_s": TRAIN18_BATCH * 1e3 / step_ms,
+                    "loop_wall_ms": wall_ms,
+                    "loop_videos_per_s": TRAIN18_BATCH * 1e3 / wall_ms,
+                    "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
+                    "peak_mib": peak / 2 ** 20,
+                    "top_kernels": [[k[:80], ms] for ms, k in kernels[:8]]}
+    print(f"18b the shipped recipe's step (f32 as shipped, batch "
+          f"{TRAIN18_BATCH}): {step_ms:.2f} ms by CUDA events (median of "
+          f"steps 3-{TRAIN18_TIMED}) = {line['loop']['videos_per_s']:.2f} "
+          f"videos/s; the loop with its host batches {wall_ms:.1f} ms a "
+          f"step = {line['loop']['loop_videos_per_s']:.2f} videos/s, "
+          f"kernels busy {busy_ms:.2f} ms, idle share "
+          f"{line['loop']['idle_share']:.3f}; peak memory "
+          f"{peak / 2 ** 20:.0f} MiB on {card}; longest kernels (ms a step): "
+          f"{json.dumps(line['loop']['top_kernels'])}", flush=True)
+    if not np.isfinite(float(logs["loss"])):
+        raise SystemExit("18b the loop's loss is not finite")
+    del model, state, step, b, it, prof
+    torch.cuda.empty_cache()
+    return line
+
+
+def i3d_caption(dev, card, tmp, videos, names) -> dict:
+    """18c: caption_train.train_from_config on the shipped i3d_relseq.py
+    (I3D-R50 32x2, RNN decoder 2048 -> 36 x 5), one epoch at batch 8, then
+    its model_best served over /caption: batch-1 requests and a burst of
+    8, each answer equal to a direct caption_clips."""
+    import argparse
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli import caption_train
+    from cross_modal_video_engine_tpu_torch.models.recognizer import (
+        RecognizerRelseq)
+
+    line = {"card": card}
+    train_ann = write_training_split(tmp, names, "relseq", 57)
+    val_ann = write_training_split(tmp, names[:TRAIN18_VAL], "relseq", 57)
+    cfg = shipped_training_config(
+        I3D_RELSEQ_CONFIG, **{"data.train.ann_file": train_ann,
+                              "data.train.data_prefix": None,
+                              "data.val.ann_file": val_ann,
+                              "data.val.data_prefix": None,
+                              "data.videos_per_gpu": TRAIN18_BATCH,
+                              "total_epochs": 1, "eval_interval": 1})
+    work = os.path.join(tmp, "i3d_relseq")
+    t0 = time.perf_counter()
+    history = caption_train.train_from_config(cfg, work, device=dev,
+                                              reader=videos.__getitem__)
+    torch.cuda.synchronize()
+    line["cli"] = {"history": history, "seconds": time.perf_counter() - t0}
+    print(f"18c caption_train.train_from_config (i3d_relseq.py, f32) over "
+          f"{len(names)} seeded videos, batch {TRAIN18_BATCH}, 1 epoch with "
+          f"validation on {TRAIN18_VAL}: {json.dumps(history)} in "
+          f"{line['cli']['seconds']:.1f} s", flush=True)
+    if len(history) != 1 or not np.isfinite(history[0]["loss"]):
+        raise SystemExit("18c the caption CLI failed")
+
+    args = argparse.Namespace(caption_checkpoint=os.path.join(
+        work, "model_best"), device=str(dev))
+    server, handler = bserve.start_caption_server(args, videos.__getitem__)
+    try:
+        if not isinstance(handler.model, RecognizerRelseq):
+            raise SystemExit("18c /caption did not load a RecognizerRelseq")
+        port = server.server_address[1]
+        bserve.post_caption(port, {"video": names[0]})          # warm-up
+        single = [bserve.request(port, "caption",
+                                 {"video": names[i % len(names)]},
+                                 timeout=600.0)
+                  for i in range(CAPTION18_SINGLE)]
+        asked = [names[i % len(names)] for i in range(CAPTION18_SINGLE)]
+        burst = bserve.clients_in_threads(
+            port, [{"video": names[i % len(names)]}
+                   for i in range(CAPTION18_BURST)], CAPTION18_BURST,
+            lambda port, p: bserve.request(port, "caption", p,
+                                           timeout=600.0))
+        asked += [names[i % len(names)] for i in range(CAPTION18_BURST)]
+        direct = {n: caption_direct(handler, n) for n in set(asked)}
+    finally:
+        bserve.stop_server(server, handler)
+    agree = caption_agreement(
+        [(n, a["steps"]) for n, (_, a) in zip(asked, single + burst)],
+        direct, band=CAPTION18_BAND)
+    line.update(batch1_ms=bserve.percentiles([ms for ms, _ in single]),
+                burst_ms=bserve.percentiles([ms for ms, _ in burst]),
+                agreement=agree)
+    print(f"18c model_best served over /caption: {CAPTION18_SINGLE} batch-1 "
+          f"requests p50 {line['batch1_ms']['p50']:.2f} ms, p99 "
+          f"{line['batch1_ms']['p99']:.2f} ms; a burst of {CAPTION18_BURST} "
+          f"p50 {line['burst_ms']['p50']:.2f} ms, p99 "
+          f"{line['burst_ms']['p99']:.2f} ms; against a direct caption_clips "
+          f"on the route's clips: {json.dumps(agree)} (need every step-0 "
+          f"label farther than {CAPTION18_BAND} from the threshold equal; "
+          f"f32, so a wave's other rows move a probability by rounding only)"
+          f" on {card}", flush=True)
+    if agree["step0_disagree"]:
+        raise SystemExit("18c /caption disagrees with caption_clips")
+    torch.cuda.empty_cache()
+    return line
+
+
+def check_step18(dev, card) -> Tuple[dict, dict]:
+    """Step 18 (a-d).  Returns (the `cnn_recognizers` JSON object, the
+    kernels' launches over the step: all must be 0)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+
+    t_step = time.perf_counter()
+    counted = kernel_counters()
+    for fn in counted.values():
+        fn.launches = 0
+    line = {"card": card}
+    t0 = time.perf_counter()
+    line["forwards"] = cnn_forwards(dev, card)
+    line["forwards"]["seconds"] = time.perf_counter() - t0
+    videos = bserve.seeded_videos(TRAIN18_VIDEOS, seed=18)
+    names = sorted(videos)
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.perf_counter()
+        line["slowfast"] = slowfast_training(dev, card, tmp, videos, names)
+        line["slowfast"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        line["i3d_caption"] = i3d_caption(dev, card, tmp, videos, names)
+        line["i3d_caption"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    line["launches"] = launches
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"18d kernel launches over step 18: {json.dumps(launches)} (need "
+          f"0: no 3D-CNN path reaches a kernel); step 18 checked in "
+          f"{line['seconds']:.1f} s", flush=True)
+    if any(launches.values()):
+        raise SystemExit("18d a 3D-CNN path launched a kernel")
+    return line, launches
+
+
 def dataclass_fields(cfg) -> dict:
     import dataclasses
     return {k: v for k, v in dataclasses.asdict(cfg).items()
             if k != "anchors"}
 
 
-def kernel_json(results, launches, core, block_extra,
-                composed_launches, caption_launches,
-                explain_launches, training_launches, ctv_launches,
-                caption_transformer_launches, detector_training_launches
-                ) -> dict:
+def kernel_json(results, launches, core, block_extra, counts) -> dict:
     """The kernels line: bf16 errors over every case of a kernel; times,
     bound and library time of its main-path case; `launches` on the main
-    path of steps 4, 6 and 8, `composed_launches` over the requests of the
-    ViT-B/32 composed route (step 12d), `caption_launches` over the
+    path of steps 4, 6 and 8, and by route or trainer (`counts`, each None
+    when its step did not run): `composed_launches` over the requests of
+    the ViT-B/32 composed route (step 12d), `caption_launches` over the
     batch-1 requests of the caption route (step 13), `explain_launches`
     over the batch-1 requests of the explain route (step 14),
     `training_launches` over the joint caption steps of step 15c,
     `ctv_launches` over the bank build of step 16c,
     `caption_transformer_launches` over the greedy and beam generates of
     step 17a, `detector_training_launches` over the detection trainer's
-    run of step 17b.
+    run of step 17b, `cnn_launches` over the 3D-CNN recognizers of step
+    18.  A main-path count is None when its step did not run.
     `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
@@ -5285,22 +6156,15 @@ def kernel_json(results, launches, core, block_extra,
         kernels.append({
             "name": name, "route": "cuda", "source": SRC + sources[name],
             "replaces": replaces[name],
-            "launches": launches[name],
-            "composed_launches": composed_launches.get(name, 0),
-            "caption_launches": caption_launches.get(name, 0),
-            "explain_launches": explain_launches.get(name, 0),
-            "training_launches": training_launches.get(name, 0),
-            "ctv_launches": ctv_launches.get(name, 0),
-            "caption_transformer_launches":
-                caption_transformer_launches.get(name, 0),
-            "detector_training_launches":
-                detector_training_launches.get(name, 0),
+            "launches": launches.get(name),
+            **{f"{route}_launches": (None if c is None else c.get(name, 0))
+               for route, c in counts.items()},
             "max_abs_err": max(r["err"] for r in bf16),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": max(by_ops, by_bytes) * 1e3,
             "bound_by": "operations" if by_ops >= by_bytes else "bytes",
             "library_ms": main["library_ms"]})
-        if name == "fused_block_sublayer_compact":
+        if name == "fused_block_sublayer_compact" and block_extra:
             kernels[-1].update(route=main["route"], **block_extra)
         if name in core_case:
             c = core[core_case[name]]
@@ -5310,9 +6174,33 @@ def kernel_json(results, launches, core, block_extra,
     return {"kernels": kernels}
 
 
-def main() -> int:
+STEPS = tuple(range(4, 19))      # the steps a selection may name
+
+
+def selected_steps(argv) -> set:
+    """The steps to run: all of 4-18 with no argument, else the numbers
+    given ("18", "13 18" or "13,18"); 4-5 and 6-7 run as pairs (5 and 7
+    time what 4 and 6 build).  The build (2), the kernel checks (3) and
+    the results (19) always run."""
+    if not argv:
+        return set(STEPS)
+    steps = set()
+    for arg in argv:
+        for part in filter(None, arg.split(",")):
+            if not part.isdigit() or int(part) not in range(2, 20):
+                raise SystemExit(f"chip_smoke: unknown step {part!r}; "
+                                 f"choose among {STEPS[0]}-{STEPS[-1]}")
+            steps.add(int(part))
+    for pair in ({4, 5}, {6, 7}):
+        if steps & pair:
+            steps |= pair
+    return steps & set(STEPS)
+
+
+def main(argv=None) -> int:
     import torch
 
+    steps = selected_steps(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs an NVIDIA "
               "GPU", file=sys.stderr)
@@ -5339,7 +6227,7 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}; TF32 off for f32 "
-          f"matmul and cuDNN conv", flush=True)
+          f"matmul and cuDNN conv; steps {sorted(steps)}", flush=True)
 
     # -- 2. build -----------------------------------------------------------
     kern = load_kernels()
@@ -5351,12 +6239,13 @@ def main() -> int:
             print("  ptxas:", line.strip())
     ptxas = block_ptxas(kern.log)
     print(f"block kernel ptxas by route: {json.dumps(ptxas)}", flush=True)
-    # the block kernel's ablation builds beside the checks (its own nvcc
-    # per source, all started together); drive_bench_path waits for it
+    # the block kernel's ablation (step 8) builds beside the checks (its
+    # own nvcc per source, all started together); drive_bench_path waits
     built = {}
     ablation_build = threading.Thread(target=lambda: built.update(
         lib=load_kernels(defines=("-DCMVE_BLK_NO_MMA",)).lib))
-    ablation_build.start()
+    if 8 in steps:
+        ablation_build.start()
 
     def ablation():
         ablation_build.join()
@@ -5370,99 +6259,124 @@ def main() -> int:
     results = check_kernels(dev) + check_flash(dev)
     check_backward(dev)
 
-    # -- 4. the CLIP path ---------------------------------------------------
-    cfg = flagship_config()
-    t0 = time.perf_counter()
-    sd = random_state_dict(cfg, seed=0)
-    model = CLIPModel(enable_fused_inference(cfg, device=dev), device=dev)
-    model.load_state_dict(sd)
-    plain = CLIPModel(cfg, device=dev)
-    plain.load_state_dict(sd)
-    del sd
-    if not (model.cfg.fused_attn and model.cfg.fused_mlp):
-        raise SystemExit("enable_fused_inference left the kernels off")
-    print(f"ViT-B/32 bf16 built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    launches, block_extra, lines = {}, {}, {}
+    counts = dict.fromkeys(("composed", "caption", "explain", "training",
+                            "ctv", "caption_transformer",
+                            "detector_training", "cnn"))
     rng = np.random.default_rng(1)
-    launches, index, ids = drive_main_path(model, plain, cfg, dev, rng)
+    if 4 in steps:
+        # -- 4. the CLIP path -----------------------------------------------
+        cfg = flagship_config()
+        t0 = time.perf_counter()
+        sd = random_state_dict(cfg, seed=0)
+        model = CLIPModel(enable_fused_inference(cfg, device=dev),
+                          device=dev)
+        model.load_state_dict(sd)
+        plain = CLIPModel(cfg, device=dev)
+        plain.load_state_dict(sd)
+        del sd
+        if not (model.cfg.fused_attn and model.cfg.fused_mlp):
+            raise SystemExit("enable_fused_inference left the kernels off")
+        print(f"ViT-B/32 bf16 built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        main_launches, index, ids = drive_main_path(model, plain, cfg, dev,
+                                                    rng)
+        launches.update(main_launches)
 
-    # -- 5. CLIP videos/s and query latency ---------------------------------
-    throughput(model, plain, cfg, dev, rng, card)
-    query_latency(model, plain, index, ids, card)
-    del model, plain, index
-    torch.cuda.empty_cache()
+        # -- 5. CLIP videos/s and query latency -----------------------------
+        throughput(model, plain, cfg, dev, rng, card)
+        query_latency(model, plain, index, ids, card)
+        del model, plain, index
+        torch.cuda.empty_cache()
 
-    # -- 6. the caption path ------------------------------------------------
-    ts_model, ts_plain = build_timesformer(dev)
-    clips = normalised_clips(rng, CLIPS, dev)
-    launches["flash_attention"] = drive_caption_path(ts_model, ts_plain,
-                                                     clips)
-    divided_caption_config(dev, clips)
+    if 6 in steps:
+        # -- 6. the caption path --------------------------------------------
+        ts_model, ts_plain = build_timesformer(dev)
+        clips = normalised_clips(rng, CLIPS, dev)
+        launches["flash_attention"] = drive_caption_path(ts_model, ts_plain,
+                                                         clips)
+        divided_caption_config(dev, clips)
 
-    # -- 7. TimeSformer videos/s --------------------------------------------
-    caption_throughput(ts_model, ts_plain, clips, card)
+        # -- 7. TimeSformer videos/s ----------------------------------------
+        caption_throughput(ts_model, ts_plain, clips, card)
+        del ts_model, ts_plain, clips
+        torch.cuda.empty_cache()
 
-    del ts_model, ts_plain, clips
-    torch.cuda.empty_cache()
+    if 8 in steps:
+        # -- 8. the bench entry points' path --------------------------------
+        launches["fused_block_sublayer_compact"], block_extra = \
+            drive_bench_path(dev, card, ablation)
+        block_extra["ptxas"] = ptxas
+        torch.cuda.empty_cache()
 
-    # -- 8. the bench entry points' path --------------------------------------
-    launches["fused_block_sublayer_compact"], block_extra = drive_bench_path(
-        dev, card, ablation)
-    block_extra["ptxas"] = ptxas
-    torch.cuda.empty_cache()
+    if 9 in steps:
+        # -- 9. the 1M-row index --------------------------------------------
+        check_big_index(dev, card)
 
-    # -- 9. the 1M-row index ---------------------------------------------------
-    check_big_index(dev, card)
+    if 10 in steps:
+        # -- 10. LINAS retrieval serving ------------------------------------
+        torch.cuda.empty_cache()
+        lines["serving"] = check_linas_serving(dev, card)
 
-    # -- 10. LINAS retrieval serving ---------------------------------------------
-    torch.cuda.empty_cache()
-    serving = check_linas_serving(dev, card)
+    if 11 in steps:
+        # -- 11. LINAS training ---------------------------------------------
+        torch.cuda.empty_cache()
+        lines["training"] = check_linas_training(dev, card)
 
-    # -- 11. LINAS training --------------------------------------------------------
-    torch.cuda.empty_cache()
-    training = check_linas_training(dev, card)
+    if 12 in steps:
+        # -- 12. composed retrieval -----------------------------------------
+        torch.cuda.empty_cache()
+        lines["composed"], counts["composed"] = check_composed(dev, card)
 
-    # -- 12. composed retrieval ------------------------------------------------
-    torch.cuda.empty_cache()
-    composed, composed_launches = check_composed(dev, card)
+    if 13 in steps:
+        # -- 13. the caption route ------------------------------------------
+        torch.cuda.empty_cache()
+        lines["caption"], counts["caption"] = check_caption_route(dev, card)
 
-    # -- 13. the caption route ----------------------------------------------------
-    torch.cuda.empty_cache()
-    caption, caption_launches = check_caption_route(dev, card)
+    if 14 in steps:
+        # -- 14. the explain route ------------------------------------------
+        torch.cuda.empty_cache()
+        lines["explain"], counts["explain"] = check_explain_route(dev, card)
 
-    # -- 14. the explain route ----------------------------------------------------
-    torch.cuda.empty_cache()
-    explain, explain_launches = check_explain_route(dev, card)
+    if 15 in steps:
+        # -- 15. TimeSformer training ---------------------------------------
+        torch.cuda.empty_cache()
+        lines["timesformer_training"], counts["training"] = \
+            check_timesformer_training(dev, card)
 
-    # -- 15. TimeSformer training ------------------------------------------------
-    torch.cuda.empty_cache()
-    ts_training, training_launches = check_timesformer_training(dev, card)
+    if 16 in steps:
+        # -- 16. the concept detector and the bank build --------------------
+        torch.cuda.empty_cache()
+        lines["concept_detector"], counts["ctv"] = check_concept_detector(
+            dev, card)
 
-    # -- 16. the concept detector and the bank build ---------------------------
-    torch.cuda.empty_cache()
-    detector, ctv_launches = check_concept_detector(dev, card)
+    if 17 in steps:
+        # -- 17. the caption transformer and the detector's training --------
+        torch.cuda.empty_cache()
+        step17, generate_launches = check_step17(dev, card)
+        lines["caption_transformer_and_yolo_training"] = step17
+        counts["caption_transformer"] = {"flash_attention":
+                                         generate_launches}
+        counts["detector_training"] = step17["detector_training_launches"]
 
-    # -- 17. the caption transformer and the detector's training -------------
-    torch.cuda.empty_cache()
-    step17, caption_transformer_launches = check_step17(dev, card)
+    if 18 in steps:
+        # -- 18. the 3D-CNN recognizers -------------------------------------
+        torch.cuda.empty_cache()
+        lines["cnn_recognizers"], counts["cnn"] = check_step18(dev, card)
 
-    # -- 18. results ------------------------------------------------------------
-    print(json.dumps({"serving": serving}))
-    print(json.dumps({"training": training}))
-    print(json.dumps({"composed": composed}))
-    print(json.dumps({"caption": caption}))
-    print(json.dumps({"explain": explain}))
-    print(json.dumps({"timesformer_training": ts_training}))
-    print(json.dumps({"concept_detector": detector}))
-    print(json.dumps({"caption_transformer_and_yolo_training": step17}))
-    print(json.dumps(kernel_json(
-        results, launches, core, block_extra, composed_launches,
-        caption_launches, explain_launches, training_launches, ctv_launches,
-        {"flash_attention": caption_transformer_launches},
-        step17["detector_training_launches"])))
+    # -- 19. results ------------------------------------------------------------
+    for key, value in lines.items():
+        print(json.dumps({key: value}))
+    print(json.dumps(kernel_json(results, launches, core, block_extra,
+                                 counts)))
+    skipped = sorted(set(STEPS) - steps)
+    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 19"
+          + (f"; skipped: {skipped} (a partial run)" if skipped else
+             " (the whole smoke run)"), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()},
+        "steps": sorted(steps), "skipped": skipped}))
     return 0
 
 

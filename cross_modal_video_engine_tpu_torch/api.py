@@ -7,10 +7,16 @@ Counterpart of cross_modal_video_engine_tpu/api.py (MCT mmaction/apis):
   variables through `convert.recognizer_state_dict_from_jax`), or the one
   a config dict names with a state dict (`init_recognizer(cfg_d,
   state_dict)`): `backbone`, then `decoder` for a caption model or
-  `num_classes` for a classifier.  It applies the bf16 inference cast the
-  JAX loader applies (utils/precision.py) and returns the model ready to
-  serve (eval mode, parameters frozen) on the card unless a device is
-  named.  Caption backbones other than TimeSformer come with slice 5.
+  `num_classes` for a classifier.  A checkpoint of a 3D-CNN backbone
+  (ResNet3D/SlowOnly, CSN, SlowFast, X3D; `backbone.type`) is a caption
+  model, a RecognizerRelseq on `cli/recognition_train.
+  build_caption_backbone` with its params and batch_stats
+  (`convert.conv_recognizer_state_dict_from_jax`); one without a decoder
+  is refused, as the JAX loader's assert refuses it.  It applies the bf16
+  inference cast the JAX loader applies (utils/precision.py) and returns
+  the model ready to serve (eval mode, parameters frozen) on the card
+  unless a device is named.  The other backbones are refused, naming the
+  part of ROADMAP.md queue 1 item 8 that ports them.
 * `inference_recognizer(model, video, outputs=...)` runs the test
   pipeline on a video and the recognizer on its clips, with the
   `outputs=` layer capture, the `centercrop` toggle and the `shuffle_idx`
@@ -26,10 +32,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .convert.from_jax import recognizer_state_dict_from_jax
+from .convert.from_jax import (conv_recognizer_state_dict_from_jax,
+                              recognizer_state_dict_from_jax)
 from .data.pipelines import build_pipeline
 from .models.decoder_head import RNNDecoderConfig
-from .models.recognizer import Recognizer3D, Recognizer3DRelseq
+from .models.recognizer import (Recognizer3D, Recognizer3DRelseq,
+                                RecognizerRelseq)
 from .models.timesformer import TimeSformerConfig
 from .train.checkpoint import load_checkpoint
 from .utils.precision import maybe_cast_bf16, no_tf32
@@ -62,10 +70,9 @@ def init_recognizer(checkpoint, state_dict: Optional[Dict[str, torch.Tensor]]
              for k, v in cfg_d["backbone"].items()}
     btype = bb_kw.pop("type", "TimeSformer")
     if btype != "TimeSformer":
-        raise NotImplementedError(
-            f"backbone type {btype!r}: only TimeSformer recognizers are "
-            f"ported; the other caption backbones come with slice 5 "
-            f"(ROADMAP.md queue 1 item 8)")
+        return _init_caption_backbone(btype, bb_kw, cfg_d, state_dict,
+                                      None if state_dict is not None
+                                      else variables, device)
     backbone = TimeSformerConfig(**bb_kw)
     if state_dict is None:
         state_dict = recognizer_state_dict_from_jax(variables, backbone)
@@ -76,6 +83,26 @@ def init_recognizer(checkpoint, state_dict: Optional[Dict[str, torch.Tensor]]
     else:
         model = Recognizer3D(backbone, num_classes=cfg_d["num_classes"],
                              device=device)
+    model.load_state_dict(maybe_cast_bf16(state_dict, cfg_d))
+    return model.eval().requires_grad_(False), cfg_d
+
+
+def _init_caption_backbone(btype: str, bb_kw: dict, cfg_d: dict,
+                           state_dict, variables, device):
+    """The non-TimeSformer arm (JAX api.py:47-54): a RecognizerRelseq."""
+    from .cli.recognition_train import _deep_tuple, build_caption_backbone
+    from .utils.device import resolve_device
+    if "decoder" not in cfg_d:
+        raise ValueError(f"a {btype!r} checkpoint is a caption model: its "
+                         f"config has no decoder (the JAX package's "
+                         f"init_recognizer refuses it too)")
+    no_tf32()
+    kw = {k: _deep_tuple(v) for k, v in bb_kw.items()}
+    model = RecognizerRelseq(
+        build_caption_backbone(btype, kw, resolve_device(device)),
+        RNNDecoderConfig(**cfg_d["decoder"]))
+    if state_dict is None:
+        state_dict = conv_recognizer_state_dict_from_jax(variables, model)
     model.load_state_dict(maybe_cast_bf16(state_dict, cfg_d))
     return model.eval().requires_grad_(False), cfg_d
 

@@ -19,6 +19,11 @@ one JSON line per metric; with no argument, every row in order:
   TimeSformer ViT-B/16 (8x224, 400 classes) in bf16 with f32 masters
   (`make_cls_train_step(bf16=True)`, SGD with momentum), videos/s by CUDA
   events and TFLOP/s counted from the model's shapes;
+* `train_step_slowfast`: one recognition train step of SlowFast-R50 4x16
+  (the JAX row's `SlowFastConfig(alpha=8)`, 400 classes) on 32 clips of
+  32x224² in bf16 with f32 masters and f32 BatchNorm statistics
+  (`make_cls_train_step_stats(bf16=True)`, SGD with momentum), videos/s
+  by CUDA events and TFLOP/s counted from the convolutions' shapes;
 * `train_step_yolov5`, `train_step_yolov5_seg`: one train step of yolov5s
   (and yolov5s-seg, 32 masks) at 640 on 16 images in bf16 with f32
   masters (`make_yolo_train_step(bf16=True)`: three-group SGD and EMA),
@@ -27,11 +32,12 @@ one JSON line per metric; with no argument, every row in order:
 Rows are drawn from a seed on the device.  Where a row has a plain arm,
 `vs_baseline` is the kernel arm over the plain arm (the TimeSformer
 train-step row: over the JAX row's 9 videos/s reference, per GPU of the
-reference's 8; the YOLO rows: over the 205 images/s of the JAX rows'
-reference, yolov5's "2 days on one V100 for 300 COCO epochs").
-Not carried over: the host-feed row (needs the native decoder), the
-flatten_tokens A/B (a TPU layout) and the other families' train-step
-rows (slice 5).
+reference's 8; the SlowFast row: over the JAX row's 18 videos/s, its
+estimate for one V100; the YOLO rows: over the 205 images/s of the JAX
+rows' reference, yolov5's "2 days on one V100 for 300 COCO epochs").
+Not carried over: the host-feed row (needs the native decoder, ROADMAP.md
+queue 1 item 8i), the flatten_tokens A/B (a TPU layout) and the other
+families' train-step rows (the parts of slice 5 that port them).
 """
 
 from __future__ import annotations
@@ -286,6 +292,47 @@ def bench_train_step_timesformer(batch: int = 4, steps: int = 10,
                  **where(device)})
 
 
+def bench_train_step_slowfast(batch: int = 32, frames: int = 32,
+                              steps: int = 8, device=None, cfg=None,
+                              num_classes: int = 400,
+                              img: int = 224) -> dict:
+    """Recognition train throughput of the BatchNorm path: SlowFast-R50
+    4x16 (the JAX row's model, parameters N(0, 0.02) from a numpy seed,
+    dropout 0), forward, backward and SGD step (momentum 0.9, lr 0.005) in
+    bf16 with f32 masters and statistics."""
+    from ..models.recognizer import BackboneClassifier
+    from ..models.resnet3d import SlowFast, SlowFastConfig, forward_flops
+    from ..train.recognition_trainer import make_cls_train_step_stats
+    device = resolve_device(device)
+    model = BackboneClassifier(SlowFast(cfg or SlowFastConfig(alpha=8),
+                                        device), num_classes,
+                               dropout_ratio=0.0)
+    rng = np.random.default_rng(6)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.from_numpy(rng.standard_normal(
+                tuple(p.shape), dtype=np.float32) * 0.02))
+    clips = torch.from_numpy(rng.standard_normal(
+        (batch, frames, img, img, 3), dtype=np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, num_classes, batch)).to(device)
+    flops = 3 * forward_flops(model, clips)
+    state = [RecTrainState(model, OptaxOptimizer(
+        model.named_parameters(), lr=0.005, kind="sgd", max_norm=None,
+        momentum=0.9), 0)]
+    step = make_cls_train_step_stats(model, bf16=True, device=device)
+
+    def run():
+        state[0], _ = step(state[0], clips, labels)
+
+    seconds = device_time(run, steps=steps, device=device)
+    vps = batch / seconds
+    return emit({"metric": f"train_step_slowfast_r50_4x16_bf16_b{batch}",
+                 "value": vps, "unit": per("videos/sec", device),
+                 "vs_baseline": vps / 18.0, "step_ms": seconds * 1e3,
+                 "tflops_per_sec": flops / seconds / 1e12,
+                 **where(device)})
+
+
 def _yolo_batch(rng, batch: int, img: int, max_targets: int, nc: int,
                 masks: bool, device):
     cxy = rng.random((batch, max_targets, 2)) * 0.8 + 0.1
@@ -359,6 +406,7 @@ _BENCHES = [
     ("text_tower", bench_text_tower),
     ("u8_ingest", bench_u8_ingest),
     ("train_step_timesformer", bench_train_step_timesformer),
+    ("train_step_slowfast", bench_train_step_slowfast),
     ("train_step_yolov5", bench_train_step_yolov5),
     ("train_step_yolov5_seg", bench_train_step_yolov5_seg),
 ]

@@ -2,15 +2,18 @@
 
 Counterpart of cross_modal_video_engine_tpu/cli/caption_train.py, the
 seq_generate family's tools/train.py: a TimeSformer + RNN decoder
-(Recognizer3DRelseq) trained with the SeqMLL loss under teacher forcing,
-on the card unless `--device cpu`.
+(Recognizer3DRelseq), or a 3D-CNN (ResNet3D/I3D, CSN, SlowFast, X3D) +
+RNN decoder (RecognizerRelseq, its BatchNorms trained by
+`make_seq_train_step_stats`), trained with the SeqMLL loss under teacher
+forcing, on the card unless `--device cpu`.
 
   python -m cross_modal_video_engine_tpu_torch.cli.caption_train CONFIG \\
       --work_dir WORK [--resume] [--total_epochs N] \\
       [--cfg-options model.backbone.attention_type=joint_space_time \\
        model.backbone.use_flash_attention=True] [--device cpu]
 
-Config (configs/seq_generate/timesformer_relseq.py):
+Config (configs/seq_generate/timesformer_relseq.py, i3d_relseq.py,
+slowfast_relseq.py, x3d_relseq.py):
 
     model = dict(backbone=dict(num_frames=8, img_size=224, ...),
                  decoder=dict(num_classes=36, in_channels=768, max_len=5))
@@ -19,19 +22,22 @@ Config (configs/seq_generate/timesformer_relseq.py):
     optimizer = dict(optimizer='sgd', learning_rate=0.005)
     total_epochs = 15
 
-The weights start from `models.recognizer.init_state_dict` (flax's init
-schemes, numpy seed 0).  Each epoch walks `ShardedSampler`'s order; the
-dropouts draw from a generator seeded anew each epoch (seed 1 + epoch),
-so a run resumed from an epoch state repeats the epochs that follow.
+The weights start from `models.recognizer.init_state_dict` or
+`conv_init_state_dict` (flax's init schemes, numpy seed 0).  Each epoch
+walks `ShardedSampler`'s order; the dropouts draw from a generator seeded
+anew each epoch (seed 1 + epoch), so a run resumed from an epoch state
+repeats the epochs that follow.
 Validation every `eval_interval` epochs scores the greedy decode of each
 video's first clip with the sequence-aware mAP (`cli/caption_test`'s
 `eval_labels`); `model_best` keeps the best by `seq_mAP` with the
-{backbone, decoder} config `api.init_recognizer` and the `/caption`
-route load; `epoch_{n}` holds each epoch's train state in the JAX
-package's layout (train/resume.py), so `--resume` continues a run either
-package started.  `train_from_config(..., reader=)` hands the pipeline's
-DecordInit a decord-alike reader in place of opening files (a machine
-without cv2).  Backbones other than TimeSformer come with slice 5.
+{backbone, decoder} config (a 3D-CNN's backbone config with its `type`)
+and, for the 3D-CNNs, the `batch_stats`, which `api.init_recognizer` and
+the `/caption` route load; `epoch_{n}` holds each epoch's train state in
+the JAX package's layout (train/resume.py), so `--resume` continues a
+run either package started.  `train_from_config(..., reader=)` hands the
+pipeline's DecordInit a decord-alike reader in place of opening files (a
+machine without cv2).  The other backbones are refused, naming the part
+of ROADMAP.md queue 1 item 8 that ports them.
 """
 
 from __future__ import annotations
@@ -45,17 +51,18 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..convert.from_jax import recognizer_variables_to_jax
 from ..data.datasets import ShardedSampler, VideoDatasetRelseq
 from ..data.pipelines import build_pipeline, with_reader
 from ..metrics.accuracy import seq_average_precision
 from ..models.decoder_head import RNNDecoderConfig
-from ..models.recognizer import Recognizer3DRelseq, init_state_dict
+from ..models.recognizer import (Recognizer3DRelseq, RecognizerRelseq,
+                                 conv_init_state_dict, init_state_dict)
 from ..models.timesformer import TimeSformerConfig
 from ..train.checkpoint import best_checkpoint_manager
-from ..train.recognition_trainer import (SLICE5, RecognitionTrainConfig,
+from ..train.recognition_trainer import (RecognitionTrainConfig,
                                          init_rec_state, make_rec_optimizer,
-                                         make_seq_train_step)
+                                         make_seq_train_step,
+                                         make_seq_train_step_stats)
 from ..train.resume import (latest_checkpoint, load_train_state,
                             save_train_state)
 from ..utils.device import resolve_device
@@ -99,17 +106,22 @@ def evaluate_caption(model: Recognizer3DRelseq, ds, batch_size: int) -> dict:
 
 
 def build_caption_model(cfg: Config, device=None):
-    """(Recognizer3DRelseq at the training init, the backbone config dict
-    saved with checkpoints, the decoder config dict)."""
-    bb_kw = {k: tuple(v) if isinstance(v, list) else v
-             for k, v in cfg["model.backbone"].items()}
+    """(Recognizer3DRelseq or RecognizerRelseq at the training init, the
+    backbone config dict saved with checkpoints, the decoder config
+    dict).  A backbone the port lacks raises, naming its part."""
+    from .recognition_train import _deep_tuple, build_caption_backbone
+    bb_kw = {k: _deep_tuple(v) for k, v in cfg["model.backbone"].items()}
     btype = bb_kw.pop("type", "TimeSformer")
-    if btype != "TimeSformer":
-        raise NotImplementedError(SLICE5.format(
-            f"caption training on a {btype!r} backbone"))
     dec_kw = dict(cfg["model.decoder"])
-    bcfg, dcfg = TimeSformerConfig(**bb_kw), RNNDecoderConfig(**dec_kw)
-    model = Recognizer3DRelseq(bcfg, dcfg, device=resolve_device(device))
+    dcfg = RNNDecoderConfig(**dec_kw)
+    dev = resolve_device(device)
+    if btype != "TimeSformer":
+        model = RecognizerRelseq(build_caption_backbone(btype, bb_kw, dev),
+                                 dcfg)
+        model.load_state_dict(conv_init_state_dict(model, INIT_SEED))
+        return model, dict(bb_kw, type=btype), dec_kw
+    bcfg = TimeSformerConfig(**bb_kw)
+    model = Recognizer3DRelseq(bcfg, dcfg, device=dev)
     model.load_state_dict(init_state_dict(bcfg, INIT_SEED, decoder_cfg=dcfg))
     return model, bb_kw, dec_kw
 
@@ -121,6 +133,7 @@ def train_from_config(cfg: Config, work_dir: str,
     """Train as the config says on `device` (None: the CUDA device); the
     f32 products run in f32 (TF32 off).  Returns the history, one record
     an epoch."""
+    from .recognition_train import recognizer_variables
     dev = resolve_device(device)
     no_tf32()
     model, saved_bb, dec_kw = build_caption_model(cfg, dev)
@@ -142,14 +155,16 @@ def train_from_config(cfg: Config, work_dir: str,
         tcfg, total_steps=epochs * steps_per_epoch(len(train_ds), bs))
     state = init_rec_state(model, tx)
     generator = torch.Generator(device=dev)
-    step = make_seq_train_step(model, generator, device=dev)
+    holder = model if isinstance(model, RecognizerRelseq) else None
+    step = (make_seq_train_step if holder is None
+            else make_seq_train_step_stats)(model, generator, device=dev)
     save_best = best_checkpoint_manager(work_dir)
     sampler = ShardedSampler(len(train_ds), shuffle=True)
 
     start_epoch = 0
     if resume:
         payload, loop = load_train_state(resume, {"state": state,
-                                                  "batch_stats": None})
+                                                  "batch_stats": holder})
         state = payload["state"]
         start_epoch = int(loop.get("epoch", -1)) + 1
 
@@ -167,12 +182,11 @@ def train_from_config(cfg: Config, work_dir: str,
         if (epoch + 1) % eval_interval == 0:
             report = evaluate_caption(model, val_ds, bs)
             rec.update(report)
-            save_best(recognizer_variables_to_jax(model.state_dict(),
-                                                  model.backbone.cfg),
+            save_best(recognizer_variables(model),
                       {"backbone": saved_bb, "decoder": dec_kw},
                       report["seq_mAP"], {"epoch": epoch})
         save_train_state(os.path.join(work_dir, f"epoch_{epoch}"),
-                         {"state": state, "batch_stats": None},
+                         {"state": state, "batch_stats": holder},
                          {"epoch": epoch})
         history.append(rec)
         print(json.dumps(rec), flush=True)

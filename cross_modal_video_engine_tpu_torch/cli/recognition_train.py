@@ -1,7 +1,9 @@
-"""Config-driven recognition training CLI, the TimeSformer arm.
+"""Config-driven recognition training CLI: TimeSformer and the 3D-CNNs.
 
 Counterpart of cross_modal_video_engine_tpu/cli/recognition_train.py (MCT
-tools/train.py) for `model.backbone.type='TimeSformer'`: a Recognizer3D
+tools/train.py) for `model.backbone.type='TimeSformer'` (a Recognizer3D)
+and for the 3D-CNN families ResNet3D/SlowOnly, CSN, SlowFast and X3D (a
+BackboneClassifier, its BatchNorms trained by `make_cls_train_step_stats`),
 trained with cross entropy, on the card unless `--device cpu`.
 
   python -m cross_modal_video_engine_tpu_torch.cli.recognition_train \\
@@ -10,25 +12,29 @@ trained with cross entropy, on the card unless `--device cpu`.
        model.backbone.attention_type=joint_space_time \\
        model.backbone.use_flash_attention=True] [--device cpu]
 
-Config (configs/recognition/timesformer_divst_8x32_k400.py): `model`
-(backbone, num_classes), `data` (train/val `filename label` splits,
-pipeline, videos_per_gpu), `optimizer` (train/recognition_trainer.
-RecognitionTrainConfig: sgd or adamw, clip, warmup, `bf16`),
-`total_epochs`, `eval_interval`.
+Config (configs/recognition/timesformer_divst_8x32_k400.py,
+slowfast_r50_4x16_k400.py, ...): `model` (backbone, num_classes), `data`
+(train/val `filename label` splits, pipeline, videos_per_gpu),
+`optimizer` (train/recognition_trainer.RecognitionTrainConfig: sgd or
+adamw, clip, warmup, `bf16`), `total_epochs`, `eval_interval`.
 
 The epoch loop is the JAX CLI's: train on `ShardedSampler`'s order, every
-`eval_interval` epochs top-k and mean class accuracy on the val split,
-`model_best` kept by `top1_acc` with the {backbone, num_classes} config
-that `api.init_recognizer`, `cli/explain_demo.load_explain_model` and the
-`/explain` route load, `epoch_{n}` each epoch's train state in the JAX
-package's layout (`--resume` with no directory takes the newest).  With
-`optimizer.bf16=True` the masters stay f32 (also under a backbone
-configured in bfloat16) and the step runs in bfloat16.  The weights start
-from `models.recognizer.init_state_dict` (numpy seed 0); the dropouts draw
-from a generator seeded anew each epoch (seed 1 + epoch).
-`train_from_config(..., reader=)` hands the pipeline a decord-alike
-reader.  Other backbones, necks and heads, OmniSource, multigrid and
-blending come with slice 5 (ROADMAP.md queue 1 item 8).
+`eval_interval` epochs top-k and mean class accuracy on the val split
+(the 3D-CNNs over their running statistics), `model_best` kept by
+`top1_acc` with the {backbone, num_classes} config and, for the 3D-CNNs,
+the `batch_stats`; `epoch_{n}` each epoch's train state in the JAX
+package's layout, `{"state", "batch_stats"}` (`--resume` with no
+directory takes the newest).  With `optimizer.bf16=True` the masters
+(and statistics) stay f32 and the step runs in bfloat16.  The weights
+start from `models.recognizer.init_state_dict` or `conv_init_state_dict`
+(numpy seed 0); the dropouts draw from a generator seeded anew each
+epoch (seed 1 + epoch).  `train_from_config(..., reader=)` hands the
+pipeline a decord-alike reader.  `build_backbone` and
+`build_caption_backbone` (with `_TemporalMean` for per-frame backbones)
+are shared with cli/caption_train and `api.init_recognizer`.  The other
+backbones, necks and heads (items 8b, 8c), OmniSource, multigrid and
+blending (item 8d) are refused, naming the part of ROADMAP.md queue 1
+item 8 that ports them.
 """
 
 from __future__ import annotations
@@ -40,21 +46,27 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..config import Config
-from ..convert.from_jax import recognizer_variables_to_jax
+from ..convert.from_jax import (conv_recognizer_variables_to_jax,
+                                recognizer_variables_to_jax)
 from ..data.datasets import ShardedSampler, VideoDataset
 from ..data.pipelines import build_pipeline, with_reader
-from ..models.recognizer import Recognizer3D, init_state_dict
+from ..models import resnet3d
+from ..models.recognizer import (BackboneClassifier, Recognizer3D,
+                                 conv_init_state_dict, init_state_dict)
 from ..models.timesformer import TimeSformerConfig
 from ..train.checkpoint import best_checkpoint_manager
 from ..train.recognition_trainer import (
-    SLICE5, RecognitionTrainConfig, evaluate_classification, init_rec_state,
-    make_cls_train_step, make_rec_optimizer)
+    RecognitionTrainConfig, evaluate_classification, init_rec_state,
+    make_cls_train_step, make_cls_train_step_stats, make_rec_optimizer,
+    not_ported)
 from ..train.resume import (latest_checkpoint, load_train_state,
                             save_train_state)
 from ..utils.device import resolve_device
 from ..utils.precision import no_tf32
+from ..utils.registry import BACKBONES
 from .caption_train import DROPOUT_SEED, INIT_SEED, steps_per_epoch
 
 
@@ -64,26 +76,90 @@ def _deep_tuple(v):
     return v
 
 
+# backbones with per-frame (B, T, C) features (Recognizer2D's), and the
+# part of ROADMAP.md queue 1 item 8 that ports each unported backbone
+PER_FRAME_BACKBONES = ("TANet", "TSM", "TSN", "TIN", "TINExact",
+                       "MobileNetV2TSM")
+BACKBONE_PARTS = dict(
+    {b: "8b" for b in PER_FRAME_BACKBONES + ("C3D", "R2Plus1D")},
+    **{b: "8c" for b in ("Swin3D", "MViT", "VideoMAEViT", "CLIP",
+                         "VideoCLIP")})
+CONV_BACKBONES = ("ResNet3D", "SlowOnly", "SlowFast", "X3D", "CSN")
+
+
+def build_backbone(btype: str, kw: dict, device=None) -> nn.Module:
+    """The backbone `model.backbone.type` names (shared by the recognition
+    and caption trainers and `api.init_recognizer`): the 3D-CNN families
+    of models/resnet3d.py ('SlowOnly' is a ResNet3D); the others raise,
+    naming their part."""
+    if btype in CONV_BACKBONES:
+        btype = "ResNet3D" if btype == "SlowOnly" else btype
+        cfg = getattr(resnet3d, f"{btype}Config")(**kw)
+        return BACKBONES.get(btype)(cfg, device)
+    if btype in BACKBONE_PARTS:
+        raise NotImplementedError(not_ported(f"the {btype!r} backbone",
+                                             BACKBONE_PARTS[btype]))
+    raise ValueError(f"unknown backbone type {btype}")
+
+
+class _TemporalMean(nn.Module):
+    """A per-frame (B, T, C) backbone pooled to (B, C) over time; its
+    parameters under `inner`, as the JAX module's."""
+
+    def __init__(self, inner: nn.Module):
+        super().__init__()
+        self.inner = inner
+        self.feat_dim = inner.feat_dim
+
+    def forward(self, videos: torch.Tensor) -> torch.Tensor:
+        return self.inner(videos).mean(1)
+
+
+def build_caption_backbone(btype: str, kw: dict, device=None) -> nn.Module:
+    """The caption trainer's backbone: a pooled (B, C) feature, per-frame
+    backbones behind `_TemporalMean`."""
+    backbone = build_backbone(btype, kw, device)
+    if btype in PER_FRAME_BACKBONES:
+        backbone = _TemporalMean(backbone)
+    return backbone
+
+
+def recognizer_variables(model: nn.Module) -> dict:
+    """The variables the JAX package's checkpoint of `model` holds:
+    {"params"} for a TimeSformer recognizer, {"params", "batch_stats"}
+    for a 3D-CNN one."""
+    cfg = model.backbone.cfg
+    if isinstance(cfg, TimeSformerConfig):
+        return recognizer_variables_to_jax(model.state_dict(), cfg)
+    return conv_recognizer_variables_to_jax(model.state_dict(), model)
+
+
 def build_recognition_model(cfg: Config, device=None,
-                            dtype: Optional[str] = None) -> Recognizer3D:
-    """The Recognizer3D of `model` at the training init; dtype overrides
-    the backbone's (the bf16 step's f32 masters).  Every other family,
-    neck or head raises."""
+                            dtype: Optional[str] = None) -> nn.Module:
+    """The recognizer of `model` at the training init: a Recognizer3D
+    (dtype overrides the TimeSformer's: the bf16 step's f32 masters) or a
+    BackboneClassifier over a 3D-CNN.  The other families, necks and
+    heads raise, naming their part."""
     bcfg = dict(cfg["model.backbone"])
     btype = bcfg.pop("type", "TimeSformer")
-    for part in ("model.neck", "model.head"):
-        if cfg.get(part):
-            raise NotImplementedError(SLICE5.format(part))
-    if btype != "TimeSformer":
-        raise NotImplementedError(SLICE5.format(f"the {btype!r} backbone"))
+    if cfg.get("model.neck"):
+        raise NotImplementedError(not_ported("model.neck (TPN)", "8b"))
+    if cfg.get("model.head"):
+        raise NotImplementedError(not_ported(
+            "model.head (the TSN and TRN heads of Recognizer2D)", "8b"))
     kw = {k: _deep_tuple(v) for k, v in bcfg.items()}
-    if dtype is not None:
-        kw["dtype"] = dtype
-    backbone = TimeSformerConfig(**kw)
     num_classes = cfg["model.num_classes"]
-    model = Recognizer3D(backbone, num_classes, device=resolve_device(device))
-    model.load_state_dict(init_state_dict(backbone, INIT_SEED,
-                                          num_classes=num_classes))
+    dev = resolve_device(device)
+    if btype == "TimeSformer":
+        if dtype is not None:
+            kw["dtype"] = dtype
+        backbone = TimeSformerConfig(**kw)
+        model = Recognizer3D(backbone, num_classes, device=dev)
+        model.load_state_dict(init_state_dict(backbone, INIT_SEED,
+                                              num_classes=num_classes))
+        return model
+    model = BackboneClassifier(build_backbone(btype, kw, dev), num_classes)
+    model.load_state_dict(conv_init_state_dict(model, INIT_SEED))
     return model
 
 
@@ -104,7 +180,7 @@ def train_from_config(cfg: Config, work_dir: str,
     f32 products run in f32 (TF32 off).  Returns (state, history)."""
     for feature in ("omnisource", "multigrid", "train_cfg.blending"):
         if cfg.get(feature):
-            raise NotImplementedError(SLICE5.format(feature))
+            raise NotImplementedError(not_ported(feature, "8d"))
     dev = resolve_device(device)
     no_tf32()
     tcfg = RecognitionTrainConfig(**cfg.get("optimizer", {}))
@@ -123,15 +199,19 @@ def train_from_config(cfg: Config, work_dir: str,
         tcfg, total_steps=epochs * steps_per_epoch(len(train_ds), bs))
     state = init_rec_state(model, tx)
     generator = torch.Generator(device=dev)
-    step = make_cls_train_step(model, bf16=tcfg.bf16, generator=generator,
-                               device=dev)
+    # a BatchNorm recognizer's statistics live in its buffers and ride in
+    # the epoch states as "batch_stats"
+    holder = model if isinstance(model, BackboneClassifier) else None
+    make_step = make_cls_train_step if holder is None \
+        else make_cls_train_step_stats
+    step = make_step(model, bf16=tcfg.bf16, generator=generator, device=dev)
     save_best = best_checkpoint_manager(work_dir)
     sampler = ShardedSampler(len(train_ds), shuffle=True)
 
     start_epoch = 0
     if resume:
         payload, loop = load_train_state(resume, {"state": state,
-                                                  "batch_stats": None})
+                                                  "batch_stats": holder})
         state = payload["state"]
         start_epoch = int(loop.get("epoch", -1)) + 1
 
@@ -152,13 +232,12 @@ def train_from_config(cfg: Config, work_dir: str,
             report = evaluate_classification(
                 model, _label_batches(val_ds, bs, dev))
             rec.update(report)
-            save_best(recognizer_variables_to_jax(model.state_dict(),
-                                                  model.backbone.cfg),
+            save_best(recognizer_variables(model),
                       {"backbone": cfg["model.backbone"],
                        "num_classes": cfg["model.num_classes"]},
                       report["top1_acc"], {"epoch": epoch})
         save_train_state(os.path.join(work_dir, f"epoch_{epoch}"),
-                         {"state": state, "batch_stats": None},
+                         {"state": state, "batch_stats": holder},
                          {"epoch": epoch})
         history.append(rec)
         print(json.dumps(rec), flush=True)

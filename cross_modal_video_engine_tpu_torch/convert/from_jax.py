@@ -53,6 +53,15 @@ compute the same function.
   `recognizer_caption_state_dict_from_jax` and
   `recognizer_caption_variables_to_jax` do the same for
   Recognizer3DCaption (the TimeSformer backbone plus `caption_head`).
+* `{resnet3d,csn,slowfast,x3d}_state_dict_from_jax` and
+  `*_variables_to_jax` carry a 3D-CNN backbone's params and batch_stats
+  both ways (its config names the tree); `conv_recognizer_state_dict_
+  from_jax` and `conv_recognizer_variables_to_jax` do it for any of them
+  alone or under BackboneClassifier, X3DClassifier or RecognizerRelseq,
+  given the port's model (a meta-device copy will do).  The keys are
+  mmaction's, those the convert_{resnet3d,csn,slowfast,x3d} importers
+  read, so these invert the importers.  `rec_train_state_{to,from}_jax`
+  take such a model in place of the TimeSformer config.
 * `yolo_train_state_to_jax` and `yolo_train_state_from_jax` carry the
   detector trainers' YoloTrainState (params, batch_stats, velocity, EMA
   params and statistics, the update count) both ways.
@@ -194,15 +203,36 @@ def recognizer_state_dict_from_jax(variables_np: Dict[str, Any],
     if "fc_cls" in head:
         _linear(sd, "cls_head.fc_cls", head["fc_cls"])
         return sd
+    _decoder_from_jax(sd, head)
+    return sd
+
+
+_DECODER_RNN = (("weight_ih_l0", "rnn_wi", True),
+                ("bias_ih_l0", "rnn_bi", False),
+                ("weight_hh_l0", "rnn_wh", True),
+                ("bias_hh_l0", "rnn_bh", False))
+
+
+def _decoder_from_jax(sd: Dict[str, torch.Tensor], head: Dict[str, Any]
+                      ) -> None:
+    """The JAX RNNDecoderHead's params -> `cls_head.*` (the keys
+    convert_rnn_decoder_head reads)."""
     sd["cls_head.start_emb.weight"] = _t(head["start_emb"])
-    for torch_name, jax_name, transpose in (
-            ("weight_ih_l0", "rnn_wi", True), ("bias_ih_l0", "rnn_bi", False),
-            ("weight_hh_l0", "rnn_wh", True), ("bias_hh_l0", "rnn_bh", False)):
+    for torch_name, jax_name, transpose in _DECODER_RNN:
         a = np.asarray(head[jax_name])
         sd[f"cls_head.rnn.{torch_name}"] = _t(a.T if transpose else a)
     sd["cls_head.out.weight"] = _t(np.asarray(head["out_kernel"]).T)
     sd["cls_head.out.bias"] = _t(head["out_bias"])
-    return sd
+
+
+def _decoder_to_jax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    head = {"start_emb": _np32(sd["cls_head.start_emb.weight"]),
+            "out_kernel": _np32(sd["cls_head.out.weight"]).T,
+            "out_bias": _np32(sd["cls_head.out.bias"])}
+    for torch_name, jax_name, transpose in _DECODER_RNN:
+        a = _np32(sd[f"cls_head.rnn.{torch_name}"])
+        head[jax_name] = a.T if transpose else a
+    return head
 
 
 # -- LINAS DualEncoding -----------------------------------------------------
@@ -708,16 +738,7 @@ def recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], backbone_cfg
     if "cls_head.fc_cls.weight" in sd:
         head = {"fc_cls": _dense_to_jax(sd, "cls_head.fc_cls")}
     else:
-        head = {"start_emb": _np32(sd["cls_head.start_emb.weight"]),
-                "out_kernel": _np32(sd["cls_head.out.weight"]).T,
-                "out_bias": _np32(sd["cls_head.out.bias"])}
-        for torch_name, jax_name, transpose in (
-                ("weight_ih_l0", "rnn_wi", True),
-                ("bias_ih_l0", "rnn_bi", False),
-                ("weight_hh_l0", "rnn_wh", True),
-                ("bias_hh_l0", "rnn_bh", False)):
-            a = _np32(sd[f"cls_head.rnn.{torch_name}"])
-            head[jax_name] = a.T if transpose else a
+        head = _decoder_to_jax(sd)
     return {"params": {"backbone": bb, "cls_head": head}}
 
 
@@ -806,16 +827,35 @@ def _rec_chain_to_jax(named_state: Dict[str, Any], kind: str, clip: bool,
     return {"0": {}, "1": inner} if clip else inner
 
 
+def _params_to_jax(backbone_cfg):
+    """{parameter name: tensor} -> the JAX params tree, for a TimeSformer
+    recognizer (its config) or a 3D-CNN recognizer (the model itself)."""
+    if isinstance(backbone_cfg, torch.nn.Module):
+        return lambda t: conv_recognizer_variables_to_jax(
+            t, backbone_cfg)["params"]
+    return lambda t: recognizer_variables_to_jax(t, backbone_cfg)["params"]
+
+
+def _params_from_jax(backbone_cfg):
+    if isinstance(backbone_cfg, torch.nn.Module):
+        return lambda t: conv_recognizer_state_dict_from_jax(
+            {"params": t}, backbone_cfg)
+    return lambda t: recognizer_state_dict_from_jax({"params": t},
+                                                    backbone_cfg)
+
+
 def rec_train_state_to_jax(state_dict: Dict[str, torch.Tensor],
                            named_state: Dict[str, Any], step: int,
                            backbone_cfg, kind: str, clip: bool,
                            schedule: bool) -> Dict[str, Any]:
     """A recognizer's state dict, its OptaxOptimizer's `named_state()` and
-    the step count -> the JAX RecTrainState's tree.  kind: 'sgd' |
-    'adamw'; clip: a clip_by_global_norm leads the chain; schedule: the
-    learning rate is the warmup-cosine schedule (its count is kept)."""
-    def to_tree(moments):
-        return recognizer_variables_to_jax(moments, backbone_cfg)["params"]
+    the step count -> the JAX RecTrainState's tree.  backbone_cfg: the
+    TimeSformerConfig of a TimeSformer recognizer, or a 3D-CNN recognizer
+    itself (its module tree names the JAX tree; the BatchNorm statistics
+    are not in the RecTrainState); kind: 'sgd' | 'adamw'; clip: a
+    clip_by_global_norm leads the chain; schedule: the learning rate is
+    the warmup-cosine schedule (its count is kept)."""
+    to_tree = _params_to_jax(backbone_cfg)
 
     return {"params": to_tree(state_dict),
             "opt_state": _rec_chain_to_jax(named_state, kind, clip,
@@ -827,11 +867,11 @@ def rec_train_state_from_jax(tree: Dict[str, Any], backbone_cfg, kind: str,
                              clip: bool
                              ) -> Tuple[Dict[str, torch.Tensor],
                                         Dict[str, Any], int]:
-    """The inverse: the JAX RecTrainState's tree -> (state dict, the
-    optimizer's named state, step).  An optimizer state that keeps no
-    count (SGD at a constant learning rate) takes the step's."""
-    def from_tree(t):
-        return recognizer_state_dict_from_jax({"params": t}, backbone_cfg)
+    """The inverse: the JAX RecTrainState's tree -> (the parameters'
+    state dict, the optimizer's named state, step).  An optimizer state
+    that keeps no count (SGD at a constant learning rate) takes the
+    step's."""
+    from_tree = _params_from_jax(backbone_cfg)
 
     step = int(np.asarray(tree["step"]))
     inner = tree["opt_state"]["1"] if clip else tree["opt_state"]
@@ -1062,3 +1102,245 @@ def yolo_train_state_from_jax(tree: Dict[str, Any], cfg,
     vel = {k: v for k, v in vel_sd.items()
            if k.rsplit(".", 1)[-1] not in _YOLO_BUFFERS}
     return sd, vel, ema, int(np.asarray(tree["updates"]))
+
+
+# -- the 3D-CNN backbones and recognizers, both ways --------------------------
+# The port's modules carry mmaction's keys (models/resnet3d.py); the JAX
+# modules name the same weights as convert/torch_import.py's
+# convert_resnet3d, _non_local3d, convert_slowfast, convert_x3d and
+# convert_csn write them.  One table of (port module, JAX path, kind) per
+# model, read off the model's module tree, drives both directions, so
+# each direction inverts the other and the importers.
+
+def _conv_bn(rest: List[str], conv: str, bn: str) -> Tuple[str, ...]:
+    """A ConvModule's leaf ('conv' or 'bn') -> its JAX name."""
+    return (conv,) if rest == ["conv"] else (bn,)
+
+
+def _bottleneck_path(rest: List[str]) -> Tuple[str, ...]:
+    head = rest[0]
+    if head == "downsample":
+        return _conv_bn(rest[1:], "downsample", "bn_down")
+    k = head[len("conv"):]
+    return _conv_bn(rest[1:], f"conv{k}", f"bn{k}")
+
+
+def _non_local_path(rest: List[str]) -> Tuple[str, ...]:
+    if rest[0] == "conv_out":
+        return _conv_bn(rest[1:], "conv_out", "bn_out")
+    return (rest[0],)                  # g.0.conv, theta.conv, phi.0.conv
+
+
+def _resnet3d_path(parts: List[str]) -> Tuple[str, ...]:
+    if parts[0] == "conv1":
+        return _conv_bn(parts[1:], "conv1", "bn1")
+    dst = f"{parts[0]}_{parts[1]}"     # layer{s}.{j} -> layer{s}_{j}
+    if parts[2] == "non_local_block":
+        return (dst + "_nl",) + _non_local_path(parts[3:])
+    return (dst,) + _bottleneck_path(parts[2:])
+
+
+def _slowfast_path(parts: List[str]) -> Tuple[str, ...]:
+    from ..models.resnet3d import LATERALS
+    if parts[0] == "fast_path":
+        return ("fast",) + _resnet3d_path(parts[1:])
+    name, rest = parts[1], parts[2:]
+    if name == "conv1":
+        return _conv_bn(rest, "slow_conv1", "slow_bn1")
+    if name in LATERALS:
+        i = LATERALS.index(name)
+        return _conv_bn(rest, f"lateral_{i}", f"lateral_bn_{i}")
+    return (f"slow_l{name[len('layer'):]}_{rest[0]}",) \
+        + _bottleneck_path(rest[1:])
+
+
+def _csn_path(parts: List[str], ip: bool) -> Tuple[str, ...]:
+    if parts[0] == "conv1":
+        return _conv_bn(parts[1:], "conv1", "bn1")
+    dst, head, rest = f"{parts[0]}_{parts[1]}", parts[2], parts[3:]
+    if head == "conv2":                # conv2.{0|1}.{conv|bn}
+        point = ip and rest[0] == "0"
+        return (dst,) + (_conv_bn(rest[1:], "conv2_point", "bn_point")
+                         if point else
+                         _conv_bn(rest[1:], "conv2_depth", "bn2"))
+    if head == "downsample":
+        return (dst,) + _conv_bn(rest, "conv_down", "bn_down")
+    return (dst,) + _bottleneck_path(parts[2:])
+
+
+def _x3d_path(parts: List[str]) -> Tuple[str, ...]:
+    stem = {"conv1_s": ("stem_s", None), "conv1_t": ("stem_t", "stem_bn"),
+            "conv5": ("conv5", "bn5")}
+    if parts[0] in stem:
+        return _conv_bn(parts[1:], *stem[parts[0]])
+    dst = f"s{parts[0][len('layer'):]}_{parts[1]}"
+    if parts[2] == "se_module":
+        return (dst, "se", parts[3])
+    return (dst,) + _bottleneck_path(parts[2:])
+
+
+def _backbone_path(backbone, parts: List[str]) -> Tuple[str, ...]:
+    from ..models import resnet3d
+    if isinstance(backbone, resnet3d.ResNet3D):
+        return _resnet3d_path(parts)
+    if isinstance(backbone, resnet3d.SlowFast):
+        return _slowfast_path(parts)
+    if isinstance(backbone, resnet3d.CSN):
+        return _csn_path(parts, backbone.cfg.mode == "ip")
+    if isinstance(backbone, resnet3d.X3D):
+        return _x3d_path(parts)
+    inner = getattr(backbone, "inner", None)    # the temporal-mean adapter
+    if inner is not None and parts[0] == "inner":
+        return ("inner",) + _backbone_path(inner, parts[1:])
+    raise TypeError(f"no JAX layout for {type(backbone).__name__}")
+
+
+def _cnn_table(model) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """(the port module's name, its JAX path, kind) for every conv,
+    linear and BatchNorm of a 3D-CNN backbone or recognizer.  kind:
+    'conv' (Conv3d, with its bias if it has one), 'se' (an SE fc as a
+    Dense), 'dense' (Linear), 'bn'.  The RNN decoder head is apart."""
+    from ..models.decoder_head import RNNDecoderHead
+    from ..models.layers import FlaxBatchNorm
+    wrapped = hasattr(model, "backbone")
+    backbone = model.backbone if wrapped else model
+    decoder = wrapped and isinstance(model.cls_head, RNNDecoderHead)
+    table = []
+    for name, mod in model.named_modules():
+        if not isinstance(mod, (torch.nn.Conv3d, torch.nn.Linear,
+                                FlaxBatchNorm)):
+            continue
+        parts = name.split(".")
+        if not wrapped:
+            path = _backbone_path(backbone, parts)
+        elif parts[0] == "backbone":
+            path = ("backbone",) + _backbone_path(backbone, parts[1:])
+        elif decoder:
+            continue
+        else:
+            path = tuple(parts)        # cls_head.{fc_cls | fc1 | fc2}
+        kind = ("bn" if isinstance(mod, FlaxBatchNorm)
+                else "dense" if isinstance(mod, torch.nn.Linear)
+                else "se" if "se_module" in parts else "conv")
+        table.append((name, path, kind))
+    return table
+
+
+def _tree_get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _tree_put(tree, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def conv_recognizer_state_dict_from_jax(variables: Dict[str, Any], model
+                                        ) -> Dict[str, torch.Tensor]:
+    """A JAX 3D-CNN model's variables ({"params"[, "batch_stats"]}) -> the
+    port's fp32 state dict, for `model`: a port backbone (ResNet3D, CSN,
+    SlowFast, X3D) or recognizer (BackboneClassifier, X3DClassifier,
+    RecognizerRelseq) whose module tree names the keys (a meta-device
+    copy will do).  Without "batch_stats" only the parameters come back
+    (an optimizer's moments)."""
+    params = variables.get("params", variables)
+    stats = variables.get("batch_stats")
+    sd: Dict[str, torch.Tensor] = {}
+    for name, path, kind in _cnn_table(model):
+        p = _tree_get(params, path)
+        if kind == "bn":
+            sd[f"{name}.weight"] = _f32(p["scale"])
+            sd[f"{name}.bias"] = _f32(p["bias"])
+            continue
+        k = _f32(p["kernel"])
+        if kind == "conv":
+            sd[f"{name}.weight"] = k.permute(4, 3, 0, 1, 2).contiguous()
+        elif kind == "se":
+            sd[f"{name}.weight"] = k.t()[:, :, None, None, None].contiguous()
+        else:
+            sd[f"{name}.weight"] = k.t().contiguous()
+        if "bias" in p:
+            sd[f"{name}.bias"] = _f32(p["bias"])
+    if "cls_head" in params and "start_emb" in params["cls_head"]:
+        _decoder_from_jax(sd, params["cls_head"])
+    if stats is not None:
+        sd.update(conv_batch_stats_from_jax(stats, model))
+    return sd
+
+
+def conv_batch_stats_from_jax(stats: Dict[str, Any], model
+                              ) -> Dict[str, torch.Tensor]:
+    """A JAX 3D-CNN model's batch_stats -> the port's BatchNorm buffers
+    (running mean and variance, num_batches_tracked 0) for `model`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, path, kind in _cnn_table(model):
+        if kind == "bn":
+            st = _tree_get(stats, path)
+            sd[f"{name}.running_mean"] = _f32(st["mean"])
+            sd[f"{name}.running_var"] = _f32(st["var"])
+            sd[f"{name}.num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.int64)
+    return sd
+
+
+def conv_recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], model
+                                     ) -> Dict[str, Any]:
+    """The inverse: the port's state dict (or {parameter name: tensor})
+    -> {"params"[, "batch_stats"]} as numpy f32, the tree the JAX module
+    holds; "batch_stats" when the dict carries the running statistics."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for name, path, kind in _cnn_table(model):
+        if kind == "bn":
+            _tree_put(params, path, {"scale": _np32(sd[f"{name}.weight"]),
+                                     "bias": _np32(sd[f"{name}.bias"])})
+            if f"{name}.running_mean" in sd:
+                _tree_put(stats, path,
+                          {"mean": _np32(sd[f"{name}.running_mean"]),
+                           "var": _np32(sd[f"{name}.running_var"])})
+            continue
+        w = _np32(sd[f"{name}.weight"])
+        leaf = {"kernel": (w.transpose(2, 3, 4, 1, 0) if kind == "conv"
+                           else w[..., 0, 0, 0].T if kind == "se"
+                           else w.T)}
+        if f"{name}.bias" in sd:
+            leaf["bias"] = _np32(sd[f"{name}.bias"])
+        _tree_put(params, path, leaf)
+    if "cls_head.start_emb.weight" in sd:
+        params["cls_head"] = _decoder_to_jax(sd)
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out
+
+
+def _conv_backbone_fns(family: str):
+    def state_dict_from_jax(variables: Dict[str, Any], cfg
+                            ) -> Dict[str, torch.Tensor]:
+        from ..models import resnet3d
+        return conv_recognizer_state_dict_from_jax(
+            variables, getattr(resnet3d, family)(cfg, device="meta"))
+
+    def variables_to_jax(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:
+        from ..models import resnet3d
+        return conv_recognizer_variables_to_jax(
+            sd, getattr(resnet3d, family)(cfg, device="meta"))
+
+    state_dict_from_jax.__doc__ = (
+        f"A JAX {family}'s variables -> the port's {family} state dict "
+        f"(cfg: its config).")
+    variables_to_jax.__doc__ = (
+        f"The port's {family} state dict -> the JAX {family}'s "
+        f"{{'params', 'batch_stats'}} (cfg: its config).")
+    return state_dict_from_jax, variables_to_jax
+
+
+resnet3d_state_dict_from_jax, resnet3d_variables_to_jax = \
+    _conv_backbone_fns("ResNet3D")
+csn_state_dict_from_jax, csn_variables_to_jax = _conv_backbone_fns("CSN")
+slowfast_state_dict_from_jax, slowfast_variables_to_jax = \
+    _conv_backbone_fns("SlowFast")
+x3d_state_dict_from_jax, x3d_variables_to_jax = _conv_backbone_fns("X3D")

@@ -18,7 +18,9 @@ datasets family):
   (samplers/distributed_sampler.py:11-53), the same indices as the JAX
   package's.
 
-`ClassSpecificSampler` comes with slice 5 (ROADMAP.md queue 1 item 8).
+`ClassSpecificSampler` and the raw-video, image, repeat and concat
+datasets come with ROADMAP.md queue 1 item 8d, the audio datasets with
+item 8g.
 """
 
 from __future__ import annotations

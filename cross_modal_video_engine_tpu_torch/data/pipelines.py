@@ -699,21 +699,45 @@ def with_reader(cfgs: Sequence[Dict], reader) -> list:
             else dict(c) for c in cfgs]
 
 
+# the JAX package's pipelines_extra ops, by the part of ROADMAP.md queue 1
+# item 8 that ports them
+UNPORTED_OPS = dict(
+    {op: "8g" for op in ("AudioDecodeInit", "LoadAudioFeature",
+                         "AudioDecode", "AudioFeatureSelector",
+                         "AudioAmplify", "MelSpectrogram",
+                         "FormatAudioShape")},
+    **{op: "8h" for op in ("UniformSampleFrames", "PaddingWithLoop",
+                           "PoseDecode", "LoadKineticsPose", "PoseNormalize",
+                           "PoseCompact", "JointToBone", "FormatGCNInput",
+                           "GeneratePoseTarget")},
+    **{op: "8e" for op in ("LoadLocalizationFeature",
+                           "GenerateLocalizationLabels", "LoadProposals",
+                           "SampleProposalFrames")},
+    SampleAVAFrames="8f",
+    **{op: "8d" for op in ("RandomCrop", "RandomRescale", "BuildPseudoClip",
+                           "ImageDecode", "ArrayDecode", "Rename",
+                           "Transpose", "Collect")})
+
+
 def build_pipeline(cfgs: Sequence[Dict]) -> Compose:
     """Build from mmaction-style [{'type': 'SampleFrames', ...}, ...].
-    An op type that is not ported raises KeyError: the audio, pose and
-    localization ops of the JAX package's pipelines_extra come with
-    ROADMAP.md queue 1 item 8."""
+    An op type that is not ported raises KeyError naming the part of
+    ROADMAP.md queue 1 item 8 that ports it (`UNPORTED_OPS`: the audio,
+    pose, localization, AVA and OmniSource ops of the JAX package's
+    pipelines_extra)."""
     # the decode ops (DecordInit, DecordDecode, ...) register on import
     from ..io import video_decode  # noqa: F401
     ops = []
     for cfg in cfgs:
         cfg = dict(cfg)
         name = cfg.pop("type")
-        if name not in PIPELINES:
+        if name in UNPORTED_OPS:
             raise KeyError(
                 f"pipeline op {name!r} is not ported to the PyTorch package "
-                f"(the audio, pose and localization ops come with "
-                f"ROADMAP.md queue 1 item 8); ported: {sorted(PIPELINES)}")
+                f"yet: it comes with ROADMAP.md queue 1 item "
+                f"{UNPORTED_OPS[name]}")
+        if name not in PIPELINES:
+            raise KeyError(f"unknown pipeline op {name!r}; ported: "
+                           f"{sorted(PIPELINES)}")
         ops.append(PIPELINES.get(name)(**cfg))
     return Compose(ops)

@@ -1,4 +1,5 @@
-"""Building blocks of the LINAS retrieval model.
+"""Building blocks of the LINAS retrieval model, and flax's BatchNorm for
+the 3D-CNN backbones.
 
 Counterpart of cross_modal_video_engine_tpu/models/layers.py.  Each module
 keeps the reference torch model's state-dict keys (LINAS-engine/model.py),
@@ -24,6 +25,12 @@ so a sub state dict of the reference checkpoint loads as it is:
 * `LatentMapping` is MFC and the L2 norm into the common space.
 * `Dropout` draws its mask from the module's `generator` (None: torch's
   default generator), which a trainer seeds.
+* `FlaxBatchNorm` is flax's `nn.BatchNorm` over the channel axis of an
+  input of any rank (N, C, ...), for the 3D-CNN backbones
+  (models/resnet3d.py): flax's momentum 0.9 (torch 0.1), eps 1e-5 (CSN's
+  1e-3); in train mode it normalizes by the batch statistics and moves
+  the running variance by the biased batch variance; in eval mode it
+  normalizes by the running statistics.
 """
 
 from __future__ import annotations
@@ -121,6 +128,42 @@ class FlaxBatchNorm1d(nn.BatchNorm1d):
             self.num_batches_tracked.add_(1)
         return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
+
+
+class FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
+    """flax's BatchNorm over dim 1 of an (N, C, ...) input of any rank.
+    The normalization is torch's (cuDNN on the card); after torch's update
+    rv' = (1 - m) rv + m var n/(n-1) of the running variance, the excess
+    over flax's update by the biased variance is taken back out:
+    rv = (1 - m) rv + (rv' - (1 - m) rv) (n-1)/n, the method of
+    models/yolo.BatchNorm.  A bf16 input keeps f32 weights and statistics
+    (torch's mixed-type batch norm), as flax computes its statistics in
+    f32; the output is the input's dtype."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, device=None):
+        super().__init__(num_features, eps=eps, momentum=momentum,
+                         device=device)
+
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        if x.dim() < 2:
+            raise ValueError(f"expected an (N, C, ...) input, got {x.dim()}-d")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        n = x.numel() // x.shape[1]
+        # torch updates copies (autograd keeps them for the backward)
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        with torch.no_grad():
+            kept = self.running_var * (1.0 - self.momentum)
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class MFC(nn.Module):

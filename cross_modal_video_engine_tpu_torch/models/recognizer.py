@@ -1,7 +1,7 @@
-"""Video recognizers on the TimeSformer backbone: classification and
-label-sequence (caption) heads, in PyTorch.
+"""Video recognizers: classification and label-sequence (caption) heads
+on the TimeSformer and on the 3D-CNN backbones, in PyTorch.
 
-Counterpart of the TimeSformer recognizers of
+Counterpart of the TimeSformer and 3D-CNN recognizers of
 cross_modal_video_engine_tpu/models/recognizer.py:
 
 * `TimeSformerHead`: a linear classifier on the backbone's CLS feature;
@@ -14,13 +14,22 @@ cross_modal_video_engine_tpu/models/recognizer.py:
 * `Recognizer3DCaption`: backbone tokens -> the word-level
   CaptionTransformer (models/caption_transformer.py), teacher forcing
   and greedy or beam `generate`;
+* `BackboneClassifier`: a 3D-CNN backbone's pooled feature into an
+  I3DHead (dropout 0.5, also for SlowFast); `X3DClassifier`: X3D into
+  the two-layer X3DHead; `RecognizerRelseq`: any pooled backbone into
+  the RNNDecoderHead, `forward_train` and `forward_test` as
+  Recognizer3DRelseq's (models/resnet3d.py, models/heads.py);
 * `init_state_dict`: a training init drawn from a numpy seed with flax's
-  init schemes (what the JAX package's `model.init` draws).
+  init schemes (what the JAX package's `model.init` draws), and
+  `conv_init_state_dict` the same for the 3D-CNN recognizers.
 
-The heads compute in fp32 on the parameters' values: the backbone's CLS
-feature is fp32, and the JAX heads promote to it.  State-dict keys are
-`backbone.*` (models/timesformer.py) and `cls_head.*` (`fc_cls` for
-classification, the reference RNN head's names for captions).
+The TimeSformer heads compute in fp32 on the parameters' values: the
+backbone's CLS feature is fp32, and the JAX heads promote to it; the
+3D-CNN heads compute in their parameters' dtype, as flax's Dense does on
+the pooled feature.  State-dict keys are `backbone.*`
+(models/timesformer.py, models/resnet3d.py) and `cls_head.*` (`fc_cls`
+for classification, `fc1`/`fc2` for X3DHead, the reference RNN head's
+names for captions).
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ from ..utils.registry import RECOGNIZERS
 from .caption_transformer import CaptionConfig, CaptionTransformer
 from .clip import MHA
 from .decoder_head import RNNDecoderConfig, RNNDecoderHead
+from .heads import I3DHead, X3DHead
+from .layers import FlaxBatchNorm
 from .timesformer import LN, TimeSformer, TimeSformerConfig
 
 
@@ -170,6 +181,87 @@ class Recognizer3DCaption(nn.Module):
                                  beam_width=beam_width)
 
 
+def _device_of(module: nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
+@RECOGNIZERS.register("BackboneClassifier")
+class BackboneClassifier(nn.Module):
+    """A 3D-CNN backbone's pooled feature -> I3DHead class scores (JAX
+    recognizer.py:146-173).  The head's dropout is 0.5 for every family,
+    SlowFast included, as the JAX module has it.  Any (T, H, W) the
+    backbone takes."""
+
+    def __init__(self, backbone: nn.Module, num_classes: int,
+                 dropout_ratio: float = 0.5):
+        super().__init__()
+        self.backbone = backbone
+        self.cls_head = I3DHead(backbone.feat_dim, num_classes, dropout_ratio,
+                                device=_device_of(backbone))
+        self.eval()
+
+    def extract_feat(self, videos: torch.Tensor) -> torch.Tensor:
+        return self.backbone(videos)
+
+    def forward(self, videos: torch.Tensor) -> torch.Tensor:
+        """videos: (B, T, H, W, 3) -> class scores (B, num_classes)."""
+        return self.cls_head(self.backbone(videos))
+
+    def forward_test(self, videos: torch.Tensor, num_segs: int = 1,
+                     average_clips: Optional[str] = "prob") -> torch.Tensor:
+        return average_clip(self(videos), num_segs, average_clips)
+
+
+@RECOGNIZERS.register("X3DClassifier")
+class X3DClassifier(BackboneClassifier):
+    """X3D and the two-layer X3DHead (fc1 -> ReLU -> dropout -> fc2; JAX
+    recognizer.py:342-362), mmaction's x3d checkpoint layout."""
+
+    def __init__(self, backbone: nn.Module, num_classes: int,
+                 mid_channels: int = 2048, dropout_ratio: float = 0.5):
+        nn.Module.__init__(self)
+        self.backbone = backbone
+        self.cls_head = X3DHead(backbone.feat_dim, num_classes, mid_channels,
+                                dropout_ratio, device=_device_of(backbone))
+        self.eval()
+
+
+@RECOGNIZERS.register("RecognizerRelseq")
+class RecognizerRelseq(nn.Module):
+    """Any pooled (B, D) backbone into the RNN decoder head (JAX
+    recognizer.py:310-339), the seq_generate family's 3D-CNN members."""
+
+    def __init__(self, backbone: nn.Module, decoder_cfg: RNNDecoderConfig):
+        super().__init__()
+        self.backbone = backbone
+        self.cls_head = RNNDecoderHead(decoder_cfg, torch.float32,
+                                       _device_of(backbone))
+        self.eval()
+
+    def extract_feat(self, videos: torch.Tensor) -> torch.Tensor:
+        return self.backbone(videos)
+
+    def forward(self, videos: torch.Tensor,
+                targets_emb: Optional[torch.Tensor] = None,
+                mode: str = "inference") -> torch.Tensor:
+        return self.cls_head(self.backbone(videos), targets_emb, mode=mode)
+
+    def forward_train(self, videos: torch.Tensor, targets_emb: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+        """The SeqMLL loss of a teacher-forced forward in train mode: the
+        BatchNorms normalize by the batch and move their statistics, the
+        decoder's input dropout acts."""
+        self.train()
+        probs = self(videos, targets_emb, mode="train")
+        return seq_mll_loss(probs, targets_emb, mask)
+
+    def forward_test(self, videos: torch.Tensor,
+                     num_segs: int = 1) -> torch.Tensor:
+        """Greedy decode, per-step probabilities averaged over clips."""
+        probs = self(videos, mode="inference")
+        return probs.reshape(-1, num_segs, *probs.shape[1:]).mean(1)
+
+
 def random_state_dict(backbone_cfg: TimeSformerConfig, seed: int, *,
                       num_classes: Optional[int] = None,
                       decoder_cfg: Optional[RNNDecoderConfig] = None
@@ -238,6 +330,18 @@ def _orthogonal(rng, rows: int, cols: int) -> torch.Tensor:
     return torch.from_numpy(q.T if rows < cols else q)
 
 
+def _decoder_init(out: Dict[str, torch.Tensor], rng, pre: str,
+                  cfg: RNNDecoderConfig) -> None:
+    """The RNN decoder's init (JAX decoder_head.py:82-94)."""
+    c, h = cfg.num_classes, cfg.in_channels
+    out[pre + "start_emb.weight"] = torch.from_numpy(
+        rng.standard_normal((1, c)))
+    out[pre + "rnn.weight_ih_l0"] = _lecun_normal(rng, (3 * h, c + h), c + h)
+    out[pre + "rnn.weight_hh_l0"] = _orthogonal(rng, h, 3 * h).T
+    out[pre + "rnn.bias_ih_l0"] = torch.zeros(3 * h)
+    out[pre + "rnn.bias_hh_l0"] = torch.zeros(3 * h)
+
+
 def init_state_dict(backbone_cfg: TimeSformerConfig, seed: int, *,
                     num_classes: Optional[int] = None,
                     decoder_cfg: Optional[RNNDecoderConfig] = None
@@ -283,14 +387,7 @@ def init_state_dict(backbone_cfg: TimeSformerConfig, seed: int, *,
             out[pre + "weight"] = w
             out[pre + "bias"] = torch.zeros(mod.bias.shape)
         elif isinstance(mod, RNNDecoderHead):
-            c, h = decoder_cfg.num_classes, decoder_cfg.in_channels
-            out[pre + "start_emb.weight"] = torch.from_numpy(
-                rng.standard_normal((1, c)))
-            out[pre + "rnn.weight_ih_l0"] = _lecun_normal(
-                rng, (3 * h, c + h), c + h)
-            out[pre + "rnn.weight_hh_l0"] = _orthogonal(rng, h, 3 * h).T
-            out[pre + "rnn.bias_ih_l0"] = torch.zeros(3 * h)
-            out[pre + "rnn.bias_hh_l0"] = torch.zeros(3 * h)
+            _decoder_init(out, rng, pre, mod.cfg)
     backbone = model.backbone
     for name in ("cls_token", "pos_embed", "time_embed"):
         if hasattr(backbone, name):
@@ -300,4 +397,54 @@ def init_state_dict(backbone_cfg: TimeSformerConfig, seed: int, *,
     if missing:
         raise KeyError(f"no init for {sorted(missing)[:5]}")
     return {k: out[k].to(torch.float32).contiguous()
+            for k in model.state_dict()}
+
+
+def conv_init_state_dict(model: nn.Module, seed: int
+                         ) -> Dict[str, torch.Tensor]:
+    """The fp32 state dict of a 3D-CNN recognizer (BackboneClassifier,
+    X3DClassifier, RecognizerRelseq) or backbone as training starts, drawn
+    from a numpy seed with the JAX modules' init schemes: conv kernels
+    lecun-normal with fan-in (input channels / groups) x kernel volume,
+    Dense kernels (the SE's and X3DHead's fc1) lecun-normal, biases zero;
+    BatchNorm scales 1, biases 0, running means 0 and variances 1; the
+    class layer (`fc_cls`, X3DHead's `fc2`) normal(0.01); the RNN
+    decoder as `init_state_dict` draws it (its output layer
+    truncated-normal 0.02).  The same distributions as
+    `model.init`, not the same numbers."""
+    rng = np.random.default_rng(seed)
+    out: Dict[str, torch.Tensor] = {}
+    for owner, mod in model.named_modules():
+        pre = f"{owner}." if owner else ""
+        if isinstance(mod, (nn.Conv3d, nn.Linear)):
+            shape = tuple(mod.weight.shape)
+            if owner.endswith("cls_head.fc_cls") or (
+                    owner.endswith("cls_head.fc2")
+                    and isinstance(getattr(model, "cls_head", None),
+                                   X3DHead)):
+                w = torch.from_numpy(
+                    0.01 * rng.standard_normal(shape).astype(np.float32))
+            elif isinstance(model, RecognizerRelseq) \
+                    and owner == "cls_head.out":
+                w = _truncated_normal(rng, shape, 0.02)
+            else:
+                w = _lecun_normal(rng, shape, int(np.prod(shape[1:])))
+            out[pre + "weight"] = w
+            if mod.bias is not None:
+                out[pre + "bias"] = torch.zeros(mod.bias.shape)
+        elif isinstance(mod, FlaxBatchNorm):
+            c = mod.num_features
+            out[pre + "weight"] = torch.ones(c)
+            out[pre + "bias"] = torch.zeros(c)
+            out[pre + "running_mean"] = torch.zeros(c)
+            out[pre + "running_var"] = torch.ones(c)
+            out[pre + "num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.int64)
+        elif isinstance(mod, RNNDecoderHead):
+            _decoder_init(out, rng, pre, mod.cfg)
+    missing = set(model.state_dict()) - set(out)
+    if missing:
+        raise KeyError(f"no init for {sorted(missing)[:5]}")
+    return {k: (out[k] if out[k].dtype == torch.int64
+                else out[k].to(torch.float32)).contiguous()
             for k in model.state_dict()}

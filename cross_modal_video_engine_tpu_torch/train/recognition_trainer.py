@@ -1,17 +1,20 @@
-"""Recognition and caption training on the TimeSformer recognizers.
+"""Recognition and caption training on the TimeSformer and 3D-CNN
+recognizers.
 
 Counterpart of cross_modal_video_engine_tpu/train/recognition_trainer.py
-(MCT apis/train.py) for the TimeSformer family:
+(MCT apis/train.py):
 
 * `RecognitionTrainConfig`, field for field;
 * `RecTrainState(model, optimizer, step)`: the model holds the float32
-  master parameters, the optimizer (train/optim.OptaxOptimizer) its count
-  and moments; a step updates both in place and returns the state with
+  master parameters (and a 3D-CNN's BatchNorm statistics in its
+  buffers), the optimizer (train/optim.OptaxOptimizer) its count and
+  moments; a step updates both in place and returns the state with
   `step + 1`, as the JAX step returns its new state;
 * `make_rec_optimizer`: optax's chains of `make_rec_optimizer`
   (clip_by_global_norm, then SGD with momentum and decoupled weight decay
-  on every parameter, or AdamW; a warmup-cosine schedule when
-  warmup_steps > 0), as a factory of `OptaxOptimizer`s;
+  on every parameter, BatchNorm scales included, or AdamW; a
+  warmup-cosine schedule when warmup_steps > 0), as a factory of
+  `OptaxOptimizer`s;
 * `make_cls_train_step`: cross entropy over the class scores in f32,
   with top-1 accuracy; `bf16=True` keeps the f32 masters and runs the
   forward and backward on a bfloat16 copy of the parameters and videos
@@ -20,15 +23,26 @@ Counterpart of cross_modal_video_engine_tpu/train/recognition_trainer.py
   in f32: the JAX step's `_cast_tree` (mmcv's Fp16OptimizerHook);
 * `make_seq_train_step`: the SeqMLL loss with teacher forcing
   (`Recognizer3DRelseq.forward_train`);
-* `evaluate_classification`: top-1/top-5 and mean class accuracy.
+* `make_cls_train_step_stats` and `make_seq_train_step_stats`: the same
+  for the BatchNorm recognizers (BackboneClassifier, X3DClassifier,
+  RecognizerRelseq on models/resnet3d.py's backbones).  The forward runs
+  in train mode: each BatchNorm normalizes by the batch and moves its
+  running statistics in place, by flax's update, as the JAX step returns
+  its mutated `batch_stats`.  `bf16=True` calls the model itself through
+  `functional_call` with bf16 copies of its parameters (the BatchNorms'
+  rounded to bf16 and held in f32, as flax computes BatchNorm in f32)
+  and its own f32 buffers, so the statistics land in the master model;
+* `evaluate_classification`: top-1/top-5 and mean class accuracy in eval
+  mode (a BatchNorm recognizer normalizes by its running statistics).
 
-A step runs the model in train mode: DropPath, the embedding dropouts and
-the decoder's input dropout draw from the `torch.Generator` given to the
-step's maker.  A backbone configured in bfloat16 trained without
-`bf16=True` is refused: there the JAX package's f32 parameters promote
-the products of its `Dense(dtype=None)` layers back to f32 (ROADMAP.md
-queue 1 item 14).  The BatchNorm families' `*_stats` steps, multigrid,
-OmniSource and mixup/cutmix blending come with slice 5 (queue 1 item 8).
+A step runs the model in train mode: DropPath, the embedding dropouts,
+the heads' dropout and the decoder's input dropout draw from the
+`torch.Generator` given to the step's maker.  A backbone configured in
+bfloat16 trained without `bf16=True` is refused: there the JAX package's
+f32 parameters promote the products of its `Dense(dtype=None)` layers
+back to f32 (ROADMAP.md queue 1 item 14).  `make_tpn_train_step_stats`
+comes with item 8b; multigrid, OmniSource and mixup/cutmix blending with
+item 8d.
 """
 
 from __future__ import annotations
@@ -44,15 +58,36 @@ import torch.nn.functional as F
 from ..metrics.accuracy import mean_class_accuracy, top_k_accuracy
 from ..models.decoder_head import RNNDecoderHead
 from ..models.layers import Dropout
-from ..models.recognizer import Recognizer3D, Recognizer3DRelseq
+from ..models.layers import FlaxBatchNorm
+from ..models.recognizer import (BackboneClassifier, Recognizer3D,
+                                 Recognizer3DRelseq, RecognizerRelseq)
 from ..models.timesformer import DropPath
 from ..utils.device import resolve_device
 from ..utils.precision import no_tf32
 from .optim import OptaxOptimizer
 
-SLICE5 = ("{} is not ported yet: the BatchNorm families, multigrid, "
-          "OmniSource and blending come with slice 5 (ROADMAP.md queue 1 "
-          "item 8)")
+# the parts of slice 5 still to port (ROADMAP.md queue 1 item 8)
+PARTS = {
+    "8b": "the 2D, TSM and pyramid recognizers (TSM, TSN, TIN, TANet, "
+          "C3D, R(2+1)D, MobileNetV2-TSM, TPN, Recognizer2D with the TSN "
+          "and TRN heads)",
+    "8c": "the transformer and CLIP backbones (Swin3D, MViT, VideoMAE, "
+          "CLIP, VideoCLIP)",
+    "8d": "the training recipes (mixup/cutmix blending, multigrid, "
+          "OmniSource, the shuffle recognizers, the extra datasets, "
+          "samplers and pipeline ops)",
+    "8e": "temporal localization (BMN, BSN, SSN)",
+    "8f": "spatio-temporal detection (AVA)",
+    "8g": "audio recognition",
+    "8h": "skeleton recognition (ST-GCN, 2s-AGCN, PoseC3D)",
+    "8i": "the host tools",
+}
+
+
+def not_ported(what: str, part: str) -> str:
+    """The refusal of what a part of slice 5 still has to port."""
+    return (f"{what} is not ported yet: it comes with {PARTS[part]}, slice "
+            f"5 (ROADMAP.md queue 1 item {part})")
 BF16_CONFIG = ("a backbone configured with dtype='bfloat16' trains with "
                "bf16=True (f32 masters, a bf16 copy for the forward); "
                "without it the JAX package's f32 parameters promote its "
@@ -143,6 +178,12 @@ def _bf16_forward(model: Recognizer3D,
     return forward
 
 
+def _refuse_blending(blending) -> None:
+    if blending is not None:
+        raise NotImplementedError(not_ported("blending (data/blending)",
+                                             "8d"))
+
+
 def make_cls_train_step(model: Recognizer3D, blending=None,
                         bf16: bool = False,
                         generator: Optional[torch.Generator] = None,
@@ -150,11 +191,15 @@ def make_cls_train_step(model: Recognizer3D, blending=None,
     """step(state, videos, labels) -> (state, {"loss", "top1_acc"}): one
     forward in train mode, backward and optimizer step on `device` (None:
     the CUDA device), where the model must lie.  labels: int64 class
-    indices.  logs: detached 0-d tensors."""
-    if blending is not None:
-        raise NotImplementedError(SLICE5.format("blending (data/blending)"))
+    indices.  logs: detached 0-d tensors.  The BatchNorm recognizers
+    train with `make_cls_train_step_stats`."""
+    _refuse_blending(blending)
+    if isinstance(model, BackboneClassifier):
+        raise ValueError("a BatchNorm recognizer trains with "
+                         "make_cls_train_step_stats")
     if not isinstance(model, Recognizer3D):
-        raise NotImplementedError(SLICE5.format(type(model).__name__))
+        raise NotImplementedError(not_ported(
+            f"make_cls_train_step on {type(model).__name__}", "8c"))
     _check(model, device)
     dtype = model.backbone.cfg.dtype
     if bf16 and dtype != "float32":
@@ -164,8 +209,50 @@ def make_cls_train_step(model: Recognizer3D, blending=None,
         raise NotImplementedError(BF16_CONFIG)
     no_tf32()
     set_generator(model, generator)
-    forward = _bf16_forward(model, generator) if bf16 else model
+    return _cls_step(model,
+                     _bf16_forward(model, generator) if bf16 else model)
 
+
+def _bf16_stats_forward(model: torch.nn.Module):
+    """forward(videos) -> the model's outputs computed in bfloat16: the
+    model called through functional_call on bf16 copies of its master
+    parameters (the BatchNorms' rounded to bf16 and held in f32), its
+    own f32 buffers (their running statistics move in place) and the
+    videos in bf16, the casts inside autograd."""
+    bn = {f"{o}.{leaf}" for o, m in model.named_modules()
+          if isinstance(m, FlaxBatchNorm) for leaf in ("weight", "bias")}
+
+    def forward(videos: torch.Tensor) -> torch.Tensor:
+        tensors = {n: (p.to(torch.bfloat16).float() if n in bn
+                       else p.to(torch.bfloat16))
+                   for n, p in model.named_parameters()}
+        tensors.update(model.named_buffers())
+        return torch.func.functional_call(
+            model, tensors, (videos.to(torch.bfloat16),))
+
+    return forward
+
+
+def make_cls_train_step_stats(model: BackboneClassifier, blending=None,
+                              bf16: bool = False,
+                              generator: Optional[torch.Generator] = None,
+                              device=None):
+    """make_cls_train_step for the BatchNorm recognizers
+    (BackboneClassifier, X3DClassifier): step(state, videos, labels) ->
+    (state, {"loss", "top1_acc"}), the running statistics updated in
+    place.  bf16: f32 masters and statistics, the forward and backward in
+    bfloat16 (JAX recognition_trainer.py:122-160)."""
+    _refuse_blending(blending)
+    if not isinstance(model, BackboneClassifier):
+        raise NotImplementedError(not_ported(
+            f"make_cls_train_step_stats on {type(model).__name__}", "8b"))
+    _check(model, device)
+    no_tf32()
+    set_generator(model, generator)
+    return _cls_step(model, _bf16_stats_forward(model) if bf16 else model)
+
+
+def _cls_step(model: torch.nn.Module, forward):
     def step(state: RecTrainState, videos: torch.Tensor,
              labels: torch.Tensor):
         net, opt = state.model, state.optimizer
@@ -191,14 +278,36 @@ def make_seq_train_step(model: Recognizer3DRelseq,
     """step(state, videos, targets_emb, mask) -> (state, {"loss"}): the
     teacher-forced SeqMLL loss in train mode, backward and optimizer step
     on `device` (None: the CUDA device).  logs: detached 0-d tensors."""
+    if isinstance(model, RecognizerRelseq):
+        raise ValueError("a BatchNorm recognizer trains with "
+                         "make_seq_train_step_stats")
     if not isinstance(model, Recognizer3DRelseq):
-        raise NotImplementedError(SLICE5.format(type(model).__name__))
+        raise NotImplementedError(not_ported(
+            f"make_seq_train_step on {type(model).__name__}", "8c"))
     _check(model, device)
     if model.backbone.cfg.dtype == "bfloat16":
         raise NotImplementedError(BF16_CONFIG)
     no_tf32()
     set_generator(model, generator)
+    return _seq_step(model)
 
+
+def make_seq_train_step_stats(model: RecognizerRelseq,
+                              generator: Optional[torch.Generator] = None,
+                              device=None):
+    """make_seq_train_step for a RecognizerRelseq on a BatchNorm backbone:
+    the running statistics move in place (JAX recognition_trainer.py
+    :180-198; f32, as the JAX step has no bf16 option)."""
+    if not isinstance(model, RecognizerRelseq):
+        raise NotImplementedError(not_ported(
+            f"make_seq_train_step_stats on {type(model).__name__}", "8b"))
+    _check(model, device)
+    no_tf32()
+    set_generator(model, generator)
+    return _seq_step(model)
+
+
+def _seq_step(model: torch.nn.Module):
     def step(state: RecTrainState, videos: torch.Tensor,
              targets_emb: torch.Tensor, mask: torch.Tensor):
         net, opt = state.model, state.optimizer
@@ -214,9 +323,10 @@ def make_seq_train_step(model: Recognizer3DRelseq,
     return step
 
 
-def evaluate_classification(model: Recognizer3D, batches) -> Dict:
+def evaluate_classification(model: torch.nn.Module, batches) -> Dict:
     """batches: iterable of (videos, labels, n_valid) on the model's
-    device.  Runs the model in eval mode without a graph; returns
+    device.  Runs the model in eval mode without a graph (a BatchNorm
+    recognizer normalizes by its running statistics); returns
     mmaction's top1_acc, top5_acc and mean_class_accuracy over the valid
     rows."""
     model.eval()
@@ -231,18 +341,16 @@ def evaluate_classification(model: Recognizer3D, batches) -> Dict:
             "mean_class_accuracy": mean_class_accuracy(scores, labels)}
 
 
-# -- slice 5 -------------------------------------------------------------------
+# -- still to port ------------------------------------------------------------
 
-def _slice5(name: str):
+def _not_ported(name: str, part: str):
     def raise_(*args, **kwargs):
-        raise NotImplementedError(SLICE5.format(name))
+        raise NotImplementedError(not_ported(name, part))
     raise_.__name__ = name
-    raise_.__doc__ = f"Raises: {SLICE5.format(name)}."
+    raise_.__doc__ = f"Raises: {not_ported(name, part)}."
     return raise_
 
 
-make_cls_train_step_stats = _slice5("make_cls_train_step_stats")
-make_seq_train_step_stats = _slice5("make_seq_train_step_stats")
-make_tpn_train_step_stats = _slice5("make_tpn_train_step_stats")
-train_multigrid = _slice5("train_multigrid")
-train_omnisource = _slice5("train_omnisource")
+make_tpn_train_step_stats = _not_ported("make_tpn_train_step_stats", "8b")
+train_multigrid = _not_ported("train_multigrid", "8d")
+train_omnisource = _not_ported("train_omnisource", "8d")

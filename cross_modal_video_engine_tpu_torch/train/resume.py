@@ -11,10 +11,13 @@ files, so a run either package saved resumes in the other:
     mu, nu}}, and for an 'adapt' run /mask/0 (pa) and /mask/1/1/0/{count,
     mu, nu} (convert/from_jax.py's `linas_*_state_{to,from}_jax`);
   - the recognition and caption trainers, `{"state": RecTrainState,
-    "batch_stats": None}` as their CLIs write it: /batch_stats (nil: the
-    TimeSformer has no BatchNorm), /state/params/..., /state/opt_state/
-    (make_rec_optimizer's chain) and /state/step
-    (`rec_train_state_{to,from}_jax`);
+    "batch_stats": ...}` as their CLIs write it: /batch_stats (nil for
+    the TimeSformer, which has no BatchNorm; a 3D-CNN's running
+    statistics in the JAX tree, `{"backbone": ...}`), /state/params/...,
+    /state/opt_state/ (make_rec_optimizer's chain) and /state/step
+    (`rec_train_state_{to,from}_jax`).  The port's statistics live in the
+    model's buffers: its payload's "batch_stats" is None or the module
+    that holds them (the state's model);
   - the detector trainers, `{"state": YoloTrainState}` as the JAX
     `cli/yolo_train.py` and `cli/yolo_cls_train.py` write `tuple(state)`:
     /state/0 params, /1 batch_stats, /2 vel, /3 ema_params, /4 ema_stats,
@@ -38,7 +41,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..convert.from_jax import (linas_mask_state_from_jax,
+from ..convert.from_jax import (conv_batch_stats_from_jax,
+                                conv_recognizer_variables_to_jax,
+                                linas_mask_state_from_jax,
                                 yolo_cls_state_dict_from_jax,
                                 yolo_cls_variables_to_jax,
                                 yolo_state_dict_from_jax,
@@ -51,8 +56,9 @@ from ..convert.from_jax import (linas_mask_state_from_jax,
                                 yolo_train_state_from_jax,
                                 yolo_train_state_to_jax)
 from ..io import flax_msgpack
+from ..models.timesformer import TimeSformerConfig
 from .checkpoint import _host_tree
-from .recognition_trainer import SLICE5, RecTrainState
+from .recognition_trainer import RecTrainState
 from .yolo_trainer import YoloTrainState
 
 STATE_FILE, LOOP_FILE = "train_state.msgpack", "loop_state.json"
@@ -63,17 +69,37 @@ def _chain(opt) -> Dict[str, Any]:
     return {"kind": opt.kind, "clip": opt.max_norm is not None}
 
 
+def _rec_layout(model):
+    """What names a recognizer's JAX tree: the TimeSformer config, or the
+    3D-CNN recognizer itself (convert/from_jax.py)."""
+    cfg = model.backbone.cfg
+    return cfg if isinstance(cfg, TimeSformerConfig) else model
+
+
 def _rec_to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
-    if payload.get("batch_stats") is not None:
-        raise NotImplementedError(SLICE5.format("batch_stats"))
     state = payload["state"]
     opt = state.optimizer
-    tree = _host_tree({"batch_stats": None, "state": rec_train_state_to_jax(
+    holder = payload.get("batch_stats")
+    stats = None if holder is None else conv_recognizer_variables_to_jax(
+        holder.state_dict(), holder)["batch_stats"]
+    tree = _host_tree({"batch_stats": stats, "state": rec_train_state_to_jax(
         state.model.state_dict(), opt.named_state(), state.step,
-        state.model.backbone.cfg, schedule=opt.scheduled, **_chain(opt))})
+        _rec_layout(state.model), schedule=opt.scheduled, **_chain(opt))})
     tree["state"] = {k: tree["state"][k]
                      for k in ("params", "opt_state", "step")}
     return tree
+
+
+def _load_batch_stats(holder, stats) -> None:
+    """The file's batch_stats into the holder's BatchNorm buffers."""
+    if (holder is None) != (stats is None):
+        raise ValueError(
+            f"the file has {'no ' if stats is None else ''}batch_stats; the "
+            f"payload names {'no' if holder is None else 'a'} model holding "
+            f"BatchNorm statistics")
+    if holder is not None:
+        holder.load_state_dict(conv_batch_stats_from_jax(stats, holder),
+                               strict=False)
 
 
 def _is_classifier(model) -> bool:
@@ -124,9 +150,14 @@ def _apply_anchors(model, loop_state: Dict) -> None:
         model.cfg = dataclasses.replace(model.cfg, anchors=anchors)
 
 
-def _load_strict(model, sd: Dict[str, torch.Tensor]) -> None:
+def _load_strict(model, sd: Dict[str, torch.Tensor],
+                 buffers: bool = True) -> None:
+    """sd into the model; every parameter (and, with buffers, every buffer
+    but num_batches_tracked) must be in it."""
     model.load_state_dict(sd, strict=False)
-    missing = set(model.state_dict()) - set(sd)
+    want = set(model.state_dict()) if buffers \
+        else {n for n, _ in model.named_parameters()}
+    missing = want - set(sd)
     if any(not k.endswith("num_batches_tracked") for k in missing):
         raise KeyError(f"not in the checkpoint: {sorted(missing)[:5]}")
 
@@ -168,8 +199,8 @@ def _to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
 def save_train_state(path: str, payload: Dict[str, Any],
                      loop_state: Optional[Dict] = None) -> None:
     """payload: {"state": TrainState[, "mask": MaskState]}, {"state":
-    RecTrainState, "batch_stats": None}, {"state": YoloTrainState} or
-    {"detector": model}."""
+    RecTrainState, "batch_stats": None or the model holding the
+    statistics}, {"state": YoloTrainState} or {"detector": model}."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, STATE_FILE), "wb") as f:
         f.write(flax_msgpack.to_bytes(_to_tree(payload)))
@@ -180,7 +211,8 @@ def save_train_state(path: str, payload: Dict[str, Any],
 def load_train_state(path: str, payload: Dict[str, Any]
                      ) -> Tuple[Dict[str, Any], Dict]:
     """payload: the states to restore into, {"state": TrainState[, "mask":
-    MaskState]}, {"state": RecTrainState, "batch_stats": None},
+    MaskState]}, {"state": RecTrainState, "batch_stats": None or the
+    model holding the statistics},
     {"state": YoloTrainState} or {"detector": YoloV5 or YoloClassifier} (a
     detector's cfg takes the loop state's anchors); each
     entry found in the file is loaded in place.  Returns (the payload
@@ -202,14 +234,14 @@ def load_train_state(path: str, payload: Dict[str, Any]
         return {"state": _load_yolo_state(state, tree["state"],
                                           loop_state)}, loop_state
     if isinstance(state, RecTrainState):
-        if tree.get("batch_stats") is not None:
-            raise NotImplementedError(SLICE5.format("batch_stats"))
         opt = state.optimizer
         sd, named, step = rec_train_state_from_jax(
-            tree["state"], state.model.backbone.cfg, **_chain(opt))
-        state.model.load_state_dict(sd)
+            tree["state"], _rec_layout(state.model), **_chain(opt))
+        _load_strict(state.model, sd, buffers=False)
         opt.load_named_state(named)
-        restored.update(state=state._replace(step=step), batch_stats=None)
+        _load_batch_stats(payload.get("batch_stats"), tree.get("batch_stats"))
+        restored.update(state=state._replace(step=step),
+                        batch_stats=payload.get("batch_stats"))
     else:
         sd, named = linas_train_state_from_jax(tree["state"],
                                                state.model.cfg)

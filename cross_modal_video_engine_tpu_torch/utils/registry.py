@@ -4,8 +4,9 @@ Counterpart of cross_modal_video_engine_tpu/utils/registry.py: the same
 `Registry` class, so the config files' string keys (`type='Resize'`, ...)
 name the same components in both packages.  The port registers only what
 it has ported: the pipeline ops (data/pipelines.py, io/video_decode.py)
-in `PIPELINES`, the TimeSformer recognizers (models/recognizer.py) in
-`RECOGNIZERS`.
+in `PIPELINES`, the 3D-CNN backbones (models/resnet3d.py) in `BACKBONES`,
+their heads (models/heads.py) in `HEADS`, the recognizers
+(models/recognizer.py) in `RECOGNIZERS`.
 """
 
 from __future__ import annotations
@@ -54,4 +55,6 @@ class Registry:
 
 
 PIPELINES = Registry("pipelines")
+BACKBONES = Registry("backbones")
+HEADS = Registry("heads")
 RECOGNIZERS = Registry("recognizers")

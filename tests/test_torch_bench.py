@@ -242,6 +242,36 @@ def test_train_step_timesformer_row(capsys):
     assert rows[0]["tflops_per_sec"] > 0
 
 
+def test_train_step_slowfast_row(capsys):
+    from cross_modal_video_engine_tpu_torch.models.resnet3d import (
+        SlowFastConfig)
+    cfg = SlowFastConfig(depth_blocks=(1, 1, 1, 1), alpha=4, beta_inv=4,
+                         base_channels=8, fast_s2d_stem=True)
+    with torch.random.fork_rng(devices=[]):
+        extra.bench_train_step_slowfast(batch=2, frames=8, steps=1,
+                                        device="cpu", cfg=cfg,
+                                        num_classes=5, img=32)
+    rows = _rows(capsys)
+    _check_rows(rows, ["train_step_slowfast_r50_4x16_bf16_b2"])
+    assert rows[0]["tflops_per_sec"] > 0 and rows[0]["step_ms"] > 0
+
+
+def test_conv_flops_count_every_convolution():
+    """forward_flops counts the s2d stem as the plain conv it equals, and
+    a 1x1x1 conv by hand."""
+    from cross_modal_video_engine_tpu_torch.models.resnet3d import (
+        ResNet3D, ResNet3DConfig, forward_flops)
+    kw = dict(stage_blocks=(1, 1, 1, 1), base_channels=8, conv1_kernel_t=5)
+    x = torch.zeros(1, 4, 32, 32, 3)
+    plain = forward_flops(ResNet3D(ResNet3DConfig(**kw), "cpu"), x)
+    s2d = forward_flops(ResNet3D(ResNet3DConfig(**kw, s2d_stem=True), "cpu"),
+                        x)
+    assert plain == s2d > 0
+    stem = 2.0 * (8 * 4 * 16 * 16) * (3 * 5 * 7 * 7)
+    conv3 = 2.0 * (32 * 4 * 8 * 8) * 8        # layer1's 1x1x1 conv3
+    assert plain > stem + conv3
+
+
 def test_train_step_yolov5_rows(capsys):
     with torch.random.fork_rng(devices=[]):
         extra.bench_train_step_yolov5(batch=2, img=64, max_targets=4,

@@ -288,11 +288,19 @@ def test_init_recognizer_refusals(tmp_path, world):
     _, _, ckpt = world
     with pytest.raises(ValueError, match="state_dict"):
         api.init_recognizer({"backbone": TS, "decoder": DEC})
-    other = str(tmp_path / "x3d")
+    other = str(tmp_path / "mvit")
     jax_save_checkpoint(other, {"params": {}},
-                        {"backbone": {"type": "X3D"}, "decoder": DEC})
+                        {"backbone": {"type": "MViT"}, "decoder": DEC})
     with pytest.raises(NotImplementedError, match="slice 5"):
         api.init_recognizer(other, device="cpu")
+    # a 3D-CNN checkpoint without a decoder: both packages refuse it
+    cls = str(tmp_path / "x3d_cls")
+    jax_save_checkpoint(cls, {"params": {}},
+                        {"backbone": {"type": "X3D"}, "num_classes": 4})
+    with pytest.raises(ValueError, match="caption model"):
+        api.init_recognizer(cls, device="cpu")
+    with pytest.raises(AssertionError):
+        japi.init_recognizer(cls)
     # device=None is the card: on a machine without one, torch refuses
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
@@ -519,8 +527,9 @@ def _route(builder, **args):
 
 def _entry_points():
     from cross_modal_video_engine_tpu_torch.cli import (
-        caption_train, composed_inference, recognition_train,
-        retrieval_inference, retrieval_tester, serve, yolo_val)
+        caption_train, composed_inference, recognition_test,
+        recognition_train, retrieval_inference, retrieval_tester, serve,
+        yolo_val)
     from cross_modal_video_engine_tpu_torch.cli.common import (
         restore_dual_encoding)
     return {
@@ -562,6 +571,11 @@ def _entry_points():
                                "recognition"),
             "--work_dir", str(w["tmp"] / "recognition_work"), "--device",
             "cpu"]),
+        "recognition_test.main": lambda w: recognition_test.main([
+            write_train_config(str(w["tmp"]), w["caption"][1],
+                               "recognition"),
+            "--checkpoint", str(w["detector"][0] / "rec"), "--device",
+            "cpu"]),
         "yolo_val.main": lambda w: yolo_val.main([
             str(w["detector"][0] / "cfg.py"), "--checkpoint",
             str(w["detector"][0] / "best"), "--device", "cpu"]),
@@ -579,7 +593,8 @@ ENTRY_POINTS = ["restore_dual_encoding", "retrieval_inference.main",
                 "caption_inference.main", "caption_test.main",
                 "build_caption_handler", "caption_train.main",
                 "recognition_train.main", "yolo_val.main", "ctv_build.main",
-                "yolo_train.main", "yolo_cls_train.main"]
+                "yolo_train.main", "yolo_cls_train.main",
+                "recognition_test.main"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)

@@ -373,9 +373,11 @@ def test_jax_epoch_state_resumes_in_the_port_cli(tmp_path, capsys):
 # -- what the port refuses ----------------------------------------------------------
 
 def test_other_caption_backbones_raise(tmp_path):
+    """A backbone the port lacks is refused, naming its part (the 3D-CNNs
+    train: tests/test_torch_recognition_cli.py)."""
     cfg = Config.fromfile(write_fixture(tmp_path))
-    cfg.set("model.backbone", dict(type="ResNet3D", base_channels=4))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    cfg.set("model.backbone", dict(type="TSM", depth=50))
+    with pytest.raises(NotImplementedError, match="item 8b"):
         tct.train_from_config(cfg, str(tmp_path / "w"), device="cpu")
 
 

@@ -399,7 +399,7 @@ def test_recognition_train_main_end_to_end(tmp_path, capsys, bf16):
 # -- what the port refuses -------------------------------------------------------------
 
 @pytest.mark.parametrize("option,value", [
-    ("model.backbone", dict(type="SlowFast")),
+    ("model.backbone", dict(type="TSM")),
     ("model.neck", dict(type="TPN")),
     ("model.head", dict(type="TRNHead")),
     ("omnisource", dict(train_ratio=[2, 1])),

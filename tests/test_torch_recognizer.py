@@ -258,8 +258,8 @@ def test_init_recognizer_classifier_f32(classifier):
     np.testing.assert_allclose(to_np(got),
                                np.asarray(jm.apply(variables, jnp.asarray(v))),
                                rtol=0, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="X3D"):
-        api.init_recognizer({"backbone": {"type": "X3D"},
+    with pytest.raises(NotImplementedError, match="MViT"):
+        api.init_recognizer({"backbone": {"type": "MViT"},
                              "decoder": DECODER}, {}, device="cpu")
 
 
