@@ -4,9 +4,9 @@
 Usage: python3 chip_smoke.py [STEP ...]   (from the root of the repository)
 
 With no argument every step runs (the whole smoke run).  A list of
-step numbers ("18", "13 18" or "13,18") runs only those steps, always
+step numbers ("19", "13 19" or "13,19") runs only those steps, always
 after the build (2) and the kernel checks (3) and before the results
-(19); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
+(20); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
 step did not run is null in the `kernels` line; the last line names the
 steps that ran and those skipped.
 
@@ -250,8 +250,9 @@ steps that ran and those skipped.
     through the reader seam, 2 epochs with validation, a resume from
     epoch_0 against the uninterrupted epoch 1 (parameters and
     batch_stats), model_best with its batch_stats; one stats step at
-    batch 2 card against CPU in f32 and in bf16, from the training init
-    and from epoch_1, both held to float64 as closely as the CPU is,
+    batch 2 card against CPU in f32 and in bf16, from epoch_1 (step 19b
+    takes steps from the training init), held to float64 as closely as
+    the CPU is,
     with planted faults the check must refuse; bench/extra.py's
     `train_step_slowfast` row at batch 8 and 32 (halved until it fits),
     the shipped recipe's step by CUDA
@@ -260,15 +261,32 @@ steps that ran and those skipped.
     epoch, its model_best served over /caption (4 batch-1 requests and a
     burst of 8, p50/p99), every answer against a direct `caption_clips`;
     (d) the launch counters;
-19. prints the JSON lines of steps 10-18 that ran and of the kernel
+19. the 2D, TSM and pyramid recognizers at full width, the same way
+    (none may launch a kernel): (a) each shipped recipe (tsm_r50_1x1x8,
+    tsn_r50_1x1x3, tin_r50_1x1x8 (mmaction's ResNetTIN), trn_r50_1x1x8
+    (TRNMultiScale), tanet_r50, tpn_slowonly_r50_8x8, c3d_16x1 at 16x112²
+    with fc 4096, r2plus1d_r34_8x8; their own classes and clips, the
+    training init) and tsm_relseq.py's pooled TSM feature, card against
+    CPU at batch 1 in f32, logits within CNN18_REL and cosine CNN18_COS,
+    then the forward at batch 8 in f32 and bf16; (b) one stats step at
+    batch 1 card against CPU for TSM, TIN, TRN (one fixed draw of its
+    tuples) and TPN (with loss_aux), f32, and bf16 for TSM, held to
+    float64 as 18b holds SlowFast, with its planted faults; (c)
+    `recognition_train.train_from_config` on the shipped TSM recipe over
+    16 seeded videos at batch 8, one epoch with validation, then
+    `recognition_test.test_from_config` on its model_best, the scores
+    against a direct forward_test; (d) `caption_train` on the shipped
+    tsm_relseq.py, one epoch, its model_best served over /caption as in
+    18c; (e) the launch counters;
+20. prints the JSON lines of steps 10-19 that ran and of the kernel
     results (launches on the main paths, on the composed, caption and
     explain routes, in the training steps, in the bank build, in the
-    caption transformer's generates, in the detector's training and in
-    the 3D-CNN step, error, time, plain time, bound, library time) and,
-    last, a JSON line naming the device.
+    caption transformer's generates, in the detector's training, in the
+    3D-CNN step and in the 2D-CNN step, error, time, plain time, bound,
+    library time) and, last, a JSON line naming the device.
 
 Nothing is cut: the models run at full width and depth (the 3D-CNN
-trainers 2 and 1 epochs of 16 videos; the LINAS
+trainers 2 and 1 epochs of 16 videos, the 2D ones 1 epoch each; the LINAS
 training runs 2 epochs of a 2,560-caption collection, the TimeSformer
 trainers 2 and 1 epochs of 32 videos, the detector's trainers 2 and 1
 epochs of 32 images and the classifier's 1 epoch of 128; the composed
@@ -5287,9 +5305,9 @@ I3D_RELSEQ_CONFIG = ROOT / "configs" / "seq_generate" / "i3d_relseq.py"
 # fits)
 TRAIN18_VIDEOS, TRAIN18_VAL, TRAIN18_BATCH, TRAIN18_CPU_BATCH = 16, 8, 8, 2
 TRAIN18_BIG, TRAIN18_TIMED, TRAIN18_PROFILED = 32, 6, 4
-# one step card vs CPU at full width, from the training init and from the
-# CLI's epoch_1 state (4 steps on), head dropout 0.  float64 on both
-# devices is the witness: every gradient and running statistic within
+# one step card vs CPU at full width, from the CLI's epoch_1 state (4
+# steps on; the training init's steps are 19b's), head dropout 0.
+# float64 on both devices is the witness: every gradient and running statistic within
 # STEP18_F64 of its tensor's largest (the same arithmetic), and the
 # truth the f32 and bf16 steps are held to.  The CPU tests' bounds
 # against JAX (STEP18_TESTS) hold wherever f32 or bf16 arithmetic meets
@@ -5316,7 +5334,15 @@ TRAIN18_BIG, TRAIN18_TIMED, TRAIN18_PROFILED = 32, 6, 4
 #   STEP18_AGREE of it; where the CPU's L2 error is within
 #   STEP18_GROSS[0] of the tensor's norm, the card's is within
 #   STEP18_GROSS[1] (a zero, negated, doubled or random gradient fails
-#   either);
+#   either).  "The CPU's" is the worse of two CPU runs, at torch's
+#   thread count and at half of it (two summation orders): a tensor
+#   whose f32 gradient moves by more than STEP18_GROSS[0] of its norm
+#   with the CPU's thread count is not fixed by f32 arithmetic, and no
+#   device can be held to it alone (TIN's offset and weight nets at the
+#   training init lie from percents to several times their norm from
+#   float64, by summation order, on either device:
+#   `bench/step_orders.py` reads it); the groups and the whole gradient
+#   hold it, and the primary CPU run alone sets their bounds;
 # - both: the card's parameters moved by the optimizer's update of its
 #   own gradients, lr (clip(g) + wd p), within STEP18_UPDATE of each
 #   tensor's largest update plus STEP18_ULP of its largest parameter
@@ -5487,13 +5513,35 @@ def _group(name: str) -> str:
 
 def _start_model(cfg, d, start):
     """The config's classifier on device d at `start` (a state dict; None:
-    the training init), head dropout 0."""
+    the training init), every dropout 0 and a TRN head's train-mode tuples
+    one fixed draw (seed 19), so that runs on both devices agree."""
+    import torch
     from cross_modal_video_engine_tpu_torch.cli import recognition_train
+    from cross_modal_video_engine_tpu_torch.models.heads import TRNHead
+    from cross_modal_video_engine_tpu_torch.models.layers import Dropout
     model = recognition_train.build_recognition_model(cfg, d)
     if start is not None:
         model.load_state_dict(start)
-    model.cls_head.dropout.p = 0.0
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    head = model.cls_head
+    if isinstance(head, TRNHead):
+        head.generator = torch.Generator().manual_seed(19)
+        picks = head.draw_picks()
+        head.draw_picks = lambda: picks
     return model
+
+
+def _train_loss(model, clips, labels):
+    """The train-mode loss of a classifier in its own dtype (float64 in
+    the witness runs): the cross entropy, plus the TPN neck's loss_aux."""
+    import torch
+    out = model(clips, target=labels) if hasattr(model, "neck") \
+        else model(clips)
+    scores, aux = out if isinstance(out, tuple) else (out, {})
+    return (torch.nn.functional.cross_entropy(scores, labels)
+            + aux.get("loss_aux", 0.0))
 
 
 def _grads64(model) -> dict:
@@ -5514,25 +5562,30 @@ def _f64_run(cfg, d, start, clips, labels) -> dict:
     loss, the gradients and the running statistics after it."""
     import torch
     model = _start_model(cfg, d, start).double().train()
-    loss = torch.nn.functional.cross_entropy(
-        model(torch.from_numpy(clips).to(d, torch.float64)),
-        torch.from_numpy(labels).to(d))
+    loss = _train_loss(model, torch.from_numpy(clips).to(d, torch.float64),
+                       torch.from_numpy(labels).to(d))
     loss.backward()
     return {"loss": float(loss.detach()), "grads": _grads64(model),
             "stats": _stats64(model)}
 
 
 def _step_run(cfg, d, start, clips, labels, bf16: bool) -> dict:
-    """One make_cls_train_step_stats step on device d: the loss, the
-    gradients, the parameters and statistics before and after it."""
+    """One make_cls_train_step_stats step (a TPNRecognizer's
+    make_tpn_train_step_stats) on device d: the loss, the gradients, the
+    parameters and statistics before and after it."""
     import torch
+    from cross_modal_video_engine_tpu_torch.models.recognizer import (
+        TPNRecognizer)
     from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
         RecognitionTrainConfig, init_rec_state, make_cls_train_step_stats,
-        make_rec_optimizer)
+        make_rec_optimizer, make_tpn_train_step_stats)
     model = _start_model(cfg, d, start)
     state = init_rec_state(model, make_rec_optimizer(
-        RecognitionTrainConfig(**cfg["optimizer"]), 10))
-    step = make_cls_train_step_stats(model, bf16=bf16, device=d)
+        RecognitionTrainConfig(**dict(cfg["optimizer"], warmup_steps=0)),
+        10))
+    make = make_tpn_train_step_stats if isinstance(model, TPNRecognizer) \
+        else make_cls_train_step_stats
+    step = make(model, bf16=bf16, device=d)
     p0 = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
     s0 = _stats64(model)
     t0 = time.perf_counter()
@@ -5579,30 +5632,42 @@ def _sum_cos(dot, aa, bb) -> float:
     return 1.0 if aa == bb == 0 else dot / ((aa * bb) ** 0.5 + 1e-300)
 
 
-def _tensor_ok(c, u, tt, numel) -> bool:
-    """One tensor's gradient from its sums (c: the card's, u: the CPU's,
-    tt: |truth|²): it keeps STEP18_AGREE of the CPU's cosine to float64
-    where that is STEP18_SIGNAL/sqrt(size) or more, and lies within
-    STEP18_GROSS[1] of the tensor's norm from float64 where the CPU's lies
-    within STEP18_GROSS[0]."""
-    card_c, cpu_c = _sum_cos(c[1], c[0], tt), _sum_cos(u[1], u[0], tt)
+def _tensor_ok(c, gate, tt, numel) -> bool:
+    """One tensor's gradient from its sums (c: the card's, gate: the CPU
+    runs' worst cosine to float64 and worst |g - truth|², tt: |truth|²):
+    it keeps STEP18_AGREE of that cosine where it is
+    STEP18_SIGNAL/sqrt(size) or more, and lies within STEP18_GROSS[1] of
+    the tensor's norm from float64 where every CPU run lies within
+    STEP18_GROSS[0]."""
+    card_c = _sum_cos(c[1], c[0], tt)
+    cpu_c, cpu_e2 = gate
     lo, hi = STEP18_GROSS
     return ((cpu_c * numel ** 0.5 < STEP18_SIGNAL
              or card_c >= STEP18_AGREE * cpu_c)
-            and (u[3] > lo * lo * tt or c[3] <= hi * hi * tt))
+            and (cpu_e2 > lo * lo * tt or c[3] <= hi * hi * tt))
 
 
-def _reference(cpu, f64) -> dict:
-    """What the verdict needs of the CPU's run and of float64, once."""
+def _gate(runs, truth, tt) -> dict:
+    """Per tensor, over the CPU runs (two summation orders): the worst
+    cosine to float64 and the worst |g - truth|²."""
+    sums = [_sums(r["grads"], truth, r["grads"]) for r in runs]
+    return {n: (min(_sum_cos(s[n][1], s[n][0], tt[n]) for s in sums),
+                max(s[n][3] for s in sums)) for n in truth}
+
+
+def _reference(cpu, f64, alt=None) -> dict:
+    """What the verdict needs of the CPU's run (and of `alt`, the CPU's
+    run at another thread count) and of float64, once."""
     truth = f64["grads"]
     names = list(truth)
     groups = {}
     for n in names:
         groups.setdefault(_group(n), []).append(n)
-    return {"truth": truth, "groups": groups,
-            "tt": {n: float((t * t).sum()) for n, t in truth.items()},
+    tt = {n: float((t * t).sum()) for n, t in truth.items()}
+    return {"truth": truth, "groups": groups, "tt": tt,
             "numel": {n: t.numel() for n, t in truth.items()},
-            "cpu": _sums(cpu["grads"], truth, cpu["grads"])}
+            "cpu": _sums(cpu["grads"], truth, cpu["grads"]),
+            "gate": _gate([cpu] + ([alt] if alt else []), truth, tt)}
 
 
 def _step_verdict(card, cpu, f64, ref, tcfg, bf16: bool,
@@ -5618,7 +5683,10 @@ def _step_verdict(card, cpu, f64, ref, tcfg, bf16: bool,
     if not (np.isfinite(card["loss"])
             and loss_rel <= (BF16_LOSS_REL if bf16 else STEP18_LOSS)):
         failed.append("loss")
-    ok = all(_tensor_ok(cs[n], us[n], tt[n], numel[n]) for n in truth)
+    bad_tensors = [n for n in truth
+                   if not _tensor_ok(cs[n], ref["gate"][n], tt[n], numel[n])]
+    ok = not bad_tensors
+    read["bad_tensors"] = bad_tensors[:5]
     read["worst_tensors"] = [dict(zip(
         ("card_l2_err", "name", "cpu_l2_err", "card_f64_cos", "cpu_f64_cos"),
         w)) for w in sorted(
@@ -5631,7 +5699,7 @@ def _step_verdict(card, cpu, f64, ref, tcfg, bf16: bool,
     def total(sums, ns, i):
         return sum(sums[n][i] for n in ns)
 
-    by_group = {}
+    by_group, bad_groups = {}, []
     for grp, ns in list(ref["groups"].items()) + [("all", list(truth))]:
         t2 = sum(tt[n] for n in ns)
         c2, u2 = total(cs, ns, 0), total(us, ns, 0)
@@ -5642,17 +5710,19 @@ def _step_verdict(card, cpu, f64, ref, tcfg, bf16: bool,
                "cpu_l2_err": (total(us, ns, 3) / t2) ** 0.5}
         by_group[grp] = row
         if grp == "all":
-            if not bf16:
-                ok &= (1.0 - row["card_f64_cos"] <= max(
-                    1.0 - STEP18_TESTS["grad_cos"],
-                    STEP18_ACC * (1.0 - row["cpu_f64_cos"])) + STEP18_FLOOR)
+            held = bf16 or (1.0 - row["card_f64_cos"] <= max(
+                1.0 - STEP18_TESTS["grad_cos"],
+                STEP18_ACC * (1.0 - row["cpu_f64_cos"])) + STEP18_FLOOR)
         elif bf16:
-            ok &= 1.0 - row["card_f64_cos"] <= max(
+            held = 1.0 - row["card_f64_cos"] <= max(
                 1.0 - BF16_GRAD_COS, STEP18_ACC * (1.0 - row["cpu_f64_cos"]))
         else:
-            ok &= row["card_l2_err"] <= max(STEP18_TESTS["grad"],
-                                            STEP18_ACC * row["cpu_l2_err"])
-    read["by_group"] = by_group
+            held = row["card_l2_err"] <= max(STEP18_TESTS["grad"],
+                                             STEP18_ACC * row["cpu_l2_err"])
+        if not held:
+            bad_groups.append(grp)
+        ok &= held
+    read["by_group"], read["bad_groups"] = by_group, bad_groups
     if not ok:
         failed.append("gradients")
     read["update_over_bound"] = _update_over_bound(card, tcfg)
@@ -5711,37 +5781,48 @@ def _planted(card, cpu, f64, ref, tcfg, bf16: bool) -> dict:
         for n, (gg, gt, gu, _) in real.items():
             tt = ref["tt"][n]
             faulty = (a * a * gg, a * gt, a * gu, a * a * gg - 2 * a * gt + tt)
-            if _tensor_ok(faulty, ref["cpu"][n], tt, ref["numel"][n]):
+            if _tensor_ok(faulty, ref["gate"][n], tt, ref["numel"][n]):
                 missed.append(n)
         out[name] = {"refused_in": len(real) - len(missed), "of": len(real),
                      "missed": missed[:3]}
     return out
 
 
-def step_card_vs_cpu(dev, cfg, clips, labels, start) -> dict:
-    """One make_cls_train_step_stats step of the config's classifier from
-    `start` (None: the training init) on the card and on the CPU at
-    TRAIN18_CPU_BATCH, f32 and bf16, held to the float64 run of both
-    devices by the STEP18_* bounds, with the planted faults, and the
-    STEP18_TESTS readings."""
+def step_card_vs_cpu(dev, cfg, clips, labels, start,
+                     bf16s=(False, True)) -> dict:
+    """One stats step of the config's classifier from `start` (None: the
+    training init) on the card and on the CPU at the clips' batch, in f32
+    and (in bf16s) bf16, held to the float64 run of both devices by the
+    STEP18_* bounds, with the planted faults, and the STEP18_TESTS
+    readings."""
     import torch
     from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
         RecognitionTrainConfig)
-    tcfg = RecognitionTrainConfig(**cfg["optimizer"])
+    tcfg = RecognitionTrainConfig(**dict(cfg["optimizer"], warmup_steps=0))
     cpu_dev = torch.device("cpu")
     t0 = time.perf_counter()
     f64 = {w: _f64_run(cfg, d, start, clips, labels)
            for w, d in (("card", dev), ("cpu", cpu_dev))}
-    witness = max([_max_rel(f64["card"][k][n], f64["cpu"][k][n])
-                   for k in ("grads", "stats") for n in f64["cpu"][k]])
-    out = {"f64_max_rel": witness,
+    worst = sorted(((_max_rel(f64["card"][k][n], f64["cpu"][k][n]), n)
+                    for k in ("grads", "stats") for n in f64["cpu"][k]),
+                   reverse=True)
+    witness = worst[0][0]
+    out = {"f64_max_rel": witness, "f64_worst": worst[:3],
            "f64_loss": [f64["card"]["loss"], f64["cpu"]["loss"]],
            "f64_s": time.perf_counter() - t0}
     failed = [] if witness <= STEP18_F64 else ["float64 witness"]
-    for bf16 in (False, True):
+    threads = torch.get_num_threads()
+    for bf16 in bf16s:
         card = _step_run(cfg, dev, start, clips, labels, bf16)
         cpu = _step_run(cfg, cpu_dev, start, clips, labels, bf16)
-        ref = _reference(cpu, f64["card"])
+        # the same step in another summation order: the CPU at half its
+        # threads
+        torch.set_num_threads(max(1, threads // 2))
+        try:
+            alt = _step_run(cfg, cpu_dev, start, clips, labels, bf16)
+        finally:
+            torch.set_num_threads(threads)
+        ref = _reference(cpu, f64["card"], alt)
         bad, read = _step_verdict(card, cpu, f64["card"], ref, tcfg, bf16)
         planted = _planted(card, cpu, f64["card"], ref, tcfg, bf16)
         names = list(cpu["grads"])
@@ -5760,12 +5841,14 @@ def step_card_vs_cpu(dev, cfg, clips, labels, start) -> dict:
                                     for k in ("grad", "param", "stats")))
         key = "bf16" if bf16 else "f32"
         out[key] = dict(read, loss_card=card["loss"], loss_cpu=cpu["loss"],
-                        card_s=card["s"], cpu_s=cpu["s"], failed=bad,
+                        card_s=card["s"], cpu_s=cpu["s"],
+                        cpu_alt_s=alt["s"], cpu_threads=[
+                            threads, max(1, threads // 2)], failed=bad,
                         planted=planted, absolute=absolute)
         failed += [f"{key} {b}" for b in bad]
         failed += [f"{key} planted {k} not refused"
                    for k, v in planted.items() if v.get("refused") is False]
-        del card, cpu
+        del card, cpu, alt
     out["failed"] = failed
     return out
 
@@ -5774,8 +5857,8 @@ def slowfast_training(dev, card, tmp, videos, names) -> dict:
     """18b: the shipped SlowFast-R50 4x16 recipe (fast s2d stem on)
     trained by recognition_train.train_from_config at batch 8: 2 epochs,
     a resume from epoch_0, model_best with batch_stats; one step card vs
-    CPU at batch 2 in f32 and in bf16 from the training init and from
-    epoch_1; the bench row's bf16 step at batch 8 and 32, the shipped
+    CPU at batch 2 in f32 and in bf16 from epoch_1; the bench row's bf16
+    step at batch 8 and 32, the shipped
     config's loop by CUDA events and the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -5864,14 +5947,14 @@ def slowfast_training(dev, card, tmp, videos, names) -> dict:
                          "failed")
     torch.cuda.empty_cache()
 
-    # one step card vs CPU from the training init and from epoch_1
+    # one step card vs CPU from epoch_1 (step 19b takes four recipes'
+    # steps from the training init)
     holder = recognition_train.build_recognition_model(cfg, "cpu")
     load_train_state(os.path.join(work, "epoch_1"), {
         "state": init_rec_state(holder, make_rec_optimizer(
             RecognitionTrainConfig(**cfg["optimizer"]), 10)),
         "batch_stats": holder})
-    for start_name, start in (("training init", None),
-                              ("epoch_1", holder.state_dict())):
+    for start_name, start in (("epoch_1", holder.state_dict()),):
         step_line = step_card_vs_cpu(dev, cfg, clips, labels, start)
         line[f"step_{start_name.split()[-1]}"] = step_line
         print(f"18b one stats step of slowfast_r50_4x16_k400.py (400 "
@@ -5886,10 +5969,11 @@ def slowfast_training(dev, card, tmp, videos, names) -> dict:
               f"loss within {BF16_LOSS_REL}, each group's 1 - cosine to "
               f"float64 within {1 - BF16_GRAD_COS:g} or {STEP18_ACC}x the "
               f"CPU's; each tensor: "
-              f"{STEP18_AGREE} of the CPU's cosine to float64 where that "
-              f"is {STEP18_SIGNAL}/sqrt(size) or more, the L2 error within "
-              f"{STEP18_GROSS[1]} of its norm where the CPU's is within "
-              f"{STEP18_GROSS[0]}; the parameters moved by lr (clip(g) + "
+              f"{STEP18_AGREE} of the worse CPU run's cosine to float64 "
+              f"where that is {STEP18_SIGNAL}/sqrt(size) or more, the L2 "
+              f"error within {STEP18_GROSS[1]} of its norm where both CPU "
+              f"runs' (all threads, half) are within {STEP18_GROSS[0]}; "
+              f"the parameters moved by lr (clip(g) + "
               f"wd p) within {STEP18_UPDATE} of each tensor's largest "
               f"update + {STEP18_ULP} of its largest parameter; statistics "
               f"within {STEP18_STATS} of the CPU's (f32), from float64 "
@@ -5987,11 +6071,13 @@ def slowfast_training(dev, card, tmp, videos, names) -> dict:
     return line
 
 
-def i3d_caption(dev, card, tmp, videos, names) -> dict:
-    """18c: caption_train.train_from_config on the shipped i3d_relseq.py
-    (I3D-R50 32x2, RNN decoder 2048 -> 36 x 5), one epoch at batch 8, then
-    its model_best served over /caption: batch-1 requests and a burst of
-    8, each answer equal to a direct caption_clips."""
+def served_caption(dev, card, tmp, videos, names, config, tag: str,
+                   seed: int, epochs: int) -> dict:
+    """caption_train.train_from_config on a shipped seq_generate config
+    (18c: i3d_relseq.py, I3D-R50 32x2, RNN decoder 2048 -> 36 x 5; 19d:
+    tsm_relseq.py) at batch 8 for `epochs`, then its model_best served
+    over /caption: batch-1 requests and a burst of 8, each answer equal
+    to a direct caption_clips."""
     import argparse
     import torch
     from cross_modal_video_engine_tpu_torch.bench import serve as bserve
@@ -6000,34 +6086,37 @@ def i3d_caption(dev, card, tmp, videos, names) -> dict:
         RecognizerRelseq)
 
     line = {"card": card}
-    train_ann = write_training_split(tmp, names, "relseq", 57)
-    val_ann = write_training_split(tmp, names[:TRAIN18_VAL], "relseq", 57)
+    train_ann = write_training_split(tmp, names, "relseq", seed)
+    val_ann = write_training_split(tmp, names[:TRAIN18_VAL], "relseq", seed)
     cfg = shipped_training_config(
-        I3D_RELSEQ_CONFIG, **{"data.train.ann_file": train_ann,
-                              "data.train.data_prefix": None,
-                              "data.val.ann_file": val_ann,
-                              "data.val.data_prefix": None,
-                              "data.videos_per_gpu": TRAIN18_BATCH,
-                              "total_epochs": 1, "eval_interval": 1})
-    work = os.path.join(tmp, "i3d_relseq")
+        config, **{"data.train.ann_file": train_ann,
+                   "data.train.data_prefix": None,
+                   "data.val.ann_file": val_ann,
+                   "data.val.data_prefix": None,
+                   "data.videos_per_gpu": TRAIN18_BATCH,
+                   "total_epochs": epochs, "eval_interval": 1})
+    work = os.path.join(tmp, config.stem)
     t0 = time.perf_counter()
     history = caption_train.train_from_config(cfg, work, device=dev,
                                               reader=videos.__getitem__)
     torch.cuda.synchronize()
     line["cli"] = {"history": history, "seconds": time.perf_counter() - t0}
-    print(f"18c caption_train.train_from_config (i3d_relseq.py, f32) over "
-          f"{len(names)} seeded videos, batch {TRAIN18_BATCH}, 1 epoch with "
-          f"validation on {TRAIN18_VAL}: {json.dumps(history)} in "
-          f"{line['cli']['seconds']:.1f} s", flush=True)
-    if len(history) != 1 or not np.isfinite(history[0]["loss"]):
-        raise SystemExit("18c the caption CLI failed")
+    print(f"{tag} caption_train.train_from_config ({config.name}, f32) "
+          f"over {len(names)} seeded videos, batch {TRAIN18_BATCH}, "
+          f"{epochs} epoch(s) with validation on {TRAIN18_VAL}: "
+          f"{json.dumps(history)} in {line['cli']['seconds']:.1f} s on "
+          f"{card}", flush=True)
+    if len(history) != epochs or not all(np.isfinite(h["loss"])
+                                         for h in history):
+        raise SystemExit(f"{tag} the caption CLI failed")
 
     args = argparse.Namespace(caption_checkpoint=os.path.join(
         work, "model_best"), device=str(dev))
     server, handler = bserve.start_caption_server(args, videos.__getitem__)
     try:
         if not isinstance(handler.model, RecognizerRelseq):
-            raise SystemExit("18c /caption did not load a RecognizerRelseq")
+            raise SystemExit(f"{tag} /caption did not load a "
+                             f"RecognizerRelseq")
         port = server.server_address[1]
         bserve.post_caption(port, {"video": names[0]})          # warm-up
         single = [bserve.request(port, "caption",
@@ -6050,7 +6139,7 @@ def i3d_caption(dev, card, tmp, videos, names) -> dict:
     line.update(batch1_ms=bserve.percentiles([ms for ms, _ in single]),
                 burst_ms=bserve.percentiles([ms for ms, _ in burst]),
                 agreement=agree)
-    print(f"18c model_best served over /caption: {CAPTION18_SINGLE} batch-1 "
+    print(f"{tag} model_best served over /caption: {CAPTION18_SINGLE} batch-1 "
           f"requests p50 {line['batch1_ms']['p50']:.2f} ms, p99 "
           f"{line['batch1_ms']['p99']:.2f} ms; a burst of {CAPTION18_BURST} "
           f"p50 {line['burst_ms']['p50']:.2f} ms, p99 "
@@ -6060,7 +6149,7 @@ def i3d_caption(dev, card, tmp, videos, names) -> dict:
           f"f32, so a wave's other rows move a probability by rounding only)"
           f" on {card}", flush=True)
     if agree["step0_disagree"]:
-        raise SystemExit("18c /caption disagrees with caption_clips")
+        raise SystemExit(f"{tag} /caption disagrees with caption_clips")
     torch.cuda.empty_cache()
     return line
 
@@ -6088,7 +6177,8 @@ def check_step18(dev, card) -> Tuple[dict, dict]:
         line["slowfast"] = slowfast_training(dev, card, tmp, videos, names)
         line["slowfast"]["seconds"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        line["i3d_caption"] = i3d_caption(dev, card, tmp, videos, names)
+        line["i3d_caption"] = served_caption(
+            dev, card, tmp, videos, names, I3D_RELSEQ_CONFIG, "18c", 57, 1)
         line["i3d_caption"]["seconds"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counted.items()}
@@ -6099,6 +6189,276 @@ def check_step18(dev, card) -> Tuple[dict, dict]:
           f"{line['seconds']:.1f} s", flush=True)
     if any(launches.values()):
         raise SystemExit("18d a 3D-CNN path launched a kernel")
+    return line, launches
+
+
+# -- step 19: the 2D, TSM and pyramid recognizers (ROADMAP item 8b) -----------
+# 19a: each shipped recipe of the slice at its own widths, classes and clip
+# (the sampler's frames, times the segments MergeClips folds in, at the
+# crop size), the training init (numpy seed 0); the tsm_relseq caption
+# model's pooled TSM feature
+CNN19 = {"tsm_r50_1x1x8": "tsm_r50_1x1x8_k400.py",
+         "tsn_r50_1x1x3": "tsn_r50_1x1x3_k400.py",
+         "tin_r50_1x1x8": "tin_r50_1x1x8_sthv2.py",
+         "trn_r50_1x1x8": "trn_r50_1x1x8_sthv1.py",
+         "tanet_r50": "tanet_r50_k400.py",
+         "tpn_slowonly_r50_8x8": "tpn_slowonly_r50_8x8_k400.py",
+         "c3d_16x1": "c3d_sports1m_16x1_ucf101.py",
+         "r2plus1d_r34_8x8": "r2plus1d_r34_8x8_k400.py"}
+TSM_RELSEQ_CONFIG = ROOT / "configs" / "seq_generate" / "tsm_relseq.py"
+# 19b: one stats step card vs CPU at batch TRAIN19_CPU_BATCH from the
+# training init, held to float64 by step_card_vs_cpu (18b's bounds and
+# planted faults); bf16 too for the recipes in STEP19_BF16 (TPN's bf16
+# step is left out for the script's time)
+STEP19 = ("tsm_r50_1x1x8", "tin_r50_1x1x8", "trn_r50_1x1x8",
+          "tpn_slowonly_r50_8x8")
+STEP19_BF16 = ("tsm_r50_1x1x8",)
+TRAIN19_CPU_BATCH = 1
+# 19c/d: the CLIs over 16 seeded videos at batch 8, one epoch
+TRAIN19_EPOCHS = 1
+
+
+def _clip_shape(cfg) -> Tuple[int, int]:
+    """(T, size) of a config's clips."""
+    ops = {op["type"]: op for op in cfg["data.pipeline"]}
+    sample = ops.get("SampleFrames") or ops["DenseSampleFrames"]
+    t = sample["clip_len"] * (sample["num_clips"] if "MergeClips" in ops
+                              else 1)
+    return t, ops["CenterCrop"]["crop_size"]
+
+
+def cnn2d_forwards(dev, card) -> dict:
+    """19a: each shipped recipe of the slice card vs CPU at batch 1 (f32,
+    TF32 off; tsm_relseq: its pooled backbone feature), then its forward
+    at batch 8 in f32 and bf16 (ms, TFLOP/s of its products, peak
+    memory)."""
+    import copy
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import (caption_train,
+                                                        recognition_train)
+    from cross_modal_video_engine_tpu_torch.models.resnet3d import (
+        forward_flops)
+
+    out = {"card": card}
+    rng = np.random.default_rng(19)
+    recipes = [(n, CNN_CONFIGS / f) for n, f in CNN19.items()]
+    recipes.append(("tsm_relseq", TSM_RELSEQ_CONFIG))
+    for name, path in recipes:
+        t0 = time.perf_counter()
+        cfg = shipped_training_config(path)
+        t, size = _clip_shape(cfg)
+        models = {}
+        for where_, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            if name == "tsm_relseq":
+                models[where_] = caption_train.build_caption_model(
+                    cfg, d)[0].backbone.eval()
+            else:
+                models[where_] = recognition_train.build_recognition_model(
+                    cfg, d).eval()
+        x1 = torch.from_numpy(rng.standard_normal((1, t, size, size, 3),
+                                                  dtype=np.float32))
+        with torch.no_grad():
+            t1 = time.perf_counter()
+            want = models["cpu"](x1)
+            cpu_s = time.perf_counter() - t1
+            got = models["card"](x1.to(dev)).cpu()
+        del models["cpu"]
+        model = models["card"]
+        rec = {"clip": [t, size], "params_m": sum(
+            p.numel() for p in model.parameters()) / 1e6,
+               "type": type(model).__name__,
+               "max_rel": _max_rel(got, want), "cosine": _cosine(got, want),
+               "cpu_s": cpu_s}
+        x8 = torch.from_numpy(rng.standard_normal(
+            (CNN18_BATCH, t, size, size, 3), dtype=np.float32)).to(dev)
+        flops = forward_flops(model, x8)
+        bf = copy.deepcopy(model).to(torch.bfloat16)
+        for dtype, m, x in (("f32", model, x8),
+                            ("bf16", bf, x8.to(torch.bfloat16))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            with torch.no_grad():
+                ms = cuda_ms(lambda: m(x), iters=CNN18_TIMED, warmup=2)
+            rec[dtype] = {"ms": ms, "videos_per_s": CNN18_BATCH * 1e3 / ms,
+                          "tflops_per_s": flops / ms / 1e9,
+                          "peak_mib": torch.cuda.max_memory_allocated(dev)
+                          / 2 ** 20}
+        rec["gflops_per_video"] = flops / CNN18_BATCH / 1e9
+        rec["seconds"] = time.perf_counter() - t0
+        out[name] = rec
+        print(f"19a {name} ({path.name}, {rec['type']}, "
+              f"{rec['params_m']:.2f}M parameters, {t}x{size}², training "
+              f"init): card vs CPU at batch 1 f32 max |diff| / max |CPU| "
+              f"{rec['max_rel']:.2e} (need <= {CNN18_REL}), cosine "
+              f"{rec['cosine']:.7f} (need >= {CNN18_COS}); forward at batch "
+              f"{CNN18_BATCH}: f32 {rec['f32']['ms']:.2f} ms "
+              f"({rec['f32']['tflops_per_s']:.1f} TFLOP/s, "
+              f"{rec['f32']['peak_mib']:.0f} MiB peak), bf16 "
+              f"{rec['bf16']['ms']:.2f} ms ({rec['bf16']['tflops_per_s']:.1f}"
+              f" TFLOP/s, {rec['bf16']['peak_mib']:.0f} MiB peak); "
+              f"{rec['gflops_per_video']:.1f} GFLOP a video; "
+              f"{rec['seconds']:.1f} s on {card}", flush=True)
+        if (rec["max_rel"] > CNN18_REL or rec["cosine"] < CNN18_COS
+                or not torch.isfinite(got).all()):
+            raise SystemExit(f"19a {name}: the card disagrees with the CPU")
+        del model, bf, x8, x1
+        torch.cuda.empty_cache()
+    return out
+
+
+def cnn2d_steps(dev, card, videos, names) -> dict:
+    """19b: one stats step card vs CPU for each recipe of STEP19 from the
+    training init on seeded clips through the recipe's own pipeline."""
+    from cross_modal_video_engine_tpu_torch.data.pipelines import (
+        build_pipeline, with_reader)
+    out = {"card": card}
+    for name in STEP19:
+        t0 = time.perf_counter()
+        cfg = shipped_training_config(CNN_CONFIGS / CNN19[name])
+        pipe = build_pipeline(with_reader(cfg["data.pipeline"],
+                                          videos.__getitem__))
+        clips = np.stack([pipe({"filename": n, "start_index": 0})["imgs"][0]
+                          for n in names[:TRAIN19_CPU_BATCH]]).astype(
+                              np.float32)
+        labels = (np.arange(TRAIN19_CPU_BATCH) * 7) % cfg["model.num_classes"]
+        bf16s = (False, True) if name in STEP19_BF16 else (False,)
+        rec = step_card_vs_cpu(dev, cfg, clips, labels, None, bf16s)
+        rec["seconds"] = time.perf_counter() - t0
+        out[name] = rec
+        for key in ("f32", "bf16")[:len(bf16s)]:
+            r = rec[key]
+            by = r["by_group"]
+            groups = {g: round(v["card_f64_cos"], 6) for g, v in by.items()}
+            planted = {k: v.get("refused", v.get("refused_in"))
+                       for k, v in r["planted"].items()}
+            print(f"19b {name} one stats step at batch {TRAIN19_CPU_BATCH} "
+                  f"{key}, card vs CPU held to float64 (witness "
+                  f"{rec['f64_max_rel']:.1e} <= {STEP18_F64}, worst "
+                  f"{rec['f64_worst'][0][1]}): loss card {r['loss_card']:.6f}"
+                  f" CPU {r['loss_cpu']:.6f} (rel {r['loss_rel']:.1e}); whole "
+                  f"gradient 1 - cosine to float64 card "
+                  f"{1 - by['all']['card_f64_cos']:.2e} CPU "
+                  f"{1 - by['all']['cpu_f64_cos']:.2e}; by group "
+                  f"{json.dumps(groups)}; update/bound "
+                  f"{r['update_over_bound']:.3f}; failed {r['failed']} "
+                  f"(groups {r['bad_groups']}, tensors {r['bad_tensors']}); "
+                  f"planted faults refused {json.dumps(planted)}; step "
+                  f"card {r['card_s']:.2f} s CPU {r['cpu_s']:.2f} s (at "
+                  f"{r['cpu_threads'][1]} threads {r['cpu_alt_s']:.2f} s); "
+                  f"{rec['seconds']:.1f} s on {card}", flush=True)
+        if rec["failed"]:
+            raise SystemExit(f"19b {name}: {rec['failed']}; " + "; ".join(
+                f"{k} groups {rec[k]['bad_groups']} tensors "
+                f"{rec[k]['bad_tensors']}" for k in ("f32", "bf16")
+                if k in rec))
+    return out
+
+
+def tsm_cli(dev, card, tmp, videos, names) -> dict:
+    """19c: recognition_train.train_from_config on the shipped
+    tsm_r50_1x1x8_k400.py at batch 8 over the seeded videos, one epoch
+    with validation, then recognition_test.test_from_config on its
+    model_best over the validation split (scores against a direct
+    forward_test of the same clips)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import (recognition_test,
+                                                        recognition_train)
+    from cross_modal_video_engine_tpu_torch.data.pipelines import (
+        build_pipeline, with_reader)
+    from cross_modal_video_engine_tpu_torch.models.recognizer import (
+        Recognizer2D)
+
+    line = {"card": card}
+    train_ann = write_training_split(tmp, names, "cls", 59)
+    val_ann = write_training_split(tmp, names[:TRAIN18_VAL], "cls", 59)
+    cfg = shipped_training_config(
+        CNN_CONFIGS / CNN19["tsm_r50_1x1x8"],
+        **{"data.train.ann_file": train_ann, "data.train.data_prefix": None,
+           "data.val.ann_file": val_ann, "data.val.data_prefix": None,
+           "data.videos_per_gpu": TRAIN18_BATCH,
+           "total_epochs": TRAIN19_EPOCHS, "eval_interval": 1})
+    work = os.path.join(tmp, "tsm")
+    t0 = time.perf_counter()
+    state, history = recognition_train.train_from_config(
+        cfg, work, device=dev, reader=videos.__getitem__)
+    torch.cuda.synchronize()
+    line["train"] = {"history": history, "seconds": time.perf_counter() - t0}
+    if not isinstance(state.model, Recognizer2D) or not all(
+            np.isfinite(h["loss"]) for h in history):
+        raise SystemExit("19c the recognition CLI failed on TSM")
+    best = os.path.join(work, "model_best")
+    out = os.path.join(tmp, "tsm_scores.npz")
+    # the test protocol's fixed frame offsets, so that the direct run
+    # below sees the CLI's clips
+    cfg.set("data.pipeline", [dict(op, test_mode=True)
+                              if op["type"] == "SampleFrames" else op
+                              for op in cfg["data.pipeline"]])
+    t0 = time.perf_counter()
+    report = recognition_test.test_from_config(cfg, best, dev, out=out,
+                                               reader=videos.__getitem__)
+    line["test"] = {"report": report, "seconds": time.perf_counter() - t0}
+    model = recognition_test.load_recognizer(cfg, best, dev)
+    pipe = build_pipeline(with_reader(cfg["data.pipeline"],
+                                      videos.__getitem__))
+    clips = np.concatenate([pipe({"filename": n, "start_index": 0})["imgs"]
+                            for n in names[:TRAIN18_VAL]]).astype(np.float32)
+    with torch.no_grad():
+        direct = model.forward_test(torch.from_numpy(clips).to(dev)).cpu()
+    scores = torch.from_numpy(np.load(out)["scores"])
+    line["test"]["scores_max_rel"] = _max_rel(scores, direct)
+    print(f"19c recognition_train (tsm_r50_1x1x8_k400.py, f32) over "
+          f"{len(names)} seeded videos, batch {TRAIN18_BATCH}: "
+          f"{json.dumps(history)} in {line['train']['seconds']:.1f} s; "
+          f"recognition_test on model_best over {TRAIN18_VAL} videos: "
+          f"{json.dumps(report)} in {line['test']['seconds']:.1f} s, scores "
+          f"against a direct forward_test {line['test']['scores_max_rel']:.1e}"
+          f" of the largest (need <= 1e-5) on {card}", flush=True)
+    if line["test"]["scores_max_rel"] > 1e-5:
+        raise SystemExit("19c recognition_test disagrees with forward_test")
+    torch.cuda.empty_cache()
+    return line
+
+
+def check_step19(dev, card) -> Tuple[dict, dict]:
+    """Step 19 (a-e): the 2D, TSM and pyramid recognizers.  Returns (the
+    `cnn2d_recognizers` JSON object, the kernels' launches over the step:
+    all must be 0)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+
+    t_step = time.perf_counter()
+    counted = kernel_counters()
+    for fn in counted.values():
+        fn.launches = 0
+    line = {"card": card}
+    t0 = time.perf_counter()
+    line["forwards"] = cnn2d_forwards(dev, card)
+    line["forwards"]["seconds"] = time.perf_counter() - t0
+    videos = bserve.seeded_videos(TRAIN18_VIDEOS, seed=19)
+    names = sorted(videos)
+    t0 = time.perf_counter()
+    line["steps"] = cnn2d_steps(dev, card, videos, names)
+    line["steps"]["seconds"] = time.perf_counter() - t0
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.perf_counter()
+        line["tsm_cli"] = tsm_cli(dev, card, tmp, videos, names)
+        line["tsm_cli"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        line["tsm_caption"] = served_caption(
+            dev, card, tmp, videos, names, TSM_RELSEQ_CONFIG, "19d", 60,
+            TRAIN19_EPOCHS)
+        line["tsm_caption"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    line["launches"] = launches
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"19e kernel launches over step 19: {json.dumps(launches)} (need "
+          f"0: no 2D, TSM or pyramid path reaches a kernel); step 19 checked "
+          f"in {line['seconds']:.1f} s on {card}", flush=True)
+    if any(launches.values()):
+        raise SystemExit("19e a 2D, TSM or pyramid path launched a kernel")
     return line, launches
 
 
@@ -6121,7 +6481,8 @@ def kernel_json(results, launches, core, block_extra, counts) -> dict:
     `caption_transformer_launches` over the greedy and beam generates of
     step 17a, `detector_training_launches` over the detection trainer's
     run of step 17b, `cnn_launches` over the 3D-CNN recognizers of step
-    18.  A main-path count is None when its step did not run.
+    18, `cnn2d_launches` over the 2D, TSM and pyramid recognizers of step
+    19.  A main-path count is None when its step did not run.
     `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
@@ -6174,20 +6535,20 @@ def kernel_json(results, launches, core, block_extra, counts) -> dict:
     return {"kernels": kernels}
 
 
-STEPS = tuple(range(4, 19))      # the steps a selection may name
+STEPS = tuple(range(4, 20))      # the steps a selection may name
 
 
 def selected_steps(argv) -> set:
-    """The steps to run: all of 4-18 with no argument, else the numbers
-    given ("18", "13 18" or "13,18"); 4-5 and 6-7 run as pairs (5 and 7
+    """The steps to run: all of 4-19 with no argument, else the numbers
+    given ("19", "13 19" or "13,19"); 4-5 and 6-7 run as pairs (5 and 7
     time what 4 and 6 build).  The build (2), the kernel checks (3) and
-    the results (19) always run."""
+    the results (20) always run."""
     if not argv:
         return set(STEPS)
     steps = set()
     for arg in argv:
         for part in filter(None, arg.split(",")):
-            if not part.isdigit() or int(part) not in range(2, 20):
+            if not part.isdigit() or int(part) not in range(2, 21):
                 raise SystemExit(f"chip_smoke: unknown step {part!r}; "
                                  f"choose among {STEPS[0]}-{STEPS[-1]}")
             steps.add(int(part))
@@ -6262,7 +6623,7 @@ def main(argv=None) -> int:
     launches, block_extra, lines = {}, {}, {}
     counts = dict.fromkeys(("composed", "caption", "explain", "training",
                             "ctv", "caption_transformer",
-                            "detector_training", "cnn"))
+                            "detector_training", "cnn", "cnn2d"))
     rng = np.random.default_rng(1)
     if 4 in steps:
         # -- 4. the CLIP path -----------------------------------------------
@@ -6364,13 +6725,18 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         lines["cnn_recognizers"], counts["cnn"] = check_step18(dev, card)
 
-    # -- 19. results ------------------------------------------------------------
+    if 19 in steps:
+        # -- 19. the 2D, TSM and pyramid recognizers ------------------------
+        torch.cuda.empty_cache()
+        lines["cnn2d_recognizers"], counts["cnn2d"] = check_step19(dev, card)
+
+    # -- 20. results ----------------------------------------------------------
     for key, value in lines.items():
         print(json.dumps({key: value}))
     print(json.dumps(kernel_json(results, launches, core, block_extra,
                                  counts)))
     skipped = sorted(set(STEPS) - steps)
-    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 19"
+    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 20"
           + (f"; skipped: {skipped} (a partial run)" if skipped else
              " (the whole smoke run)"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,14 +7,16 @@ Counterpart of cross_modal_video_engine_tpu/api.py (MCT mmaction/apis):
   variables through `convert.recognizer_state_dict_from_jax`), or the one
   a config dict names with a state dict (`init_recognizer(cfg_d,
   state_dict)`): `backbone`, then `decoder` for a caption model or
-  `num_classes` for a classifier.  A checkpoint of a 3D-CNN backbone
-  (ResNet3D/SlowOnly, CSN, SlowFast, X3D; `backbone.type`) is a caption
-  model, a RecognizerRelseq on `cli/recognition_train.
-  build_caption_backbone` with its params and batch_stats
-  (`convert.conv_recognizer_state_dict_from_jax`); one without a decoder
-  is refused, as the JAX loader's assert refuses it.  It applies the bf16
-  inference cast the JAX loader applies (utils/precision.py) and returns
-  the model ready to serve (eval mode, parameters frozen) on the card
+  `num_classes` for a classifier.  A checkpoint of a CNN backbone
+  (ResNet3D/SlowOnly, CSN, SlowFast, X3D, C3D, R2Plus1D, and the
+  per-frame TSM, TSN, TIN, TINExact, TANet and MobileNetV2TSM behind the
+  temporal mean; `backbone.type`) is a caption model, a RecognizerRelseq
+  on `cli/recognition_train.build_caption_backbone` with its params and
+  batch_stats (`convert.conv_recognizer_state_dict_from_jax`); one
+  without a decoder is refused, as the JAX loader's assert refuses it
+  (cli/recognition_test rebuilds such classifiers from their config).
+  It applies the bf16 inference cast the JAX loader applies
+  (utils/precision.py) and returns the model ready to serve (eval mode, parameters frozen) on the card
   unless a device is named.  The other backbones are refused, naming the
   part of ROADMAP.md queue 1 item 8 that ports them.
 * `inference_recognizer(model, video, outputs=...)` runs the test

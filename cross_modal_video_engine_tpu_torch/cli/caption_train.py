@@ -2,10 +2,11 @@
 
 Counterpart of cross_modal_video_engine_tpu/cli/caption_train.py, the
 seq_generate family's tools/train.py: a TimeSformer + RNN decoder
-(Recognizer3DRelseq), or a 3D-CNN (ResNet3D/I3D, CSN, SlowFast, X3D) +
-RNN decoder (RecognizerRelseq, its BatchNorms trained by
-`make_seq_train_step_stats`), trained with the SeqMLL loss under teacher
-forcing, on the card unless `--device cpu`.
+(Recognizer3DRelseq), or a CNN (ResNet3D/I3D, CSN, SlowFast, X3D, C3D,
+R(2+1)D, or a per-frame TSM, TSN, TIN, TANet or MobileNetV2-TSM pooled
+over time by `_TemporalMean`) + RNN decoder (RecognizerRelseq, its
+BatchNorms trained by `make_seq_train_step_stats`), trained with the
+SeqMLL loss under teacher forcing, on the card unless `--device cpu`.
 
   python -m cross_modal_video_engine_tpu_torch.cli.caption_train CONFIG \\
       --work_dir WORK [--resume] [--total_epochs N] \\
@@ -13,7 +14,7 @@ forcing, on the card unless `--device cpu`.
        model.backbone.use_flash_attention=True] [--device cpu]
 
 Config (configs/seq_generate/timesformer_relseq.py, i3d_relseq.py,
-slowfast_relseq.py, x3d_relseq.py):
+slowfast_relseq.py, x3d_relseq.py, tsm_relseq.py):
 
     model = dict(backbone=dict(num_frames=8, img_size=224, ...),
                  decoder=dict(num_classes=36, in_channels=768, max_len=5))
@@ -30,11 +31,11 @@ repeats the epochs that follow.
 Validation every `eval_interval` epochs scores the greedy decode of each
 video's first clip with the sequence-aware mAP (`cli/caption_test`'s
 `eval_labels`); `model_best` keeps the best by `seq_mAP` with the
-{backbone, decoder} config (a 3D-CNN's backbone config with its `type`)
-and, for the 3D-CNNs, the `batch_stats`, which `api.init_recognizer` and
-the `/caption` route load; `epoch_{n}` holds each epoch's train state in
-the JAX package's layout (train/resume.py), so `--resume` continues a
-run either package started.  `train_from_config(..., reader=)` hands the
+{backbone, decoder} config (a CNN's backbone config with its `type`)
+and, for the CNNs with BatchNorms, the `batch_stats`, which
+`api.init_recognizer` and the `/caption` route load; `epoch_{n}` holds
+each epoch's train state in the JAX package's layout (train/resume.py),
+so `--resume` continues a run either package started.  `train_from_config(..., reader=)` hands the
 pipeline's DecordInit a decord-alike reader in place of opening files (a
 machine without cv2).  The other backbones are refused, naming the part
 of ROADMAP.md queue 1 item 8 that ports them.
@@ -133,7 +134,7 @@ def train_from_config(cfg: Config, work_dir: str,
     """Train as the config says on `device` (None: the CUDA device); the
     f32 products run in f32 (TF32 off).  Returns the history, one record
     an epoch."""
-    from .recognition_train import recognizer_variables
+    from .recognition_train import has_batch_norm, recognizer_variables
     dev = resolve_device(device)
     no_tf32()
     model, saved_bb, dec_kw = build_caption_model(cfg, dev)
@@ -155,9 +156,9 @@ def train_from_config(cfg: Config, work_dir: str,
         tcfg, total_steps=epochs * steps_per_epoch(len(train_ds), bs))
     state = init_rec_state(model, tx)
     generator = torch.Generator(device=dev)
-    holder = model if isinstance(model, RecognizerRelseq) else None
-    step = (make_seq_train_step if holder is None
-            else make_seq_train_step_stats)(model, generator, device=dev)
+    holder = model if has_batch_norm(model) else None
+    step = (make_seq_train_step_stats if isinstance(model, RecognizerRelseq)
+            else make_seq_train_step)(model, generator, device=dev)
     save_best = best_checkpoint_manager(work_dir)
     sampler = ShardedSampler(len(train_ds), shuffle=True)
 

@@ -1,10 +1,16 @@
-"""Config-driven recognition training CLI: TimeSformer and the 3D-CNNs.
+"""Config-driven recognition training CLI: TimeSformer and the CNNs.
 
 Counterpart of cross_modal_video_engine_tpu/cli/recognition_train.py (MCT
-tools/train.py) for `model.backbone.type='TimeSformer'` (a Recognizer3D)
-and for the 3D-CNN families ResNet3D/SlowOnly, CSN, SlowFast and X3D (a
-BackboneClassifier, its BatchNorms trained by `make_cls_train_step_stats`),
-trained with cross entropy, on the card unless `--device cpu`.
+tools/train.py) for `model.backbone.type='TimeSformer'` (a Recognizer3D),
+for the pooled CNN families ResNet3D/SlowOnly, CSN, SlowFast, X3D, C3D
+and R2Plus1D (a BackboneClassifier), for the per-frame families TSM, TSN
+(TSM without the shift), TIN, TINExact, TANet and MobileNetV2TSM (a
+Recognizer2D with a TSNHead, or a TRNHead when `model.head` is
+`dict(type='TRNHead', ...)`) and for `model.neck=dict(type='TPN', ...)`
+over a ResNet3D (a TPNRecognizer, its aux head's classes defaulting to
+`num_classes`), their BatchNorms trained by `make_cls_train_step_stats`
+or `make_tpn_train_step_stats`, trained with cross entropy, on the card
+unless `--device cpu`.
 
   python -m cross_modal_video_engine_tpu_torch.cli.recognition_train \\
       CONFIG --work_dir WORK [--resume [EPOCH_DIR]] [--total_epochs N] \\
@@ -13,16 +19,17 @@ trained with cross entropy, on the card unless `--device cpu`.
        model.backbone.use_flash_attention=True] [--device cpu]
 
 Config (configs/recognition/timesformer_divst_8x32_k400.py,
-slowfast_r50_4x16_k400.py, ...): `model` (backbone, num_classes), `data`
+slowfast_r50_4x16_k400.py, tsm_r50_1x1x8_k400.py, tpn_slowonly_r50_8x8_
+k400.py, ...): `model` (backbone, num_classes), `data`
 (train/val `filename label` splits, pipeline, videos_per_gpu),
 `optimizer` (train/recognition_trainer.RecognitionTrainConfig: sgd or
 adamw, clip, warmup, `bf16`), `total_epochs`, `eval_interval`.
 
 The epoch loop is the JAX CLI's: train on `ShardedSampler`'s order, every
 `eval_interval` epochs top-k and mean class accuracy on the val split
-(the 3D-CNNs over their running statistics), `model_best` kept by
-`top1_acc` with the {backbone, num_classes} config and, for the 3D-CNNs,
-the `batch_stats`; `epoch_{n}` each epoch's train state in the JAX
+(the CNNs over their running statistics), `model_best` kept by
+`top1_acc` with the {backbone, num_classes} config and, for the CNNs with
+BatchNorms, the `batch_stats`; `epoch_{n}` each epoch's train state in the JAX
 package's layout, `{"state", "batch_stats"}` (`--resume` with no
 directory takes the newest).  With `optimizer.bf16=True` the masters
 (and statistics) stay f32 and the step runs in bfloat16.  The weights
@@ -31,10 +38,12 @@ start from `models.recognizer.init_state_dict` or `conv_init_state_dict`
 epoch (seed 1 + epoch).  `train_from_config(..., reader=)` hands the
 pipeline a decord-alike reader.  `build_backbone` and
 `build_caption_backbone` (with `_TemporalMean` for per-frame backbones)
-are shared with cli/caption_train and `api.init_recognizer`.  The other
-backbones, necks and heads (items 8b, 8c), OmniSource, multigrid and
+are shared with cli/caption_train and `api.init_recognizer`.  The
+transformer and CLIP backbones (item 8c), OmniSource, multigrid and
 blending (item 8d) are refused, naming the part of ROADMAP.md queue 1
-item 8 that ports them.
+item 8 that ports them.  The port's TIN and TANet configs carry the
+clip length (`num_segments`, default 8) that the JAX modules read off
+their input.
 """
 
 from __future__ import annotations
@@ -53,20 +62,22 @@ from ..convert.from_jax import (conv_recognizer_variables_to_jax,
                                 recognizer_variables_to_jax)
 from ..data.datasets import ShardedSampler, VideoDataset
 from ..data.pipelines import build_pipeline, with_reader
-from ..models import resnet3d
-from ..models.recognizer import (BackboneClassifier, Recognizer3D,
+from ..models import backbones2d, resnet3d, tanet, tin_mobilenet
+from ..models.layers import FlaxBatchNorm
+from ..models.recognizer import (BackboneClassifier, Recognizer2D,
+                                 Recognizer3D, TPNRecognizer,
                                  conv_init_state_dict, init_state_dict)
 from ..models.timesformer import TimeSformerConfig
+from ..models.tpn import TPNConfig
 from ..train.checkpoint import best_checkpoint_manager
 from ..train.recognition_trainer import (
     RecognitionTrainConfig, evaluate_classification, init_rec_state,
     make_cls_train_step, make_cls_train_step_stats, make_rec_optimizer,
-    not_ported)
+    make_tpn_train_step_stats, not_ported)
 from ..train.resume import (latest_checkpoint, load_train_state,
                             save_train_state)
 from ..utils.device import resolve_device
 from ..utils.precision import no_tf32
-from ..utils.registry import BACKBONES
 from .caption_train import DROPOUT_SEED, INIT_SEED, steps_per_epoch
 
 
@@ -80,22 +91,40 @@ def _deep_tuple(v):
 # part of ROADMAP.md queue 1 item 8 that ports each unported backbone
 PER_FRAME_BACKBONES = ("TANet", "TSM", "TSN", "TIN", "TINExact",
                        "MobileNetV2TSM")
-BACKBONE_PARTS = dict(
-    {b: "8b" for b in PER_FRAME_BACKBONES + ("C3D", "R2Plus1D")},
-    **{b: "8c" for b in ("Swin3D", "MViT", "VideoMAEViT", "CLIP",
-                         "VideoCLIP")})
-CONV_BACKBONES = ("ResNet3D", "SlowOnly", "SlowFast", "X3D", "CSN")
+BACKBONE_PARTS = {b: "8c" for b in ("Swin3D", "MViT", "VideoMAEViT", "CLIP",
+                                    "VideoCLIP")}
+# model.backbone.type -> (module, class, config class)
+CNN_BACKBONES = {
+    "ResNet3D": (resnet3d, "ResNet3D", "ResNet3DConfig"),
+    "SlowOnly": (resnet3d, "ResNet3D", "ResNet3DConfig"),
+    "SlowFast": (resnet3d, "SlowFast", "SlowFastConfig"),
+    "X3D": (resnet3d, "X3D", "X3DConfig"),
+    "CSN": (resnet3d, "CSN", "CSNConfig"),
+    "TSM": (backbones2d, "TSMResNet", "TSMConfig"),
+    "TSN": (backbones2d, "TSMResNet", "TSMConfig"),
+    "R2Plus1D": (backbones2d, "R2Plus1D", "R2Plus1DConfig"),
+    "C3D": (backbones2d, "C3D", None),
+    "TIN": (tin_mobilenet, "TINResNet", "TINConfig"),
+    "TINExact": (tin_mobilenet, "TINResNetExact", "TINExactConfig"),
+    "MobileNetV2TSM": (tin_mobilenet, "MobileNetV2TSM",
+                       "MobileNetV2TSMConfig"),
+    "TANet": (tanet, "TANet", "TANetConfig"),
+}
 
 
 def build_backbone(btype: str, kw: dict, device=None) -> nn.Module:
     """The backbone `model.backbone.type` names (shared by the recognition
-    and caption trainers and `api.init_recognizer`): the 3D-CNN families
-    of models/resnet3d.py ('SlowOnly' is a ResNet3D); the others raise,
-    naming their part."""
-    if btype in CONV_BACKBONES:
-        btype = "ResNet3D" if btype == "SlowOnly" else btype
-        cfg = getattr(resnet3d, f"{btype}Config")(**kw)
-        return BACKBONES.get(btype)(cfg, device)
+    and caption trainers and `api.init_recognizer`): the CNN families of
+    models/{resnet3d,backbones2d,tin_mobilenet,tanet}.py ('SlowOnly' is a
+    ResNet3D, 'TSN' a TSM with shift_div=0); the others raise, naming
+    their part."""
+    if btype in CNN_BACKBONES:
+        module, cls, cfg_cls = CNN_BACKBONES[btype]
+        if btype == "TSN":
+            kw = dict(kw, shift_div=0)
+        if cfg_cls is None:                          # C3D takes keywords
+            return getattr(module, cls)(**kw, device=device)
+        return getattr(module, cls)(getattr(module, cfg_cls)(**kw), device)
     if btype in BACKBONE_PARTS:
         raise NotImplementedError(not_ported(f"the {btype!r} backbone",
                                              BACKBONE_PARTS[btype]))
@@ -126,27 +155,42 @@ def build_caption_backbone(btype: str, kw: dict, device=None) -> nn.Module:
 
 def recognizer_variables(model: nn.Module) -> dict:
     """The variables the JAX package's checkpoint of `model` holds:
-    {"params"} for a TimeSformer recognizer, {"params", "batch_stats"}
-    for a 3D-CNN one."""
-    cfg = model.backbone.cfg
+    {"params"} for a TimeSformer recognizer or C3D, {"params",
+    "batch_stats"} for a CNN with BatchNorms."""
+    cfg = getattr(model.backbone, "cfg", None)
     if isinstance(cfg, TimeSformerConfig):
         return recognizer_variables_to_jax(model.state_dict(), cfg)
     return conv_recognizer_variables_to_jax(model.state_dict(), model)
 
 
+def has_batch_norm(model: nn.Module) -> bool:
+    return any(isinstance(m, FlaxBatchNorm) for m in model.modules())
+
+
+def _tpn_config(ncfg: dict, num_classes: int) -> TPNConfig:
+    nkw = {k: _deep_tuple(v) for k, v in dict(ncfg).items() if k != "type"}
+    nkw.setdefault("aux_num_classes", num_classes)
+    return TPNConfig(**nkw)
+
+
 def build_recognition_model(cfg: Config, device=None,
                             dtype: Optional[str] = None) -> nn.Module:
     """The recognizer of `model` at the training init: a Recognizer3D
-    (dtype overrides the TimeSformer's: the bf16 step's f32 masters) or a
-    BackboneClassifier over a 3D-CNN.  The other families, necks and
-    heads raise, naming their part."""
+    (dtype overrides the TimeSformer's: the bf16 step's f32 masters), a
+    BackboneClassifier over a pooled CNN, a Recognizer2D over a per-frame
+    one (TRNHead when model.head says so), or a TPNRecognizer
+    (model.neck=dict(type='TPN')).  The other families raise, naming
+    their part."""
     bcfg = dict(cfg["model.backbone"])
     btype = bcfg.pop("type", "TimeSformer")
-    if cfg.get("model.neck"):
-        raise NotImplementedError(not_ported("model.neck (TPN)", "8b"))
-    if cfg.get("model.head"):
-        raise NotImplementedError(not_ported(
-            "model.head (the TSN and TRN heads of Recognizer2D)", "8b"))
+    ncfg, hcfg = cfg.get("model.neck"), cfg.get("model.head")
+    if ncfg and ncfg.get("type") != "TPN":
+        raise ValueError(f"unknown neck type {ncfg.get('type')!r}")
+    trn = hcfg and hcfg.get("type") in ("TRN", "TRNHead")
+    if hcfg and (not trn or btype not in PER_FRAME_BACKBONES):
+        raise ValueError(
+            f"model.head {hcfg.get('type')!r}: a config selects TRNHead over "
+            f"a per-frame backbone ({', '.join(PER_FRAME_BACKBONES)})")
     kw = {k: _deep_tuple(v) for k, v in bcfg.items()}
     num_classes = cfg["model.num_classes"]
     dev = resolve_device(device)
@@ -158,7 +202,16 @@ def build_recognition_model(cfg: Config, device=None,
         model.load_state_dict(init_state_dict(backbone, INIT_SEED,
                                               num_classes=num_classes))
         return model
-    model = BackboneClassifier(build_backbone(btype, kw, dev), num_classes)
+    backbone = build_backbone(btype, kw, dev)
+    if ncfg:
+        model = TPNRecognizer(backbone, _tpn_config(ncfg, num_classes),
+                              num_classes)
+    elif btype in PER_FRAME_BACKBONES:
+        model = Recognizer2D(backbone, num_classes, trn=(
+            {k: v for k, v in dict(hcfg).items() if k != "type"}
+            if trn else None))
+    else:
+        model = BackboneClassifier(backbone, num_classes)
     model.load_state_dict(conv_init_state_dict(model, INIT_SEED))
     return model
 
@@ -201,9 +254,11 @@ def train_from_config(cfg: Config, work_dir: str,
     generator = torch.Generator(device=dev)
     # a BatchNorm recognizer's statistics live in its buffers and ride in
     # the epoch states as "batch_stats"
-    holder = model if isinstance(model, BackboneClassifier) else None
-    make_step = make_cls_train_step if holder is None \
-        else make_cls_train_step_stats
+    holder = model if has_batch_norm(model) else None
+    make_step = (make_tpn_train_step_stats
+                 if isinstance(model, TPNRecognizer) else
+                 make_cls_train_step if isinstance(model, Recognizer3D)
+                 else make_cls_train_step_stats)
     step = make_step(model, bf16=tcfg.bf16, generator=generator, device=dev)
     save_best = best_checkpoint_manager(work_dir)
     sampler = ShardedSampler(len(train_ds), shuffle=True)

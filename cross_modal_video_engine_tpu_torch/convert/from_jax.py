@@ -61,7 +61,17 @@ compute the same function.
   given the port's model (a meta-device copy will do).  The keys are
   mmaction's, those the convert_{resnet3d,csn,slowfast,x3d} importers
   read, so these invert the importers.  `rec_train_state_{to,from}_jax`
-  take such a model in place of the TimeSformer config.
+  take such a model in place of the TimeSformer config.  The same
+  functions carry the per-frame and light 3D backbones (TSM/TSN,
+  TINResNetExact, MobileNetV2-TSM, TANet, C3D, R(2+1)D: the keys the
+  convert_{tsm,tin,mobilenetv2_tsm,tanet,c3d,r2plus1d} importers read),
+  Recognizer2D with its TSNHead or TRNHead, and TPNRecognizer with the
+  TPN neck (convert_tpn's keys), in both directions.  No importer reads
+  the plain TIN (`TINResNet`: `interlace{i}.{off_fc1,off_fc2,gate_fc}`
+  -> `interlace_{i}`), TRNHead (mmaction's `consensus.classifier.{1,3}`
+  -> `relation_fc{1,2}`, `consensus.fc_fusion_scales.{i}.{1,3}` ->
+  `fusion_s{S-i}_fc{1,2}`) or TPNRecognizer's `cls_head.fc_cls` (the
+  JAX Dense `cls_head`); these functions are their bridge.
 * `yolo_train_state_to_jax` and `yolo_train_state_from_jax` carry the
   detector trainers' YoloTrainState (params, batch_stats, velocity, EMA
   params and statistics, the update count) both ways.
@@ -1179,8 +1189,106 @@ def _x3d_path(parts: List[str]) -> Tuple[str, ...]:
     return (dst,) + _bottleneck_path(parts[2:])
 
 
+def _tsm_path(parts: List[str]) -> Tuple[str, ...]:
+    """TSMResNet and the ResNets of TINResNet and TINResNetExact."""
+    if parts[0] == "conv1":
+        return _conv_bn(parts[1:], "conv1", "bn1")
+    if parts[0].startswith("interlace"):            # TINResNet
+        return (f"interlace_{parts[0][len('interlace'):]}", parts[1])
+    dst, rest = f"{parts[0]}_{parts[1]}", parts[2:]
+    if rest[:3] == ["conv1", "conv", "net1"]:       # TINResNetExact
+        return (dst, "interlace") + tuple(rest[3:])
+    if rest[:3] == ["conv1", "conv", "net2"]:
+        return (dst, "conv1")
+    return (dst,) + _bottleneck_path(rest)
+
+
+def _mobilenet_path(backbone, parts: List[str]) -> Tuple[str, ...]:
+    stem = {"conv1": ("stem", "bn_stem"), "conv2": ("head", "bn_head")}
+    if parts[0] in stem:
+        return _conv_bn(parts[1:], *stem[parts[0]])
+    block = getattr(backbone, parts[0])[int(parts[1])]
+    k = int(parts[3]) + (block.expand == 1)         # no expand conv at 1
+    conv, bn = (("expand", "bn1"), ("dw", "bn2"), ("project", "bn3"))[k]
+    return (f"s{int(parts[0][len('layer'):]) - 1}_b{parts[1]}",) \
+        + _conv_bn(parts[4:], conv, bn)
+
+
+_TAM = {("G", "0"): "g_fc1", ("G", "1"): "g_bn", ("G", "3"): "g_fc2",
+        ("L", "0"): "l_conv1", ("L", "1"): "l_bn", ("L", "3"): "l_conv2"}
+
+
+def _tanet_path(parts: List[str]) -> Tuple[str, ...]:
+    if parts[0] == "conv1":
+        return _conv_bn(parts[1:], "conv1", "bn1")
+    dst = f"{parts[0]}_{parts[1]}"
+    if parts[2] == "tam":
+        return (dst, "tam", _TAM[parts[3], parts[4]])
+    return (dst,) + _bottleneck_path(parts[3:])     # block.<conv>
+
+
+def _r2plus1d_path(parts: List[str]) -> Tuple[str, ...]:
+    """A ConvModule2Plus1D `<name>.conv.{conv_s,bn_s,conv_t}` / `.bn`."""
+    if parts[0] == "conv1":
+        return ("conv1", parts[2]) if parts[1] == "conv" else ("bn1",)
+    dst, head, rest = f"{parts[0]}_{parts[1]}", parts[2], parts[3:]
+    name, bn = ("downsample", "bn_down") if head == "downsample" else \
+        (head, f"bn{head[len('conv'):]}")
+    return (dst, name, rest[1]) if rest[0] == "conv" else (dst, bn)
+
+
+_TPN_LF = {"level_fusion_1": "fuse_td", "level_fusion_2": "fuse_bu"}
+
+
+def _tpn_path(parts: List[str]) -> Tuple[str, ...]:
+    head = parts[0]
+    if head == "spatial_modulation":
+        i, j = parts[2], parts[3]
+        return _conv_bn(parts[4:], f"sm{i}_conv{j}", f"sm{i}_bn{j}")
+    if head == "temporal_modulation_ops":
+        return (f"tm{parts[1]}", "conv")
+    if head == "downsample_ops":
+        return (f"down{parts[1]}",)
+    if head in _TPN_LF:
+        if parts[1] == "downsamples":
+            i = parts[2]
+            return (_TPN_LF[head],) + _conv_bn(parts[4:], f"down{i}",
+                                               f"down_bn{i}")
+        return (_TPN_LF[head],) + _conv_bn(parts[2:], "fusion", "fusion_bn")
+    if head == "pyramid_fusion":
+        return _conv_bn(parts[1:], "pyramid_fusion", "pyramid_bn")
+    if parts[1] == "conv":                          # aux_head.conv
+        return _conv_bn(parts[2:], "aux_conv", "aux_bn")
+    return ("aux_fc",)
+
+
+def _head_path(head, parts: List[str]) -> Tuple[str, ...]:
+    """cls_head.* below the recognizer: TRNHead's relation MLPs by the JAX
+    names, TPNRecognizer's fc as the Dense `cls_head`, the rest as they
+    are (fc_cls, fc1, fc2)."""
+    from ..models.heads import TRNHead
+    if isinstance(head, TRNHead) and parts[0] == "consensus":
+        fc = "fc1" if parts[-1] == "1" else "fc2"
+        if parts[1] == "classifier":
+            return ("cls_head", f"relation_{fc}")
+        scale = head.num_segments - int(parts[2])
+        return ("cls_head", f"fusion_s{scale}_{fc}")
+    return ("cls_head",) + tuple(parts)
+
+
 def _backbone_path(backbone, parts: List[str]) -> Tuple[str, ...]:
-    from ..models import resnet3d
+    from ..models import backbones2d, resnet3d, tanet, tin_mobilenet
+    if isinstance(backbone, (backbones2d.TSMResNet, tin_mobilenet.TINResNet,
+                             tin_mobilenet.TINResNetExact)):
+        return _tsm_path(parts)
+    if isinstance(backbone, tin_mobilenet.MobileNetV2TSM):
+        return _mobilenet_path(backbone, parts)
+    if isinstance(backbone, tanet.TANet):
+        return _tanet_path(parts)
+    if isinstance(backbone, backbones2d.C3D):
+        return (parts[0],)                      # conv{k}.conv, fc6, fc7
+    if isinstance(backbone, backbones2d.R2Plus1D):
+        return _r2plus1d_path(parts)
     if isinstance(backbone, resnet3d.ResNet3D):
         return _resnet3d_path(parts)
     if isinstance(backbone, resnet3d.SlowFast):
@@ -1195,30 +1303,41 @@ def _backbone_path(backbone, parts: List[str]) -> Tuple[str, ...]:
     raise TypeError(f"no JAX layout for {type(backbone).__name__}")
 
 
+_CONVS = (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Conv3d)
+
+
 def _cnn_table(model) -> List[Tuple[str, Tuple[str, ...], str]]:
     """(the port module's name, its JAX path, kind) for every conv,
-    linear and BatchNorm of a 3D-CNN backbone or recognizer.  kind:
-    'conv' (Conv3d, with its bias if it has one), 'se' (an SE fc as a
-    Dense), 'dense' (Linear), 'bn'.  The RNN decoder head is apart."""
+    linear and BatchNorm of a CNN backbone or recognizer (or a TPN neck
+    alone).  kind: 'conv' (Conv1d/2d/3d, with its bias if it has one),
+    'se' (an SE fc as a Dense), 'dense' (Linear), 'bn'.  The RNN decoder
+    head is apart."""
     from ..models.decoder_head import RNNDecoderHead
     from ..models.layers import FlaxBatchNorm
+    from ..models.recognizer import TPNRecognizer
+    from ..models.tpn import TPN
     wrapped = hasattr(model, "backbone")
     backbone = model.backbone if wrapped else model
     decoder = wrapped and isinstance(model.cls_head, RNNDecoderHead)
     table = []
     for name, mod in model.named_modules():
-        if not isinstance(mod, (torch.nn.Conv3d, torch.nn.Linear,
-                                FlaxBatchNorm)):
+        if not isinstance(mod, _CONVS + (torch.nn.Linear, FlaxBatchNorm)):
             continue
         parts = name.split(".")
-        if not wrapped:
+        if isinstance(model, TPN):
+            path = _tpn_path(parts)
+        elif not wrapped:
             path = _backbone_path(backbone, parts)
         elif parts[0] == "backbone":
             path = ("backbone",) + _backbone_path(backbone, parts[1:])
+        elif parts[0] == "neck":
+            path = ("neck",) + _tpn_path(parts[1:])
         elif decoder:
             continue
+        elif isinstance(model, TPNRecognizer):
+            path = ("cls_head",)       # the JAX Dense `cls_head`
         else:
-            path = tuple(parts)        # cls_head.{fc_cls | fc1 | fc2}
+            path = _head_path(model.cls_head, parts[1:])
         kind = ("bn" if isinstance(mod, FlaxBatchNorm)
                 else "dense" if isinstance(mod, torch.nn.Linear)
                 else "se" if "se_module" in parts else "conv")
@@ -1240,11 +1359,13 @@ def _tree_put(tree, path, value) -> None:
 
 def conv_recognizer_state_dict_from_jax(variables: Dict[str, Any], model
                                         ) -> Dict[str, torch.Tensor]:
-    """A JAX 3D-CNN model's variables ({"params"[, "batch_stats"]}) -> the
+    """A JAX CNN model's variables ({"params"[, "batch_stats"]}) -> the
     port's fp32 state dict, for `model`: a port backbone (ResNet3D, CSN,
-    SlowFast, X3D) or recognizer (BackboneClassifier, X3DClassifier,
-    RecognizerRelseq) whose module tree names the keys (a meta-device
-    copy will do).  Without "batch_stats" only the parameters come back
+    SlowFast, X3D, TSMResNet, TINResNet, TINResNetExact, MobileNetV2TSM,
+    TANet, C3D, R2Plus1D), a TPN neck or a recognizer
+    (BackboneClassifier, X3DClassifier, RecognizerRelseq, Recognizer2D,
+    TPNRecognizer) whose module tree names the keys (a meta-device copy
+    will do).  Without "batch_stats" only the parameters come back
     (an optimizer's moments)."""
     params = variables.get("params", variables)
     stats = variables.get("batch_stats")
@@ -1256,8 +1377,9 @@ def conv_recognizer_state_dict_from_jax(variables: Dict[str, Any], model
             sd[f"{name}.bias"] = _f32(p["bias"])
             continue
         k = _f32(p["kernel"])
-        if kind == "conv":
-            sd[f"{name}.weight"] = k.permute(4, 3, 0, 1, 2).contiguous()
+        if kind == "conv":             # (*kernel, in, out) -> (out, in, *)
+            sd[f"{name}.weight"] = k.permute(
+                k.dim() - 1, k.dim() - 2, *range(k.dim() - 2)).contiguous()
         elif kind == "se":
             sd[f"{name}.weight"] = k.t()[:, :, None, None, None].contiguous()
         else:
@@ -1303,7 +1425,8 @@ def conv_recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], model
                            "var": _np32(sd[f"{name}.running_var"])})
             continue
         w = _np32(sd[f"{name}.weight"])
-        leaf = {"kernel": (w.transpose(2, 3, 4, 1, 0) if kind == "conv"
+        leaf = {"kernel": (w.transpose(*range(2, w.ndim), 1, 0)
+                           if kind == "conv"
                            else w[..., 0, 0, 0].T if kind == "se"
                            else w.T)}
         if f"{name}.bias" in sd:
@@ -1317,17 +1440,18 @@ def conv_recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], model
     return out
 
 
-def _conv_backbone_fns(family: str):
+def _conv_backbone_fns(family: str, module: str = "resnet3d"):
+    def build(cfg):
+        import importlib
+        mod = importlib.import_module(f"..models.{module}", __package__)
+        return getattr(mod, family)(cfg, device="meta")
+
     def state_dict_from_jax(variables: Dict[str, Any], cfg
                             ) -> Dict[str, torch.Tensor]:
-        from ..models import resnet3d
-        return conv_recognizer_state_dict_from_jax(
-            variables, getattr(resnet3d, family)(cfg, device="meta"))
+        return conv_recognizer_state_dict_from_jax(variables, build(cfg))
 
     def variables_to_jax(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:
-        from ..models import resnet3d
-        return conv_recognizer_variables_to_jax(
-            sd, getattr(resnet3d, family)(cfg, device="meta"))
+        return conv_recognizer_variables_to_jax(sd, build(cfg))
 
     state_dict_from_jax.__doc__ = (
         f"A JAX {family}'s variables -> the port's {family} state dict "
@@ -1344,3 +1468,17 @@ csn_state_dict_from_jax, csn_variables_to_jax = _conv_backbone_fns("CSN")
 slowfast_state_dict_from_jax, slowfast_variables_to_jax = \
     _conv_backbone_fns("SlowFast")
 x3d_state_dict_from_jax, x3d_variables_to_jax = _conv_backbone_fns("X3D")
+tsm_state_dict_from_jax, tsm_variables_to_jax = \
+    _conv_backbone_fns("TSMResNet", "backbones2d")
+r2plus1d_state_dict_from_jax, r2plus1d_variables_to_jax = \
+    _conv_backbone_fns("R2Plus1D", "backbones2d")
+tin_state_dict_from_jax, tin_variables_to_jax = \
+    _conv_backbone_fns("TINResNet", "tin_mobilenet")
+tin_exact_state_dict_from_jax, tin_exact_variables_to_jax = \
+    _conv_backbone_fns("TINResNetExact", "tin_mobilenet")
+mobilenetv2_tsm_state_dict_from_jax, mobilenetv2_tsm_variables_to_jax = \
+    _conv_backbone_fns("MobileNetV2TSM", "tin_mobilenet")
+tanet_state_dict_from_jax, tanet_variables_to_jax = \
+    _conv_backbone_fns("TANet", "tanet")
+tpn_state_dict_from_jax, tpn_variables_to_jax = \
+    _conv_backbone_fns("TPN", "tpn")

@@ -138,7 +138,11 @@ class FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
     rv = (1 - m) rv + (rv' - (1 - m) rv) (n-1)/n, the method of
     models/yolo.BatchNorm.  A bf16 input keeps f32 weights and statistics
     (torch's mixed-type batch norm), as flax computes its statistics in
-    f32; the output is the input's dtype."""
+    f32; the output is the input's dtype.  `count_batches` False leaves
+    num_batches_tracked at 0 (a state that resumes from the JAX format,
+    which keeps no count, then equals an uninterrupted one)."""
+
+    count_batches = True
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, device=None):
@@ -162,7 +166,8 @@ class FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
             kept = self.running_var * (1.0 - self.momentum)
             self.running_mean.copy_(mean)
             self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
-            self.num_batches_tracked.add_(1)
+            if self.count_batches:
+                self.num_batches_tracked.add_(1)
         return y
 
 

@@ -19,6 +19,12 @@ cross_modal_video_engine_tpu/models/recognizer.py:
   the two-layer X3DHead; `RecognizerRelseq`: any pooled backbone into
   the RNNDecoderHead, `forward_train` and `forward_test` as
   Recognizer3DRelseq's (models/resnet3d.py, models/heads.py);
+* `Recognizer2D`: a per-frame backbone's (B, T, C) features into a
+  TSNHead or TRNHead, `forward_test` its softmax (models/backbones2d.py,
+  tin_mobilenet.py, tanet.py);
+* `TPNRecognizer`: a ResNet3D's last stage maps through the TPN neck
+  (models/tpn.py), the global mean, dropout and `cls_head.fc_cls`; in
+  train mode it returns (scores, {"loss_aux"}) given the labels;
 * `init_state_dict`: a training init drawn from a numpy seed with flax's
   init schemes (what the JAX package's `model.init` draws), and
   `conv_init_state_dict` the same for the 3D-CNN recognizers.
@@ -48,9 +54,10 @@ from ..utils.registry import RECOGNIZERS
 from .caption_transformer import CaptionConfig, CaptionTransformer
 from .clip import MHA
 from .decoder_head import RNNDecoderConfig, RNNDecoderHead
-from .heads import I3DHead, X3DHead
+from .heads import I3DHead, TRNHead, TSNHead, X3DHead
 from .layers import FlaxBatchNorm
 from .timesformer import LN, TimeSformer, TimeSformerConfig
+from .tpn import TPN, TPNConfig, stage_maps
 
 
 class TimeSformerHead(nn.Module):
@@ -262,6 +269,74 @@ class RecognizerRelseq(nn.Module):
         return probs.reshape(-1, num_segs, *probs.shape[1:]).mean(1)
 
 
+@RECOGNIZERS.register("Recognizer2D")
+class Recognizer2D(nn.Module):
+    """A per-frame backbone (B, T, H, W, 3) -> (B, T, C) and a consensus
+    head (TSNHead, or TRNHead with trn=dict(...) of its options; JAX
+    recognizer.py:210-228)."""
+
+    def __init__(self, backbone: nn.Module, num_classes: int,
+                 trn: Optional[dict] = None, dropout_ratio: float = 0.4):
+        super().__init__()
+        self.backbone = backbone
+        dev = _device_of(backbone)
+        self.cls_head = (TSNHead(backbone.feat_dim, num_classes,
+                                 dropout_ratio, device=dev)
+                         if trn is None else
+                         TRNHead(backbone.feat_dim, num_classes, **trn,
+                                 device=dev))
+        self.eval()
+
+    def extract_feat(self, videos: torch.Tensor) -> torch.Tensor:
+        return self.backbone(videos)
+
+    def forward(self, videos: torch.Tensor) -> torch.Tensor:
+        """videos: (B, T, H, W, 3) -> class scores (B, num_classes)."""
+        return self.cls_head(self.backbone(videos))
+
+    def forward_test(self, videos: torch.Tensor,
+                     average_clips: Optional[str] = "prob",
+                     num_segs: int = 1) -> torch.Tensor:
+        """The softmax of the scores ("prob") or the scores, averaged over
+        num_segs clips a video (1: JAX's forward_test)."""
+        return average_clip(self(videos), num_segs,
+                            "prob" if average_clips == "prob" else "score")
+
+
+@RECOGNIZERS.register("TPNRecognizer")
+class TPNRecognizer(nn.Module):
+    """A ResNet3D whose last len(in_channels) stage maps go through the
+    TPN neck, then the global mean, dropout and `cls_head.fc_cls` (JAX
+    recognizer.py:365-401, mmaction's TPNHead)."""
+
+    def __init__(self, backbone: nn.Module, tpn_cfg: TPNConfig,
+                 num_classes: int, dropout_ratio: float = 0.5):
+        super().__init__()
+        if not hasattr(backbone, "stages"):
+            raise ValueError("the TPN neck takes a ResNet3D's stage maps")
+        self.backbone = backbone
+        dev = _device_of(backbone)
+        self.neck = TPN(tpn_cfg, dev)
+        self.cls_head = I3DHead(tpn_cfg.fusion_channels, num_classes,
+                                dropout_ratio, device=dev)
+        self.eval()
+
+    def forward(self, videos: torch.Tensor,
+                target: Optional[torch.Tensor] = None):
+        """videos: (B, T, H, W, 3) -> class scores; in train mode (scores,
+        aux), aux {"loss_aux"} when the neck has its aux head and target
+        (int64 labels) is given."""
+        n = len(self.neck.cfg.in_channels)
+        feat, aux = self.neck(stage_maps(self.backbone, videos)[-n:],
+                              target)
+        scores = self.cls_head(feat.mean(dim=(2, 3, 4)))
+        return (scores, aux) if self.training else scores
+
+    def forward_test(self, videos: torch.Tensor, num_segs: int = 1,
+                     average_clips: Optional[str] = "prob") -> torch.Tensor:
+        return average_clip(self(videos), num_segs, average_clips)
+
+
 def random_state_dict(backbone_cfg: TimeSformerConfig, seed: int, *,
                       num_classes: Optional[int] = None,
                       decoder_cfg: Optional[RNNDecoderConfig] = None
@@ -402,28 +477,32 @@ def init_state_dict(backbone_cfg: TimeSformerConfig, seed: int, *,
 
 def conv_init_state_dict(model: nn.Module, seed: int
                          ) -> Dict[str, torch.Tensor]:
-    """The fp32 state dict of a 3D-CNN recognizer (BackboneClassifier,
-    X3DClassifier, RecognizerRelseq) or backbone as training starts, drawn
-    from a numpy seed with the JAX modules' init schemes: conv kernels
-    lecun-normal with fan-in (input channels / groups) x kernel volume,
-    Dense kernels (the SE's and X3DHead's fc1) lecun-normal, biases zero;
-    BatchNorm scales 1, biases 0, running means 0 and variances 1; the
-    class layer (`fc_cls`, X3DHead's `fc2`) normal(0.01); the RNN
+    """The fp32 state dict of a CNN recognizer (BackboneClassifier,
+    X3DClassifier, RecognizerRelseq, Recognizer2D, TPNRecognizer) or
+    backbone as training starts, drawn from a numpy seed with the JAX
+    modules' init schemes: conv kernels (1-, 2- and 3-D) lecun-normal
+    with fan-in (input channels / groups) x kernel volume, Dense kernels
+    (the SE's, X3DHead's fc1, the TAM's, TIN's and TRN's relation layers)
+    lecun-normal, biases zero; BatchNorm scales 1, biases 0, running
+    means 0 and variances 1; the class layer (`fc_cls`, X3DHead's `fc2`)
+    normal(0.01), TRNHead's per-frame `fc_cls` normal(0.001); the RNN
     decoder as `init_state_dict` draws it (its output layer
     truncated-normal 0.02).  The same distributions as
     `model.init`, not the same numbers."""
     rng = np.random.default_rng(seed)
     out: Dict[str, torch.Tensor] = {}
+    head = getattr(model, "cls_head", None)
     for owner, mod in model.named_modules():
         pre = f"{owner}." if owner else ""
-        if isinstance(mod, (nn.Conv3d, nn.Linear)):
+        if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
             shape = tuple(mod.weight.shape)
-            if owner.endswith("cls_head.fc_cls") or (
-                    owner.endswith("cls_head.fc2")
-                    and isinstance(getattr(model, "cls_head", None),
-                                   X3DHead)):
+            std = (0.001 if isinstance(head, TRNHead) else 0.01) \
+                if owner.endswith("cls_head.fc_cls") else \
+                0.01 if owner.endswith("cls_head.fc2") \
+                and isinstance(head, X3DHead) else None
+            if std is not None:
                 w = torch.from_numpy(
-                    0.01 * rng.standard_normal(shape).astype(np.float32))
+                    std * rng.standard_normal(shape).astype(np.float32))
             elif isinstance(model, RecognizerRelseq) \
                     and owner == "cls_head.out":
                 w = _truncated_normal(rng, shape, 0.02)

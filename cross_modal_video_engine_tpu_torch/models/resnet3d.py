@@ -498,9 +498,9 @@ class X3D(nn.Module):
 
 
 def forward_flops(model: nn.Module, videos: torch.Tensor) -> float:
-    """Multiply-adds x 2 of the model's convolutions, linear layers and
-    non-local attention products on `videos`, read off their shapes in
-    one forward (no grad)."""
+    """Multiply-adds x 2 of the model's convolutions (1-, 2- and 3-D),
+    linear layers and non-local attention products on `videos`, read off
+    their shapes in one forward (no grad)."""
     total = [0.0]
 
     def non_local_hook(m, inp, _out):
@@ -516,7 +516,7 @@ def forward_flops(model: nn.Module, videos: torch.Tensor) -> float:
         total[0] += 2.0 * out.numel() * m.in_features
 
     hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
-             if isinstance(m, nn.Conv3d)]
+             if isinstance(m, nn.modules.conv._ConvNd)]
     hooks += [m.register_forward_hook(linear_hook) for m in model.modules()
               if isinstance(m, nn.Linear)]
     hooks += [m.register_forward_hook(non_local_hook) for m in model.modules()

@@ -19,8 +19,8 @@ both packages.  The modules compute in NCHW (cuDNN's layout) and take
 Train mode (`model.train()`) follows flax's BatchNorm (JAX models/yolo.py
 :57-62): the batch statistics normalize, and the running statistics move
 by running = 0.97 * running + 0.03 * batch with the *biased* batch
-variance (torch's BatchNorm2d folds in the unbiased one; `BatchNorm`
-corrects that).  The raw maps come out in the same layout in both modes,
+variance (`BatchNorm` is layers.FlaxBatchNorm at eps 1e-3 and momentum
+0.03).  The raw maps come out in the same layout in both modes,
 which losses/yolo.py indexes.  In eval mode BatchNorm normalizes by its
 running statistics with eps 1e-3.  The Detect biases come from the
 weights (`init_state_dict` draws the training init with yolov5's priors).
@@ -46,6 +46,7 @@ from torch import nn
 
 from ..ops.preprocess import resize_weights
 from ..utils.device import resolve_device
+from .layers import FlaxBatchNorm
 
 # yolov5 P5 anchors (pixels at strides 8/16/32)
 DEFAULT_ANCHORS = (
@@ -87,30 +88,16 @@ class YoloConfig:
         return int(np.ceil(c * self.width_multiple / 8) * 8)
 
 
-class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d(eps 1e-3, momentum 0.03) whose train-mode update of the
-    running variance takes the biased batch variance, as flax's does.  The
-    normalization is torch's (cuDNN on the card); after torch's update
-    rv' = 0.97 rv + 0.03 var * n/(n-1) the excess is taken back out:
-    rv = 0.97 rv + (rv' - 0.97 rv) (n-1)/n.  A bf16 input keeps f32
-    weights and statistics (torch's mixed-type batch norm)."""
+class BatchNorm(FlaxBatchNorm):
+    """layers.FlaxBatchNorm at ultralytics' eps 1e-3 and momentum 0.03:
+    flax's train-mode update of the running variance by the biased batch
+    variance (JAX models/yolo.py), torch's normalization; no batch count
+    (the detector trainers resume from JAX-format states)."""
+
+    count_batches = False
 
     def __init__(self, c: int, device=None):
         super().__init__(c, eps=1e-3, momentum=0.03, device=device)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        n = x.numel() // x.shape[1]
-        # torch updates copies (autograd keeps them for the backward)
-        mean, var = self.running_mean.clone(), self.running_var.clone()
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
-                         self.momentum, self.eps)
-        with torch.no_grad():
-            kept = self.running_var * (1.0 - self.momentum)
-            self.running_mean.copy_(mean)
-            self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
-        return y
 
 
 class Conv(nn.Module):
@@ -228,7 +215,7 @@ class _Inference(nn.Module):
         self.to_empty(device=resolve_device(device))
         with torch.no_grad():
             for mod in self.modules():
-                if isinstance(mod, nn.BatchNorm2d):
+                if isinstance(mod, BatchNorm):
                     mod.reset_parameters()
                 elif isinstance(mod, (nn.Conv2d, nn.Linear)):
                     mod.weight.zero_()

@@ -24,25 +24,29 @@ Counterpart of cross_modal_video_engine_tpu/train/recognition_trainer.py
 * `make_seq_train_step`: the SeqMLL loss with teacher forcing
   (`Recognizer3DRelseq.forward_train`);
 * `make_cls_train_step_stats` and `make_seq_train_step_stats`: the same
-  for the BatchNorm recognizers (BackboneClassifier, X3DClassifier,
-  RecognizerRelseq on models/resnet3d.py's backbones).  The forward runs
+  for the BatchNorm recognizers (BackboneClassifier and X3DClassifier
+  over models/resnet3d.py's and backbones2d.py's pooled backbones,
+  Recognizer2D over the per-frame ones, RecognizerRelseq over either).
+  The forward runs
   in train mode: each BatchNorm normalizes by the batch and moves its
   running statistics in place, by flax's update, as the JAX step returns
   its mutated `batch_stats`.  `bf16=True` calls the model itself through
   `functional_call` with bf16 copies of its parameters (the BatchNorms'
   rounded to bf16 and held in f32, as flax computes BatchNorm in f32)
   and its own f32 buffers, so the statistics land in the master model;
+* `make_tpn_train_step_stats`: TPNRecognizer's step, the classifier's
+  cross entropy plus the neck's `loss_aux` (logged apart as `loss_cls`),
+  with the same bf16 option;
 * `evaluate_classification`: top-1/top-5 and mean class accuracy in eval
   mode (a BatchNorm recognizer normalizes by its running statistics).
 
 A step runs the model in train mode: DropPath, the embedding dropouts,
-the heads' dropout and the decoder's input dropout draw from the
-`torch.Generator` given to the step's maker.  A backbone configured in
-bfloat16 trained without `bf16=True` is refused: there the JAX package's
-f32 parameters promote the products of its `Dense(dtype=None)` layers
-back to f32 (ROADMAP.md queue 1 item 14).  `make_tpn_train_step_stats`
-comes with item 8b; multigrid, OmniSource and mixup/cutmix blending with
-item 8d.
+the heads' dropout, the decoder's input dropout and TRNHead's tuple picks
+draw from the `torch.Generator` given to the step's maker.  A backbone
+configured in bfloat16 trained without `bf16=True` is refused: there the
+JAX package's f32 parameters promote the products of its
+`Dense(dtype=None)` layers back to f32 (ROADMAP.md queue 1 item 14).  Multigrid, OmniSource and
+mixup/cutmix blending come with item 8d.
 """
 
 from __future__ import annotations
@@ -57,10 +61,11 @@ import torch.nn.functional as F
 
 from ..metrics.accuracy import mean_class_accuracy, top_k_accuracy
 from ..models.decoder_head import RNNDecoderHead
-from ..models.layers import Dropout
-from ..models.layers import FlaxBatchNorm
-from ..models.recognizer import (BackboneClassifier, Recognizer3D,
-                                 Recognizer3DRelseq, RecognizerRelseq)
+from ..models.heads import TRNHead
+from ..models.layers import Dropout, FlaxBatchNorm
+from ..models.recognizer import (BackboneClassifier, Recognizer2D,
+                                 Recognizer3D, Recognizer3DRelseq,
+                                 RecognizerRelseq, TPNRecognizer)
 from ..models.timesformer import DropPath
 from ..utils.device import resolve_device
 from ..utils.precision import no_tf32
@@ -68,9 +73,6 @@ from .optim import OptaxOptimizer
 
 # the parts of slice 5 still to port (ROADMAP.md queue 1 item 8)
 PARTS = {
-    "8b": "the 2D, TSM and pyramid recognizers (TSM, TSN, TIN, TANet, "
-          "C3D, R(2+1)D, MobileNetV2-TSM, TPN, Recognizer2D with the TSN "
-          "and TRN heads)",
     "8c": "the transformer and CLIP backbones (Swin3D, MViT, VideoMAE, "
           "CLIP, VideoCLIP)",
     "8d": "the training recipes (mixup/cutmix blending, multigrid, "
@@ -88,6 +90,15 @@ def not_ported(what: str, part: str) -> str:
     """The refusal of what a part of slice 5 still has to port."""
     return (f"{what} is not ported yet: it comes with {PARTS[part]}, slice "
             f"5 (ROADMAP.md queue 1 item {part})")
+
+
+def not_ported_model(step: str, model) -> str:
+    """The refusal of a model no ported step trains."""
+    return (f"{step} on {type(model).__name__} is not ported yet: it comes "
+            f"with a later part of slice 5 (ROADMAP.md queue 1 item 8)")
+
+
+CLASSIFIERS = (BackboneClassifier, Recognizer2D)
 BF16_CONFIG = ("a backbone configured with dtype='bfloat16' trains with "
                "bf16=True (f32 masters, a bf16 copy for the forward); "
                "without it the JAX package's f32 parameters promote its "
@@ -142,7 +153,7 @@ def set_generator(model: torch.nn.Module,
     """Every DropPath, dropout and decoder input dropout of the model
     draws from `generator`."""
     for m in model.modules():
-        if isinstance(m, (DropPath, Dropout, RNNDecoderHead)):
+        if isinstance(m, (DropPath, Dropout, RNNDecoderHead, TRNHead)):
             m.generator = generator
 
 
@@ -194,9 +205,10 @@ def make_cls_train_step(model: Recognizer3D, blending=None,
     indices.  logs: detached 0-d tensors.  The BatchNorm recognizers
     train with `make_cls_train_step_stats`."""
     _refuse_blending(blending)
-    if isinstance(model, BackboneClassifier):
+    if isinstance(model, CLASSIFIERS + (TPNRecognizer,)):
         raise ValueError("a BatchNorm recognizer trains with "
-                         "make_cls_train_step_stats")
+                         "make_cls_train_step_stats (TPN: "
+                         "make_tpn_train_step_stats)")
     if not isinstance(model, Recognizer3D):
         raise NotImplementedError(not_ported(
             f"make_cls_train_step on {type(model).__name__}", "8c"))
@@ -214,21 +226,21 @@ def make_cls_train_step(model: Recognizer3D, blending=None,
 
 
 def _bf16_stats_forward(model: torch.nn.Module):
-    """forward(videos) -> the model's outputs computed in bfloat16: the
-    model called through functional_call on bf16 copies of its master
+    """forward(videos, **kw) -> the model's outputs computed in bfloat16:
+    the model called through functional_call on bf16 copies of its master
     parameters (the BatchNorms' rounded to bf16 and held in f32), its
     own f32 buffers (their running statistics move in place) and the
     videos in bf16, the casts inside autograd."""
     bn = {f"{o}.{leaf}" for o, m in model.named_modules()
           if isinstance(m, FlaxBatchNorm) for leaf in ("weight", "bias")}
 
-    def forward(videos: torch.Tensor) -> torch.Tensor:
+    def forward(videos: torch.Tensor, **kw):
         tensors = {n: (p.to(torch.bfloat16).float() if n in bn
                        else p.to(torch.bfloat16))
                    for n, p in model.named_parameters()}
         tensors.update(model.named_buffers())
         return torch.func.functional_call(
-            model, tensors, (videos.to(torch.bfloat16),))
+            model, tensors, (videos.to(torch.bfloat16),), kw)
 
     return forward
 
@@ -238,14 +250,17 @@ def make_cls_train_step_stats(model: BackboneClassifier, blending=None,
                               generator: Optional[torch.Generator] = None,
                               device=None):
     """make_cls_train_step for the BatchNorm recognizers
-    (BackboneClassifier, X3DClassifier): step(state, videos, labels) ->
-    (state, {"loss", "top1_acc"}), the running statistics updated in
-    place.  bf16: f32 masters and statistics, the forward and backward in
-    bfloat16 (JAX recognition_trainer.py:122-160)."""
+    (BackboneClassifier, X3DClassifier, Recognizer2D): step(state, videos,
+    labels) -> (state, {"loss", "top1_acc"}), the running statistics
+    updated in place.  bf16: f32 masters and statistics, the forward and
+    backward in bfloat16 (JAX recognition_trainer.py:122-160)."""
     _refuse_blending(blending)
-    if not isinstance(model, BackboneClassifier):
-        raise NotImplementedError(not_ported(
-            f"make_cls_train_step_stats on {type(model).__name__}", "8b"))
+    if isinstance(model, TPNRecognizer):
+        raise ValueError("a TPNRecognizer trains with "
+                         "make_tpn_train_step_stats")
+    if not isinstance(model, CLASSIFIERS):
+        raise NotImplementedError(not_ported_model(
+            "make_cls_train_step_stats", model))
     _check(model, device)
     no_tf32()
     set_generator(model, generator)
@@ -295,16 +310,60 @@ def make_seq_train_step(model: Recognizer3DRelseq,
 def make_seq_train_step_stats(model: RecognizerRelseq,
                               generator: Optional[torch.Generator] = None,
                               device=None):
-    """make_seq_train_step for a RecognizerRelseq on a BatchNorm backbone:
-    the running statistics move in place (JAX recognition_trainer.py
-    :180-198; f32, as the JAX step has no bf16 option)."""
+    """make_seq_train_step for a RecognizerRelseq on a BatchNorm backbone
+    (a per-frame one behind the temporal mean too): the running
+    statistics move in place (JAX recognition_trainer.py:180-198; f32, as
+    the JAX step has no bf16 option)."""
+    if isinstance(model, CLASSIFIERS + (TPNRecognizer,)):
+        raise ValueError("make_seq_train_step_stats trains a caption model "
+                         "(RecognizerRelseq); a classifier trains with "
+                         "make_cls_train_step_stats")
     if not isinstance(model, RecognizerRelseq):
-        raise NotImplementedError(not_ported(
-            f"make_seq_train_step_stats on {type(model).__name__}", "8b"))
+        raise NotImplementedError(not_ported_model(
+            "make_seq_train_step_stats", model))
     _check(model, device)
     no_tf32()
     set_generator(model, generator)
     return _seq_step(model)
+
+
+def make_tpn_train_step_stats(model: TPNRecognizer, bf16: bool = False,
+                              generator: Optional[torch.Generator] = None,
+                              device=None):
+    """step(state, videos, labels) -> (state, {"loss", "loss_cls",
+    "top1_acc"}) for a TPNRecognizer (JAX recognition_trainer.py
+    :515-546): the classifier's cross entropy plus the neck's
+    `loss_aux` (aux_loss_weight times the aux head's cross entropy), the
+    running statistics updated in place; bf16 as make_cls_train_step_
+    stats has it."""
+    if not isinstance(model, TPNRecognizer):
+        raise ValueError(f"make_tpn_train_step_stats trains a TPNRecognizer,"
+                         f" not a {type(model).__name__}")
+    _check(model, device)
+    no_tf32()
+    set_generator(model, generator)
+    forward = _bf16_stats_forward(model) if bf16 else model
+
+    def step(state: RecTrainState, videos: torch.Tensor,
+             labels: torch.Tensor):
+        net, opt = state.model, state.optimizer
+        if net is not model:
+            raise ValueError("the state's model is not the one the step "
+                             "was made for")
+        net.train()
+        opt.zero_grad(set_to_none=True)
+        scores, aux = forward(videos, target=labels)
+        scores = scores.float()
+        loss_cls = F.cross_entropy(scores, labels)
+        loss = loss_cls + aux.get("loss_aux", 0.0)
+        acc = (scores.argmax(-1) == labels).float().mean()
+        loss.backward()
+        opt.step()
+        return (state._replace(step=state.step + 1),
+                {"loss": loss.detach(), "loss_cls": loss_cls.detach(),
+                 "top1_acc": acc.detach()})
+
+    return step
 
 
 def _seq_step(model: torch.nn.Module):
@@ -351,6 +410,5 @@ def _not_ported(name: str, part: str):
     return raise_
 
 
-make_tpn_train_step_stats = _not_ported("make_tpn_train_step_stats", "8b")
 train_multigrid = _not_ported("train_multigrid", "8d")
 train_omnisource = _not_ported("train_omnisource", "8d")

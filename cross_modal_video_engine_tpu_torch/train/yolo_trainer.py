@@ -44,7 +44,8 @@ from torch import nn
 
 from ..data.pipelines import resize_linear
 from ..losses.yolo import YoloHyp, scale_hyp, yolo_loss, yolo_seg_loss
-from ..models.yolo import YoloClassifier, YoloV5, init_state_dict
+from ..models.yolo import (BatchNorm, YoloClassifier, YoloV5,
+                           init_state_dict)
 from ..utils.precision import no_tf32
 from .recognition_trainer import _check
 
@@ -79,7 +80,7 @@ def param_groups(model: nn.Module) -> Dict[str, int]:
             name = f"{owner}.{leaf}" if owner else leaf
             if leaf == "bias":
                 groups[name] = 2
-            elif isinstance(mod, nn.BatchNorm2d):
+            elif isinstance(mod, BatchNorm):
                 groups[name] = 1
             else:
                 groups[name] = 0
@@ -142,7 +143,7 @@ def _bf16_forward(model: nn.Module):
     in f32), the masters' f32 buffers and the images in bf16."""
     shadow = type(model)(model.cfg, device="meta")
     bn = {f"{o}.{leaf}" for o, m in model.named_modules()
-          if isinstance(m, nn.BatchNorm2d) for leaf in ("weight", "bias")}
+          if isinstance(m, BatchNorm) for leaf in ("weight", "bias")}
 
     def forward(images: torch.Tensor):
         shadow.train(model.training)

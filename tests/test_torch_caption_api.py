@@ -525,6 +525,25 @@ def _route(builder, **args):
     handler.batcher.close()
 
 
+def _cnn_recognition_test(videos, tmp):
+    """recognition_test.main on a CNN classifier's checkpoint (a tiny TSM
+    at its training init), which the CLI rebuilds from the config."""
+    from cross_modal_video_engine_tpu_torch.cli import (recognition_test,
+                                                        recognition_train)
+    from cross_modal_video_engine_tpu_torch.config import Config
+    cfg = write_train_config(str(tmp), videos, "recognition")
+    tsm = dict(type="TSM", stage_blocks=[1, 1, 1, 1], base_channels=4)
+    text = open(cfg).read().replace(repr(TS), repr(tsm))
+    open(cfg, "w").write(text)
+    model = recognition_train.build_recognition_model(Config.fromfile(cfg),
+                                                      "cpu")
+    ckpt = str(tmp / "tsm")
+    save_checkpoint(ckpt, recognition_train.recognizer_variables(model),
+                    {"backbone": tsm, "num_classes": 4})
+    return recognition_test.main([cfg, "--checkpoint", ckpt, "--device",
+                                  "cpu"])
+
+
 def _entry_points():
     from cross_modal_video_engine_tpu_torch.cli import (
         caption_train, composed_inference, recognition_test,
@@ -576,6 +595,8 @@ def _entry_points():
                                "recognition"),
             "--checkpoint", str(w["detector"][0] / "rec"), "--device",
             "cpu"]),
+        "recognition_test.main[cnn]": lambda w: _cnn_recognition_test(
+            w["caption"][1], w["tmp"]),
         "yolo_val.main": lambda w: yolo_val.main([
             str(w["detector"][0] / "cfg.py"), "--checkpoint",
             str(w["detector"][0] / "best"), "--device", "cpu"]),
@@ -594,7 +615,7 @@ ENTRY_POINTS = ["restore_dual_encoding", "retrieval_inference.main",
                 "build_caption_handler", "caption_train.main",
                 "recognition_train.main", "yolo_val.main", "ctv_build.main",
                 "yolo_train.main", "yolo_cls_train.main",
-                "recognition_test.main"]
+                "recognition_test.main", "recognition_test.main[cnn]"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)

@@ -373,17 +373,17 @@ def test_jax_epoch_state_resumes_in_the_port_cli(tmp_path, capsys):
 # -- what the port refuses ----------------------------------------------------------
 
 def test_other_caption_backbones_raise(tmp_path):
-    """A backbone the port lacks is refused, naming its part (the 3D-CNNs
-    train: tests/test_torch_recognition_cli.py)."""
+    """A backbone the port lacks is refused, naming its part (the CNNs
+    train: tests/test_torch_recognition_cli.py,
+    test_torch_recognizer2d_cli.py)."""
     cfg = Config.fromfile(write_fixture(tmp_path))
-    cfg.set("model.backbone", dict(type="TSM", depth=50))
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    cfg.set("model.backbone", dict(type="MViT"))
+    with pytest.raises(NotImplementedError, match="item 8c"):
         tct.train_from_config(cfg, str(tmp_path / "w"), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["make_seq_train_step_stats",
                                   "make_cls_train_step_stats",
-                                  "make_tpn_train_step_stats",
                                   "train_multigrid", "train_omnisource"])
 def test_slice5_steps_raise(name):
     with pytest.raises(NotImplementedError, match="item 8"):

@@ -20,8 +20,9 @@ brightness encodes their class; backbones of width 4-8).
   classifier checkpoint refused by both, as the JAX loader refuses it.
 * One refusal for each part of slice 5 still to port, naming it.
 * `_TemporalMean`, the caption backbone's pooling of a per-frame
-  backbone (none is ported before part 8b), against the JAX module on a
-  per-frame Dense.
+  backbone, against the JAX module on a per-frame Dense (its branch of
+  `build_caption_backbone` on a real TSM:
+  tests/test_torch_recognizer2d_cli.py).
 """
 
 import argparse
@@ -298,7 +299,6 @@ def test_recognition_test_matches_jax(clips_dir, tmp_path, capsys):
 # -- refusals, one per part ------------------------------------------------------------
 
 @pytest.mark.parametrize("part,refused", [
-    ("8b", lambda root: trt.build_backbone("TSM", {})),
     ("8c", lambda root: trt.build_caption_backbone("MViT", {})),
     ("8d", lambda root: trt.train_from_config(Config.fromfile(write_config(
         root, "mg", RESNET3D, extra="multigrid = dict(base_batch=8)\n")),

@@ -399,9 +399,7 @@ def test_recognition_train_main_end_to_end(tmp_path, capsys, bf16):
 # -- what the port refuses -------------------------------------------------------------
 
 @pytest.mark.parametrize("option,value", [
-    ("model.backbone", dict(type="TSM")),
-    ("model.neck", dict(type="TPN")),
-    ("model.head", dict(type="TRNHead")),
+    ("model.backbone", dict(type="Swin3D")),
     ("omnisource", dict(train_ratio=[2, 1])),
     ("multigrid", dict(base_batch=8)),
     ("train_cfg", dict(blending=dict(type="MixupBlending", alpha=0.2))),

@@ -43,7 +43,8 @@ packages are compared).
 * The epoch state with `batch_stats`: written by JAX, read by the port
   and written back byte for byte; written by the port after a step, read
   by JAX's `load_train_state` leaf for leaf.
-* The refusals that name their part.
+* The refusals that name their part, and the steps' refusal of the
+  models they do not train.
 """
 
 import os
@@ -413,8 +414,7 @@ def test_epoch_state_with_batch_stats_crosses_packages(tmp_path):
 # -- refusals ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("name,part", [
-    ("make_tpn_train_step_stats", "8b"), ("train_multigrid", "8d"),
-    ("train_omnisource", "8d")])
+    ("train_multigrid", "8d"), ("train_omnisource", "8d")])
 def test_unported_trainers_name_their_part(name, part):
     with pytest.raises(NotImplementedError, match=f"item {part}\\)"):
         getattr(trt, name)(None, None)
@@ -426,7 +426,7 @@ def test_stats_steps_refuse_other_models():
         trt.make_cls_train_step(tm, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8d"):
         trt.make_cls_train_step_stats(tm, blending=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(ValueError, match="caption model"):
         trt.make_seq_train_step_stats(tm, device="cpu")
     rm, _, _ = _models("i3d", "relseq")
     with pytest.raises(ValueError, match="make_seq_train_step_stats"):

@@ -4,7 +4,8 @@ of the shipped recipe's layout cut to stage_blocks (1, 1, 1, 1) and width
 8, 8 frames at 32²: the step passes its own check in f32 and in bf16, and
 the check refuses every fault it plants (zero, random and negated
 gradients, unmoved parameters, stale statistics), each in its own
-sub-check.  No JAX here: the check holds the step to float64."""
+sub-check; the same for step 19b's TRN and TPN recipes cut to the same
+size (f32).  No JAX here: the check holds the step to float64."""
 
 import numpy as np
 import pytest
@@ -65,3 +66,80 @@ def test_step_check_passes_itself_and_refuses_planted_faults(start):
     for fault in ("one zero tensor", "one negated tensor",
                   "one doubled tensor"):
         assert f32[fault]["refused_in"] >= 0.9 * f32[fault]["of"], f32[fault]
+
+
+# step 19b's recipes cut the same way: TRN (its tuples one fixed draw on
+# every run) and TPN over SlowOnly (the step adds loss_aux)
+STEP19_CUTS = {
+    "trn_r50_1x1x8": {"model.backbone.stage_blocks": [1, 1, 1, 1],
+                      "model.backbone.base_channels": 8},
+    "tpn_slowonly_r50_8x8": {
+        "model.backbone.stage_blocks": [1, 1, 1, 1],
+        "model.backbone.base_channels": 4,
+        "model.neck": dict(type="TPN", in_channels=[64, 128],
+                           out_channels=16, mid_channels=8,
+                           lf_out_channels=16, fusion_channels=16,
+                           groups=4, downsample_scales=[8, 8])}}
+
+
+@pytest.mark.parametrize("name", list(STEP19_CUTS))
+def test_step_check_covers_the_8b_steps(name):
+    cfg = chip_smoke.shipped_training_config(
+        chip_smoke.CNN_CONFIGS / chip_smoke.CNN19[name],
+        **STEP19_CUTS[name])
+    rng = np.random.default_rng(19)
+    clips = rng.uniform(-1, 1, (2, 8, 32, 32, 3)).astype(np.float32)
+    labels = np.array([0, 7])
+    line = chip_smoke.step_card_vs_cpu(torch.device("cpu"), cfg, clips,
+                                       labels, None, bf16s=(False,))
+    assert line["failed"] == [] and line["f64_max_rel"] == 0.0
+    assert "bf16" not in line
+    planted = line["f32"]["planted"]
+    assert all(planted[f]["refused"] for f in (
+        "zero gradients", "random gradients", "negated gradients",
+        "unmoved parameters", "stale statistics"))
+    # the loss is the recipe's: TPN's includes its aux head's
+    model = chip_smoke._start_model(cfg, torch.device("cpu"), None).train()
+    loss = chip_smoke._train_loss(model, torch.from_numpy(clips),
+                                  torch.from_numpy(labels))
+    assert abs(float(loss) - line["f32"]["loss_cpu"]) <= 1e-5 * float(loss)
+
+
+def test_float64_runs_stay_in_float64():
+    """The witness's runs compute the loss, the TPN aux loss included, in
+    float64 (a cross entropy taken in f32 puts the two devices' float64
+    gradients 4e-9 of a tensor's largest apart, where they agree to
+    1e-12)."""
+    name = "tpn_slowonly_r50_8x8"
+    cfg = chip_smoke.shipped_training_config(
+        chip_smoke.CNN_CONFIGS / chip_smoke.CNN19[name],
+        **STEP19_CUTS[name])
+    model = chip_smoke._start_model(cfg, torch.device("cpu"),
+                                    None).double().train()
+    clips = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (2, 8, 32, 32, 3)))
+    labels = torch.tensor([1, 2])
+    _, aux = model(clips, target=labels)
+    assert aux["loss_aux"].dtype == torch.float64
+    assert chip_smoke._train_loss(model, clips, labels).dtype == \
+        torch.float64
+
+
+def test_per_tensor_bounds_hold_where_both_cpu_orders_agree():
+    """A tensor is held alone where both CPU runs (two thread counts) lie
+    within STEP18_GROSS[0] of float64; one that the CPU's summation order
+    moves farther is left to the groups and the whole gradient."""
+    truth = {"w": torch.tensor([1.0, 0.0], dtype=torch.float64),
+             "v": torch.tensor([1.0, 0.0], dtype=torch.float64)}
+    tt = {n: 1.0 for n in truth}
+    near = torch.tensor([1.05, 0.0], dtype=torch.float64)
+    runs = [{"grads": {"w": near, "v": near}},
+            {"grads": {"w": near,
+                       "v": torch.tensor([0.5, 0.5], dtype=torch.float64)}}]
+    gate = chip_smoke._gate(runs, truth, tt)
+    off = torch.tensor([0.3, 0.6], dtype=torch.float64)
+    sums = chip_smoke._sums({"w": off, "v": off}, truth, runs[0]["grads"])
+    assert not chip_smoke._tensor_ok(sums["w"], gate["w"], 1.0, 2)
+    assert chip_smoke._tensor_ok(sums["v"], gate["v"], 1.0, 2)
+    good = chip_smoke._sums({"w": near}, {"w": truth["w"]}, {"w": near})
+    assert chip_smoke._tensor_ok(good["w"], gate["w"], 1.0, 2)
