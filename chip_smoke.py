@@ -6,7 +6,7 @@ Usage: python3 chip_smoke.py [STEP ...]   (from the root of the repository)
 With no argument every step runs (the whole smoke run).  A list of
 step numbers ("19", "13 19" or "13,19") runs only those steps, always
 after the build (2) and the kernel checks (3) and before the results
-(20); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
+(21); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
 step did not run is null in the `kernels` line; the last line names the
 steps that ran and those skipped.
 
@@ -250,7 +250,7 @@ steps that ran and those skipped.
     through the reader seam, 2 epochs with validation, a resume from
     epoch_0 against the uninterrupted epoch 1 (parameters and
     batch_stats), model_best with its batch_stats; one stats step at
-    batch 2 card against CPU in f32 and in bf16, from epoch_1 (step 19b
+    batch 1 card against CPU in f32 and in bf16, from epoch_1 (step 19b
     takes steps from the training init), held to float64 as closely as
     the CPU is,
     with planted faults the check must refuse; bench/extra.py's
@@ -270,7 +270,8 @@ steps that ran and those skipped.
     CPU at batch 1 in f32, logits within CNN18_REL and cosine CNN18_COS,
     then the forward at batch 8 in f32 and bf16; (b) one stats step at
     batch 1 card against CPU for TSM, TIN, TRN (one fixed draw of its
-    tuples) and TPN (with loss_aux), f32, and bf16 for TSM, held to
+    tuples) and TPN (with loss_aux; its SlowOnly at one block a stage),
+    f32, and bf16 for TSM, held to
     float64 as 18b holds SlowFast, with its planted faults; (c)
     `recognition_train.train_from_config` on the shipped TSM recipe over
     16 seeded videos at batch 8, one epoch with validation, then
@@ -278,12 +279,33 @@ steps that ran and those skipped.
     against a direct forward_test; (d) `caption_train` on the shipped
     tsm_relseq.py, one epoch, its model_best served over /caption as in
     18c; (e) the launch counters;
-20. prints the JSON lines of steps 10-19 that ran and of the kernel
+20. the transformer and CLIP recognizers at full width, the same way:
+    (a) each shipped recipe (swin_tiny, mvit_small, videomae_b_16x4 at
+    16x224², clip_mean_pooling_8x32, videoclip_ctv_extraction; 400
+    classes, the training init) and the pooled features of
+    mvit_relseq.py and videomae_relseq.py (MViT at one block a stage,
+    VideoMAE at 4 layers), card against CPU at batch 1 in f32, then the forward at batch 8 in f32 and through the bf16=True
+    copy, with TFLOP/s; (b) clip_mean_pooling_8x32 with
+    fused_attn=fused_mlp=True against its plain arm on the same weights
+    at batch 8 (64 frames), bf16 and f32: logits, exactly 12 compact and
+    12 MLP launches a forward, one training step of each arm (gradients
+    by group), both arms timed; (c) one make_cls_train_step at batch 1
+    card against CPU for each recipe (Swin at two blocks a stage, MViT
+    at one, VideoMAE and CLIP at 2 blocks: widths kept), f32, and bf16
+    for Swin3D and
+    VideoMAE, held to float64 as 18b holds SlowFast, with its planted
+    faults; (d) `recognition_train` on swin_tiny_k400.py over 16 seeded
+    videos at batch 8, one epoch, then `recognition_test` against a
+    direct forward_test; `caption_train` on videomae_relseq.py, one
+    epoch, its model_best served over /caption as in 18c; (e) the launch
+    counters: none but 20b's kernel arm may launch a kernel;
+21. prints the JSON lines of steps 10-20 that ran and of the kernel
     results (launches on the main paths, on the composed, caption and
     explain routes, in the training steps, in the bank build, in the
     caption transformer's generates, in the detector's training, in the
-    3D-CNN step and in the 2D-CNN step, error, time, plain time, bound,
-    library time) and, last, a JSON line naming the device.
+    3D-CNN step, in the 2D-CNN step, over step 20 and in 20b's CLIP
+    kernel arm, error, time, plain time, bound, library time) and, last,
+    a JSON line naming the device.
 
 Nothing is cut: the models run at full width and depth (the 3D-CNN
 trainers 2 and 1 epochs of 16 videos, the 2D ones 1 epoch each; the LINAS
@@ -297,6 +319,7 @@ result, when CUDA is unavailable or any check fails.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -1403,10 +1426,11 @@ def check_big_index(dev, card):
 
 
 # LINAS serving step: collection, card-against-CPU sample, index rows, HTTP
-# checks, bench arms and timed waves
+# checks, bench arms and timed waves (the request and wave counts kept small
+# for the script's time)
 LINAS_VIDEOS, LINAS_CAPTIONS, LINAS_SAMPLE = 1000, 5, 64
 LINAS_ROWS, LINAS_HTTP_CHECKS = 1_000_000, 16
-LINAS_SINGLE, LINAS_CLIENTS, LINAS_PER_CLIENT, LINAS_WAVE_CALLS = 200, 64, 20, 50
+LINAS_SINGLE, LINAS_CLIENTS, LINAS_PER_CLIENT, LINAS_WAVE_CALLS = 100, 64, 10, 20
 # card vs CPU: cuDNN's GRU and the convolutions sum in another order
 LINAS_TOL = 1e-3
 # HTTP answers vs index.search_ids on the same card: the same f32 products
@@ -1463,25 +1487,47 @@ def linas_cli_card_vs_cpu(root, ckpt, sample_lines, queries, card) -> dict:
     with open(collection_paths(root, LINAS_CLI_SAMPLE, bserve.FEATURE)
               ["cap_file"], "w") as f:
         f.write("\n".join(sample_lines))
+    # both processes side by side, each writing to its own files
+    procs, ended = {}, {}
+    try:
+        for name, device in LINAS_CLI_RUNS:
+            argv = ["--checkpoint", ckpt, "--rootpath", root,
+                    "--collection", LINAS_CLI_SAMPLE, "--visual_feature",
+                    bserve.FEATURE, "--topK", "10", "--index_cache",
+                    os.path.join(root, f"cli_index_{name}.npz")] + device
+            files = [open(os.path.join(root, f"cli_{name}.{ext}"), "w+")
+                     for ext in ("out", "err")]
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-c", LINAS_CLI_CODE,
+                 json.dumps([argv, list(queries)])],
+                stdout=files[0], stderr=files[1], text=True, cwd=str(ROOT),
+                env=dict(os.environ, PYTHONPATH=str(ROOT))), files,
+                time.perf_counter())
+        deadline = time.perf_counter() + 900
+        while len(ended) < len(procs) and time.perf_counter() < deadline:
+            for name, (proc, _, t0) in procs.items():
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for proc, files, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     runs = {}
-    for name, device in LINAS_CLI_RUNS:
-        argv = ["--checkpoint", ckpt, "--rootpath", root, "--collection",
-                LINAS_CLI_SAMPLE, "--visual_feature", bserve.FEATURE,
-                "--topK", "10", "--index_cache",
-                os.path.join(root, f"cli_index_{name}.npz")] + device
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-c", LINAS_CLI_CODE,
-             json.dumps([argv, list(queries)])],
-            capture_output=True, text=True, timeout=900, cwd=str(ROOT),
-            env=dict(os.environ, PYTHONPATH=str(ROOT)))
-        if out.returncode:
-            raise SystemExit(f"10c' the {name} CLI failed: "
-                             f"{out.stderr[-3000:]}")
+    for name, (proc, files, _) in procs.items():
+        for f in files:
+            f.seek(0)
+        stdout, stderr = (f.read() for f in files)
+        for f in files:
+            f.close()
+        if name not in ended or proc.returncode:
+            raise SystemExit(f"10c' the {name} CLI failed (exit "
+                             f"{proc.returncode}): {stderr[-3000:]}")
         result = next(json.loads(x[len("RESULT "):])
-                      for x in out.stdout.splitlines()
+                      for x in stdout.splitlines()
                       if x.startswith("RESULT "))
-        result["seconds"] = time.perf_counter() - t0
+        result["seconds"] = ended[name]
         runs[name] = result
     card_s, cpu_s = runs["card"]["searches"], runs["cpu"]["searches"]
     same_ids = sum(a[1] == b[1] for a, b in zip(card_s, cpu_s))
@@ -1500,7 +1546,8 @@ def linas_cli_card_vs_cpu(root, ckpt, sample_lines, queries, card) -> dict:
           f"CPU, {len(queries)} queries over {LINAS_SAMPLE} videos: "
           f"{same_ids}/{len(queries)} with the same top-10 ids, max "
           f"|score difference| {err:.3e} (need < {LINAS_TOL}); "
-          f"{line['card_s']:.1f} s and {line['cpu_s']:.1f} s on {card}",
+          f"{line['card_s']:.1f} s and {line['cpu_s']:.1f} s side by side "
+          f"on {card}",
           flush=True)
     if (same_ids != len(queries) or len(card_s) != len(queries)
             or not err < LINAS_TOL or any(runs["card"]["tf32_after"])):
@@ -1714,7 +1761,8 @@ def check_linas_serving(dev, card) -> dict:
 
 
 # LINAS training step (tolerances stated before the first run on the card)
-TRAIN_VIDEOS, TRAIN_VAL_VIDEOS, TRAIN_CAPTIONS = 512, 128, 5
+# (256 training videos: 20 steps in 2 epochs, for the script's time)
+TRAIN_VIDEOS, TRAIN_VAL_VIDEOS, TRAIN_CAPTIONS = 256, 128, 5
 TRAIN_BATCH, TRAIN_SUPPORT, TRAIN_EPOCHS = 128, 8, 2
 TRAIN_VAL_COLLECTION = "linasval"
 # (a) card vs CPU, one step: the loss; each gradient tensor within
@@ -3294,8 +3342,9 @@ RECOGNITION_CONFIG = (ROOT / "configs" / "recognition"
                       / "timesformer_divst_8x32_k400.py")
 # a seeded collection: TRAIN15_VIDEOS videos to train on, the first
 # TRAIN15_VAL of them to validate on; batch 8 as the configs say; the
-# card-vs-CPU steps at TRAIN15_CPU_BATCH (the CPU's time)
-TRAIN15_VIDEOS, TRAIN15_VAL, TRAIN15_BATCH, TRAIN15_CPU_BATCH = 32, 8, 8, 2
+# card-vs-CPU steps at TRAIN15_CPU_BATCH (the CPU's time); 16 videos (2
+# steps an epoch) for the script's time
+TRAIN15_VIDEOS, TRAIN15_VAL, TRAIN15_BATCH, TRAIN15_CPU_BATCH = 16, 8, 8, 2
 # (a) one f32 caption step, card vs CPU, dropouts 0: step 11a's bounds
 # (the loss, each gradient tensor, the parameters after the SGD step); the
 # clip engaged by a max_norm below the gradient's norm
@@ -3312,8 +3361,10 @@ TRAIN15_FLASH_STEPS = 3
 # summation orders): the loss within BF16_LOSS_REL, each gradient's
 # cosine >= BF16_GRAD_COS (the CPU tests' bounds against JAX)
 BF16_LOSS_REL, BF16_GRAD_COS = 2e-2, 0.99
+TRAIN15D_LAYERS = 4
 # (e) steps timed by CUDA events (median of steps 3..), the loop profiled
-TRAIN15_TIMED, TRAIN15_PROFILED = 5, 5
+# over 3 steps
+TRAIN15_TIMED, TRAIN15_PROFILED = 5, 3
 
 
 def shipped_training_config(path, **options):
@@ -3645,8 +3696,11 @@ def recognition_cli(dev, card, tmp, videos, names, line) -> None:
     clips = np.stack([pipe({"filename": n, "start_index": 0})["imgs"][0]
                       for n in names[:TRAIN15_CPU_BATCH]]).astype(np.float32)
     labels = np.arange(TRAIN15_CPU_BATCH) * 7
+    # the step at TRAIN15D_LAYERS of the recipe's 12 layers (its widths
+    # kept): the CPU's bf16 step takes the script's time
     no_drop = shipped_training_config(
-        RECOGNITION_CONFIG, **{"model.backbone.drop_path_max": 0.0})
+        RECOGNITION_CONFIG, **{"model.backbone.drop_path_max": 0.0,
+                               "model.backbone.num_layers": TRAIN15D_LAYERS})
     tcfg = RecognitionTrainConfig(**dict(cfg["optimizer"]))
     runs = {}
     for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
@@ -3664,13 +3718,15 @@ def recognition_cli(dev, card, tmp, videos, names, line) -> None:
                                                              runs["cpu"])
     cos = grad_cosines(card_g, cpu_g)
     worst = min(cos, key=cos.get)
-    step_line = {"loss_card": card_loss, "loss_cpu": cpu_loss,
+    step_line = {"num_layers": TRAIN15D_LAYERS,
+                 "loss_card": card_loss, "loss_cpu": cpu_loss,
                  "loss_rel": abs(card_loss - cpu_loss) / abs(cpu_loss),
                  "grad_cos_min": cos[worst], "grad_cos_min_at": worst,
                  "card_s": card_s, "cpu_s": cpu_s}
     line["step_card_vs_cpu"] = step_line
-    print(f"15d one bf16 recognition step (timesformer_divst_8x32_k400.py, "
-          f"400 classes, f32 masters, dropouts 0) at batch "
+    print(f"15d one bf16 recognition step (timesformer_divst_8x32_k400.py "
+          f"at {TRAIN15D_LAYERS} layers, 400 classes, f32 masters, dropouts "
+          f"0) at batch "
           f"{TRAIN15_CPU_BATCH}, card vs CPU: {json.dumps(step_line)} (need "
           f"loss within {BF16_LOSS_REL}, every gradient's cosine >= "
           f"{BF16_GRAD_COS})", flush=True)
@@ -3937,8 +3993,9 @@ YOLO_VAL_BATCH = 16
 YOLO_VAL_OPTIONS = [f"data.batch_size={YOLO_VAL_BATCH}",
                     "data.max_targets=512"]
 YOLO_TIMED_CALLS = 20
-# ctv_build: step 14's backbone, seeded videos at a size on the 32 grid
-CTV_VIDEOS, CTV_CPU_VIDEOS, CTV_SIZE, CTV_REFUSED = 8, 2, (352, 480), \
+# ctv_build: step 14's backbone, seeded videos at a size on the 32 grid; the
+# CPU builds the first video's banks (one video for the script's time)
+CTV_VIDEOS, CTV_CPU_VIDEOS, CTV_SIZE, CTV_REFUSED = 8, 1, (352, 480), \
     (360, 480)
 # bf16 on both sides: an instance CTV (a difference of two CLS features)
 # from the card against the CPU's, and explain_video's video CTVs
@@ -5302,13 +5359,17 @@ I3D_RELSEQ_CONFIG = ROOT / "configs" / "seq_generate" / "i3d_relseq.py"
 # 18b/c: a seeded collection of TRAIN18_VIDEOS (validation: the first
 # TRAIN18_VAL), batch TRAIN18_BATCH as the configs say; the card-vs-CPU
 # steps at TRAIN18_CPU_BATCH; the bench row at TRAIN18_BIG (halved until it
-# fits)
-TRAIN18_VIDEOS, TRAIN18_VAL, TRAIN18_BATCH, TRAIN18_CPU_BATCH = 16, 8, 8, 2
-TRAIN18_BIG, TRAIN18_TIMED, TRAIN18_PROFILED = 32, 6, 4
-# one step card vs CPU at full width, from the CLI's epoch_1 state (4
+# fits); the shipped step timed over 5 steps and its loop profiled over 2;
+# the CLIs of steps 18-20 train one step an epoch on the 8 videos, for the
+# script's time
+TRAIN18_VIDEOS, TRAIN18_VAL, TRAIN18_BATCH, TRAIN18_CPU_BATCH = 8, 8, 8, 1
+TRAIN18_BIG, TRAIN18_TIMED, TRAIN18_PROFILED = 32, 5, 2
+# one step card vs CPU at full width, from the CLI's epoch_1 state (2
 # steps on; the training init's steps are 19b's), head dropout 0.
 # float64 on both devices is the witness: every gradient and running statistic within
-# STEP18_F64 of its tensor's largest (the same arithmetic), and the
+# STEP18_F64 of its tensor's largest (the same arithmetic; a gradient that
+# is zero but for rounding, of its STEP18_F64_FLOOR share of the model's
+# largest gradient), and the
 # truth the f32 and bf16 steps are held to.  The CPU tests' bounds
 # against JAX (STEP18_TESTS) hold wherever f32 or bf16 arithmetic meets
 # them; on these videos it misses them at the init (train-mode
@@ -5358,6 +5419,7 @@ TRAIN18_BIG, TRAIN18_TIMED, TRAIN18_PROFILED = 32, 6, 4
 # tensor's gradient, parameter and statistic within a share of its
 # largest) are printed beside the verdict as readings.
 STEP18_F64, STEP18_LOSS, STEP18_ACC, STEP18_FLOOR = 1e-9, 1e-5, 2.0, 1e-6
+STEP18_F64_FLOOR = 1e-6
 STEP18_UPDATE, STEP18_ULP, STEP18_STATS = 1e-3, 4e-7, 1e-4
 STEP18_AGREE, STEP18_SIGNAL, STEP18_GROSS = 0.5, 10.0, (0.125, 0.5)
 STEP18_TESTS = {"grad_cos": 0.9999, "grad": 1e-3, "param": 1e-5,
@@ -5366,6 +5428,20 @@ STEP18_TESTS = {"grad_cos": 0.9999, "grad": 1e-3, "param": 1e-5,
 # CAPTION18_BAND of the threshold may differ (the decoder of a model two
 # steps from its init puts its probabilities near 0.5)
 CAPTION18_SINGLE, CAPTION18_BURST, CAPTION18_BAND = 4, 8, 1e-4
+
+
+def _step_clips(cfg, videos, names) -> np.ndarray:
+    """The first clip of each named seeded video through the config's
+    pipeline, its frame sampler in test mode: fixed frame offsets, so the
+    card-vs-CPU steps check the same frames in every run (the training
+    sampler draws its offsets from an unseeded generator)."""
+    from cross_modal_video_engine_tpu_torch.data.pipelines import (
+        build_pipeline, with_reader)
+    ops = [dict(op, test_mode=True) if op["type"] == "SampleFrames" else op
+           for op in cfg["data.pipeline"]]
+    pipe = build_pipeline(with_reader(ops, videos.__getitem__))
+    return np.stack([pipe({"filename": n, "start_index": 0})["imgs"][0]
+                     for n in names]).astype(np.float32)
 
 
 def _clip_len(cfg) -> int:
@@ -5507,25 +5583,117 @@ def _epoch_tree(path: str) -> dict:
 
 
 def _group(name: str) -> str:
-    return ("head" if name.startswith("cls_head") else
+    """A parameter's group: the class head, BatchNorms, the rest (convs,
+    and a transformer's attention, MLP and norms)."""
+    return ("head" if name.startswith(("cls_head", "fc_cls")) else
             "bn" if ".bn." in name else "conv")
 
 
-def _start_model(cfg, d, start):
+# The checks build each recipe's model many times at its training init (the
+# float64 witness on both devices, every step run, the CLIs).  That init is
+# a pure function of the model's structure and the seed: inside
+# `shared_training_init` each is drawn once and reused (the INIT_MEMO
+# latest), and while the CLIs' builders construct a model torch's default
+# init is skipped, since the training init they load covers every parameter
+# and buffer (the init functions raise on a missing key, load_state_dict is
+# strict).
+INIT_FNS = ("conv_init_state_dict", "init_state_dict")
+INIT_BUILDERS = ("build_recognition_model", "build_caption_model")
+TORCH_INITS = ("kaiming_uniform_", "kaiming_normal_", "uniform_", "normal_",
+               "trunc_normal_", "xavier_uniform_", "xavier_normal_",
+               "constant_", "zeros_", "ones_", "orthogonal_")
+INIT_MEMO = 8
+
+
+def _structure(module) -> tuple:
+    """What a module's init can read: each submodule's name, type and
+    plain attributes (configs, flags, init_values) and the state dict's
+    names, shapes and dtypes."""
+    import dataclasses
+    plain = (bool, int, float, str, tuple, type(None))
+    mods = tuple((name, type(m).__name__, tuple(sorted(
+        (k, repr(v)) for k, v in vars(m).items()
+        if isinstance(v, plain) or dataclasses.is_dataclass(v))))
+        for name, m in module.named_modules())
+    return mods, tuple((k, tuple(v.shape), str(v.dtype))
+                       for k, v in module.state_dict().items())
+
+
+@contextlib.contextmanager
+def shared_training_init():
+    """Inside: the CLIs' training inits drawn once per structure and seed,
+    and no default init while their builders construct a model."""
+    import collections
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import (caption_train,
+                                                        recognition_train)
+    memo = collections.OrderedDict()
+    saved = []
+
+    def patch(owner, name, fn):
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, fn)
+
+    def memoized(fn):
+        def draw(*args, **kw):
+            key = (fn.__name__,) + tuple(
+                _structure(a) if isinstance(a, torch.nn.Module) else repr(a)
+                for a in args) + tuple(sorted((k, repr(v))
+                                              for k, v in kw.items()))
+            if key not in memo:
+                memo[key] = fn(*args, **kw)
+                while len(memo) > INIT_MEMO:
+                    memo.popitem(last=False)
+            memo.move_to_end(key)
+            return dict(memo[key])
+        return draw
+
+    def keep(tensor, *args, **kw):
+        return tensor
+
+    def no_default_init(fn):
+        def build(*args, **kw):
+            inits = [(name, getattr(torch.nn.init, name))
+                     for name in TORCH_INITS]
+            for name, _ in inits:
+                setattr(torch.nn.init, name, keep)
+            try:
+                return fn(*args, **kw)
+            finally:
+                for name, f in inits:
+                    setattr(torch.nn.init, name, f)
+        return build
+
+    try:
+        for owner in (recognition_train, caption_train):
+            for name in INIT_FNS:
+                patch(owner, name, memoized(getattr(owner, name)))
+            for name in INIT_BUILDERS:
+                if hasattr(owner, name):
+                    patch(owner, name, no_default_init(getattr(owner, name)))
+        yield memo
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def _start_model(cfg, d, start, input_shape=None):
     """The config's classifier on device d at `start` (a state dict; None:
     the training init), every dropout 0 and a TRN head's train-mode tuples
-    one fixed draw (seed 19), so that runs on both devices agree."""
+    one fixed draw (seed 19), so that runs on both devices agree.
+    input_shape: the clips' (T, H, W) (a Swin3D's tables follow it)."""
     import torch
     from cross_modal_video_engine_tpu_torch.cli import recognition_train
     from cross_modal_video_engine_tpu_torch.models.heads import TRNHead
     from cross_modal_video_engine_tpu_torch.models.layers import Dropout
-    model = recognition_train.build_recognition_model(cfg, d)
+    model = recognition_train.build_recognition_model(
+        cfg, d, input_shape=input_shape)
     if start is not None:
         model.load_state_dict(start)
     for m in model.modules():
         if isinstance(m, Dropout):
             m.p = 0.0
-    head = model.cls_head
+    head = getattr(model, "cls_head", None)
     if isinstance(head, TRNHead):
         head.generator = torch.Generator().manual_seed(19)
         picks = head.draw_picks()
@@ -5557,11 +5725,31 @@ def _stats64(model) -> dict:
             if k.endswith(("running_mean", "running_var"))}
 
 
+def _as_float64(model):
+    """The model in float64, compute dtypes included: parameters and
+    buffers doubled, every layer that names fp32 as its compute dtype
+    (a CLIP or VideoCLIP transformer's, VideoMAE's) switched to float64,
+    so the witness computes every product in float64."""
+    import dataclasses
+    import torch
+    model = model.double()
+    for m in model.modules():
+        for attr in ("dtype", "compute_dtype"):
+            if getattr(m, attr, None) == torch.float32:
+                setattr(m, attr, torch.float64)
+        cfg = getattr(m, "cfg", None)
+        if dataclasses.is_dataclass(cfg) and getattr(cfg, "dtype",
+                                                     None) == "float32":
+            m.cfg = dataclasses.replace(cfg, dtype="float64")
+    return model
+
+
 def _f64_run(cfg, d, start, clips, labels) -> dict:
     """One train-mode forward and backward in float64 on device d: the
     loss, the gradients and the running statistics after it."""
     import torch
-    model = _start_model(cfg, d, start).double().train()
+    model = _as_float64(_start_model(cfg, d, start,
+                                     clips.shape[1:4])).train()
     loss = _train_loss(model, torch.from_numpy(clips).to(d, torch.float64),
                        torch.from_numpy(labels).to(d))
     loss.backward()
@@ -5571,20 +5759,23 @@ def _f64_run(cfg, d, start, clips, labels) -> dict:
 
 def _step_run(cfg, d, start, clips, labels, bf16: bool) -> dict:
     """One make_cls_train_step_stats step (a TPNRecognizer's
-    make_tpn_train_step_stats) on device d: the loss, the gradients, the
-    parameters and statistics before and after it."""
+    make_tpn_train_step_stats; make_cls_train_step for a model without
+    BatchNorm) on device d: the loss, the gradients, the parameters and
+    statistics before and after it."""
     import torch
     from cross_modal_video_engine_tpu_torch.models.recognizer import (
         TPNRecognizer)
     from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
-        RecognitionTrainConfig, init_rec_state, make_cls_train_step_stats,
-        make_rec_optimizer, make_tpn_train_step_stats)
-    model = _start_model(cfg, d, start)
+        RecognitionTrainConfig, has_batch_norm, init_rec_state,
+        make_cls_train_step, make_cls_train_step_stats, make_rec_optimizer,
+        make_tpn_train_step_stats)
+    model = _start_model(cfg, d, start, clips.shape[1:4])
     state = init_rec_state(model, make_rec_optimizer(
         RecognitionTrainConfig(**dict(cfg["optimizer"], warmup_steps=0)),
         10))
-    make = make_tpn_train_step_stats if isinstance(model, TPNRecognizer) \
-        else make_cls_train_step_stats
+    make = (make_tpn_train_step_stats if isinstance(model, TPNRecognizer)
+            else make_cls_train_step_stats if has_batch_norm(model)
+            else make_cls_train_step)
     step = make(model, bf16=bf16, device=d)
     p0 = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
     s0 = _stats64(model)
@@ -5600,20 +5791,33 @@ def _step_run(cfg, d, start, clips, labels, bf16: bool) -> dict:
 
 
 def _update_over_bound(run, tcfg) -> float:
-    """The largest error of a run's parameter move against SGD's first
-    step from its own gradients, p - lr (clip(g) + wd p) (momentum's trace
-    starting at zero), over its STEP18_UPDATE/STEP18_ULP bound."""
+    """The largest error of a run's parameter move against the optimizer's
+    first step from its own gradients, over its STEP18_UPDATE/STEP18_ULP
+    bound: SGD's p - lr (clip(g) + wd p) (momentum's trace starting at
+    zero), AdamW's p - lr (clip(g) / (|clip(g)| + 1e-8) + wd p) (the first
+    moments bias-corrected to g and g²)."""
+    import torch
     g = run["grads"]
-    norm = float(sum((x ** 2).sum() for x in g.values())) ** 0.5
+    norm = float(sum(x.reshape(-1) @ x.reshape(-1)
+                     for x in g.values())) ** 0.5
     c = 1.0 if norm < tcfg.grad_clip else tcfg.grad_clip / norm
+
+    def abs_max(x) -> float:
+        lo, hi = torch.aminmax(x)
+        return max(-float(lo), float(hi))
+
     worst = 0.0
     for n, p0 in run["p0"].items():
-        update = tcfg.learning_rate * (g[n] * c + tcfg.weight_decay * p0)
-        moved = p0 - run["params"][n]
-        scale = (STEP18_UPDATE * float(update.abs().max())
-                 + STEP18_ULP * float(p0.abs().max()))
+        gc = g[n] * c
+        if tcfg.optimizer == "adamw":
+            gc.div_(gc.abs().add_(1e-8))
+        update = gc.add_(p0, alpha=tcfg.weight_decay).mul_(
+            tcfg.learning_rate)
+        scale = (STEP18_UPDATE * abs_max(update)
+                 + STEP18_ULP * abs_max(p0))
         if scale:
-            worst = max(worst, float((moved - update).abs().max()) / scale)
+            err = abs_max((p0 - run["params"][n]).sub_(update))
+            worst = max(worst, err / scale)
     return worst
 
 
@@ -5622,9 +5826,10 @@ def _sums(grads, truth, cpu) -> dict:
     verdict and its planted faults read only these."""
     out = {}
     for n, t in truth.items():
-        g = grads[n]
-        out[n] = (float((g * g).sum()), float((g * t).sum()),
-                  float((g * cpu[n]).sum()), float(((g - t) ** 2).sum()))
+        g, t = grads[n].reshape(-1), t.reshape(-1)
+        d = g - t
+        out[n] = (float(g @ g), float(g @ t),
+                  float(g @ cpu[n].reshape(-1)), float(d @ d))
     return out
 
 
@@ -5663,7 +5868,7 @@ def _reference(cpu, f64, alt=None) -> dict:
     groups = {}
     for n in names:
         groups.setdefault(_group(n), []).append(n)
-    tt = {n: float((t * t).sum()) for n, t in truth.items()}
+    tt = {n: float(t.reshape(-1) @ t.reshape(-1)) for n, t in truth.items()}
     return {"truth": truth, "groups": groups, "tt": tt,
             "numel": {n: t.numel() for n, t in truth.items()},
             "cpu": _sums(cpu["grads"], truth, cpu["grads"]),
@@ -5728,16 +5933,17 @@ def _step_verdict(card, cpu, f64, ref, tcfg, bf16: bool,
     read["update_over_bound"] = _update_over_bound(card, tcfg)
     if read["update_over_bound"] > 1.0:
         failed.append("update")
+    # a model without BatchNorm has no statistics to hold
     if bf16:
-        stats = max(_max_rel(card["stats"][k], f64["stats"][k])
-                    / (STEP18_ACC * _max_rel(cpu["stats"][k],
-                                             f64["stats"][k]) + STEP18_STATS)
-                    for k in f64["stats"])
+        stats = max((_max_rel(card["stats"][k], f64["stats"][k])
+                     / (STEP18_ACC * _max_rel(cpu["stats"][k],
+                                              f64["stats"][k]) + STEP18_STATS)
+                     for k in f64["stats"]), default=0.0)
         read["stats_over_bound"] = stats
         bad_stats = stats > 1.0
     else:
-        stats = max(_max_rel(card["stats"][k], cpu["stats"][k])
-                    for k in cpu["stats"])
+        stats = max((_max_rel(card["stats"][k], cpu["stats"][k])
+                     for k in cpu["stats"]), default=0.0)
         read["stats_max_rel"] = stats
         bad_stats = stats > STEP18_STATS
     if bad_stats:
@@ -5753,7 +5959,7 @@ def _planted(card, cpu, f64, ref, tcfg, bf16: bool) -> dict:
     gen = torch.Generator().manual_seed(18)
 
     def rnd(g):
-        r = torch.randn(g.shape, generator=gen, dtype=torch.float64)
+        r = torch.randn(g.shape, generator=gen).double()
         return r * (g.norm() / r.norm().clamp_min(1e-300))
 
     grads = card["grads"]
@@ -5764,8 +5970,9 @@ def _planted(card, cpu, f64, ref, tcfg, bf16: bool) -> dict:
             n: rnd(g) for n, g in grads.items()}}),
         "negated gradients": ("gradients", {"grads": {
             n: -g for n, g in grads.items()}}),
-        "unmoved parameters": ("update", {"params": card["p0"]}),
-        "stale statistics": ("statistics", {"stats": card["s0"]})}
+        "unmoved parameters": ("update", {"params": card["p0"]})}
+    if card["s0"]:            # BatchNorm statistics to leave unmoved
+        faults["stale statistics"] = ("statistics", {"stats": card["s0"]})
     real = _sums(grads, ref["truth"], cpu["grads"])
     out = {}
     for name, (must, change) in faults.items():
@@ -5803,7 +6010,19 @@ def step_card_vs_cpu(dev, cfg, clips, labels, start,
     t0 = time.perf_counter()
     f64 = {w: _f64_run(cfg, d, start, clips, labels)
            for w, d in (("card", dev), ("cpu", cpu_dev))}
-    worst = sorted(((_max_rel(f64["card"][k][n], f64["cpu"][k][n]), n)
+    # a gradient that is zero but for rounding (a key bias after a
+    # LayerNorm: softmax does not see it) is read against the model's
+    # largest gradient, STEP18_F64_FLOOR of it
+    floor = STEP18_F64_FLOOR * max(float(g.abs().max())
+                                   for g in f64["cpu"]["grads"].values())
+
+    def witness(a, b, at_least):
+        err = float((a.double() - b.double()).abs().max())
+        scale = max(float(b.double().abs().max()), at_least)
+        return err / scale if scale else (0.0 if err == 0 else float("inf"))
+
+    worst = sorted(((witness(f64["card"][k][n], f64["cpu"][k][n],
+                             floor if k == "grads" else 0.0), n)
                     for k in ("grads", "stats") for n in f64["cpu"][k]),
                    reverse=True)
     witness = worst[0][0]
@@ -5831,8 +6050,8 @@ def step_card_vs_cpu(dev, cfg, clips, labels, start,
                    for n in names)
         param = max(_max_rel(card["params"][n], cpu["params"][n])
                     for n in names)
-        stats = max(_max_rel(card["stats"][k], cpu["stats"][k])
-                    for k in cpu["stats"])
+        stats = max((_max_rel(card["stats"][k], cpu["stats"][k])
+                     for k in cpu["stats"]), default=0.0)
         absolute = {"grad_cos": read["by_group"]["all"]["card_cpu_cos"],
                     "grad": grad[0],
                     "grad_worst": grad[1], "param": param, "stats": stats}
@@ -5857,7 +6076,7 @@ def slowfast_training(dev, card, tmp, videos, names) -> dict:
     """18b: the shipped SlowFast-R50 4x16 recipe (fast s2d stem on)
     trained by recognition_train.train_from_config at batch 8: 2 epochs,
     a resume from epoch_0, model_best with batch_stats; one step card vs
-    CPU at batch 2 in f32 and in bf16 from epoch_1; the bench row's bf16
+    CPU at batch 1 in f32 and in bf16 from epoch_1; the bench row's bf16
     step at batch 8 and 32, the shipped
     config's loop by CUDA events and the profiler."""
     import torch
@@ -5894,8 +6113,7 @@ def slowfast_training(dev, card, tmp, videos, names) -> dict:
         raise SystemExit("18b the shipped SlowFast recipe lost its s2d stem")
     pipe = build_pipeline(with_reader(cfg["data.pipeline"],
                                       videos.__getitem__))
-    clips = np.stack([pipe({"filename": n, "start_index": 0})["imgs"][0]
-                      for n in names[:TRAIN18_CPU_BATCH]]).astype(np.float32)
+    clips = _step_clips(cfg, videos, names[:TRAIN18_CPU_BATCH])
     labels = np.arange(TRAIN18_CPU_BATCH) * 7
     work = os.path.join(tmp, "slowfast")
     t0 = time.perf_counter()
@@ -6072,16 +6290,22 @@ def slowfast_training(dev, card, tmp, videos, names) -> dict:
 
 
 def served_caption(dev, card, tmp, videos, names, config, tag: str,
-                   seed: int, epochs: int) -> dict:
+                   seed: int, epochs: int,
+                   route_pipeline: bool = False) -> dict:
     """caption_train.train_from_config on a shipped seq_generate config
     (18c: i3d_relseq.py, I3D-R50 32x2, RNN decoder 2048 -> 36 x 5; 19d:
-    tsm_relseq.py) at batch 8 for `epochs`, then its model_best served
-    over /caption: batch-1 requests and a burst of 8, each answer equal
-    to a direct caption_clips."""
+    tsm_relseq.py; 20d: videomae_relseq.py) at batch 8 for `epochs`, then
+    its model_best served over /caption: batch-1 requests and a burst of
+    8, each answer equal to a direct caption_clips.  route_pipeline: the
+    route serves with the config's pipeline (test mode) in place of its
+    8-frame default (caption_inference.DEFAULT_PIPELINE, the JAX
+    route's), as a VideoMAE's fixed position table needs its own clip
+    length."""
     import argparse
     import torch
     from cross_modal_video_engine_tpu_torch.bench import serve as bserve
-    from cross_modal_video_engine_tpu_torch.cli import caption_train
+    from cross_modal_video_engine_tpu_torch.cli import (caption_inference,
+                                                        caption_train)
     from cross_modal_video_engine_tpu_torch.models.recognizer import (
         RecognizerRelseq)
 
@@ -6112,7 +6336,16 @@ def served_caption(dev, card, tmp, videos, names, config, tag: str,
 
     args = argparse.Namespace(caption_checkpoint=os.path.join(
         work, "model_best"), device=str(dev))
-    server, handler = bserve.start_caption_server(args, videos.__getitem__)
+    default = caption_inference.DEFAULT_PIPELINE
+    if route_pipeline:
+        caption_inference.DEFAULT_PIPELINE = [
+            dict(op, test_mode=True) if op["type"] == "SampleFrames" else op
+            for op in cfg["data.pipeline"]]
+    try:
+        server, handler = bserve.start_caption_server(args,
+                                                      videos.__getitem__)
+    finally:
+        caption_inference.DEFAULT_PIPELINE = default
     try:
         if not isinstance(handler.model, RecognizerRelseq):
             raise SystemExit(f"{tag} /caption did not load a "
@@ -6213,6 +6446,10 @@ TSM_RELSEQ_CONFIG = ROOT / "configs" / "seq_generate" / "tsm_relseq.py"
 STEP19 = ("tsm_r50_1x1x8", "tin_r50_1x1x8", "trn_r50_1x1x8",
           "tpn_slowonly_r50_8x8")
 STEP19_BF16 = ("tsm_r50_1x1x8",)
+# depth cut for the script's time (widths kept): TPN's SlowOnly at one
+# block a stage (its stats step took 34.8 s of 19b at full depth)
+STEP19_DEPTH = {"tpn_slowonly_r50_8x8": {
+    "model.backbone.stage_blocks": [1, 1, 1, 1]}}
 TRAIN19_CPU_BATCH = 1
 # 19c/d: the CLIs over 16 seeded videos at batch 8, one epoch
 TRAIN19_EPOCHS = 1
@@ -6309,17 +6546,12 @@ def cnn2d_forwards(dev, card) -> dict:
 def cnn2d_steps(dev, card, videos, names) -> dict:
     """19b: one stats step card vs CPU for each recipe of STEP19 from the
     training init on seeded clips through the recipe's own pipeline."""
-    from cross_modal_video_engine_tpu_torch.data.pipelines import (
-        build_pipeline, with_reader)
     out = {"card": card}
     for name in STEP19:
         t0 = time.perf_counter()
-        cfg = shipped_training_config(CNN_CONFIGS / CNN19[name])
-        pipe = build_pipeline(with_reader(cfg["data.pipeline"],
-                                          videos.__getitem__))
-        clips = np.stack([pipe({"filename": n, "start_index": 0})["imgs"][0]
-                          for n in names[:TRAIN19_CPU_BATCH]]).astype(
-                              np.float32)
+        cfg = shipped_training_config(CNN_CONFIGS / CNN19[name],
+                                      **STEP19_DEPTH.get(name, {}))
+        clips = _step_clips(cfg, videos, names[:TRAIN19_CPU_BATCH])
         labels = (np.arange(TRAIN19_CPU_BATCH) * 7) % cfg["model.num_classes"]
         bf16s = (False, True) if name in STEP19_BF16 else (False,)
         rec = step_card_vs_cpu(dev, cfg, clips, labels, None, bf16s)
@@ -6355,39 +6587,46 @@ def cnn2d_steps(dev, card, videos, names) -> dict:
 
 
 def tsm_cli(dev, card, tmp, videos, names) -> dict:
-    """19c: recognition_train.train_from_config on the shipped
-    tsm_r50_1x1x8_k400.py at batch 8 over the seeded videos, one epoch
-    with validation, then recognition_test.test_from_config on its
-    model_best over the validation split (scores against a direct
-    forward_test of the same clips)."""
+    """19c: recognition_cli_run on the shipped tsm_r50_1x1x8_k400.py."""
+    return recognition_cli_run(dev, card, tmp, videos, names,
+                               CNN_CONFIGS / CNN19["tsm_r50_1x1x8"], "19c",
+                               "Recognizer2D")
+
+
+def recognition_cli_run(dev, card, tmp, videos, names, config, tag: str,
+                        model_type: str, **options) -> dict:
+    """recognition_train.train_from_config on a shipped config (with
+    `options` set) at batch 8 over the seeded videos, one epoch with
+    validation, then recognition_test.test_from_config on its model_best
+    over the validation split (scores against a direct forward_test of
+    the same clips); the trained model must be a `model_type`."""
     import torch
     from cross_modal_video_engine_tpu_torch.cli import (recognition_test,
                                                         recognition_train)
     from cross_modal_video_engine_tpu_torch.data.pipelines import (
         build_pipeline, with_reader)
-    from cross_modal_video_engine_tpu_torch.models.recognizer import (
-        Recognizer2D)
 
     line = {"card": card}
     train_ann = write_training_split(tmp, names, "cls", 59)
     val_ann = write_training_split(tmp, names[:TRAIN18_VAL], "cls", 59)
     cfg = shipped_training_config(
-        CNN_CONFIGS / CNN19["tsm_r50_1x1x8"],
+        config,
         **{"data.train.ann_file": train_ann, "data.train.data_prefix": None,
            "data.val.ann_file": val_ann, "data.val.data_prefix": None,
            "data.videos_per_gpu": TRAIN18_BATCH,
-           "total_epochs": TRAIN19_EPOCHS, "eval_interval": 1})
-    work = os.path.join(tmp, "tsm")
+           "total_epochs": TRAIN19_EPOCHS, "eval_interval": 1, **options})
+    work = os.path.join(tmp, config.stem)
     t0 = time.perf_counter()
     state, history = recognition_train.train_from_config(
         cfg, work, device=dev, reader=videos.__getitem__)
     torch.cuda.synchronize()
     line["train"] = {"history": history, "seconds": time.perf_counter() - t0}
-    if not isinstance(state.model, Recognizer2D) or not all(
+    if type(state.model).__name__ != model_type or not all(
             np.isfinite(h["loss"]) for h in history):
-        raise SystemExit("19c the recognition CLI failed on TSM")
+        raise SystemExit(f"{tag} the recognition CLI failed on "
+                         f"{config.name}")
     best = os.path.join(work, "model_best")
-    out = os.path.join(tmp, "tsm_scores.npz")
+    out = os.path.join(tmp, f"{config.stem}_scores.npz")
     # the test protocol's fixed frame offsets, so that the direct run
     # below sees the CLI's clips
     cfg.set("data.pipeline", [dict(op, test_mode=True)
@@ -6406,7 +6645,7 @@ def tsm_cli(dev, card, tmp, videos, names) -> dict:
         direct = model.forward_test(torch.from_numpy(clips).to(dev)).cpu()
     scores = torch.from_numpy(np.load(out)["scores"])
     line["test"]["scores_max_rel"] = _max_rel(scores, direct)
-    print(f"19c recognition_train (tsm_r50_1x1x8_k400.py, f32) over "
+    print(f"{tag} recognition_train ({config.name}, f32) over "
           f"{len(names)} seeded videos, batch {TRAIN18_BATCH}: "
           f"{json.dumps(history)} in {line['train']['seconds']:.1f} s; "
           f"recognition_test on model_best over {TRAIN18_VAL} videos: "
@@ -6414,7 +6653,8 @@ def tsm_cli(dev, card, tmp, videos, names) -> dict:
           f"against a direct forward_test {line['test']['scores_max_rel']:.1e}"
           f" of the largest (need <= 1e-5) on {card}", flush=True)
     if line["test"]["scores_max_rel"] > 1e-5:
-        raise SystemExit("19c recognition_test disagrees with forward_test")
+        raise SystemExit(f"{tag} recognition_test disagrees with "
+                         f"forward_test")
     torch.cuda.empty_cache()
     return line
 
@@ -6462,6 +6702,380 @@ def check_step19(dev, card) -> Tuple[dict, dict]:
     return line, launches
 
 
+# -- 20. the transformer and CLIP recognizers (part 8c) ------------------------
+# 20a: each shipped recipe at its own widths (400 classes, its clip
+# length at 224², the training init from numpy seed 0) and the two relseq
+# recipes' pooled backbones; card vs CPU at batch 1 in f32 (TF32 off):
+# logits or features within TX20_REL of the largest; forwards at batch
+# TX20_BATCH in f32 and through the bf16=True copy (the trainer's bf16
+# parameters via functional_call), TFLOP/s of every product aten counts
+TX20 = {"swin_tiny": "swin_tiny_k400.py", "mvit_small": "mvit_small_k400.py",
+        "videomae_b_16x4": "videomae_b_16x4_k400.py",
+        "clip_mean_pooling_8x32": "clip_mean_pooling_8x32_k400.py",
+        "videoclip_ctv": "videoclip_ctv_extraction_k400.py"}
+RELSEQ20 = {"mvit_relseq": ROOT / "configs" / "seq_generate" /
+            "mvit_relseq.py",
+            "videomae_relseq": ROOT / "configs" / "seq_generate" /
+            "videomae_relseq.py"}
+TX20_REL, TX20_COS, TX20_BATCH, TX20_TIMED = 1e-3, 0.999, 8, 5
+# 20b: clip_mean_pooling_8x32 with fused_attn=fused_mlp=True against the
+# plain arm on the same weights at batch CLIP20_BATCH (x 8 frames), in bf16
+# (the config's compute dtype; f32 masters) and f32: logits by cosine >=
+# CLIP20_COS (f32 also within CLIP20_F32_REL of the largest), exactly
+# CLIP20_LAUNCHES compact and MLP launches a forward, one training step of
+# each arm with the gradients by group at cosine >= CLIP20_GRAD_COS
+CLIP20_BATCH, CLIP20_COS, CLIP20_F32_REL, CLIP20_LAUNCHES = 8, 0.999, 1e-4, 12
+CLIP20_GRAD_COS = {"f32": 0.9999, "bf16": 0.999}
+# 20c: one make_cls_train_step card vs CPU at batch 1 from the training
+# init per recipe (at STEP20_DEPTH), held to float64 by step_card_vs_cpu
+# (18b's bounds and planted faults); bf16 too for STEP20_BF16
+STEP20_BF16 = ("swin_tiny", "videomae_b_16x4")
+# depth cut for the script's time (widths kept, 20a runs full depth):
+# VideoMAE-B's step took 65.2 s of 20c at 12 layers, the five 133 s;
+# the whole script must stay well inside its 1200 s time limit
+STEP20_DEPTH = {"swin_tiny": {"model.backbone.depths": [2, 2, 2, 2]},
+                "mvit_small": {"model.backbone.depths": [1, 1, 1, 1]},
+                "videomae_b_16x4": {"model.backbone.num_layers": 2},
+                "clip_mean_pooling_8x32": {
+                    "model.backbone.vision_layers": 2},
+                # 20a's relseq features (their recipes' backbones run 20a
+                # at full depth)
+                "mvit_relseq": {"model.backbone.depths": [1, 1, 1, 1]},
+                "videomae_relseq": {"model.backbone.num_layers": 4}}
+TRAIN20_CPU_BATCH = 1
+
+
+def _pipeline_clip(cfg) -> Tuple[int, int]:
+    """(T, crop) of a config's pipeline."""
+    ops = {op["type"]: op for op in cfg["data.pipeline"]}
+    return ops["SampleFrames"]["clip_len"], ops["CenterCrop"]["crop_size"]
+
+
+def _product_flops(fn) -> float:
+    """The FLOPs of every matrix product and convolution fn() runs, as
+    torch's FlopCounterMode counts them (2 per multiply-add)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    with counter:
+        fn()
+    return float(counter.get_total_flops())
+
+
+def transformer_forwards(dev, card) -> dict:
+    """20a (see TX20 above)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import (caption_train,
+                                                        recognition_train)
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        _bf16_stats_forward)
+
+    out = {"card": card}
+    rng = np.random.default_rng(20)
+    recipes = [(n, CNN_CONFIGS / f) for n, f in TX20.items()]
+    recipes += list(RELSEQ20.items())
+    for name, path in recipes:
+        t0 = time.perf_counter()
+        cfg = shipped_training_config(
+            path, **(STEP20_DEPTH.get(name, {}) if name in RELSEQ20 else {}))
+        t, size = _pipeline_clip(cfg)
+        shape = (t, size, size)
+        models = {}
+        for where_, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            if name in RELSEQ20:
+                models[where_] = caption_train.build_caption_model(
+                    cfg, d, shape)[0].backbone.eval()
+            else:
+                models[where_] = recognition_train.build_recognition_model(
+                    cfg, d, input_shape=shape).eval()
+        x1 = torch.from_numpy(rng.standard_normal((1, *shape, 3),
+                                                  dtype=np.float32))
+        with torch.no_grad():
+            t1 = time.perf_counter()
+            want = models["cpu"](x1)
+            cpu_s = time.perf_counter() - t1
+            got = models["card"](x1.to(dev)).cpu()
+        del models["cpu"]
+        model = models["card"]
+        rec = {"clip": [t, size], "type": type(model).__name__,
+               "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+               "max_rel": _max_rel(got, want), "cosine": _cosine(got, want),
+               "cpu_s": cpu_s}
+        if name not in RELSEQ20:
+            x8 = torch.from_numpy(rng.standard_normal(
+                (TX20_BATCH, *shape, 3), dtype=np.float32)).to(dev)
+            with torch.no_grad():
+                flops = _product_flops(lambda: model(x8))
+            bf16 = _bf16_stats_forward(model)
+            for dtype, fn in (("f32", lambda: model(x8)),
+                              ("bf16_copy", lambda: bf16(x8))):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                with torch.no_grad():
+                    ms = cuda_ms(fn, iters=TX20_TIMED, warmup=2)
+                rec[dtype] = {"ms": ms,
+                              "videos_per_s": TX20_BATCH * 1e3 / ms,
+                              "tflops_per_s": flops / ms / 1e9,
+                              "peak_mib": torch.cuda.max_memory_allocated(
+                                  dev) / 2 ** 20}
+            rec["gflops_per_video"] = flops / TX20_BATCH / 1e9
+            del x8, bf16
+        rec["seconds"] = time.perf_counter() - t0
+        out[name] = rec
+        timed = (f"; forward at batch {TX20_BATCH}: f32 "
+                 f"{rec['f32']['ms']:.2f} ms ({rec['f32']['tflops_per_s']:.1f}"
+                 f" TFLOP/s, {rec['f32']['peak_mib']:.0f} MiB peak), through "
+                 f"the bf16=True copy {rec['bf16_copy']['ms']:.2f} ms "
+                 f"({rec['bf16_copy']['tflops_per_s']:.1f} TFLOP/s, "
+                 f"{rec['bf16_copy']['peak_mib']:.0f} MiB peak); "
+                 f"{rec['gflops_per_video']:.1f} GFLOP a video"
+                 if "f32" in rec else
+                 f" (the pooled backbone feature, "
+                 f"{json.dumps(STEP20_DEPTH[name])})")
+        print(f"20a {name} ({path.name}, {rec['type']}, "
+              f"{rec['params_m']:.2f}M parameters, {t}x{size}², training "
+              f"init): card vs CPU at batch 1 f32 max |diff| / max |CPU| "
+              f"{rec['max_rel']:.2e} (need <= {TX20_REL}), cosine "
+              f"{rec['cosine']:.7f} (need >= {TX20_COS}){timed}; "
+              f"{rec['seconds']:.1f} s on {card}", flush=True)
+        if (rec["max_rel"] > TX20_REL or rec["cosine"] < TX20_COS
+                or not torch.isfinite(got).all()):
+            raise SystemExit(f"20a {name}: the card disagrees with the CPU")
+        del model, models, x1
+        torch.cuda.empty_cache()
+    return out
+
+
+def _group_cosines(a: dict, b: dict) -> dict:
+    """Per group (_group) and over all parameters: the cosine of two
+    gradient dicts."""
+    groups = {}
+    for n in a:
+        groups.setdefault(_group(n), []).append(n)
+    groups["all"] = list(a)
+    return {g: _cosine(_flat_cat(a, ns), _flat_cat(b, ns))
+            for g, ns in groups.items()}
+
+
+def _flat_cat(d: dict, names):
+    import torch
+    return torch.cat([d[n].double().flatten() for n in names])
+
+
+def clip_kernel_arm(dev, card) -> Tuple[dict, dict]:
+    """20b (see CLIP20 above).  Returns (the readings, the kernel arm's
+    launches over one forward of each dtype)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import recognition_train
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_cls_train_step,
+        make_rec_optimizer)
+
+    counted = kernel_counters()
+    out, per_forward = {"card": card}, {}
+    rng = np.random.default_rng(21)
+    path = CNN_CONFIGS / TX20["clip_mean_pooling_8x32"]
+    for dtype in ("bf16", "f32"):
+        t0 = time.perf_counter()
+        base = shipped_training_config(path)
+        t, size = _pipeline_clip(base)
+        arms = {}
+        for arm, fused in (("plain", False), ("kernel", True)):
+            cfg = shipped_training_config(path, **{
+                "model.backbone.dtype": "bfloat16" if dtype == "bf16"
+                else "float32",
+                "model.backbone.fused_attn": fused,
+                "model.backbone.fused_mlp": fused})
+            arms[arm] = recognition_train.build_recognition_model(cfg, dev)
+            arms[arm].eval()
+        arms["kernel"].load_state_dict(arms["plain"].state_dict())
+        x = torch.from_numpy(rng.standard_normal(
+            (CLIP20_BATCH, t, size, size, 3), dtype=np.float32)).to(dev)
+        labels = torch.from_numpy((np.arange(CLIP20_BATCH) * 37) % 400).to(dev)
+        with torch.no_grad():
+            want = arms["plain"](x).float()
+            torch.cuda.synchronize()
+            for fn in counted.values():
+                fn.launches = 0
+            got = arms["kernel"](x).float()
+            torch.cuda.synchronize()
+            launches = {n: fn.launches for n, fn in counted.items()}
+            times = {arm: cuda_ms(lambda m=m: m(x), iters=TX20_TIMED,
+                                  warmup=2) for arm, m in arms.items()}
+        rec = {"launches": launches, "cosine": _cosine(got, want),
+               "max_rel": _max_rel(got, want), "forward_ms": times}
+        per_forward[dtype] = launches
+        # one training step of each arm from the same weights and batch
+        # each arm's first step from the shared weights gives the
+        # gradients; its second step is timed
+        grads, step_ms, losses = {}, {}, {}
+        for arm, model in arms.items():
+            opt = make_rec_optimizer(RecognitionTrainConfig(
+                **dict(base["optimizer"], warmup_steps=0)), 10)
+            state = init_rec_state(model, opt)
+            step = make_cls_train_step(model, device=dev)
+            state, logs = step(state, x, labels)
+            losses[arm] = float(logs["loss"])
+            grads[arm] = {n: p.grad.detach().float().cpu()
+                          for n, p in model.named_parameters()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(state, x, labels)
+            torch.cuda.synchronize()
+            step_ms[arm] = (time.perf_counter() - t1) * 1e3
+        rec.update(step_ms=step_ms, losses=losses,
+                   grad_cosines=_group_cosines(grads["kernel"],
+                                               grads["plain"]))
+        rec["seconds"] = time.perf_counter() - t0
+        out[dtype] = rec
+        need = CLIP20_GRAD_COS[dtype]
+        print(f"20b clip_mean_pooling_8x32 {dtype} at batch {CLIP20_BATCH} "
+              f"({CLIP20_BATCH * t} frames of {size}²): kernel arm "
+              f"(fused_attn=fused_mlp=True) against the plain arm on the "
+              f"same weights, logits cosine {rec['cosine']:.7f} (need >= "
+              f"{CLIP20_COS}), max |diff| / max {rec['max_rel']:.2e}"
+              + (f" (need <= {CLIP20_F32_REL})" if dtype == "f32" else "")
+              + f"; launches a forward {json.dumps(launches)} (need "
+              f"{CLIP20_LAUNCHES} compact and {CLIP20_LAUNCHES} MLP); "
+              f"forward ms kernel {times['kernel']:.2f} plain "
+              f"{times['plain']:.2f}; a training step (the sublayers' "
+              f"plain backward; the second step timed) ms kernel "
+              f"{step_ms['kernel']:.1f} plain "
+              f"{step_ms['plain']:.1f}, loss {losses['kernel']:.6f} vs "
+              f"{losses['plain']:.6f}, gradient cosines by group "
+              f"{json.dumps({k: round(v, 7) for k, v in rec['grad_cosines'].items()})}"
+              f" (need >= {need}); {rec['seconds']:.1f} s on {card}",
+              flush=True)
+        bad = (rec["cosine"] < CLIP20_COS
+               or (dtype == "f32" and rec["max_rel"] > CLIP20_F32_REL)
+               or launches["fused_attention_sublayer_compact"]
+               != CLIP20_LAUNCHES
+               or launches["fused_mlp_sublayer"] != CLIP20_LAUNCHES
+               or any(v for k, v in launches.items() if k not in (
+                   "fused_attention_sublayer_compact", "fused_mlp_sublayer"))
+               or min(rec["grad_cosines"].values()) < need
+               or not all(np.isfinite(v) for v in losses.values()))
+        if bad:
+            raise SystemExit(f"20b the CLIP kernel arm ({dtype}) failed")
+        del arms, x, grads
+        torch.cuda.empty_cache()
+    return out, per_forward
+
+
+def transformer_steps(dev, card, videos, names) -> dict:
+    """20c: one make_cls_train_step card vs CPU for each recipe (its depth
+    cut as STEP20_DEPTH says) from the training init on seeded clips
+    through the recipe's own pipeline."""
+    out = {"card": card}
+    for name, file in TX20.items():
+        t0 = time.perf_counter()
+        cfg = shipped_training_config(CNN_CONFIGS / file,
+                                      **STEP20_DEPTH.get(name, {}))
+        clips = _step_clips(cfg, videos, names[:TRAIN20_CPU_BATCH])
+        labels = (np.arange(TRAIN20_CPU_BATCH) * 7) % cfg["model.num_classes"]
+        bf16s = (False, True) if name in STEP20_BF16 else (False,)
+        rec = step_card_vs_cpu(dev, cfg, clips, labels, None, bf16s)
+        rec["seconds"] = time.perf_counter() - t0
+        out[name] = rec
+        for key in ("f32", "bf16")[:len(bf16s)]:
+            r = rec[key]
+            by = r["by_group"]
+            groups = {g: round(v["card_f64_cos"], 6) for g, v in by.items()}
+            planted = {k: v.get("refused", v.get("refused_in"))
+                       for k, v in r["planted"].items()}
+            print(f"20c {name} ({json.dumps(STEP20_DEPTH.get(name, {}))}) "
+                  f"one step at batch {TRAIN20_CPU_BATCH} {key}, "
+                  f"card vs CPU held to float64 (witness "
+                  f"{rec['f64_max_rel']:.1e} <= {STEP18_F64}, worst "
+                  f"{rec['f64_worst'][0][1]}): loss card {r['loss_card']:.6f}"
+                  f" CPU {r['loss_cpu']:.6f} (rel {r['loss_rel']:.1e}); whole "
+                  f"gradient 1 - cosine to float64 card "
+                  f"{1 - by['all']['card_f64_cos']:.2e} CPU "
+                  f"{1 - by['all']['cpu_f64_cos']:.2e}; by group "
+                  f"{json.dumps(groups)}; update/bound "
+                  f"{r['update_over_bound']:.3f}; failed {r['failed']} "
+                  f"(groups {r['bad_groups']}, tensors {r['bad_tensors']}); "
+                  f"planted faults refused {json.dumps(planted)}; step "
+                  f"card {r['card_s']:.2f} s CPU {r['cpu_s']:.2f} s; "
+                  f"{rec['seconds']:.1f} s on {card}", flush=True)
+        if rec["failed"]:
+            raise SystemExit(f"20c {name}: {rec['failed']}; " + "; ".join(
+                f"{k} groups {rec[k]['bad_groups']} tensors "
+                f"{rec[k]['bad_tensors']}" for k in ("f32", "bf16")
+                if k in rec))
+    return out
+
+
+def check_step20(dev, card) -> Tuple[dict, dict, dict]:
+    """Step 20 (a-e): the transformer and CLIP recognizers.  Returns (the
+    `transformer_recognizers` JSON object, the kernels' launches over the
+    step's paths but 20b (all must be 0), the CLIP kernel arm's launches
+    over one bf16 forward)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+
+    t_step = time.perf_counter()
+    counted = kernel_counters()
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {n: fn.launches for n, fn in counted.items()}
+
+    other = dict.fromkeys(counted, 0)
+
+    def add(counts):
+        for n, v in counts.items():
+            other[n] += v
+
+    line = {"card": card}
+    zero()
+    t0 = time.perf_counter()
+    line["forwards"] = transformer_forwards(dev, card)
+    line["forwards"]["seconds"] = time.perf_counter() - t0
+    add(read())
+    t0 = time.perf_counter()
+    line["clip_kernel_arm"], clip_launches = clip_kernel_arm(dev, card)
+    line["clip_kernel_arm"]["seconds"] = time.perf_counter() - t0
+    videos = bserve.seeded_videos(TRAIN18_VIDEOS, seed=20)
+    names = sorted(videos)
+    zero()
+    t0 = time.perf_counter()
+    line["steps"] = transformer_steps(dev, card, videos, names)
+    line["steps"]["seconds"] = time.perf_counter() - t0
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.perf_counter()
+        line["swin_cli"] = recognition_cli_run(
+            dev, card, tmp, videos, names, CNN_CONFIGS / TX20["swin_tiny"],
+            "20d", "BackboneClassifier",
+            # the recipe's 1000 warmup steps need a longer run than 2 steps
+            **{"optimizer.warmup_steps": 0})
+        line["swin_cli"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        line["videomae_caption"] = served_caption(
+            dev, card, tmp, videos, names, RELSEQ20["videomae_relseq"],
+            "20d", 61, 1, route_pipeline=True)
+        line["videomae_caption"]["seconds"] = time.perf_counter() - t0
+    add(read())
+    line["launches"] = other
+    line["clip_kernel_arm_launches"] = clip_launches
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"20e kernel launches over step 20 but 20b: {json.dumps(other)} "
+          f"(need 0: JAX's Swin, MViT, VideoMAE and VideoCLIP use plain "
+          f"products, as the port does, and the recipes' CLIP runs unfused); "
+          f"20b's kernel arm a bf16 forward: "
+          f"{json.dumps(clip_launches['bf16'])}; step 20 checked in "
+          f"{line['seconds']:.1f} s on {card}", flush=True)
+    if any(other.values()):
+        raise SystemExit("20e a path of step 20 other than 20b launched a "
+                         "kernel")
+    return line, other, clip_launches["bf16"]
+
+
 def dataclass_fields(cfg) -> dict:
     import dataclasses
     return {k: v for k, v in dataclasses.asdict(cfg).items()
@@ -6482,7 +7096,9 @@ def kernel_json(results, launches, core, block_extra, counts) -> dict:
     step 17a, `detector_training_launches` over the detection trainer's
     run of step 17b, `cnn_launches` over the 3D-CNN recognizers of step
     18, `cnn2d_launches` over the 2D, TSM and pyramid recognizers of step
-    19.  A main-path count is None when its step did not run.
+    19, `transformer_launches` over the transformer and CLIP recognizers
+    of step 20 but 20b, `clip_recognizer_launches` over one bf16 forward
+    of 20b's CLIP kernel arm.  A main-path count is None when its step did not run.
     `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
@@ -6535,20 +7151,20 @@ def kernel_json(results, launches, core, block_extra, counts) -> dict:
     return {"kernels": kernels}
 
 
-STEPS = tuple(range(4, 20))      # the steps a selection may name
+STEPS = tuple(range(4, 21))      # the steps a selection may name
 
 
 def selected_steps(argv) -> set:
-    """The steps to run: all of 4-19 with no argument, else the numbers
+    """The steps to run: all of 4-20 with no argument, else the numbers
     given ("19", "13 19" or "13,19"); 4-5 and 6-7 run as pairs (5 and 7
     time what 4 and 6 build).  The build (2), the kernel checks (3) and
-    the results (20) always run."""
+    the results (21) always run."""
     if not argv:
         return set(STEPS)
     steps = set()
     for arg in argv:
         for part in filter(None, arg.split(",")):
-            if not part.isdigit() or int(part) not in range(2, 21):
+            if not part.isdigit() or int(part) not in range(2, 22):
                 raise SystemExit(f"chip_smoke: unknown step {part!r}; "
                                  f"choose among {STEPS[0]}-{STEPS[-1]}")
             steps.add(int(part))
@@ -6582,6 +7198,9 @@ def main(argv=None) -> int:
     # plain f32 arms: full-f32 matmuls and convs (cuDNN would use TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # each training init drawn once per model structure (shared_training_init)
+    builds = contextlib.ExitStack()
+    builds.enter_context(shared_training_init())
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -6623,7 +7242,8 @@ def main(argv=None) -> int:
     launches, block_extra, lines = {}, {}, {}
     counts = dict.fromkeys(("composed", "caption", "explain", "training",
                             "ctv", "caption_transformer",
-                            "detector_training", "cnn", "cnn2d"))
+                            "detector_training", "cnn", "cnn2d",
+                            "transformer", "clip_recognizer"))
     rng = np.random.default_rng(1)
     if 4 in steps:
         # -- 4. the CLIP path -----------------------------------------------
@@ -6730,13 +7350,20 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         lines["cnn2d_recognizers"], counts["cnn2d"] = check_step19(dev, card)
 
-    # -- 20. results ----------------------------------------------------------
+    if 20 in steps:
+        # -- 20. the transformer and CLIP recognizers -----------------------
+        torch.cuda.empty_cache()
+        (lines["transformer_recognizers"], counts["transformer"],
+         counts["clip_recognizer"]) = check_step20(dev, card)
+    builds.close()
+
+    # -- 21. results ----------------------------------------------------------
     for key, value in lines.items():
         print(json.dumps({key: value}))
     print(json.dumps(kernel_json(results, launches, core, block_extra,
                                  counts)))
     skipped = sorted(set(STEPS) - steps)
-    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 20"
+    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 21"
           + (f"; skipped: {skipped} (a partial run)" if skipped else
              " (the whole smoke run)"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,15 +10,19 @@ Counterpart of cross_modal_video_engine_tpu/api.py (MCT mmaction/apis):
   `num_classes` for a classifier.  A checkpoint of a CNN backbone
   (ResNet3D/SlowOnly, CSN, SlowFast, X3D, C3D, R2Plus1D, and the
   per-frame TSM, TSN, TIN, TINExact, TANet and MobileNetV2TSM behind the
-  temporal mean; `backbone.type`) is a caption model, a RecognizerRelseq
-  on `cli/recognition_train.build_caption_backbone` with its params and
+  temporal mean) or of a transformer (Swin3D, MViT, VideoMAEViT;
+  `backbone.type`) is a caption model, a RecognizerRelseq on
+  `cli/recognition_train.build_caption_backbone` with its params and
   batch_stats (`convert.conv_recognizer_state_dict_from_jax`); one
   without a decoder is refused, as the JAX loader's assert refuses it
   (cli/recognition_test rebuilds such classifiers from their config).
   It applies the bf16 inference cast the JAX loader applies
-  (utils/precision.py) and returns the model ready to serve (eval mode, parameters frozen) on the card
-  unless a device is named.  The other backbones are refused, naming the
-  part of ROADMAP.md queue 1 item 8 that ports them.
+  (utils/precision.py: a VideoMAE configured in bf16 holds the rounded
+  values in its f32 parameters, and its layers name their dtypes, so it
+  computes what the JAX model computes on the cast tree) and returns the
+  model ready to serve (eval mode, parameters frozen) on the card unless
+  a device is named.  'CLIP' and 'VideoCLIP' build no caption backbone
+  and raise "unknown backbone type", as the JAX loader does.
 * `inference_recognizer(model, video, outputs=...)` runs the test
   pipeline on a video and the recognizer on its clips, with the
   `outputs=` layer capture, the `centercrop` toggle and the `shuffle_idx`

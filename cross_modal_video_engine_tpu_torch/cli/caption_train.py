@@ -5,8 +5,10 @@ seq_generate family's tools/train.py: a TimeSformer + RNN decoder
 (Recognizer3DRelseq), or a CNN (ResNet3D/I3D, CSN, SlowFast, X3D, C3D,
 R(2+1)D, or a per-frame TSM, TSN, TIN, TANet or MobileNetV2-TSM pooled
 over time by `_TemporalMean`) + RNN decoder (RecognizerRelseq, its
-BatchNorms trained by `make_seq_train_step_stats`), trained with the
-SeqMLL loss under teacher forcing, on the card unless `--device cpu`.
+BatchNorms trained by `make_seq_train_step_stats`), or a transformer
+(MViT, VideoMAEViT, Swin3D) + RNN decoder (RecognizerRelseq, trained by
+`make_seq_train_step`), trained with the SeqMLL loss under teacher
+forcing, on the card unless `--device cpu`.
 
   python -m cross_modal_video_engine_tpu_torch.cli.caption_train CONFIG \\
       --work_dir WORK [--resume] [--total_epochs N] \\
@@ -14,7 +16,8 @@ SeqMLL loss under teacher forcing, on the card unless `--device cpu`.
        model.backbone.use_flash_attention=True] [--device cpu]
 
 Config (configs/seq_generate/timesformer_relseq.py, i3d_relseq.py,
-slowfast_relseq.py, x3d_relseq.py, tsm_relseq.py):
+slowfast_relseq.py, x3d_relseq.py, tsm_relseq.py, mvit_relseq.py,
+videomae_relseq.py):
 
     model = dict(backbone=dict(num_frames=8, img_size=224, ...),
                  decoder=dict(num_classes=36, in_channels=768, max_len=5))
@@ -37,8 +40,9 @@ and, for the CNNs with BatchNorms, the `batch_stats`, which
 each epoch's train state in the JAX package's layout (train/resume.py),
 so `--resume` continues a run either package started.  `train_from_config(..., reader=)` hands the
 pipeline's DecordInit a decord-alike reader in place of opening files (a
-machine without cv2).  The other backbones are refused, naming the part
-of ROADMAP.md queue 1 item 8 that ports them.
+machine without cv2).  The model is built after the first training batch
+is read, as the JAX CLI's init is (a Swin3D's tables follow its shape);
+'CLIP' and 'VideoCLIP' are no caption backbones, in either package.
 """
 
 from __future__ import annotations
@@ -106,10 +110,11 @@ def evaluate_caption(model: Recognizer3DRelseq, ds, batch_size: int) -> dict:
     return {"seq_mAP": float(np.mean(aps)), "num_videos": len(scores)}
 
 
-def build_caption_model(cfg: Config, device=None):
+def build_caption_model(cfg: Config, device=None, input_shape=None):
     """(Recognizer3DRelseq or RecognizerRelseq at the training init, the
     backbone config dict saved with checkpoints, the decoder config
-    dict).  A backbone the port lacks raises, naming its part."""
+    dict).  input_shape: the videos' (T, H, W), which sizes a Swin3D's
+    tables."""
     from .recognition_train import _deep_tuple, build_caption_backbone
     bb_kw = {k: _deep_tuple(v) for k, v in cfg["model.backbone"].items()}
     btype = bb_kw.pop("type", "TimeSformer")
@@ -117,8 +122,8 @@ def build_caption_model(cfg: Config, device=None):
     dcfg = RNNDecoderConfig(**dec_kw)
     dev = resolve_device(device)
     if btype != "TimeSformer":
-        model = RecognizerRelseq(build_caption_backbone(btype, bb_kw, dev),
-                                 dcfg)
+        model = RecognizerRelseq(build_caption_backbone(btype, bb_kw, dev,
+                                                        input_shape), dcfg)
         model.load_state_dict(conv_init_state_dict(model, INIT_SEED))
         return model, dict(bb_kw, type=btype), dec_kw
     bcfg = TimeSformerConfig(**bb_kw)
@@ -134,10 +139,11 @@ def train_from_config(cfg: Config, work_dir: str,
     """Train as the config says on `device` (None: the CUDA device); the
     f32 products run in f32 (TF32 off).  Returns the history, one record
     an epoch."""
-    from .recognition_train import has_batch_norm, recognizer_variables
+    from .recognition_train import (first_clip_shape, has_batch_norm,
+                                    recognizer_variables)
     dev = resolve_device(device)
     no_tf32()
-    model, saved_bb, dec_kw = build_caption_model(cfg, dev)
+    dec_kw = dict(cfg["model.decoder"])
     pipe = build_pipeline(with_reader(cfg["data.pipeline"], reader))
     num_classes = dec_kw["num_classes"]
     max_len = dec_kw.get("max_len", 5)
@@ -148,6 +154,8 @@ def train_from_config(cfg: Config, work_dir: str,
         cfg["data.val.ann_file"], pipe, num_classes=num_classes,
         max_len=max_len, data_prefix=cfg.get("data.val.data_prefix"))
     bs = cfg.get("data.videos_per_gpu", 8)
+    model, saved_bb, dec_kw = build_caption_model(
+        cfg, dev, first_clip_shape(train_ds, bs))
 
     tcfg = RecognitionTrainConfig(**cfg.get("optimizer", {}))
     epochs = num_epochs or cfg.get("total_epochs", tcfg.num_epochs)
@@ -157,7 +165,7 @@ def train_from_config(cfg: Config, work_dir: str,
     state = init_rec_state(model, tx)
     generator = torch.Generator(device=dev)
     holder = model if has_batch_norm(model) else None
-    step = (make_seq_train_step_stats if isinstance(model, RecognizerRelseq)
+    step = (make_seq_train_step_stats if holder is not None
             else make_seq_train_step)(model, generator, device=dev)
     save_best = best_checkpoint_manager(work_dir)
     sampler = ShardedSampler(len(train_ds), shuffle=True)

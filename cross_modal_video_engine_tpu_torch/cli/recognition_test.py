@@ -13,12 +13,14 @@ The multi-clip protocol of tools/test.py: every clip of a video goes into
 the batch and `forward_test(num_segs)` averages the clips' softmax per
 video.  The checkpoint loads through `api.init_recognizer`, so this CLI
 takes the checkpoints the JAX CLI takes: TimeSformer classifiers and
-caption models.  A CNN classifier's checkpoint (no decoder, a backbone
-of the config's `model.backbone.type`, as cli/recognition_train writes
-it for the 2D, TSM, 3D-CNN and TPN families) is rebuilt from the
-config's `model` (its neck and head, which the checkpoint does not
-record), where the JAX CLI's loader refuses it; one of another backbone
-is refused, as the JAX loader refuses it.  The f32 products run in f32
+caption models.  A classifier's checkpoint (no decoder, a backbone of
+the config's `model.backbone.type`, as cli/recognition_train writes it
+for the 2D, TSM, 3D-CNN and TPN families and for Swin3D, MViT,
+VideoMAEViT and VideoCLIP) is rebuilt from the config's `model` (its
+neck and head, which the checkpoint does not record), where the JAX
+CLI's loader refuses it; one of another backbone is refused, as the JAX
+loader refuses it.  A 'CLIP' checkpoint (a Recognizer3DCLIP) is refused:
+the JAX class has no `forward_test`, so the JAX CLI fails on it too.  The f32 products run in f32
 (TF32 off).  `test_from_config(..., reader=)` hands the pipeline a
 decord-alike reader in place of opening files (a machine without cv2).
 """
@@ -42,6 +44,11 @@ from ..train.checkpoint import load_checkpoint
 from ..utils.precision import no_tf32
 
 
+CLIP_REFUSAL = ("a 'CLIP' checkpoint is a Recognizer3DCLIP, which has no "
+                "forward_test (the JAX class has none, and the JAX "
+                "package's recognition_test fails on it too)")
+
+
 def load_recognizer(cfg: Config, checkpoint: str, device=None):
     """The checkpoint's recognizer, eval mode and frozen: a CNN classifier
     of the config's backbone type built from the config's `model`, any
@@ -49,6 +56,8 @@ def load_recognizer(cfg: Config, checkpoint: str, device=None):
     from .recognition_train import build_recognition_model
     variables, cfg_d, _ = load_checkpoint(checkpoint)
     btype = cfg_d["backbone"].get("type", "TimeSformer")
+    if btype == "CLIP":
+        raise ValueError(CLIP_REFUSAL)
     if btype == "TimeSformer" or "decoder" in cfg_d or \
             btype != cfg["model.backbone"].get("type", "TimeSformer"):
         return init_recognizer(checkpoint, device=device)[0]

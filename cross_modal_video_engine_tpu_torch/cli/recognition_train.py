@@ -1,4 +1,5 @@
-"""Config-driven recognition training CLI: TimeSformer and the CNNs.
+"""Config-driven recognition training CLI: TimeSformer, the CNNs and the
+transformer and CLIP backbones.
 
 Counterpart of cross_modal_video_engine_tpu/cli/recognition_train.py (MCT
 tools/train.py) for `model.backbone.type='TimeSformer'` (a Recognizer3D),
@@ -9,8 +10,12 @@ Recognizer2D with a TSNHead, or a TRNHead when `model.head` is
 `dict(type='TRNHead', ...)`) and for `model.neck=dict(type='TPN', ...)`
 over a ResNet3D (a TPNRecognizer, its aux head's classes defaulting to
 `num_classes`), their BatchNorms trained by `make_cls_train_step_stats`
-or `make_tpn_train_step_stats`, trained with cross entropy, on the card
-unless `--device cpu`.
+or `make_tpn_train_step_stats`, for the transformer backbones Swin3D,
+MViT and VideoMAEViT and for VideoCLIP's pooled video encoder
+(`VideoCLIPPooled`; a BackboneClassifier, trained by
+`make_cls_train_step`), and for 'CLIP' (a Recognizer3DCLIP over the
+config's CLIPConfig, its fused_attn/fused_mlp flags included), trained
+with cross entropy, on the card unless `--device cpu`.
 
   python -m cross_modal_video_engine_tpu_torch.cli.recognition_train \\
       CONFIG --work_dir WORK [--resume [EPOCH_DIR]] [--total_epochs N] \\
@@ -38,12 +43,13 @@ start from `models.recognizer.init_state_dict` or `conv_init_state_dict`
 epoch (seed 1 + epoch).  `train_from_config(..., reader=)` hands the
 pipeline a decord-alike reader.  `build_backbone` and
 `build_caption_backbone` (with `_TemporalMean` for per-frame backbones)
-are shared with cli/caption_train and `api.init_recognizer`.  The
-transformer and CLIP backbones (item 8c), OmniSource, multigrid and
-blending (item 8d) are refused, naming the part of ROADMAP.md queue 1
-item 8 that ports them.  The port's TIN and TANet configs carry the
+are shared with cli/caption_train and `api.init_recognizer`.
+OmniSource, multigrid and blending (item 8d) are refused, naming the
+part of ROADMAP.md queue 1 item 8 that ports them.  The port's TIN and TANet configs carry the
 clip length (`num_segments`, default 8) that the JAX modules read off
-their input.
+their input.  As the JAX CLI does, the model is built after the first
+training batch is read: a Swin3D's relative-position tables are sized by
+the windows that batch's shape clips (`input_shape`).
 """
 
 from __future__ import annotations
@@ -62,18 +68,21 @@ from ..convert.from_jax import (conv_recognizer_variables_to_jax,
                                 recognizer_variables_to_jax)
 from ..data.datasets import ShardedSampler, VideoDataset
 from ..data.pipelines import build_pipeline, with_reader
-from ..models import backbones2d, resnet3d, tanet, tin_mobilenet
-from ..models.layers import FlaxBatchNorm
+from ..models import (backbones2d, mvit, resnet3d, swin3d, tanet,
+                      tin_mobilenet, videomae_vit)
+from ..models.clip import CLIPConfig
 from ..models.recognizer import (BackboneClassifier, Recognizer2D,
-                                 Recognizer3D, TPNRecognizer,
-                                 conv_init_state_dict, init_state_dict)
+                                 Recognizer3D, Recognizer3DCLIP,
+                                 TPNRecognizer, conv_init_state_dict,
+                                 init_state_dict)
 from ..models.timesformer import TimeSformerConfig
 from ..models.tpn import TPNConfig
+from ..models.videoclip import VideoCLIPConfig, VideoCLIPPooled
 from ..train.checkpoint import best_checkpoint_manager
 from ..train.recognition_trainer import (
-    RecognitionTrainConfig, evaluate_classification, init_rec_state,
-    make_cls_train_step, make_cls_train_step_stats, make_rec_optimizer,
-    make_tpn_train_step_stats, not_ported)
+    RecognitionTrainConfig, evaluate_classification, has_batch_norm,
+    init_rec_state, make_cls_train_step, make_cls_train_step_stats,
+    make_rec_optimizer, make_tpn_train_step_stats, not_ported)
 from ..train.resume import (latest_checkpoint, load_train_state,
                             save_train_state)
 from ..utils.device import resolve_device
@@ -87,12 +96,9 @@ def _deep_tuple(v):
     return v
 
 
-# backbones with per-frame (B, T, C) features (Recognizer2D's), and the
-# part of ROADMAP.md queue 1 item 8 that ports each unported backbone
+# backbones with per-frame (B, T, C) features (Recognizer2D's)
 PER_FRAME_BACKBONES = ("TANet", "TSM", "TSN", "TIN", "TINExact",
                        "MobileNetV2TSM")
-BACKBONE_PARTS = {b: "8c" for b in ("Swin3D", "MViT", "VideoMAEViT", "CLIP",
-                                    "VideoCLIP")}
 # model.backbone.type -> (module, class, config class)
 CNN_BACKBONES = {
     "ResNet3D": (resnet3d, "ResNet3D", "ResNet3DConfig"),
@@ -109,15 +115,22 @@ CNN_BACKBONES = {
     "MobileNetV2TSM": (tin_mobilenet, "MobileNetV2TSM",
                        "MobileNetV2TSMConfig"),
     "TANet": (tanet, "TANet", "TANetConfig"),
+    "MViT": (mvit, "MViT", "MViTConfig"),
+    "VideoMAEViT": (videomae_vit, "VideoMAEViT", "VideoMAEConfig"),
 }
 
 
-def build_backbone(btype: str, kw: dict, device=None) -> nn.Module:
+def build_backbone(btype: str, kw: dict, device=None,
+                   input_shape=None) -> nn.Module:
     """The backbone `model.backbone.type` names (shared by the recognition
     and caption trainers and `api.init_recognizer`): the CNN families of
     models/{resnet3d,backbones2d,tin_mobilenet,tanet}.py ('SlowOnly' is a
-    ResNet3D, 'TSN' a TSM with shift_div=0); the others raise, naming
-    their part."""
+    ResNet3D, 'TSN' a TSM with shift_div=0) and the transformers Swin3D
+    (its tables sized for videos of `input_shape` (T, H, W)), MViT and
+    VideoMAEViT.  'CLIP' and 'VideoCLIP' are recognizers, not backbones,
+    here as in the JAX CLI: they raise "unknown backbone type"."""
+    if btype == "Swin3D":
+        return swin3d.Swin3D(swin3d.Swin3DConfig(**kw), device, input_shape)
     if btype in CNN_BACKBONES:
         module, cls, cfg_cls = CNN_BACKBONES[btype]
         if btype == "TSN":
@@ -125,9 +138,6 @@ def build_backbone(btype: str, kw: dict, device=None) -> nn.Module:
         if cfg_cls is None:                          # C3D takes keywords
             return getattr(module, cls)(**kw, device=device)
         return getattr(module, cls)(getattr(module, cfg_cls)(**kw), device)
-    if btype in BACKBONE_PARTS:
-        raise NotImplementedError(not_ported(f"the {btype!r} backbone",
-                                             BACKBONE_PARTS[btype]))
     raise ValueError(f"unknown backbone type {btype}")
 
 
@@ -144,10 +154,11 @@ class _TemporalMean(nn.Module):
         return self.inner(videos).mean(1)
 
 
-def build_caption_backbone(btype: str, kw: dict, device=None) -> nn.Module:
+def build_caption_backbone(btype: str, kw: dict, device=None,
+                           input_shape=None) -> nn.Module:
     """The caption trainer's backbone: a pooled (B, C) feature, per-frame
     backbones behind `_TemporalMean`."""
-    backbone = build_backbone(btype, kw, device)
+    backbone = build_backbone(btype, kw, device, input_shape)
     if btype in PER_FRAME_BACKBONES:
         backbone = _TemporalMean(backbone)
     return backbone
@@ -155,16 +166,12 @@ def build_caption_backbone(btype: str, kw: dict, device=None) -> nn.Module:
 
 def recognizer_variables(model: nn.Module) -> dict:
     """The variables the JAX package's checkpoint of `model` holds:
-    {"params"} for a TimeSformer recognizer or C3D, {"params",
-    "batch_stats"} for a CNN with BatchNorms."""
-    cfg = getattr(model.backbone, "cfg", None)
+    {"params"} for a TimeSformer recognizer, C3D or a transformer,
+    {"params", "batch_stats"} for a CNN with BatchNorms."""
+    cfg = getattr(getattr(model, "backbone", None), "cfg", None)
     if isinstance(cfg, TimeSformerConfig):
         return recognizer_variables_to_jax(model.state_dict(), cfg)
     return conv_recognizer_variables_to_jax(model.state_dict(), model)
-
-
-def has_batch_norm(model: nn.Module) -> bool:
-    return any(isinstance(m, FlaxBatchNorm) for m in model.modules())
 
 
 def _tpn_config(ncfg: dict, num_classes: int) -> TPNConfig:
@@ -174,13 +181,16 @@ def _tpn_config(ncfg: dict, num_classes: int) -> TPNConfig:
 
 
 def build_recognition_model(cfg: Config, device=None,
-                            dtype: Optional[str] = None) -> nn.Module:
+                            dtype: Optional[str] = None,
+                            input_shape=None) -> nn.Module:
     """The recognizer of `model` at the training init: a Recognizer3D
     (dtype overrides the TimeSformer's: the bf16 step's f32 masters), a
-    BackboneClassifier over a pooled CNN, a Recognizer2D over a per-frame
-    one (TRNHead when model.head says so), or a TPNRecognizer
-    (model.neck=dict(type='TPN')).  The other families raise, naming
-    their part."""
+    BackboneClassifier over a pooled CNN, a transformer or VideoCLIP's
+    pooled video encoder, a Recognizer3DCLIP ('CLIP'), a Recognizer2D
+    over a per-frame backbone (TRNHead when model.head says so), or a
+    TPNRecognizer (model.neck=dict(type='TPN')).  input_shape: the (T, H,
+    W) of the videos, which sizes a Swin3D's tables (JAX's init reads it
+    off the first batch)."""
     bcfg = dict(cfg["model.backbone"])
     btype = bcfg.pop("type", "TimeSformer")
     ncfg, hcfg = cfg.get("model.neck"), cfg.get("model.head")
@@ -202,7 +212,13 @@ def build_recognition_model(cfg: Config, device=None,
         model.load_state_dict(init_state_dict(backbone, INIT_SEED,
                                               num_classes=num_classes))
         return model
-    backbone = build_backbone(btype, kw, dev)
+    if btype == "CLIP":
+        model = Recognizer3DCLIP(CLIPConfig(**kw), num_classes, device=dev)
+        model.load_state_dict(conv_init_state_dict(model, INIT_SEED))
+        return model
+    backbone = (VideoCLIPPooled(VideoCLIPConfig(**kw), dev)
+                if btype == "VideoCLIP" else
+                build_backbone(btype, kw, dev, input_shape))
     if ncfg:
         model = TPNRecognizer(backbone, _tpn_config(ncfg, num_classes),
                               num_classes)
@@ -214,6 +230,13 @@ def build_recognition_model(cfg: Config, device=None,
         model = BackboneClassifier(backbone, num_classes)
     model.load_state_dict(conv_init_state_dict(model, INIT_SEED))
     return model
+
+
+def first_clip_shape(ds, batch_size: int):
+    """(T, H, W) of the first clip of the first batch, the shape the JAX
+    CLI's `model.init` reads off its first batch."""
+    imgs, _items, _n = next(iter(ds.batches(batch_size)))
+    return tuple(imgs.shape[2:5])
 
 
 def _label_batches(ds, batch_size: int, device, order=None):
@@ -237,14 +260,15 @@ def train_from_config(cfg: Config, work_dir: str,
     dev = resolve_device(device)
     no_tf32()
     tcfg = RecognitionTrainConfig(**cfg.get("optimizer", {}))
-    model = build_recognition_model(cfg, dev,
-                                    "float32" if tcfg.bf16 else None)
     pipe = build_pipeline(with_reader(cfg["data.pipeline"], reader))
     train_ds = VideoDataset(cfg["data.train.ann_file"], pipe,
                             cfg.get("data.train.data_prefix"))
     val_ds = VideoDataset(cfg["data.val.ann_file"], pipe,
                           cfg.get("data.val.data_prefix"))
     bs = cfg.get("data.videos_per_gpu", 8)
+    model = build_recognition_model(
+        cfg, dev, "float32" if tcfg.bf16 else None,
+        input_shape=first_clip_shape(train_ds, bs))
 
     epochs = num_epochs or cfg.get("total_epochs", tcfg.num_epochs)
     # total_steps sizes the warmup-cosine schedule to the run
@@ -257,8 +281,8 @@ def train_from_config(cfg: Config, work_dir: str,
     holder = model if has_batch_norm(model) else None
     make_step = (make_tpn_train_step_stats
                  if isinstance(model, TPNRecognizer) else
-                 make_cls_train_step if isinstance(model, Recognizer3D)
-                 else make_cls_train_step_stats)
+                 make_cls_train_step_stats if holder is not None
+                 else make_cls_train_step)
     step = make_step(model, bf16=tcfg.bf16, generator=generator, device=dev)
     save_best = best_checkpoint_manager(work_dir)
     sampler = ShardedSampler(len(train_ds), shuffle=True)

@@ -72,6 +72,15 @@ compute the same function.
   -> `relation_fc{1,2}`, `consensus.fc_fusion_scales.{i}.{1,3}` ->
   `fusion_s{S-i}_fc{1,2}`) or TPNRecognizer's `cls_head.fc_cls` (the
   JAX Dense `cls_head`); these functions are their bridge.
+* `transformer_state_dict_from_jax` and `transformer_variables_to_jax`
+  carry the transformer and CLIP backbones both ways, alone or under
+  BackboneClassifier, RecognizerRelseq or Recognizer3DCLIP (the CNN
+  functions route such a model to them): Swin3D in the keys
+  convert_swin3d reads, VideoMAEViT in convert_videomae's, a CLIP
+  VisionTower's blocks in convert_clip_vit's; MViT and VideoCLIP, which
+  no importer reads, in keys that follow the JAX tree.
+  `{swin3d,mvit,videomae,videoclip}_*` and `clip_recognizer_*` are the
+  per-family forms (a config, or the CLIP config and the class count).
 * `yolo_train_state_to_jax` and `yolo_train_state_from_jax` carry the
   detector trainers' YoloTrainState (params, batch_stats, velocity, EMA
   params and statistics, the update count) both ways.
@@ -1366,7 +1375,10 @@ def conv_recognizer_state_dict_from_jax(variables: Dict[str, Any], model
     (BackboneClassifier, X3DClassifier, RecognizerRelseq, Recognizer2D,
     TPNRecognizer) whose module tree names the keys (a meta-device copy
     will do).  Without "batch_stats" only the parameters come back
-    (an optimizer's moments)."""
+    (an optimizer's moments).  A transformer model (`is_transformer_model`)
+    goes through `transformer_state_dict_from_jax`."""
+    if is_transformer_model(model):
+        return transformer_state_dict_from_jax(variables, model)
     params = variables.get("params", variables)
     stats = variables.get("batch_stats")
     sd: Dict[str, torch.Tensor] = {}
@@ -1412,7 +1424,11 @@ def conv_recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], model
                                      ) -> Dict[str, Any]:
     """The inverse: the port's state dict (or {parameter name: tensor})
     -> {"params"[, "batch_stats"]} as numpy f32, the tree the JAX module
-    holds; "batch_stats" when the dict carries the running statistics."""
+    holds; "batch_stats" when the dict carries the running statistics.
+    A transformer model (`is_transformer_model`) goes through
+    `transformer_variables_to_jax`."""
+    if is_transformer_model(model):
+        return transformer_variables_to_jax(sd, model)
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     for name, path, kind in _cnn_table(model):
@@ -1482,3 +1498,223 @@ tanet_state_dict_from_jax, tanet_variables_to_jax = \
     _conv_backbone_fns("TANet", "tanet")
 tpn_state_dict_from_jax, tpn_variables_to_jax = \
     _conv_backbone_fns("TPN", "tpn")
+
+
+# -- the transformer and CLIP backbones (Swin3D, MViT, VideoMAE, VideoCLIP,
+# Recognizer3DCLIP), both ways ------------------------------------------------
+# Every key of the port's state dict names a JAX leaf: its module path
+# renamed (`_jax_owner`) and its leaf mapped by the module's kind (a Linear's
+# weight is the Dense kernel transposed, a conv's the flax kernel permuted,
+# a LayerNorm's the scale; CLIP's in_proj splits into q_proj, k_proj and
+# v_proj).  The keys are the importers' where one exists (convert_swin3d,
+# convert_videomae, convert_clip_vit's resblocks), the JAX tree's where none
+# does (MViT, VideoCLIP); so these functions invert the importers.
+
+def _clip_blocks(parts: List[str]) -> List[str]:
+    """A port CLIP Transformer's module path -> the JAX one."""
+    if not parts:
+        return []
+    out = [f"resblock_{parts[1]}"]
+    rest = parts[2:]
+    if rest[:1] in (["ln_1"], ["ln_2"]):
+        return out + [rest[0], "ln"]
+    if rest[:1] == ["mlp"]:
+        return out + rest[1:]
+    return out + rest
+
+
+def _jax_owner(root, parts: List[str]) -> List[str]:
+    """The JAX module path of the port module at `parts` under `root`."""
+    from ..models import clip, mvit, recognizer, swin3d, videoclip
+    from ..models import videomae_vit
+    if isinstance(root, recognizer.Recognizer3DCLIP):
+        return (["clip_vision"] + _jax_owner(root.clip_vision, parts[1:])
+                if parts[:1] == ["clip_vision"] else parts)
+    if hasattr(root, "backbone"):
+        return (["backbone"] + _jax_owner(root.backbone, parts[1:])
+                if parts[:1] == ["backbone"] else parts)
+    if isinstance(root, videoclip.VideoCLIPPooled):
+        return ["videoclip"] + _jax_owner(root.videoclip, parts[1:])
+    if isinstance(root, swin3d.Swin3D):
+        if parts[:1] == ["patch_embed"]:
+            return ["patch_embed" if parts[1] == "proj" else "patch_norm"]
+        if parts[:1] == ["layers"]:
+            i, rest = parts[1], parts[3:]
+            if parts[2] == "downsample":
+                return [f"merge{i}"] + rest
+            return [f"stage{i}_block{rest[0]}"] + [
+                p for p in rest[1:] if p != "mlp"]
+        return parts
+    if isinstance(root, videomae_vit.VideoMAEViT):
+        if parts[:1] == ["patch_embed"]:
+            return ["patch_embed"]
+        if parts[:1] == ["blocks"]:
+            return [f"block_{parts[1]}"] + [p for p in parts[2:]
+                                             if p != "mlp"]
+        return parts
+    if isinstance(root, (videoclip.VideoCLIP, clip.VisionTower)):
+        if parts[:1] in (["video_transformer"], ["text_transformer"],
+                         ["transformer"]):
+            return parts[:1] + _clip_blocks(parts[1:])
+        if parts[:1] in (["ln_video"], ["ln_text"], ["ln_pre"], ["ln_post"]):
+            return parts + ["ln"]
+        return parts
+    if isinstance(root, mvit.MViT):
+        return parts
+    raise TypeError(f"no JAX layout for {type(root).__name__}")
+
+
+def _tx_table(model) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """(port key, JAX path, kind) for every key of a transformer model's
+    state dict but the RNN decoder's; kind: 'kernel' (a Linear's weight),
+    'conv' (a conv weight), 'inproj_w'/'inproj_b' (CLIP's fused q/k/v;
+    the path names the attention), 'id' (as it is)."""
+    from ..models import clip
+    from ..models.decoder_head import RNNDecoderHead
+    from ..models.flax_nn import LayerNorm
+    from ..models.videomae_vit import _MAEAttention
+    head = getattr(model, "cls_head", None)
+    rows = []
+    for key in model.state_dict():
+        if isinstance(head, RNNDecoderHead) and key.startswith("cls_head."):
+            continue
+        owner, _, leaf = key.rpartition(".")
+        parts = owner.split(".") if owner else []
+        mod = model.get_submodule(owner)
+        path = _jax_owner(model, parts)
+        if isinstance(mod, (torch.nn.Linear,)):
+            path, kind = path + ["kernel" if leaf == "weight" else leaf], \
+                "kernel" if leaf == "weight" else "id"
+        elif isinstance(mod, _CONVS + (clip.PatchEmbed,)):
+            path, kind = path + ["kernel" if leaf == "weight" else leaf], \
+                "conv" if leaf == "weight" else "id"
+        elif isinstance(mod, (LayerNorm, clip.LayerNormF32)):
+            path, kind = path + ["scale" if leaf == "weight" else leaf], "id"
+        elif isinstance(mod, clip.MHA):
+            kind = "inproj_w" if leaf == "in_proj_weight" else "inproj_b"
+        elif parts[-1:] == ["qkv"] and isinstance(
+                model.get_submodule(".".join(parts[:-1])), _MAEAttention):
+            path, kind = path[:-1] + ["qkv_weight"], "kernel"
+        else:
+            path, kind = path + ["rel_pos_bias" if leaf ==
+                                 "relative_position_bias_table" else leaf], \
+                "id"
+        rows.append((key, tuple(path), kind))
+    return rows
+
+
+_QKV = ("q_proj", "k_proj", "v_proj")
+
+
+def transformer_state_dict_from_jax(variables: Dict[str, Any], model
+                                    ) -> Dict[str, torch.Tensor]:
+    """A JAX transformer model's variables ({"params"} or the params
+    themselves) -> the port's fp32 state dict for `model`: a Swin3D,
+    MViT, VideoMAEViT, VideoCLIP or CLIP VisionTower, alone, under
+    BackboneClassifier or RecognizerRelseq (VideoCLIP behind
+    VideoCLIPPooled), or Recognizer3DCLIP; its module tree names the keys
+    (a meta-device copy will do)."""
+    params = variables.get("params", variables)
+    sd: Dict[str, torch.Tensor] = {}
+    for key, path, kind in _tx_table(model):
+        if kind in ("inproj_w", "inproj_b"):
+            at = _tree_get(params, path)
+            sd[key] = (torch.cat([_f32(at[n]["kernel"]).t() for n in _QKV])
+                       if kind == "inproj_w" else
+                       torch.cat([_f32(at[n]["bias"]) for n in _QKV]))
+            continue
+        a = _f32(_tree_get(params, path))
+        if kind == "kernel":
+            a = a.t()
+        elif kind == "conv":              # (*kernel, in, out) -> (out, in, *)
+            a = a.permute(a.dim() - 1, a.dim() - 2, *range(a.dim() - 2))
+        sd[key] = a.contiguous()
+    if "cls_head" in params and "start_emb" in params["cls_head"]:
+        _decoder_from_jax(sd, params["cls_head"])
+    return sd
+
+
+def transformer_variables_to_jax(sd: Dict[str, torch.Tensor], model
+                                 ) -> Dict[str, Any]:
+    """The inverse: the port's state dict (or {parameter name: tensor})
+    -> {"params"} as numpy f32, the tree the JAX module holds."""
+    params: Dict[str, Any] = {}
+    for key, path, kind in _tx_table(model):
+        w = _np32(sd[key])
+        if kind in ("inproj_w", "inproj_b"):
+            d = w.shape[0] // 3
+            for i, n in enumerate(_QKV):
+                _tree_put(params, path + (n, "kernel" if kind == "inproj_w"
+                                          else "bias"),
+                          w[i * d:(i + 1) * d].T if kind == "inproj_w"
+                          else w[i * d:(i + 1) * d])
+            continue
+        if kind == "kernel":
+            w = w.T
+        elif kind == "conv":
+            w = w.transpose(*range(2, w.ndim), 1, 0)
+        _tree_put(params, path, np.array(w, order="C"))
+    if "cls_head.start_emb.weight" in sd:
+        params["cls_head"] = _decoder_to_jax(sd)
+    return {"params": params}
+
+
+def is_transformer_model(model) -> bool:
+    """A model `transformer_*_jax` carries (one of the 8c families)."""
+    from ..models import clip, mvit, recognizer, swin3d, videoclip
+    from ..models import videomae_vit
+    families = (swin3d.Swin3D, mvit.MViT, videomae_vit.VideoMAEViT,
+                videoclip.VideoCLIP, videoclip.VideoCLIPPooled,
+                clip.VisionTower, recognizer.Recognizer3DCLIP)
+    return isinstance(model, families) or isinstance(
+        getattr(model, "backbone", None), families)
+
+
+def _tx_backbone_fns(family: str, module: str):
+    def build(cfg):
+        import importlib
+        mod = importlib.import_module(f"..models.{module}", __package__)
+        return getattr(mod, family)(cfg, device="meta")
+
+    def state_dict_from_jax(variables: Dict[str, Any], cfg
+                            ) -> Dict[str, torch.Tensor]:
+        return transformer_state_dict_from_jax(variables, build(cfg))
+
+    def variables_to_jax(sd: Dict[str, torch.Tensor], cfg) -> Dict[str, Any]:
+        return transformer_variables_to_jax(sd, build(cfg))
+
+    state_dict_from_jax.__doc__ = (
+        f"A JAX {family}'s variables -> the port's {family} state dict "
+        f"(cfg: its config).")
+    variables_to_jax.__doc__ = (
+        f"The port's {family} state dict -> the JAX {family}'s {{'params'}} "
+        f"(cfg: its config).")
+    return state_dict_from_jax, variables_to_jax
+
+
+swin3d_state_dict_from_jax, swin3d_variables_to_jax = \
+    _tx_backbone_fns("Swin3D", "swin3d")
+mvit_state_dict_from_jax, mvit_variables_to_jax = \
+    _tx_backbone_fns("MViT", "mvit")
+videomae_state_dict_from_jax, videomae_variables_to_jax = \
+    _tx_backbone_fns("VideoMAEViT", "videomae_vit")
+videoclip_state_dict_from_jax, videoclip_variables_to_jax = \
+    _tx_backbone_fns("VideoCLIP", "videoclip")
+
+
+def clip_recognizer_state_dict_from_jax(variables: Dict[str, Any],
+                                        clip_cfg, num_classes: int
+                                        ) -> Dict[str, torch.Tensor]:
+    """A JAX Recognizer3DCLIP's variables -> the port's state dict."""
+    from ..models.recognizer import Recognizer3DCLIP
+    return transformer_state_dict_from_jax(
+        variables, Recognizer3DCLIP(clip_cfg, num_classes, device="meta"))
+
+
+def clip_recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], clip_cfg,
+                                     num_classes: int) -> Dict[str, Any]:
+    """The port's Recognizer3DCLIP state dict -> the JAX one's
+    {"params"}."""
+    from ..models.recognizer import Recognizer3DCLIP
+    return transformer_variables_to_jax(
+        sd, Recognizer3DCLIP(clip_cfg, num_classes, device="meta"))

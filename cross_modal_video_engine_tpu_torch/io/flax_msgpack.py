@@ -86,26 +86,31 @@ def _pack_bin(out: List[bytes], b: bytes) -> None:
     out.append(b)
 
 
-def _pack_ext(out: List[bytes], code: int, payload: bytes) -> None:
+def _pack_ext(out: List[bytes], code: int, *payload) -> None:
+    """An extension of the given type whose payload is the parts given,
+    each bytes-like (an array's raw bytes go in without a copy)."""
     fixed = {1: b"\xd4", 2: b"\xd5", 4: b"\xd6", 8: b"\xd7", 16: b"\xd8"}
-    n = len(payload)
+    n = sum(memoryview(p).nbytes for p in payload)
     if n in fixed:
         out.append(fixed[n])
     else:
         _pack_len(out, n, None, 0, (b"\xc7", b"\xc8", b"\xc9"),
                   ("B", "H", "I"))
     out.append(struct.pack("b", code))
-    out.append(payload)
+    out.extend(payload)
 
 
-def _array_payload(shape, dtype_name: str, raw: bytes) -> bytes:
+def _array_head(shape, dtype_name: str, nbytes: int) -> bytes:
+    """An array payload up to its raw bytes: [shape, dtype name, bin
+    header]."""
     out: List[bytes] = []
     _pack_len(out, 3, 0x90, 16, (), ())
     _pack_len(out, len(shape), 0x90, 16, (b"\xdc", b"\xdd"), ("H", "I"))
     for d in shape:
         _pack_int(out, int(d))
     _pack_str(out, dtype_name)
-    _pack_bin(out, raw)
+    _pack_len(out, nbytes, None, 0, (b"\xc4", b"\xc5", b"\xc6"),
+              ("B", "H", "I"))
     return b"".join(out)
 
 
@@ -125,7 +130,9 @@ def _as_numpy(x) -> Tuple[np.ndarray, str]:
 
 def _pack_array(out: List[bytes], x, code: int = EXT_NDARRAY) -> None:
     a, name = _as_numpy(x)
-    _pack_ext(out, code, _array_payload(a.shape, name, a.tobytes("C")))
+    # the C-order bytes as a view (a copy only where a is not C-contiguous)
+    raw = memoryview(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+    _pack_ext(out, code, _array_head(a.shape, name, raw.nbytes), raw)
 
 
 def _chunk(x) -> Dict[str, Any]:

@@ -11,6 +11,14 @@ classes, methods and numerics:
 * Every matrix, bias and embedding is stored in the compute dtype
   (`cfg.dtype`), which is where the JAX package rounds them before use;
   LayerNorm parameters and `logit_scale` stay fp32, as flax applies them.
+  `VisionTower(param_dtype=torch.float32)` keeps fp32 masters instead (a
+  trained recognizer's, as the JAX package keeps them): each layer casts
+  its parameters and input to the compute dtype, as flax's
+  `Dense(dtype=...)` does.
+* The unfused attention's two products are `ops/mixed_precision.
+  einsum_f32acc`, as in the JAX MHA: fp32 accumulation, and a backward
+  that casts the cotangent to the operand dtype before each gradient
+  product.
 
 Parameter names follow the OpenAI CLIP state dict that
 `cross_modal_video_engine_tpu.convert.torch_import.convert_clip_vit` reads,
@@ -40,7 +48,9 @@ from ..ops.attention_sublayer import (fused_attention_sublayer,
                                       fused_attention_sublayer_compact,
                                       fused_mlp_sublayer)
 from ..ops.flash_attention import flash_attention
+from ..ops.mixed_precision import acc_dtype, einsum_f32acc
 from ..utils.device import resolve_device
+from .flax_nn import dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +84,8 @@ class CLIPConfig:
         return self.image_resolution // self.patch_size
 
     def torch_dtype(self) -> torch.dtype:
-        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+        return {"bfloat16": torch.bfloat16,
+                "float64": torch.float64}.get(self.dtype, torch.float32)
 
 
 def enable_fused_inference(cfg: CLIPConfig, enable: Optional[bool] = None,
@@ -104,6 +115,8 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+
+
 class LayerNormF32(nn.Module):
     """LayerNorm with fp32 statistics and fp32 scale/bias, output in the
     activation dtype (flax LayerNorm with force_float32_reductions)."""
@@ -114,15 +127,17 @@ class LayerNormF32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                            self.bias.float(), 1e-5).to(x.dtype)
+        acc = acc_dtype(x.dtype)
+        return F.layer_norm(x.to(acc), self.weight.shape, self.weight.to(acc),
+                            self.bias.to(acc), 1e-5).to(x.dtype)
 
 
 class MHA(nn.Module):
     """Self- or cross-attention (`kv=`) in nn.MultiheadAttention's
     parameter layout (in_proj_weight (3D, D), in_proj_bias, out_proj),
-    unfused: scores and softmax in fp32, probabilities rounded to the
-    compute dtype.
+    unfused: both products `einsum_f32acc`, scores and softmax in fp32,
+    probabilities rounded to the compute dtype; every projection casts
+    its input and parameters to the compute dtype.
 
     With `use_flash` an unmasked self-attention call goes through
     ops/flash_attention.flash_attention instead (the CUDA kernel on a CUDA
@@ -130,15 +145,17 @@ class MHA(nn.Module):
     keeps the plain path."""
 
     def __init__(self, width: int, heads: int, dtype: torch.dtype,
-                 device=None, use_flash: bool = False):
+                 device=None, use_flash: bool = False,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.width, self.heads, self.dtype = width, heads, dtype
         self.use_flash = use_flash
+        pdt = param_dtype or dtype
         self.in_proj_weight = nn.Parameter(
-            torch.empty(3 * width, width, dtype=dtype, device=device))
+            torch.empty(3 * width, width, dtype=pdt, device=device))
         self.in_proj_bias = nn.Parameter(
-            torch.zeros(3 * width, dtype=dtype, device=device))
-        self.out_proj = nn.Linear(width, width, dtype=dtype, device=device)
+            torch.zeros(3 * width, dtype=pdt, device=device))
+        self.out_proj = nn.Linear(width, width, dtype=pdt, device=device)
 
     def qkv_params(self) -> Tuple[torch.Tensor, ...]:
         """(wq, bq, wk, bk, wv, bv): contiguous views of in_proj."""
@@ -150,7 +167,9 @@ class MHA(nn.Module):
                 mask: Optional[torch.Tensor] = None,
                 kv: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (B, L, D) queries; kv: (B, S, D) keys and values for cross
-        attention (None: x); mask: (L, S) additive fp32 mask."""
+        attention (None: x); mask: an additive fp32 mask that broadcasts
+        over the (B, heads, L, S) scores: (L, S), or (B, 1, 1, S) for
+        per-example pad keys."""
         is_self = kv is None
         kv = x if is_self else kv
         b, l, d = x.shape
@@ -161,39 +180,46 @@ class MHA(nn.Module):
         def heads_first(t, n):
             return t.reshape(b, n, h, hd).transpose(1, 2)
 
-        q = heads_first(F.linear(x, wq, bq), l)
-        k = heads_first(F.linear(kv, wk, bk), s)
-        v = heads_first(F.linear(kv, wv, bv), s)
+        q = heads_first(F.linear(x.to(dt), wq, bq), l)
+        k = heads_first(F.linear(kv.to(dt), wk, bk), s)
+        v = heads_first(F.linear(kv.to(dt), wv, bv), s)
         scale = 1.0 / math.sqrt(hd)
         if self.use_flash and is_self and mask is None:
             out = flash_attention(q, k, v, scale).to(dt)
         else:
-            logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+            logits = einsum_f32acc("bhld,bhsd->bhls", q, k) * scale
             if mask is not None:
                 logits = logits + mask
             w = torch.softmax(logits, dim=-1).to(dt)
-            out = (w.float() @ v.float()).to(dt)
-        return self.out_proj(out.transpose(1, 2).reshape(b, l, d))
+            out = einsum_f32acc("bhls,bhsd->bhld", w, v).to(dt)
+        proj = self.out_proj
+        return dense(out.transpose(1, 2).reshape(b, l, d), proj.weight,
+                     proj.bias, dt)
 
 
 class MLP(nn.Module):
-    def __init__(self, width: int, dtype: torch.dtype, device=None):
+    def __init__(self, width: int, dtype: torch.dtype, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.c_fc = nn.Linear(width, 4 * width, dtype=dtype, device=device)
-        self.c_proj = nn.Linear(4 * width, width, dtype=dtype, device=device)
+        self.dtype = dtype
+        pdt = param_dtype or dtype
+        self.c_fc = nn.Linear(width, 4 * width, dtype=pdt, device=device)
+        self.c_proj = nn.Linear(4 * width, width, dtype=pdt, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(quick_gelu(self.c_fc(x)))
+        dt, fc, pj = self.dtype, self.c_fc, self.c_proj
+        return dense(quick_gelu(dense(x, fc.weight, fc.bias, dt)), pj.weight,
+                     pj.bias, dt)
 
 
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, width: int, heads: int, dtype: torch.dtype,
-                 device=None):
+                 device=None, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.heads = heads
-        self.attn = MHA(width, heads, dtype, device)
+        self.attn = MHA(width, heads, dtype, device, param_dtype=param_dtype)
         self.ln_1 = LayerNormF32(width, device)
-        self.mlp = MLP(width, dtype, device)
+        self.mlp = MLP(width, dtype, device, param_dtype)
         self.ln_2 = LayerNormF32(width, device)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -225,10 +251,11 @@ class ResidualAttentionBlock(nn.Module):
 
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, dtype, device)
+            ResidualAttentionBlock(width, heads, dtype, device, param_dtype)
             for _ in range(layers))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
@@ -259,11 +286,12 @@ class PatchEmbed(nn.Module):
     bias), also applicable to pre-patchified (p, p, C)-ordered tokens."""
 
     def __init__(self, width: int, patch: int, dtype: torch.dtype,
-                 device=None):
+                 device=None, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.width, self.patch, self.dtype = width, patch, dtype
-        self.weight = nn.Parameter(
-            torch.empty(width, 3, patch, patch, dtype=dtype, device=device))
+        self.weight = nn.Parameter(torch.empty(
+            width, 3, patch, patch, dtype=param_dtype or dtype,
+            device=device))
 
     def forward(self, images: Optional[torch.Tensor] = None,
                 tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -277,22 +305,27 @@ class PatchEmbed(nn.Module):
 
 
 class VisionTower(nn.Module):
-    def __init__(self, cfg: CLIPConfig, device=None):
+    """param_dtype: the parameters' dtype (None: the compute dtype
+    `cfg.dtype`)."""
+
+    def __init__(self, cfg: CLIPConfig, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         _refuse_flatten(cfg)
         self.cfg = cfg
         dt, w = cfg.torch_dtype(), cfg.vision_width
-        self.conv1 = PatchEmbed(w, cfg.patch_size, dt, device)
+        pdt = param_dtype or dt
+        self.conv1 = PatchEmbed(w, cfg.patch_size, dt, device, pdt)
         self.class_embedding = nn.Parameter(
-            torch.empty(w, dtype=dt, device=device))
+            torch.empty(w, dtype=pdt, device=device))
         self.positional_embedding = nn.Parameter(
-            torch.empty(cfg.grid ** 2 + 1, w, dtype=dt, device=device))
+            torch.empty(cfg.grid ** 2 + 1, w, dtype=pdt, device=device))
         self.ln_pre = LayerNormF32(w, device)
         self.transformer = Transformer(w, cfg.vision_layers,
-                                       cfg.vision_heads, dt, device)
+                                       cfg.vision_heads, dt, device, pdt)
         self.ln_post = LayerNormF32(w, device)
         self.proj = nn.Parameter(
-            torch.empty(w, cfg.embed_dim, dtype=dt, device=device))
+            torch.empty(w, cfg.embed_dim, dtype=pdt, device=device))
 
     def forward(self, images: Optional[torch.Tensor] = None, *,
                 tokens: Optional[torch.Tensor] = None
@@ -311,7 +344,8 @@ class VisionTower(nn.Module):
         middle = x[:, 1:, :]
         pooled = self.ln_post(x[:, 0, :])
         # fp32 product of the rounded operands (preferred_element_type)
-        high = pooled.float() @ self.proj.to(dt).float()
+        acc = acc_dtype(pooled.dtype)
+        high = pooled.to(acc) @ self.proj.to(dt).to(acc)
         return high, low, middle
 
 

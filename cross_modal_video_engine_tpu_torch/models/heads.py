@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.registry import HEADS
+from .flax_nn import Dense
 from .layers import Dropout
 
 
@@ -40,7 +41,9 @@ class _PooledHead(nn.Module):
         super().__init__()
         self.dropout = Dropout(self.default_dropout if dropout_ratio is None
                                else dropout_ratio)
-        self.fc_cls = nn.Linear(in_channels, num_classes, device=device)
+        # flax's Dense(dtype=None): a transformer's fp32 feature promotes
+        # the bf16 trainer's bf16 weights
+        self.fc_cls = Dense(in_channels, num_classes, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc_cls(self.dropout(x))

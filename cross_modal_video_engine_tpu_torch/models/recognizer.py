@@ -25,9 +25,15 @@ cross_modal_video_engine_tpu/models/recognizer.py:
 * `TPNRecognizer`: a ResNet3D's last stage maps through the TPN neck
   (models/tpn.py), the global mean, dropout and `cls_head.fc_cls`; in
   train mode it returns (scores, {"loss_aux"}) given the labels;
+* `Recognizer3DCLIP`: the B·T frames through the CLIP vision tower
+  (models/clip.py, fp32 masters, the config's dtype and fused flags),
+  the time mean of its `high` feature and `fc_cls`; like the JAX class it
+  has no `forward_test`;
 * `init_state_dict`: a training init drawn from a numpy seed with flax's
   init schemes (what the JAX package's `model.init` draws), and
-  `conv_init_state_dict` the same for the 3D-CNN recognizers.
+  `conv_init_state_dict` the same for the 3D-CNN recognizers and for the
+  transformer backbones of models/{swin3d,mvit,videomae_vit,videoclip}.py
+  and Recognizer3DCLIP.
 
 The TimeSformer heads compute in fp32 on the parameters' values: the
 backbone's CLS feature is fp32, and the JAX heads promote to it; the
@@ -52,7 +58,8 @@ from ..losses.seqmll import seq_mll_loss
 from ..utils.device import resolve_device
 from ..utils.registry import RECOGNIZERS
 from .caption_transformer import CaptionConfig, CaptionTransformer
-from .clip import MHA
+from .clip import MHA, CLIPConfig, LayerNormF32, PatchEmbed, VisionTower
+from .flax_nn import Dense, LayerNorm
 from .decoder_head import RNNDecoderConfig, RNNDecoderHead
 from .heads import I3DHead, TRNHead, TSNHead, X3DHead
 from .layers import FlaxBatchNorm
@@ -337,6 +344,31 @@ class TPNRecognizer(nn.Module):
         return average_clip(self(videos), num_segs, average_clips)
 
 
+@RECOGNIZERS.register("Recognizer3DCLIP")
+class Recognizer3DCLIP(nn.Module):
+    """Recognition over a CLIP vision tower (JAX recognizer.py:230-247):
+    the B·T frames through `clip_vision` (fp32 parameters; the tower
+    computes in its config's dtype, through the fused sublayers where the
+    config sets fused_attn/fused_mlp), the time mean of `high` and the
+    linear `fc_cls`, computed as flax's Dense(dtype=None) would.  The JAX
+    class has no forward_test, and neither has this one."""
+
+    def __init__(self, clip_cfg: CLIPConfig, num_classes: int, device=None):
+        super().__init__()
+        device = resolve_device(device)   # None: the CUDA device
+        self.clip_vision = VisionTower(clip_cfg, device,
+                                       param_dtype=torch.float32)
+        self.fc_cls = Dense(clip_cfg.embed_dim, num_classes, device=device)
+        self.eval()
+
+    def forward(self, videos: torch.Tensor) -> torch.Tensor:
+        """videos: (B, T, H, W, 3) -> class scores (B, num_classes)."""
+        b, t = videos.shape[:2]
+        high, _low, _mid = self.clip_vision(
+            videos.reshape(b * t, *videos.shape[2:]))
+        return self.fc_cls(high.reshape(b, t, -1).mean(1))
+
+
 def random_state_dict(backbone_cfg: TimeSformerConfig, seed: int, *,
                       num_classes: Optional[int] = None,
                       decoder_cfg: Optional[RNNDecoderConfig] = None
@@ -475,6 +507,47 @@ def init_state_dict(backbone_cfg: TimeSformerConfig, seed: int, *,
             for k in model.state_dict()}
 
 
+def _normal(rng, shape, std: float) -> torch.Tensor:
+    return torch.from_numpy(
+        std * rng.standard_normal(tuple(shape)).astype(np.float32))
+
+
+def _transformer_init(out: Dict[str, torch.Tensor], rng, pre: str,
+                      mod: nn.Module) -> None:
+    """The parameters the transformer modules hold themselves (not in a
+    Linear, conv or LayerNorm), by the JAX modules' init schemes."""
+    from .swin3d import WindowAttention3D
+    from .videoclip import VideoCLIP
+    from .videomae_vit import _MAEAttention, _MAEBlock
+    if isinstance(mod, WindowAttention3D):
+        out[pre + "relative_position_bias_table"] = _truncated_normal(
+            rng, mod.relative_position_bias_table.shape, 0.02)
+    elif isinstance(mod, _MAEAttention):
+        out[pre + "qkv.weight"] = _normal(rng, mod.qkv.weight.shape, 0.02)
+        out[pre + "q_bias"] = torch.zeros(mod.dim)
+        out[pre + "v_bias"] = torch.zeros(mod.dim)
+    elif isinstance(mod, _MAEBlock) and mod.gamma_1 is not None:
+        for g in ("gamma_1", "gamma_2"):
+            out[pre + g] = torch.full(mod.gamma_1.shape, mod.init_values)
+    elif isinstance(mod, VideoCLIP):
+        for name, std in (("video_cls", 0.02), ("video_pos", 0.01),
+                          ("token_embedding", 0.02), ("text_pos", 0.01)):
+            out[pre + name] = _normal(rng, getattr(mod, name).shape, std)
+        out[pre + "logit_scale"] = torch.tensor(float(np.log(1 / 0.07)))
+    elif isinstance(mod, MHA):
+        d = mod.width
+        out[pre + "in_proj_weight"] = torch.cat(
+            [_lecun_normal(rng, (d, d), d) for _ in range(3)])
+        out[pre + "in_proj_bias"] = torch.zeros(3 * d)
+    elif isinstance(mod, PatchEmbed):
+        out[pre + "weight"] = _lecun_normal(
+            rng, mod.weight.shape, int(np.prod(mod.weight.shape[1:])))
+    elif isinstance(mod, VisionTower):
+        std = mod.cfg.vision_width ** -0.5
+        for name in ("class_embedding", "positional_embedding", "proj"):
+            out[pre + name] = _normal(rng, getattr(mod, name).shape, std)
+
+
 def conv_init_state_dict(model: nn.Module, seed: int
                          ) -> Dict[str, torch.Tensor]:
     """The fp32 state dict of a CNN recognizer (BackboneClassifier,
@@ -487,19 +560,32 @@ def conv_init_state_dict(model: nn.Module, seed: int
     means 0 and variances 1; the class layer (`fc_cls`, X3DHead's `fc2`)
     normal(0.01), TRNHead's per-frame `fc_cls` normal(0.001); the RNN
     decoder as `init_state_dict` draws it (its output layer
-    truncated-normal 0.02).  The same distributions as
-    `model.init`, not the same numbers."""
+    truncated-normal 0.02).  The same for the transformer backbones
+    (Swin3D, MViT, VideoMAEViT, VideoCLIP) and Recognizer3DCLIP: Dense
+    and conv kernels lecun-normal (each of CLIP's q, k and v on its own),
+    LayerNorms 1 and 0, Swin's relative-position tables truncated-normal
+    0.02, VideoMAE's qkv weight normal(0.02), its q and v biases 0 and
+    gammas `init_values`, VideoCLIP's CLS and token tables normal(0.02),
+    its position tables normal(0.01), CLIP's class and position
+    embeddings and projection normal(width^-0.5), Recognizer3DCLIP's
+    `fc_cls` normal(0.01).  The same distributions as `model.init`, not
+    the same numbers."""
     rng = np.random.default_rng(seed)
     out: Dict[str, torch.Tensor] = {}
     head = getattr(model, "cls_head", None)
     for owner, mod in model.named_modules():
         pre = f"{owner}." if owner else ""
-        if isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
+        if isinstance(mod, (LayerNorm, LayerNormF32)):
+            out[pre + "weight"] = torch.ones(mod.weight.shape)
+            out[pre + "bias"] = torch.zeros(mod.bias.shape)
+        elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
             shape = tuple(mod.weight.shape)
             std = (0.001 if isinstance(head, TRNHead) else 0.01) \
                 if owner.endswith("cls_head.fc_cls") else \
                 0.01 if owner.endswith("cls_head.fc2") \
-                and isinstance(head, X3DHead) else None
+                and isinstance(head, X3DHead) else \
+                0.01 if owner == "fc_cls" \
+                and isinstance(model, Recognizer3DCLIP) else None
             if std is not None:
                 w = torch.from_numpy(
                     std * rng.standard_normal(shape).astype(np.float32))
@@ -521,6 +607,8 @@ def conv_init_state_dict(model: nn.Module, seed: int
                 (), dtype=torch.int64)
         elif isinstance(mod, RNNDecoderHead):
             _decoder_init(out, rng, pre, mod.cfg)
+        else:
+            _transformer_init(out, rng, pre, mod)
     missing = set(model.state_dict()) - set(out)
     if missing:
         raise KeyError(f"no init for {sorted(missing)[:5]}")

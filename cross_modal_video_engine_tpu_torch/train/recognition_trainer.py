@@ -1,5 +1,5 @@
-"""Recognition and caption training on the TimeSformer and 3D-CNN
-recognizers.
+"""Recognition and caption training on the TimeSformer, CNN, transformer
+and CLIP recognizers.
 
 Counterpart of cross_modal_video_engine_tpu/train/recognition_trainer.py
 (MCT apis/train.py):
@@ -21,8 +21,16 @@ Counterpart of cross_modal_video_engine_tpu/train/recognition_trainer.py
   (a backbone configured in bfloat16, through `torch.func.functional_call`
   with the casts inside autograd), the scores in f32, the gradients back
   in f32: the JAX step's `_cast_tree` (mmcv's Fp16OptimizerHook);
+* `make_cls_train_step` also trains the recognizers without BatchNorm
+  (`BackboneClassifier` over Swin3D, MViT, VideoMAEViT or VideoCLIP's
+  pooled encoder, and `Recognizer3DCLIP`): their parameters are f32
+  masters, and `bf16=True` calls the model itself through
+  `functional_call` on bf16 copies of them and the videos, each layer then
+  computing in the dtype flax would (models/flax_nn.py), as the JAX
+  step's `_cast_tree` does;
 * `make_seq_train_step`: the SeqMLL loss with teacher forcing
-  (`Recognizer3DRelseq.forward_train`);
+  (`Recognizer3DRelseq.forward_train`, or a `RecognizerRelseq` on a
+  backbone without BatchNorm);
 * `make_cls_train_step_stats` and `make_seq_train_step_stats`: the same
   for the BatchNorm recognizers (BackboneClassifier and X3DClassifier
   over models/resnet3d.py's and backbones2d.py's pooled backbones,
@@ -42,11 +50,13 @@ Counterpart of cross_modal_video_engine_tpu/train/recognition_trainer.py
 
 A step runs the model in train mode: DropPath, the embedding dropouts,
 the heads' dropout, the decoder's input dropout and TRNHead's tuple picks
-draw from the `torch.Generator` given to the step's maker.  A backbone
-configured in bfloat16 trained without `bf16=True` is refused: there the
-JAX package's f32 parameters promote the products of its
-`Dense(dtype=None)` layers back to f32 (ROADMAP.md queue 1 item 14).  Multigrid, OmniSource and
-mixup/cutmix blending come with item 8d.
+draw from the `torch.Generator` given to the step's maker.  A
+TimeSformer configured in bfloat16 trained without `bf16=True` is
+refused: there the JAX package's f32 parameters promote the products of
+its `Dense(dtype=None)` layers back to f32 (ROADMAP.md queue 1 item 14).
+The other backbones keep f32 masters whatever their dtype says, so a
+VideoMAE or CLIP configured in bfloat16 trains as the JAX one does.
+Multigrid, OmniSource and mixup/cutmix blending come with item 8d.
 """
 
 from __future__ import annotations
@@ -64,8 +74,9 @@ from ..models.decoder_head import RNNDecoderHead
 from ..models.heads import TRNHead
 from ..models.layers import Dropout, FlaxBatchNorm
 from ..models.recognizer import (BackboneClassifier, Recognizer2D,
-                                 Recognizer3D, Recognizer3DRelseq,
-                                 RecognizerRelseq, TPNRecognizer)
+                                 Recognizer3D, Recognizer3DCLIP,
+                                 Recognizer3DRelseq, RecognizerRelseq,
+                                 TPNRecognizer)
 from ..models.timesformer import DropPath
 from ..utils.device import resolve_device
 from ..utils.precision import no_tf32
@@ -73,8 +84,6 @@ from .optim import OptaxOptimizer
 
 # the parts of slice 5 still to port (ROADMAP.md queue 1 item 8)
 PARTS = {
-    "8c": "the transformer and CLIP backbones (Swin3D, MViT, VideoMAE, "
-          "CLIP, VideoCLIP)",
     "8d": "the training recipes (mixup/cutmix blending, multigrid, "
           "OmniSource, the shuffle recognizers, the extra datasets, "
           "samplers and pipeline ops)",
@@ -99,7 +108,7 @@ def not_ported_model(step: str, model) -> str:
 
 
 CLASSIFIERS = (BackboneClassifier, Recognizer2D)
-BF16_CONFIG = ("a backbone configured with dtype='bfloat16' trains with "
+BF16_CONFIG = ("a TimeSformer configured with dtype='bfloat16' trains with "
                "bf16=True (f32 masters, a bf16 copy for the forward); "
                "without it the JAX package's f32 parameters promote its "
                "Dense products back to f32, which is not ported "
@@ -195,6 +204,10 @@ def _refuse_blending(blending) -> None:
                                              "8d"))
 
 
+def has_batch_norm(model: torch.nn.Module) -> bool:
+    return any(isinstance(m, FlaxBatchNorm) for m in model.modules())
+
+
 def make_cls_train_step(model: Recognizer3D, blending=None,
                         bf16: bool = False,
                         generator: Optional[torch.Generator] = None,
@@ -202,16 +215,25 @@ def make_cls_train_step(model: Recognizer3D, blending=None,
     """step(state, videos, labels) -> (state, {"loss", "top1_acc"}): one
     forward in train mode, backward and optimizer step on `device` (None:
     the CUDA device), where the model must lie.  labels: int64 class
-    indices.  logs: detached 0-d tensors.  The BatchNorm recognizers
-    train with `make_cls_train_step_stats`."""
+    indices.  logs: detached 0-d tensors.  Trains a Recognizer3D, a
+    Recognizer3DCLIP, or a BackboneClassifier or Recognizer2D without
+    BatchNorm; the BatchNorm recognizers train with
+    `make_cls_train_step_stats`."""
     _refuse_blending(blending)
-    if isinstance(model, CLASSIFIERS + (TPNRecognizer,)):
+    if isinstance(model, TPNRecognizer) or (
+            isinstance(model, CLASSIFIERS) and has_batch_norm(model)):
         raise ValueError("a BatchNorm recognizer trains with "
                          "make_cls_train_step_stats (TPN: "
                          "make_tpn_train_step_stats)")
+    if isinstance(model, CLASSIFIERS + (Recognizer3DCLIP,)):
+        _check(model, device)
+        no_tf32()
+        set_generator(model, generator)
+        return _cls_step(model,
+                         _bf16_stats_forward(model) if bf16 else model)
     if not isinstance(model, Recognizer3D):
-        raise NotImplementedError(not_ported(
-            f"make_cls_train_step on {type(model).__name__}", "8c"))
+        raise NotImplementedError(not_ported_model("make_cls_train_step",
+                                                   model))
     _check(model, device)
     dtype = model.backbone.cfg.dtype
     if bf16 and dtype != "float32":
@@ -292,15 +314,18 @@ def make_seq_train_step(model: Recognizer3DRelseq,
                         device=None):
     """step(state, videos, targets_emb, mask) -> (state, {"loss"}): the
     teacher-forced SeqMLL loss in train mode, backward and optimizer step
-    on `device` (None: the CUDA device).  logs: detached 0-d tensors."""
-    if isinstance(model, RecognizerRelseq):
+    on `device` (None: the CUDA device), for a Recognizer3DRelseq or a
+    RecognizerRelseq on a backbone without BatchNorm (the JAX step has no
+    bf16 option).  logs: detached 0-d tensors."""
+    if isinstance(model, RecognizerRelseq) and has_batch_norm(model):
         raise ValueError("a BatchNorm recognizer trains with "
                          "make_seq_train_step_stats")
-    if not isinstance(model, Recognizer3DRelseq):
-        raise NotImplementedError(not_ported(
-            f"make_seq_train_step on {type(model).__name__}", "8c"))
+    if not isinstance(model, (Recognizer3DRelseq, RecognizerRelseq)):
+        raise NotImplementedError(not_ported_model("make_seq_train_step",
+                                                   model))
     _check(model, device)
-    if model.backbone.cfg.dtype == "bfloat16":
+    if isinstance(model, Recognizer3DRelseq) \
+            and model.backbone.cfg.dtype == "bfloat16":
         raise NotImplementedError(BF16_CONFIG)
     no_tf32()
     set_generator(model, generator)

@@ -71,8 +71,8 @@ def _chain(opt) -> Dict[str, Any]:
 
 def _rec_layout(model):
     """What names a recognizer's JAX tree: the TimeSformer config, or the
-    CNN recognizer itself (convert/from_jax.py)."""
-    cfg = getattr(model.backbone, "cfg", None)
+    CNN or transformer recognizer itself (convert/from_jax.py)."""
+    cfg = getattr(getattr(model, "backbone", None), "cfg", None)
     return cfg if isinstance(cfg, TimeSformerConfig) else model
 
 

@@ -4,7 +4,9 @@ Counterpart of cross_modal_video_engine_tpu/utils/registry.py: the same
 `Registry` class, so the config files' string keys (`type='Resize'`, ...)
 name the same components in both packages.  The port registers only what
 it has ported: the pipeline ops (data/pipelines.py, io/video_decode.py)
-in `PIPELINES`, the 3D-CNN backbones (models/resnet3d.py) in `BACKBONES`,
+in `PIPELINES`, the 3D-CNN, 2D and transformer backbones (models/
+{resnet3d,backbones2d,swin3d,mvit,videomae_vit,videoclip}.py ...) in
+`BACKBONES`,
 their heads (models/heads.py) in `HEADS`, the recognizers
 (models/recognizer.py) in `RECOGNIZERS`.
 """

@@ -288,11 +288,14 @@ def test_init_recognizer_refusals(tmp_path, world):
     _, _, ckpt = world
     with pytest.raises(ValueError, match="state_dict"):
         api.init_recognizer({"backbone": TS, "decoder": DEC})
-    other = str(tmp_path / "mvit")
+    # 'CLIP' builds no caption backbone: both packages refuse it
+    other = str(tmp_path / "clip")
     jax_save_checkpoint(other, {"params": {}},
-                        {"backbone": {"type": "MViT"}, "decoder": DEC})
-    with pytest.raises(NotImplementedError, match="slice 5"):
+                        {"backbone": {"type": "CLIP"}, "decoder": DEC})
+    with pytest.raises(ValueError, match="unknown backbone type"):
         api.init_recognizer(other, device="cpu")
+    with pytest.raises(ValueError, match="unknown backbone type"):
+        japi.init_recognizer(other)
     # a 3D-CNN checkpoint without a decoder: both packages refuse it
     cls = str(tmp_path / "x3d_cls")
     jax_save_checkpoint(cls, {"params": {}},

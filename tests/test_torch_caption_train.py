@@ -29,7 +29,10 @@ are compared, since they draw from different streams by design).
   `--resume` continues at the next epoch; an epoch state the JAX CLI
   wrote resumes in the port's CLI, its next epoch's loss and seq_mAP
   within 1e-5 of the JAX CLI's own resumed epoch.
-* The slice-5 families and the bf16-configured backbone raise.
+* seq_generate/mvit_relseq.py's model (small): an epoch state the JAX
+  CLI wrote resumes in both CLIs with the same loss and seq_mAP.
+* 'CLIP' and 'VideoCLIP' build no caption backbone (both packages raise);
+  the bf16-configured TimeSformer raises.
 """
 
 import dataclasses
@@ -372,14 +375,53 @@ def test_jax_epoch_state_resumes_in_the_port_cli(tmp_path, capsys):
 
 # -- what the port refuses ----------------------------------------------------------
 
+MVIT_CAPTION = """
+model = dict(
+    backbone=dict(type='MViT', embed_dim=8, depths=[1, 1],
+                  num_heads=[1, 2], patch_size=[2, 4, 4]),
+    decoder=dict(num_classes=6, in_channels=16, max_len=3,
+                 input_dropout_p=0.0))
+"""
+
+
+def test_mvit_caption_train_matches_jax(tmp_path, capsys):
+    """seq_generate/mvit_relseq.py's model at a small size (MViT into the
+    RNN decoder, trained by make_seq_train_step): the JAX CLI trains one
+    epoch; its epoch_0 resumes in the JAX CLI and in the port's for epoch
+    1, with the same loss (STEP_TOL relative) and seq_mAP (1e-5)."""
+    cfg = write_fixture(tmp_path, body_extra=MVIT_CAPTION)
+    first = str(tmp_path / "first")
+    jct.main([cfg, "--work_dir", first, "--total_epochs", "1"])
+    runs = {}
+    for name, main, extra in (("jax", jct.main, []),
+                              ("port", tct.main, ["--device", "cpu"])):
+        work = str(tmp_path / name)
+        os.makedirs(work)
+        shutil.copytree(os.path.join(first, "epoch_0"),
+                        os.path.join(work, "epoch_0"))
+        runs[name] = main([cfg, "--work_dir", work, "--resume",
+                           "--total_epochs", "2"] + extra)
+    j, t = runs["jax"][0], runs["port"][0]
+    assert j["epoch"] == t["epoch"] == 1
+    assert abs(t["loss"] - j["loss"]) <= STEP_TOL * abs(j["loss"])
+    assert abs(t["seq_mAP"] - j["seq_mAP"]) <= 1e-5
+    capsys.readouterr()
+
+
 def test_other_caption_backbones_raise(tmp_path):
-    """A backbone the port lacks is refused, naming its part (the CNNs
-    train: tests/test_torch_recognition_cli.py,
-    test_torch_recognizer2d_cli.py)."""
-    cfg = Config.fromfile(write_fixture(tmp_path))
-    cfg.set("model.backbone", dict(type="MViT"))
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        tct.train_from_config(cfg, str(tmp_path / "w"), device="cpu")
+    """'CLIP' and 'VideoCLIP' are recognizers, not caption backbones: both
+    packages' CLIs raise "unknown backbone type" (the CNNs and
+    transformers train: tests/test_torch_recognition_cli.py,
+    test_torch_recognizer2d_cli.py, test_torch_transformer_cli.py)."""
+    for btype in ("CLIP", "VideoCLIP"):
+        cfg = write_fixture(tmp_path, body_extra=(
+            f"model = dict(backbone=dict(type='{btype}'), "
+            f"decoder=dict(num_classes=6, in_channels=16, max_len=3))"))
+        with pytest.raises(ValueError, match="unknown backbone type"):
+            tct.main([cfg, "--work_dir", str(tmp_path / "w"),
+                      "--device", "cpu"])
+        with pytest.raises(ValueError, match="unknown backbone type"):
+            jct.main([cfg, "--work_dir", str(tmp_path / "wj")])
 
 
 @pytest.mark.parametrize("name", ["make_seq_train_step_stats",

@@ -399,7 +399,7 @@ def test_recognition_train_main_end_to_end(tmp_path, capsys, bf16):
 # -- what the port refuses -------------------------------------------------------------
 
 @pytest.mark.parametrize("option,value", [
-    ("model.backbone", dict(type="Swin3D")),
+    ("train_cfg", dict(blending=dict(type="CutmixBlending", alpha=1.0))),
     ("omnisource", dict(train_ratio=[2, 1])),
     ("multigrid", dict(base_batch=8)),
     ("train_cfg", dict(blending=dict(type="MixupBlending", alpha=0.2))),

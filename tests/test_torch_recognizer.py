@@ -258,8 +258,9 @@ def test_init_recognizer_classifier_f32(classifier):
     np.testing.assert_allclose(to_np(got),
                                np.asarray(jm.apply(variables, jnp.asarray(v))),
                                rtol=0, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="MViT"):
-        api.init_recognizer({"backbone": {"type": "MViT"},
+    # 'CLIP' is a recognizer, no caption backbone (as in the JAX CLI)
+    with pytest.raises(ValueError, match="unknown backbone type CLIP"):
+        api.init_recognizer({"backbone": {"type": "CLIP"},
                              "decoder": DECODER}, {}, device="cpu")
 
 

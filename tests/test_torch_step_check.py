@@ -143,3 +143,25 @@ def test_per_tensor_bounds_hold_where_both_cpu_orders_agree():
     assert chip_smoke._tensor_ok(sums["v"], gate["v"], 1.0, 2)
     good = chip_smoke._sums({"w": near}, {"w": truth["w"]}, {"w": near})
     assert chip_smoke._tensor_ok(good["w"], gate["w"], 1.0, 2)
+
+
+@pytest.mark.parametrize("name", ["slowfast", *STEP19_CUTS])
+def test_shared_training_init_builds_the_same_models(name):
+    """Inside shared_training_init a model is built with the same training
+    init as outside it (drawn once, reused by the next build of the same
+    structure), and the CLIs' functions are restored on leaving."""
+    from cross_modal_video_engine_tpu_torch.cli import recognition_train
+    cfg = _config() if name == "slowfast" else \
+        chip_smoke.shipped_training_config(
+            chip_smoke.CNN_CONFIGS / chip_smoke.CNN19[name],
+            **STEP19_CUTS[name])
+    build = recognition_train.build_recognition_model
+    want = build(cfg, "cpu").state_dict()
+    with chip_smoke.shared_training_init() as memo:
+        runs = [recognition_train.build_recognition_model(cfg, "cpu")
+                .state_dict() for _ in range(2)]
+        assert len(memo) == 1
+    assert recognition_train.build_recognition_model is build
+    for got in runs:
+        assert list(got) == list(want)
+        assert all(torch.equal(got[k], want[k]) for k in want)
