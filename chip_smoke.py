@@ -6,7 +6,7 @@ Usage: python3 chip_smoke.py [STEP ...]   (from the root of the repository)
 With no argument every step runs (the whole smoke run).  A list of
 step numbers ("19", "13 19" or "13,19") runs only those steps, always
 after the build (2) and the kernel checks (3) and before the results
-(21); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
+(22); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
 step did not run is null in the `kernels` line; the last line names the
 steps that ran and those skipped.
 
@@ -164,7 +164,7 @@ steps that ran and those skipped.
     and of 8 (wall, CUDA events, busy, idle share, the capture forward
     and the gradient pass apart, flash launches, peak memory);
 15. TimeSformer training at full width (ViT-B/16, 8x224², 12 layers),
-    everything from numpy seeds and no video decode: 32 seeded videos of
+    everything from numpy seeds and no video decode: 8 seeded videos of
     300 frames of 360x480 go to the trainers' pipelines through the
     `reader` seam: (a) one f32 step of the shipped caption config
     (timesformer_relseq.py, 36 classes x 5 steps, TF32 off, dropouts 0)
@@ -299,19 +299,42 @@ steps that ran and those skipped.
     direct forward_test; `caption_train` on videomae_relseq.py, one
     epoch, its model_best served over /caption as in 18c; (e) the launch
     counters: none but 20b's kernel arm may launch a kernel;
-21. prints the JSON lines of steps 10-20 that ran and of the kernel
+21. the training recipes and the bf16-configured TimeSformer at full
+    width: (a) the shipped slowfast_multigrid_k400.py (SlowFast-R50 4x16,
+    400 classes): one stats step in each of its four buckets (64x4x112,
+    32x8x112, 16x8x224, 8x8x224; CUDA events, videos/s, TFLOP/s, peak
+    memory), the multigrid step at batch 1 card against CPU in the
+    coarsest and the finest bucket (held to float64 as 18b), and
+    `recognition_train` with the buckets at 1/8 of their batch over 8
+    seeded videos until its history has switched buckets; (b) the
+    shipped tsn_r50_1x1x8_minikinetics_omnisource.py (TSN-R50, 200
+    classes, batch 8, two aux sources) through `recognition_train` for
+    two epochs, a resume from epoch_0 against the uninterrupted epoch 1,
+    and its step card against CPU at batch 1; (c) mixup and cutmix, their
+    draws handed in, on the stats step of tsn_r50_1x1x3_k400.py at batch
+    2, card against CPU in f32 and bf16; (d) TS_JOINT configured
+    bfloat16 on f32 masters, trained without bf16=True: one
+    make_cls_train_step and one make_seq_train_step at batch 2, the three
+    shuffle recognizers' forward_train and a step each, the flash
+    counter read around each call (12 a backbone pass, 24 a shuffle
+    step), block 0's f32 attention through the kernel against its plain
+    version at (12, 1569, 64), and the cls step card against CPU at 2 of
+    the 12 layers (widths kept); (e) hvu_loss over the 3142 HVU tags in
+    each mode, card against CPU;
+22. prints the JSON lines of steps 10-21 that ran and of the kernel
     results (launches on the main paths, on the composed, caption and
     explain routes, in the training steps, in the bank build, in the
     caption transformer's generates, in the detector's training, in the
-    3D-CNN step, in the 2D-CNN step, over step 20 and in 20b's CLIP
-    kernel arm, error, time, plain time, bound, library time) and, last,
-    a JSON line naming the device.
+    3D-CNN step, in the 2D-CNN step, over step 20, in 20b's CLIP kernel
+    arm and over 21d, error, time, plain time, bound, library time) and,
+    last, a JSON line naming the device.
 
 Nothing is cut: the models run at full width and depth (the 3D-CNN
-trainers 2 and 1 epochs of 16 videos, the 2D ones 1 epoch each; the LINAS
-training runs 2 epochs of a 2,560-caption collection, the TimeSformer
-trainers 2 and 1 epochs of 32 videos, the detector's trainers 2 and 1
-epochs of 32 images and the classifier's 1 epoch of 128; the composed
+trainers 2 and 1 epochs of 8 videos, the 2D ones 1 epoch each; the LINAS
+training runs 2 epochs of a 1,280-caption collection, the TimeSformer
+trainers 2 and 1 epochs of 8 videos, the multigrid and OmniSource CLIs 2
+epochs of 8 and 16, the detector's trainers 2 and 1 epochs of 32 images
+and the classifier's 1 epoch of 128; the composed
 route's candidates and the Combiner's triplets are stored features, as
 the route and the trainer read them).  Exits non-zero, printing no
 result, when CUDA is unavailable or any check fails.
@@ -1439,7 +1462,7 @@ SERVE_SCORE_TOL = 1e-5
 
 # 10c': cli.retrieval_inference in fresh processes (no TF32 switch of this
 # script), card against CPU, over the sample's 64 videos
-LINAS_CLI_QUERIES = 3
+LINAS_CLI_QUERIES = 2
 LINAS_CLI_SAMPLE = "linassample"
 LINAS_CLI_RUNS = (("card", []), ("cpu", ["--device", "cpu"]))
 # run in a fresh interpreter: the CLI's main once a query, every search's
@@ -3342,9 +3365,9 @@ RECOGNITION_CONFIG = (ROOT / "configs" / "recognition"
                       / "timesformer_divst_8x32_k400.py")
 # a seeded collection: TRAIN15_VIDEOS videos to train on, the first
 # TRAIN15_VAL of them to validate on; batch 8 as the configs say; the
-# card-vs-CPU steps at TRAIN15_CPU_BATCH (the CPU's time); 16 videos (2
-# steps an epoch) for the script's time
-TRAIN15_VIDEOS, TRAIN15_VAL, TRAIN15_BATCH, TRAIN15_CPU_BATCH = 16, 8, 8, 2
+# card-vs-CPU steps at TRAIN15_CPU_BATCH (the CPU's time); 8 videos (a
+# step an epoch, as the CLIs of steps 18-20) for the script's time
+TRAIN15_VIDEOS, TRAIN15_VAL, TRAIN15_BATCH, TRAIN15_CPU_BATCH = 8, 8, 8, 2
 # (a) one f32 caption step, card vs CPU, dropouts 0: step 11a's bounds
 # (the loss, each gradient tensor, the parameters after the SGD step); the
 # clip engaged by a max_norm below the gradient's norm
@@ -3357,9 +3380,11 @@ TRAIN15_REPEAT = 8
 # (c) the joint flash variant in f32: per-tensor gradient cosine to the
 # plain arm >= COSINE_MIN, with remat too; flash launches a step
 TRAIN15_FLASH_STEPS = 3
-# (d) one bf16 recognition step, card vs CPU (bf16 on both, other
-# summation orders): the loss within BF16_LOSS_REL, each gradient's
-# cosine >= BF16_GRAD_COS (the CPU tests' bounds against JAX)
+# (d) one bf16=True recognition step, card vs CPU (the recipe says
+# float32, so the step computes in f32 on the bf16-rounded masters and
+# videos, as JAX's does; other summation orders): the loss within
+# BF16_LOSS_REL, each gradient's cosine >= BF16_GRAD_COS (the CPU tests'
+# bounds against JAX)
 BF16_LOSS_REL, BF16_GRAD_COS = 2e-2, 0.99
 TRAIN15D_LAYERS = 4
 # (e) steps timed by CUDA events (median of steps 3..), the loop profiled
@@ -3704,8 +3729,7 @@ def recognition_cli(dev, card, tmp, videos, names, line) -> None:
     tcfg = RecognitionTrainConfig(**dict(cfg["optimizer"]))
     runs = {}
     for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        model = recognition_train.build_recognition_model(no_drop, d,
-                                                          "float32")
+        model = recognition_train.build_recognition_model(no_drop, d)
         state = init_rec_state(model, make_rec_optimizer(tcfg, 10))
         step = make_cls_train_step(model, bf16=True, device=d)
         t0 = time.perf_counter()
@@ -3839,7 +3863,8 @@ def training_times(dev, card, names, videos) -> dict:
             peak = torch.cuda.max_memory_allocated(dev)
             step_ms = float(np.median(spans[2:]))
             opt_ms = cuda_ms(state.optimizer.step, iters=5, warmup=1)
-            it = batches(ds, TRAIN15_BATCH, dev)
+            it = batches(ds, TRAIN15_BATCH, dev, [
+                i % len(ds) for i in range(2 * TRAIN15_BATCH)])
             t0 = time.perf_counter()
             for _ in range(2):
                 next(it)
@@ -3867,7 +3892,7 @@ def training_times(dev, card, names, videos) -> dict:
             flops = 3 * timesformer_forward_flops(
                 model.backbone.cfg, TRAIN15_BATCH,
                 36 if name == "caption" else 400)
-            t = {"dtype": "bfloat16" if extra else "float32",
+            t = {"dtype": "bf16=True" if extra else "float32",
                  "step_ms": step_ms, "step_ms_all": spans,
                  "videos_per_s": TRAIN15_BATCH * 1e3 / step_ms,
                  "tflops_per_s": flops / step_ms / 1e9,
@@ -5578,7 +5603,9 @@ def _epoch_tree(path: str) -> dict:
 
     with open(os.path.join(path, "train_state.msgpack"), "rb") as f:
         tree = flax_msgpack.restore(f.read())
-    return dict(flat({"params": tree["state"]["params"],
+    # a RecTrainState's epoch, or an OmniSource epoch's {"params", ...}
+    params = tree["state"]["params"] if "state" in tree else tree["params"]
+    return dict(flat({"params": params,
                       "batch_stats": tree["batch_stats"]}))
 
 
@@ -5701,13 +5728,24 @@ def _start_model(cfg, d, start, input_shape=None):
     return model
 
 
-def _train_loss(model, clips, labels):
+def _train_loss(model, clips, labels, blend=None):
     """The train-mode loss of a classifier in its own dtype (float64 in
-    the witness runs): the cross entropy, plus the TPN neck's loss_aux."""
+    the witness runs): the cross entropy, plus the TPN neck's loss_aux;
+    blend: (blending type, its draws, classes): the clips blended first
+    and the soft-label cross entropy (data/blending.py)."""
     import torch
+    soft = None
+    if blend is not None:
+        from cross_modal_video_engine_tpu_torch.data.blending import (
+            make_blending)
+        kind, draws, classes = blend
+        clips, soft = make_blending(kind, classes)(clips, labels, draws)
     out = model(clips, target=labels) if hasattr(model, "neck") \
         else model(clips)
     scores, aux = out if isinstance(out, tuple) else (out, {})
+    if soft is not None:
+        return -(soft.to(scores.dtype)
+                 * torch.log_softmax(scores, -1)).sum(-1).mean()
     return (torch.nn.functional.cross_entropy(scores, labels)
             + aux.get("loss_aux", 0.0))
 
@@ -5729,11 +5767,15 @@ def _as_float64(model):
     """The model in float64, compute dtypes included: parameters and
     buffers doubled, every layer that names fp32 as its compute dtype
     (a CLIP or VideoCLIP transformer's, VideoMAE's) switched to float64,
-    so the witness computes every product in float64."""
+    so the witness computes every product in float64; attention that the
+    flash kernel serves (which takes f32 or bf16) runs its plain version,
+    the same function, in float64."""
     import dataclasses
     import torch
     model = model.double()
     for m in model.modules():
+        if getattr(m, "use_flash", False):
+            m.use_flash = False
         for attr in ("dtype", "compute_dtype"):
             if getattr(m, attr, None) == torch.float32:
                 setattr(m, attr, torch.float64)
@@ -5744,44 +5786,58 @@ def _as_float64(model):
     return model
 
 
-def _f64_run(cfg, d, start, clips, labels) -> dict:
+def _f64_run(cfg, d, start, clips, labels, blend=None) -> dict:
     """One train-mode forward and backward in float64 on device d: the
     loss, the gradients and the running statistics after it."""
     import torch
     model = _as_float64(_start_model(cfg, d, start,
                                      clips.shape[1:4])).train()
     loss = _train_loss(model, torch.from_numpy(clips).to(d, torch.float64),
-                       torch.from_numpy(labels).to(d))
+                       torch.from_numpy(labels).to(d), blend)
     loss.backward()
     return {"loss": float(loss.detach()), "grads": _grads64(model),
             "stats": _stats64(model)}
 
 
-def _step_run(cfg, d, start, clips, labels, bf16: bool) -> dict:
+def _step_run(cfg, d, start, clips, labels, bf16: bool, blend=None,
+              update_scale=None) -> dict:
     """One make_cls_train_step_stats step (a TPNRecognizer's
     make_tpn_train_step_stats; make_cls_train_step for a model without
-    BatchNorm) on device d: the loss, the gradients, the parameters and
-    statistics before and after it."""
+    BatchNorm; with update_scale the multigrid step, f32) on device d,
+    with blend (_train_loss's) handed to the step: the loss, the
+    gradients, the parameters and statistics before and after it."""
     import torch
+    from cross_modal_video_engine_tpu_torch.data.blending import (
+        make_blending)
     from cross_modal_video_engine_tpu_torch.models.recognizer import (
         TPNRecognizer)
     from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
         RecognitionTrainConfig, has_batch_norm, init_rec_state,
         make_cls_train_step, make_cls_train_step_stats, make_rec_optimizer,
-        make_tpn_train_step_stats)
+        make_multigrid_train_step, make_tpn_train_step_stats)
     model = _start_model(cfg, d, start, clips.shape[1:4])
     state = init_rec_state(model, make_rec_optimizer(
         RecognitionTrainConfig(**dict(cfg["optimizer"], warmup_steps=0)),
         10))
-    make = (make_tpn_train_step_stats if isinstance(model, TPNRecognizer)
-            else make_cls_train_step_stats if has_batch_norm(model)
-            else make_cls_train_step)
-    step = make(model, bf16=bf16, device=d)
+    draws = None
+    if update_scale is not None:
+        step = make_multigrid_train_step(model, update_scale, device=d)
+    elif isinstance(model, TPNRecognizer):
+        step = make_tpn_train_step_stats(model, bf16=bf16, device=d)
+    else:
+        make = (make_cls_train_step_stats if has_batch_norm(model)
+                else make_cls_train_step)
+        kw = {}
+        if blend is not None:
+            kind, draws, classes = blend
+            kw["blending"] = make_blending(kind, classes)
+        step = make(model, bf16=bf16, device=d, **kw)
     p0 = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
     s0 = _stats64(model)
     t0 = time.perf_counter()
-    state, logs = step(state, torch.from_numpy(clips).to(d),
-                       torch.from_numpy(labels).to(d))
+    args = (state, torch.from_numpy(clips).to(d),
+            torch.from_numpy(labels).to(d))
+    state, logs = step(*args, draws) if draws is not None else step(*args)
     loss = float(logs["loss"])
     return {"loss": loss, "s": time.perf_counter() - t0,
             "grads": _grads64(model), "p0": p0, "s0": s0,
@@ -5996,19 +6052,25 @@ def _planted(card, cpu, f64, ref, tcfg, bf16: bool) -> dict:
 
 
 def step_card_vs_cpu(dev, cfg, clips, labels, start,
-                     bf16s=(False, True)) -> dict:
+                     bf16s=(False, True), blend=None,
+                     update_scale=None, witness_cfg=None) -> dict:
     """One stats step of the config's classifier from `start` (None: the
     training init) on the card and on the CPU at the clips' batch, in f32
     and (in bf16s) bf16, held to the float64 run of both devices by the
     STEP18_* bounds, with the planted faults, and the STEP18_TESTS
-    readings."""
+    readings.  blend: the blended step (_train_loss's); update_scale: the
+    multigrid step, its update scaled (the update check scales lr);
+    witness_cfg: the config of the float64 runs (None: cfg)."""
     import torch
     from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
         RecognitionTrainConfig)
-    tcfg = RecognitionTrainConfig(**dict(cfg["optimizer"], warmup_steps=0))
+    opt = dict(cfg["optimizer"], warmup_steps=0)
+    if update_scale is not None:
+        opt["learning_rate"] = opt["learning_rate"] * update_scale
+    tcfg = RecognitionTrainConfig(**opt)
     cpu_dev = torch.device("cpu")
     t0 = time.perf_counter()
-    f64 = {w: _f64_run(cfg, d, start, clips, labels)
+    f64 = {w: _f64_run(witness_cfg or cfg, d, start, clips, labels, blend)
            for w, d in (("card", dev), ("cpu", cpu_dev))}
     # a gradient that is zero but for rounding (a key bias after a
     # LayerNorm: softmax does not see it) is read against the model's
@@ -6032,13 +6094,16 @@ def step_card_vs_cpu(dev, cfg, clips, labels, start,
     failed = [] if witness <= STEP18_F64 else ["float64 witness"]
     threads = torch.get_num_threads()
     for bf16 in bf16s:
-        card = _step_run(cfg, dev, start, clips, labels, bf16)
-        cpu = _step_run(cfg, cpu_dev, start, clips, labels, bf16)
+        card = _step_run(cfg, dev, start, clips, labels, bf16, blend,
+                         update_scale)
+        cpu = _step_run(cfg, cpu_dev, start, clips, labels, bf16, blend,
+                        update_scale)
         # the same step in another summation order: the CPU at half its
         # threads
         torch.set_num_threads(max(1, threads // 2))
         try:
-            alt = _step_run(cfg, cpu_dev, start, clips, labels, bf16)
+            alt = _step_run(cfg, cpu_dev, start, clips, labels, bf16, blend,
+                            update_scale)
         finally:
             torch.set_num_threads(threads)
         ref = _reference(cpu, f64["card"], alt)
@@ -6767,7 +6832,7 @@ def transformer_forwards(dev, card) -> dict:
     from cross_modal_video_engine_tpu_torch.cli import (caption_train,
                                                         recognition_train)
     from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
-        _bf16_stats_forward)
+        _bf16_forward)
 
     out = {"card": card}
     rng = np.random.default_rng(20)
@@ -6805,7 +6870,7 @@ def transformer_forwards(dev, card) -> dict:
                 (TX20_BATCH, *shape, 3), dtype=np.float32)).to(dev)
             with torch.no_grad():
                 flops = _product_flops(lambda: model(x8))
-            bf16 = _bf16_stats_forward(model)
+            bf16 = _bf16_forward(model)
             for dtype, fn in (("f32", lambda: model(x8)),
                               ("bf16_copy", lambda: bf16(x8))):
                 torch.cuda.synchronize()
@@ -7098,7 +7163,8 @@ def kernel_json(results, launches, core, block_extra, counts) -> dict:
     18, `cnn2d_launches` over the 2D, TSM and pyramid recognizers of step
     19, `transformer_launches` over the transformer and CLIP recognizers
     of step 20 but 20b, `clip_recognizer_launches` over one bf16 forward
-    of 20b's CLIP kernel arm.  A main-path count is None when its step did not run.
+    of 20b's CLIP kernel arm, `recipes_launches` over the counted calls of
+    step 21d.  A main-path count is None when its step did not run.
     `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
@@ -7151,20 +7217,588 @@ def kernel_json(results, launches, core, block_extra, counts) -> dict:
     return {"kernels": kernels}
 
 
-STEPS = tuple(range(4, 21))      # the steps a selection may name
+# -- step 21: the training recipes and the bf16-configured TimeSformer ----------
+
+# 21a: the shipped multigrid recipe (SlowFast-R50 4x16, 400 classes): one
+# stats step in each of its buckets, MG21_TIMED timed by CUDA events; card
+# vs CPU at batch 1 in its coarsest and finest buckets; the CLI over
+# MG21_VIDEOS seeded videos with the shipped buckets at 1/8 of their batch
+# (base_batch 1), one epoch a stage and one final epoch, so that its
+# history shows the switch from the coarsest to the finest bucket
+MULTIGRID21_CONFIG = CNN_CONFIGS / "slowfast_multigrid_k400.py"
+MG21_TIMED, MG21_VIDEOS, MG21_EPOCHS = 3, 8, 2
+MG21_CLI_BUCKETS = [[8, 4, 112], [4, 8, 112], [2, 8, 224], [1, 8, 224]]
+# 21b: the shipped OmniSource recipe (TSN-R50, 200 classes, batch 8, two
+# aux sources) over OMNI21_MAIN seeded videos, each aux source a split of
+# OMNI21_AUX of them: a whole aux cycle an epoch (one wave of one batch
+# after every second of the two main steps), so that a resumed run meets
+# the uninterrupted one; the frame sampler in test mode (its offsets
+# fixed, as a resume needs)
+OMNI21_CONFIG = CNN_CONFIGS / "tsn_r50_1x1x8_minikinetics_omnisource.py"
+OMNI21_MAIN, OMNI21_AUX, OMNI21_VAL = 16, 8, 8
+# 21c: mixup and cutmix on the stats step of the shipped TSN-R50 1x1x3
+# recipe at batch 2, their draws handed in
+BLEND21_CONFIG = CNN_CONFIGS / "tsn_r50_1x1x3_k400.py"
+BLEND21_DRAWS = {
+    "MixupBlending": {"lam": np.float32(0.3125), "perm": np.array([1, 0])},
+    "CutmixBlending": {"lam": np.float32(0.5625), "perm": np.array([1, 0]),
+                       "cx": 150, "cy": 40}}
+# 21d: TS_JOINT (ViT-B/16 joint, flash) configured bfloat16 on f32 masters
+# (trained without bf16=True) at batch TS21_BATCH; card vs CPU at
+# TS21_LAYERS of its 12 layers (widths kept)
+TS21_BATCH, TS21_LAYERS, TS21_CLASSES = 2, 2, 400
+# 21e: hvu_loss over the 3142 tags at batch HVU21_BATCH, card vs CPU
+HVU21_BATCH, HVU21_REL = 8, 1e-5
+
+
+def _schedule21(cfg):
+    from cross_modal_video_engine_tpu_torch.train.multigrid import (
+        GridBucket, MultigridSchedule)
+    mg = dict(cfg["multigrid"])
+    mg["buckets"] = tuple(GridBucket(*b) for b in mg["buckets"])
+    return MultigridSchedule(**mg)
+
+
+def multigrid_steps(dev, card, videos, names) -> dict:
+    """21a: the bucket steps, card vs CPU in two buckets, the CLI."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import recognition_train
+    from cross_modal_video_engine_tpu_torch.train.multigrid import GridBucket
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, adapt_clips_to_bucket, init_rec_state,
+        make_multigrid_train_step, make_rec_optimizer)
+
+    line = {"card": card}
+    cfg = shipped_training_config(MULTIGRID21_CONFIG)
+    sched = _schedule21(cfg)
+    model = recognition_train.build_recognition_model(cfg, dev)
+    # the recipe's optimizer, its 500-step warmup included
+    state = init_rec_state(model, make_rec_optimizer(
+        RecognitionTrainConfig(**cfg["optimizer"]), 10_000))
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+    for b in sched.buckets:
+        step = make_multigrid_train_step(model, b.batch_size
+                                         / sched.base_batch, device=dev)
+        x = torch.randn((b.batch_size, b.num_frames, b.resolution,
+                         b.resolution, 3), generator=gen, device=dev)
+        lab = torch.randint(0, 400, (b.batch_size,), generator=gen,
+                            device=dev)
+        held = {"state": state}
+
+        def run():
+            held["state"], held["logs"] = step(held["state"], x, lab)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(run, iters=MG21_TIMED, warmup=1)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        flops = _product_flops(run)
+        state = held["state"]
+        rows["x".join(map(str, (b.batch_size, b.num_frames,
+                                b.resolution)))] = {
+            "lr_scale": b.batch_size / sched.base_batch, "ms": ms,
+            "videos_per_s": b.batch_size * 1e3 / ms,
+            "tflops_per_s": flops / ms / 1e9, "peak_mib": peak,
+            "loss": float(held["logs"]["loss"])}
+        del x, lab, step
+    line["buckets"] = rows
+    print(f"21a slowfast_multigrid_k400.py (SlowFast-R50 4x16, 400 classes, "
+          f"the recipe's optimizer) one stats step a bucket: "
+          f"{json.dumps(rows)} on {card}", flush=True)
+    if not all(np.isfinite(r["loss"]) for r in rows.values()):
+        raise SystemExit("21a a multigrid bucket step is not finite")
+    del model, state
+    torch.cuda.empty_cache()
+
+    raw = _step_clips(cfg, videos, names[:1])
+    labels = np.array([7])
+    for where, b in (("coarse", sched.buckets[0]), ("fine",
+                                                   sched.buckets[-1])):
+        one = GridBucket(1, b.num_frames, b.resolution)
+        clips = adapt_clips_to_bucket(torch.from_numpy(raw), one).numpy()
+        t0 = time.perf_counter()
+        step_line = step_card_vs_cpu(
+            dev, cfg, clips, labels, None, bf16s=(False,),
+            update_scale=b.batch_size / sched.base_batch)
+        step_line["seconds"] = time.perf_counter() - t0
+        line[f"step_{where}"] = step_line
+        print(f"21a one multigrid step in the {where} bucket "
+              f"({b.num_frames}x{b.resolution}², lr_scale "
+              f"{b.batch_size / sched.base_batch:g}) at batch 1 from the "
+              f"training init, card vs CPU in f32: {json.dumps(step_line)} "
+              f"(held to float64 as 18b)", flush=True)
+        if step_line["failed"]:
+            raise SystemExit(f"21a the {where} bucket's step failed: "
+                             f"{step_line['failed']}")
+    line["cli"] = multigrid_cli(dev, card, videos, names)
+    return line
+
+
+def multigrid_cli(dev, card, videos, names) -> dict:
+    """21a: recognition_train on the multigrid recipe, its buckets at 1/8
+    of their batch, a stage an epoch."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import recognition_train
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        ann = write_training_split(tmp, names[:MG21_VIDEOS], "cls", 211)
+        cfg = shipped_training_config(
+            MULTIGRID21_CONFIG,
+            **{"data.train.ann_file": ann, "data.train.data_prefix": None,
+               "data.val.ann_file": ann, "data.val.data_prefix": None,
+               "data.videos_per_gpu": 8, "total_epochs": MG21_EPOCHS,
+               # the recipe's 500 warmup steps need a longer run
+               "optimizer.warmup_steps": 0,
+               "multigrid.buckets": MG21_CLI_BUCKETS,
+               "multigrid.base_batch": 1, "multigrid.long_cycle_epochs": 1,
+               "multigrid.final_epochs": 1})
+        t0 = time.perf_counter()
+        state, history = recognition_train.train_from_config(
+            cfg, os.path.join(tmp, "mg"), device=dev,
+            reader=videos.__getitem__)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        final = os.path.isdir(os.path.join(tmp, "mg", "multigrid_final"))
+    buckets = [list(h["bucket"]) for h in history]
+    want = MG21_CLI_BUCKETS[:MG21_EPOCHS - 1] + MG21_CLI_BUCKETS[-1:]
+    steps = [h["steps"] for h in history]
+    print(f"21a recognition_train (slowfast_multigrid_k400.py, buckets "
+          f"{MG21_CLI_BUCKETS}, base batch 1, warmup 0) over {MG21_VIDEOS} "
+          f"seeded videos, {MG21_EPOCHS} epochs: {json.dumps(history)} in "
+          f"{seconds:.1f} s; multigrid_final written: {final}", flush=True)
+    if (buckets != want
+            or steps != [MG21_VIDEOS // b[0] for b in want] or not final
+            or not all(np.isfinite(h["loss"]) for h in history)
+            or state.optimizer.count != sum(steps)):
+        raise SystemExit("21a the multigrid CLI did not switch buckets as "
+                         "the schedule says")
+    return {"history": history, "seconds": seconds}
+
+
+def _omni_cfg(tmp, names, epochs: int):
+    main = write_training_split(tmp, names[:OMNI21_MAIN], "cls", 212)
+    aux = [write_training_split(os.path.join(tmp, f"aux{i}"), part, "cls",
+                                213 + i)
+           for i, part in enumerate((names[:OMNI21_AUX],
+                                     names[OMNI21_AUX:2 * OMNI21_AUX]))]
+    val = write_training_split(os.path.join(tmp, "val"),
+                               names[:OMNI21_VAL], "cls", 215)
+    cfg = shipped_training_config(
+        OMNI21_CONFIG,
+        **{"data.train.ann_file": main, "data.train.data_prefix": None,
+           "data.val.ann_file": val, "data.val.data_prefix": None,
+           "total_epochs": epochs,
+           "omnisource.aux": [dict(ann_file=a) for a in aux]})
+    cfg.set("data.pipeline", [dict(op, test_mode=True)
+                              if op["type"] == "SampleFrames" else op
+                              for op in cfg["data.pipeline"]])
+    # 200 classes: labels of the split files are 0-399
+    for path in [main, val] + aux:
+        lines = open(path).read().split("\n")
+        with open(path, "w") as f:
+            f.write("\n".join(f"{ln.split()[0]} {int(ln.split()[1]) % 200}"
+                              for ln in lines if ln.strip()))
+    return cfg
+
+
+def omnisource_run(dev, card, videos, names) -> dict:
+    """21b: the OmniSource CLI for two epochs, a resume from epoch_0 against
+    the uninterrupted epoch 1, one step card vs CPU."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import recognition_train
+
+    line = {"card": card}
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    # cuDNN's default algorithms sum in an order that moves from call to
+    # call, and eight steps of train-mode BatchNorm amplify that: the two
+    # runs compared here take deterministic algorithms (torch warns of any
+    # op that has none)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp, \
+            contextlib.ExitStack() as restore:
+        restore.callback(lambda: setattr(torch.backends.cudnn,
+                                         "deterministic", flags[0]))
+        restore.callback(lambda: setattr(torch.backends.cudnn, "benchmark",
+                                         flags[1]))
+        restore.callback(lambda: torch.use_deterministic_algorithms(
+            flags[2]))
+        for d in ("aux0", "aux1", "val"):
+            os.makedirs(os.path.join(tmp, d))
+        cfg = _omni_cfg(tmp, names, 2)
+        work = os.path.join(tmp, "omni")
+        t0 = time.perf_counter()
+        _, history = recognition_train.train_from_config(
+            cfg, work, device=dev, reader=videos.__getitem__)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        again = os.path.join(tmp, "omni_resumed")
+        t0 = time.perf_counter()
+        _, resumed = recognition_train.train_from_config(
+            cfg, again, resume=os.path.join(work, "epoch_0"), device=dev,
+            reader=videos.__getitem__)
+        resume_s = time.perf_counter() - t0
+        a = _epoch_tree(os.path.join(work, "epoch_1"))
+        b = _epoch_tree(os.path.join(again, "epoch_1"))
+        loops = [json.load(open(os.path.join(p, "epoch_1",
+                                             "loop_state.json")))
+                 for p in (work, again)]
+        final = os.path.isdir(os.path.join(work, "omnisource_final"))
+    diffs = torch.cat([(a[k].float() - b[k].float()).abs().flatten()
+                       for k in a])
+    worst = max((float((a[k].float() - b[k].float()).abs().max()), k,
+                 float(a[k].float().abs().max())) for k in a)
+    lr = cfg["optimizer"]["learning_rate"]
+    one, two = history[1], resumed[0]
+    resume = {"loss_uninterrupted": one["loss"], "loss_resumed": two["loss"],
+              "loss_rel": abs(one["loss"] - two["loss"]) / abs(one["loss"]),
+              "aux_loss_rel": abs(one["loss/aux0"] - two["loss/aux0"])
+              / abs(one["loss/aux0"]),
+              "state_share_within": float(
+                  (diffs <= RESUME_PARAM_TOL).double().mean()),
+              "state_max_abs": float(diffs.max()), "worst_leaf": worst,
+              "loop_states": loops}
+    line["cli"] = {"history": history, "seconds": cli_s,
+                   "resume_seconds": resume_s, "resume": resume}
+    keys = {"epoch", "loss", "top1_acc", "loss/aux0", "top1_acc/aux0",
+            "loss/aux1", "top1_acc/aux1"}
+    print(f"21b recognition_train ({OMNI21_CONFIG.name}, train_ratio "
+          f"{cfg['omnisource.train_ratio']}, batch 8) over {OMNI21_MAIN} "
+          f"seeded videos and two aux splits of {OMNI21_AUX}, 2 epochs: "
+          f"{json.dumps(history)} in {cli_s:.1f} s; resumed from epoch_0 "
+          f"({resume_s:.1f} s): {json.dumps(resume)} (need the losses "
+          f"within {RESUME_LOSS_RTOL}, {RESUME_PARAM_SHARE} of the "
+          f"parameters and statistics within {RESUME_PARAM_TOL}, all within "
+          f"{2 * lr:g}); omnisource_final written: {final}", flush=True)
+    if (len(history) != 2 or [h["epoch"] for h in resumed] != [1]
+            or any(set(h) != keys for h in history)
+            or loops[0] != loops[1]
+            or loops[0]["it"] != 2 * OMNI21_MAIN // 8
+            or resume["loss_rel"] > RESUME_LOSS_RTOL
+            or resume["aux_loss_rel"] > RESUME_LOSS_RTOL
+            or resume["state_share_within"] < RESUME_PARAM_SHARE
+            or resume["state_max_abs"] > 2 * lr or not final
+            or not all(np.isfinite(h["loss"]) for h in history)):
+        raise SystemExit("21b the OmniSource CLI or its resume failed")
+    torch.cuda.empty_cache()
+    clips = _step_clips(cfg, videos, names[:1])
+    t0 = time.perf_counter()
+    step_line = step_card_vs_cpu(dev, cfg, clips, np.array([7]), None,
+                                 bf16s=(False,), update_scale=1.0)
+    step_line["seconds"] = time.perf_counter() - t0
+    line["step"] = step_line
+    print(f"21b one OmniSource step (the multigrid step at lr_scale 1) of "
+          f"TSN-R50 at batch 1 from the training init, card vs CPU in f32: "
+          f"{json.dumps(step_line)}", flush=True)
+    if step_line["failed"]:
+        raise SystemExit(f"21b the step failed: {step_line['failed']}")
+    return line
+
+
+def blending_steps(dev, card, videos, names) -> dict:
+    """21c: mixup and cutmix on the TSN stats step, card vs CPU."""
+    line = {"card": card}
+    cfg = shipped_training_config(BLEND21_CONFIG)
+    clips = _step_clips(cfg, videos, names[:2])
+    labels = np.array([3, 250])
+    for kind, draws in BLEND21_DRAWS.items():
+        t0 = time.perf_counter()
+        step_line = step_card_vs_cpu(
+            dev, cfg, clips, labels, None,
+            blend=(kind, draws, cfg["model.num_classes"]))
+        step_line["seconds"] = time.perf_counter() - t0
+        line[kind] = step_line
+        print(f"21c {kind} ({json.dumps({k: np.asarray(v).tolist() for k, v in draws.items()})}) "
+              f"on the stats step of {BLEND21_CONFIG.name} at batch 2 "
+              f"from the training init, card vs CPU in f32 and bf16: "
+              f"{json.dumps(step_line)}", flush=True)
+        if step_line["failed"]:
+            raise SystemExit(f"21c the {kind} step failed: "
+                             f"{step_line['failed']}")
+    return line
+
+
+def _flash21():
+    from cross_modal_video_engine_tpu_torch.ops import flash_attention
+    return flash_attention.flash_attention
+
+
+def _head21(bcfg, seed: int, **head) -> dict:
+    """The `cls_head.*` entries of models.recognizer.random_state_dict for
+    a head on bcfg's width, drawn on a one-block, one-patch stand-in of
+    bcfg (the head's shapes follow the width alone), not on 86M backbone
+    numbers drawn again."""
+    import dataclasses
+    from cross_modal_video_engine_tpu_torch.models.recognizer import (
+        random_state_dict)
+    tiny = dataclasses.replace(bcfg, num_layers=1, img_size=bcfg.patch_size,
+                               num_frames=bcfg.tubelet_size)
+    return {k: v for k, v in random_state_dict(tiny, seed, **head).items()
+            if k.startswith("cls_head.")}
+
+
+def timesformer_bf16_config(dev, card) -> Tuple[dict, int]:
+    """21d.  Returns (the line, flash launches over its counted calls)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.config import Config
+    from cross_modal_video_engine_tpu_torch.models.decoder_head import (
+        RNNDecoderConfig)
+    from cross_modal_video_engine_tpu_torch.models.recognizer import (
+        SHUFFLE_RECOGNIZERS, Recognizer3D, Recognizer3DRelseq,
+        random_state_dict)
+    from cross_modal_video_engine_tpu_torch.models.timesformer import (
+        TimeSformerConfig)
+    from cross_modal_video_engine_tpu_torch.ops.flash_attention import (
+        _reference_attention)
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_cls_train_step,
+        make_rec_optimizer, make_seq_train_step)
+
+    flash = _flash21()
+    line = {"card": card, "backbone": "TS_JOINT", "dtype": "bfloat16",
+            "batch": TS21_BATCH}
+    bcfg = TimeSformerConfig(**TS_JOINT)
+    if bcfg.dtype != "bfloat16" or not bcfg.use_flash_attention:
+        raise SystemExit("21d TS_JOINT is not the bf16 flash config")
+    layers = bcfg.num_layers         # one flash launch a block a pass
+    tcfg = RecognitionTrainConfig(**shipped_training_config(
+        RECOGNITION_CONFIG)["optimizer"])
+    rng = np.random.default_rng(21)
+    clips = normalised_clips(rng, TS21_BATCH, dev)
+    labels = torch.from_numpy(rng.integers(0, TS21_CLASSES,
+                                           TS21_BATCH)).to(dev)
+    launches, runs = 0, {}
+
+    def counted(name, fn, want):
+        nonlocal launches
+        torch.cuda.synchronize()
+        flash.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        n = flash.launches
+        launches += n
+        runs[name] = {"launches": n, "want": want,
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "peak_mib": torch.cuda.max_memory_allocated(dev)
+                      / 2 ** 20}
+        return out
+
+    sd = random_state_dict(bcfg, seed=21, num_classes=TS21_CLASSES)
+    model = Recognizer3D(bcfg, TS21_CLASSES, device=dev)
+    model.load_state_dict(sd)
+    masters = {str(p.dtype) for p in model.parameters()}
+    with torch.no_grad():
+        logits = counted("forward", lambda: model(clips), layers)
+        tokens = model.backbone.embed_tokens(clips)
+    line["masters"], line["logits_dtype"] = sorted(masters), str(
+        logits.dtype)
+    line["tokens_dtype"] = str(tokens.dtype)
+    state = init_rec_state(model, make_rec_optimizer(tcfg, 10))
+    step = make_cls_train_step(model, device=dev)
+    state, logs = counted("cls_step", lambda: step(state, clips, labels),
+                          layers)
+    runs["cls_step"]["loss"] = float(logs["loss"])
+    flops = _product_flops(lambda: step(state, clips, labels))
+    ms = cuda_ms(lambda: step(state, clips, labels), iters=3, warmup=1)
+    runs["cls_step"].update(event_ms=ms, tflops_per_s=flops / ms / 1e9,
+                            videos_per_s=TS21_BATCH * 1e3 / ms)
+
+    # block 0's attention, f32, through the kernel and its plain version
+    with torch.no_grad():
+        blk = model.backbone.blocks[0]
+        attn = blk.attentions[0].attn
+        h = blk.norms[0](model.backbone.embed_tokens(clips))
+        wq, bq, wk, bk, wv, bv = attn.qkv_params()
+        b_, s_, d_ = h.shape
+        q, k, v = (torch.nn.functional.linear(h, w, bias).reshape(
+            b_, s_, attn.heads, d_ // attn.heads).transpose(1, 2)
+            for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
+        scale = (d_ // attn.heads) ** -0.5
+        got = flash(q, k, v, scale)
+        want = _reference_attention(q, k, v, scale, False)
+        kern_ms = cuda_ms(lambda: flash(q, k, v, scale), iters=10)
+        plain_ms = cuda_ms(lambda: _reference_attention(q, k, v, scale,
+                                                        False), iters=10)
+    err = float((got.float() - want.float()).abs().max())
+    line["block0_flash"] = {"shape": [b_ * attn.heads, s_, d_ // attn.heads],
+                            "dtype": str(q.dtype), "max_abs_err": err,
+                            "tol": TOL["float32"], "ms": kern_ms,
+                            "plain_ms": plain_ms}
+    del state, step, q, k, v, got, want, h
+
+    # the shipped caption decoder, on this backbone's width
+    dec = dict(relseq_model()["decoder"], in_channels=bcfg.embed_dims)
+    seq = Recognizer3DRelseq(bcfg, RNNDecoderConfig(**dec), device=dev)
+    seq.load_state_dict({**{k: v for k, v in sd.items()
+                            if k.startswith("backbone.")},
+                         **_head21(bcfg, 22,
+                                   decoder_cfg=RNNDecoderConfig(**dec))})
+    targets = torch.from_numpy((rng.random(
+        (TS21_BATCH, dec["max_len"], dec["num_classes"])) > 0.7).astype(
+        np.float32)).to(dev)
+    mask = torch.ones(TS21_BATCH, dec["max_len"], device=dev)
+    sstate = init_rec_state(seq, make_rec_optimizer(tcfg, 10))
+    sstep = make_seq_train_step(seq, device=dev)
+    sstate, slogs = counted("seq_step", lambda: sstep(sstate, clips, targets,
+                                                      mask), layers)
+    runs["seq_step"]["loss"] = float(slogs["loss"])
+    del seq, sstate, sstep, model
+
+    shuffled = clips[:, torch.from_numpy(rng.permutation(8)).to(dev)]
+    for cls in SHUFFLE_RECOGNIZERS:
+        extra = cls.__name__.endswith("Extra")
+        n = TS21_CLASSES + 1 if extra else TS21_CLASSES
+        sm = cls(bcfg, n, device=dev)
+        sm.load_state_dict({**{k: v for k, v in sd.items()
+                               if k.startswith("backbone.")},
+                            **_head21(bcfg, 23, num_classes=n)})
+        opt = make_rec_optimizer(tcfg, 10)(list(sm.named_parameters()))
+
+        def shuffle_step():
+            opt.zero_grad(set_to_none=True)
+            out = sm.forward_train(clips, shuffled, labels)
+            out["loss"].backward()
+            opt.step()
+            return out
+
+        out = counted(cls.__name__, shuffle_step, 2 * layers)
+        runs[cls.__name__]["losses"] = {k: float(v) for k, v in out.items()}
+        del sm, opt
+    torch.cuda.empty_cache()
+    line["runs"] = runs
+
+    # card vs CPU at TS21_LAYERS layers (widths kept), held to float64
+    small = Config({"model": {"backbone": dict(
+        TS_JOINT, type="TimeSformer", num_layers=TS21_LAYERS,
+        drop_path_max=0.0), "num_classes": TS21_CLASSES},
+        "optimizer": dict(shipped_training_config(
+            RECOGNITION_CONFIG)["optimizer"])})
+    one = clips[:1].cpu().numpy()
+    # the float64 witness without the bf16 roundings of the input and the
+    # embeddings (their gradients pass through bf16, so float64 runs that
+    # keep them differ by a flipped rounding): card and CPU keep them alike
+    witness = Config({"model": {"backbone": dict(
+        small["model.backbone"], dtype="float32"),
+        "num_classes": TS21_CLASSES}, "optimizer": small["optimizer"]})
+    t0 = time.perf_counter()
+    step_line = step_card_vs_cpu(dev, small, one, np.array([11]), None,
+                                 bf16s=(False,), witness_cfg=witness)
+    step_line["seconds"] = time.perf_counter() - t0
+    line["step_card_vs_cpu"] = step_line
+    bad = [k for k, r in runs.items() if r["launches"] != r["want"]]
+    finite = all(np.isfinite(r.get("loss", 0.0)) and all(
+        np.isfinite(x) for x in r.get("losses", {}).values())
+        for r in runs.values())
+    print(f"21d TS_JOINT configured bfloat16 (ViT-B/16 joint, flash, 8x224²,"
+          f" 400 classes) on f32 masters {line['masters']}, trained without "
+          f"bf16=True at batch {TS21_BATCH}: tokens "
+          f"{line['tokens_dtype']}, logits {line['logits_dtype']}; "
+          f"{json.dumps(runs)}; block 0's attention through the flash "
+          f"kernel in f32 against its plain version: "
+          f"{json.dumps(line['block0_flash'])}; one make_cls_train_step at "
+          f"{TS21_LAYERS} layers, batch 1, card vs CPU in f32: "
+          f"{json.dumps(step_line)} on {card}", flush=True)
+    if (masters != {"torch.float32"} or line["tokens_dtype"] != "torch.float32"
+            or bad or not finite or err > TOL["float32"]
+            or step_line["failed"]):
+        raise SystemExit(f"21d the bf16-configured TimeSformer failed: "
+                         f"launches {bad}, finite {finite}, flash error "
+                         f"{err:.3e}, step {step_line['failed']}")
+    return line, launches
+
+
+def hvu_check(dev, card) -> dict:
+    """21e: hvu_loss over the full vocabulary, every mode, card vs CPU."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.losses import hvu
+    rng = np.random.default_rng(215)
+    total = sum(hvu.DEFAULT_CATEGORY_NUMS)
+    n_cat = len(hvu.DEFAULT_CATEGORIES)
+    score = torch.from_numpy((2 * rng.standard_normal(
+        (HVU21_BATCH, total))).astype(np.float32))
+    label = torch.from_numpy((rng.random((HVU21_BATCH, total)) > 0.98)
+                             .astype(np.float32))
+    mask = torch.from_numpy((rng.random((HVU21_BATCH, total)) > 0.2)
+                            .astype(np.float32))
+    cmask = torch.from_numpy((rng.random((HVU21_BATCH, n_cat)) > 0.3)
+                             .astype(np.float32))
+    worst, rows = 0.0, {}
+    for loss_type in ("all", "individual"):
+        for with_mask in (False, True):
+            out = {}
+            for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+                s = score.to(d).clone().requires_grad_(True)   # a leaf
+                res = hvu.hvu_loss(s, label.to(d), mask.to(d), cmask.to(d),
+                                   loss_type=loss_type, with_mask=with_mask)
+                res["loss_cls"].backward()
+                out[where] = ({k: float(v) for k, v in res.items()},
+                              s.grad.cpu())
+            rel = max(abs(out["card"][0][k] - v) / max(abs(v), 1e-6)
+                      for k, v in out["cpu"][0].items())
+            grad = _max_rel(out["card"][1], out["cpu"][1])
+            worst = max(worst, rel, grad)
+            rows[f"{loss_type}{'_masked' if with_mask else ''}"] = {
+                "loss_cls": out["card"][0]["loss_cls"], "max_rel": rel,
+                "grad_max_rel": grad, "entries": len(out["card"][0])}
+    print(f"21e hvu_loss over {total} tags at batch {HVU21_BATCH}, card vs "
+          f"CPU: {json.dumps(rows)} (need <= {HVU21_REL})", flush=True)
+    if worst > HVU21_REL:
+        raise SystemExit("21e hvu_loss differs between the card and the CPU")
+    return {"card": card, "tags": total, "modes": rows}
+
+
+def check_step21(dev, card) -> Tuple[dict, dict]:
+    """Step 21 (a-e): the training recipes and the bf16-configured
+    TimeSformer.  Returns (the `training_recipes` JSON object, flash
+    launches over 21d's counted calls)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+
+    t_step = time.perf_counter()
+    videos = bserve.seeded_videos(OMNI21_MAIN, seed=21)
+    names = sorted(videos)
+    line = {"card": card}
+    for key, fn in (("multigrid", multigrid_steps),
+                    ("omnisource", omnisource_run),
+                    ("blending", blending_steps)):
+        t0 = time.perf_counter()
+        line[key] = fn(dev, card, videos, names)
+        line[key]["seconds"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    line["timesformer_bf16_config"], launches = timesformer_bf16_config(
+        dev, card)
+    line["timesformer_bf16_config"]["seconds"] = time.perf_counter() - t0
+    line["hvu"] = hvu_check(dev, card)
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"21 the training recipes and the bf16-configured TimeSformer "
+          f"checked in {line['seconds']:.1f} s", flush=True)
+    return line, {"flash_attention": launches}
+
+
+STEPS = tuple(range(4, 22))      # the steps a selection may name
 
 
 def selected_steps(argv) -> set:
-    """The steps to run: all of 4-20 with no argument, else the numbers
+    """The steps to run: all of 4-21 with no argument, else the numbers
     given ("19", "13 19" or "13,19"); 4-5 and 6-7 run as pairs (5 and 7
     time what 4 and 6 build).  The build (2), the kernel checks (3) and
-    the results (21) always run."""
+    the results (22) always run."""
     if not argv:
         return set(STEPS)
     steps = set()
     for arg in argv:
         for part in filter(None, arg.split(",")):
-            if not part.isdigit() or int(part) not in range(2, 22):
+            if not part.isdigit() or int(part) not in range(2, 23):
                 raise SystemExit(f"chip_smoke: unknown step {part!r}; "
                                  f"choose among {STEPS[0]}-{STEPS[-1]}")
             steps.add(int(part))
@@ -7243,7 +7877,7 @@ def main(argv=None) -> int:
     counts = dict.fromkeys(("composed", "caption", "explain", "training",
                             "ctv", "caption_transformer",
                             "detector_training", "cnn", "cnn2d",
-                            "transformer", "clip_recognizer"))
+                            "transformer", "clip_recognizer", "recipes"))
     rng = np.random.default_rng(1)
     if 4 in steps:
         # -- 4. the CLIP path -----------------------------------------------
@@ -7355,15 +7989,21 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         (lines["transformer_recognizers"], counts["transformer"],
          counts["clip_recognizer"]) = check_step20(dev, card)
+
+    if 21 in steps:
+        # -- 21. the training recipes and the bf16-configured TimeSformer ---
+        torch.cuda.empty_cache()
+        lines["training_recipes"], counts["recipes"] = check_step21(dev,
+                                                                    card)
     builds.close()
 
-    # -- 21. results ----------------------------------------------------------
+    # -- 22. results ----------------------------------------------------------
     for key, value in lines.items():
         print(json.dumps({key: value}))
     print(json.dumps(kernel_json(results, launches, core, block_extra,
                                  counts)))
     skipped = sorted(set(STEPS) - steps)
-    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 21"
+    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 22"
           + (f"; skipped: {skipped} (a partial run)" if skipped else
              " (the whole smoke run)"), flush=True)
     print(json.dumps({"ok": True, "device": {

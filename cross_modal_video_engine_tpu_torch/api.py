@@ -17,7 +17,8 @@ Counterpart of cross_modal_video_engine_tpu/api.py (MCT mmaction/apis):
   without a decoder is refused, as the JAX loader's assert refuses it
   (cli/recognition_test rebuilds such classifiers from their config).
   It applies the bf16 inference cast the JAX loader applies
-  (utils/precision.py: a VideoMAE configured in bf16 holds the rounded
+  (utils/precision.py: a TimeSformer recognizer is cast whole to bf16
+  after loading; a VideoMAE configured in bf16 holds the rounded
   values in its f32 parameters, and its layers name their dtypes, so it
   computes what the JAX model computes on the cast tree) and returns the
   model ready to serve (eval mode, parameters frozen) on the card unless
@@ -46,7 +47,8 @@ from .models.recognizer import (Recognizer3D, Recognizer3DRelseq,
                                 RecognizerRelseq)
 from .models.timesformer import TimeSformerConfig
 from .train.checkpoint import load_checkpoint
-from .utils.precision import maybe_cast_bf16, no_tf32
+from .utils.precision import (maybe_cast_bf16, maybe_cast_model_bf16,
+                              no_tf32)
 
 TEST_PIPELINE = [
     dict(type="DecordInit"),
@@ -90,6 +92,7 @@ def init_recognizer(checkpoint, state_dict: Optional[Dict[str, torch.Tensor]]
         model = Recognizer3D(backbone, num_classes=cfg_d["num_classes"],
                              device=device)
     model.load_state_dict(maybe_cast_bf16(state_dict, cfg_d))
+    maybe_cast_model_bf16(model, cfg_d)
     return model.eval().requires_grad_(False), cfg_d
 
 

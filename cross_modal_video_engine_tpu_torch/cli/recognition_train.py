@@ -44,8 +44,26 @@ epoch (seed 1 + epoch).  `train_from_config(..., reader=)` hands the
 pipeline a decord-alike reader.  `build_backbone` and
 `build_caption_backbone` (with `_TemporalMean` for per-frame backbones)
 are shared with cli/caption_train and `api.init_recognizer`.
-OmniSource, multigrid and blending (item 8d) are refused, naming the
-part of ROADMAP.md queue 1 item 8 that ports them.  The port's TIN and TANet configs carry the
+
+Three recipes, as the JAX CLI has them:
+
+* `train_cfg.blending=dict(type='MixupBlending' | 'CutmixBlending',
+  alpha=...)`: the classification steps blend each batch
+  (data/blending.py; the blend's numpy generator seeded anew each epoch,
+  seed 1 + epoch; TPN's step takes none, as in JAX);
+* `omnisource=dict(train_ratio=[main, aux0, ...], aux=[dict(ann_file,
+  data_prefix[, pipeline]), ...])`: `train_omnisource` over the main
+  split and the aux splits (their batches unshuffled), the schedule's
+  steps counting the aux waves (`_omnisource_total_steps`), each epoch's
+  `{"params", "batch_stats", "opt_state"}` with `{"epoch", "it"}` in
+  `epoch_{n}` (`--resume` continues from them), then the val report and
+  `omnisource_final`;
+* `multigrid=dict(buckets=[[batch, frames, res], ...], ...)`
+  (train/multigrid.MultigridSchedule): `train_multigrid`, its schedule's
+  steps counted at the config's batch size as the JAX CLI counts them,
+  then `multigrid_final`.
+
+The port's TIN and TANet configs carry the
 clip length (`num_segments`, default 8) that the JAX modules read off
 their input.  As the JAX CLI does, the model is built after the first
 training batch is read: a Swin3D's relative-position tables are sized by
@@ -79,10 +97,12 @@ from ..models.timesformer import TimeSformerConfig
 from ..models.tpn import TPNConfig
 from ..models.videoclip import VideoCLIPConfig, VideoCLIPPooled
 from ..train.checkpoint import best_checkpoint_manager
+from ..train.checkpoint import save_checkpoint
 from ..train.recognition_trainer import (
-    RecognitionTrainConfig, evaluate_classification, has_batch_norm,
-    init_rec_state, make_cls_train_step, make_cls_train_step_stats,
-    make_rec_optimizer, make_tpn_train_step_stats, not_ported)
+    RecognitionTrainConfig, RecTrainState, evaluate_classification,
+    has_batch_norm, init_rec_state, make_cls_train_step,
+    make_cls_train_step_stats, make_rec_optimizer, make_tpn_train_step_stats,
+    train_multigrid, train_omnisource)
 from ..train.resume import (latest_checkpoint, load_train_state,
                             save_train_state)
 from ..utils.device import resolve_device
@@ -181,11 +201,9 @@ def _tpn_config(ncfg: dict, num_classes: int) -> TPNConfig:
 
 
 def build_recognition_model(cfg: Config, device=None,
-                            dtype: Optional[str] = None,
                             input_shape=None) -> nn.Module:
-    """The recognizer of `model` at the training init: a Recognizer3D
-    (dtype overrides the TimeSformer's: the bf16 step's f32 masters), a
-    BackboneClassifier over a pooled CNN, a transformer or VideoCLIP's
+    """The recognizer of `model` at the training init (f32 masters): a
+    Recognizer3D, a BackboneClassifier over a pooled CNN, a transformer or VideoCLIP's
     pooled video encoder, a Recognizer3DCLIP ('CLIP'), a Recognizer2D
     over a per-frame backbone (TRNHead when model.head says so), or a
     TPNRecognizer (model.neck=dict(type='TPN')).  input_shape: the (T, H,
@@ -205,8 +223,6 @@ def build_recognition_model(cfg: Config, device=None,
     num_classes = cfg["model.num_classes"]
     dev = resolve_device(device)
     if btype == "TimeSformer":
-        if dtype is not None:
-            kw["dtype"] = dtype
         backbone = TimeSformerConfig(**kw)
         model = Recognizer3D(backbone, num_classes, device=dev)
         model.load_state_dict(init_state_dict(backbone, INIT_SEED,
@@ -254,9 +270,6 @@ def train_from_config(cfg: Config, work_dir: str,
                       reader=None):
     """Train as the config says on `device` (None: the CUDA device); the
     f32 products run in f32 (TF32 off).  Returns (state, history)."""
-    for feature in ("omnisource", "multigrid", "train_cfg.blending"):
-        if cfg.get(feature):
-            raise NotImplementedError(not_ported(feature, "8d"))
     dev = resolve_device(device)
     no_tf32()
     tcfg = RecognitionTrainConfig(**cfg.get("optimizer", {}))
@@ -267,8 +280,14 @@ def train_from_config(cfg: Config, work_dir: str,
                           cfg.get("data.val.data_prefix"))
     bs = cfg.get("data.videos_per_gpu", 8)
     model = build_recognition_model(
-        cfg, dev, "float32" if tcfg.bf16 else None,
-        input_shape=first_clip_shape(train_ds, bs))
+        cfg, dev, input_shape=first_clip_shape(train_ds, bs))
+    if cfg.get("omnisource"):
+        return _train_omnisource_from_config(cfg, model, train_ds, val_ds,
+                                             bs, tcfg, work_dir, num_epochs,
+                                             dev, reader, resume)
+    if cfg.get("multigrid"):
+        return _train_multigrid_from_config(cfg, model, train_ds, bs, tcfg,
+                                            work_dir, num_epochs, dev)
 
     epochs = num_epochs or cfg.get("total_epochs", tcfg.num_epochs)
     # total_steps sizes the warmup-cosine schedule to the run
@@ -279,11 +298,20 @@ def train_from_config(cfg: Config, work_dir: str,
     # a BatchNorm recognizer's statistics live in its buffers and ride in
     # the epoch states as "batch_stats"
     holder = model if has_batch_norm(model) else None
-    make_step = (make_tpn_train_step_stats
-                 if isinstance(model, TPNRecognizer) else
-                 make_cls_train_step_stats if holder is not None
-                 else make_cls_train_step)
-    step = make_step(model, bf16=tcfg.bf16, generator=generator, device=dev)
+    blending = None
+    bcfg = cfg.get("train_cfg.blending")
+    if bcfg:
+        from ..data.blending import make_blending
+        blending = make_blending(bcfg["type"], cfg["model.num_classes"],
+                                 bcfg.get("alpha", 0.2))
+    if isinstance(model, TPNRecognizer):
+        step = make_tpn_train_step_stats(model, bf16=tcfg.bf16,
+                                         generator=generator, device=dev)
+    else:
+        make_step = (make_cls_train_step_stats if holder is not None
+                     else make_cls_train_step)
+        step = make_step(model, blending=blending, bf16=tcfg.bf16,
+                         generator=generator, device=dev)
     save_best = best_checkpoint_manager(work_dir)
     sampler = ShardedSampler(len(train_ds), shuffle=True)
 
@@ -298,6 +326,8 @@ def train_from_config(cfg: Config, work_dir: str,
     history = []
     for epoch in range(start_epoch, epochs):
         generator.manual_seed(DROPOUT_SEED + epoch)
+        if blending is not None:
+            blending.reseed(DROPOUT_SEED + epoch)
         losses, accs = [], []
         for clips, labels, _n in _label_batches(train_ds, bs, dev,
                                                 sampler.indices(epoch)):
@@ -319,6 +349,108 @@ def train_from_config(cfg: Config, work_dir: str,
                          {"state": state, "batch_stats": holder},
                          {"epoch": epoch})
         history.append(rec)
+        print(json.dumps(rec), flush=True)
+    return state, history
+
+
+def _clip_batches(ds, bs: int, dev, order=None):
+    """(clips, labels) of _label_batches: full padded batches, as the JAX
+    CLI feeds its multigrid and OmniSource loops."""
+    for clips, labels, _n in _label_batches(ds, bs, dev, order):
+        yield clips, labels
+
+
+def _omnisource_total_steps(n_main: int, bs: int, epochs: int,
+                            train_ratio) -> int:
+    """The schedule's step count for train_omnisource: the main steps and
+    one wave of sum(train_ratio[1:]) aux steps per train_ratio[0] main
+    steps."""
+    main_steps = steps_per_epoch(n_main, bs)
+    waves_per_epoch = -(-main_steps // max(1, train_ratio[0]))
+    return epochs * (main_steps + waves_per_epoch * sum(train_ratio[1:]))
+
+
+def _save_omnisource_epoch(work_dir: str, epoch: int, state: RecTrainState,
+                           holder, it: int) -> None:
+    save_train_state(os.path.join(work_dir, f"epoch_{epoch}"),
+                     {"omnisource": state, "batch_stats": holder},
+                     {"epoch": epoch, "it": it})
+
+
+def _train_omnisource_from_config(cfg: Config, model, train_ds, val_ds,
+                                  bs: int, tcfg: RecognitionTrainConfig,
+                                  work_dir: str, num_epochs, dev, reader,
+                                  resume: Optional[str] = None):
+    """OmniSource joint training (JAX cli/recognition_train.py:247-356):
+    the aux sources reuse data.pipeline unless they carry their own."""
+    oms = dict(cfg["omnisource"])
+    sampler = ShardedSampler(len(train_ds), shuffle=True)
+    epochs = num_epochs or cfg.get("total_epochs", tcfg.num_epochs)
+    aux_sources = []
+    for acfg in oms.get("aux", []):
+        apipe = build_pipeline(with_reader(
+            acfg.get("pipeline", cfg["data.pipeline"]), reader))
+        ads = VideoDataset(acfg["ann_file"], apipe, acfg.get("data_prefix"))
+        aux_sources.append(lambda ads=ads: _clip_batches(ads, bs, dev))
+    train_ratio = tuple(oms.get("train_ratio",
+                                (2,) + (1,) * len(aux_sources)))
+    total_steps = _omnisource_total_steps(len(train_ds), bs, epochs,
+                                          train_ratio)
+    holder = model if has_batch_norm(model) else None
+    state = init_rec_state(model, make_rec_optimizer(
+        tcfg, total_steps=total_steps))
+    start_epoch, init_it = 0, 0
+    if resume:
+        payload, loop = load_train_state(resume, {"omnisource": state,
+                                                  "batch_stats": holder})
+        state = payload["omnisource"]
+        start_epoch = int(loop.get("epoch", -1)) + 1
+        init_it = int(loop.get("it", 0))
+    state, history = train_omnisource(
+        model, tcfg, lambda epoch: _clip_batches(train_ds, bs, dev,
+                                                 sampler.indices(epoch)),
+        aux_sources, train_ratio, epochs,
+        generator=torch.Generator(device=dev), total_steps=total_steps,
+        start_epoch=start_epoch, state=state, init_it=init_it,
+        epoch_callback=lambda epoch, s: _save_omnisource_epoch(
+            work_dir, epoch, s["state"], holder, s["it"]),
+        device=dev, dropout_seed=DROPOUT_SEED)
+    report = evaluate_classification(model, _label_batches(val_ds, bs, dev))
+    save_checkpoint(os.path.join(work_dir, "omnisource_final"),
+                    recognizer_variables(model),
+                    {"backbone": cfg["model.backbone"],
+                     "num_classes": cfg["model.num_classes"]},
+                    {"epochs": epochs, "omnisource": True, **report})
+    for rec in history:
+        print(json.dumps(rec), flush=True)
+    print(json.dumps(report), flush=True)
+    return state, history
+
+
+def _train_multigrid_from_config(cfg: Config, model, train_ds, bs: int,
+                                 tcfg: RecognitionTrainConfig, work_dir: str,
+                                 num_epochs, dev):
+    """Multigrid training (JAX cli/recognition_train.py:405-440)."""
+    from ..train.multigrid import GridBucket, MultigridSchedule
+    mg = dict(cfg["multigrid"])
+    if "buckets" in mg:
+        mg["buckets"] = tuple(GridBucket(*b) for b in mg["buckets"])
+    schedule = MultigridSchedule(**mg)
+    sampler = ShardedSampler(len(train_ds), shuffle=True)
+    epochs = num_epochs or cfg.get("total_epochs", tcfg.num_epochs)
+    state, history = train_multigrid(
+        model, tcfg, schedule,
+        lambda epoch: _clip_batches(train_ds, bs, dev,
+                                    sampler.indices(epoch)),
+        epochs, generator=torch.Generator(device=dev),
+        total_steps=epochs * steps_per_epoch(len(train_ds), bs),
+        device=dev, dropout_seed=DROPOUT_SEED)
+    save_checkpoint(os.path.join(work_dir, "multigrid_final"),
+                    recognizer_variables(model),
+                    {"backbone": cfg["model.backbone"],
+                     "num_classes": cfg["model.num_classes"]},
+                    {"epochs": epochs, "multigrid": True})
+    for rec in history:
         print(json.dumps(rec), flush=True)
     return state, history
 

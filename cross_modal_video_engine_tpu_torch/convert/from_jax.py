@@ -17,7 +17,10 @@ compute the same function.
   for the order (norm, self_attn, norm, ffn):
   `transformer_layers.layers.{i}.norms.0`, `.attentions.0.attn`,
   `.norms.1`, `.ffns.0.layers.0.0`, `.ffns.0.layers.1`.  A tubelet
-  patch embed is the Conv3d `patch_embed.projection`.
+  patch embed is the Conv3d `patch_embed.projection`.  A bf16-configured
+  JAX checkpoint gives f32 tensors too: the port's TimeSformer keeps f32
+  masters whatever its config says.  The shuffle recognizers hold the
+  same tree (`shuffle_recognizer_{state_dict_from,variables_to}_jax`).
 * `dual_encoding_state_dict_from_jax` maps a JAX LINAS DualEncoding's
   variables onto the port's state dict, which carries the reference torch
   model's keys under the tower names (convert_linas_dual_encoding's
@@ -759,6 +762,26 @@ def recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], backbone_cfg
     else:
         head = _decoder_to_jax(sd)
     return {"params": {"backbone": bb, "cls_head": head}}
+
+
+def shuffle_recognizer_state_dict_from_jax(variables_np: Dict[str, Any],
+                                           backbone_cfg
+                                           ) -> Dict[str, torch.Tensor]:
+    """A JAX shuffle recognizer's variables (Recognizer3DShuffleEmb, Soft
+    or Extra: the Recognizer3D tree, `backbone` and `cls_head.fc_cls`) ->
+    the port's fp32 state dict."""
+    params = variables_np.get("params", variables_np)
+    if "fc_cls" not in params["cls_head"]:
+        raise KeyError("a shuffle recognizer's cls_head is fc_cls")
+    return recognizer_state_dict_from_jax(params, backbone_cfg)
+
+
+def shuffle_recognizer_variables_to_jax(sd: Dict[str, torch.Tensor],
+                                        backbone_cfg) -> Dict[str, Any]:
+    """The inverse of shuffle_recognizer_state_dict_from_jax."""
+    if "cls_head.fc_cls.weight" not in sd:
+        raise KeyError("a shuffle recognizer's cls_head is fc_cls")
+    return recognizer_variables_to_jax(sd, backbone_cfg)
 
 
 # -- the word-level caption transformer ---------------------------------------

@@ -18,9 +18,17 @@ datasets family):
   (samplers/distributed_sampler.py:11-53), the same indices as the JAX
   package's.
 
-`ClassSpecificSampler` and the raw-video, image, repeat and concat
-datasets come with ROADMAP.md queue 1 item 8d, the audio datasets with
-item 8g.
+* `ClassSpecificSampler` — per-class sampling weights: with
+  `dynamic_length` each class copied prob//1 times plus a random subset
+  of the remainder, else a weighted multinomial draw with replacement,
+  from the same `default_rng(seed + epoch)` draws as the JAX package's
+  (samplers/distributed_sampler.py:54-140);
+* `RepeatDataset`, `ConcatDataset` (dataset_wrappers.py), `ImageDataset`
+  (`image_path label[s]` lines, the OmniSource image branch) and
+  `RawVideoDataset` (`video_dir label num_clips positive_clip_inds...`
+  lines).
+
+The audio datasets come with ROADMAP.md queue 1 item 8g.
 """
 
 from __future__ import annotations
@@ -162,3 +170,138 @@ class ShardedSampler:
         # rank
         padded = np.resize(order, per * self.world_size)
         return [int(i) for i in padded[self.rank::self.world_size]]
+
+
+class ClassSpecificSampler(ShardedSampler):
+    """ShardedSampler with per-class sampling weights `class_prob`
+    (label -> weight).  dynamic_length=True: each class's members prob//1
+    times plus a random (prob % 1) share of them (the epoch's length
+    changes), shuffled; False: the original length drawn with replacement,
+    each item weighted by its class's weight over the class's size."""
+
+    def __init__(self, labels: Sequence[int], class_prob: Dict[int, float],
+                 world_size: int = 1, rank: int = 0, shuffle: bool = True,
+                 seed: int = 0, dynamic_length: bool = True):
+        super().__init__(len(labels), world_size, rank, shuffle, seed)
+        self.labels = list(labels)
+        self.class_prob = dict(class_prob)
+        self.dynamic_length = dynamic_length
+
+    def indices(self, epoch: int) -> List[int]:
+        rng = np.random.default_rng(self.seed + epoch)
+        class_indices: Dict[int, List[int]] = {}
+        for i, lb in enumerate(self.labels):
+            class_indices.setdefault(lb, []).append(i)
+        if self.dynamic_length:
+            chosen: List[int] = []
+            for k, prob in self.class_prob.items():
+                members = class_indices.get(k, [])
+                if not members:
+                    continue
+                chosen.extend(members * int(prob // 1))
+                rem = int((prob % 1) * len(members))
+                if rem:
+                    pick = rng.permutation(len(members))[:rem]
+                    chosen.extend(members[j] for j in pick)
+            order = np.asarray(chosen)
+            if self.shuffle:
+                rng.shuffle(order)
+        else:
+            probs = np.asarray([
+                self.class_prob.get(lb, 0.0) / len(class_indices[lb])
+                for lb in self.labels], np.float64)
+            order = rng.choice(len(self.labels), size=len(self.labels),
+                               replace=True, p=probs / probs.sum())
+        per = int(np.ceil(len(order) / self.world_size))
+        padded = np.resize(order, per * self.world_size)  # cyclic pad
+        return [int(i) for i in padded[self.rank::self.world_size]]
+
+
+class RepeatDataset:
+    """A dataset repeated `times` times (dataset_wrappers.py:8-36)."""
+
+    def __init__(self, dataset, times: int):
+        self.dataset = dataset
+        self.times = times
+
+    def __len__(self) -> int:
+        return self.times * len(self.dataset)
+
+    def __getitem__(self, idx: int):
+        return self.dataset[idx % len(self.dataset)]
+
+    def batches(self, batch_size: int,
+                order: Optional[Sequence[int]] = None):
+        return BaseVideoDataset.batches(self, batch_size, order)
+
+
+class ConcatDataset:
+    """Datasets end to end (dataset_wrappers.py:39-71)."""
+
+    def __init__(self, datasets: Sequence):
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self) -> int:
+        return int(self._offsets[-1])
+
+    def __getitem__(self, idx: int):
+        k = int(np.searchsorted(self._offsets, idx, side="right")) - 1
+        return self.datasets[k][idx - int(self._offsets[k])]
+
+    def batches(self, batch_size: int,
+                order: Optional[Sequence[int]] = None):
+        return BaseVideoDataset.batches(self, batch_size, order)
+
+
+class ImageDataset(VideoDataset):
+    """`image_path label[s]` lines (image_dataset.py:7-45): one int label,
+    or with `num_classes` a many-hot row for every line.  Its pipelines
+    pair ImageDecode with BuildPseudoClip."""
+
+    def __init__(self, ann_file: str, pipeline: Compose,
+                 num_classes: Optional[int] = None, **kwargs):
+        self.num_classes = num_classes
+        super().__init__(ann_file, pipeline, **kwargs)
+
+    def load_annotations(self) -> List[Dict]:
+        infos = []
+        with open(self.ann_file) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                filename, labels = parts[0], [int(x) for x in parts[1:]]
+                if self.data_prefix:
+                    filename = os.path.join(self.data_prefix, filename)
+                if self.num_classes:
+                    onehot = np.zeros((self.num_classes,), np.float32)
+                    onehot[labels] = 1.0
+                    infos.append(dict(filename=filename, label=onehot))
+                else:
+                    if len(labels) != 1:
+                        raise ValueError(f"{line.strip()!r}: multi-label "
+                                         f"rows need num_classes")
+                    infos.append(dict(filename=filename, label=labels[0]))
+        return infos
+
+
+class RawVideoDataset(BaseVideoDataset):
+    """`video_dir label num_clips positive_clip_inds...` lines
+    (rawvideo_dataset.py:77-99): untrimmed videos cut into clip files."""
+
+    def load_annotations(self) -> List[Dict]:
+        infos = []
+        with open(self.ann_file) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                video_dir = parts[0]
+                if self.data_prefix:
+                    video_dir = os.path.join(self.data_prefix, video_dir)
+                infos.append(dict(
+                    video_dir=video_dir, label=int(parts[1]),
+                    num_clips=int(parts[2]),
+                    positive_clip_inds=[int(x) for x in parts[3:]]))
+        return infos

@@ -713,17 +713,14 @@ UNPORTED_OPS = dict(
     **{op: "8e" for op in ("LoadLocalizationFeature",
                            "GenerateLocalizationLabels", "LoadProposals",
                            "SampleProposalFrames")},
-    SampleAVAFrames="8f",
-    **{op: "8d" for op in ("RandomCrop", "RandomRescale", "BuildPseudoClip",
-                           "ImageDecode", "ArrayDecode", "Rename",
-                           "Transpose", "Collect")})
+    SampleAVAFrames="8f")
 
 
 def build_pipeline(cfgs: Sequence[Dict]) -> Compose:
     """Build from mmaction-style [{'type': 'SampleFrames', ...}, ...].
     An op type that is not ported raises KeyError naming the part of
     ROADMAP.md queue 1 item 8 that ports it (`UNPORTED_OPS`: the audio,
-    pose, localization, AVA and OmniSource ops of the JAX package's
+    pose, localization and AVA ops of the JAX package's
     pipelines_extra)."""
     # the decode ops (DecordInit, DecordDecode, ...) register on import
     from ..io import video_decode  # noqa: F401
@@ -741,3 +738,7 @@ def build_pipeline(cfgs: Sequence[Dict]) -> Compose:
                            f"{sorted(PIPELINES)}")
         ops.append(PIPELINES.get(name)(**cfg))
     return Compose(ops)
+
+
+# the ops of pipelines_extra register with the ones above
+from . import pipelines_extra  # noqa: E402,F401

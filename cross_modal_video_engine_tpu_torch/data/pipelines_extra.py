@@ -1,0 +1,228 @@
+"""Pipeline ops beyond data/pipelines.py: geometry, image decode and the
+formatting tail.
+
+Counterpart of the matching ops of
+cross_modal_video_engine_tpu/data/pipelines_extra.py, over the same
+`results` dict contract and registry keys:
+
+* `RandomCrop` (augmentations.py:556-680): a square crop at a seeded
+  random corner, carrying keypoints, boxes (pixel or, with
+  `bbox_coords='normalized'`, [0, 1] coordinates) and the crop
+  quadruple along;
+* `RandomRescale` (augmentations.py:1171-1220): the short side resized to
+  a seeded random size in a closed range, aspect kept;
+* `BuildPseudoClip` (loading.py:1611-1640): one image repeated into a
+  clip;
+* `ImageDecode`: one image file as the clip's only frame, RGB, read by
+  `reader` (filename -> (H, W, 3) uint8 RGB; the default reads with cv2,
+  imported on call: the card's machine has no cv2, so a caller there
+  hands a reader in);
+* `ArrayDecode` (loading.py:1350-1390): frames picked from an in-memory
+  (T, H, W, C) array, RGB or two-channel flow;
+* `Rename`, `Transpose`, `Collect` (formatting.py).
+
+The audio, pose, localization and AVA ops come with ROADMAP.md queue 1
+items 8e-8h (data/pipelines.UNPORTED_OPS).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..utils.registry import PIPELINES
+from .pipelines import Resize
+
+
+def _combine_quadruple(a, b):
+    return (a[0] + a[2] * b[0], a[1] + a[3] * b[1], a[2] * b[2], a[3] * b[3])
+
+
+@PIPELINES.register("RandomCrop")
+class RandomCrop:
+    """A size x size crop at a corner drawn from default_rng(seed)."""
+
+    def __init__(self, size: int, seed: Optional[int] = None):
+        self.size = size
+        self.rng = np.random.default_rng(seed)
+
+    @staticmethod
+    def _box_crop(box, crop_bbox):
+        x1, y1, x2, y2 = crop_bbox
+        out = box.copy()
+        out[..., 0::2] = np.clip(box[..., 0::2] - x1, 0, x2 - x1 - 1)
+        out[..., 1::2] = np.clip(box[..., 1::2] - y1, 0, y2 - y1 - 1)
+        return out
+
+    @staticmethod
+    def _box_crop_normalized(box, x0, y0, size, img_w, img_h):
+        out = np.asarray(box, np.float32).copy()
+        out[..., 0::2] = np.clip(
+            (out[..., 0::2] - x0 / img_w) * img_w / size, 0.0, 1.0)
+        out[..., 1::2] = np.clip(
+            (out[..., 1::2] - y0 / img_h) * img_h / size, 0.0, 1.0)
+        return out
+
+    def __call__(self, results: Dict) -> Dict:
+        img_h, img_w = results["img_shape"]
+        if self.size > img_h or self.size > img_w:
+            raise ValueError(f"crop {self.size} of a {img_h}x{img_w} image")
+        y0 = int(self.rng.integers(0, img_h - self.size)) \
+            if img_h > self.size else 0
+        x0 = int(self.rng.integers(0, img_w - self.size)) \
+            if img_w > self.size else 0
+        bbox = np.array([x0, y0, x0 + self.size, y0 + self.size])
+        if "imgs" in results:
+            results["imgs"] = [im[y0:y0 + self.size, x0:x0 + self.size]
+                               for im in results["imgs"]]
+        if "keypoint" in results:
+            results["keypoint"] = results["keypoint"] - bbox[:2]
+        normalized = results.get("bbox_coords") == "normalized"
+        for key in ("gt_bboxes", "proposals"):
+            if results.get(key) is None or not len(results[key]):
+                continue
+            if normalized:
+                results[key] = self._box_crop_normalized(
+                    results[key], x0, y0, self.size, img_w, img_h)
+            else:
+                results[key] = self._box_crop(results[key], bbox)
+        quad = results.get("crop_quadruple", (0.0, 0.0, 1.0, 1.0))
+        results["crop_quadruple"] = _combine_quadruple(
+            quad, (x0 / img_w, y0 / img_h, self.size / img_w,
+                   self.size / img_h))
+        results["crop_bbox"] = bbox
+        results["img_shape"] = (self.size, self.size)
+        return results
+
+
+@PIPELINES.register("RandomRescale")
+class RandomRescale:
+    """The short side resized to an int drawn in [lo, hi] from
+    default_rng(seed), aspect kept (data/pipelines.Resize)."""
+
+    def __init__(self, scale_range: Tuple[int, int],
+                 seed: Optional[int] = None):
+        lo, hi = scale_range
+        if not 0 < lo < hi:
+            raise ValueError(f"scale_range {scale_range}")
+        self.scale_range = (lo, hi)
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, results: Dict) -> Dict:
+        short = int(self.rng.integers(self.scale_range[0],
+                                      self.scale_range[1] + 1))
+        results = Resize((-1, short), keep_ratio=True)(results)
+        results["short_edge"] = short
+        return results
+
+
+@PIPELINES.register("BuildPseudoClip")
+class BuildPseudoClip:
+    """One image repeated clip_len times (copies after the first)."""
+
+    def __init__(self, clip_len: int):
+        self.clip_len = clip_len
+
+    def __call__(self, results: Dict) -> Dict:
+        if len(results["imgs"]) != 1:
+            raise ValueError("BuildPseudoClip takes a single image")
+        results["imgs"] = [results["imgs"][0]] + \
+            [np.copy(results["imgs"][0]) for _ in range(1, self.clip_len)]
+        results["clip_len"] = self.clip_len
+        results["num_clips"] = 1
+        return results
+
+
+def read_image_rgb(filename: str) -> np.ndarray:
+    """cv2.imread's BGR image as RGB (mmcv's imfrombytes 'rgb')."""
+    import cv2
+    img = cv2.imread(filename)
+    if img is None:
+        raise FileNotFoundError(filename)
+    return img[..., ::-1]
+
+
+@PIPELINES.register("ImageDecode")
+class ImageDecode:
+    """The image file `results["filename"]` as the only frame (RGB);
+    reader: filename -> (H, W, 3) uint8 RGB (default read_image_rgb)."""
+
+    def __init__(self, reader: Optional[Callable] = None):
+        self.reader = reader or read_image_rgb
+
+    def __call__(self, results: Dict) -> Dict:
+        img = np.ascontiguousarray(self.reader(results["filename"]))
+        results["imgs"] = [img]
+        results["original_shape"] = img.shape[:2]
+        results["img_shape"] = img.shape[:2]
+        results["total_frames"] = 1
+        return results
+
+
+@PIPELINES.register("ArrayDecode")
+class ArrayDecode:
+    """Frames `frame_inds` (+ offset) of `results["array"]`: RGB frames,
+    or for 'Flow' the x and y planes of each."""
+
+    def __call__(self, results: Dict) -> Dict:
+        array = results["array"]
+        inds = np.asarray(results["frame_inds"])
+        if inds.ndim != 1:
+            inds = np.squeeze(inds)
+        inds = inds + results.get("offset", 0)
+        modality = results.get("modality", "RGB")
+        imgs = []
+        for idx in np.atleast_1d(inds):
+            if modality == "RGB":
+                imgs.append(array[idx])
+            elif modality == "Flow":
+                imgs.extend([array[idx, ..., 0], array[idx, ..., 1]])
+            else:
+                raise NotImplementedError(modality)
+        results["imgs"] = imgs
+        results["original_shape"] = imgs[0].shape[:2]
+        results["img_shape"] = imgs[0].shape[:2]
+        return results
+
+
+@PIPELINES.register("Rename")
+class Rename:
+    def __init__(self, mapping: Dict[str, str]):
+        self.mapping = dict(mapping)
+
+    def __call__(self, results: Dict) -> Dict:
+        for old, new in self.mapping.items():
+            if old in results:
+                if new in results:
+                    raise KeyError(f"Rename {old!r}: {new!r} exists")
+                results[new] = results.pop(old)
+        return results
+
+
+@PIPELINES.register("Transpose")
+class Transpose:
+    def __init__(self, keys: Sequence[str], order: Sequence[int]):
+        self.keys = list(keys)
+        self.order = tuple(order)
+
+    def __call__(self, results: Dict) -> Dict:
+        for key in self.keys:
+            results[key] = np.asarray(results[key]).transpose(self.order)
+        return results
+
+
+@PIPELINES.register("Collect")
+class Collect:
+    """Only `keys` kept, with `meta_keys` under 'img_metas' when given."""
+
+    def __init__(self, keys: Sequence[str], meta_keys: Sequence[str] = ()):
+        self.keys = list(keys)
+        self.meta_keys = list(meta_keys)
+
+    def __call__(self, results: Dict) -> Dict:
+        out = {k: results[k] for k in self.keys}
+        if self.meta_keys:
+            out["img_metas"] = {k: results[k] for k in self.meta_keys
+                                if k in results}
+        return out

@@ -142,9 +142,11 @@ class MHA(nn.Module):
     With `use_flash` an unmasked self-attention call goes through
     ops/flash_attention.flash_attention instead (the CUDA kernel on a CUDA
     tensor), as the JAX MHA(use_flash=True) does; a call with a mask
-    keeps the plain path."""
+    keeps the plain path.  dtype=None computes in the dtype of the
+    queries, as the JAX TimeSformer's `MHA(D, H, h.dtype)` does (its
+    parameters then in `param_dtype`)."""
 
-    def __init__(self, width: int, heads: int, dtype: torch.dtype,
+    def __init__(self, width: int, heads: int, dtype: Optional[torch.dtype],
                  device=None, use_flash: bool = False,
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -174,7 +176,7 @@ class MHA(nn.Module):
         kv = x if is_self else kv
         b, l, d = x.shape
         s = kv.shape[1]
-        h, hd, dt = self.heads, d // self.heads, self.dtype
+        h, hd, dt = self.heads, d // self.heads, self.dtype or x.dtype
         wq, bq, wk, bk, wv, bv = (p.to(dt) for p in self.qkv_params())
 
         def heads_first(t, n):

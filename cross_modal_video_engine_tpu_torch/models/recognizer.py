@@ -8,6 +8,10 @@ cross_modal_video_engine_tpu/models/recognizer.py:
 * `average_clip`: scores (or probabilities) averaged over test clips;
 * `Recognizer3D`: backbone -> head -> class scores, plus the explain
   surface (`forward_with_capture`, `score_from_layer`);
+* `Recognizer3DShuffleEmb`, `Recognizer3DShuffleSoft`,
+  `Recognizer3DShuffleExtra`: Recognizer3Ds whose `forward_train(videos,
+  shuffle_videos, labels)` contrasts ordered and frame-shuffled clips
+  (losses/shuffle.py);
 * `Recognizer3DRelseq`: backbone -> RNNDecoderHead, greedy feedback at
   inference, per-step probabilities averaged over clips; `forward_train`
   is the teacher-forced SeqMLL loss in train mode;
@@ -35,7 +39,9 @@ cross_modal_video_engine_tpu/models/recognizer.py:
   transformer backbones of models/{swin3d,mvit,videomae_vit,videoclip}.py
   and Recognizer3DCLIP.
 
-The TimeSformer heads compute in fp32 on the parameters' values: the
+The TimeSformer recognizers keep f32 masters, as the JAX package's init
+does (a serving loader casts the whole model to bf16 where the config
+says so); their heads compute in fp32 on the parameters' values: the
 backbone's CLS feature is fp32, and the JAX heads promote to it; the
 3D-CNN heads compute in their parameters' dtype, as flax's Dense does on
 the pooled feature.  State-dict keys are `backbone.*`
@@ -59,6 +65,7 @@ from ..utils.device import resolve_device
 from ..utils.registry import RECOGNIZERS
 from .caption_transformer import CaptionConfig, CaptionTransformer
 from .clip import MHA, CLIPConfig, LayerNormF32, PatchEmbed, VisionTower
+from ..ops.mixed_precision import acc_dtype
 from .flax_nn import Dense, LayerNorm
 from .decoder_head import RNNDecoderConfig, RNNDecoderHead
 from .heads import I3DHead, TRNHead, TSNHead, X3DHead
@@ -75,8 +82,9 @@ class TimeSformerHead(nn.Module):
                                 device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.float(), self.fc_cls.weight.float(),
-                        self.fc_cls.bias.float())
+        dt = acc_dtype(x.dtype, self.fc_cls.weight.dtype)   # fp32 or wider
+        return F.linear(x.to(dt), self.fc_cls.weight.to(dt),
+                        self.fc_cls.bias.to(dt))
 
 
 def average_clip(scores: torch.Tensor, num_segs: int,
@@ -98,9 +106,10 @@ class Recognizer3D(nn.Module):
                  device=None):
         super().__init__()
         device = resolve_device(device)   # None: the CUDA device
+        self.num_classes = num_classes
         self.backbone = TimeSformer(backbone_cfg, device)
         self.cls_head = TimeSformerHead(num_classes, backbone_cfg.embed_dims,
-                                        backbone_cfg.torch_dtype(), device)
+                                        device=device)
         self.eval()   # the JAX default (train=False); .train() for dropout
 
     def extract_feat(self, videos: torch.Tensor) -> torch.Tensor:
@@ -126,6 +135,82 @@ class Recognizer3D(nn.Module):
         return self.cls_head(self.backbone.forward_from(tokens, layer))
 
 
+class _ShuffleBase(Recognizer3D):
+    """The shuffle-contrast recognizers (JAX recognizer.py:57-143, MCT
+    recognizer_shuffle.py:13, 141, 269): a Recognizer3D (the same
+    `backbone` and `cls_head` state dict) whose `forward_train` also runs
+    a frame-shuffled copy of each clip through the backbone and contrasts
+    the two; inference is Recognizer3D's.  forward_train switches to
+    train mode, as the JAX method runs with train=True, and returns
+    {"loss_cls", ..., "loss"}."""
+
+    def _features(self, videos, shuffle_videos):
+        self.train()
+        return self.backbone(videos), self.backbone(shuffle_videos)
+
+
+@RECOGNIZERS.register("Recognizer3DShuffleEmb")
+class Recognizer3DShuffleEmb(_ShuffleBase):
+    """Cross entropy on the ordered clip plus cos_weight times the cosine
+    push-away between the ordered and shuffled CLS features
+    (ce_cos_loss.py shuffle_score)."""
+
+    def __init__(self, backbone_cfg: TimeSformerConfig, num_classes: int,
+                 device=None, margin: float = 0.5, cos_weight: float = 0.5):
+        super().__init__(backbone_cfg, num_classes, device)
+        self.margin, self.cos_weight = margin, cos_weight
+
+    def forward_train(self, videos, shuffle_videos, labels):
+        from ..losses.shuffle import cosine_away_loss
+        x, sx = self._features(videos, shuffle_videos)
+        loss_cls = F.cross_entropy(self.cls_head(x), labels)
+        loss_cos = self.cos_weight * cosine_away_loss(x, sx, self.margin)
+        return {"loss_cls": loss_cls, "loss_cos": loss_cos,
+                "loss": loss_cls + loss_cos}
+
+
+@RECOGNIZERS.register("Recognizer3DShuffleSoft")
+class Recognizer3DShuffleSoft(_ShuffleBase):
+    """Cross entropy on the ordered clip plus soft_weight times the
+    soft-label cross entropy of the shuffled clip's scores: the true
+    class at `margin`, the rest (1 - margin) / C (ce_soft_loss.py)."""
+
+    def __init__(self, backbone_cfg: TimeSformerConfig, num_classes: int,
+                 device=None, margin: float = 0.5, soft_weight: float = 0.5):
+        super().__init__(backbone_cfg, num_classes, device)
+        self.margin, self.soft_weight = margin, soft_weight
+
+    def forward_train(self, videos, shuffle_videos, labels):
+        from ..losses.shuffle import soft_cross_entropy, soft_label_smooth
+        x, sx = self._features(videos, shuffle_videos)
+        loss_cls = F.cross_entropy(self.cls_head(x), labels)
+        soft = soft_label_smooth(labels, self.num_classes, self.margin)
+        loss_soft = self.soft_weight * soft_cross_entropy(self.cls_head(sx),
+                                                          soft)
+        return {"loss_cls": loss_cls, "loss_soft": loss_soft,
+                "loss": loss_cls + loss_soft}
+
+
+@RECOGNIZERS.register("Recognizer3DShuffleExtra")
+class Recognizer3DShuffleExtra(_ShuffleBase):
+    """Shuffled clips are their own class, the last of num_classes (build
+    with the real classes + 1): one cross entropy over the ordered clips'
+    scores with their labels and the shuffled clips' with label
+    num_classes - 1 (recognizer_shuffle.py:289-297)."""
+
+    def forward_train(self, videos, shuffle_videos, labels):
+        x, sx = self._features(videos, shuffle_videos)
+        scores = torch.cat([self.cls_head(x), self.cls_head(sx)])
+        shuffle_labels = torch.full((sx.shape[0],), self.num_classes - 1,
+                                    dtype=labels.dtype, device=labels.device)
+        loss = F.cross_entropy(scores, torch.cat([labels, shuffle_labels]))
+        return {"loss_cls": loss, "loss": loss}
+
+
+SHUFFLE_RECOGNIZERS = (Recognizer3DShuffleEmb, Recognizer3DShuffleSoft,
+                       Recognizer3DShuffleExtra)
+
+
 @RECOGNIZERS.register("Recognizer3DRelseq")
 class Recognizer3DRelseq(nn.Module):
     def __init__(self, backbone_cfg: TimeSformerConfig,
@@ -133,8 +218,7 @@ class Recognizer3DRelseq(nn.Module):
         super().__init__()
         device = resolve_device(device)   # None: the CUDA device
         self.backbone = TimeSformer(backbone_cfg, device)
-        self.cls_head = RNNDecoderHead(decoder_cfg,
-                                       backbone_cfg.torch_dtype(), device)
+        self.cls_head = RNNDecoderHead(decoder_cfg, device=device)
         self.eval()   # the JAX default (train=False); .train() for dropout
 
     def extract_feat(self, videos: torch.Tensor) -> torch.Tensor:

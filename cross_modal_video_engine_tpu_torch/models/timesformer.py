@@ -12,11 +12,22 @@ and space-only blocks are pre-norm ViT blocks.  With
 through ops/flash_attention (the CUDA kernel on the card), as in the JAX
 package.
 
-Parameters live in the configured dtype, which is where the JAX package
-has them after `init_recognizer`'s bf16 cast (utils/precision.py): every
-matrix product runs in that dtype, LayerNorms take fp32 statistics with
-their scale and bias applied in fp32 (eps 1e-6), and the output is
-rounded back to the activation dtype.
+Parameters are float32 masters whatever `cfg.dtype` says, as the JAX
+package's `init` makes them, and each layer computes in the dtype flax
+gives it (models/flax_nn.py): `embed_tokens` rounds the videos and the
+cls, pos and time embeddings to `cfg.dtype` where the JAX module does;
+the patch embedding, `temporal_fc` and the FFN promote their input with
+their parameters (flax's `dtype=None`); the attention computes in its
+input's dtype (`MHA(D, H, h.dtype)`); LayerNorms take fp32 statistics
+with their scale and bias applied in fp32 (eps 1e-6) and return the
+input's dtype.  So a TimeSformer configured in bfloat16 on f32 masters
+rounds its input and embeddings to bf16 and computes in f32 from the
+patch embedding on; the serving loaders cast the whole model to bf16
+(`utils/precision.maybe_cast_model_bf16`, the JAX package's
+`maybe_cast_bf16`), and then every layer computes in bf16; a trainer's
+bf16 copy of the masters computes in bf16 where the config says
+bfloat16 and in f32 (on bf16-rounded values) where it says float32, as
+the JAX step's `_cast_tree` does.
 
 Parameter names follow the mmaction/mmcv TimeSformer state dict:
 `patch_embed.projection`, `cls_token`, `pos_embed`, `time_embed`, `norm`
@@ -56,8 +67,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.mixed_precision import acc_dtype
 from ..utils.device import resolve_device
 from .clip import MHA
+from .flax_nn import Dense, result_dtype
 from .layers import Dropout
 
 
@@ -92,7 +105,8 @@ class TimeSformerConfig:
         return self.num_frames // self.tubelet_size
 
     def torch_dtype(self) -> torch.dtype:
-        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+        return {"bfloat16": torch.bfloat16,
+                "float64": torch.float64}.get(self.dtype, torch.float32)
 
 
 class DropPath(nn.Module):
@@ -129,18 +143,21 @@ class DropPath(nn.Module):
 class LN(nn.Module):
     """flax LayerNorm(epsilon=1e-6, dtype=float32) on fp32 activations:
     fp32 statistics, scale and bias applied in fp32, output in x.dtype.
-    The scale and bias are stored in the activation dtype, so torch's
-    layer_norm, which computes in fp32 and rounds once, does exactly that
-    in one pass, without an fp32 copy of x."""
+    Where the scale and bias are in x's dtype, torch's layer_norm, which
+    computes in fp32 and rounds once, does exactly that in one pass,
+    without an fp32 copy of x; otherwise x, scale and bias go to fp32."""
 
-    def __init__(self, dim: int, dtype: torch.dtype, device=None):
+    def __init__(self, dim: int, device=None):
         super().__init__()
-        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
-        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, self.weight.shape, self.weight.to(x.dtype),
-                            self.bias.to(x.dtype), 1e-6)
+        w, b = self.weight, self.bias
+        if w.dtype == x.dtype:
+            return F.layer_norm(x, w.shape, w, b.to(x.dtype), 1e-6)
+        return F.layer_norm(x.float(), w.shape, w.float(), b.float(),
+                            1e-6).to(x.dtype)
 
 
 class _Attention(nn.Module):
@@ -151,26 +168,28 @@ class _Attention(nn.Module):
                  norm: bool = False, temporal_fc: bool = False,
                  use_flash: bool = False):
         super().__init__()
-        dt, d = cfg.torch_dtype(), cfg.embed_dims
+        d = cfg.embed_dims
         if norm:
-            self.norm = LN(d, dt, device)
-        self.attn = MHA(d, cfg.num_heads, dt, device, use_flash=use_flash)
+            self.norm = LN(d, device)
+        self.attn = MHA(d, cfg.num_heads, None, device, use_flash=use_flash,
+                        param_dtype=torch.float32)
         if temporal_fc:
-            self.temporal_fc = nn.Linear(d, d, dtype=dt, device=device)
+            self.temporal_fc = Dense(d, d, device=device)
 
 
 class FFN(nn.Module):
-    """Linear -> exact GELU -> Linear, in mmcv FFN's key layout."""
+    """Dense -> exact GELU -> Dense (flax's `dtype=None`), in mmcv FFN's
+    key layout."""
 
     def __init__(self, cfg: TimeSformerConfig, device=None, *,
                  norm: bool = False):
         super().__init__()
-        dt, d = cfg.torch_dtype(), cfg.embed_dims
+        d = cfg.embed_dims
         if norm:
-            self.norm = LN(d, dt, device)
+            self.norm = LN(d, device)
         self.layers = nn.Sequential(
-            nn.Sequential(nn.Linear(d, 4 * d, dtype=dt, device=device)),
-            nn.Linear(4 * d, d, dtype=dt, device=device))
+            nn.Sequential(Dense(d, 4 * d, device=device)),
+            Dense(4 * d, d, device=device))
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         return self.layers[1](F.gelu(self.layers[0][0](h)))
@@ -235,8 +254,8 @@ class JointBlock(nn.Module):
     def __init__(self, cfg: TimeSformerConfig, drop_path: float = 0.0,
                  device=None):
         super().__init__()
-        dt, d = cfg.torch_dtype(), cfg.embed_dims
-        self.norms = nn.ModuleList([LN(d, dt, device), LN(d, dt, device)])
+        d = cfg.embed_dims
+        self.norms = nn.ModuleList([LN(d, device), LN(d, device)])
         self.attentions = nn.ModuleList([_Attention(
             cfg, device, use_flash=cfg.use_flash_attention)])
         self.ffns = nn.ModuleList([FFN(cfg, device)])
@@ -263,22 +282,21 @@ class TimeSformer(nn.Module):
                                       "joint_space_time", "space_only"):
             raise ValueError(f"attention_type {cfg.attention_type!r}")
         self.cfg = cfg
-        dt, d, ps = cfg.torch_dtype(), cfg.embed_dims, cfg.patch_size
+        d, ps = cfg.embed_dims, cfg.patch_size
         self.patch_embed = nn.Module()
         if cfg.tubelet_size > 1:
             k = (cfg.tubelet_size, ps, ps)
-            self.patch_embed.projection = nn.Conv3d(
-                3, d, k, stride=k, dtype=dt, device=device)
+            self.patch_embed.projection = nn.Conv3d(3, d, k, stride=k,
+                                                    device=device)
         else:
-            self.patch_embed.projection = nn.Conv2d(
-                3, d, ps, stride=ps, dtype=dt, device=device)
-        self.cls_token = nn.Parameter(
-            torch.zeros(1, 1, d, dtype=dt, device=device))
+            self.patch_embed.projection = nn.Conv2d(3, d, ps, stride=ps,
+                                                    device=device)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
         self.pos_embed = nn.Parameter(
-            torch.zeros(1, cfg.num_patches + 1, d, dtype=dt, device=device))
+            torch.zeros(1, cfg.num_patches + 1, d, device=device))
         if cfg.attention_type != "space_only":
             self.time_embed = nn.Parameter(
-                torch.zeros(1, cfg.time_tokens, d, dtype=dt, device=device))
+                torch.zeros(1, cfg.time_tokens, d, device=device))
         self.drop_after_pos = Dropout(cfg.dropout_ratio)
         self.drop_after_time = Dropout(cfg.dropout_ratio)
         block = (DividedSTBlock if cfg.attention_type == "divided_space_time"
@@ -287,7 +305,7 @@ class TimeSformer(nn.Module):
         self.transformer_layers = nn.Module()
         self.transformer_layers.layers = nn.ModuleList(
             block(cfg, rate, device) for rate in rates)
-        self.norm = LN(d, dt, device)
+        self.norm = LN(d, device)
         self.eval()   # the JAX default (train=False); .train() for dropout
 
     @property
@@ -309,11 +327,13 @@ class TimeSformer(nn.Module):
             x = x.reshape(-1, cfg.time_tokens, cfg.num_patches + 1,
                           cfg.embed_dims).mean(1)
         x = self.norm(x)
-        return x, x[:, 0].float()
+        return x, x[:, 0].to(acc_dtype(x.dtype))
 
     def embed_tokens(self, videos: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, 3) -> the layer-0 token sequence: patch embedding,
-        CLS, spatial and (unless space-only) temporal embeddings."""
+        CLS, spatial and (unless space-only) temporal embeddings.  The
+        videos and the three embeddings are rounded to `cfg.dtype`; the
+        patch embedding and the sums promote, as flax's do."""
         cfg = self.cfg
         dt = cfg.torch_dtype()
         b, t_in = videos.shape[:2]
@@ -322,20 +342,27 @@ class TimeSformer(nn.Module):
                              f"{cfg.num_frames}")
         p, d, t = cfg.num_patches, cfg.embed_dims, cfg.time_tokens
         proj = self.patch_embed.projection
+        videos = videos.to(dt)
+        ct = result_dtype(videos, proj.weight, proj.bias)
+        w, bias = proj.weight.to(ct), proj.bias.to(ct)
         if cfg.tubelet_size > 1:                 # (B, 3, T, H, W)
-            x = proj(videos.to(dt).permute(0, 4, 1, 2, 3))
+            x = F.conv3d(videos.to(ct).permute(0, 4, 1, 2, 3), w, bias,
+                         stride=proj.stride)
             x = x.permute(0, 2, 3, 4, 1).reshape(b * t, p, d)
         else:                                    # (B*T, 3, H, W)
-            x = proj(videos.to(dt).flatten(0, 1).permute(0, 3, 1, 2))
+            x = F.conv2d(videos.to(ct).flatten(0, 1).permute(0, 3, 1, 2),
+                         w, bias, stride=proj.stride)
             x = x.flatten(2).transpose(1, 2)
+        cls = self.cls_token.to(dt)
+        ct = result_dtype(cls, x)
         x = self.drop_after_pos(
-            torch.cat([self.cls_token.expand(b * t, 1, d), x], 1)
-            + self.pos_embed)
+            torch.cat([cls.expand(b * t, 1, d).to(ct), x.to(ct)], 1)
+            + self.pos_embed.to(dt))
         if cfg.attention_type != "space_only":
             cls_tokens = x.reshape(b, t, p + 1, d)[:, 0, :1]  # frame 0's
             patches = self.drop_after_time(
                 x[:, 1:].reshape(b, t, p, d).transpose(1, 2)
-                + self.time_embed)
+                + self.time_embed.to(dt))
             x = torch.cat([cls_tokens, patches.reshape(b, p * t, d)], 1)
         return x
 
@@ -360,7 +387,7 @@ class TimeSformer(nn.Module):
     def forward_from(self, tokens: torch.Tensor, layer: int) -> torch.Tensor:
         """Continue from the tokens after block `layer` to the cls feature
         (the explain stack's gradient target)."""
-        x = tokens.to(self.cfg.torch_dtype())
+        x = tokens.to(self.cfg.torch_dtype())   # as the JAX module does
         for blk in list(self.blocks)[layer + 1:]:
             x = self._block(blk, x)
         return self._pool(x)[1]

@@ -35,7 +35,11 @@ used:
 * the update p - lr * u, with lr a float32 value; a schedule is evaluated
   in float32 at the count before the step, so with `warmup_steps > 0` the
   first update has a learning rate of 0 (the momentum trace and Adam's
-  moments still take that step's gradient).
+  moments still take that step's gradient);
+* `step(update_scale=s)` multiplies the whole update -lr * u by the
+  float32 s before it is applied, as the JAX multigrid step scales
+  optax's updates (weight decay included): one more rounding, not a
+  changed lr.
 
 The moments live in `state[p]` from construction on, as optax's `init`
 makes them, so they can be read and written by name (`named_state`,
@@ -138,7 +142,7 @@ class OptaxOptimizer(torch.optim.Optimizer):
         return self.lr
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, update_scale: Optional[float] = None):
         if closure is not None:
             raise ValueError("OptaxOptimizer.step takes no closure")
         params = self.params
@@ -165,6 +169,8 @@ class OptaxOptimizer(torch.optim.Optimizer):
                 torch._foreach_add_(traces, grads)
                 grads = traces
             updates = torch._foreach_mul(grads, -lr)
+            if update_scale is not None:
+                torch._foreach_mul_(updates, f32(update_scale))
             torch._foreach_add_(params, updates)
             return None
         if self.kind in ("adam", "adamw"):
@@ -194,6 +200,8 @@ class OptaxOptimizer(torch.optim.Optimizer):
             torch._foreach_rsqrt_(scale)
             updates = torch._foreach_mul(grads, scale)
         torch._foreach_mul_(updates, -lr)
+        if update_scale is not None:
+            torch._foreach_mul_(updates, f32(update_scale))
         torch._foreach_add_(params, updates)
         return None
 

@@ -16,18 +16,21 @@ Counterpart of cross_modal_video_engine_tpu/train/recognition_trainer.py
   warmup-cosine schedule when warmup_steps > 0), as a factory of
   `OptaxOptimizer`s;
 * `make_cls_train_step`: cross entropy over the class scores in f32,
-  with top-1 accuracy; `bf16=True` keeps the f32 masters and runs the
-  forward and backward on a bfloat16 copy of the parameters and videos
-  (a backbone configured in bfloat16, through `torch.func.functional_call`
-  with the casts inside autograd), the scores in f32, the gradients back
-  in f32: the JAX step's `_cast_tree` (mmcv's Fp16OptimizerHook);
-* `make_cls_train_step` also trains the recognizers without BatchNorm
-  (`BackboneClassifier` over Swin3D, MViT, VideoMAEViT or VideoCLIP's
-  pooled encoder, and `Recognizer3DCLIP`): their parameters are f32
-  masters, and `bf16=True` calls the model itself through
-  `functional_call` on bf16 copies of them and the videos, each layer then
-  computing in the dtype flax would (models/flax_nn.py), as the JAX
-  step's `_cast_tree` does;
+  with top-1 accuracy, for a Recognizer3D (a TimeSformer) and the
+  recognizers without BatchNorm (`BackboneClassifier` over Swin3D, MViT,
+  VideoMAEViT or VideoCLIP's pooled encoder, and `Recognizer3DCLIP`).
+  Their parameters are f32 masters whatever their config's dtype says,
+  and each layer computes in the dtype flax gives it (models/flax_nn.py;
+  a TimeSformer configured in bfloat16 rounds its input and embeddings
+  to bf16 and computes in f32 from there, as the JAX one does).
+  `bf16=True` calls the model itself through `torch.func.functional_call`
+  on bfloat16 copies of the masters and the videos, the casts inside
+  autograd, the scores in f32, the gradients back in f32: the JAX step's
+  `_cast_tree` (mmcv's Fp16OptimizerHook);
+* `blending=` (data/blending.py, mixup or cutmix) in both classification
+  steps: the blend runs after the bf16 cast of the videos and before the
+  dropout draws, the loss is the soft-label cross entropy and the
+  accuracy is taken against the hard labels (JAX :91-105, 127-145);
 * `make_seq_train_step`: the SeqMLL loss with teacher forcing
   (`Recognizer3DRelseq.forward_train`, or a `RecognizerRelseq` on a
   backbone without BatchNorm);
@@ -46,24 +49,35 @@ Counterpart of cross_modal_video_engine_tpu/train/recognition_trainer.py
   cross entropy plus the neck's `loss_aux` (logged apart as `loss_cls`),
   with the same bf16 option;
 * `evaluate_classification`: top-1/top-5 and mean class accuracy in eval
-  mode (a BatchNorm recognizer normalizes by its running statistics).
+  mode (a BatchNorm recognizer normalizes by its running statistics);
+* multigrid (JAX :203-400): `adapt_clips_to_bucket` (frames picked by
+  np.round(np.linspace), the antialiased bilinear resize of
+  `jax.image.resize`: ops/preprocess.resize), `bucketize_batches` and
+  `_RawChunker` (tails dropped), `make_multigrid_train_step` (the
+  optimizer's whole update, weight decay included, times the bucket's
+  `lr_scale`, the schedule's count one a step whatever the bucket) and
+  `train_multigrid` (the long cycle epoch by epoch, the short cycle step
+  by step, precise BN at the finest bucket after training);
+* OmniSource (JAX :403-492): `train_omnisource` alternates the main
+  source with waves of the auxiliary ones every `train_ratio[0]` main
+  steps (`it` counted across epochs from `init_it`), an exhausted aux
+  source rebuilt and an empty one ending its wave (`_cycle`), the logs
+  of aux batches under `/auxN` keys, `epoch_callback` after each epoch.
 
 A step runs the model in train mode: DropPath, the embedding dropouts,
 the heads' dropout, the decoder's input dropout and TRNHead's tuple picks
-draw from the `torch.Generator` given to the step's maker.  A
-TimeSformer configured in bfloat16 trained without `bf16=True` is
-refused: there the JAX package's f32 parameters promote the products of
-its `Dense(dtype=None)` layers back to f32 (ROADMAP.md queue 1 item 14).
-The other backbones keep f32 masters whatever their dtype says, so a
-VideoMAE or CLIP configured in bfloat16 trains as the JAX one does.
-Multigrid, OmniSource and mixup/cutmix blending come with item 8d.
+draw from the `torch.Generator` given to the step's maker (the loops:
+to `train_multigrid` and `train_omnisource`, reseeded each epoch from
+`dropout_seed` when it is given).  A model whose parameters are not f32
+masters (one cast whole to bf16 for serving) is refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, Iterable, NamedTuple, Optional
+from typing import (Any, Callable, Dict, Iterable, List, NamedTuple,
+                    Optional, Sequence)
 
 import numpy as np
 import torch
@@ -78,15 +92,13 @@ from ..models.recognizer import (BackboneClassifier, Recognizer2D,
                                  Recognizer3DRelseq, RecognizerRelseq,
                                  TPNRecognizer)
 from ..models.timesformer import DropPath
+from ..ops.preprocess import resize
 from ..utils.device import resolve_device
 from ..utils.precision import no_tf32
 from .optim import OptaxOptimizer
 
 # the parts of slice 5 still to port (ROADMAP.md queue 1 item 8)
 PARTS = {
-    "8d": "the training recipes (mixup/cutmix blending, multigrid, "
-          "OmniSource, the shuffle recognizers, the extra datasets, "
-          "samplers and pipeline ops)",
     "8e": "temporal localization (BMN, BSN, SSN)",
     "8f": "spatio-temporal detection (AVA)",
     "8g": "audio recognition",
@@ -108,11 +120,6 @@ def not_ported_model(step: str, model) -> str:
 
 
 CLASSIFIERS = (BackboneClassifier, Recognizer2D)
-BF16_CONFIG = ("a TimeSformer configured with dtype='bfloat16' trains with "
-               "bf16=True (f32 masters, a bf16 copy for the forward); "
-               "without it the JAX package's f32 parameters promote its "
-               "Dense products back to f32, which is not ported "
-               "(ROADMAP.md queue 1 item 14)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,78 +183,54 @@ def _check(model: torch.nn.Module, device) -> None:
                          f"pass device='cpu' for the CPU)")
 
 
-def _bf16_forward(model: Recognizer3D,
-                  generator: Optional[torch.Generator]):
-    """forward(videos) -> f32 scores of the model's function computed in
-    bfloat16: a parameterless copy of the model configured in bfloat16
-    (on the meta device) called on the master parameters and the videos
-    cast to bfloat16 inside autograd, so each gradient returns to its
-    f32 master as f32."""
-    cfg = dataclasses.replace(model.backbone.cfg, dtype="bfloat16")
-    shadow = Recognizer3D(cfg, model.cls_head.fc_cls.out_features,
-                          device="meta")
-    set_generator(shadow, generator)
-
-    def forward(videos: torch.Tensor) -> torch.Tensor:
-        shadow.train(model.training)
-        params = {n: p.to(torch.bfloat16)
-                  for n, p in model.named_parameters()}
-        return torch.func.functional_call(
-            shadow, params, (videos.to(torch.bfloat16),))
-
-    return forward
-
-
-def _refuse_blending(blending) -> None:
-    if blending is not None:
-        raise NotImplementedError(not_ported("blending (data/blending)",
-                                             "8d"))
+def _check_masters(model: torch.nn.Module) -> None:
+    """Training keeps f32 masters: a model cast whole to bf16 (a serving
+    loader's cast) is refused."""
+    bad = next(((n, p.dtype) for n, p in model.named_parameters()
+                if p.dtype != torch.float32), None)
+    if bad is not None:
+        raise ValueError(f"training keeps float32 masters; {bad[0]} is "
+                         f"{bad[1]} (bf16=True runs the step on a bf16 "
+                         f"copy)")
 
 
 def has_batch_norm(model: torch.nn.Module) -> bool:
     return any(isinstance(m, FlaxBatchNorm) for m in model.modules())
 
 
+def _prepare(model: torch.nn.Module, generator, device) -> None:
+    _check(model, device)
+    _check_masters(model)
+    no_tf32()
+    set_generator(model, generator)
+
+
 def make_cls_train_step(model: Recognizer3D, blending=None,
                         bf16: bool = False,
                         generator: Optional[torch.Generator] = None,
                         device=None):
-    """step(state, videos, labels) -> (state, {"loss", "top1_acc"}): one
-    forward in train mode, backward and optimizer step on `device` (None:
-    the CUDA device), where the model must lie.  labels: int64 class
-    indices.  logs: detached 0-d tensors.  Trains a Recognizer3D, a
-    Recognizer3DCLIP, or a BackboneClassifier or Recognizer2D without
-    BatchNorm; the BatchNorm recognizers train with
+    """step(state, videos, labels, draws=None) -> (state, {"loss",
+    "top1_acc"}): one forward in train mode, backward and optimizer step
+    on `device` (None: the CUDA device), where the model must lie.
+    labels: int64 class indices; draws: the blending's draws handed in
+    (None: it draws them).  logs: detached 0-d tensors.  Trains a
+    Recognizer3D, a Recognizer3DCLIP, or a BackboneClassifier or
+    Recognizer2D without BatchNorm; the BatchNorm recognizers train with
     `make_cls_train_step_stats`."""
-    _refuse_blending(blending)
     if isinstance(model, TPNRecognizer) or (
             isinstance(model, CLASSIFIERS) and has_batch_norm(model)):
         raise ValueError("a BatchNorm recognizer trains with "
                          "make_cls_train_step_stats (TPN: "
                          "make_tpn_train_step_stats)")
-    if isinstance(model, CLASSIFIERS + (Recognizer3DCLIP,)):
-        _check(model, device)
-        no_tf32()
-        set_generator(model, generator)
-        return _cls_step(model,
-                         _bf16_stats_forward(model) if bf16 else model)
-    if not isinstance(model, Recognizer3D):
+    if not isinstance(model, CLASSIFIERS + (Recognizer3DCLIP, Recognizer3D)):
         raise NotImplementedError(not_ported_model("make_cls_train_step",
                                                    model))
-    _check(model, device)
-    dtype = model.backbone.cfg.dtype
-    if bf16 and dtype != "float32":
-        raise ValueError("bf16=True keeps float32 masters: build the model "
-                         "with dtype='float32'")
-    if dtype == "bfloat16":
-        raise NotImplementedError(BF16_CONFIG)
-    no_tf32()
-    set_generator(model, generator)
-    return _cls_step(model,
-                     _bf16_forward(model, generator) if bf16 else model)
+    _prepare(model, generator, device)
+    return _cls_step(model, _bf16_forward(model) if bf16 else model,
+                     blending, bf16)
 
 
-def _bf16_stats_forward(model: torch.nn.Module):
+def _bf16_forward(model: torch.nn.Module):
     """forward(videos, **kw) -> the model's outputs computed in bfloat16:
     the model called through functional_call on bf16 copies of its master
     parameters (the BatchNorms' rounded to bf16 and held in f32), its
@@ -273,36 +256,47 @@ def make_cls_train_step_stats(model: BackboneClassifier, blending=None,
                               device=None):
     """make_cls_train_step for the BatchNorm recognizers
     (BackboneClassifier, X3DClassifier, Recognizer2D): step(state, videos,
-    labels) -> (state, {"loss", "top1_acc"}), the running statistics
-    updated in place.  bf16: f32 masters and statistics, the forward and
-    backward in bfloat16 (JAX recognition_trainer.py:122-160)."""
-    _refuse_blending(blending)
+    labels, draws=None) -> (state, {"loss", "top1_acc"}), the running
+    statistics updated in place.  bf16: f32 masters and statistics, the
+    forward and backward in bfloat16 (JAX recognition_trainer.py
+    :122-160)."""
     if isinstance(model, TPNRecognizer):
         raise ValueError("a TPNRecognizer trains with "
                          "make_tpn_train_step_stats")
     if not isinstance(model, CLASSIFIERS):
         raise NotImplementedError(not_ported_model(
             "make_cls_train_step_stats", model))
-    _check(model, device)
-    no_tf32()
-    set_generator(model, generator)
-    return _cls_step(model, _bf16_stats_forward(model) if bf16 else model)
+    _prepare(model, generator, device)
+    return _cls_step(model, _bf16_forward(model) if bf16 else model,
+                     blending, bf16)
 
 
-def _cls_step(model: torch.nn.Module, forward):
+def _cls_step(model: torch.nn.Module, forward, blending=None,
+              bf16: bool = False, update_scale: Optional[float] = None):
+    """The classification step: the videos cast to bf16 under bf16, then
+    blended (soft-label cross entropy, top-1 against the hard labels),
+    then the forward; the optimizer's update times update_scale."""
     def step(state: RecTrainState, videos: torch.Tensor,
-             labels: torch.Tensor):
+             labels: torch.Tensor, draws: Optional[Dict] = None):
         net, opt = state.model, state.optimizer
         if net is not model:
             raise ValueError("the state's model is not the one the step "
                              "was made for")
         net.train()
         opt.zero_grad(set_to_none=True)
+        if bf16:
+            videos = videos.to(torch.bfloat16)
+        soft = None
+        if blending is not None:
+            videos, soft = blending(videos, labels, draws)
         scores = forward(videos).float()
-        loss = F.cross_entropy(scores, labels)
+        if soft is None:
+            loss = F.cross_entropy(scores, labels)
+        else:
+            loss = -(soft * torch.log_softmax(scores, -1)).sum(-1).mean()
         acc = (scores.argmax(-1) == labels).float().mean()
         loss.backward()
-        opt.step()
+        opt.step(update_scale=update_scale)
         return (state._replace(step=state.step + 1),
                 {"loss": loss.detach(), "top1_acc": acc.detach()})
 
@@ -323,12 +317,7 @@ def make_seq_train_step(model: Recognizer3DRelseq,
     if not isinstance(model, (Recognizer3DRelseq, RecognizerRelseq)):
         raise NotImplementedError(not_ported_model("make_seq_train_step",
                                                    model))
-    _check(model, device)
-    if isinstance(model, Recognizer3DRelseq) \
-            and model.backbone.cfg.dtype == "bfloat16":
-        raise NotImplementedError(BF16_CONFIG)
-    no_tf32()
-    set_generator(model, generator)
+    _prepare(model, generator, device)
     return _seq_step(model)
 
 
@@ -346,9 +335,7 @@ def make_seq_train_step_stats(model: RecognizerRelseq,
     if not isinstance(model, RecognizerRelseq):
         raise NotImplementedError(not_ported_model(
             "make_seq_train_step_stats", model))
-    _check(model, device)
-    no_tf32()
-    set_generator(model, generator)
+    _prepare(model, generator, device)
     return _seq_step(model)
 
 
@@ -364,10 +351,8 @@ def make_tpn_train_step_stats(model: TPNRecognizer, bf16: bool = False,
     if not isinstance(model, TPNRecognizer):
         raise ValueError(f"make_tpn_train_step_stats trains a TPNRecognizer,"
                          f" not a {type(model).__name__}")
-    _check(model, device)
-    no_tf32()
-    set_generator(model, generator)
-    forward = _bf16_stats_forward(model) if bf16 else model
+    _prepare(model, generator, device)
+    forward = _bf16_forward(model) if bf16 else model
 
     def step(state: RecTrainState, videos: torch.Tensor,
              labels: torch.Tensor):
@@ -425,15 +410,228 @@ def evaluate_classification(model: torch.nn.Module, batches) -> Dict:
             "mean_class_accuracy": mean_class_accuracy(scores, labels)}
 
 
-# -- still to port ------------------------------------------------------------
+# -- multigrid (train/multigrid.py's schedule) ----------------------------------
 
-def _not_ported(name: str, part: str):
-    def raise_(*args, **kwargs):
-        raise NotImplementedError(not_ported(name, part))
-    raise_.__name__ = name
-    raise_.__doc__ = f"Raises: {not_ported(name, part)}."
-    return raise_
+def adapt_clips_to_bucket(clips: torch.Tensor, bucket) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B, bucket.num_frames, res, res, C): frames
+    picked at np.round(np.linspace(0, T - 1, frames)), then the
+    antialiased bilinear resize of jax.image.resize(..., "linear")."""
+    b, t, h, w, c = clips.shape
+    if t != bucket.num_frames:
+        idx = np.round(np.linspace(0, t - 1, bucket.num_frames)).astype(int)
+        clips = clips[:, torch.from_numpy(idx).to(clips.device)]
+    r = bucket.resolution
+    if (h, w) != (r, r):
+        clips = resize(clips.float(), (r, r), "bilinear")
+    return clips
 
 
-train_multigrid = _not_ported("train_multigrid", "8d")
-train_omnisource = _not_ported("train_omnisource", "8d")
+def bucketize_batches(batches, bucket):
+    """(clips, labels) batches regrouped into the bucket's shape: clips
+    adapted, re-chunked to bucket.batch_size, the tail dropped."""
+    buf_c: List[torch.Tensor] = []
+    buf_l: List[torch.Tensor] = []
+    for clips, labels in batches:
+        buf_c.append(adapt_clips_to_bucket(clips, bucket))
+        buf_l.append(torch.as_tensor(labels))
+        have = sum(x.shape[0] for x in buf_c)
+        while have >= bucket.batch_size:
+            cat_c, cat_l = torch.cat(buf_c), torch.cat(buf_l)
+            yield cat_c[:bucket.batch_size], cat_l[:bucket.batch_size]
+            buf_c, buf_l = [cat_c[bucket.batch_size:]], \
+                [cat_l[bucket.batch_size:]]
+            have = buf_c[0].shape[0]
+
+
+class _RawChunker:
+    """Chunks of exactly n samples from a stream of full-shape (clips,
+    labels) batches, the tail dropped: the short cycle's steps draw
+    different batch sizes one after another."""
+
+    def __init__(self, batches):
+        self._it = iter(batches)
+        self._c: List[torch.Tensor] = []
+        self._l: List[torch.Tensor] = []
+        self._have = 0
+
+    def take(self, n: int):
+        while self._have < n:
+            try:
+                c, lab = next(self._it)
+            except StopIteration:
+                return None
+            self._c.append(c)
+            self._l.append(torch.as_tensor(lab))
+            self._have += c.shape[0]
+        cat_c, cat_l = torch.cat(self._c), torch.cat(self._l)
+        self._c, self._l = [cat_c[n:]], [cat_l[n:]]
+        self._have = cat_c.shape[0] - n
+        return cat_c[:n], cat_l[:n]
+
+
+def make_multigrid_train_step(model: torch.nn.Module, lr_scale: float,
+                              generator: Optional[torch.Generator] = None,
+                              device=None):
+    """step(state, videos, labels) -> (state, {"loss", "top1_acc"}): the
+    classification step in f32 (a BatchNorm recognizer's statistics
+    moving in place) with the optimizer's update times lr_scale (JAX
+    recognition_trainer.py:166-196)."""
+    if isinstance(model, TPNRecognizer):
+        raise ValueError("a TPNRecognizer trains with "
+                         "make_tpn_train_step_stats")
+    _prepare(model, generator, device)
+    return _cls_step(model, model, update_scale=lr_scale)
+
+
+def _mean(xs: Sequence[torch.Tensor]) -> float:
+    if not xs:
+        return float("nan")
+    return float(torch.stack(list(xs)).double().mean())
+
+
+def _reseed(generator: Optional[torch.Generator], seed: Optional[int],
+            epoch: int) -> None:
+    if generator is not None and seed is not None:
+        generator.manual_seed(seed + epoch)
+
+
+def train_multigrid(model: torch.nn.Module, tcfg: RecognitionTrainConfig,
+                    schedule, epoch_batches: Callable[[int], Any],
+                    total_epochs: int,
+                    generator: Optional[torch.Generator] = None,
+                    precise_bn_batches: int = 0,
+                    total_steps: Optional[int] = None, device=None,
+                    dropout_seed: Optional[int] = None):
+    """The multigrid loop (JAX recognition_trainer.py:203-400): each epoch
+    at the schedule's bucket (with a short cycle, each step at its own),
+    the update scaled by bucket.batch_size / schedule.base_batch.
+    epoch_batches(epoch) yields full-shape (clips, labels); adapting and
+    re-chunking happen here.  precise_bn_batches > 0 recomputes a
+    BatchNorm recognizer's running statistics at the finest bucket from
+    epoch_batches(total_epochs) after training.  Returns (the final
+    RecTrainState, history): one row an epoch with its bucket, lr_scale,
+    mean loss and top-1 and its step count."""
+    tx = (make_rec_optimizer(tcfg, total_steps=total_steps)
+          if total_steps else make_rec_optimizer(tcfg))
+    state = init_rec_state(model, tx)
+    steps: Dict[Any, Callable] = {}
+
+    def get_step(bucket):
+        if bucket not in steps:
+            steps[bucket] = make_multigrid_train_step(
+                model, bucket.batch_size / schedule.base_batch, generator,
+                device)
+        return steps[bucket]
+
+    history = []
+    for epoch in range(total_epochs):
+        _reseed(generator, dropout_seed, epoch)
+        bucket = schedule.bucket_for(epoch, total_epochs)
+        losses, accs = [], []
+        if schedule.short_cycle_period:
+            chunker = _RawChunker(epoch_batches(epoch))
+            while True:
+                b_step = schedule.bucket_for(epoch, total_epochs,
+                                             len(losses))
+                chunk = chunker.take(b_step.batch_size)
+                if chunk is None:
+                    break
+                state, logs = get_step(b_step)(
+                    state, adapt_clips_to_bucket(chunk[0], b_step),
+                    chunk[1])
+                losses.append(logs["loss"])
+                accs.append(logs["top1_acc"])
+        else:
+            step = get_step(bucket)
+            for clips, labels in bucketize_batches(epoch_batches(epoch),
+                                                   bucket):
+                state, logs = step(state, clips, labels)
+                losses.append(logs["loss"])
+                accs.append(logs["top1_acc"])
+        history.append({
+            "epoch": epoch, "bucket": (bucket.batch_size, bucket.num_frames,
+                                       bucket.resolution),
+            "lr_scale": bucket.batch_size / schedule.base_batch,
+            "loss": _mean(losses), "top1_acc": _mean(accs),
+            "steps": len(losses)})
+    if has_batch_norm(model) and precise_bn_batches > 0:
+        from .precise_bn import update_bn_stats
+        update_bn_stats(
+            model, bucketize_batches(epoch_batches(total_epochs),
+                                     schedule.buckets[-1]),
+            num_iters=precise_bn_batches,
+            forward=lambda m, batch: m(batch[0]))
+    return state, history
+
+
+# -- OmniSource (MCT core/runner/omnisource_runner.py:42-100) -------------------
+
+def _cycle(make_iter):
+    """Batches of make_iter(), rebuilt each time they run out; ends when a
+    fresh one is empty."""
+    while True:
+        empty = True
+        for x in make_iter():
+            empty = False
+            yield x
+        if empty:
+            return
+
+
+def train_omnisource(model: torch.nn.Module, tcfg: RecognitionTrainConfig,
+                     main_batches: Callable[[int], Any],
+                     aux_batches: Sequence[Callable[[], Any]],
+                     train_ratio: Sequence[int], total_epochs: int,
+                     generator: Optional[torch.Generator] = None,
+                     total_steps: Optional[int] = None,
+                     start_epoch: int = 0,
+                     state: Optional[RecTrainState] = None,
+                     init_it: int = 0, epoch_callback=None, device=None,
+                     dropout_seed: Optional[int] = None):
+    """The main source drives the epoch; after every main step whose
+    count `it` (across epochs, from init_it) is a multiple of
+    train_ratio[0], train_ratio[1 + i] batches of aux source i step the
+    same model and optimizer.  main_batches(epoch) and each
+    aux_batches[i]() yield (clips, labels); the logs of aux source i are
+    averaged under "<key>/aux<i>".  state: the state to resume from (None:
+    a new one over the model).  epoch_callback(epoch, {"state", "it"})
+    runs after each epoch.  Returns (the final RecTrainState, history)."""
+    tx = (make_rec_optimizer(tcfg, total_steps=total_steps)
+          if total_steps else make_rec_optimizer(tcfg))
+    step_fn = make_multigrid_train_step(model, 1.0, generator, device)
+    if state is None:
+        state = init_rec_state(model, tx)
+    every, aux_times = train_ratio[0], list(train_ratio[1:])
+    if len(aux_times) != len(aux_batches):
+        raise ValueError(f"train_ratio {list(train_ratio)} names "
+                         f"{len(aux_times)} aux sources, given "
+                         f"{len(aux_batches)}")
+    aux_iters = [_cycle(fn) for fn in aux_batches]
+    history = []
+    it = init_it
+    for epoch in range(start_epoch, total_epochs):
+        _reseed(generator, dropout_seed, epoch)
+        logs_sum: Dict[str, List[torch.Tensor]] = {}
+
+        def record(logs, source):
+            for k, v in logs.items():
+                logs_sum.setdefault(k + source, []).append(v)
+
+        for clips, labels in main_batches(epoch):
+            state, logs = step_fn(state, clips, labels)
+            record(logs, "")
+            if it % every == 0:
+                for idx, n_times in enumerate(aux_times):
+                    for _ in range(n_times):
+                        try:
+                            aclips, alabels = next(aux_iters[idx])
+                        except StopIteration:
+                            break
+                        state, logs = step_fn(state, aclips, alabels)
+                        record(logs, f"/aux{idx}")
+            it += 1
+        history.append({"epoch": epoch, **{k: _mean(v)
+                                           for k, v in logs_sum.items()}})
+        if epoch_callback is not None:
+            epoch_callback(epoch, {"state": state, "it": it})
+    return state, history

@@ -18,6 +18,10 @@ files, so a run either package saved resumes in the other:
     (`rec_train_state_{to,from}_jax`).  The port's statistics live in the
     model's buffers: its payload's "batch_stats" is None or the module
     that holds them (the state's model);
+  - the OmniSource loop's epochs, `{"params", "batch_stats",
+    "opt_state"}` as the JAX CLI writes them (/batch_stats empty without
+    BatchNorm): the port's payload is `{"omnisource": RecTrainState,
+    "batch_stats": None or the model}`, its loop state `{epoch, it}`;
   - the detector trainers, `{"state": YoloTrainState}` as the JAX
     `cli/yolo_train.py` and `cli/yolo_cls_train.py` write `tuple(state)`:
     /state/0 params, /1 batch_stats, /2 vel, /3 ema_params, /4 ema_stats,
@@ -88,6 +92,19 @@ def _rec_to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
     tree["state"] = {k: tree["state"][k]
                      for k in ("params", "opt_state", "step")}
     return tree
+
+
+def _load_rec_state(state: RecTrainState, tree: Dict[str, Any], holder,
+                    stats) -> int:
+    """A RecTrainState's tree (params, opt_state, step) and the
+    statistics into the state's model and optimizer; returns the step."""
+    opt = state.optimizer
+    sd, named, step = rec_train_state_from_jax(
+        tree, _rec_layout(state.model), **_chain(opt))
+    _load_strict(state.model, sd, buffers=False)
+    opt.load_named_state(named)
+    _load_batch_stats(holder, stats)
+    return step
 
 
 def _load_batch_stats(holder, stats) -> None:
@@ -171,6 +188,14 @@ def _load_detector(model, tree: Dict[str, Any], loop_state: Dict) -> None:
     _load_strict(model, from_jax(tree, model.cfg))
 
 
+def _omnisource_to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
+    tree = _rec_to_tree({"state": payload["omnisource"],
+                         "batch_stats": payload.get("batch_stats")})
+    return {"batch_stats": tree["batch_stats"] or {},
+            "opt_state": tree["state"]["opt_state"],
+            "params": tree["state"]["params"]}
+
+
 def _to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
     """The payload's tree in the JAX package's order: dict keys sorted, as
     jax.tree.map leaves them, but TrainState's and RecTrainState's fields
@@ -178,6 +203,8 @@ def _to_tree(payload: Dict[str, Any]) -> Dict[str, Any]:
     packages write the same bytes for the same state."""
     if "detector" in payload:
         return _detector_to_tree(payload["detector"])
+    if "omnisource" in payload:
+        return _omnisource_to_tree(payload)
     if isinstance(payload["state"], YoloTrainState):
         return _yolo_state_to_tree(payload["state"])
     if isinstance(payload["state"], RecTrainState):
@@ -200,7 +227,8 @@ def save_train_state(path: str, payload: Dict[str, Any],
                      loop_state: Optional[Dict] = None) -> None:
     """payload: {"state": TrainState[, "mask": MaskState]}, {"state":
     RecTrainState, "batch_stats": None or the model holding the
-    statistics}, {"state": YoloTrainState} or {"detector": model}."""
+    statistics}, {"omnisource": RecTrainState, "batch_stats": ...},
+    {"state": YoloTrainState} or {"detector": model}."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, STATE_FILE), "wb") as f:
         f.write(flax_msgpack.to_bytes(_to_tree(payload)))
@@ -228,18 +256,22 @@ def load_train_state(path: str, payload: Dict[str, Any]
     if "detector" in payload:
         _load_detector(payload["detector"], tree, loop_state)
         return {"detector": payload["detector"]}, loop_state
+    if "omnisource" in payload:
+        state = payload["omnisource"]
+        _load_rec_state(state, dict(tree, step=0),
+                        payload.get("batch_stats"),
+                        tree.get("batch_stats") or None)
+        return {"omnisource": state,
+                "batch_stats": payload.get("batch_stats")}, loop_state
     restored = {}
     state = payload["state"]
     if isinstance(state, YoloTrainState):
         return {"state": _load_yolo_state(state, tree["state"],
                                           loop_state)}, loop_state
     if isinstance(state, RecTrainState):
-        opt = state.optimizer
-        sd, named, step = rec_train_state_from_jax(
-            tree["state"], _rec_layout(state.model), **_chain(opt))
-        _load_strict(state.model, sd, buffers=False)
-        opt.load_named_state(named)
-        _load_batch_stats(payload.get("batch_stats"), tree.get("batch_stats"))
+        step = _load_rec_state(state, tree["state"],
+                               payload.get("batch_stats"),
+                               tree.get("batch_stats"))
         restored.update(state=state._replace(step=step),
                         batch_stats=payload.get("batch_stats"))
     else:

@@ -4,10 +4,12 @@ Counterpart of cross_modal_video_engine_tpu/utils/precision.py.  The JAX
 package casts every floating leaf of a checkpoint loaded for inference
 to bf16 when the backbone config says dtype='bfloat16'; without the cast
 its `Dense(dtype=None)` layers (TimeSformer's FFN and temporal_fc, the
-heads) would promote back to f32.  The port's models keep their
-parameters in the configured dtype, so they compute what the JAX package
-computes after that cast; `maybe_cast_bf16` is the same rule on a state
-dict, which the loader (api.init_recognizer) applies before loading.
+heads) would promote back to f32.  `maybe_cast_bf16` is the same rule
+on a state dict, which the loader (api.init_recognizer) applies before
+loading, and `maybe_cast_model_bf16` on a module: the TimeSformer
+recognizers keep f32 masters whatever their config says, so the loader
+casts the model itself, which then computes what the JAX package
+computes on the cast tree.
 """
 
 from __future__ import annotations
@@ -34,6 +36,15 @@ def maybe_cast_bf16(state_dict: Dict[str, torch.Tensor],
     if cfg_d.get("backbone", {}).get("dtype") == "bfloat16":
         return cast_inference_state_dict(state_dict)
     return state_dict
+
+
+def maybe_cast_model_bf16(model: torch.nn.Module,
+                          cfg_d: dict) -> torch.nn.Module:
+    """The model's floating parameters and buffers cast to bf16 in place
+    iff the backbone config says dtype='bfloat16'; returns the model."""
+    if cfg_d.get("backbone", {}).get("dtype") == "bfloat16":
+        model.to(torch.bfloat16)
+    return model
 
 
 def no_tf32() -> None:

@@ -547,6 +547,18 @@ def _cnn_recognition_test(videos, tmp):
                                   "cpu"])
 
 
+def _recipe_train(w, extra: str):
+    """recognition_train.main on the recognition config with a recipe
+    (multigrid or OmniSource) appended."""
+    from cross_modal_video_engine_tpu_torch.cli import recognition_train
+    cfg = write_train_config(str(w["tmp"]), w["caption"][1], "recognition")
+    with open(cfg, "a") as f:
+        f.write(extra)
+    return recognition_train.main([cfg, "--work_dir",
+                                   str(w["tmp"] / "recipe_work"),
+                                   "--device", "cpu"])
+
+
 def _entry_points():
     from cross_modal_video_engine_tpu_torch.cli import (
         caption_train, composed_inference, recognition_test,
@@ -600,6 +612,11 @@ def _entry_points():
             "cpu"]),
         "recognition_test.main[cnn]": lambda w: _cnn_recognition_test(
             w["caption"][1], w["tmp"]),
+        "recognition_train.main[multigrid]": lambda w: _recipe_train(
+            w, "multigrid = dict(base_batch=2, buckets=[[2, 8, 32]], "
+               "final_epochs=1)\n"),
+        "recognition_train.main[omnisource]": lambda w: _recipe_train(
+            w, "omnisource = dict(train_ratio=[2])\n"),
         "yolo_val.main": lambda w: yolo_val.main([
             str(w["detector"][0] / "cfg.py"), "--checkpoint",
             str(w["detector"][0] / "best"), "--device", "cpu"]),
@@ -618,7 +635,9 @@ ENTRY_POINTS = ["restore_dual_encoding", "retrieval_inference.main",
                 "build_caption_handler", "caption_train.main",
                 "recognition_train.main", "yolo_val.main", "ctv_build.main",
                 "yolo_train.main", "yolo_cls_train.main",
-                "recognition_test.main", "recognition_test.main[cnn]"]
+                "recognition_test.main", "recognition_test.main[cnn]",
+                "recognition_train.main[multigrid]",
+                "recognition_train.main[omnisource]"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)

@@ -425,20 +425,10 @@ def test_other_caption_backbones_raise(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["make_seq_train_step_stats",
-                                  "make_cls_train_step_stats",
-                                  "train_multigrid", "train_omnisource"])
+                                  "make_cls_train_step_stats"])
 def test_slice5_steps_raise(name):
     with pytest.raises(NotImplementedError, match="item 8"):
         getattr(trt, name)(None, None)
-
-
-def test_bf16_configured_caption_backbone_raises():
-    cfg = tts.TimeSformerConfig(**dict(BACKBONES["divided"],
-                                       dtype="bfloat16"))
-    model = trec.Recognizer3DRelseq(cfg, RNNDecoderConfig(**DEC),
-                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        trt.make_seq_train_step(model, device="cpu")
 
 
 def test_train_steps_refuse_a_model_on_another_device():

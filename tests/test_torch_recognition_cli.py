@@ -299,11 +299,6 @@ def test_recognition_test_matches_jax(clips_dir, tmp_path, capsys):
 # -- refusals, one per part ------------------------------------------------------------
 
 @pytest.mark.parametrize("part,refused", [
-    ("8d", lambda root: trt_train.make_cls_train_step(None,
-                                                      blending=object())),
-    ("8d", lambda root: trt.train_from_config(Config.fromfile(write_config(
-        root, "mg", RESNET3D, extra="multigrid = dict(base_batch=8)\n")),
-        str(root / "w"), device="cpu")),
     ("8e", lambda root: build_pipeline([dict(type="LoadLocalizationFeature")])),
     ("8f", lambda root: build_pipeline([dict(type="SampleAVAFrames")])),
     ("8g", lambda root: build_pipeline([dict(type="AudioDecode")])),

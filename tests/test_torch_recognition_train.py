@@ -27,8 +27,9 @@ compared).
   through `api.init_recognizer` (and the JAX package's, equal scores
   within 1e-5) and `explain_demo.load_explain_model`, `--resume`
   continues at the next epoch.
-* The slice-5 families and options, and a bf16-configured backbone
-  without bf16=True, raise.
+* The slice-5 recipes (mixup, cutmix, OmniSource, multigrid) through
+  `train_from_config` against the JAX CLI; an unknown blending and a
+  model cast whole to bf16 are refused.
 """
 
 import os
@@ -62,8 +63,8 @@ from cross_modal_video_engine_tpu_torch.train import (
     recognition_trainer as trt)
 from cross_modal_video_engine_tpu_torch.train import resume as tres
 from torch_parity import (capturing, check_step, interpret_pallas,
-                          load_jax_state, min_cosine, random_variables,
-                          to_np)
+                          key_bias_mask, load_jax_state, max_rel,
+                          min_cosine, random_variables, to_np)
 
 SMALL = dict(num_frames=4, img_size=16, patch_size=8, embed_dims=32,
              num_heads=2, num_layers=2, drop_path_max=0.0)
@@ -160,10 +161,10 @@ def test_cls_train_steps_match_jax(backbone, chain):
 @pytest.mark.parametrize("backbone", list(BACKBONES))
 def test_bf16_step_matches_jax(backbone, config_dtype):
     """The port's bf16 step on f32 masters against JAX's bf16=True step on
-    a backbone configured in bfloat16 (where JAX computes in bfloat16).
-    The port computes in bfloat16 for an f32-configured backbone as well;
-    JAX then computes in f32 with its parameters and videos rounded to
-    bf16, which the same bounds hold."""
+    a backbone configured in bfloat16 (where both compute in bfloat16)
+    and on one configured in float32 (where both compute in f32 with the
+    parameters and videos rounded to bf16; tests/test_torch_timesformer_
+    bf16.py holds that case tighter)."""
     bb = dict(BACKBONES[backbone], dtype=config_dtype)
     jm, variables, tm = _pair(bb, port_dtype="float32")
     jtx = capturing(jrt.make_rec_optimizer(
@@ -398,30 +399,120 @@ def test_recognition_train_main_end_to_end(tmp_path, capsys, bf16):
 
 # -- what the port refuses -------------------------------------------------------------
 
+def _jax_blend_draws(kind, alpha, steps, batch, size):
+    """The draws the JAX CLI's blended steps make: its step keys split
+    from key(1), each step's blending key split from its key
+    (recognition_trainer.py:91-105), then blending.py's splits."""
+    rng, out = jax.random.key(1), []
+    for _ in range(steps):
+        rng, sub = jax.random.split(rng)
+        _, brng = jax.random.split(sub)
+        if kind == "MixupBlending":
+            k_lam, k_perm = jax.random.split(brng)
+        else:
+            k_lam, k_perm, k_cx, k_cy = jax.random.split(brng, 4)
+        d = {"lam": np.float32(jax.random.beta(k_lam, alpha, alpha)),
+             "perm": np.asarray(jax.random.permutation(k_perm, batch))}
+        if kind == "CutmixBlending":
+            d["cx"] = int(jax.random.randint(k_cx, (), 0, size))
+            d["cy"] = int(jax.random.randint(k_cy, (), 0, size))
+        out.append(d)
+    return out
+
+
+CLI_REL = 1e-4
+
+
 @pytest.mark.parametrize("option,value", [
     ("train_cfg", dict(blending=dict(type="CutmixBlending", alpha=1.0))),
     ("omnisource", dict(train_ratio=[2, 1])),
-    ("multigrid", dict(base_batch=8)),
+    ("multigrid", dict(base_batch=8, buckets=[[2, 4, 16], [4, 4, 16]],
+                       long_cycle_epochs=1, final_epochs=1)),
     ("train_cfg", dict(blending=dict(type="MixupBlending", alpha=0.2))),
 ])
-def test_slice5_options_raise(tmp_path, option, value):
-    cfg = Config.fromfile(write_fixture(tmp_path))
+def test_slice5_options_raise(tmp_path, monkeypatch, capsys, option, value):
+    """The slice-5 recipes this test once saw refused, now ported: each
+    arm of `train_from_config` against the JAX CLI for two epochs from the
+    same init (the JAX Recognizer3D.init patched to the port's), the
+    blended steps given the JAX CLI's own draws: the same history keys,
+    values within 1e-4 relative, final weights within 1e-4 of their
+    largest, the attention key biases (rounding noise that AdamW turns
+    into steps of +-lr) within 2 lr a step.  OmniSource trains on the
+    split as its aux source too."""
+    from cross_modal_video_engine_tpu.cli import recognition_train as jcli
+    from cross_modal_video_engine_tpu.config import Config as JConfig
+    from cross_modal_video_engine_tpu_torch.convert import (
+        recognizer_variables_to_jax)
+    from cross_modal_video_engine_tpu_torch.data import blending as tbl
+    path = write_fixture(tmp_path)
+    cfg, jcfg = Config.fromfile(path), JConfig.fromfile(path)
+    if option == "omnisource":
+        value = dict(value, aux=[dict(ann_file=cfg["data.train.ann_file"],
+                                      data_prefix=cfg[
+                                          "data.train.data_prefix"])])
     cfg.set(option, value)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trt_cli.train_from_config(cfg, str(tmp_path / "w"), device="cpu")
+    jcfg.set(option, value)
+    bb = tts.TimeSformerConfig(**{k: v for k, v in cfg[
+        "model.backbone"].items() if k != "type"})
+    init = recognizer_variables_to_jax(trec.init_state_dict(
+        bb, 0, num_classes=2), bb)
+    monkeypatch.setattr(jrec.Recognizer3D, "init", lambda self, *a, **k:
+                        jax.tree.map(jnp.asarray, init))
+    if option == "train_cfg":
+        kind, alpha = value["blending"]["type"], value["blending"]["alpha"]
+        draws = _jax_blend_draws(kind, alpha, 4, 4, 16)
+        monkeypatch.setattr(tbl.Blending, "draw",
+                            lambda self, *a: draws.pop(0))
+    tstate, thist = trt_cli.train_from_config(cfg, str(tmp_path / "port"),
+                                              num_epochs=2, device="cpu")
+    jout, jhist = jcli.train_from_config(jcfg, str(tmp_path / "jax"),
+                                         num_epochs=2)
+    capsys.readouterr()
+    assert [set(h) for h in thist] == [set(h) for h in jhist]
+    for t, j in zip(thist, jhist):
+        for k, v in j.items():
+            if isinstance(v, float):
+                assert abs(t[k] - v) <= CLI_REL * max(abs(v), 1e-3), k
+            else:
+                assert t[k] == (list(v) if isinstance(v, tuple) else v) \
+                    or tuple(t[k]) == tuple(v), k
+    jparams = jout.params if option == "train_cfg" else jout["params"]
+    want = recognizer_state_dict_from_jax(
+        {"params": jax.tree.map(np.asarray, jparams)}, bb)
+    lr, steps = cfg["optimizer.learning_rate"], tstate.optimizer.count
+    noise = key_bias_mask(tstate.model)
+    for name, p in tstate.model.named_parameters():
+        got, w = p.detach(), want[name]
+        if name in noise:       # AdamW turns their noise into +-lr steps
+            m = noise[name]
+            assert float((got[m] - w[m]).abs().max()) <= 2 * lr * steps
+            got, w = got[~m], w[~m]
+        assert max_rel(to_np(got), w.numpy()) <= CLI_REL, name
+    if option == "train_cfg":
+        assert not draws                    # every step blended
+    final = {"omnisource": "omnisource_final",
+             "multigrid": "multigrid_final"}.get(option)
+    if final:
+        assert os.path.isdir(tmp_path / "port" / final)
 
 
 def test_blending_and_bf16_configs_raise():
-    _, _, tm = _pair(BACKBONES["divided"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trt.make_cls_train_step(tm, blending=object(), device="cpu")
+    """An unknown blending is refused by name; a model cast whole to bf16
+    (the serving cast) is refused by the training steps, which keep f32
+    masters; a TimeSformer configured in bfloat16 trains (item 14)."""
+    from cross_modal_video_engine_tpu_torch.data.blending import (
+        make_blending)
+    with pytest.raises(KeyError, match="available"):
+        make_blending("MosaicBlending", CLASSES)
     bf = trec.Recognizer3D(tts.TimeSformerConfig(
         **dict(BACKBONES["divided"], dtype="bfloat16")), CLASSES,
         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        trt.make_cls_train_step(bf, device="cpu")
-    with pytest.raises(ValueError, match="float32 masters"):
-        trt.make_cls_train_step(bf, bf16=True, device="cpu")
+    trt.make_cls_train_step(bf, device="cpu")
+    trt.make_cls_train_step(bf, bf16=True, device="cpu")
+    bf.to(torch.bfloat16)
+    for bf16 in (False, True):
+        with pytest.raises(ValueError, match="float32 masters"):
+            trt.make_cls_train_step(bf, bf16=bf16, device="cpu")
 
 
 def test_optimizer_refuses_a_warmup_longer_than_the_run():

@@ -413,21 +413,15 @@ def test_epoch_state_with_batch_stats_crosses_packages(tmp_path):
 
 # -- refusals ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("name,part", [
-    ("train_multigrid", "8d"), ("train_omnisource", "8d")])
-def test_unported_trainers_name_their_part(name, part):
-    with pytest.raises(NotImplementedError, match=f"item {part}\\)"):
-        getattr(trt, name)(None, None)
-
-
 def test_stats_steps_refuse_other_models():
     tm, _, _ = _models("i3d", "classifier")
     with pytest.raises(ValueError, match="make_cls_train_step_stats"):
         trt.make_cls_train_step(tm, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        trt.make_cls_train_step_stats(tm, blending=object(), device="cpu")
     with pytest.raises(ValueError, match="caption model"):
         trt.make_seq_train_step_stats(tm, device="cpu")
     rm, _, _ = _models("i3d", "relseq")
     with pytest.raises(ValueError, match="make_seq_train_step_stats"):
         trt.make_seq_train_step(rm, device="cpu")
+    # a model cast whole to bf16 (the serving cast): not f32 masters
+    with pytest.raises(ValueError, match="float32 masters"):
+        trt.make_cls_train_step_stats(tm.to(torch.bfloat16), device="cpu")

@@ -85,6 +85,7 @@ def _pair(variant, videos, dtype="float32", seed=3):
     variables = {"params": params}
     if dtype == "bfloat16":
         variables = cast_inference_variables(variables)
+        tm.to(torch.bfloat16)          # the serving loaders' whole cast
     return jm, variables, tm
 
 
