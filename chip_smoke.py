@@ -6,7 +6,7 @@ Usage: python3 chip_smoke.py [STEP ...]   (from the root of the repository)
 With no argument every step runs (the whole smoke run).  A list of
 step numbers ("19", "13 19" or "13,19") runs only those steps, always
 after the build (2) and the kernel checks (3) and before the results
-(22); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
+(23); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
 step did not run is null in the `kernels` line; the last line names the
 steps that ran and those skipped.
 
@@ -80,7 +80,7 @@ steps that ran and those skipped.
     within 1e-3; (c') cli.retrieval_inference, as a user runs it, over a
     collection of those 64 videos in a fresh process on the card and in
     one on the CPU, neither with this script's TF32 switch (the CLI turns
-    TF32 off itself): 3 queries, the same top-10 ids and scores within
+    TF32 off itself): 1 query, the same top-10 ids and scores within
     1e-3, the error printed; (d) the server's index filled to 1,000,000 x
     1536 f32 rows; (e) the HTTP server of cli/serve.py answering 16
     captions as index.search_ids(embed_query(...)) does; (f)
@@ -123,7 +123,7 @@ steps that ran and those skipped.
     over a second collection at width 512, the compact, MLP and rank-3
     launch counters zeroed just before its requests and read just after,
     the kernel arm's combine_features against the plain arm's by cosine;
-    (e) the combiner trainer on 512 triplets over that collection with
+    (e) the combiner trainer on 256 triplets over that collection with
     the route's ViT-B/32 text tower frozen: one step card against CPU at
     dropout 0 (step 11a's bounds), 2 epochs with validation each epoch
     (the last four step losses below the first four), composed_validate
@@ -168,7 +168,7 @@ steps that ran and those skipped.
     300 frames of 360x480 go to the trainers' pipelines through the
     `reader` seam: (a) one f32 step of the shipped caption config
     (timesformer_relseq.py, 36 classes x 5 steps, TF32 off, dropouts 0)
-    at batch 2 on the card and on the CPU from one init: the loss, every
+    at batch 1 on the card and on the CPU from one init: the loss, every
     gradient and the parameters after the SGD step (the clip engaged),
     step 11a's bounds; (b) `caption_train.train_from_config` on that
     config, batch 8, 2 epochs with validation each epoch (losses finite),
@@ -180,7 +180,7 @@ steps that ran and those skipped.
     each step (12 a step, 24 with remat), gradients finite and against
     the plain arm (flash off, same weights) and the remat arm by cosine;
     (d) one bf16 step of the recognition config
-    (timesformer_divst_8x32_k400.py, 400 classes, f32 masters) at batch 2
+    (timesformer_divst_8x32_k400.py, 400 classes, f32 masters) at batch 1
     card against CPU within bf16 bounds, then
     `recognition_train.train_from_config` with bf16=True, batch 8, 1
     epoch, and its model_best served once by /explain, the prediction
@@ -270,8 +270,8 @@ steps that ran and those skipped.
     CPU at batch 1 in f32, logits within CNN18_REL and cosine CNN18_COS,
     then the forward at batch 8 in f32 and bf16; (b) one stats step at
     batch 1 card against CPU for TSM, TIN, TRN (one fixed draw of its
-    tuples) and TPN (with loss_aux; its SlowOnly at one block a stage),
-    f32, and bf16 for TSM, held to
+    tuples) and TPN (with loss_aux), each backbone at one block a stage
+    (widths kept), f32, and bf16 for TSM, held to
     float64 as 18b holds SlowFast, with its planted faults; (c)
     `recognition_train.train_from_config` on the shipped TSM recipe over
     16 seeded videos at batch 8, one epoch with validation, then
@@ -304,7 +304,8 @@ steps that ran and those skipped.
     400 classes): one stats step in each of its four buckets (64x4x112,
     32x8x112, 16x8x224, 8x8x224; CUDA events, videos/s, TFLOP/s, peak
     memory), the multigrid step at batch 1 card against CPU in the
-    coarsest and the finest bucket (held to float64 as 18b), and
+    coarsest and the finest bucket (held to float64 as 18b; the SlowFast
+    at one block a stage, widths kept), and
     `recognition_train` with the buckets at 1/8 of their batch over 8
     seeded videos until its history has switched buckets; (b) the
     shipped tsn_r50_1x1x8_minikinetics_omnisource.py (TSN-R50, 200
@@ -312,7 +313,8 @@ steps that ran and those skipped.
     two epochs, a resume from epoch_0 against the uninterrupted epoch 1,
     and its step card against CPU at batch 1; (c) mixup and cutmix, their
     draws handed in, on the stats step of tsn_r50_1x1x3_k400.py at batch
-    2, card against CPU in f32 and bf16; (d) TS_JOINT configured
+    2 (its backbone at one block a stage, widths kept), card against CPU
+    in f32 and bf16; (d) TS_JOINT configured
     bfloat16 on f32 masters, trained without bf16=True: one
     make_cls_train_step and one make_seq_train_step at batch 2, the three
     shuffle recognizers' forward_train and a step each, the flash
@@ -321,13 +323,33 @@ steps that ran and those skipped.
     version at (12, 1569, 64), and the cls step card against CPU at 2 of
     the 12 layers (widths kept); (e) hvu_loss over the 3142 HVU tags in
     each mode, card against CPU;
-22. prints the JSON lines of steps 10-21 that ran and of the kernel
+22. temporal localization at the shipped configs' widths, from numpy
+    seeds, every kernel counter zeroed before the step and read after it
+    (none may launch: no localization path reaches a kernel): (a) BMN of
+    bmn_anet_400x100.py (T=100, F=400, N=32, D=100, hidden 256/128/512),
+    the sampling matrix's build time and bytes, card against CPU at
+    batch 2, its forward at batch 8 by CUDA events (ms, TFLOP/s of the
+    counted products, peak memory); (b) one step of the config's AdamW
+    at batch 1 card against CPU, held to float64 as 18b holds its steps,
+    with the planted faults, then the step at batch 8 (ms, videos/s,
+    TFLOP/s, peak memory); (c) `localization_train.train_from_config` on
+    the card over 16 seeded videos of 100 x 400 features, 2 epochs each:
+    BMN (AR@AN on 4 of them), TEM, `misc_tools bsn_pgm` over the trained
+    TEM's curves, PEM on those artifacts (AR@AN), SSN (20 classes,
+    sampler 1/6/1) over 8 seeded videos of a normalized_ proposal file
+    put through `data_tools denormalize_proposals`: losses finite, each
+    `*_final` checkpoint read back bit for bit by the port's loader,
+    BMN's and PEM's AR@AN equal to their checkpoints' evaluated by the
+    port on the CPU; (d) the launch counters and a `localization` JSON
+    line;
+23. prints the JSON lines of steps 10-22 that ran and of the kernel
     results (launches on the main paths, on the composed, caption and
     explain routes, in the training steps, in the bank build, in the
     caption transformer's generates, in the detector's training, in the
     3D-CNN step, in the 2D-CNN step, over step 20, in 20b's CLIP kernel
-    arm and over 21d, error, time, plain time, bound, library time) and,
-    last, a JSON line naming the device.
+    arm, over 21d and over step 22, error, time, plain time, bound,
+    library time), each step's seconds and, last, a JSON line naming
+    the device.
 
 Nothing is cut: the models run at full width and depth (the 3D-CNN
 trainers 2 and 1 epochs of 8 videos, the 2D ones 1 epoch each; the LINAS
@@ -1462,7 +1484,7 @@ SERVE_SCORE_TOL = 1e-5
 
 # 10c': cli.retrieval_inference in fresh processes (no TF32 switch of this
 # script), card against CPU, over the sample's 64 videos
-LINAS_CLI_QUERIES = 2
+LINAS_CLI_QUERIES = 1
 LINAS_CLI_SAMPLE = "linassample"
 LINAS_CLI_RUNS = (("card", []), ("cpu", ["--device", "cpu"]))
 # run in a fresh interpreter: the CLI's main once a query, every search's
@@ -2277,7 +2299,7 @@ def check_linas_training(dev, card) -> dict:
 # -- 12. composed retrieval (tolerances stated before the first run) ---------
 COMPOSED_VIDEOS, COMPOSED_REQUESTS, COMPOSED_REFS = 1000, 16, 4
 RN_CHECK_FRAMES, EXTRACT_CALLS, COMPOSED_TOPK = 4, 5, 10
-COMBINER_TRIPLETS, COMBINER_BATCH, COMBINER_EPOCHS = 512, 32, 2
+COMBINER_TRIPLETS, COMBINER_BATCH, COMBINER_EPOCHS = 256, 32, 2
 COMBINER_HTTP_CHECKS, COMBINER_TIMED_STEPS = 4, 8
 # (a) clip_preprocess card vs CPU: the same f32 arithmetic rounded to bf16;
 # where the two f32 values fall on two sides of a rounding boundary the
@@ -3367,7 +3389,7 @@ RECOGNITION_CONFIG = (ROOT / "configs" / "recognition"
 # TRAIN15_VAL of them to validate on; batch 8 as the configs say; the
 # card-vs-CPU steps at TRAIN15_CPU_BATCH (the CPU's time); 8 videos (a
 # step an epoch, as the CLIs of steps 18-20) for the script's time
-TRAIN15_VIDEOS, TRAIN15_VAL, TRAIN15_BATCH, TRAIN15_CPU_BATCH = 8, 8, 8, 2
+TRAIN15_VIDEOS, TRAIN15_VAL, TRAIN15_BATCH, TRAIN15_CPU_BATCH = 8, 8, 8, 1
 # (a) one f32 caption step, card vs CPU, dropouts 0: step 11a's bounds
 # (the loss, each gradient tensor, the parameters after the SGD step); the
 # clip engaged by a max_norm below the gradient's norm
@@ -6511,10 +6533,11 @@ TSM_RELSEQ_CONFIG = ROOT / "configs" / "seq_generate" / "tsm_relseq.py"
 STEP19 = ("tsm_r50_1x1x8", "tin_r50_1x1x8", "trn_r50_1x1x8",
           "tpn_slowonly_r50_8x8")
 STEP19_BF16 = ("tsm_r50_1x1x8",)
-# depth cut for the script's time (widths kept): TPN's SlowOnly at one
-# block a stage (its stats step took 34.8 s of 19b at full depth)
-STEP19_DEPTH = {"tpn_slowonly_r50_8x8": {
-    "model.backbone.stage_blocks": [1, 1, 1, 1]}}
+# depth cut for the script's time (widths kept): every backbone at one
+# block a stage (at full depth TPN's stats step took 34.8 s of 19b, TSM's
+# f32 and bf16 steps 19.0 s, TIN's 7.9 and TRN's 8.6)
+STEP19_DEPTH = dict.fromkeys(STEP19, {
+    "model.backbone.stage_blocks": [1, 1, 1, 1]})
 TRAIN19_CPU_BATCH = 1
 # 19c/d: the CLIs over 16 seeded videos at batch 8, one epoch
 TRAIN19_EPOCHS = 1
@@ -7164,7 +7187,7 @@ def kernel_json(results, launches, core, block_extra, counts) -> dict:
     19, `transformer_launches` over the transformer and CLIP recognizers
     of step 20 but 20b, `clip_recognizer_launches` over one bf16 forward
     of 20b's CLIP kernel arm, `recipes_launches` over the counted calls of
-    step 21d.  A main-path count is None when its step did not run.
+    step 21d, `localization_launches` over step 22.  A main-path count is None when its step did not run.
     `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
@@ -7227,6 +7250,9 @@ def kernel_json(results, launches, core, block_extra, counts) -> dict:
 # history shows the switch from the coarsest to the finest bucket
 MULTIGRID21_CONFIG = CNN_CONFIGS / "slowfast_multigrid_k400.py"
 MG21_TIMED, MG21_VIDEOS, MG21_EPOCHS = 3, 8, 2
+# the card-vs-CPU steps with the SlowFast at one block a stage (widths
+# kept; 17.5 s for both at full depth)
+MG21_STEP_DEPTH = {"model.backbone.depth_blocks": [1, 1, 1, 1]}
 MG21_CLI_BUCKETS = [[8, 4, 112], [4, 8, 112], [2, 8, 224], [1, 8, 224]]
 # 21b: the shipped OmniSource recipe (TSN-R50, 200 classes, batch 8, two
 # aux sources) over OMNI21_MAIN seeded videos, each aux source a split of
@@ -7237,8 +7263,10 @@ MG21_CLI_BUCKETS = [[8, 4, 112], [4, 8, 112], [2, 8, 224], [1, 8, 224]]
 OMNI21_CONFIG = CNN_CONFIGS / "tsn_r50_1x1x8_minikinetics_omnisource.py"
 OMNI21_MAIN, OMNI21_AUX, OMNI21_VAL = 16, 8, 8
 # 21c: mixup and cutmix on the stats step of the shipped TSN-R50 1x1x3
-# recipe at batch 2, their draws handed in
+# recipe at batch 2, their draws handed in, its backbone at one block a
+# stage (widths kept; 27.3 s for both at full depth)
 BLEND21_CONFIG = CNN_CONFIGS / "tsn_r50_1x1x3_k400.py"
+BLEND21_DEPTH = {"model.backbone.stage_blocks": [1, 1, 1, 1]}
 BLEND21_DRAWS = {
     "MixupBlending": {"lam": np.float32(0.3125), "perm": np.array([1, 0])},
     "CutmixBlending": {"lam": np.float32(0.5625), "perm": np.array([1, 0]),
@@ -7319,7 +7347,9 @@ def multigrid_steps(dev, card, videos, names) -> dict:
         clips = adapt_clips_to_bucket(torch.from_numpy(raw), one).numpy()
         t0 = time.perf_counter()
         step_line = step_card_vs_cpu(
-            dev, cfg, clips, labels, None, bf16s=(False,),
+            dev, shipped_training_config(MULTIGRID21_CONFIG,
+                                         **MG21_STEP_DEPTH),
+            clips, labels, None, bf16s=(False,),
             update_scale=b.batch_size / sched.base_batch)
         step_line["seconds"] = time.perf_counter() - t0
         line[f"step_{where}"] = step_line
@@ -7505,7 +7535,7 @@ def omnisource_run(dev, card, videos, names) -> dict:
 def blending_steps(dev, card, videos, names) -> dict:
     """21c: mixup and cutmix on the TSN stats step, card vs CPU."""
     line = {"card": card}
-    cfg = shipped_training_config(BLEND21_CONFIG)
+    cfg = shipped_training_config(BLEND21_CONFIG, **BLEND21_DEPTH)
     clips = _step_clips(cfg, videos, names[:2])
     labels = np.array([3, 250])
     for kind, draws in BLEND21_DRAWS.items():
@@ -7785,20 +7815,485 @@ def check_step21(dev, card) -> Tuple[dict, dict]:
     return line, {"flash_attention": launches}
 
 
-STEPS = tuple(range(4, 22))      # the steps a selection may name
+# -- step 22: temporal localization (ROADMAP item 8e) -------------------------
+# The four shipped localization configs at their own widths, weights the
+# training init (numpy seed 0), features and proposals from numpy seeds.
+# 22a: BMN (T=100, F=400, N=32, D=100, hidden 256/128/512) card against
+# the port on the CPU at BMN22_CPU_BATCH, each output within BMN22_REL of
+# its largest; the forward timed at the config's batch (BMN22_BATCH) by
+# CUDA events over BMN22_TIMED calls.  22b: one training step of the
+# config's AdamW at BMN22_STEP_BATCH, card against CPU, held to float64
+# by 18b's verdict (_step_verdict, _planted; the witness within
+# STEP18_F64), the step then timed at BMN22_BATCH.  22c: the CLI over
+# LOC22_VIDEOS seeded videos of 100 x 400 features (validation: the
+# first LOC22_VAL) for LOC22_EPOCHS epochs each: BMN, TEM, bsn_pgm over
+# the trained TEM's curves, PEM on its artifacts, SSN over LOC22_SSN
+# videos of a seeded normalized_ proposal file put through
+# denormalize_proposals; the AR@AN of BMN's and PEM's checkpoints
+# evaluated by the port on the CPU within LOC22_AR of the card's.
+LOC_CONFIGS = ROOT / "configs" / "localization"
+BMN22_CONFIG = LOC_CONFIGS / "bmn_anet_400x100.py"
+TEM22_CONFIG = LOC_CONFIGS / "bsn_tem_400x100_anet.py"
+PEM22_CONFIG = LOC_CONFIGS / "bsn_pem_400x100_anet.py"
+SSN22_CONFIG = LOC_CONFIGS / "ssn_r50_450e_thumos14.py"
+BMN22_BATCH, BMN22_CPU_BATCH, BMN22_STEP_BATCH, BMN22_TIMED = 8, 2, 1, 10
+BMN22_REL = 1e-5
+LOC22_VIDEOS, LOC22_VAL, LOC22_SSN, LOC22_EPOCHS = 16, 4, 8, 2
+LOC22_AR = 1e-6
+
+
+def bmn22_model(d, cfg=None):
+    """The shipped BMN config's model at the training init on device d."""
+    from cross_modal_video_engine_tpu_torch.models.bmn import BMN, BMNConfig
+    from cross_modal_video_engine_tpu_torch.models.recognizer import (
+        conv_init_state_dict)
+    if cfg is None:
+        mcfg = dict(shipped_training_config(BMN22_CONFIG)["model"])
+        mcfg.pop("type")
+        cfg = BMNConfig(**mcfg)
+    model = BMN(cfg, device=d)
+    model.load_state_dict(conv_init_state_dict(model, 0))
+    return model
+
+
+def bmn22_flops(cfg, batch: int) -> dict:
+    """The products of one BMN forward (2 x multiply-adds), by part."""
+    T, N, D = cfg.temporal_dim, cfg.num_samples, cfg.max_duration
+    h1, h2, h3, f = cfg.hidden_1d, cfg.hidden_2d, cfg.hidden_3d, cfg.feat_dim
+    parts = {"bm_product": 2 * h2 * T * N * D * T,
+             "pem_3d": 2 * h3 * h2 * N * D * T,
+             "conv3x3": 2 * h2 * h2 * 9 * D * T,
+             "conv1x1": 2 * (h3 * h2 + 2 * h2) * D * T,
+             "conv1d": 2 * T * (3 * h1 * f // 4 + 2 * 3 * h1 * h1 // 4
+                                + 3 * h2 * h1 + 2 * h1)}
+    return {k: v * batch for k, v in parts.items()}
+
+
+def bmn22_batch(cfg, batch: int, seed: int):
+    """Seeded features (B, T, F), the labels of one or two seeded gt
+    segments a video, the validity mask and the loss's two draws."""
+    from cross_modal_video_engine_tpu_torch.train.localization_trainer import (
+        bm_mask, bmn_labels)
+    rng = np.random.default_rng(seed)
+    T, D = cfg.temporal_dim, cfg.max_duration
+    labels = [bmn_labels(np.sort(rng.uniform(0, 1, (int(rng.integers(1, 3)),
+                                                   2)), -1), T, D)
+              for _ in range(batch)]
+    return {"feats": rng.standard_normal((batch, T, cfg.feat_dim)).astype(
+                np.float32),
+            "gt": [np.stack([l[i] for l in labels]) for i in range(3)],
+            "mask": np.broadcast_to(bm_mask(T, D), (batch, D, T)).copy(),
+            "draws": tuple(rng.random((batch, D, T), np.float32)
+                           for _ in range(2))}
+
+
+def _bmn22_step_run(d, cfg, start, batch, dtype=None) -> dict:
+    """One make_bmn_train_step step (the config's AdamW, no clip) from
+    `start` on device d with the batch's draws; with dtype=float64 the
+    loss's forward and backward alone, in float64 (the witness)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.losses.localization import (
+        bmn_loss)
+    from cross_modal_video_engine_tpu_torch.train import (
+        localization_trainer as lt)
+    model = bmn22_model(d, cfg)
+    model.load_state_dict(start)
+    t = [torch.from_numpy(a).to(d) for a in
+         (batch["feats"], *batch["gt"], batch["mask"])]
+    if dtype is not None:
+        model = model.to(dtype)
+        t = [x.to(dtype) for x in t]
+        out = model(t[0])
+        loss = bmn_loss(out["pem_reg"], out["pem_cls"], out["tem_start"],
+                        out["tem_end"], *t[1:], draws=batch["draws"])[0]
+        loss.backward()
+        return {"loss": float(loss.detach()), "grads": _grads64(model),
+                "stats": {}}
+    opt = shipped_training_config(BMN22_CONFIG)["optimizer"]
+    state = lt.init_loc_state(model, lt.make_loc_optimizer(
+        opt["optimizer"], opt["learning_rate"],
+        opt.get("weight_decay", 0.0)))
+    step = lt.make_bmn_train_step(model, device=d)
+    p0 = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
+    t0 = time.perf_counter()
+    _, logs = step(state, *t, draws=batch["draws"])
+    loss = float(logs["loss"])
+    return {"loss": loss, "s": time.perf_counter() - t0,
+            "grads": _grads64(model), "p0": p0, "s0": {}, "stats": {},
+            "params": {n: p.detach().double().cpu()
+                       for n, p in model.named_parameters()}}
+
+
+def bmn22_step_card_vs_cpu(dev, cfg) -> dict:
+    """22b: the step at BMN22_STEP_BATCH on the card and on the CPU (at
+    torch's thread count and at half of it), held to the float64 run by
+    18b's verdict, with its planted faults."""
+    import types
+    import torch
+    start = {k: v.cpu() for k, v in bmn22_model("cpu", cfg).state_dict(
+        ).items()}
+    batch = bmn22_batch(cfg, BMN22_STEP_BATCH, seed=221)
+    cpu_dev = torch.device("cpu")
+    t0 = time.perf_counter()
+    f64 = {w: _bmn22_step_run(d, cfg, start, batch, torch.float64)
+           for w, d in (("card", dev), ("cpu", cpu_dev))}
+    floor = STEP18_F64_FLOOR * max(float(g.abs().max())
+                                   for g in f64["cpu"]["grads"].values())
+    witness = max(float((f64["card"]["grads"][n] - g).abs().max())
+                  / max(float(g.abs().max()), floor)
+                  for n, g in f64["cpu"]["grads"].items())
+    out = {"f64_max_rel": witness, "f64_s": time.perf_counter() - t0,
+           "f64_loss": [f64["card"]["loss"], f64["cpu"]["loss"]]}
+    failed = [] if witness <= STEP18_F64 else ["float64 witness"]
+    threads = torch.get_num_threads()
+    card = _bmn22_step_run(dev, cfg, start, batch)
+    cpu = _bmn22_step_run(cpu_dev, cfg, start, batch)
+    torch.set_num_threads(max(1, threads // 2))
+    try:
+        alt = _bmn22_step_run(cpu_dev, cfg, start, batch)
+    finally:
+        torch.set_num_threads(threads)
+    opt = shipped_training_config(BMN22_CONFIG)["optimizer"]
+    tcfg = types.SimpleNamespace(
+        optimizer=opt["optimizer"], learning_rate=opt["learning_rate"],
+        weight_decay=opt.get("weight_decay", 0.0), grad_clip=float("inf"))
+    ref = _reference(cpu, f64["card"], alt)
+    bad, read = _step_verdict(card, cpu, f64["card"], ref, tcfg, False)
+    planted = _planted(card, cpu, f64["card"], ref, tcfg, False)
+    failed += bad + [f"planted {k} not refused" for k, v in planted.items()
+                     if v.get("refused") is False]
+    out.update(read, loss_card=card["loss"], loss_cpu=cpu["loss"],
+               card_s=card["s"], cpu_s=cpu["s"], cpu_alt_s=alt["s"],
+               failed=failed, planted=planted)
+    return out
+
+
+def bmn22_forward_and_step(dev, card) -> dict:
+    """22a and 22b."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.models import bmn
+    from cross_modal_video_engine_tpu_torch.train import (
+        localization_trainer as lt)
+    line = {"card": card}
+    model = bmn22_model(dev)
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    W = bmn.bm_sampling_matrix(cfg.temporal_dim, cfg.num_samples,
+                               cfg.max_duration)
+    line["sampling_matrix"] = {
+        "build_s": time.perf_counter() - t0, "bytes": W.nbytes,
+        "nonzero_share": float(np.count_nonzero(W)) / W.size}
+    del W
+    cpu_model = bmn22_model("cpu", cfg)
+    batch = bmn22_batch(cfg, BMN22_CPU_BATCH, seed=220)
+    x = torch.from_numpy(batch["feats"])
+    with torch.no_grad():
+        got = {k: v.cpu() for k, v in model(x.to(dev)).items()}
+        want = cpu_model(x)
+    rel = {k: _max_rel(got[k], want[k]) for k in want}
+    line["card_vs_cpu"] = {"batch": BMN22_CPU_BATCH, "max_rel": rel}
+    print(f"22a BMN {cfg} card vs CPU at batch {BMN22_CPU_BATCH}: "
+          f"{json.dumps(rel)} (need <= {BMN22_REL}); sampling matrix "
+          f"{json.dumps(line['sampling_matrix'])}", flush=True)
+    if max(rel.values()) > BMN22_REL or not all(
+            torch.isfinite(v).all() for v in got.values()):
+        raise SystemExit("22a BMN differs between the card and the CPU")
+    del cpu_model
+
+    big = bmn22_batch(cfg, BMN22_BATCH, seed=222)
+    xb = torch.from_numpy(big["feats"]).to(dev)
+    flops = bmn22_flops(cfg, BMN22_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: model(xb), iters=BMN22_TIMED, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    line["forward"] = {
+        "batch": BMN22_BATCH, "ms": ms, "gflop": {
+            k: v / 1e9 for k, v in flops.items()},
+        "tflops": sum(flops.values()) / ms / 1e9, "peak_gib": peak / 2**30}
+    print(f"22a BMN forward at batch {BMN22_BATCH}: {ms:.3f} ms, "
+          f"{line['forward']['tflops']:.2f} TFLOP/s of "
+          f"{sum(flops.values()) / 1e9:.1f} GFLOP, peak "
+          f"{peak / 2**30:.2f} GiB ({card})", flush=True)
+
+    line["step_card_vs_cpu"] = bmn22_step_card_vs_cpu(dev, cfg)
+    s = line["step_card_vs_cpu"]
+    print(f"22b BMN step at batch {BMN22_STEP_BATCH}, card vs CPU held to "
+          f"float64: witness {s['f64_max_rel']:.2e} (need <= {STEP18_F64}), "
+          f"loss {s['loss_card']:.6f} / {s['loss_cpu']:.6f}, all-gradient "
+          f"cosine to float64 card {s['by_group']['all']['card_f64_cos']:.7f}"
+          f" CPU {s['by_group']['all']['cpu_f64_cos']:.7f}; planted "
+          f"{json.dumps({k: v.get('refused', v.get('refused_in')) for k, v in s['planted'].items()})}; "
+          f"failed {s['failed']}", flush=True)
+    if s["failed"]:
+        raise SystemExit(f"22b the BMN step failed {s['failed']}")
+
+    opt = shipped_training_config(BMN22_CONFIG)["optimizer"]
+    state = lt.init_loc_state(model, lt.make_loc_optimizer(
+        opt["optimizer"], opt["learning_rate"]))
+    step = lt.make_bmn_train_step(model, device=dev)
+    t = [torch.from_numpy(a).to(dev) for a in (*big["gt"], big["mask"])]
+    draws = tuple(torch.from_numpy(u).to(dev) for u in big["draws"])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, xb, *t, draws=draws), iters=5,
+                 warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    line["train_step"] = {
+        "batch": BMN22_BATCH, "ms": ms, "videos_per_s": BMN22_BATCH / ms
+        * 1e3, "tflops": 3 * sum(flops.values()) / ms / 1e9,
+        "peak_gib": peak / 2**30}
+    print(f"22b BMN train step at batch {BMN22_BATCH}: {ms:.3f} ms, "
+          f"{line['train_step']['videos_per_s']:.1f} videos/s, "
+          f"{line['train_step']['tflops']:.2f} TFLOP/s (3 x the forward's "
+          f"products), peak {peak / 2**30:.2f} GiB ({card})", flush=True)
+    del model, state, step, xb, t
+    torch.cuda.empty_cache()
+    return line
+
+
+def write_loc22_corpus(root: str, n: int, T: int = 100, F: int = 400,
+                       seed: int = 223):
+    """n seeded videos of (T, F) snippet features whose channel 0 marks
+    one seeded action span, and their ActivityNet-style annotations."""
+    rng = np.random.default_rng(seed)
+    feats = os.path.join(root, "feats")
+    os.makedirs(feats, exist_ok=True)
+    ann = {}
+    for i in range(n):
+        s = rng.uniform(0.1, 0.5)
+        e = s + rng.uniform(0.2, 0.4)
+        x = 0.2 * rng.standard_normal((T, F)).astype(np.float32)
+        x[:, 0] += ((np.arange(T) / T >= s) & (np.arange(T) / T < e))
+        np.save(os.path.join(feats, f"v{i:02d}.npy"), x)
+        ann[f"v{i:02d}"] = {"duration": 120.0, "annotations": [
+            {"segment": [s * 120.0, e * 120.0], "label": 1}]}
+    paths = {}
+    for split, names in (("train", sorted(ann)),
+                         ("val", sorted(ann)[:LOC22_VAL])):
+        paths[split] = os.path.join(root, f"anet_{split}.json")
+        with open(paths[split], "w") as f:
+            json.dump({k: ann[k] for k in names}, f)
+    return paths, feats
+
+
+def write_ssn22_corpus(root: str, n: int, classes: int = 20, F: int = 400,
+                       seed: int = 224):
+    """n seeded videos: (frames/8, F) snippet features, a rawframes tree
+    of empty frame files, and a normalized_ THUMOS-style proposal file
+    (per video two gts, proposals near each, inside each and away from
+    both)."""
+    rng = np.random.default_rng(seed)
+    feats = os.path.join(root, "ssn_feats")
+    os.makedirs(feats, exist_ok=True)
+    lines = []
+    for i in range(n):
+        vid, frames = f"video_{i:02d}", int(rng.integers(160, 320))
+        fdir = os.path.join(root, "rawframes", vid)
+        os.makedirs(fdir)
+        for j in range(frames):
+            open(os.path.join(fdir, f"img_{j:05d}.jpg"), "w").close()
+        np.save(os.path.join(feats, vid + ".npy"), rng.standard_normal(
+            (frames // 8, F)).astype(np.float32))
+        gts = [(int(rng.integers(1, classes + 1)), 0.1 + 0.4 * k,
+                0.3 + 0.4 * k) for k in range(2)]
+        props = []
+        for c, s, e in gts:
+            props += [(c, 0.9, 0.95, s + 0.01, e - 0.01),
+                      (c, 0.25, 0.9, s + 0.02, s + 0.07),
+                      (c, 0.2, 0.8, e - 0.06, e - 0.01),
+                      (c, 0.15, 0.7, s + 0.05, s + 0.1)]
+        props += [(0, 0.0, 0.0, 0.02, 0.08), (0, 0.0, 0.0, 0.9, 0.98)]
+        lines += [f"# {i}", vid, str(frames), "1", str(len(gts))]
+        lines += [f"{c} {s:.4f} {e:.4f}" for c, s, e in gts]
+        lines += [str(len(props))]
+        lines += [f"{c} {a:.4f} {b:.4f} {s:.4f} {e:.4f}"
+                  for c, a, b, s, e in props]
+    path = os.path.join(root, "normalized_thumos14_proposal_list.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path, os.path.join(root, "rawframes"), feats
+
+
+def _readback(model, path: str, kind: str) -> bool:
+    """The checkpoint at `path` read by the port's loader equals the
+    trained model's state, bit for bit."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli.localization_train import (
+        load_localizer)
+    back = load_localizer(path, kind, device="cpu").state_dict()
+    own = model.state_dict()
+    return sorted(back) == sorted(own) and all(
+        torch.equal(back[k], own[k].cpu()) for k in own)
+
+
+def _finite_history(history) -> bool:
+    return bool(history) and all(np.isfinite(h["loss"]) for h in history)
+
+
+def localization_clis(dev, card, tmp) -> dict:
+    """22c: the CLI's four arms and the two tools on the card."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import (
+        data_tools, localization_train, misc_tools)
+    from cross_modal_video_engine_tpu_torch.data.datasets_extra import (
+        ActivityNetDataset)
+    line = {"card": card}
+    paths, feats = write_loc22_corpus(tmp, LOC22_VIDEOS)
+    data = {"data.train.ann_file": paths["train"],
+            "data.train.feature_prefix": feats,
+            "data.val.ann_file": paths["val"],
+            "data.val.feature_prefix": feats}
+
+    def arm(name, config, kind, **options):
+        t0 = time.perf_counter()
+        cfg = shipped_training_config(config, **options)
+        work = os.path.join(tmp, name)
+        model, history, report = localization_train.train_from_config(
+            cfg, work, LOC22_EPOCHS, device=dev)
+        torch.cuda.synchronize()
+        row = {"history": history, "report": report,
+               "readback_equal": _readback(
+                   model, os.path.join(work, f"{name}_final"), kind),
+               "seconds": time.perf_counter() - t0}
+        print(f"22c {name}: {json.dumps(row)}", flush=True)
+        if not (_finite_history(history) and row["readback_equal"]):
+            raise SystemExit(f"22c {name}: a loss is not finite or the "
+                             f"checkpoint does not read back")
+        return cfg, model, row
+
+    def ar_gap(card_report, cpu_report):
+        return max(abs(card_report[k] - cpu_report[k]) for k in card_report)
+
+    cfg, _, line["bmn"] = arm("bmn", BMN22_CONFIG, "BMN", **data)
+    t0 = time.perf_counter()
+    cpu_bmn = localization_train.load_localizer(
+        os.path.join(tmp, "bmn", "bmn_final"), "BMN", device="cpu")
+    val = ActivityNetDataset(paths["val"], feats, cpu_bmn.cfg.temporal_dim)
+    cpu_report = localization_train.evaluate_bmn_proposals(
+        cpu_bmn, val, LOC22_VAL, device="cpu")
+    gap = ar_gap(line["bmn"]["report"], cpu_report)
+    line["bmn"].update(cpu_report=cpu_report, ar_gap=gap,
+                       cpu_eval_s=time.perf_counter() - t0)
+    print(f"22c bmn AR@AN card {json.dumps(line['bmn']['report'])} vs the "
+          f"checkpoint on the CPU {json.dumps(cpu_report)}: {gap:.2e} "
+          f"(need <= {LOC22_AR})", flush=True)
+    if gap > LOC22_AR:
+        raise SystemExit("22c BMN's AR@AN differs between card and CPU")
+    del cpu_bmn
+
+    _, tem, line["tem"] = arm("tem", TEM22_CONFIG, "TEM", **data)
+    t0 = time.perf_counter()
+    tem_dir = os.path.join(tmp, "tem_results")
+    os.makedirs(tem_dir)
+    tem.eval()
+    train = ActivityNetDataset(paths["train"], feats, 100)
+    with torch.no_grad():
+        out = tem(torch.from_numpy(np.stack(
+            [train[i]["features"] for i in range(len(train))])).to(dev))
+    for i, v in enumerate(train.videos):
+        np.savez(os.path.join(tem_dir, v["video"] + ".npz"),
+                 **{k: out[k][i].float().cpu().numpy()
+                    for k in ("action", "start", "end")})
+    pgm = {"proposals": os.path.join(tmp, "pgm_proposals"),
+           "features": os.path.join(tmp, "pgm_features")}
+    misc_tools.main(["bsn_pgm", "--tem_dir", tem_dir, "--proposals_dir",
+                     pgm["proposals"], "--features_dir", pgm["features"],
+                     "--ann_file", paths["train"]])
+    rows = [np.loadtxt(os.path.join(pgm["proposals"], f), delimiter=",",
+                       skiprows=1, ndmin=2)
+            for f in sorted(os.listdir(pgm["proposals"]))]
+    line["bsn_pgm"] = {"videos": len(rows),
+                       "proposals": [len(r) for r in rows],
+                       "seconds": time.perf_counter() - t0}
+    print(f"22c bsn_pgm over the trained TEM's curves: "
+          f"{json.dumps(line['bsn_pgm'])}", flush=True)
+    if len(rows) != LOC22_VIDEOS:
+        raise SystemExit("22c bsn_pgm wrote no artifacts for some videos")
+
+    pgm_data = {f"data.{s}.{k}": v for s in ("train", "val")
+                for k, v in (("pgm_proposals_dir", pgm["proposals"]),
+                             ("pgm_features_dir", pgm["features"]))}
+    pgm_data.update({"data.train.ann_file": paths["train"],
+                     "data.val.ann_file": paths["val"]})
+    cfg, _, line["pem"] = arm("pem", PEM22_CONFIG, "PEM", **pgm_data)
+    t0 = time.perf_counter()
+    mcfg = cfg["model"]
+    cpu_report = localization_train.evaluate_pem_proposals(
+        localization_train.load_localizer(
+            os.path.join(tmp, "pem", "pem_final"), "PEM", device="cpu"),
+        localization_train.load_pgm_videos(cfg, "val", mcfg["top_k"]),
+        mcfg["top_k"], mcfg["post_process_top_k"], device="cpu")
+    gap = ar_gap(line["pem"]["report"], cpu_report)
+    line["pem"].update(cpu_report=cpu_report, ar_gap=gap,
+                       cpu_eval_s=time.perf_counter() - t0)
+    print(f"22c pem AR@AN card {json.dumps(line['pem']['report'])} vs the "
+          f"checkpoint on the CPU {json.dumps(cpu_report)}: {gap:.2e} "
+          f"(need <= {LOC22_AR})", flush=True)
+    if gap > LOC22_AR:
+        raise SystemExit("22c PEM's AR@AN differs between card and CPU")
+
+    t0 = time.perf_counter()
+    norm, frames, ssn_feats = write_ssn22_corpus(tmp, LOC22_SSN)
+    data_tools.main(["denormalize_proposals", "--input", norm,
+                     "--frames_dir", frames])
+    ann = norm.replace("normalized_", "")
+    line["denormalize_s"] = time.perf_counter() - t0
+    ssn_data = {f"data.{s}.{k}": v for s in ("train", "val")
+                for k, v in (("ann_file", ann),
+                             ("feature_prefix", ssn_feats))}
+    _, _, line["ssn"] = arm("ssn", SSN22_CONFIG, "SSN", **ssn_data)
+    return line
+
+
+def check_step22(dev, card) -> Tuple[dict, dict]:
+    """Step 22 (a-d).  Returns (the `localization` JSON object, the
+    kernels' launches over the step: all must be 0)."""
+    import torch
+    t_step = time.perf_counter()
+    print(f"22 numpy {np.__version__}, torch {torch.__version__}", flush=True)
+    counted = kernel_counters()
+    for fn in counted.values():
+        fn.launches = 0
+    line = {"card": card, "numpy": np.__version__}
+    t0 = time.perf_counter()
+    line["bmn"] = bmn22_forward_and_step(dev, card)
+    line["bmn"]["seconds"] = time.perf_counter() - t0
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.perf_counter()
+        line["clis"] = localization_clis(dev, card, tmp)
+        line["clis"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    line["launches"] = launches
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"22d kernel launches over step 22: {json.dumps(launches)} (need "
+          f"0: no localization path reaches a kernel); step 22 checked in "
+          f"{line['seconds']:.1f} s", flush=True)
+    if any(launches.values()):
+        raise SystemExit("22d a localization path launched a kernel")
+    return line, launches
+
+
+STEPS = tuple(range(4, 23))      # the steps a selection may name
 
 
 def selected_steps(argv) -> set:
-    """The steps to run: all of 4-21 with no argument, else the numbers
+    """The steps to run: all of 4-22 with no argument, else the numbers
     given ("19", "13 19" or "13,19"); 4-5 and 6-7 run as pairs (5 and 7
     time what 4 and 6 build).  The build (2), the kernel checks (3) and
-    the results (22) always run."""
+    the results (23) always run."""
     if not argv:
         return set(STEPS)
     steps = set()
     for arg in argv:
         for part in filter(None, arg.split(",")):
-            if not part.isdigit() or int(part) not in range(2, 23):
+            if not part.isdigit() or int(part) not in range(2, 24):
                 raise SystemExit(f"chip_smoke: unknown step {part!r}; "
                                  f"choose among {STEPS[0]}-{STEPS[-1]}")
             steps.add(int(part))
@@ -7806,6 +8301,12 @@ def selected_steps(argv) -> set:
         if steps & pair:
             steps |= pair
     return steps & set(STEPS)
+
+
+def step_seconds(record: dict, step: str, t0: float) -> None:
+    """Records and prints, on a line of its own, a step's seconds."""
+    record[step] = time.perf_counter() - t0
+    print(f"step {step}: {record[step]:.1f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -7844,6 +8345,8 @@ def main(argv=None) -> int:
           f"matmul and cuDNN conv; steps {sorted(steps)}", flush=True)
 
     # -- 2. build -----------------------------------------------------------
+    step_s = {}
+    t_step = time.perf_counter()
     kern = load_kernels()
     print(f"kernels {'built' if kern.built else 'loaded'} in "
           f"{kern.seconds:.1f} s: {kern.path}")
@@ -7866,20 +8369,26 @@ def main(argv=None) -> int:
         return built.get("lib") or load_kernels(
             defines=("-DCMVE_BLK_NO_MMA",)).lib
 
+    step_seconds(step_s, "2", t_step)
+
     # -- 3. each kernel against its plain version ---------------------------
+    t_step = time.perf_counter()
     check_selfcheck(dev, kern)
     check_gemm(dev)
     core = check_core(dev)
     results = check_kernels(dev) + check_flash(dev)
     check_backward(dev)
+    step_seconds(step_s, "3", t_step)
 
     launches, block_extra, lines = {}, {}, {}
     counts = dict.fromkeys(("composed", "caption", "explain", "training",
                             "ctv", "caption_transformer",
                             "detector_training", "cnn", "cnn2d",
-                            "transformer", "clip_recognizer", "recipes"))
+                            "transformer", "clip_recognizer", "recipes",
+                            "localization"))
     rng = np.random.default_rng(1)
     if 4 in steps:
+        t_step = time.perf_counter()
         # -- 4. the CLIP path -----------------------------------------------
         cfg = flagship_config()
         t0 = time.perf_counter()
@@ -7903,8 +8412,10 @@ def main(argv=None) -> int:
         query_latency(model, plain, index, ids, card)
         del model, plain, index
         torch.cuda.empty_cache()
+        step_seconds(step_s, "4-5", t_step)
 
     if 6 in steps:
+        t_step = time.perf_counter()
         # -- 6. the caption path --------------------------------------------
         ts_model, ts_plain = build_timesformer(dev)
         clips = normalised_clips(rng, CLIPS, dev)
@@ -7916,56 +8427,76 @@ def main(argv=None) -> int:
         caption_throughput(ts_model, ts_plain, clips, card)
         del ts_model, ts_plain, clips
         torch.cuda.empty_cache()
+        step_seconds(step_s, "6-7", t_step)
 
     if 8 in steps:
+        t_step = time.perf_counter()
         # -- 8. the bench entry points' path --------------------------------
         launches["fused_block_sublayer_compact"], block_extra = \
             drive_bench_path(dev, card, ablation)
         block_extra["ptxas"] = ptxas
         torch.cuda.empty_cache()
+        step_seconds(step_s, "8", t_step)
 
     if 9 in steps:
+        t_step = time.perf_counter()
         # -- 9. the 1M-row index --------------------------------------------
         check_big_index(dev, card)
+        step_seconds(step_s, "9", t_step)
 
     if 10 in steps:
+        t_step = time.perf_counter()
         # -- 10. LINAS retrieval serving ------------------------------------
         torch.cuda.empty_cache()
         lines["serving"] = check_linas_serving(dev, card)
+        step_seconds(step_s, "10", t_step)
 
     if 11 in steps:
+        t_step = time.perf_counter()
         # -- 11. LINAS training ---------------------------------------------
         torch.cuda.empty_cache()
         lines["training"] = check_linas_training(dev, card)
+        step_seconds(step_s, "11", t_step)
 
     if 12 in steps:
+        t_step = time.perf_counter()
         # -- 12. composed retrieval -----------------------------------------
         torch.cuda.empty_cache()
         lines["composed"], counts["composed"] = check_composed(dev, card)
+        step_seconds(step_s, "12", t_step)
 
     if 13 in steps:
+        t_step = time.perf_counter()
         # -- 13. the caption route ------------------------------------------
         torch.cuda.empty_cache()
         lines["caption"], counts["caption"] = check_caption_route(dev, card)
+        step_seconds(step_s, "13", t_step)
 
     if 14 in steps:
+        t_step = time.perf_counter()
         # -- 14. the explain route ------------------------------------------
         torch.cuda.empty_cache()
         lines["explain"], counts["explain"] = check_explain_route(dev, card)
+        step_seconds(step_s, "14", t_step)
 
     if 15 in steps:
+        t_step = time.perf_counter()
         # -- 15. TimeSformer training ---------------------------------------
         torch.cuda.empty_cache()
         lines["timesformer_training"], counts["training"] = \
             check_timesformer_training(dev, card)
+        step_seconds(step_s, "15", t_step)
 
     if 16 in steps:
+        t_step = time.perf_counter()
         # -- 16. the concept detector and the bank build --------------------
         torch.cuda.empty_cache()
         lines["concept_detector"], counts["ctv"] = check_concept_detector(
             dev, card)
+        step_seconds(step_s, "16", t_step)
 
     if 17 in steps:
+        t_step = time.perf_counter()
         # -- 17. the caption transformer and the detector's training --------
         torch.cuda.empty_cache()
         step17, generate_launches = check_step17(dev, card)
@@ -7973,37 +8504,55 @@ def main(argv=None) -> int:
         counts["caption_transformer"] = {"flash_attention":
                                          generate_launches}
         counts["detector_training"] = step17["detector_training_launches"]
+        step_seconds(step_s, "17", t_step)
 
     if 18 in steps:
+        t_step = time.perf_counter()
         # -- 18. the 3D-CNN recognizers -------------------------------------
         torch.cuda.empty_cache()
         lines["cnn_recognizers"], counts["cnn"] = check_step18(dev, card)
+        step_seconds(step_s, "18", t_step)
 
     if 19 in steps:
+        t_step = time.perf_counter()
         # -- 19. the 2D, TSM and pyramid recognizers ------------------------
         torch.cuda.empty_cache()
         lines["cnn2d_recognizers"], counts["cnn2d"] = check_step19(dev, card)
+        step_seconds(step_s, "19", t_step)
 
     if 20 in steps:
+        t_step = time.perf_counter()
         # -- 20. the transformer and CLIP recognizers -----------------------
         torch.cuda.empty_cache()
         (lines["transformer_recognizers"], counts["transformer"],
          counts["clip_recognizer"]) = check_step20(dev, card)
+        step_seconds(step_s, "20", t_step)
 
     if 21 in steps:
+        t_step = time.perf_counter()
         # -- 21. the training recipes and the bf16-configured TimeSformer ---
         torch.cuda.empty_cache()
         lines["training_recipes"], counts["recipes"] = check_step21(dev,
                                                                     card)
+        step_seconds(step_s, "21", t_step)
+
+    if 22 in steps:
+        t_step = time.perf_counter()
+        # -- 22. temporal localization --------------------------------------
+        torch.cuda.empty_cache()
+        lines["localization"], counts["localization"] = check_step22(dev,
+                                                                     card)
+        step_seconds(step_s, "22", t_step)
     builds.close()
 
-    # -- 22. results ----------------------------------------------------------
+    # -- 23. results ----------------------------------------------------------
     for key, value in lines.items():
         print(json.dumps({key: value}))
     print(json.dumps(kernel_json(results, launches, core, block_extra,
                                  counts)))
+    print(json.dumps({"step_seconds": step_s}))
     skipped = sorted(set(STEPS) - steps)
-    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 22"
+    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 23"
           + (f"; skipped: {skipped} (a partial run)" if skipped else
              " (the whole smoke run)"), flush=True)
     print(json.dumps({"ok": True, "device": {

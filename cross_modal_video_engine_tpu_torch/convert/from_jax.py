@@ -92,6 +92,11 @@ compute the same function.
   anchors buffer in grid units); `yolo_variables_to_jax` and
   `yolo_cls_variables_to_jax` go the other way, so a detector checkpoint
   either package writes loads in the other.
+* `{bmn,tem,pem,ssn_head}_state_dict_from_jax` and `*_variables_to_jax`
+  carry the localizers (models/{bmn,bsn,ssn}.py) both ways.  Their
+  parameters keep the JAX module names: a flax Conv kernel (k..., in/g,
+  out) is the torch weight (out, in/g, k...), a Dense kernel (in, out)
+  the Linear weight (out, in); no importer reads these families.
 """
 
 from __future__ import annotations
@@ -1092,7 +1097,7 @@ def yolo_cls_variables_to_jax(state_dict: Dict[str, torch.Tensor], cfg
     return {"params": params, "batch_stats": stats}
 
 
-# -- the detector trainers' state ----------------------------------------------
+# -- the detector trainers' state ---------------------------------------------
 
 _YOLO_BUFFERS = ("running_mean", "running_var", "num_batches_tracked",
                  "anchors")
@@ -1741,3 +1746,42 @@ def clip_recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], clip_cfg,
     from ..models.recognizer import Recognizer3DCLIP
     return transformer_variables_to_jax(
         sd, Recognizer3DCLIP(clip_cfg, num_classes, device="meta"))
+
+
+# -- the localizers (BMN, BSN's TEM and PEM, the SSN head) --------------------
+
+def localizer_state_dict_from_jax(variables: Dict[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """A JAX localizer's {"params": {name: {"kernel", "bias"}}} -> the
+    port's state dict: each kernel's last two axes (in, out) brought to
+    the front as (out, in), its kernel axes after them."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in variables["params"].items():
+        k = np.asarray(p["kernel"])
+        n = k.ndim
+        sd[f"{name}.weight"] = _t(np.transpose(k, (n - 1, n - 2)
+                                                + tuple(range(n - 2))))
+        sd[f"{name}.bias"] = _t(p["bias"])
+    return sd
+
+
+def localizer_variables_to_jax(sd: Dict[str, torch.Tensor]
+                               ) -> Dict[str, Any]:
+    """The inverse of localizer_state_dict_from_jax, as numpy f32."""
+    params: Dict[str, Any] = {}
+    for key in sd:
+        name, leaf = key.rsplit(".", 1)
+        a = _np32(sd[key])
+        if leaf == "weight":
+            params.setdefault(name, {})["kernel"] = np.ascontiguousarray(
+                np.transpose(a, tuple(range(2, a.ndim)) + (1, 0)))
+        else:
+            params.setdefault(name, {})["bias"] = a
+    return {"params": params}
+
+
+bmn_state_dict_from_jax = tem_state_dict_from_jax = \
+    pem_state_dict_from_jax = ssn_head_state_dict_from_jax = \
+    localizer_state_dict_from_jax
+bmn_variables_to_jax = tem_variables_to_jax = pem_variables_to_jax = \
+    ssn_head_variables_to_jax = localizer_variables_to_jax

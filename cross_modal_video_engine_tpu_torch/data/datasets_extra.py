@@ -5,17 +5,22 @@ rest of the mmaction dataset family).  Ported so far:
 
 * `HVUDataset`: JSON annotations with per-category label lists
   (action, scene, object, ...); each category gets its own many-hot
-  target (hvu_dataset.py), which losses/hvu.py consumes.
+  target (hvu_dataset.py), which losses/hvu.py consumes;
+* `ActivityNetDataset`: ActivityNet-style JSON annotations and per-video
+  snippet features, resampled to a fixed temporal length (BMN, BSN);
+* `load_localize_proposal_file`, `SSNProposal` and `SSNDataset`: the SSN
+  proposal-file format and the per-video sampled proposal layout, drawn
+  from the dataset's seeded numpy generator (ssn_dataset.py).
 
-The pose dataset comes with ROADMAP.md queue 1 item 8h, the AVA dataset
-with item 8f and the localization datasets with item 8e.
+The pose dataset comes with ROADMAP.md queue 1 item 8h and the AVA
+dataset with item 8f.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -48,3 +53,174 @@ class HVUDataset:
     def __getitem__(self, idx: int) -> Dict:
         results = dict(self.video_infos[idx], start_index=0)
         return self.pipeline(results) if self.pipeline else results
+
+
+class ActivityNetDataset:
+    """Temporal-localization dataset: ActivityNet-style JSON annotations
+    + per-video snippet-feature files (the format the reference's
+    localization configs consume via mmaction ActivityNetDataset).
+
+    ann json: {video_id: {"duration": seconds,
+                          "annotations": [{"segment": [s, e],
+                                           "label": name-or-int}, ...]}}
+    features: <feature_prefix>/<video_id>.npy with shape (T, F); every
+    video is resampled (linear) to `temporal_dim` snippets so one shape
+    covers the corpus.
+    """
+
+    def __init__(self, ann_file: str, feature_prefix: str,
+                 temporal_dim: int = 100):
+        with open(ann_file) as f:
+            ann = json.load(f)
+        self.feature_prefix = feature_prefix
+        self.temporal_dim = temporal_dim
+        self.videos = []
+        for vid, info in sorted(ann.items()):
+            duration = float(info["duration"])
+            segs, labels = [], []
+            for a in info.get("annotations", []):
+                s, e = a["segment"]
+                segs.append([max(0.0, s / duration),
+                             min(1.0, e / duration)])
+                labels.append(a.get("label", 0))
+            self.videos.append(dict(
+                video=vid, duration=duration,
+                segments=np.asarray(segs, np.float32).reshape(-1, 2),
+                labels=labels))
+
+    def __len__(self) -> int:
+        return len(self.videos)
+
+    def features(self, idx: int) -> np.ndarray:
+        v = self.videos[idx]
+        feats = np.load(os.path.join(self.feature_prefix,
+                                     v["video"] + ".npy"))
+        T = self.temporal_dim
+        if feats.shape[0] != T:
+            pos = np.linspace(0, feats.shape[0] - 1, T)
+            lo = np.floor(pos).astype(int)
+            hi = np.minimum(lo + 1, feats.shape[0] - 1)
+            frac = (pos - lo)[:, None]
+            feats = (1 - frac) * feats[lo] + frac * feats[hi]
+        return feats.astype(np.float32)
+
+    def __getitem__(self, idx: int) -> Dict:
+        v = dict(self.videos[idx])
+        v["features"] = self.features(idx)
+        return v
+
+
+# ---------------------------------------------------------------------------
+# SSN proposal dataset (ssn_dataset.py + localization/ssn_utils.py)
+# ---------------------------------------------------------------------------
+
+
+def load_localize_proposal_file(path: str) -> List[Tuple]:
+    """Parse the SSN proposal-file format (ssn_utils.py:10-77):
+
+        # idx
+        video_id
+        num_frames
+        fps
+        num_gts
+        label start_frame end_frame            (x num_gts)
+        num_proposals
+        label best_iou overlap_self start end  (x num_proposals)
+
+    Returns [(video_id, num_frames, fps, gts, proposals), ...] with gts
+    and proposals as float arrays (possibly empty)."""
+    out = []
+    with open(path) as f:
+        lines = [ln.strip() for ln in f]
+    i = 0
+    while i < len(lines):
+        if not lines[i].startswith("#"):
+            i += 1
+            continue
+        video_id = lines[i + 1]
+        num_frames = int(float(lines[i + 2]))
+        fps = float(lines[i + 3])
+        n_gt = int(lines[i + 4])
+        gt = np.asarray([lines[i + 5 + j].split() for j in range(n_gt)],
+                        np.float64).reshape(n_gt, 3)
+        i += 5 + n_gt
+        n_prop = int(lines[i])
+        prop = np.asarray([lines[i + 1 + j].split() for j in range(n_prop)],
+                          np.float64).reshape(n_prop, 5)
+        i += 1 + n_prop
+        out.append((video_id, num_frames, fps, gt, prop))
+    return out
+
+
+class SSNProposal:
+    """SSNInstance equivalent (ssn_dataset.py:19-49): frame-span proposal
+    with its best-gt tIoU and self-overlap.  Duck-compatible with
+    SampleProposalFrames (`start_frame`/`end_frame`)."""
+
+    def __init__(self, start_frame: int, end_frame: int, num_frames: int,
+                 label: int = -1, best_iou: float = 0.0,
+                 overlap_self: float = 0.0):
+        self.start_frame = int(start_frame)
+        self.end_frame = int(min(end_frame, num_frames))
+        self.num_video_frames = num_frames
+        self.label = label
+        self.coverage = (end_frame - start_frame) / max(num_frames, 1)
+        self.best_iou = best_iou
+        self.overlap_self = overlap_self
+
+
+class SSNDataset:
+    """Proposal dataset for SSN training (ssn_dataset.py:60-330): parses
+    the proposal file, and per video draws the fixed
+    positive/incomplete/background proposal layout through
+    train.localization_trainer.sample_ssn_proposals.  `normalized_`
+    files are handled by the denormalize_proposals data tool."""
+
+    def __init__(self, ann_file: str, data_prefix: Optional[str] = None,
+                 sampler_cfg=None, seed: int = 0):
+        from ..train.localization_trainer import SSNSamplerConfig
+
+        self.sampler_cfg = sampler_cfg or SSNSamplerConfig()
+        self.rng = np.random.default_rng(seed)
+        self.video_infos = []
+        for vid, num_frames, fps, gt, prop in \
+                load_localize_proposal_file(ann_file):
+            frame_dir = os.path.join(data_prefix, vid) if data_prefix else vid
+            gts = [SSNProposal(g[1], g[2], num_frames, label=int(g[0]),
+                               best_iou=1.0)
+                   for g in gt if g[2] > g[1] and g[1] < num_frames]
+            props = [SSNProposal(p[3], p[4], num_frames, label=int(p[0]),
+                                 best_iou=p[1], overlap_self=p[2])
+                     for p in prop if p[4] > p[3] and p[3] < num_frames]
+            self.video_infos.append(dict(
+                frame_dir=frame_dir, video_id=vid, total_frames=num_frames,
+                fps=fps, gts=gts, proposals=props))
+
+    def __len__(self) -> int:
+        return len(self.video_infos)
+
+    def __getitem__(self, idx: int) -> Dict:
+        """One training sample: the sampled proposal layout + the
+        `out_proposals`/`total_frames` keys SampleProposalFrames reads."""
+        from ..train.localization_trainer import sample_ssn_proposals
+
+        info = self.video_infos[idx]
+        gts, props = info["gts"], info["proposals"]
+        if not gts or not props:
+            raise ValueError(f"video {info['video_id']} has no usable "
+                             "gts/proposals")
+        prop_arr = np.asarray(
+            [[p.start_frame, p.end_frame] for p in props], np.float64)
+        gt_arr = np.asarray(
+            [[g.start_frame, g.end_frame] for g in gts], np.float64)
+        gt_labels = np.asarray([g.label for g in gts], np.int64)
+        sampled = sample_ssn_proposals(prop_arr, gt_arr, gt_labels,
+                                       self.sampler_cfg, self.rng)
+        out_props = [
+            SSNProposal(s, e, info["total_frames"])
+            for s, e in np.asarray(sampled["proposals"], np.int64)]
+        return dict(info, out_proposals=out_props, start_index=0,
+                    sampled_proposals=sampled["proposals"],
+                    labels=sampled["labels"],
+                    proposal_type=sampled["proposal_type"],
+                    bbox_targets=sampled["bbox_targets"])

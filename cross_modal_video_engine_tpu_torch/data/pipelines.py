@@ -710,9 +710,6 @@ UNPORTED_OPS = dict(
                            "PoseDecode", "LoadKineticsPose", "PoseNormalize",
                            "PoseCompact", "JointToBone", "FormatGCNInput",
                            "GeneratePoseTarget")},
-    **{op: "8e" for op in ("LoadLocalizationFeature",
-                           "GenerateLocalizationLabels", "LoadProposals",
-                           "SampleProposalFrames")},
     SampleAVAFrames="8f")
 
 
@@ -720,8 +717,7 @@ def build_pipeline(cfgs: Sequence[Dict]) -> Compose:
     """Build from mmaction-style [{'type': 'SampleFrames', ...}, ...].
     An op type that is not ported raises KeyError naming the part of
     ROADMAP.md queue 1 item 8 that ports it (`UNPORTED_OPS`: the audio,
-    pose, localization and AVA ops of the JAX package's
-    pipelines_extra)."""
+    pose and AVA ops of the JAX package's pipelines_extra)."""
     # the decode ops (DecordInit, DecordDecode, ...) register on import
     from ..io import video_decode  # noqa: F401
     ops = []

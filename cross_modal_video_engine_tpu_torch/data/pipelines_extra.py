@@ -19,14 +19,21 @@ cross_modal_video_engine_tpu/data/pipelines_extra.py, over the same
   hands a reader in);
 * `ArrayDecode` (loading.py:1350-1390): frames picked from an in-memory
   (T, H, W, C) array, RGB or two-channel flow;
-* `Rename`, `Transpose`, `Collect` (formatting.py).
+* `Rename`, `Transpose`, `Collect` (formatting.py);
+* the localization ops (loading.py:470-725, 1697-1860):
+  `LoadLocalizationFeature` (a (T, C) csv as raw_feature (C, T)),
+  `GenerateLocalizationLabels` (segments in seconds -> gt_bbox in [0,
+  1]), `LoadProposals` (the top-k PGM proposals and their BSP features)
+  and `SampleProposalFrames` (SSN's starting / course / ending segment
+  sampling around each proposal, seeded; strided in test mode).
 
-The audio, pose, localization and AVA ops come with ROADMAP.md queue 1
-items 8e-8h (data/pipelines.UNPORTED_OPS).
+The audio, pose and AVA ops come with ROADMAP.md queue 1 items 8f-8h
+(data/pipelines.UNPORTED_OPS).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -226,3 +233,166 @@ class Collect:
             out["img_metas"] = {k: results[k] for k in self.meta_keys
                                 if k in results}
         return out
+
+
+# -- localization features and proposals --------------------------------------
+
+@PIPELINES.register("LoadLocalizationFeature")
+class LoadLocalizationFeature:
+    """loading.py:1697-1741: csv (T, C) -> raw_feature (C, T)."""
+
+    def __init__(self, raw_feature_ext: str = ".csv"):
+        assert raw_feature_ext == ".csv"
+        self.raw_feature_ext = raw_feature_ext
+
+    def __call__(self, results: Dict) -> Dict:
+        path = os.path.join(results["data_prefix"],
+                            results["video_name"] + self.raw_feature_ext)
+        raw = np.loadtxt(path, dtype=np.float32, delimiter=",", skiprows=1)
+        results["raw_feature"] = np.transpose(raw, (1, 0))
+        return results
+
+
+@PIPELINES.register("GenerateLocalizationLabels")
+class GenerateLocalizationLabels:
+    """loading.py:1744-1777: annotation segments (seconds) -> gt_bbox in
+    [0, 1] of the feature-corrected duration."""
+
+    def __call__(self, results: Dict) -> Dict:
+        corrected = (float(results["feature_frame"])
+                     / results["duration_frame"]
+                     * results["duration_second"])
+        gt = [[max(min(1, a["segment"][0] / corrected), 0),
+               max(min(1, a["segment"][1] / corrected), 0)]
+              for a in results["annotations"]]
+        results["gt_bbox"] = np.array(gt)
+        return results
+
+
+@PIPELINES.register("LoadProposals")
+class LoadProposals:
+    """loading.py:1780-1857: top-k PGM proposals (tmin, tmax, scores,
+    reference tIoU) + bsp features."""
+
+    def __init__(self, top_k: int, pgm_proposals_dir: str,
+                 pgm_features_dir: str, proposal_ext: str = ".csv",
+                 feature_ext: str = ".npy"):
+        assert proposal_ext == ".csv" and feature_ext == ".npy"
+        self.top_k = top_k
+        self.pgm_proposals_dir = pgm_proposals_dir
+        self.pgm_features_dir = pgm_features_dir
+        self.proposal_ext = proposal_ext
+        self.feature_ext = feature_ext
+
+    def __call__(self, results: Dict) -> Dict:
+        name = results["video_name"]
+        props = np.loadtxt(
+            os.path.join(self.pgm_proposals_dir, name + self.proposal_ext),
+            dtype=np.float32, delimiter=",", skiprows=1, ndmin=2)
+        props = np.array(props[:self.top_k])
+        feats = np.load(os.path.join(
+            self.pgm_features_dir,
+            name + self.feature_ext)).astype(np.float32)
+        results["bsp_feature"] = feats[:self.top_k, :]
+        results["tmin"] = props[:, 0]
+        results["tmax"] = props[:, 1]
+        results["tmin_score"] = props[:, 2]
+        results["tmax_score"] = props[:, 3]
+        results["reference_temporal_iou"] = props[:, 5]
+        return results
+
+
+def _proposal_bounds(proposal) -> Tuple[int, int]:
+    if hasattr(proposal, "start_frame"):
+        return proposal.start_frame, proposal.end_frame
+    return proposal[0], proposal[1]
+
+
+@PIPELINES.register("SampleProposalFrames")
+class SampleProposalFrames:
+    """loading.py:470-725: SSN-style three-stage (starting / course /
+    ending) segment sampling around each proposal; whole-video strided
+    sampling in test mode.  `out_proposals` entries are either reference
+    ((rec, proposal), ...) nests, objects with start/end_frame, or plain
+    (start, end) tuples."""
+
+    def __init__(self, clip_len: int, body_segments: int,
+                 aug_segments: Tuple[int, int], aug_ratio,
+                 frame_interval: int = 1, test_interval: int = 6,
+                 temporal_jitter: bool = False, mode: str = "train",
+                 seed: Optional[int] = None):
+        assert mode in ("train", "val", "test")
+        self.clip_len = clip_len
+        self.body_segments = body_segments
+        self.aug_segments = tuple(aug_segments)
+        if not isinstance(aug_ratio, (tuple, list)):
+            aug_ratio = (aug_ratio, aug_ratio)
+        self.aug_ratio = tuple(aug_ratio)
+        self.frame_interval = frame_interval
+        self.test_interval = test_interval
+        self.temporal_jitter = temporal_jitter
+        self.mode = mode
+        self.rng = np.random.default_rng(seed)
+
+    def _train_indices(self, valid_length: int, num_segments: int):
+        avg = (valid_length + 1) // num_segments
+        if avg > 0:
+            base = np.arange(num_segments) * avg
+            return base + self.rng.integers(0, avg, size=num_segments)
+        return np.zeros((num_segments,), np.int64)
+
+    @staticmethod
+    def _val_indices(valid_length: int, num_segments: int):
+        if valid_length >= num_segments:
+            avg = valid_length / float(num_segments)
+            return (np.arange(num_segments) * avg + avg / 2.0).astype(np.int64)
+        return np.zeros((num_segments,), np.int64)
+
+    def _proposal_clips(self, proposal, num_frames: int):
+        start_frame, end_frame = _proposal_bounds(proposal)
+        ori_clip_len = self.clip_len * self.frame_interval
+        duration = end_frame - start_frame
+        assert duration != 0
+        valid_length = duration - ori_clip_len
+        valid_starting = max(
+            0, start_frame - int(duration * self.aug_ratio[0]))
+        valid_ending = min(num_frames - ori_clip_len + 1,
+                           end_frame - 1 + int(duration * self.aug_ratio[1]))
+        valid_starting_length = start_frame - valid_starting - ori_clip_len
+        valid_ending_length = (valid_ending - end_frame + 1) - ori_clip_len
+        pick = (self._train_indices if self.mode == "train"
+                else self._val_indices)
+        starting = pick(valid_starting_length,
+                        self.aug_segments[0]) + valid_starting
+        course = pick(valid_length, self.body_segments) + start_frame
+        ending = pick(valid_ending_length, self.aug_segments[1]) + end_frame
+        return np.concatenate([starting, course, ending])
+
+    def __call__(self, results: Dict) -> Dict:
+        total_frames = results["total_frames"]
+        if self.mode == "test":
+            ori_clip_len = self.clip_len * self.frame_interval
+            offsets = np.arange(0, total_frames - ori_clip_len,
+                                self.test_interval, dtype=np.int64)
+        else:
+            proposals = results["out_proposals"]
+            offsets = np.concatenate([
+                self._proposal_clips(
+                    p[0][1] if isinstance(p, (tuple, list))
+                    and isinstance(p[0], (tuple, list)) else p, total_frames)
+                for p in proposals])
+        inds = (offsets[:, None]
+                + np.arange(self.clip_len)[None, :] * self.frame_interval)
+        inds = np.concatenate(inds)
+        if self.temporal_jitter:
+            inds = inds + self.rng.integers(0, self.frame_interval,
+                                            size=len(inds))
+        inds = np.mod(inds, total_frames) + results.get("start_index", 0)
+        results["frame_inds"] = inds.astype(np.int64)
+        results["clip_len"] = self.clip_len
+        results["frame_interval"] = self.frame_interval
+        results["num_clips"] = (self.body_segments + self.aug_segments[0]
+                                + self.aug_segments[1])
+        if self.mode in ("train", "val"):
+            results["num_proposals"] = len(results["out_proposals"])
+        return results

@@ -652,8 +652,10 @@ def conv_init_state_dict(model: nn.Module, seed: int
     gammas `init_values`, VideoCLIP's CLS and token tables normal(0.02),
     its position tables normal(0.01), CLIP's class and position
     embeddings and projection normal(width^-0.5), Recognizer3DCLIP's
-    `fc_cls` normal(0.01).  The same distributions as `model.init`, not
-    the same numbers."""
+    `fc_cls` normal(0.01).  The same for the localizers (BMN, TEM, PEM,
+    SSNHead): every conv and Dense kernel lecun-normal (BMN's `pem_3d`
+    with fan-in C x N), biases zero.  The same distributions as
+    `model.init`, not the same numbers."""
     rng = np.random.default_rng(seed)
     out: Dict[str, torch.Tensor] = {}
     head = getattr(model, "cls_head", None)

@@ -559,6 +559,31 @@ def _recipe_train(w, extra: str):
                                    "--device", "cpu"])
 
 
+def _localization_train(tmp):
+    """localization_train.main on a TEM config over four seeded videos of
+    16 snippets."""
+    from cross_modal_video_engine_tpu_torch.cli import localization_train
+    rng = np.random.default_rng(8)
+    feats = tmp / "loc_feats"
+    feats.mkdir()
+    ann = {}
+    for i in range(4):
+        np.save(feats / f"v{i}.npy",
+                rng.standard_normal((16, 8)).astype(np.float32))
+        ann[f"v{i}"] = {"duration": 10.0, "annotations": [
+            {"segment": [2.0, 6.0], "label": 1}]}
+    (tmp / "loc_ann.json").write_text(json.dumps(ann))
+    data = (f"dict(ann_file=r'{tmp / 'loc_ann.json'}', "
+            f"feature_prefix=r'{feats}')")
+    (tmp / "loc.py").write_text(
+        "model = dict(type='TEM', temporal_dim=16, feat_dim=8, hidden=8)\n"
+        f"data = dict(train={data}, val={data})\n"
+        "total_epochs = 1\nbatch_size = 2\n")
+    return localization_train.main([str(tmp / "loc.py"), "--work_dir",
+                                    str(tmp / "loc_work"), "--device",
+                                    "cpu"])
+
+
 def _entry_points():
     from cross_modal_video_engine_tpu_torch.cli import (
         caption_train, composed_inference, recognition_test,
@@ -624,6 +649,7 @@ def _entry_points():
         "yolo_train.main": lambda w: _yolo_train(w["detector"], w["tmp"]),
         "yolo_cls_train.main": lambda w: _yolo_train(w["detector"], w["tmp"],
                                                      classify=True),
+        "localization_train.main": lambda w: _localization_train(w["tmp"]),
     }
 
 
@@ -637,7 +663,8 @@ ENTRY_POINTS = ["restore_dual_encoding", "retrieval_inference.main",
                 "yolo_train.main", "yolo_cls_train.main",
                 "recognition_test.main", "recognition_test.main[cnn]",
                 "recognition_train.main[multigrid]",
-                "recognition_train.main[omnisource]"]
+                "recognition_train.main[omnisource]",
+                "localization_train.main"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)

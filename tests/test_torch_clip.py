@@ -185,10 +185,17 @@ LINAS_MODULES = (
     "data.provider", "cli.common", "retrieval.evaluation",
     "metrics.retrieval", "cli.retrieval_inference", "cli.retrieval_tester",
     "service.batching", "service.app", "cli.serve", "bench.serve")
+# every module of the port's temporal-localization slice
+LOCALIZATION_MODULES = (
+    "metrics.proposals", "models.bmn", "models.bsn", "models.ssn",
+    "losses.localization", "train.localization_trainer",
+    "data.datasets_extra", "data.pipelines_extra",
+    "cli.localization_train", "cli.misc_tools", "cli.data_tools")
 
 
 def test_port_imports_no_jax():
-    modules = ("models.clip", "retrieval.index", "convert") + LINAS_MODULES
+    modules = (("models.clip", "retrieval.index", "convert") + LINAS_MODULES
+               + LOCALIZATION_MODULES)
     code = ("import sys; "
             + "; ".join(f"import cross_modal_video_engine_tpu_torch.{m}"
                         for m in modules) + "; "
