@@ -5647,7 +5647,8 @@ def _group(name: str) -> str:
 # and buffer (the init functions raise on a missing key, load_state_dict is
 # strict).
 INIT_FNS = ("conv_init_state_dict", "init_state_dict")
-INIT_BUILDERS = ("build_recognition_model", "build_caption_model")
+INIT_BUILDERS = ("build_recognition_model", "build_caption_model",
+                 "build_detection_model")
 TORCH_INITS = ("kaiming_uniform_", "kaiming_normal_", "uniform_", "normal_",
                "trunc_normal_", "xavier_uniform_", "xavier_normal_",
                "constant_", "zeros_", "ones_", "orthogonal_")
@@ -5675,6 +5676,7 @@ def shared_training_init():
     import collections
     import torch
     from cross_modal_video_engine_tpu_torch.cli import (caption_train,
+                                                        detection_train,
                                                         recognition_train)
     memo = collections.OrderedDict()
     saved = []
@@ -5714,9 +5716,10 @@ def shared_training_init():
         return build
 
     try:
-        for owner in (recognition_train, caption_train):
+        for owner in (recognition_train, caption_train, detection_train):
             for name in INIT_FNS:
-                patch(owner, name, memoized(getattr(owner, name)))
+                if hasattr(owner, name):
+                    patch(owner, name, memoized(getattr(owner, name)))
             for name in INIT_BUILDERS:
                 if hasattr(owner, name):
                     patch(owner, name, no_default_init(getattr(owner, name)))
@@ -7187,7 +7190,8 @@ def kernel_json(results, launches, core, block_extra, counts) -> dict:
     19, `transformer_launches` over the transformer and CLIP recognizers
     of step 20 but 20b, `clip_recognizer_launches` over one bf16 forward
     of 20b's CLIP kernel arm, `recipes_launches` over the counted calls of
-    step 21d, `localization_launches` over step 22.  A main-path count is None when its step did not run.
+    step 21d, `localization_launches` over step 22, `detection_launches`
+    over step 23.  A main-path count is None when its step did not run.
     `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
@@ -8280,20 +8284,625 @@ def check_step22(dev, card) -> Tuple[dict, dict]:
     return line, launches
 
 
-STEPS = tuple(range(4, 23))      # the steps a selection may name
+# -- step 23: spatio-temporal action detection (AVA) -------------------------------
+
+DET_CONFIGS = ROOT / "configs" / "detection"
+AVA23 = {"slowonly": DET_CONFIGS / "ava" /
+         "slowonly_kinetics_pretrained_r50_4x16x1_20e_ava_rgb.py",
+         "slowfast": DET_CONFIGS / "ava" /
+         "slowfast_kinetics_pretrained_r50_4x16x1_20e_ava_rgb.py",
+         "acrn": DET_CONFIGS / "acrn" /
+         "slowfast_acrn_kinetics_pretrained_r50_8x8x1_cosine_10e_ava22_rgb.py",
+         "lfb": DET_CONFIGS / "lfb" /
+         "lfb_nl_kinetics_pretrained_slowonly_r50_4x16x1_20e_ava_rgb.py"}
+# 23a: each config at full width (the training init), card vs CPU at
+# AVA23_CPU_BATCH keyframes of AVA23_CPU_ROIS RoIs (f32, TF32 off: logits
+# within AVA23_REL of the largest, cosine >= AVA23_COS, as 18a holds its
+# 3D-CNNs), then timed at AVA23_BATCH keyframes of AVA23_ROIS RoIs (the
+# configs' videos_per_gpu and max_boxes); the LFB config over a seeded bank
+# of AVA23_BANK_SECONDS seconds (window 60, capacity 5)
+AVA23_BATCH, AVA23_ROIS, AVA23_TIMED = 8, 32, 2
+AVA23_CPU_BATCH, AVA23_CPU_ROIS = 1, 2
+AVA23_REL, AVA23_COS = 1e-3, 0.999
+AVA23_BANK_SECONDS = 90
+# 23b: one step of each config's optimizer (warmup 0) at full width and one
+# block a stage, AVA23_STEP_ROIS RoIs of one keyframe at AVA23_STEP_SIZE²,
+# card vs CPU held to float64 by 18b's verdict with its planted faults,
+# the dropout masks handed to both devices
+AVA23_STEP_SIZE, AVA23_STEP_ROIS = 128, 2
+# gradients that are zero by the model's structure, read apart from the
+# float64 witness: a non-local block's phi bias (the softmax ignores a
+# shift shared by all keys; the FBO's key biases likewise) and g bias (a
+# shift of every value, through conv_out, removed by the train-mode
+# BatchNorm after it).  Their float64 values are cancellation noise, which
+# the card's and the CPU's summation orders make differently; each must
+# stay within AVA23_ZERO of the largest gradient on both devices
+AVA23_ZERO_BY_STRUCTURE = re.compile(
+    r"(non_local_block\.(phi|g)\.0\.conv|non_local_layer_\d+\.lt_feat_conv)"
+    r"\.bias$")
+AVA23_ZERO = 1e-9
+AVA23_STEP_DEPTH = {"slowfast": {"model.backbone.depth_blocks": [1, 1, 1, 1]}}
+# 23c: the CLIs over AVA23_VIDEOS seeded videos of AVA23_FRAMES frames, two
+# keyframes each, AVA23_CLI_BATCH keyframes a step; the results csv's mAP
+# of the card's model_best against the same checkpoint on the CPU: the
+# unrounded scores' mAP within AVA23_MAP, the csv's (scores printed %.3f,
+# so a score at a rounding edge may land on the other side and reorder a
+# tie) within AVA23_CSV_MAP.  The CLIs train at AVA23_CLI_LR: the configs'
+# 0.2 (0.1 for ACRN) drives every score under action_thr (0.002) within
+# two steps on these keyframes, and both mAPs would read 0
+AVA23_VIDEOS, AVA23_FRAMES, AVA23_CLI_BATCH, AVA23_EPOCHS = 2, 150, 2, 2
+AVA23_MAP, AVA23_CSV_MAP, AVA23_CLI_LR = 1e-6, 0.02, 0.002
+
+
+def ava23_config(name, **options):
+    return shipped_training_config(AVA23[name], **options)
+
+
+def ava23_clip_shape(cfg, size=None) -> Tuple[int, int, int]:
+    ops = {op["type"]: op for op in cfg["data.pipeline"]}
+    h, w = ops["Resize"]["scale"]
+    return (ops["SampleAVAFrames"]["clip_len"], size or h, size or w)
+
+
+def ava23_batch(cfg, batch: int, rois: int, seed: int, size=None) -> dict:
+    """Seeded clips, `rois` person boxes a keyframe (normalized x1y1x2y2),
+    many-hot labels over the config's classes (a few of them), the last
+    row of each keyframe padded (valid 0)."""
+    rng = np.random.default_rng(seed)
+    t, h, w = ava23_clip_shape(cfg, size)
+    classes = cfg["model.roi_head.num_classes"]
+    xy = rng.uniform(0.0, 0.6, (batch * rois, 2))
+    wh = rng.uniform(0.15, 0.4, (batch * rois, 2))
+    boxes = np.clip(np.concatenate([xy, xy + wh], 1), 0.0, 1.0)
+    r = np.concatenate([np.repeat(np.arange(batch), rois)[:, None], boxes],
+                       1).astype(np.float32)
+    labels = (rng.random((batch * rois, classes)) < 0.05).astype(np.float32)
+    valid = np.ones(batch * rois, np.float32)
+    if rois > 1:
+        valid[rois - 1::rois] = 0.0
+    return {"clips": rng.standard_normal((batch, t, h, w, 3)).astype(
+                np.float32),
+            "rois": r, "labels": labels, "valid": valid,
+            "video_id": ["bank"] * batch,
+            "timestamp": [930 + 3 * b for b in range(batch)]}
+
+
+def ava23_bank(channels: int, d, seed: int = 230):
+    """A seeded bank of one video: 1-7 RoI rows a second for
+    AVA23_BANK_SECONDS seconds, sampled to the config's capacity."""
+    from cross_modal_video_engine_tpu_torch.models.lfb import LFBBuilder
+    rng = np.random.default_rng(seed)
+    builder = LFBBuilder(channels, 5)
+    for sec in range(AVA23_BANK_SECONDS):
+        builder.add("bank", 900 + sec, rng.standard_normal(
+            (int(rng.integers(1, 8)), channels)).astype(np.float32))
+    return builder.build(seed, device=d)
+
+
+def ava23_lt(cfg, model, batch, d):
+    """The batch's long-term windows for an FBO config, else None."""
+    from cross_modal_video_engine_tpu_torch.models.lfb import FBOHead
+    from cross_modal_video_engine_tpu_torch.train.detection_trainer import (
+        sample_lt_features)
+    if not isinstance(model.shared_head, FBOHead):
+        return None
+    n = len(batch["video_id"])
+    return sample_lt_features(ava23_bank(model.backbone.feat_dim, d),
+                              batch["video_id"], batch["timestamp"],
+                              len(batch["rois"]) // n,
+                              cfg.get("model.lfb.window_size", 60), n)
+
+
+def _on23(batch, d):
+    import torch
+    return [torch.from_numpy(batch[k]).to(d) for k in ("clips", "rois")]
+
+
+def _counted_flops(fn) -> float:
+    """The products one call of fn runs (torch's FLOP counter)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())
+
+
+def _ava23_optimizer(cfg, model, steps: int = 10):
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_rec_optimizer)
+    tcfg = RecognitionTrainConfig(**dict(cfg["optimizer"], warmup_steps=0))
+    return tcfg, init_rec_state(model, make_rec_optimizer(tcfg, steps))
+
+
+def ava23_forwards(dev, card) -> dict:
+    """23a and the timed full-depth steps: each config card vs CPU, its
+    forward at AVA23_BATCH x AVA23_ROIS and its SGD step there."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli.detection_train import (
+        build_detection_model)
+    from cross_modal_video_engine_tpu_torch.train.detection_trainer import (
+        make_det_train_step)
+    out = {"card": card}
+    for name in AVA23:
+        t0 = time.perf_counter()
+        cfg = ava23_config(name)
+        model = build_detection_model(cfg, dev).eval()
+        cpu_model = build_detection_model(cfg, "cpu").eval()
+        small = ava23_batch(cfg, AVA23_CPU_BATCH, AVA23_CPU_ROIS, seed=231)
+        with torch.no_grad():
+            t1 = time.perf_counter()
+            want = cpu_model(*_on23(small, "cpu"), lt_feat=ava23_lt(
+                cfg, cpu_model, small, "cpu"))
+            cpu_s = time.perf_counter() - t1
+            got = model(*_on23(small, dev), lt_feat=ava23_lt(
+                cfg, model, small, dev)).cpu()
+        del cpu_model
+        rec = {"params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+               "clip": list(ava23_clip_shape(cfg)),
+               "max_rel": _max_rel(got, want), "cosine": _cosine(got, want),
+               "cpu_s": cpu_s}
+        if not (torch.isfinite(got).all() and rec["max_rel"] <= AVA23_REL
+                and rec["cosine"] >= AVA23_COS):
+            raise SystemExit(f"23a {name}: the card and the CPU differ "
+                             f"{json.dumps(rec)}")
+        big = ava23_batch(cfg, AVA23_BATCH, AVA23_ROIS, seed=232)
+        clips, rois = _on23(big, dev)
+        lt = ava23_lt(cfg, model, big, dev)
+        with torch.no_grad():
+            flops = _counted_flops(lambda: model(clips, rois, lt_feat=lt))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: model(clips, rois, lt_feat=lt),
+                         iters=AVA23_TIMED, warmup=1)
+        rec["forward"] = {"batch": AVA23_BATCH, "rois": AVA23_ROIS, "ms": ms,
+                          "gflop": flops / 1e9,
+                          "tflops": flops / ms / 1e9,
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2**30}
+        _, state = _ava23_optimizer(cfg, model)
+        step = make_det_train_step(model, device=dev)
+        labels, valid = (torch.from_numpy(big[k]).to(dev)
+                         for k in ("labels", "valid"))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(state, clips, rois, labels, valid, lt),
+                     iters=AVA23_TIMED - 1, warmup=1)
+        rec["train_step"] = {
+            "batch": AVA23_BATCH, "ms": ms,
+            "keyframes_per_s": AVA23_BATCH / ms * 1e3,
+            "tflops": 3 * flops / ms / 1e9,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        rec["seconds"] = time.perf_counter() - t0
+        out[name] = rec
+        print(f"23a {name}: card vs CPU at {AVA23_CPU_BATCH}x{AVA23_CPU_ROIS} "
+              f"RoIs max_rel {rec['max_rel']:.2e} cosine "
+              f"{rec['cosine']:.7f} (need <= {AVA23_REL}, >= {AVA23_COS}); "
+              f"forward at {AVA23_BATCH}x{AVA23_ROIS} "
+              f"{rec['forward']['ms']:.2f} ms, {rec['forward']['gflop']:.0f} "
+              f"GFLOP, {rec['forward']['tflops']:.2f} TFLOP/s, peak "
+              f"{rec['forward']['peak_gib']:.2f} GiB; SGD step "
+              f"{ms:.2f} ms, {rec['train_step']['keyframes_per_s']:.1f} "
+              f"keyframes/s, {rec['train_step']['tflops']:.2f} TFLOP/s, peak "
+              f"{rec['train_step']['peak_gib']:.2f} GiB ({card}; "
+              f"{rec['seconds']:.1f} s)", flush=True)
+        del model, state, step, clips, rois, lt, labels, valid
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ava23_masks(cfg, model, n: int, lt_rows, seed: int):
+    """Keep masks for the step's dropout calls in call order: the FBO's
+    st, lt and each non-local layer's output, then the head's."""
+    from cross_modal_video_engine_tpu_torch.models.lfb import FBOHead
+    rng = np.random.default_rng(seed)
+    shapes = []
+    head = model.shared_head
+    if isinstance(head, FBOHead) and head.cfg.fbo_type == "non_local":
+        c = head.cfg.latent_channels
+        shapes += [((n, 1, c), 0.2), ((n, lt_rows, c), 0.2)]
+        shapes += [((n, 1, c), 0.2)] * head.cfg.num_non_local_layers
+    p = cfg["model.roi_head.dropout"]
+    if p:
+        shapes.append(((n, model.roi_head.fc_cls.in_features), p))
+    return [rng.random(s) >= q for s, q in shapes]
+
+
+def _ava23_step_run(d, cfg, start, batch, dtype=None) -> dict:
+    """One make_det_train_step step from `start` on device d with the
+    batch's masks; with dtype=float64 the loss's forward and backward
+    alone (the witness)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli.detection_train import (
+        build_detection_model)
+    from cross_modal_video_engine_tpu_torch.models.ava_head import (
+        ava_bbox_loss)
+    from cross_modal_video_engine_tpu_torch.train import (
+        detection_trainer as dt)
+    model = build_detection_model(cfg, d)
+    model.load_state_dict(start)
+    clips, rois = _on23(batch, d)
+    labels, valid = (torch.from_numpy(batch[k]).to(d)
+                     for k in ("labels", "valid"))
+    lt = ava23_lt(cfg, model, batch, d)
+    masks = [torch.from_numpy(m).to(d) for m in batch["masks"]]
+    if dtype is not None:
+        model = model.to(dtype).train()
+        with dt.handed_masks(model, masks):
+            logits = model(clips.to(dtype), rois, lt_feat=None if lt is None
+                           else lt.to(dtype))
+        loss = ava_bbox_loss(logits, labels.to(dtype), valid.to(dtype))
+        loss.backward()
+        return {"loss": float(loss.detach()), "grads": _grads64(model),
+                "stats": _stats64(model)}
+    _, state = _ava23_optimizer(cfg, model)
+    step = dt.make_det_train_step(model, device=d)
+    p0 = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
+    s0 = _stats64(model)
+    t0 = time.perf_counter()
+    _, logs = step(state, clips, rois, labels, valid, lt, draws=masks)
+    loss = float(logs["loss"])
+    return {"loss": loss, "s": time.perf_counter() - t0,
+            "grads": _grads64(model), "p0": p0, "s0": s0,
+            "params": {n: p.detach().double().cpu()
+                       for n, p in model.named_parameters()},
+            "stats": _stats64(model)}
+
+
+def ava23_step_card_vs_cpu(dev, name) -> dict:
+    """23b for one config: its step at one block a stage on the card and
+    on the CPU (at torch's thread count and at half of it), held to the
+    float64 run by 18b's verdict, with its planted faults."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli.detection_train import (
+        build_detection_model)
+    depth = AVA23_STEP_DEPTH.get(name,
+                                 {"model.backbone.stage_blocks": [1, 1, 1, 1]})
+    cfg = ava23_config(name, **depth)
+    base = build_detection_model(cfg, "cpu")
+    start = {k: v.clone() for k, v in base.state_dict().items()}
+    batch = ava23_batch(cfg, 1, AVA23_STEP_ROIS + 1, seed=233,
+                        size=AVA23_STEP_SIZE)
+    lt_rows = 5 * cfg.get("model.lfb.window_size", 60)
+    batch["masks"] = _ava23_masks(cfg, base, len(batch["rois"]), lt_rows,
+                                  seed=234)
+    del base
+    cpu_dev = torch.device("cpu")
+    t0 = time.perf_counter()
+    f64 = {w: _ava23_step_run(d, cfg, start, batch, torch.float64)
+           for w, d in (("card", dev), ("cpu", cpu_dev))}
+    floor = STEP18_F64_FLOOR * max(float(g.abs().max())
+                                   for g in f64["cpu"]["grads"].values())
+
+    def witness(a, b, at_least):
+        err = float((a - b).abs().max())
+        scale = max(float(b.abs().max()), at_least)
+        return err / scale if scale else (0.0 if err == 0 else float("inf"))
+
+    zero = [n for n in f64["cpu"]["grads"]
+            if AVA23_ZERO_BY_STRUCTURE.search(n)]
+    ranked = sorted(((witness(f64["card"][k][n], f64["cpu"][k][n],
+                              floor if k == "grads" else 0.0), n)
+                     for k in ("grads", "stats") for n in f64["cpu"][k]
+                     if n not in zero), reverse=True)
+    worst = ranked[0][0]
+    top = floor / STEP18_F64_FLOOR
+    zero_max = max((float(f64[w]["grads"][n].abs().max()) / top
+                    for w in ("card", "cpu") for n in zero), default=0.0)
+    out = {"f64_max_rel": worst, "f64_worst": ranked[:3],
+           "zero_by_structure": zero, "zero_max": zero_max,
+           "f64_s": time.perf_counter() - t0,
+           "f64_loss": [f64["card"]["loss"], f64["cpu"]["loss"]]}
+    failed = [] if worst <= STEP18_F64 else ["float64 witness"]
+    if zero_max > AVA23_ZERO:
+        failed.append("a gradient zero by structure")
+    threads = torch.get_num_threads()
+    card = _ava23_step_run(dev, cfg, start, batch)
+    cpu = _ava23_step_run(cpu_dev, cfg, start, batch)
+    torch.set_num_threads(max(1, threads // 2))
+    try:
+        alt = _ava23_step_run(cpu_dev, cfg, start, batch)
+    finally:
+        torch.set_num_threads(threads)
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig)
+    tcfg = RecognitionTrainConfig(**dict(cfg["optimizer"], warmup_steps=0))
+    ref = _reference(cpu, f64["card"], alt)
+    bad, read = _step_verdict(card, cpu, f64["card"], ref, tcfg, False)
+    planted = _planted(card, cpu, f64["card"], ref, tcfg, False)
+    failed += bad + [f"planted {k} not refused" for k, v in planted.items()
+                     if v.get("refused") is False]
+    out.update(read, loss_card=card["loss"], loss_cpu=cpu["loss"],
+               card_s=card["s"], cpu_s=cpu["s"], cpu_alt_s=alt["s"],
+               failed=failed, planted=planted,
+               seconds=time.perf_counter() - t0)
+    print(f"23b {name} step at one block a stage, {AVA23_STEP_ROIS} RoIs at "
+          f"{AVA23_STEP_SIZE}², card vs CPU held to float64: witness "
+          f"{worst:.2e} (need <= {STEP18_F64}; worst {ranked[:2]}), "
+          f"{len(zero)} gradients zero by structure within "
+          f"{zero_max:.2e} of the largest (need <= {AVA23_ZERO}), loss "
+          f"{card['loss']:.6f} / "
+          f"{cpu['loss']:.6f}, all-gradient cosine to float64 card "
+          f"{read['by_group']['all']['card_f64_cos']:.7f} CPU "
+          f"{read['by_group']['all']['cpu_f64_cos']:.7f}; planted "
+          f"{json.dumps({k: v.get('refused', v.get('refused_in')) for k, v in planted.items()})}; "
+          f"failed {failed} ({out['seconds']:.1f} s)", flush=True)
+    if failed:
+        raise SystemExit(f"23b the {name} step failed {failed}")
+    return out
+
+
+def write_ava23_corpus(root: str, seed: int = 235):
+    """AVA23_VIDEOS seeded videos (a reader by name), two keyframes each
+    with one or two persons of one to three of five actions, the label
+    map of those actions."""
+    from cross_modal_video_engine_tpu_torch.bench.serve import SeededVideo
+    rng = np.random.default_rng(seed)
+    videos = {f"ava{i}": SeededVideo(seed + i, frames=AVA23_FRAMES,
+                                     height=180, width=320)
+              for i in range(AVA23_VIDEOS)}
+    actions = (1, 5, 8, 11, 14)
+    rows = []
+    for vid in videos:
+        for ts in (902, 903):
+            for e in range(int(rng.integers(1, 3))):
+                x, y = rng.uniform(0.05, 0.5, 2)
+                w, h = rng.uniform(0.2, 0.45, 2)
+                for a in rng.choice(actions, int(rng.integers(1, 4)),
+                                    replace=False):
+                    rows.append(f"{vid},{ts},{x:.3f},{y:.3f},"
+                                f"{min(x + w, 1):.3f},{min(y + h, 1):.3f},"
+                                f"{a},{e}")
+    ann = os.path.join(root, "ava.csv")
+    with open(ann, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    labels = os.path.join(root, "labels.pbtxt")
+    with open(labels, "w") as f:
+        f.write("".join(f'item {{\n  name: "action{a}"\n  id: {a}\n}}\n'
+                        for a in actions))
+    return videos, ann, labels
+
+
+def _ava23_readback(cfg, model, path: str) -> bool:
+    """An epoch directory read by the port into a fresh CPU detector
+    equals the trained model, bit for bit."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli.detection_train import (
+        build_detection_model)
+    from cross_modal_video_engine_tpu_torch.train.resume import (
+        load_train_state)
+    back = build_detection_model(cfg, "cpu")
+    _, state = _ava23_optimizer(cfg, back)
+    load_train_state(path, {"state": state, "batch_stats": back})
+    own, got = model.state_dict(), back.state_dict()
+    return sorted(own) == sorted(got) and all(
+        torch.equal(got[k], own[k].cpu()) for k in own
+        if not k.endswith("num_batches_tracked"))
+
+
+def _ava23_maps(cfg, best, d, ann, labels, val_pipe, tmp, tag):
+    """The checkpoint over the val keyframes on device d, one pass: the
+    unrounded scores' frame-mAP (evaluate_ava_detection) and the mAP
+    ava_eval reads off the results csv written from the same scores."""
+    from cross_modal_video_engine_tpu_torch.cli import detection_train
+    from cross_modal_video_engine_tpu_torch.data.datasets_extra import (
+        AVADataset)
+    from cross_modal_video_engine_tpu_torch.metrics.ava import (
+        ava_eval, results2csv)
+    from cross_modal_video_engine_tpu_torch.train import (
+        detection_trainer as dt)
+    classes = cfg["model.roi_head.num_classes"]
+    max_boxes = cfg["model.train_cfg.max_boxes"]
+    ds = AVADataset(ann, classes)
+    batches = list(detection_train.det_batches(
+        ds, val_pipe, AVA23_CLI_BATCH, classes, max_boxes, cfg["data.fps"],
+        cfg["data.timestamp_start"], include_meta=True))
+    infer = dt.make_det_infer(detection_train.load_detector(cfg, best, d))
+    seen = []
+
+    def recorded(clips, rois, lt=None):
+        scores = infer(clips, rois, lt)
+        seen.append(scores.cpu().numpy())
+        return scores
+
+    raw = dt.evaluate_ava_detection(recorded, batches, classes)["mAP@0.5IOU"]
+    results = []
+    for batch, scores in zip(batches, seen):
+        for b in range(batch["n"]):
+            sl = slice(b * max_boxes, (b + 1) * max_boxes)
+            results.append(dt.detection_results(
+                scores[sl], batch["rois"][sl][:, 1:],
+                int(batch["valid"][sl].sum()), classes,
+                cfg["model.test_cfg.action_thr"]))
+    out = os.path.join(tmp, f"results_{tag}_pass.csv")
+    results2csv(ds, results, out)
+    return raw, ava_eval(out, "mAP", labels, ann, verbose=False)[
+        "PascalBoxes_Precision/mAP@0.5IOU"]
+
+
+def ava23_clis(dev, card, tmp) -> dict:
+    """23c: ava_proposals, detection_train (SlowOnly, with eval),
+    detection_test against the same checkpoint on the CPU, the LFB recipe
+    (its bank built, saved and loaded back) and the ACRN recipe."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import (
+        ava_proposals, detection_test, detection_train)
+    from cross_modal_video_engine_tpu_torch.cli.yolo_train import yolo_config
+    from cross_modal_video_engine_tpu_torch.config import Config
+    from cross_modal_video_engine_tpu_torch.convert import (
+        yolo_variables_to_jax)
+    from cross_modal_video_engine_tpu_torch.data.datasets_extra import (
+        AVADataset)
+    from cross_modal_video_engine_tpu_torch.data.pipelines import (
+        build_pipeline, with_reader)
+    from cross_modal_video_engine_tpu_torch.models import yolo
+    from cross_modal_video_engine_tpu_torch.models.lfb import (
+        LongTermFeatureBank)
+    from cross_modal_video_engine_tpu_torch.train import (
+        detection_trainer as dt)
+    from cross_modal_video_engine_tpu_torch.train.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    line = {"card": card}
+    videos, ann, labels = write_ava23_corpus(tmp)
+    reader = videos.__getitem__
+
+    t0 = time.perf_counter()
+    ycfg = yolo_config(Config.fromfile(str(YOLO_DETECT_CONFIG)))
+    ckpt = os.path.join(tmp, "yolov5s")
+    save_checkpoint(ckpt, yolo_variables_to_jax(
+        yolo.random_state_dict(ycfg, seed=236, fire=(0,)), ycfg), ycfg)
+    props = os.path.join(tmp, "proposals.json")
+    got = ava_proposals.main(["--ann_file", ann, "--yolo_checkpoint", ckpt,
+                              "--out", props, "--timestamp_start", "900",
+                              "--device", str(dev)],
+                             reader=reader)
+    n_boxes = sum(len(v) for v in got.values())
+    line["ava_proposals"] = {"keyframes": len(got), "boxes": n_boxes,
+                             "seconds": time.perf_counter() - t0}
+    if len(got) != 2 * AVA23_VIDEOS or not n_boxes:
+        raise SystemExit(f"23c ava_proposals: {line['ava_proposals']}")
+
+    data = {"data.train.ann_file": ann, "data.val.ann_file": ann,
+            "data.train.data_prefix": None, "data.val.data_prefix": None,
+            "data.train.proposal_file": props,
+            "data.videos_per_gpu": AVA23_CLI_BATCH,
+            "optimizer.warmup_steps": 0,
+            "optimizer.learning_rate": AVA23_CLI_LR}
+
+    def arm(name, epochs, **options):
+        t1 = time.perf_counter()
+        cfg = ava23_config(name, **dict(data, **options))
+        work = os.path.join(tmp, name)
+        state, history = detection_train.train_from_config(
+            cfg, work, num_epochs=epochs, device=dev, reader=reader)
+        torch.cuda.synchronize()
+        row = {"history": history, "readback_equal": _ava23_readback(
+            cfg, state.model, os.path.join(work, f"epoch_{epochs - 1}")),
+               "seconds": time.perf_counter() - t1}
+        print(f"23c {name}: {json.dumps(row)}", flush=True)
+        if not (_finite_history(history) and row["readback_equal"]):
+            raise SystemExit(f"23c {name}: a loss is not finite or the "
+                             f"checkpoint does not read back")
+        return cfg, work, state.model, row
+
+    cfg, work, model, line["slowonly"] = arm("slowonly", AVA23_EPOCHS)
+    t1 = time.perf_counter()
+    best = os.path.join(work, "model_best")
+    _, _, meta = load_checkpoint(best)
+    a = detection_train.load_detector(cfg, best, "cpu").state_dict()
+    b = detection_train.build_detection_model(cfg, "cpu")
+    _, state = _ava23_optimizer(cfg, b)
+    from cross_modal_video_engine_tpu_torch.train.resume import (
+        load_train_state)
+    load_train_state(os.path.join(work, f"epoch_{meta['epoch']}"),
+                     {"state": state, "batch_stats": b})
+    b = b.state_dict()
+    best_equal = all(torch.equal(a[k], b[k]) for k in a
+                     if not k.endswith("num_batches_tracked"))
+    card_report = detection_test.run_detection_test(
+        cfg, best, os.path.join(tmp, "results_card.csv"), labels,
+        device=dev, reader=reader)
+    val_pipe = build_pipeline(with_reader(detection_train.val_pipeline(cfg),
+                                          reader))
+    maps = {where_: _ava23_maps(cfg, best, d, ann, labels, val_pipe, tmp,
+                                where_) for where_, d in (("card", dev),
+                                                          ("cpu", "cpu"))}
+    raw = {k: v[0] for k, v in maps.items()}
+    key = "PascalBoxes_Precision/mAP@0.5IOU"
+    line["detection_test"] = {
+        "best_epoch": meta["epoch"], "best_reads_back_equal": best_equal,
+        "csv_map": {"card_cli": card_report[key],
+                    **{k: v[1] for k, v in maps.items()}},
+        "csv_map_gap": max(abs(card_report[key] - maps["cpu"][1]),
+                           abs(maps["card"][1] - maps["cpu"][1])),
+        "map": raw, "map_gap": abs(raw["card"] - raw["cpu"]),
+        "seconds": time.perf_counter() - t1}
+    print(f"23c detection_test: {json.dumps(line['detection_test'])} (need "
+          f"the mAP gap <= {AVA23_MAP}, the csv's <= {AVA23_CSV_MAP})",
+          flush=True)
+    if not (best_equal and np.isfinite(raw["card"])
+            and line["detection_test"]["map_gap"] <= AVA23_MAP
+            and line["detection_test"]["csv_map_gap"] <= AVA23_CSV_MAP):
+        raise SystemExit("23c detection_test: the card's mAP differs from "
+                         "the CPU's or model_best does not read back")
+
+    t1 = time.perf_counter()
+    lfb_path = os.path.join(tmp, "lfb.npz")
+    cfg = ava23_config("lfb", **data)
+    pipe = build_pipeline(with_reader(cfg["data.pipeline"], reader))
+    ds = AVADataset(ann, cfg["model.roi_head.num_classes"])
+    args = (AVA23_CLI_BATCH, cfg["model.roi_head.num_classes"],
+            cfg["model.train_cfg.max_boxes"], cfg["data.fps"],
+            cfg["data.timestamp_start"])
+    bank = detection_train.bootstrap_lfb(
+        cfg, detection_train.det_batches(ds, pipe, *args, include_meta=True),
+        detection_train.det_batches(ds, val_pipe, *args, include_meta=True),
+        dev)
+    bank.save(lfb_path)
+    back = LongTermFeatureBank.load(lfb_path, dev)
+    bank_equal = back.video_index == bank.video_index and all(
+        torch.equal(getattr(back, k), getattr(bank, k))
+        for k in ("features", "step_table", "start_sec", "counts"))
+    line["lfb_bank"] = {"steps": int(bank.features.shape[0]),
+                        "channels": bank.channels,
+                        "reads_back_equal": bank_equal,
+                        "seconds": time.perf_counter() - t1}
+    print(f"23c LFB bank: {json.dumps(line['lfb_bank'])}", flush=True)
+    if not bank_equal:
+        raise SystemExit("23c the LFB bank does not read back equal")
+    _, _, _, line["lfb"] = arm("lfb", 1, **{"model.lfb.path": lfb_path})
+    _, _, _, line["acrn"] = arm("acrn", 1)
+    return line
+
+
+def check_step23(dev, card) -> Tuple[dict, dict]:
+    """Step 23 (a-d).  Returns (the `detection` JSON object, the kernels'
+    launches over the step: all must be 0)."""
+    import torch
+    t_step = time.perf_counter()
+    counted = kernel_counters()
+    for fn in counted.values():
+        fn.launches = 0
+    line = {"card": card}
+    t0 = time.perf_counter()
+    line["forwards"] = ava23_forwards(dev, card)
+    line["forwards"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["steps"] = {name: ava23_step_card_vs_cpu(dev, name)
+                     for name in AVA23}
+    line["steps"]["seconds"] = time.perf_counter() - t0
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        t0 = time.perf_counter()
+        line["clis"] = ava23_clis(dev, card, tmp)
+        line["clis"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    line["launches"] = launches
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"23d kernel launches over step 23: {json.dumps(launches)} (need "
+          f"0: no detection path reaches a kernel); step 23 checked in "
+          f"{line['seconds']:.1f} s ({card})", flush=True)
+    if any(launches.values()):
+        raise SystemExit("23d a detection path launched a kernel")
+    return line, launches
+
+
+STEPS = tuple(range(4, 24))      # the steps a selection may name
 
 
 def selected_steps(argv) -> set:
-    """The steps to run: all of 4-22 with no argument, else the numbers
+    """The steps to run: all of 4-23 with no argument, else the numbers
     given ("19", "13 19" or "13,19"); 4-5 and 6-7 run as pairs (5 and 7
     time what 4 and 6 build).  The build (2), the kernel checks (3) and
-    the results (23) always run."""
+    the results (24) always run."""
     if not argv:
         return set(STEPS)
     steps = set()
     for arg in argv:
         for part in filter(None, arg.split(",")):
-            if not part.isdigit() or int(part) not in range(2, 24):
+            if not part.isdigit() or int(part) not in range(2, 25):
                 raise SystemExit(f"chip_smoke: unknown step {part!r}; "
                                  f"choose among {STEPS[0]}-{STEPS[-1]}")
             steps.add(int(part))
@@ -8385,7 +8994,7 @@ def main(argv=None) -> int:
                             "ctv", "caption_transformer",
                             "detector_training", "cnn", "cnn2d",
                             "transformer", "clip_recognizer", "recipes",
-                            "localization"))
+                            "localization", "detection"))
     rng = np.random.default_rng(1)
     if 4 in steps:
         t_step = time.perf_counter()
@@ -8543,16 +9152,23 @@ def main(argv=None) -> int:
         lines["localization"], counts["localization"] = check_step22(dev,
                                                                      card)
         step_seconds(step_s, "22", t_step)
+
+    if 23 in steps:
+        t_step = time.perf_counter()
+        # -- 23. spatio-temporal action detection (AVA) ---------------------
+        torch.cuda.empty_cache()
+        lines["detection"], counts["detection"] = check_step23(dev, card)
+        step_seconds(step_s, "23", t_step)
     builds.close()
 
-    # -- 23. results ----------------------------------------------------------
+    # -- 24. results ----------------------------------------------------------
     for key, value in lines.items():
         print(json.dumps({key: value}))
     print(json.dumps(kernel_json(results, launches, core, block_extra,
                                  counts)))
     print(json.dumps({"step_seconds": step_s}))
     skipped = sorted(set(STEPS) - steps)
-    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 23"
+    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 24"
           + (f"; skipped: {skipped} (a partial run)" if skipped else
              " (the whole smoke run)"), flush=True)
     print(json.dumps({"ok": True, "device": {

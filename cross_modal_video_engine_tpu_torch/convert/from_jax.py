@@ -1343,22 +1343,37 @@ def _backbone_path(backbone, parts: List[str]) -> Tuple[str, ...]:
 _CONVS = (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Conv3d)
 
 
+def _ava_head_path(parts: List[str]) -> Tuple[str, ...]:
+    """An AVA detector's `roi_head.*` below the detector: flax keeps the
+    shared head (ACRN's convs and BatchNorms, FBO's `fbo`) at the top of
+    the tree beside `roi_head`, which holds `fc_cls` alone."""
+    if parts[0] == "shared_head":
+        return tuple(parts)
+    return ("roi_head",) + tuple(parts)
+
+
 def _cnn_table(model) -> List[Tuple[str, Tuple[str, ...], str]]:
     """(the port module's name, its JAX path, kind) for every conv,
     linear and BatchNorm of a CNN backbone or recognizer (or a TPN neck
-    alone).  kind: 'conv' (Conv1d/2d/3d, with its bias if it has one),
-    'se' (an SE fc as a Dense), 'dense' (Linear), 'bn'.  The RNN decoder
-    head is apart."""
+    alone), and of an AVA detector (train/detection_trainer.AVAFastRCNN)
+    with its heads.  kind: 'conv' (Conv1d/2d/3d, with its bias if it has
+    one), 'se' (an SE fc as a Dense), 'dense' (Linear), 'bn', 'ln' (the
+    FBO's LayerNorms).  The RNN decoder head is apart."""
     from ..models.decoder_head import RNNDecoderHead
+    from ..models.flax_nn import LayerNorm
     from ..models.layers import FlaxBatchNorm
     from ..models.recognizer import TPNRecognizer
     from ..models.tpn import TPN
     wrapped = hasattr(model, "backbone")
     backbone = model.backbone if wrapped else model
-    decoder = wrapped and isinstance(model.cls_head, RNNDecoderHead)
+    detector = wrapped and hasattr(model, "roi_head")
+    decoder = wrapped and not detector and isinstance(model.cls_head,
+                                                      RNNDecoderHead)
+    kinds = _CONVS + (torch.nn.Linear, FlaxBatchNorm) + (
+        (LayerNorm,) if detector else ())
     table = []
     for name, mod in model.named_modules():
-        if not isinstance(mod, _CONVS + (torch.nn.Linear, FlaxBatchNorm)):
+        if not isinstance(mod, kinds):
             continue
         parts = name.split(".")
         if isinstance(model, TPN):
@@ -1367,6 +1382,8 @@ def _cnn_table(model) -> List[Tuple[str, Tuple[str, ...], str]]:
             path = _backbone_path(backbone, parts)
         elif parts[0] == "backbone":
             path = ("backbone",) + _backbone_path(backbone, parts[1:])
+        elif detector:
+            path = _ava_head_path(parts[1:])
         elif parts[0] == "neck":
             path = ("neck",) + _tpn_path(parts[1:])
         elif decoder:
@@ -1376,6 +1393,7 @@ def _cnn_table(model) -> List[Tuple[str, Tuple[str, ...], str]]:
         else:
             path = _head_path(model.cls_head, parts[1:])
         kind = ("bn" if isinstance(mod, FlaxBatchNorm)
+                else "ln" if isinstance(mod, LayerNorm)
                 else "dense" if isinstance(mod, torch.nn.Linear)
                 else "se" if "se_module" in parts else "conv")
         table.append((name, path, kind))
@@ -1412,7 +1430,7 @@ def conv_recognizer_state_dict_from_jax(variables: Dict[str, Any], model
     sd: Dict[str, torch.Tensor] = {}
     for name, path, kind in _cnn_table(model):
         p = _tree_get(params, path)
-        if kind == "bn":
+        if kind in ("bn", "ln"):
             sd[f"{name}.weight"] = _f32(p["scale"])
             sd[f"{name}.bias"] = _f32(p["bias"])
             continue
@@ -1460,7 +1478,7 @@ def conv_recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], model
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     for name, path, kind in _cnn_table(model):
-        if kind == "bn":
+        if kind in ("bn", "ln"):
             _tree_put(params, path, {"scale": _np32(sd[f"{name}.weight"]),
                                      "bias": _np32(sd[f"{name}.bias"])})
             if f"{name}.running_mean" in sd:
@@ -1785,3 +1803,22 @@ bmn_state_dict_from_jax = tem_state_dict_from_jax = \
     localizer_state_dict_from_jax
 bmn_variables_to_jax = tem_variables_to_jax = pem_variables_to_jax = \
     ssn_head_variables_to_jax = localizer_variables_to_jax
+
+
+# -- the AVA detectors (AVAFastRCNN with the RoI head, ACRN or FBO) ----------
+
+def ava_detector_state_dict_from_jax(variables: Dict[str, Any], model
+                                     ) -> Dict[str, torch.Tensor]:
+    """A JAX AVAFastRCNN's {"params"[, "batch_stats"]} -> the port's fp32
+    state dict for `model` (an AVAFastRCNN; a meta-device copy will do):
+    the backbone through the ResNet3D or SlowFast layout, `roi_head/fc_cls`,
+    and the shared head from the top of the tree (`shared_head/{conv1,
+    bn1, conv2, bn2, ...}` with its batch_stats for ACRN,
+    `shared_head/fbo/...` for FBO)."""
+    return conv_recognizer_state_dict_from_jax(variables, model)
+
+
+def ava_detector_variables_to_jax(sd: Dict[str, torch.Tensor], model
+                                  ) -> Dict[str, Any]:
+    """The inverse: {"params"[, "batch_stats"]} as numpy f32."""
+    return conv_recognizer_variables_to_jax(sd, model)

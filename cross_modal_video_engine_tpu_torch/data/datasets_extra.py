@@ -10,14 +10,16 @@ rest of the mmaction dataset family).  Ported so far:
   snippet features, resampled to a fixed temporal length (BMN, BSN);
 * `load_localize_proposal_file`, `SSNProposal` and `SSNDataset`: the SSN
   proposal-file format and the per-video sampled proposal layout, drawn
-  from the dataset's seeded numpy generator (ssn_dataset.py).
+  from the dataset's seeded numpy generator (ssn_dataset.py);
+* `AVADataset`: AVA csv rows grouped into keyframes, each with its
+  entities' normalized boxes and many-hot action labels.
 
-The pose dataset comes with ROADMAP.md queue 1 item 8h and the AVA
-dataset with item 8f.
+The pose dataset comes with ROADMAP.md queue 1 item 8h.
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -53,6 +55,50 @@ class HVUDataset:
     def __getitem__(self, idx: int) -> Dict:
         results = dict(self.video_infos[idx], start_index=0)
         return self.pipeline(results) if self.pipeline else results
+
+
+class AVADataset:
+    """CSV annotation rows: video_id,timestamp,x1,y1,x2,y2,action_id,entity.
+    Boxes are normalized [0,1] coordinates like the AVA release; keyframes
+    in (video, timestamp) order."""
+
+    def __init__(self, ann_file: str, num_classes: int = 81,
+                 data_prefix: Optional[str] = None):
+        self.num_classes = num_classes
+        self.data_prefix = data_prefix
+        keyframes: Dict[Tuple[str, float], Dict] = {}
+        with open(ann_file) as f:
+            for row in csv.reader(f):
+                if not row:
+                    continue
+                vid, ts = row[0], float(row[1])
+                box = tuple(float(v) for v in row[2:6])
+                action = int(row[6])
+                # no entity-id column (7-col detector dumps): the box is
+                # the identity, so each person keeps its own box
+                entity = row[7] if len(row) > 7 else repr(box)
+                kf = keyframes.setdefault(
+                    (vid, ts), {"video": vid, "timestamp": ts,
+                                "entities": {}})
+                ent = kf["entities"].setdefault(
+                    entity, {"box": box,
+                             "labels": np.zeros(num_classes, np.float32)})
+                if 0 <= action < num_classes:
+                    ent["labels"][action] = 1.0
+        self.keyframes = []
+        for (vid, ts), kf in sorted(keyframes.items()):
+            ents = kf["entities"].values()
+            filename = os.path.join(data_prefix, vid) if data_prefix else vid
+            self.keyframes.append(dict(
+                filename=filename, video_id=vid, timestamp=ts,
+                boxes=np.asarray([e["box"] for e in ents], np.float32),
+                labels=np.stack([e["labels"] for e in ents])))
+
+    def __len__(self) -> int:
+        return len(self.keyframes)
+
+    def __getitem__(self, idx: int) -> Dict:
+        return dict(self.keyframes[idx])
 
 
 class ActivityNetDataset:

@@ -709,15 +709,14 @@ UNPORTED_OPS = dict(
     **{op: "8h" for op in ("UniformSampleFrames", "PaddingWithLoop",
                            "PoseDecode", "LoadKineticsPose", "PoseNormalize",
                            "PoseCompact", "JointToBone", "FormatGCNInput",
-                           "GeneratePoseTarget")},
-    SampleAVAFrames="8f")
+                           "GeneratePoseTarget")})
 
 
 def build_pipeline(cfgs: Sequence[Dict]) -> Compose:
     """Build from mmaction-style [{'type': 'SampleFrames', ...}, ...].
     An op type that is not ported raises KeyError naming the part of
-    ROADMAP.md queue 1 item 8 that ports it (`UNPORTED_OPS`: the audio,
-    pose and AVA ops of the JAX package's pipelines_extra)."""
+    ROADMAP.md queue 1 item 8 that ports it (`UNPORTED_OPS`: the audio
+    and pose ops of the JAX package's pipelines_extra)."""
     # the decode ops (DecordInit, DecordDecode, ...) register on import
     from ..io import video_decode  # noqa: F401
     ops = []

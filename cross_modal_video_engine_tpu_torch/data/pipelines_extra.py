@@ -25,9 +25,13 @@ cross_modal_video_engine_tpu/data/pipelines_extra.py, over the same
   `GenerateLocalizationLabels` (segments in seconds -> gt_bbox in [0,
   1]), `LoadProposals` (the top-k PGM proposals and their BSP features)
   and `SampleProposalFrames` (SSN's starting / course / ending segment
-  sampling around each proposal, seeded; strided in test mode).
+  sampling around each proposal, seeded; strided in test mode);
+* `SampleAVAFrames` (loading.py:424-467): a clip centred on an AVA
+  keyframe, each frame jittered by a draw of the op's seeded numpy
+  generator in train mode (bounds `(-fi) // 2` and `(fi + 1) // 2`),
+  clamped to the shot.
 
-The audio, pose and AVA ops come with ROADMAP.md queue 1 items 8f-8h
+The audio and pose ops come with ROADMAP.md queue 1 items 8g and 8h
 (data/pipelines.UNPORTED_OPS).
 """
 
@@ -233,6 +237,42 @@ class Collect:
             out["img_metas"] = {k: results[k] for k in self.meta_keys
                                 if k in results}
         return out
+
+
+@PIPELINES.register("SampleAVAFrames")
+class SampleAVAFrames:
+    """loading.py:424-467: clip centered on the keyframe timestamp, jittered
+    per frame in train mode, clamped to the shot boundaries."""
+
+    def __init__(self, clip_len: int, frame_interval: int = 2,
+                 test_mode: bool = False, seed: Optional[int] = None):
+        self.clip_len = clip_len
+        self.frame_interval = frame_interval
+        self.test_mode = test_mode
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, results: Dict) -> Dict:
+        fps = results["fps"]
+        center = fps * (results["timestamp"]
+                        - results["timestamp_start"]) + 1
+        # a video's shot defaults to all its frames
+        shot = results.get("shot_info") or (0, results["total_frames"])
+        start = center - (self.clip_len // 2) * self.frame_interval
+        end = center + ((self.clip_len + 1) // 2) * self.frame_interval
+        inds = np.arange(start, end, self.frame_interval)
+        if not self.test_mode:
+            # (-fi) // 2 floors the negated interval: -2 for fi = 3
+            inds = inds + self.rng.integers(
+                (-self.frame_interval) // 2, (self.frame_interval + 1) // 2,
+                size=self.clip_len)
+        inds = np.clip(inds, shot[0], shot[1] - 1)
+        results["frame_inds"] = inds.astype(np.int64) + \
+            results.get("start_index", 0)
+        results["clip_len"] = self.clip_len
+        results["frame_interval"] = self.frame_interval
+        results["num_clips"] = 1
+        results["crop_quadruple"] = np.array([0, 0, 1, 1], np.float32)
+        return results
 
 
 # -- localization features and proposals --------------------------------------

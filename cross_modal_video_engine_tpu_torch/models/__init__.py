@@ -9,3 +9,7 @@ from .timesformer import TimeSformer, TimeSformerConfig
 from .videoclip import VideoCLIP, VideoCLIPConfig
 from .videomae_vit import VideoMAEConfig, VideoMAEViT
 from .yolo import YoloClassifier, YoloConfig, YoloV5
+from .ava_head import AVARoIHead, AVAHeadConfig, roi_align, ava_bbox_loss
+from .lfb import (ACRNHead, ACRNHeadConfig, FBOAvg, FBOHead, FBOHeadConfig,
+                  FBOMax, FBONonLocal, LFBBuilder, LongTermFeatureBank,
+                  NonLocalLayer)

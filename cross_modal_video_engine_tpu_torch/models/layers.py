@@ -24,7 +24,8 @@ so a sub state dict of the reference checkpoint loads as it is:
   and for the running variance alike.
 * `LatentMapping` is MFC and the L2 norm into the common space.
 * `Dropout` draws its mask from the module's `generator` (None: torch's
-  default generator), which a trainer seeds.
+  default generator), which a trainer seeds, or takes the next of the
+  keep masks handed to it (`masks`, an iterator a step sets).
 * `FlaxBatchNorm` is flax's `nn.BatchNorm` over the channel axis of an
   input of any rank (N, C, ...), for the 3D-CNN backbones
   (models/resnet3d.py): flax's momentum 0.9 (torch 0.1), eps 1e-5 (CSN's
@@ -96,6 +97,8 @@ class Dropout(nn.Dropout):
     1 - p, drawn from `generator`, and scale it by 1 / (1 - p)."""
 
     generator = None
+    # an iterator of keep masks handed in (one per call, in call order)
+    masks = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
@@ -103,8 +106,14 @@ class Dropout(nn.Dropout):
         if self.p == 1.0:
             return torch.zeros_like(x)
         keep_prob = 1.0 - self.p
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep_prob
+        if self.masks is not None:
+            keep = torch.as_tensor(next(self.masks), device=x.device)
+            if keep.shape != x.shape:
+                raise ValueError(f"a handed-in dropout mask of "
+                                 f"{tuple(keep.shape)} for {tuple(x.shape)}")
+        else:
+            keep = torch.rand(x.shape, generator=self.generator,
+                              device=x.device) < keep_prob
         return torch.where(keep, x / keep_prob, 0.0)
 
 

@@ -654,8 +654,11 @@ def conv_init_state_dict(model: nn.Module, seed: int
     embeddings and projection normal(width^-0.5), Recognizer3DCLIP's
     `fc_cls` normal(0.01).  The same for the localizers (BMN, TEM, PEM,
     SSNHead): every conv and Dense kernel lecun-normal (BMN's `pem_3d`
-    with fan-in C x N), biases zero.  The same distributions as
-    `model.init`, not the same numbers."""
+    with fan-in C x N), biases zero.  The same for the AVA detector
+    (train/detection_trainer.AVAFastRCNN): its backbone's, ACRN's convs
+    and BatchNorms and the FBO's Dense kernels (lecun-normal) and
+    LayerNorms (1 and 0), the RoI head's `fc_cls` normal(0.01).  The same
+    distributions as `model.init`, not the same numbers."""
     rng = np.random.default_rng(seed)
     out: Dict[str, torch.Tensor] = {}
     head = getattr(model, "cls_head", None)
@@ -671,7 +674,8 @@ def conv_init_state_dict(model: nn.Module, seed: int
                 0.01 if owner.endswith("cls_head.fc2") \
                 and isinstance(head, X3DHead) else \
                 0.01 if owner == "fc_cls" \
-                and isinstance(model, Recognizer3DCLIP) else None
+                and isinstance(model, Recognizer3DCLIP) else \
+                0.01 if owner == "roi_head.fc_cls" else None
             if std is not None:
                 w = torch.from_numpy(
                     std * rng.standard_normal(shape).astype(np.float32))

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.mixed_precision import acc_dtype
 from ..ops.s2d_stem import s2d_stem_conv
 from ..utils.device import resolve_device
 from ..utils.registry import BACKBONES
@@ -104,7 +105,8 @@ class NonLocal3D(nn.Module):
     sub_sample, use_scale, BN on conv_out): g, theta and phi are biased
     1x1x1 convs to C/2, g and phi max-pooled spatially by 2; the softmax
     of theta·phi / sqrt(C/2) over the keys, in f32, weights g; conv_out
-    (no bias) + BN projects back, added to the input."""
+    (no bias) + BN projects back, added to the input.  The attention runs
+    in f32 for f32 and bf16 input and in float64 for float64 input."""
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -122,9 +124,10 @@ class NonLocal3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, _, T, H, W = x.shape
-        q = self.theta(x).flatten(2).transpose(1, 2).float()   # (B, N, c)
-        k = self.phi(x).flatten(2).float()                      # (B, c, M)
-        v = self.g(x).flatten(2).transpose(1, 2).float()        # (B, M, c)
+        acc = acc_dtype(x.dtype)                # f32, float64 staying so
+        q = self.theta(x).flatten(2).transpose(1, 2).to(acc)   # (B, N, c)
+        k = self.phi(x).flatten(2).to(acc)                      # (B, c, M)
+        v = self.g(x).flatten(2).transpose(1, 2).to(acc)        # (B, M, c)
         attn = torch.softmax(torch.bmm(q, k) / (self.inter ** 0.5), -1)
         y = torch.bmm(attn, v).to(x.dtype)                      # (B, N, c)
         y = y.transpose(1, 2).reshape(B, self.inter, T, H, W)

@@ -99,7 +99,6 @@ from .optim import OptaxOptimizer
 
 # the parts of slice 5 still to port (ROADMAP.md queue 1 item 8)
 PARTS = {
-    "8f": "spatio-temporal detection (AVA)",
     "8g": "audio recognition",
     "8h": "skeleton recognition (ST-GCN, 2s-AGCN, PoseC3D)",
     "8i": "the host tools",

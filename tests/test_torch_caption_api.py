@@ -584,6 +584,61 @@ def _localization_train(tmp):
                                     "cpu"])
 
 
+def _detection(tmp, entry):
+    """The AVA CLIs on the CPU over two seeded videos (a decord-alike
+    reader): detection_train for one epoch of a tiny SlowOnly detector,
+    detection_test on its model_best, ava_proposals with a seeded
+    YOLOv5."""
+    from cross_modal_video_engine_tpu_torch.bench.serve import SeededVideo
+    from cross_modal_video_engine_tpu_torch.cli import (
+        ava_proposals, detection_test, detection_train)
+    videos = {f"v{i}.mp4": SeededVideo(80 + i, frames=20, height=32,
+                                       width=32) for i in range(2)}
+    (tmp / "ava.csv").write_text("v0.mp4,0.5,0.1,0.1,0.6,0.7,1,0\n"
+                                 "v1.mp4,0.8,0.2,0.3,0.9,0.9,2,0\n")
+    if entry == "ava_proposals":
+        from cross_modal_video_engine_tpu_torch.convert import (
+            yolo_variables_to_jax)
+        from cross_modal_video_engine_tpu_torch.models import yolo
+        from cross_modal_video_engine_tpu_torch.train.checkpoint import (
+            save_checkpoint)
+        ycfg = yolo.YoloConfig(num_classes=2, depth_multiple=0.33,
+                               width_multiple=0.125, img_size=32)
+        save_checkpoint(str(tmp / "yolo"), yolo_variables_to_jax(
+            yolo.random_state_dict(ycfg, seed=1), ycfg), ycfg)
+        return ava_proposals.main(
+            ["--ann_file", str(tmp / "ava.csv"), "--yolo_checkpoint",
+             str(tmp / "yolo"), "--out", str(tmp / "props.json"),
+             "--img_size", "32", "--device", "cpu"],
+            reader=videos.__getitem__)
+    data = f"dict(ann_file=r'{tmp / 'ava.csv'}')"
+    (tmp / "det.py").write_text(
+        "model = dict(backbone=dict(type='SlowOnly', stage_blocks=[1, 1, 1, "
+        "1], base_channels=8, stage_spatial_strides=[1, 2, 2, 1]), "
+        "roi_head=dict(num_classes=3, roi_size=2, sampling_ratio=1), "
+        "train_cfg=dict(max_boxes=2))\n"
+        f"data = dict(train={data}, val={data}, fps=10, pipeline=["
+        "dict(type='DecordInit'), dict(type='SampleAVAFrames', clip_len=2, "
+        "frame_interval=2, test_mode=True), dict(type='DecordDecode'), "
+        "dict(type='Normalize', mean=[127.5]*3, std=[127.5]*3), "
+        "dict(type='FormatShape', input_format='NTHWC')], "
+        "videos_per_gpu=2)\n"
+        "total_epochs = 1\n")
+    work = str(tmp / "det_work")
+    if entry == "detection_train":
+        return detection_train.main([str(tmp / "det.py"), "--work_dir", work,
+                                     "--device", "cpu"],
+                                    reader=videos.__getitem__)
+    detection_train.main([str(tmp / "det.py"), "--work_dir", work,
+                          "--device", "cpu"], reader=videos.__getitem__)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    return detection_test.main([str(tmp / "det.py"), "--checkpoint",
+                                os.path.join(work, "model_best"), "--out",
+                                str(tmp / "det.csv"), "--device", "cpu"],
+                               reader=videos.__getitem__)
+
+
 def _entry_points():
     from cross_modal_video_engine_tpu_torch.cli import (
         caption_train, composed_inference, recognition_test,
@@ -650,6 +705,12 @@ def _entry_points():
         "yolo_cls_train.main": lambda w: _yolo_train(w["detector"], w["tmp"],
                                                      classify=True),
         "localization_train.main": lambda w: _localization_train(w["tmp"]),
+        "detection_train.main": lambda w: _detection(w["tmp"],
+                                                     "detection_train"),
+        "detection_test.main": lambda w: _detection(w["tmp"],
+                                                    "detection_test"),
+        "ava_proposals.main": lambda w: _detection(w["tmp"],
+                                                   "ava_proposals"),
     }
 
 
@@ -664,7 +725,8 @@ ENTRY_POINTS = ["restore_dual_encoding", "retrieval_inference.main",
                 "recognition_test.main", "recognition_test.main[cnn]",
                 "recognition_train.main[multigrid]",
                 "recognition_train.main[omnisource]",
-                "localization_train.main"]
+                "localization_train.main", "detection_train.main",
+                "detection_test.main", "ava_proposals.main"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)

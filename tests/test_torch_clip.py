@@ -191,11 +191,15 @@ LOCALIZATION_MODULES = (
     "losses.localization", "train.localization_trainer",
     "data.datasets_extra", "data.pipelines_extra",
     "cli.localization_train", "cli.misc_tools", "cli.data_tools")
+AVA_MODULES = (
+    "metrics.ava", "models.ava_head", "models.lfb",
+    "train.detection_trainer", "cli.detection_train", "cli.detection_test",
+    "cli.ava_proposals")
 
 
 def test_port_imports_no_jax():
     modules = (("models.clip", "retrieval.index", "convert") + LINAS_MODULES
-               + LOCALIZATION_MODULES)
+               + LOCALIZATION_MODULES + AVA_MODULES)
     code = ("import sys; "
             + "; ".join(f"import cross_modal_video_engine_tpu_torch.{m}"
                         for m in modules) + "; "

@@ -299,7 +299,6 @@ def test_recognition_test_matches_jax(clips_dir, tmp_path, capsys):
 # -- refusals, one per part ------------------------------------------------------------
 
 @pytest.mark.parametrize("part,refused", [
-    ("8f", lambda root: build_pipeline([dict(type="SampleAVAFrames")])),
     ("8g", lambda root: build_pipeline([dict(type="AudioDecode")])),
     ("8h", lambda root: build_pipeline([dict(type="PoseDecode")])),
 ])
