@@ -6,7 +6,7 @@ Usage: python3 chip_smoke.py [STEP ...]   (from the root of the repository)
 With no argument every step runs (the whole smoke run).  A list of
 step numbers ("19", "13 19" or "13,19") runs only those steps, always
 after the build (2) and the kernel checks (3) and before the results
-(23); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
+(25); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
 step did not run is null in the `kernels` line; the last line names the
 steps that ran and those skipped.
 
@@ -112,7 +112,7 @@ steps that ran and those skipped.
     the card against the CPU, a shrinking (360x480) and a growing
     (120x160) size, each pad mode, 288 and 224; (b) the RN50x4 tower at
     the full width of CLIPResNetConfig() (f32, TF32 off) restored from its
-    JAX-format checkpoint, card against CPU on 4 frames (high, middle,
+    JAX-format checkpoint, card against CPU on 2 frames (high, middle,
     encode_text), with its parameter and MAC counts; (c) the
     /composed_retrieval route with RN50x4 and the conv4x4 Combiner at
     CombinerConfig() widths over 1,000 candidates stored as npz feature
@@ -156,7 +156,7 @@ steps that ran and those skipped.
     p50/p99 of both; (c) each answer and each wave's probe against
     `grad_extract` + `concept_scores` on the route's model and clips
     (prediction, probe cosine, top-k where the gaps clear the bf16
-    margin); (d) the card against the port on the CPU for 2 videos; (e)
+    margin); (d) the card against the port on the CPU for 1 video; (e)
     the bf16 flash backward at (1 and 8, 12, 1569, 64), one launch each,
     gradients finite and against the plain version's autograd; (f) one
     request at target_layer 0 with its 23 launches and peak memory; (g)
@@ -186,7 +186,7 @@ steps that ran and those skipped.
     epoch, and its model_best served once by /explain, the prediction
     equal to a direct grad_extract; (e) each trainer's step by CUDA
     events, videos/s, TFLOP/s, the optimizer's share, the host's batch
-    assembly, the idle share of five steps of the loop (torch.profiler),
+    assembly, the idle share of two steps of the loop (torch.profiler),
     peak memory, and bench/extra.py's train-step row;
 16. the concept detector and the concept-bank build at full width, from
     numpy seeds and no decode: the shipped configs/detection/yolov5
@@ -198,7 +198,7 @@ steps that ran and those skipped.
     decoded predictions within YOLO_F32_REL, the NMS outputs matched in
     the detect (conf 0.25) and val (conf 0.001, multi-label) protocols,
     the TTA arm, the segment arm's prototypes and masks, the classifier's
-    logits; (b) `yolo_val.main` on the card over 64 seeded 480x640 .npy
+    logits; (b) `yolo_val.main` on the card over 32 seeded 480x640 .npy
     images whose labels are the CPU's own detections, the detector read
     from a `best/` directory in the JAX format: mAP@0.5 >= 0.99 and the
     report within the bound of the same CLI on the CPU; then --augment
@@ -342,14 +342,44 @@ steps that ran and those skipped.
     BMN's and PEM's AR@AN equal to their checkpoints' evaluated by the
     port on the CPU; (d) the launch counters and a `localization` JSON
     line;
-23. prints the JSON lines of steps 10-22 that ran and of the kernel
+23. spatio-temporal action detection (AVA) at the shipped configs'
+    widths (SlowOnly, SlowFast, ACRN, LFB with FBO), from numpy seeds, no
+    kernel on its path: (a) each config card against CPU and timed at
+    batch 8 x 32 RoIs with its SGD step; (b) each step held to float64
+    with planted faults; (c) `ava_proposals`, `detection_train`,
+    `detection_test` and the LFB bank; (d) the launch counters;
+24. the native host IO layer and the host tools: (a) both host libraries
+    built from native/*.cc with g++ and the libav probe's verdict
+    printed; NativeBigFile over a 50,000 x 2048 f32 frame-feature file,
+    128-video gathers with 4 threads bit-equal to a numpy memmap, rows/s;
+    (b) where libav was found, raw AVIs written on this machine (no cv2,
+    no encoder): NativeVideoReader bit-equal at native size with
+    repeated and unordered indices, decode_videos_batch's fused resize
+    within a mean bound of resize_linear (no frame zeros, a missing file
+    zeros), read_audio of a stereo 44.1 kHz WAV at 16 kHz against the
+    analytic sine; (c) bench/extra.py's host-feed row (decode-only
+    videos/s with 1, 2 and 4 workers, then DecodePrefetcher into the
+    fused ViT-B/32's encode_video_u8 end to end) with the compact and
+    MLP launches (12 + 12 a batch) and the idle share of the loop; where
+    libav was not found but cv2 is installed, 8 clips of cv2-written
+    mp4s through decode_videos_batch's cv2 fallback instead; (d)
+    `dump_features.main` at full width (joint TimeSformer ViT-B/16,
+    8x224², 12 layers, flash, f32, 400 classes, weights from a numpy seed
+    in a checkpoint) over 4 videos in mode both at layers 0, 5 and 11,
+    decoded by NativeVideoReader (or from memory without libav), its
+    flash launches counted, and one video card against CPU at every
+    layer and at two gradient layers; (e) PrefetchIterator's batches on
+    the card equal to the host's and a step loop with and without it;
+    (f) data_tools txt2bin, combine_features, build_tags and
+    extract_audio with their outputs read back, the cv2 tools refused;
+25. prints the JSON lines of steps 10-24 that ran and of the kernel
     results (launches on the main paths, on the composed, caption and
     explain routes, in the training steps, in the bank build, in the
     caption transformer's generates, in the detector's training, in the
     3D-CNN step, in the 2D-CNN step, over step 20, in 20b's CLIP kernel
-    arm, over 21d and over step 22, error, time, plain time, bound,
-    library time), each step's seconds and, last, a JSON line naming
-    the device.
+    arm, over 21d, over steps 22 and 23 and in step 24's host feed and
+    dump, error, time, plain time, bound, library time), each step's
+    seconds and, last, a JSON line naming the device.
 
 Nothing is cut: the models run at full width and depth (the 3D-CNN
 trainers 2 and 1 epochs of 8 videos, the 2D ones 1 epoch each; the LINAS
@@ -2298,7 +2328,7 @@ def check_linas_training(dev, card) -> dict:
 
 # -- 12. composed retrieval (tolerances stated before the first run) ---------
 COMPOSED_VIDEOS, COMPOSED_REQUESTS, COMPOSED_REFS = 1000, 16, 4
-RN_CHECK_FRAMES, EXTRACT_CALLS, COMPOSED_TOPK = 4, 5, 10
+RN_CHECK_FRAMES, EXTRACT_CALLS, COMPOSED_TOPK = 2, 5, 10
 COMBINER_TRIPLETS, COMBINER_BATCH, COMBINER_EPOCHS = 256, 32, 2
 COMBINER_HTTP_CHECKS, COMBINER_TIMED_STEPS = 4, 8
 # (a) clip_preprocess card vs CPU: the same f32 arithmetic rounded to bf16;
@@ -2996,7 +3026,7 @@ def check_caption_route(dev, card) -> Tuple[dict, dict]:
 
 # explain route step: the caption step's backbone with a 400-class head,
 # seeded concept banks, batch-1 requests, a burst, timed waves
-EXPLAIN_REQUESTS, EXPLAIN_BURST, EXPLAIN_CPU_VIDEOS = 16, 8, 2
+EXPLAIN_REQUESTS, EXPLAIN_BURST, EXPLAIN_CPU_VIDEOS = 16, 8, 1
 EXPLAIN_WAVE_CALLS, EXPLAIN_PHASE_CALLS = 10, 5
 # (a-c) route answers against a direct grad_extract + concept_scores on the
 # card: the predicted class equal and the probes' cosine at least
@@ -3277,7 +3307,7 @@ def check_explain_route(dev, card) -> Tuple[dict, dict]:
                 raise SystemExit("14 explain answers disagree with the "
                                  "direct call")
 
-            # (d) the card against the port on the CPU, 2 videos
+            # (d) the card against the port on the CPU, EXPLAIN_CPU_VIDEOS
             t0 = time.perf_counter()
             cpu_model, _ = load_explain_model(args.explain_checkpoint,
                                               device="cpu")
@@ -3410,8 +3440,8 @@ TRAIN15_FLASH_STEPS = 3
 BF16_LOSS_REL, BF16_GRAD_COS = 2e-2, 0.99
 TRAIN15D_LAYERS = 4
 # (e) steps timed by CUDA events (median of steps 3..), the loop profiled
-# over 3 steps
-TRAIN15_TIMED, TRAIN15_PROFILED = 5, 3
+# over 2 steps
+TRAIN15_TIMED, TRAIN15_PROFILED = 5, 2
 
 
 def shipped_training_config(path, **options):
@@ -3886,12 +3916,11 @@ def training_times(dev, card, names, videos) -> dict:
             step_ms = float(np.median(spans[2:]))
             opt_ms = cuda_ms(state.optimizer.step, iters=5, warmup=1)
             it = batches(ds, TRAIN15_BATCH, dev, [
-                i % len(ds) for i in range(2 * TRAIN15_BATCH)])
+                i % len(ds) for i in range(TRAIN15_BATCH)])
             t0 = time.perf_counter()
-            for _ in range(2):
-                next(it)
+            next(it)
             torch.cuda.synchronize()
-            assembly_ms = (time.perf_counter() - t0) / 2 * 1e3
+            assembly_ms = (time.perf_counter() - t0) * 1e3
             it = batches(ds, TRAIN15_BATCH, dev, [
                 i % len(ds) for i in range(TRAIN15_PROFILED * TRAIN15_BATCH)])
             with profile(activities=[ProfilerActivity.CPU,
@@ -4025,7 +4054,7 @@ YOLO_FIRE = (0, 2)
 # must give the card's detections (nms_agreement)
 YOLO_F32_REL = 1e-4
 YOLO_CPU_TTA, YOLO_CPU_SEG = 4, 4            # images of the TTA and seg arms
-YOLO_VAL_IMAGES, YOLO_MAP_MIN = 64, 0.99
+YOLO_VAL_IMAGES, YOLO_MAP_MIN = 32, 0.99
 # the card's and the CPU's yolo_val rows: NMS meets scores within the f32
 # bound in another order on each side (16a: a few percent of the
 # detections differ until the CPU takes the card's scores), which moves
@@ -5406,11 +5435,11 @@ I3D_RELSEQ_CONFIG = ROOT / "configs" / "seq_generate" / "i3d_relseq.py"
 # 18b/c: a seeded collection of TRAIN18_VIDEOS (validation: the first
 # TRAIN18_VAL), batch TRAIN18_BATCH as the configs say; the card-vs-CPU
 # steps at TRAIN18_CPU_BATCH; the bench row at TRAIN18_BIG (halved until it
-# fits); the shipped step timed over 5 steps and its loop profiled over 2;
+# fits); the shipped step timed over 5 steps and its loop profiled over 1;
 # the CLIs of steps 18-20 train one step an epoch on the 8 videos, for the
 # script's time
 TRAIN18_VIDEOS, TRAIN18_VAL, TRAIN18_BATCH, TRAIN18_CPU_BATCH = 8, 8, 8, 1
-TRAIN18_BIG, TRAIN18_TIMED, TRAIN18_PROFILED = 32, 5, 2
+TRAIN18_BIG, TRAIN18_TIMED, TRAIN18_PROFILED = 32, 5, 1
 # one step card vs CPU at full width, from the CLI's epoch_1 state (2
 # steps on; the training init's steps are 19b's), head dropout 0.
 # float64 on both devices is the witness: every gradient and running statistic within
@@ -7191,7 +7220,9 @@ def kernel_json(results, launches, core, block_extra, counts) -> dict:
     of step 20 but 20b, `clip_recognizer_launches` over one bf16 forward
     of 20b's CLIP kernel arm, `recipes_launches` over the counted calls of
     step 21d, `localization_launches` over step 22, `detection_launches`
-    over step 23.  A main-path count is None when its step did not run.
+    over step 23, `host_tools_launches` over 24c's host-feed loop and 24d's
+    card run of dump_features.  A main-path count is None when its step
+    did not run.
     `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
@@ -8889,20 +8920,688 @@ def check_step23(dev, card) -> Tuple[dict, dict]:
     return line, launches
 
 
-STEPS = tuple(range(4, 24))      # the steps a selection may name
+# -- step 24: the native host IO layer and the host tools -------------------------
+
+# 24a: a LINAS-sized frame-feature file (BF24_ROWS x BF24_DIMS f32, 410
+# MB), a batch of BF24_VIDEOS videos of 3-64 frames each gathered with
+# BF24_THREADS threads, bit-equal to a numpy memmap, BF24_TIMED gathers
+BF24_ROWS, BF24_DIMS, BF24_VIDEOS, BF24_THREADS, BF24_TIMED = (
+    50_000, 2048, 128, 4, 20)
+# 24b: raw AVIs read back exactly; the fused swscale resize of smooth
+# frames against data/pipelines.resize_linear on the unresized frames
+# (mean and largest |difference| of the uint8 values); read_audio of a
+# stereo 44.1 kHz WAV at 16 kHz against the analytic sine past the
+# resampler's first and last AUDIO24_EDGE samples
+AVI24_FRAMES, AVI24_HW = 30, (240, 320)
+RESIZE24_HW, RESIZE24_MEAN, RESIZE24_MAX = (480, 640), 1.0, 8
+AUDIO24_RATE, AUDIO24_HZ, AUDIO24_TOL, AUDIO24_EDGE = 16000, 440.0, 1e-3, 32
+# 24c: the host-feed row as bench/extra.py runs it (96 clips of 8 frames
+# over FEED24_SOURCES raw AVIs of FEED24_FRAMES frames at 480x640); where
+# libav was not found but cv2 is there, the same sources as cv2-written
+# mp4s through decode_videos_batch's cv2 fallback, FALLBACK24_VIDEOS clips
+# in one batch with FALLBACK24_WORKERS workers (cv2 segfaults on the raw
+# AVI, and its seeks take about 0.13 s a clip)
+FEED24_SOURCES, FEED24_FRAMES, FEED24_HW, FEED24_BATCH = 4, 64, (480, 640), 32
+FEED24_VIDEOS, FEED24_WORKERS = 96, (1, 2, 4)
+FALLBACK24_VIDEOS, FALLBACK24_WORKERS = 8, (2,)
+# 24d: dump_features on a joint TimeSformer ViT-B/16 (f32, flash) over the
+# 24c sources, 400 classes; the card against the CPU for one video at
+# every layer (embeddings) and at DUMP24_GRAD_LAYERS (gradients), each
+# vector within DUMP24_REL of its largest CPU element
+DUMP24_LAYERS, DUMP24_GRAD_LAYERS, DUMP24_REL = (0, 5, 11), (5, 11), 1e-3
+DUMP24_PIPELINE = [
+    dict(type="DecordInit"),
+    dict(type="SampleFrames", clip_len=8, frame_interval=8, num_clips=1,
+         test_mode=True),
+    dict(type="DecordDecode"), dict(type="Resize", scale=(-1, 256)),
+    dict(type="CenterCrop", crop_size=224),
+    dict(type="Normalize", mean=[127.5] * 3, std=[127.5] * 3),
+    dict(type="FormatShape", input_format="NTHWC")]
+# 24e: PrefetchIterator over PREFETCH24_BATCHES host batches of
+# PREFETCH24_ROWS x 4096 f32 (64 MiB), a step of PREFETCH24_PRODUCTS f32
+# products against a 4096 x 4096 matrix
+PREFETCH24_BATCHES, PREFETCH24_ROWS, PREFETCH24_PRODUCTS = 8, 4096, 3
+
+
+class FramesReader24:
+    """A decord-alike over frames held in memory (24d where libav was not
+    found)."""
+
+    def __init__(self, frames):
+        self.frames, self.fps = frames, 30.0
+
+    def __len__(self):
+        return len(self.frames)
+
+    def get_batch(self, indices):
+        return self.frames[np.asarray(indices)]
+
+    def release(self):
+        pass
+
+
+def smooth_frames24(n: int, hw) -> np.ndarray:
+    """n uint8 frames of low-frequency colour waves (a resize of noise
+    measures aliasing, not the resize)."""
+    y, x = np.mgrid[0:hw[0], 0:hw[1]].astype(np.float64)
+    return np.stack([np.stack([
+        127 + 100 * np.sin(x / 37.0 + t) * np.cos(y / 23.0),
+        127 + 100 * np.cos(x / 51.0 - t),
+        127 + 80 * np.sin((x + y) / 29.0 + t)], -1)
+        for t in range(n)]).astype(np.uint8)
+
+
+def write_wav24(path: str, seconds: float, rate: int, channels: int,
+                amp: float = 0.5):
+    import wave
+    t = np.arange(int(seconds * rate)) / rate
+    y = amp * np.sin(2 * np.pi * AUDIO24_HZ * t)
+    with wave.open(path, "wb") as f:
+        f.setnchannels(channels)
+        f.setsampwidth(2)
+        f.setframerate(rate)
+        f.writeframes((np.repeat(y[:, None], channels, 1).ravel() * 32767)
+                      .astype("<i2").tobytes())
+
+
+def sine_error24(y: np.ndarray, rate: int, amp: float = 0.5) -> float:
+    t = np.arange(len(y)) / rate
+    ref = amp * np.sin(2 * np.pi * AUDIO24_HZ * t)
+    return float(np.abs(y - ref)[AUDIO24_EDGE:-AUDIO24_EDGE].max())
+
+
+def host24_bigfile(tmp: str, card: str) -> dict:
+    """24a: NativeBigFile's gather against a numpy memmap, rows/s."""
+    from cross_modal_video_engine_tpu_torch.io.bigfile import write_bigfile
+    from cross_modal_video_engine_tpu_torch.io.native import NativeBigFile
+    rng = np.random.default_rng(241)
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "frames_bf")
+    write_bigfile(d, [f"f{i}" for i in range(BF24_ROWS)],
+                  rng.random((BF24_ROWS, BF24_DIMS), dtype=np.float32))
+    write_s = time.perf_counter() - t0
+    ref = np.memmap(os.path.join(d, "feature.bin"), np.float32, "r",
+                    shape=(BF24_ROWS, BF24_DIMS))
+    bf = NativeBigFile(d, n_threads=BF24_THREADS)
+    batches = []
+    for _ in range(BF24_TIMED):
+        lens = rng.integers(3, 65, BF24_VIDEOS)
+        starts = rng.integers(0, BF24_ROWS - 64, BF24_VIDEOS)
+        batches.append(np.concatenate([np.arange(s, s + n)
+                                       for s, n in zip(starts, lens)]))
+    got = bf.gather_rows(batches[0])
+    equal = bool(np.array_equal(got, ref[batches[0]]))
+    t0 = time.perf_counter()
+    for rows in batches:
+        bf.gather_rows(rows)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()               # the same rows, now mapped
+    for rows in batches:
+        bf.gather_rows(rows)
+    again = time.perf_counter() - t0
+    n_rows = sum(len(r) for r in batches)
+    last = BF24_ROWS - 1
+    by_name = bf.read_batch(["f7", f"f{last}", "f7"])
+    equal &= bool(np.array_equal(by_name, ref[[7, last, 7]]))
+    bf.close()
+    line = {"rows": BF24_ROWS, "dims": BF24_DIMS, "native": bf.is_native,
+            "videos_a_batch": BF24_VIDEOS, "rows_a_batch": n_rows / BF24_TIMED,
+            "threads": BF24_THREADS, "equal_to_memmap": equal,
+            "rows_per_s": n_rows / seconds,
+            "gbytes_per_s": n_rows * BF24_DIMS * 4 / seconds / 1e9,
+            "rows_per_s_mapped": n_rows / again, "write_s": write_s}
+    print(f"24a NativeBigFile over {BF24_ROWS} x {BF24_DIMS} f32 "
+          f"({BF24_ROWS * BF24_DIMS * 4 / 1e6:.0f} MB, written in "
+          f"{write_s:.1f} s; warm in the page cache): {BF24_TIMED} gathers "
+          f"of {BF24_VIDEOS} videos ({line['rows_a_batch']:.0f} rows a "
+          f"batch) with {BF24_THREADS} threads, {line['rows_per_s']:.0f} "
+          f"rows/s = {line['gbytes_per_s']:.2f} GB/s (the same gathers "
+          f"again, their pages mapped: {line['rows_per_s_mapped']:.0f} "
+          f"rows/s) on the host of {card}; bit-equal to a numpy memmap: "
+          f"{equal}", flush=True)
+    if not (equal and bf.is_native):
+        raise SystemExit("24a the native gather disagrees with the memmap")
+    return line
+
+
+def host24_decode(tmp: str, card: str) -> dict:
+    """24b: raw AVIs through NativeVideoReader and decode_videos_batch,
+    and read_audio of a stereo 44.1 kHz WAV."""
+    from cross_modal_video_engine_tpu_torch.bench.extra import write_raw_avi
+    from cross_modal_video_engine_tpu_torch.data.pipelines import (
+        resize_linear)
+    from cross_modal_video_engine_tpu_torch.io.native import (
+        NativeVideoReader, decode_videos_batch, read_audio)
+    rng = np.random.default_rng(242)
+    noise = rng.integers(0, 256, (AVI24_FRAMES,) + AVI24_HW + (3,),
+                         dtype=np.uint8)
+    smooth = smooth_frames24(8, RESIZE24_HW)
+    paths = {name: os.path.join(tmp, f"{name}.avi")
+             for name in ("noise", "smooth")}
+    write_raw_avi(paths["noise"], noise)
+    write_raw_avi(paths["smooth"], smooth)
+    reader = NativeVideoReader(paths["noise"])
+    idx = [0, 5, AVI24_FRAMES - 1, 7, 5, 12]
+    exact = bool(np.array_equal(reader.get_batch(idx), noise[idx]))
+    meta = [len(reader), reader.height, reader.width, reader.fps,
+            reader.is_native]
+    reader.release()
+    batch = decode_videos_batch(
+        [paths["smooth"], paths["noise"], os.path.join(tmp, "missing.avi")],
+        np.array([np.arange(8), idx + [1, 2], np.arange(8)]), 224, 224)
+    want = resize_linear(smooth, (224, 224)).astype(np.int64)
+    diff = np.abs(batch[0].astype(np.int64) - want)
+    live = [bool(batch[i, j].any()) for i in (0, 1) for j in range(8)]
+    noise_resized = NativeVideoReader(paths["noise"]).get_batch(
+        idx + [1, 2], (224, 224))
+    wav = os.path.join(tmp, "stereo44k.wav")
+    write_wav24(wav, 2.0, 44100, 2)
+    audio = read_audio(wav, AUDIO24_RATE)
+    audio_err = sine_error24(audio, AUDIO24_RATE)
+    line = {"exact_native_size": exact,
+            "frames_height_width_fps_native": meta,
+            "resize_mean_abs": float(diff.mean()),
+            "resize_max_abs": int(diff.max()),
+            "batch_equals_reader": bool(np.array_equal(batch[1],
+                                                       noise_resized)),
+            "frames_nonzero": all(live),
+            "missing_is_zeros": not batch[2].any(),
+            "audio_samples": len(audio), "audio_max_abs_err": audio_err}
+    print(f"24b raw AVIs on the card's machine: {AVI24_FRAMES} frames of "
+          f"{AVI24_HW[0]}x{AVI24_HW[1]} read back at indices {idx}: exact "
+          f"{exact} (len, height, width, fps, native: {meta}); "
+          f"decode_videos_batch's fused resize of 8 smooth "
+          f"{RESIZE24_HW[0]}x{RESIZE24_HW[1]} frames to 224² against "
+          f"resize_linear: mean |diff| {line['resize_mean_abs']:.4f} (need <= "
+          f"{RESIZE24_MEAN}), max {line['resize_max_abs']} (need <= "
+          f"{RESIZE24_MAX}); the batch's second video equals the reader's "
+          f"get_batch(out_size): {line['batch_equals_reader']}, no frame "
+          f"zeros: {all(live)}, a missing file zeros: "
+          f"{line['missing_is_zeros']}; read_audio of a stereo 44.1 kHz WAV "
+          f"at {AUDIO24_RATE} Hz: {len(audio)} samples, max |error| against "
+          f"the {AUDIO24_HZ:g} Hz sine {audio_err:.2e} (need <= "
+          f"{AUDIO24_TOL:g}) ({card})", flush=True)
+    if not (exact and meta[:3] == [AVI24_FRAMES, *AVI24_HW] and meta[4]
+            and line["resize_mean_abs"] <= RESIZE24_MEAN
+            and line["resize_max_abs"] <= RESIZE24_MAX
+            and line["batch_equals_reader"] and all(live)
+            and line["missing_is_zeros"]
+            and abs(len(audio) - 2 * AUDIO24_RATE) <= AUDIO24_EDGE
+            and audio_err <= AUDIO24_TOL):
+        raise SystemExit("24b the native decoder failed a check")
+    return line
+
+
+def host24_feed(dev, card: str, srcs, counted, fixture: str,
+                n_videos: int, batch: int, workers) -> Tuple[dict, dict]:
+    """24c: bench/extra.py's host-feed row on the fixture, the launches
+    of its end-to-end loop, then the loop again under torch.profiler."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cross_modal_video_engine_tpu_torch.bench.extra import (
+        bench_host_feed, host_feed_e2e)
+    from cross_modal_video_engine_tpu_torch.io.native import (
+        decode_videos_batch)
+    from cross_modal_video_engine_tpu_torch.io.pipeline import (
+        uniform_indices)
+    from cross_modal_video_engine_tpu_torch.models.clip import (
+        CLIPModel, flagship_config, seeded_state_dict)
+    cfg = flagship_config()
+    t0 = time.perf_counter()
+    model = CLIPModel(dataclasses.replace(cfg, fused_attn=True,
+                                          fused_mlp=True), device=dev)
+    model.load_state_dict(seeded_state_dict(cfg, 0))
+    model.eval().requires_grad_(False)
+    res = cfg.image_resolution
+    with torch.no_grad():
+        model.encode_video_u8(torch.zeros((batch, 8, res, res, 3),
+                                          dtype=torch.uint8, device=dev))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for fn in counted.values():
+        fn.launches = 0
+    rows = bench_host_feed(n_videos=n_videos, batch=batch,
+                           src_frames=FEED24_FRAMES, workers_sweep=workers,
+                           device=dev, srcs=srcs, model=model,
+                           fixture=fixture)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    e2e = rows[-1]
+    paths = [srcs[i % len(srcs)] for i in range(n_videos)]
+    idx = uniform_indices(n_videos, FEED24_FRAMES, 8)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = host_feed_e2e(model, paths, idx, batch)
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and not getattr(e, "is_user_annotation", False)) / 1e3
+    wall_ms = out["seconds"] * 1e3
+    tail = decode_videos_batch(paths[-batch:], idx[-batch:], res, res)
+    with torch.no_grad():
+        direct = model.encode_video_u8(torch.from_numpy(tail).to(dev))[0]
+    cos = rows_cosine_min(out["embeddings"].reshape(-1, cfg.embed_dim),
+                          direct.float().cpu().numpy().reshape(
+                              -1, cfg.embed_dim))
+    per_batch = {k: v / e2e["batches"] for k, v in launches.items()}
+    line = {"rows": rows, "launches": launches, "model_build_s": build_s,
+            "profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "last_batch_cosine_vs_direct": cos}
+    decode = ", ".join(f"{r['metric'][-2:]} {r['value']:.1f}"
+                       for r in rows[:-1])
+    print(f"24c host-feed row ({FEED24_SOURCES} {fixture} sources of "
+          f"{FEED24_FRAMES} frames at {FEED24_HW[0]}x{FEED24_HW[1]}, "
+          f"{n_videos} clips of 8, decoder {e2e['decoder']}): decode only "
+          f"{decode} videos/s; end to end into the fused ViT-B/32 (bf16, "
+          f"batch {batch}) {e2e['value']:.1f} videos/s; launches over the "
+          f"loop {json.dumps(launches)} (need {cfg.vision_layers} compact and "
+          f"{cfg.vision_layers} MLP a batch, "
+          f"{e2e['batches']} batches, no other kernel); under torch.profiler "
+          f"{wall_ms:.1f} ms, kernels busy {busy_ms:.2f} ms, idle share "
+          f"{line['idle_share']:.3f}; the last batch against a direct "
+          f"encode_video_u8 of the same clips: cosine {cos:.6f} (need >= "
+          f"{COSINE_MIN}); model built in {build_s:.1f} s ({card})",
+          flush=True)
+    want = {"fused_attention_sublayer_compact": float(cfg.vision_layers),
+            "fused_mlp_sublayer": float(cfg.vision_layers)}
+    if (any(per_batch[k] != want.get(k, 0.0) for k in per_batch)
+            or e2e["batches"] != -(-n_videos // batch)
+            or not np.isfinite(out["embeddings"]).all()
+            or out["embeddings"].shape != (batch, 8, cfg.embed_dim)
+            or cos < COSINE_MIN):
+        raise SystemExit("24c the host-feed loop failed a check")
+    del model
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def _dump24_config(root: str, videos, name: str) -> str:
+    ann = os.path.join(root, f"{name}.txt")
+    with open(ann, "w") as f:
+        f.write("\n".join(f"{os.path.basename(v)} {i}"
+                          for i, v in enumerate(videos)))
+    cfg = os.path.join(root, f"{name}.py")
+    with open(cfg, "w") as f:
+        f.write(f"data = dict(videos_per_gpu={len(videos)}, "
+                f"pipeline={DUMP24_PIPELINE!r},\n    val=dict(ann_file="
+                f"{ann!r}, data_prefix={os.path.dirname(videos[0])!r}))\n")
+    return cfg
+
+
+def host24_dump(dev, card: str, tmp: str, srcs, reader, flash) -> Tuple[
+        dict, int]:
+    """24d: dump_features.main over the fixture on the card (the flash
+    launches counted), and for one video the card against the CPU."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench import serve as bserve
+    from cross_modal_video_engine_tpu_torch.cli import dump_features
+    backbone = dict(TS_JOINT, dtype="float32")
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, "dump_ckpt")
+    bserve.write_explain_checkpoint(ckpt, backbone, seed=24)
+    write_s = time.perf_counter() - t0
+    main_cfg = _dump24_config(tmp, srcs, "dump_all")
+    one_cfg = _dump24_config(tmp, srcs[:1], "dump_one")
+    layers = [str(l) for l in DUMP24_LAYERS]
+    every = [str(l) for l in range(TS_JOINT["num_layers"])]
+
+    def run(cfg, layer_args, mode, device, out):
+        return _quiet_call(dump_features.main, [
+            cfg, "--checkpoint", ckpt, "--mode", mode, "--layers",
+            *layer_args, "--out", os.path.join(tmp, out)]
+            + ([] if device is None else ["--device", device]),
+            reader=reader)[0]
+
+    # the card as a user asks for it: no --device (a CPU rehearsal names
+    # its device)
+    on_card = None if dev.type == "cuda" else str(dev)
+    torch.cuda.synchronize()
+    flash.launches = 0
+    t0 = time.perf_counter()
+    card_all = run(main_cfg, layers, "both", on_card, "card_all.pkl")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = flash.launches
+    need = TS_JOINT["num_layers"] + sum(TS_JOINT["num_layers"] - 1 - l
+                                        for l in DUMP24_LAYERS)
+    t0 = time.perf_counter()
+    card_one = run(one_cfg, every, "embeddings", on_card, "card_one.pkl")
+    cpu_emb = run(one_cfg, every, "embeddings", "cpu", "cpu_emb.pkl")
+    cpu_grad = run(one_cfg, [str(l) for l in DUMP24_GRAD_LAYERS], "grads",
+                   "cpu", "cpu_grad.pkl")
+    compare_s = time.perf_counter() - t0
+    name = srcs[0]
+    errs = {}
+    for key, got, want in (
+            [(l, card_one[name][l], cpu_emb[name][l])
+             for l in range(TS_JOINT["num_layers"])]
+            + [(("grad", l), card_all[name][("grad", l)],
+                cpu_grad[name][("grad", l)]) for l in DUMP24_GRAD_LAYERS]
+            + [(("batch", l), card_all[name][l], cpu_emb[name][l])
+               for l in DUMP24_LAYERS]):
+        errs[str(key)] = float(np.abs(got - want).max()
+                               / max(np.abs(want).max(), 1e-30))
+    finite = all(np.isfinite(v).all() for rec in card_all.values()
+                 for k, v in rec.items() if k != "pred")
+    preds = [card_all[name]["pred"], card_one[name]["pred"],
+             cpu_emb[name]["pred"], cpu_grad[name]["pred"]]
+    line = {"videos": len(srcs), "layers": list(DUMP24_LAYERS),
+            "checkpoint_write_s": write_s, "card_s": card_s,
+            "flash_launches": launches, "flash_need": need,
+            "cpu_compare_s": compare_s, "max_rel_err": max(errs.values()),
+            "worst": max(errs, key=errs.get), "preds": preds,
+            "reader": getattr(reader, "__name__", type(reader).__name__),
+            "finite": finite}
+    print(f"24d dump_features.main (joint TimeSformer ViT-B/16, 8x224², 12 "
+          f"layers, flash, f32, 400 classes; checkpoint written in "
+          f"{write_s:.1f} s) over {len(srcs)} videos in mode both at layers "
+          f"{list(DUMP24_LAYERS)} on the card in {card_s:.2f} s (the CLI "
+          f"with its checkpoint read): flash launches {launches} (need "
+          f"{need}: {TS_JOINT['num_layers']} in the capture forward, "
+          f"{TS_JOINT['num_layers'] - 1} - l from each layer l in the "
+          f"gradients' pass); one video card vs CPU, embeddings at all "
+          f"{TS_JOINT['num_layers']} layers and gradients at "
+          f"{list(DUMP24_GRAD_LAYERS)}: max |diff| / max |CPU| "
+          f"{line['max_rel_err']:.2e} at {line['worst']} (need <= "
+          f"{DUMP24_REL:g}), predictions {preds} (need equal), the CPU runs "
+          f"{compare_s:.1f} s ({card})", flush=True)
+    if (launches != need or line["max_rel_err"] > DUMP24_REL or not finite
+            or len(set(preds)) != 1 or sorted(card_all) != sorted(srcs)):
+        raise SystemExit("24d dump_features failed a check")
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def host24_prefetch(dev, card: str) -> dict:
+    """24e: PrefetchIterator's batches on the card equal to the host's;
+    a step loop with the prefetch against one that copies in the loop."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.data.prefetch import (
+        PrefetchIterator)
+    rng = np.random.default_rng(245)
+    host = [{"x": rng.random((PREFETCH24_ROWS, 4096), dtype=np.float32),
+             "y": (rng.integers(0, 400, PREFETCH24_ROWS), np.int64(i))}
+            for i in range(PREFETCH24_BATCHES)]
+    w = torch.from_numpy(rng.random((4096, 4096), dtype=np.float32)
+                         / 4096).to(dev)
+
+    def step(x):
+        for _ in range(PREFETCH24_PRODUCTS):
+            x = x @ w
+        return x.sum()
+
+    equal = True
+    for i, b in enumerate(PrefetchIterator(iter(host), depth=2,
+                                           device=dev)):
+        equal &= bool(np.array_equal(b["x"].cpu().numpy(), host[i]["x"]))
+        equal &= bool(np.array_equal(b["y"][0].cpu().numpy(),
+                                     host[i]["y"][0]))
+        equal &= b["x"].device.type == dev.type and int(b["y"][1]) == i
+    step(torch.from_numpy(host[0]["x"]).to(dev))
+    times = {}
+    for arm in ("copy", "prefetch", "prefetch", "copy"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if arm == "copy":
+            out = [step(torch.from_numpy(h["x"]).to(dev)) for h in host]
+        else:
+            out = [step(b["x"]) for b in PrefetchIterator(
+                iter(host), depth=2, device=dev)]
+        float(sum(out))
+        times.setdefault(arm, []).append((time.perf_counter() - t0) * 1e3)
+    step_ms = cuda_ms(lambda: step(torch.from_numpy(host[0]["x"]).to(dev)),
+                      iters=3, warmup=1)
+    line = {"batches": PREFETCH24_BATCHES,
+            "batch_mib": host[0]["x"].nbytes / 2 ** 20, "equal": equal,
+            "copy_ms": min(times["copy"]),
+            "prefetch_ms": min(times["prefetch"]), "runs": times,
+            "copy_and_step_ms": step_ms}
+    line["overlap_speedup"] = line["copy_ms"] / line["prefetch_ms"]
+    print(f"24e PrefetchIterator over {PREFETCH24_BATCHES} host batches of "
+          f"{line['batch_mib']:.0f} MiB: every tensor on the card equal to "
+          f"its host array: {equal}; a loop of {PREFETCH24_PRODUCTS} f32 "
+          f"products a batch {line['copy_ms']:.1f} ms copying in the loop, "
+          f"{line['prefetch_ms']:.1f} ms with the prefetch (pinned, side "
+          f"stream) = {line['overlap_speedup']:.2f}x (best of two each, "
+          f"turns copy/prefetch/prefetch/copy; one copy and step "
+          f"{step_ms:.2f} ms by CUDA events) ({card})", flush=True)
+    if not equal:
+        raise SystemExit("24e a prefetched batch differs from the host's")
+    return line
+
+
+def host24_tools(tmp: str, card: str, native_decode: bool) -> dict:
+    """24f: data_tools txt2bin, combine_features, build_tags and (with
+    libav) extract_audio, outputs read back; the cv2 tools refused."""
+    import wave
+    from cross_modal_video_engine_tpu_torch.cli import data_tools, misc_tools
+    from cross_modal_video_engine_tpu_torch.io.bigfile import (BigFile,
+                                                               write_bigfile)
+    from cross_modal_video_engine_tpu_torch.utils.concept_tags import (
+        build_tag_vocab, video_tag_scores, write_tag_file)
+    rng = np.random.default_rng(246)
+    mat = rng.standard_normal((100, 64)).astype(np.float32)
+    txt = os.path.join(tmp, "feats.txt")
+    with open(txt, "w") as f:
+        f.writelines(f"v{i} " + " ".join(repr(float(x)) for x in row) + "\n"
+                     for i, row in enumerate(mat))
+    _quiet(data_tools.main, ["txt2bin", "--input", txt, "--output",
+                             os.path.join(tmp, "bf_a")])
+    bf = BigFile(os.path.join(tmp, "bf_a"))
+    line = {"txt2bin": bool(np.array_equal(
+        bf.read_batch([f"v{i}" for i in range(100)]), mat))}
+    other = rng.standard_normal((50, 8)).astype(np.float32)
+    write_bigfile(os.path.join(tmp, "bf_b"),
+                  [f"v{i}" for i in range(0, 100, 2)], other)
+    _quiet(data_tools.main, ["combine_features", "--a",
+                             os.path.join(tmp, "bf_a"), "--b",
+                             os.path.join(tmp, "bf_b"), "--output",
+                             os.path.join(tmp, "bf_c")])
+    comb = BigFile(os.path.join(tmp, "bf_c"))
+    line["combine_features"] = bool(
+        comb.names == [f"v{i}" for i in range(0, 100, 2)]
+        and np.array_equal(comb.read_batch(comb.names),
+                           np.concatenate([mat[::2], other], 1)))
+    words = ("man horse dog ball woman cook kitchen snow beach field "
+             "running riding playing cutting").split()
+    caps, per_video = [], {}
+    for v in range(20):
+        for k in range(3):
+            cap = " ".join(rng.choice(words, 5))
+            caps.append(f"vid{v}#{k} {cap}")
+            per_video.setdefault(f"vid{v}", []).append(cap)
+    cap_file = os.path.join(tmp, "caps.txt")
+    with open(cap_file, "w") as f:
+        f.write("\n".join(caps) + "\n")
+    tags = os.path.join(tmp, "tags", "tags.txt")
+    _quiet(data_tools.main, ["build_tags", "--captions", cap_file,
+                             "--output", tags, "--vocab_size", "8"])
+    vocab = build_tag_vocab([c for cl in per_video.values() for c in cl], 8)
+    write_tag_file(os.path.join(tmp, "tags_direct.txt"),
+                   video_tag_scores(per_video, vocab))
+    with open(tags + ".vocab.json") as f:
+        line["build_tags"] = bool(
+            json.load(f) == vocab and open(tags).read()
+            == open(os.path.join(tmp, "tags_direct.txt")).read()
+            and len(open(tags).read().splitlines()) == 20)
+    if native_decode:
+        media = os.path.join(tmp, "media")
+        os.makedirs(media)
+        write_wav24(os.path.join(media, "a.wav"), 1.0, 44100, 2)
+        _quiet(data_tools.main, ["extract_audio", "--src_dir", media,
+                                 "--out_dir", os.path.join(tmp, "wavs"),
+                                 "--ext", "wav"])
+        with wave.open(os.path.join(tmp, "wavs", "a.wav")) as f:
+            fmt = (f.getnchannels(), f.getframerate())
+            y = np.frombuffer(f.readframes(f.getnframes()), "<i2") / 32767
+        line["extract_audio"] = {"channels_rate": list(fmt),
+                                 "samples": len(y),
+                                 "max_abs_err": sine_error24(y, 16000)}
+    refusals = {}
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        # cv2 is installed: the tools run, their frames decoded by
+        # NativeVideoReader (its cv2 fallback where libav was not found)
+        from cross_modal_video_engine_tpu_torch.io.video_decode import (
+            write_test_video)
+        clip = np.zeros((6, 48, 64, 3), np.uint8)
+        for t in range(6):
+            clip[t, 10:20, 5 + 4 * t:15 + 4 * t] = (255, 120, 30)
+        os.makedirs(os.path.join(tmp, "cls", "jump"))
+        write_test_video(os.path.join(tmp, "cls", "jump", "a.mp4"), clip)
+        _quiet(data_tools.main, [
+            "build_rawframes", "--src_dir", os.path.join(tmp, "cls"),
+            "--out_dir", os.path.join(tmp, "raw"), "--ext", "mp4",
+            "--new_short", "32"])
+        jpgs = sorted(os.listdir(os.path.join(tmp, "raw", "jump", "a")))
+        first = cv2.imread(os.path.join(tmp, "raw", "jump", "a", jpgs[0]))
+        _quiet(misc_tools.main, [
+            "flow_extraction", "--input", os.path.join(tmp, "cls", "jump",
+                                                       "a.mp4"),
+            "--dest", os.path.join(tmp, "flow")])
+        flow = sorted(os.listdir(os.path.join(tmp, "flow")))
+        fx = cv2.imread(os.path.join(tmp, "flow", "flow_x_00002.jpg"),
+                        cv2.IMREAD_GRAYSCALE)
+        refusals = {"cv2": cv2.__version__,
+                    "build_rawframes": [len(jpgs), list(first.shape)],
+                    "flow_extraction": [len(flow), int(fx.max())]}
+        ran = (len(jpgs) == 6 and list(first.shape) == [32, 43, 3]
+               and len(flow) == 10 and fx.max() > 140)
+    else:
+        for name, (tool, argv) in {
+                "build_rawframes": (data_tools, [
+                    "build_rawframes", "--src_dir", tmp, "--out_dir",
+                    os.path.join(tmp, "raw")]),
+                "flow_extraction": (misc_tools, [
+                    "flow_extraction", "--input", os.path.join(
+                        tmp, "missing.avi"), "--dest",
+                    os.path.join(tmp, "flow")])}.items():
+            try:
+                tool.main(argv)
+                refusals[name] = "ran"
+            except ImportError as e:
+                refusals[name] = str(e)
+        ran = all("cv2" in v for v in refusals.values())
+    line["cv2_tools"] = refusals
+    print(f"24f the data tools on the card's machine, outputs read back: "
+          f"{json.dumps(line)} (need every check true, extract_audio mono "
+          f"16 kHz within {AUDIO24_TOL:g} of the sine; the cv2 tools: where "
+          f"cv2 is installed, 6 frames of 32x43 and 5 flow pairs whose x "
+          f"flow passes 140 for the moving square, else each an ImportError "
+          f"naming cv2) ({card})", flush=True)
+    audio = line.get("extract_audio")
+    if (not (line["txt2bin"] and line["combine_features"]
+             and line["build_tags"])
+            or (audio and (audio["channels_rate"] != [1, 16000]
+                           or audio["max_abs_err"] > AUDIO24_TOL))
+            or not ran):
+        raise SystemExit("24f a data tool failed a check")
+    return line
+
+
+def check_step24(dev, card) -> Tuple[dict, dict]:
+    """Step 24 (a-f).  Returns (the `host_tools` JSON object, the
+    kernels' launches over 24c's loop and 24d's card run)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.bench.extra import write_raw_avi
+    from cross_modal_video_engine_tpu_torch.io import native
+    t_step = time.perf_counter()
+    counted = kernel_counters()
+    line = {"card": card}
+    t0 = time.perf_counter()
+    status = native.native_status()
+    line["build"] = dict(status, seconds_total=time.perf_counter() - t0)
+    found = status["libav"] == "found"
+    try:
+        import cv2  # noqa: F401
+        has_cv2 = True
+    except ImportError:
+        has_cv2 = False
+    print(f"24a host libraries from cross_modal_video_engine_tpu_torch/"
+          f"native/ with g++: bigfile {status['bigfile']} "
+          f"({'built' if status['built']['bigfile'] else 'loaded'} in "
+          f"{status['seconds']['bigfile']:.2f} s); libav probe "
+          f"({status['seconds']['probe']:.2f} s): {status['libav']}; decode "
+          + (f"{status['decode']} ("
+             f"{'built' if status['built']['decode'] else 'loaded'} in "
+             f"{status['seconds']['decode']:.2f} s)" if found else
+             "not built: 24b and extract_audio do not run here, 24c runs "
+             "through cv2's fallback where cv2 is installed, 24d reads "
+             "frames from memory")
+          + f" ({card})", flush=True)
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    launches = {name: 0 for name in counted}
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        line["bigfile"] = host24_bigfile(tmp, card)
+        if found:
+            line["decode"] = host24_decode(tmp, card)
+        rng = np.random.default_rng(9)
+        frames, srcs = {}, []
+        t0 = time.perf_counter()
+        for i in range(FEED24_SOURCES):
+            srcs.append(os.path.join(tmp, f"s{i}.avi"))
+            frames[srcs[-1]] = rng.integers(
+                0, 256, (FEED24_FRAMES,) + FEED24_HW + (3,), dtype=np.uint8)
+            if found:
+                write_raw_avi(srcs[-1], frames[srcs[-1]])
+        line["fixture_s"] = time.perf_counter() - t0
+        feed = None
+        if found:
+            line["host_feed"], feed = host24_feed(
+                dev, card, srcs, counted, "rawvideo-avi", FEED24_VIDEOS,
+                FEED24_BATCH, FEED24_WORKERS)
+        elif has_cv2:
+            # the same frames as mp4s cv2 writes and reads (the fallback)
+            from cross_modal_video_engine_tpu_torch.io.video_decode import (
+                write_test_video)
+            mp4s = [p[:-4] + ".mp4" for p in srcs]
+            for src, mp4 in zip(srcs, mp4s):
+                write_test_video(mp4, frames[src])
+            line["host_feed"], feed = host24_feed(
+                dev, card, mp4s, counted, "mp4v (cv2)", FALLBACK24_VIDEOS,
+                FALLBACK24_VIDEOS, FALLBACK24_WORKERS)
+        else:
+            print("24c did not run: neither libav nor cv2 is here to decode "
+                  "a video file", flush=True)
+        for k, v in (feed or {}).items():
+            launches[k] += v
+        reader = (native.NativeVideoReader if found
+                  else (lambda p: FramesReader24(frames[p])))
+        line["dump_features"], flash = host24_dump(
+            dev, card, tmp, srcs, reader, counted["flash_attention"])
+        launches["flash_attention"] += flash
+        del frames
+        line["prefetch"] = host24_prefetch(dev, card)
+        line["tools"] = host24_tools(tmp, card, found)
+    torch.cuda.synchronize()
+    line["launches"] = launches
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"24 kernel launches over 24c's loop and 24d's card run: "
+          f"{json.dumps(launches)}; step 24 checked in "
+          f"{line['seconds']:.1f} s ({card})", flush=True)
+    return line, launches
+
+
+STEPS = tuple(range(4, 25))      # the steps a selection may name
 
 
 def selected_steps(argv) -> set:
-    """The steps to run: all of 4-23 with no argument, else the numbers
+    """The steps to run: all of 4-24 with no argument, else the numbers
     given ("19", "13 19" or "13,19"); 4-5 and 6-7 run as pairs (5 and 7
     time what 4 and 6 build).  The build (2), the kernel checks (3) and
-    the results (24) always run."""
+    the results (25) always run."""
     if not argv:
         return set(STEPS)
     steps = set()
     for arg in argv:
         for part in filter(None, arg.split(",")):
-            if not part.isdigit() or int(part) not in range(2, 25):
+            if not part.isdigit() or int(part) not in range(2, 26):
                 raise SystemExit(f"chip_smoke: unknown step {part!r}; "
                                  f"choose among {STEPS[0]}-{STEPS[-1]}")
             steps.add(int(part))
@@ -8994,7 +9693,7 @@ def main(argv=None) -> int:
                             "ctv", "caption_transformer",
                             "detector_training", "cnn", "cnn2d",
                             "transformer", "clip_recognizer", "recipes",
-                            "localization", "detection"))
+                            "localization", "detection", "host_tools"))
     rng = np.random.default_rng(1)
     if 4 in steps:
         t_step = time.perf_counter()
@@ -9159,16 +9858,23 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         lines["detection"], counts["detection"] = check_step23(dev, card)
         step_seconds(step_s, "23", t_step)
+
+    if 24 in steps:
+        t_step = time.perf_counter()
+        # -- 24. the native host IO layer and the host tools ----------------
+        torch.cuda.empty_cache()
+        lines["host_tools"], counts["host_tools"] = check_step24(dev, card)
+        step_seconds(step_s, "24", t_step)
     builds.close()
 
-    # -- 24. results ----------------------------------------------------------
+    # -- 25. results ----------------------------------------------------------
     for key, value in lines.items():
         print(json.dumps({key: value}))
     print(json.dumps(kernel_json(results, launches, core, block_extra,
                                  counts)))
     print(json.dumps({"step_seconds": step_s}))
     skipped = sorted(set(STEPS) - steps)
-    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 24"
+    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 25"
           + (f"; skipped: {skipped} (a partial run)" if skipped else
              " (the whole smoke run)"), flush=True)
     print(json.dumps({"ok": True, "device": {

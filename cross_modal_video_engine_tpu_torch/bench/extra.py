@@ -27,7 +27,12 @@ one JSON line per metric; with no argument, every row in order:
 * `train_step_yolov5`, `train_step_yolov5_seg`: one train step of yolov5s
   (and yolov5s-seg, 32 masks) at 640 on 16 images in bf16 with f32
   masters (`make_yolo_train_step(bf16=True)`: three-group SGD and EMA),
-  images/s by CUDA events.
+  images/s by CUDA events;
+* `host_feed`: the host decode through `io/pipeline.DecodePrefetcher` over
+  the native libav batch decoder (its cv2 fallback where libav was not
+  found, named in each row), videos/s per worker count, then the
+  prefetcher feeding the fused CLIP ViT-B/32 tower's `encode_video_u8`
+  end to end (see `bench_host_feed` for its fixture and its cuts).
 
 Rows are drawn from a seed on the device.  Where a row has a plain arm,
 `vs_baseline` is the kernel arm over the plain arm (the TimeSformer
@@ -35,21 +40,26 @@ train-step row: over the JAX row's 9 videos/s reference, per GPU of the
 reference's 8; the SlowFast row: over the JAX row's 18 videos/s, its
 estimate for one V100; the YOLO rows: over the 205 images/s of the JAX
 rows' reference, yolov5's "2 days on one V100 for 300 COCO epochs").
-Not carried over: the host-feed row (needs the native decoder, ROADMAP.md
-queue 1 item 8i), the flatten_tokens A/B (a TPU layout) and the other
+Not carried over: the flatten_tokens A/B (a TPU layout) and the other
 families' train-step rows (the parts of slice 5 that port them).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import os
+import shutil
+import struct
 import sys
-from typing import Optional, Sequence
+import tempfile
+import time
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..models.clip import CLIPConfig
+from ..models.clip import CLIPConfig, CLIPModel, seeded_state_dict
 from ..models.recognizer import Recognizer3D
 from ..models.timesformer import TimeSformerConfig
 from ..train.optim import OptaxOptimizer
@@ -399,6 +409,174 @@ def bench_train_step_yolov5_seg(batch: int = 16, img: int = 640,
                                    width=width)
 
 
+# -- the host-feed row ----------------------------------------------------------
+
+def write_raw_avi(path: str, frames: np.ndarray, fps: int = 30) -> None:
+    """Write RGB uint8 (T, H, W, 3) frames as an uncompressed AVI: a RIFF
+    with one `vids` stream of `DIB ` frames (BGR24, rows bottom-up, each
+    padded to 4 bytes), a `movi` list of `00db` chunks and an `idx1`
+    index of key frames.  A bench and test fixture: it needs neither cv2
+    nor an encoder, and libav reads its pixels back exactly."""
+    t, h, w, _ = frames.shape
+    stride = (w * 3 + 3) & ~3
+    size = stride * h
+
+    def chunk(fourcc: bytes, data: bytes) -> bytes:
+        return fourcc + struct.pack("<I", len(data)) + data + (
+            b"\0" if len(data) % 2 else b"")
+
+    avih = struct.pack("<14I", 1_000_000 // fps, size * fps, 0, 0x10, t, 0,
+                       1, size, w, h, 0, 0, 0, 0)
+    strh = (b"vidsDIB " + struct.pack("<IHHIIIIIIII", 0, 0, 0, 0, 1, fps, 0,
+                                      t, size, 0xFFFFFFFF, 0)
+            + struct.pack("<4h", 0, 0, w, h))
+    strf = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, size, 0, 0, 0, 0)
+    hdrl = b"LIST" + struct.pack("<I", 4 + 8 + len(avih) + 12 + 8
+                                 + len(strh) + 8 + len(strf)) + b"hdrl"
+    hdrl += chunk(b"avih", avih)
+    hdrl += b"LIST" + struct.pack("<I", 4 + 8 + len(strh) + 8
+                                  + len(strf)) + b"strl"
+    hdrl += chunk(b"strh", strh) + chunk(b"strf", strf)
+    movi_size = 4 + t * (8 + size)
+    idx1 = b"".join(struct.pack("<4sIII", b"00db", 0x10, 4 + i * (8 + size),
+                                size) for i in range(t))
+    riff = 4 + len(hdrl) + 8 + movi_size + 8 + len(idx1)
+    row = np.zeros((h, stride), np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", riff) + b"AVI " + hdrl)
+        f.write(b"LIST" + struct.pack("<I", movi_size) + b"movi")
+        for frame in frames:
+            row[:, :w * 3] = frame[::-1, :, ::-1].reshape(h, w * 3)
+            f.write(b"00db" + struct.pack("<I", size) + row.tobytes())
+        f.write(chunk(b"idx1", idx1))
+
+
+def write_host_feed_fixture(root: str, n_src: int = 4, src_frames: int = 64,
+                            src_hw=(480, 640), seed: int = 9) -> List[str]:
+    """`n_src` raw AVIs of `src_frames` seeded RGB frames of `src_hw`."""
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n_src):
+        frames = rng.integers(0, 256, (src_frames,) + tuple(src_hw) + (3,),
+                              dtype=np.uint8)
+        paths.append(os.path.join(root, f"s{i}.avi"))
+        write_raw_avi(paths[-1], frames)
+    return paths
+
+
+def host_decode_rate(paths: Sequence[str], indices: np.ndarray, batch: int,
+                     n_workers: int, out_hw=(224, 224)) -> float:
+    """Videos/s of one pass of DecodePrefetcher over the clips (decode
+    and the fused resize only)."""
+    from ..io.pipeline import DecodePrefetcher
+    pf = DecodePrefetcher(paths, indices, out_hw=out_hw, batch_size=batch,
+                          n_workers=n_workers)
+    t0 = time.perf_counter()
+    total = sum(b.shape[0] for b, _ in pf)
+    seconds = time.perf_counter() - t0
+    assert total == len(paths)
+    return len(paths) / seconds
+
+
+def host_feed_e2e(model, paths: Sequence[str], indices: np.ndarray,
+                  batch: int, n_workers: int = 2) -> dict:
+    """DecodePrefetcher into `model.encode_video_u8` on the model's
+    device, the tail batch padded to `batch`: {"videos_per_s", "seconds",
+    "batches", "embeddings" (the last batch's, on the host)}."""
+    from ..io.pipeline import DecodePrefetcher
+    device = next(model.parameters()).device
+    res = model.cfg.image_resolution
+    pf = DecodePrefetcher(paths, indices, out_hw=(res, res),
+                          batch_size=batch, n_workers=n_workers)
+    t0 = time.perf_counter()
+    out, done, batches = None, 0, 0
+    with torch.no_grad():
+        for frames_u8, _ in pf:
+            b = frames_u8.shape[0]
+            if b != batch:               # pad the tail to the batch shape
+                pad = np.zeros((batch - b,) + frames_u8.shape[1:], np.uint8)
+                frames_u8 = np.concatenate([frames_u8, pad], 0)
+            out = model.encode_video_u8(torch.from_numpy(frames_u8).to(
+                device))[0][:b]
+            done += b
+            batches += 1
+    embeddings = out.float().cpu().numpy()       # drains the last batch
+    seconds = time.perf_counter() - t0
+    assert done == len(paths)
+    return {"videos_per_s": len(paths) / seconds, "seconds": seconds,
+            "batches": batches, "embeddings": embeddings}
+
+
+def bench_host_feed(n_videos: int = 96, frames: int = 8, batch: int = 32,
+                    src_hw=(480, 640), src_frames: int = 64, n_src: int = 4,
+                    workers_sweep: Sequence[int] = (1, 2, 4), device=None,
+                    cfg: Optional[CLIPConfig] = None,
+                    srcs: Optional[Sequence[str]] = None,
+                    model: Optional[CLIPModel] = None,
+                    fixture: str = "rawvideo-avi") -> list:
+    """The host-to-device pipeline, the counterpart of the JAX row
+    (bench_extra.py bench_host_feed): decode through DecodePrefetcher
+    over the native libav batch decoder, then the uint8 ingest of the
+    fused CLIP ViT-B/32 tower (bf16, 8 frames, 224², batch 32, the tail
+    padded to the batch).  One decode-only row per worker count
+    (`host_decode_480p_to_224_w{n}`, videos/s of the host) and one
+    end-to-end row (`host_feed_e2e_decode_embed_vitb32_bf16`).
+
+    The fixture is uncompressed AVI (`write_raw_avi`, `"fixture":
+    "rawvideo-avi"` in each row): a machine without cv2 has no encoder
+    to write an mp4.  So the rate measures demux, seek, swscale, the C++
+    thread pool and the host-to-device copy, not an MPEG-4 decode, and
+    is not compared with the JAX row's 350 videos/s (`vs_baseline`
+    None).  Cut from the JAX row: 4 sources of 64 frames at 480x640 (236
+    MB on disk) instead of 12 of 300 frames; 96 clips of 8 uniformly
+    sampled frames, round-robin over the sources, as there.
+
+    srcs: fixture files already written (`src_frames` frames each, named
+    by `fixture`; None: write raw AVIs into a temporary directory); model:
+    the kernel arm already built and called once (None: build it from
+    seed 0 and call it once before the timed loop).  Each row names the
+    decoder: "libav" where io/native built the decode library, else "cv2
+    (fallback)", decode_videos_batch's per-video fallback."""
+    from ..io.native import native_available
+    from ..io.pipeline import uniform_indices
+    device = resolve_device(device)
+    cfg = model.cfg if model is not None else cfg or flagship_config()
+    res = cfg.image_resolution
+    info = {"fixture": fixture,
+            "decoder": ("libav" if native_available()["decode"]
+                        else "cv2 (fallback)"), **where(device)}
+    tmp = None if srcs is not None else tempfile.mkdtemp(prefix="hostfeed_")
+    rows = []
+    try:
+        if tmp is not None:
+            srcs = write_host_feed_fixture(tmp, n_src, src_frames, src_hw)
+        paths = [srcs[i % len(srcs)] for i in range(n_videos)]
+        idx = uniform_indices(n_videos, src_frames, frames)
+        for nw in workers_sweep:
+            rate = host_decode_rate(paths, idx, batch, nw, (res, res))
+            emit({"metric": f"host_decode_480p_to_224_w{nw}", "value": rate,
+                  "unit": "videos/sec/host", "vs_baseline": None, **info},
+                 rows)
+        if model is None:
+            model = CLIPModel(dataclasses.replace(cfg, fused_attn=True,
+                                                  fused_mlp=True),
+                              device=device)
+            model.load_state_dict(seeded_state_dict(cfg, 0))
+            model.eval().requires_grad_(False)
+            with torch.no_grad():            # the first call's set-up
+                model.encode_video_u8(torch.zeros(
+                    (batch, frames, res, res, 3), dtype=torch.uint8,
+                    device=device))
+        e2e = host_feed_e2e(model, paths, idx, batch)
+        emit({"metric": "host_feed_e2e_decode_embed_vitb32_bf16",
+              "value": e2e["videos_per_s"], "unit": per("videos/sec", device),
+              "vs_baseline": None, "batches": e2e["batches"], **info}, rows)
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
 _BENCHES = [
     ("retrieval_p50", bench_retrieval_p50),
     ("int8_capacity", bench_int8_capacity),
@@ -409,6 +587,7 @@ _BENCHES = [
     ("train_step_slowfast", bench_train_step_slowfast),
     ("train_step_yolov5", bench_train_step_yolov5),
     ("train_step_yolov5_seg", bench_train_step_yolov5_seg),
+    ("host_feed", bench_host_feed),
 ]
 
 

@@ -101,7 +101,7 @@ from .optim import OptaxOptimizer
 PARTS = {
     "8g": "audio recognition",
     "8h": "skeleton recognition (ST-GCN, 2s-AGCN, PoseC3D)",
-    "8i": "the host tools",
+    "8j": "the checkpoint converters and exports",
 }
 
 

@@ -317,7 +317,7 @@ def test_extra_main_takes_row_names(monkeypatch):
     extra.main(["u8_ingest", "retrieval_p50"])
     assert ran == ["retrieval_p50", "u8_ingest"]          # in table order
     with pytest.raises(SystemExit, match="unknown"):
-        extra.main(["host_feed"])
+        extra.main(["flatten_tokens"])
     ran.clear()
     extra.main([])
     assert ran == [n for n, _ in extra._BENCHES]

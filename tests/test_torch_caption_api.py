@@ -641,7 +641,7 @@ def _detection(tmp, entry):
 
 def _entry_points():
     from cross_modal_video_engine_tpu_torch.cli import (
-        caption_train, composed_inference, recognition_test,
+        caption_train, composed_inference, dump_features, recognition_test,
         recognition_train, retrieval_inference, retrieval_tester, serve,
         yolo_val)
     from cross_modal_video_engine_tpu_torch.cli.common import (
@@ -711,6 +711,12 @@ def _entry_points():
                                                     "detection_test"),
         "ava_proposals.main": lambda w: _detection(w["tmp"],
                                                    "ava_proposals"),
+        "dump_features.main": lambda w: dump_features.main([
+            write_train_config(str(w["tmp"]), w["caption"][1],
+                               "recognition"),
+            "--checkpoint", str(w["detector"][0] / "rec"), "--layers", "0",
+            "--mode", "both", "--out", str(w["tmp"] / "feats.pkl"),
+            "--device", "cpu"]),
     }
 
 
@@ -726,7 +732,8 @@ ENTRY_POINTS = ["restore_dual_encoding", "retrieval_inference.main",
                 "recognition_train.main[multigrid]",
                 "recognition_train.main[omnisource]",
                 "localization_train.main", "detection_train.main",
-                "detection_test.main", "ava_proposals.main"]
+                "detection_test.main", "ava_proposals.main",
+                "dump_features.main"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)

@@ -195,11 +195,16 @@ AVA_MODULES = (
     "metrics.ava", "models.ava_head", "models.lfb",
     "train.detection_trainer", "cli.detection_train", "cli.detection_test",
     "cli.ava_proposals")
+# every module of the port's host IO and tools slice
+HOST_MODULES = (
+    "io._native_build", "io.native", "io.pipeline", "data.prefetch",
+    "utils.logging", "utils.concept_tags", "metrics", "metrics.scorers",
+    "cli.dump_features", "bench.extra")
 
 
 def test_port_imports_no_jax():
     modules = (("models.clip", "retrieval.index", "convert") + LINAS_MODULES
-               + LOCALIZATION_MODULES + AVA_MODULES)
+               + LOCALIZATION_MODULES + AVA_MODULES + HOST_MODULES)
     code = ("import sys; "
             + "; ".join(f"import cross_modal_video_engine_tpu_torch.{m}"
                         for m in modules) + "; "
