@@ -9132,8 +9132,8 @@ def host24_decode(tmp: str, card: str) -> dict:
     return line
 
 
-def host24_feed(dev, card: str, srcs, counted, fixture: str,
-                n_videos: int, batch: int, workers) -> Tuple[dict, dict]:
+def host24_feed(dev, card: str, srcs, counted, n_videos: int, batch: int,
+                workers) -> Tuple[dict, dict]:
     """24c: bench/extra.py's host-feed row on the fixture, the launches
     of its end-to-end loop, then the loop again under torch.profiler."""
     import dataclasses
@@ -9163,8 +9163,7 @@ def host24_feed(dev, card: str, srcs, counted, fixture: str,
         fn.launches = 0
     rows = bench_host_feed(n_videos=n_videos, batch=batch,
                            src_frames=FEED24_FRAMES, workers_sweep=workers,
-                           device=dev, srcs=srcs, model=model,
-                           fixture=fixture)
+                           device=dev, srcs=srcs, model=model)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counted.items()}
     e2e = rows[-1]
@@ -9191,8 +9190,8 @@ def host24_feed(dev, card: str, srcs, counted, fixture: str,
             "last_batch_cosine_vs_direct": cos}
     decode = ", ".join(f"{r['metric'][-2:]} {r['value']:.1f}"
                        for r in rows[:-1])
-    print(f"24c host-feed row ({FEED24_SOURCES} {fixture} sources of "
-          f"{FEED24_FRAMES} frames at {FEED24_HW[0]}x{FEED24_HW[1]}, "
+    print(f"24c host-feed row ({FEED24_SOURCES} {e2e['fixture']} sources "
+          f"of {FEED24_FRAMES} frames at {FEED24_HW[0]}x{FEED24_HW[1]}, "
           f"{n_videos} clips of 8, decoder {e2e['decoder']}): decode only "
           f"{decode} videos/s; end to end into the fused ViT-B/32 (bf16, "
           f"batch {batch}) {e2e['value']:.1f} videos/s; launches over the "
@@ -9554,8 +9553,8 @@ def check_step24(dev, card) -> Tuple[dict, dict]:
         feed = None
         if found:
             line["host_feed"], feed = host24_feed(
-                dev, card, srcs, counted, "rawvideo-avi", FEED24_VIDEOS,
-                FEED24_BATCH, FEED24_WORKERS)
+                dev, card, srcs, counted, FEED24_VIDEOS, FEED24_BATCH,
+                FEED24_WORKERS)
         elif has_cv2:
             # the same frames as mp4s cv2 writes and reads (the fallback)
             from cross_modal_video_engine_tpu_torch.io.video_decode import (
@@ -9564,7 +9563,7 @@ def check_step24(dev, card) -> Tuple[dict, dict]:
             for src, mp4 in zip(srcs, mp4s):
                 write_test_video(mp4, frames[src])
             line["host_feed"], feed = host24_feed(
-                dev, card, mp4s, counted, "mp4v (cv2)", FALLBACK24_VIDEOS,
+                dev, card, mp4s, counted, FALLBACK24_VIDEOS,
                 FALLBACK24_VIDEOS, FALLBACK24_WORKERS)
         else:
             print("24c did not run: neither libav nor cv2 is here to decode "

@@ -451,17 +451,65 @@ def write_raw_avi(path: str, frames: np.ndarray, fps: int = 30) -> None:
         f.write(chunk(b"idx1", idx1))
 
 
+# the fixture each row names, by its files' extension
+FIXTURE_KINDS = {".avi": "rawvideo-avi", ".mp4": "mp4v"}
+
+
+def fixture_kind(paths: Sequence[str]) -> str:
+    """"rawvideo-avi" for `write_raw_avi`'s `.avi` files, "mp4v" for cv2's
+    `.mp4` ones; a mix or another extension raises ValueError."""
+    exts = sorted({os.path.splitext(p)[1].lower() for p in paths})
+    if len(exts) != 1 or exts[0] not in FIXTURE_KINDS:
+        raise ValueError(f"host_feed: the sources must be all .avi or all "
+                         f".mp4, not {exts}")
+    return FIXTURE_KINDS[exts[0]]
+
+
+def host_feed_decoder(kind: str) -> str:
+    """The decoder that reads `kind` sources: "libav" where io/native
+    built the decode library, else "cv2 (fallback)" (decode_videos_batch's
+    per-video fallback) on mp4s.  Raises SystemExit naming the libav
+    probe's verdict where no decoder can read them: cv2 crashes on the
+    raw AVI, and without cv2 the fallback gives zeros."""
+    from ..io.native import native_status
+    status = native_status()
+    if status["decode"] is not None:
+        return "libav"
+    why = f"host_feed: libav was not found ({status['libav']})"
+    if kind == "rawvideo-avi":
+        raise SystemExit(f"{why}, and cv2 cannot read the raw-AVI fixture")
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        raise SystemExit(f"{why}, and cv2 is not installed: no decoder")
+    return "cv2 (fallback)"
+
+
 def write_host_feed_fixture(root: str, n_src: int = 4, src_frames: int = 64,
-                            src_hw=(480, 640), seed: int = 9) -> List[str]:
-    """`n_src` raw AVIs of `src_frames` seeded RGB frames of `src_hw`."""
+                            src_hw=(480, 640), seed: int = 9,
+                            kind: str = "rawvideo-avi") -> List[str]:
+    """`n_src` files of `src_frames` seeded RGB frames of `src_hw`: raw
+    AVIs, or mp4s written through cv2 where `kind` is "mp4v"."""
     rng = np.random.default_rng(seed)
+    ext = {v: k for k, v in FIXTURE_KINDS.items()}[kind]
     paths = []
     for i in range(n_src):
         frames = rng.integers(0, 256, (src_frames,) + tuple(src_hw) + (3,),
                               dtype=np.uint8)
-        paths.append(os.path.join(root, f"s{i}.avi"))
-        write_raw_avi(paths[-1], frames)
+        paths.append(os.path.join(root, f"s{i}{ext}"))
+        if kind == "mp4v":
+            from ..io.video_decode import write_test_video
+            write_test_video(paths[-1], frames)
+        else:
+            write_raw_avi(paths[-1], frames)
     return paths
+
+
+def decoded_zeros(frames_u8: np.ndarray) -> int:
+    """The clips of a decoded batch whose first or last frame is all
+    zeros: what decode_videos_batch gives for a video it failed on."""
+    ends = frames_u8[:, [0, -1]].reshape(len(frames_u8), 2, -1)
+    return int((~ends.any(-1)).any(-1).sum())
 
 
 def host_decode_rate(paths: Sequence[str], indices: np.ndarray, batch: int,
@@ -472,9 +520,15 @@ def host_decode_rate(paths: Sequence[str], indices: np.ndarray, batch: int,
     pf = DecodePrefetcher(paths, indices, out_hw=out_hw, batch_size=batch,
                           n_workers=n_workers)
     t0 = time.perf_counter()
-    total = sum(b.shape[0] for b, _ in pf)
+    total = zeros = 0
+    for b, _ in pf:
+        total += b.shape[0]
+        zeros += decoded_zeros(b)
     seconds = time.perf_counter() - t0
     assert total == len(paths)
+    if zeros:
+        raise RuntimeError(f"host_feed: {zeros} of {total} clips decoded "
+                           f"as zeros")
     return len(paths) / seconds
 
 
@@ -489,10 +543,11 @@ def host_feed_e2e(model, paths: Sequence[str], indices: np.ndarray,
     pf = DecodePrefetcher(paths, indices, out_hw=(res, res),
                           batch_size=batch, n_workers=n_workers)
     t0 = time.perf_counter()
-    out, done, batches = None, 0, 0
+    out, done, batches, zeros = None, 0, 0, 0
     with torch.no_grad():
         for frames_u8, _ in pf:
             b = frames_u8.shape[0]
+            zeros += decoded_zeros(frames_u8)
             if b != batch:               # pad the tail to the batch shape
                 pad = np.zeros((batch - b,) + frames_u8.shape[1:], np.uint8)
                 frames_u8 = np.concatenate([frames_u8, pad], 0)
@@ -503,6 +558,9 @@ def host_feed_e2e(model, paths: Sequence[str], indices: np.ndarray,
     embeddings = out.float().cpu().numpy()       # drains the last batch
     seconds = time.perf_counter() - t0
     assert done == len(paths)
+    if zeros:
+        raise RuntimeError(f"host_feed: {zeros} of {done} clips decoded "
+                           f"as zeros")
     return {"videos_per_s": len(paths) / seconds, "seconds": seconds,
             "batches": batches, "embeddings": embeddings}
 
@@ -512,8 +570,7 @@ def bench_host_feed(n_videos: int = 96, frames: int = 8, batch: int = 32,
                     workers_sweep: Sequence[int] = (1, 2, 4), device=None,
                     cfg: Optional[CLIPConfig] = None,
                     srcs: Optional[Sequence[str]] = None,
-                    model: Optional[CLIPModel] = None,
-                    fixture: str = "rawvideo-avi") -> list:
+                    model: Optional[CLIPModel] = None) -> list:
     """The host-to-device pipeline, the counterpart of the JAX row
     (bench_extra.py bench_host_feed): decode through DecodePrefetcher
     over the native libav batch decoder, then the uint8 ingest of the
@@ -523,33 +580,41 @@ def bench_host_feed(n_videos: int = 96, frames: int = 8, batch: int = 32,
     end-to-end row (`host_feed_e2e_decode_embed_vitb32_bf16`).
 
     The fixture is uncompressed AVI (`write_raw_avi`, `"fixture":
-    "rawvideo-avi"` in each row): a machine without cv2 has no encoder
-    to write an mp4.  So the rate measures demux, seek, swscale, the C++
-    thread pool and the host-to-device copy, not an MPEG-4 decode, and
-    is not compared with the JAX row's 350 videos/s (`vs_baseline`
-    None).  Cut from the JAX row: 4 sources of 64 frames at 480x640 (236
-    MB on disk) instead of 12 of 300 frames; 96 clips of 8 uniformly
+    "rawvideo-avi"` in each row), which needs no encoder.  So the rate
+    measures demux, seek, swscale, the C++ thread pool and the
+    host-to-device copy, not an MPEG-4 decode, and is not compared with
+    the JAX row's 350 videos/s (`vs_baseline` None).  Where libav was not
+    found, the sources are mp4s written through cv2 (`"mp4v"`) and read by
+    decode_videos_batch's per-video cv2 fallback (`"decoder": "cv2
+    (fallback)"`): cv2 crashes on the raw AVI.  With neither, the row
+    raises SystemExit naming the libav probe's verdict, and a clip that
+    decodes as zeros raises, so no row times a decode of nothing.  Cut
+    from the JAX row: 4 sources of 64 frames at 480x640 (236 MB on disk
+    as raw AVI) instead of 12 of 300 frames; 96 clips of 8 uniformly
     sampled frames, round-robin over the sources, as there.
 
-    srcs: fixture files already written (`src_frames` frames each, named
-    by `fixture`; None: write raw AVIs into a temporary directory); model:
-    the kernel arm already built and called once (None: build it from
-    seed 0 and call it once before the timed loop).  Each row names the
-    decoder: "libav" where io/native built the decode library, else "cv2
-    (fallback)", decode_videos_batch's per-video fallback."""
+    srcs: fixture files already written (`src_frames` frames each, all
+    `.avi` or all `.mp4`, the row's "fixture" read from the extension;
+    None: write them into a temporary directory); model: the kernel arm
+    already built and called once (None: build it from seed 0 and call it
+    once before the timed loop)."""
     from ..io.native import native_available
     from ..io.pipeline import uniform_indices
     device = resolve_device(device)
     cfg = model.cfg if model is not None else cfg or flagship_config()
     res = cfg.image_resolution
-    info = {"fixture": fixture,
-            "decoder": ("libav" if native_available()["decode"]
-                        else "cv2 (fallback)"), **where(device)}
+    if srcs is None:
+        kind = "rawvideo-avi" if native_available()["decode"] else "mp4v"
+    else:
+        kind = fixture_kind(srcs)
+    info = {"fixture": kind, "decoder": host_feed_decoder(kind),
+            **where(device)}
     tmp = None if srcs is not None else tempfile.mkdtemp(prefix="hostfeed_")
     rows = []
     try:
         if tmp is not None:
-            srcs = write_host_feed_fixture(tmp, n_src, src_frames, src_hw)
+            srcs = write_host_feed_fixture(tmp, n_src, src_frames, src_hw,
+                                           kind=kind)
         paths = [srcs[i % len(srcs)] for i in range(n_videos)]
         idx = uniform_indices(n_videos, src_frames, frames)
         for nw in workers_sweep:

@@ -683,3 +683,84 @@ def test_host_feed_e2e_embeds_the_decoded_clips(tmp_path):
         want = model.encode_video_u8(torch.from_numpy(frames))[0]
     np.testing.assert_allclose(out["embeddings"], want.numpy(), rtol=1e-5,
                                atol=1e-6)
+
+
+def test_fixture_kind_reads_the_extension():
+    from cross_modal_video_engine_tpu_torch.bench import extra
+    assert extra.fixture_kind(["a/s0.avi", "s1.AVI"]) == "rawvideo-avi"
+    assert extra.fixture_kind(["s0.mp4"]) == "mp4v"
+    for paths in (["s0.avi", "s1.mp4"], ["s0.mkv"], []):
+        with pytest.raises(ValueError, match="all .avi or all .mp4"):
+            extra.fixture_kind(paths)
+
+
+@needs_libav
+def test_host_feed_row_refuses_a_decode_of_zeros(tmp_path):
+    """A clip the decoder fails on comes back as zeros: the decode-only
+    and the end-to-end loops raise instead of timing it."""
+    from cross_modal_video_engine_tpu_torch.bench import common, extra
+    from cross_modal_video_engine_tpu_torch.models.clip import CLIPModel
+    srcs = extra.write_host_feed_fixture(str(tmp_path), 2, 6, (40, 48))
+    paths = srcs + [str(tmp_path / "missing.avi")]
+    idx = tpipe.uniform_indices(3, 6, 2)
+    with pytest.raises(RuntimeError, match="1 of 3 clips decoded as zeros"):
+        extra.host_decode_rate(paths, idx, 2, 1, (32, 32))
+    with torch.random.fork_rng(devices=[]):
+        model = CLIPModel(common.flagship_config(**SMALL_CLIP),
+                          device="cpu").eval()
+    with pytest.raises(RuntimeError, match="1 of 3 clips decoded as zeros"):
+        extra.host_feed_e2e(model, paths, idx, batch=2)
+
+
+# the row with libav forced missing (the probe links a library that is
+# not there), as on a machine without libav's headers
+NO_LIBAV_ROW = (
+    "import sys, json\n"
+    "from pathlib import Path\n"
+    "from cross_modal_video_engine_tpu_torch.io import _native_build as b\n"
+    "b.BUILD_ROOT = Path(sys.argv[1]) / 'build'\n"
+    "b.LIBAV = b.LIBAV + ('-lcmve_no_such_library',)\n"
+    "from cross_modal_video_engine_tpu_torch.bench import common, extra\n"
+    "case = sys.argv[2]\n"
+    "srcs = None\n"
+    "if case == 'raw_avi':\n"
+    "    srcs = extra.write_host_feed_fixture(sys.argv[1], 2, 6, (48, 64))\n"
+    "if case == 'no_cv2':\n"
+    "    sys.modules['cv2'] = None\n"
+    "cfg = common.flagship_config(**json.loads(sys.argv[3]))\n"
+    "try:\n"
+    "    rows = extra.bench_host_feed(\n"
+    "        n_videos=5, frames=2, batch=2, src_hw=(48, 64), src_frames=6,\n"
+    "        n_src=2, workers_sweep=(1,), device='cpu', cfg=cfg, srcs=srcs)\n"
+    "except SystemExit as e:\n"
+    "    print(json.dumps({'exit': str(e)}))\n")
+
+
+@pytest.mark.skipif(shutil.which("g++") is None and not os.environ.get("CXX"),
+                    reason="needs g++ to build native/bigfile.cc")
+@pytest.mark.parametrize("case", ["mp4", "raw_avi", "no_cv2"])
+def test_host_feed_row_without_libav(tmp_path, case):
+    """Where libav was not found the row writes its sources as mp4s and
+    times cv2's fallback on them; it refuses, naming the probe's verdict,
+    to hand raw AVIs to cv2 (which crashes on them) or to run with no
+    decoder at all."""
+    import subprocess
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", NO_LIBAV_ROW, str(tmp_path), case,
+         json.dumps(SMALL_CLIP)], cwd=root, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = [json.loads(l) for l in proc.stdout.splitlines()]
+    if case == "mp4":
+        assert [r["metric"] for r in out] == [
+            "host_decode_480p_to_224_w1",
+            "host_feed_e2e_decode_embed_vitb32_bf16"]
+        for r in out:
+            assert r["fixture"] == "mp4v"
+            assert r["decoder"] == "cv2 (fallback)" and r["value"] > 0
+        return
+    assert len(out) == 1 and "cmve_no_such_library" in out[0]["exit"]
+    assert out[0]["exit"].endswith(
+        "cannot read the raw-AVI fixture" if case == "raw_avi"
+        else "cv2 is not installed: no decoder")

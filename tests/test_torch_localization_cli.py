@@ -310,12 +310,8 @@ REFUSED_PART = {"export_model": "8j", "export_yolo": "8j",
 
 @pytest.mark.parametrize("tool,argv", [
     (tmt, ["export_model", "--output", "o"]),
-    (tmt, ["export_model", "--output", "o", "--preset", "tiny"]),
     (tmt, ["export_yolo", "cfg.py", "--output", "o"]),
-    (tmt, ["export_yolo", "cfg.py", "--output", "o", "--batch", "2"]),
     (tdt, ["build_audio_features", "--src_dir", "a", "--out_dir", "b"]),
-    (tdt, ["build_audio_features", "--src_dir", "a", "--out_dir", "b",
-           "--n_mels", "64"]),
 ])
 def test_other_tools_name_their_part(tool, argv):
     with pytest.raises(NotImplementedError,
