@@ -6,7 +6,7 @@ Usage: python3 chip_smoke.py [STEP ...]   (from the root of the repository)
 With no argument every step runs (the whole smoke run).  A list of
 step numbers ("19", "13 19" or "13,19") runs only those steps, always
 after the build (2) and the kernel checks (3) and before the results
-(25); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
+(26); 4-5 and 6-7 run as pairs.  A kernel's launch count on a path whose
 step did not run is null in the `kernels` line; the last line names the
 steps that ran and those skipped.
 
@@ -71,7 +71,7 @@ steps that ran and those skipped.
     DualEncodingConfig (1536-d common space, de+map student), everything
     from numpy seeds: (a) a seeded state dict written with the port's
     save_checkpoint (the JAX package's format) and read back through
-    restore_dual_encoding, bit-equal; (b) a collection of 1,000 videos of
+    restore_dual_encoding, bit-equal; (b) a collection of 500 videos of
     3-64 frames x 2048 with 5 captions each written with write_bigfile,
     embedded by build_video_index at batch 64 (videos/s); (c) its first
     64 videos and 64 captions through the same model on the CPU,
@@ -91,7 +91,7 @@ steps that ran and those skipped.
     with the idle share; (h) a `serving` JSON line with those numbers;
 11. LINAS training at the full width of the shipped DualEncodingConfig
     (dropout 0, de+map student, LinasTrainConfig(): Adam, clip 2.0),
-    batch 128 with a support set of 8, on a seeded collection of 512
+    batch 128 with a support set of 8, on a seeded collection of 256
     videos x 5 captions (validation: 128 more): (a) one train step on the
     card and on the CPU from one seeded state dict and one batch: loss,
     every gradient and the parameters after the Adam step; (b) each
@@ -112,18 +112,18 @@ steps that ran and those skipped.
     the card against the CPU, a shrinking (360x480) and a growing
     (120x160) size, each pad mode, 288 and 224; (b) the RN50x4 tower at
     the full width of CLIPResNetConfig() (f32, TF32 off) restored from its
-    JAX-format checkpoint, card against CPU on 2 frames (high, middle,
+    JAX-format checkpoint, card against CPU on 1 frame (high, middle,
     encode_text), with its parameter and MAC counts; (c) the
     /composed_retrieval route with RN50x4 and the conv4x4 Combiner at
-    CombinerConfig() widths over 1,000 candidates stored as npz feature
-    caches, 16 HTTP requests of a 64-frame 360x480 reference video and a
+    CombinerConfig() widths over 250 candidates stored as npz feature
+    caches, 8 HTTP requests of a 64-frame 360x480 reference video and a
     text, answers against a direct rank_index, batch-1 p50/p99, the
     extraction's and one wave's times; (d) the same route with a ViT-B/32
     checkpoint (fused sublayers) and CombinerConfig(clip_feature_dim=512)
     over a second collection at width 512, the compact, MLP and rank-3
     launch counters zeroed just before its requests and read just after,
     the kernel arm's combine_features against the plain arm's by cosine;
-    (e) the combiner trainer on 256 triplets over that collection with
+    (e) the combiner trainer on 128 triplets over that collection with
     the route's ViT-B/32 text tower frozen: one step card against CPU at
     dropout 0 (step 11a's bounds), 2 epochs with validation each epoch
     (the last four step losses below the first four), composed_validate
@@ -134,7 +134,7 @@ steps that ran and those skipped.
     shipped decoder (36 classes, 5 steps), its checkpoint written in the
     JAX package's format from a numpy seed, videos of 300 frames of
     360x480 drawn frame by frame from a seed and handed to the route
-    through its `decode` seam (no cv2, no video file): (a) 16 batch-1
+    through its `decode` seam (no cv2, no video file): (a) 8 batch-1
     requests over HTTP and (b) one burst of 8 concurrent ones, every
     launch counter zeroed just before each and read just after (12 flash
     launches a wave, no other kernel), p50/p99 of both; (c) each answer
@@ -149,7 +149,7 @@ steps that ran and those skipped.
     step 6 (bf16, flash on) with a 400-class head, its checkpoint written
     in the JAX package's format from a numpy seed, concept banks from a
     seed (`symbolic` 80 x 768, `cluster` 240 x 768), the gradient probe
-    at block 10, videos as in step 13: (a) 16 batch-1 requests over HTTP
+    at block 10, videos as in step 13: (a) 8 batch-1 requests over HTTP
     and (b) one burst of 8, every launch counter zeroed just before each
     and read just after (13 flash launches a wave: 12 in the capture
     forward, 1 in the recomputation from block 10; no other kernel),
@@ -165,7 +165,7 @@ steps that ran and those skipped.
     and the gradient pass apart, flash launches, peak memory);
 15. TimeSformer training at full width (ViT-B/16, 8x224², 12 layers),
     everything from numpy seeds and no video decode: 8 seeded videos of
-    300 frames of 360x480 go to the trainers' pipelines through the
+    300 frames of 256x341 go to the trainers' pipelines through the
     `reader` seam: (a) one f32 step of the shipped caption config
     (timesformer_relseq.py, 36 classes x 5 steps, TF32 off, dropouts 0)
     at batch 1 on the card and on the CPU from one init: the loss, every
@@ -198,15 +198,15 @@ steps that ran and those skipped.
     decoded predictions within YOLO_F32_REL, the NMS outputs matched in
     the detect (conf 0.25) and val (conf 0.001, multi-label) protocols,
     the TTA arm, the segment arm's prototypes and masks, the classifier's
-    logits; (b) `yolo_val.main` on the card over 32 seeded 480x640 .npy
+    logits; (b) `yolo_val.main` on the card over 8 seeded 480x640 .npy
     images whose labels are the CPU's own detections, the detector read
     from a `best/` directory in the JAX format: mAP@0.5 >= 0.99 and the
     report within the bound of the same CLI on the CPU; then --augment
     and the segment config; (c) `ctv_build.build_ctv_banks` with step
     14's joint ViT-B/16 (bf16, flash, 400 classes) and the firing
-    detector over 8 seeded 300-frame 352x480 videos through the reader
+    detector over 4 seeded 300-frame 352x480 videos through the reader
     seam, the flash counter read around each video (12 a video, 0 in the
-    detector), the banks against the CPU's build on 2 videos, the npz
+    detector), the banks against the CPU's build on 1 video, the npz
     served by /explain against a direct concept_scores, a 360x480 video
     refused; (d) `explain_video` with the detector, card against CPU;
     (e) the detector's forward at batch 16 (ms, images/s, TFLOP/s from
@@ -224,15 +224,15 @@ steps that ran and those skipped.
     `yolo_train.train_from_config` on configs/detection/yolov5/
     yolov5s_coco_640.py as shipped (yolov5s, 640, batch 16, bf16, mosaic
     and HSV) over 32 seeded 480x640 `.npy` images, 2 epochs with
-    AutoAnchor and validation on 16 more, every kernel counter zeroed and
+    AutoAnchor and validation on 8 more, every kernel counter zeroed and
     read around it (no launch), a resume from epoch_0 against the
     uninterrupted epoch 1, `best/` read by `yolo_val.main` (its mAP that
     epoch's) and by ctv_build's loader, one step at batch 2 card against
     CPU in f32 (YOLO17_F32) and in bf16 (YOLO17_BF16); (c) two steps each
     of the shipped segment and classify configs (32 masks; 1000 classes
     at batch 64) through their train_from_config, one f32 step of each
-    card against CPU; (d) each trainer's step by CUDA events (the
-    detector's and segmenter's through bench/extra.py's rows), images/s
+    card against CPU; (d) each trainer's step by CUDA events
+    (the detector's and segmenter's through bench/extra.py's rows), images/s
     and each loop's idle share (the host augments in numpy);
 18. the 3D-CNN recognizers at full width, from numpy seeds and no
     decode, every kernel counter zeroed before the step and read after
@@ -246,15 +246,16 @@ steps that ran and those skipped.
     stem conv (a finding; nothing switched); (b)
     `recognition_train.train_from_config` on the shipped
     slowfast_r50_4x16_k400.py (warmup 0: the recipe's 500 steps outlast a
-    4-step run) at batch 8 over 16 seeded 300-frame 360x480 videos
+    4-step run) at batch 8 over 8 seeded 300-frame 256x341 videos
     through the reader seam, 2 epochs with validation, a resume from
     epoch_0 against the uninterrupted epoch 1 (parameters and
     batch_stats), model_best with its batch_stats; one stats step at
-    batch 1 card against CPU in f32 and in bf16, from epoch_1 (step 19b
+    batch 1 (the clip's central 112²) card against CPU in f32 and in
+    bf16, from epoch_1 (step 19b
     takes steps from the training init), held to float64 as closely as
     the CPU is,
     with planted faults the check must refuse; bench/extra.py's
-    `train_step_slowfast` row at batch 8 and 32 (halved until it fits),
+    `train_step_slowfast` row at batch 8 and 16 (halved until it fits),
     the shipped recipe's step by CUDA
     events and its loop's idle share (torch.profiler), peak memory; (c)
     `caption_train.train_from_config` on the shipped i3d_relseq.py, one
@@ -372,13 +373,33 @@ steps that ran and those skipped.
     the card equal to the host's and a step loop with and without it;
     (f) data_tools txt2bin, combine_features, build_tags and
     extract_audio with their outputs read back, the cv2 tools refused;
-25. prints the JSON lines of steps 10-24 that ran and of the kernel
+25. skeleton recognition, the checkpoint converter and the exports, at
+    the shipped configs' widths, from numpy seeds, no kernel on the path:
+    (a) the ST-GCN recipe (COCO-17, clip_len 100, 2 persons, batch 16,
+    60 classes) through `skeleton_train.main` for one epoch of 2 steps and
+    an eval on a seeded pickle, its checkpoints read back; one SGD step
+    card vs CPU held to float64 with the planted faults; forward and step
+    times, TFLOP/s and peak memory; (b) the 2s-AGCN joint recipe (NTU-25,
+    10 blocks) the same way, its bone stream on a COCO-17 AGCN of the
+    same widths, and the NTU-25 bone recipe's numpy refusal; (c) PoseC3D
+    (SlowOnly stage blocks (4, 6, 3), base 32) over 48x56x56
+    GeneratePoseTarget heatmaps of 17 keypoints made on the host: the
+    heatmap ms a batch, one step with the dropout masks handed in held as
+    in (a), times, and host-fed steps with the card's idle share; (d)
+    `convert_checkpoint.main` on the card for stgcn, agcn (the state dicts
+    of (a) and (b)), clip (ViT-B/32), yolov5 (v5s) and resnet3d
+    (SlowOnly-R50): each directory read back gives a forward bit-equal to
+    the .pth's, ST-GCN's msgpack byte-equal with --device cpu; (e)
+    `export_model --preset vitb32` and `export_yolo` on the v5s detect and
+    segment configs: each program loaded back and called with its state
+    dict equals its module's outputs, with its bytes and export seconds;
+26. prints the JSON lines of steps 10-25 that ran and of the kernel
     results (launches on the main paths, on the composed, caption and
     explain routes, in the training steps, in the bank build, in the
     caption transformer's generates, in the detector's training, in the
     3D-CNN step, in the 2D-CNN step, over step 20, in 20b's CLIP kernel
-    arm, over 21d, over steps 22 and 23 and in step 24's host feed and
-    dump, error, time, plain time, bound, library time), each step's
+    arm, over 21d, over steps 22, 23 and 25 and in step 24's host feed
+    and dump, error, time, plain time, bound, library time), each step's
     seconds and, last, a JSON line naming the device.
 
 Nothing is cut: the models run at full width and depth (the 3D-CNN
@@ -1501,11 +1522,11 @@ def check_big_index(dev, card):
 
 
 # LINAS serving step: collection, card-against-CPU sample, index rows, HTTP
-# checks, bench arms and timed waves (the request and wave counts kept small
-# for the script's time)
-LINAS_VIDEOS, LINAS_CAPTIONS, LINAS_SAMPLE = 1000, 5, 64
+# checks, bench arms and timed waves (the collection, request and wave
+# counts kept small for the script's time)
+LINAS_VIDEOS, LINAS_CAPTIONS, LINAS_SAMPLE = 500, 5, 64
 LINAS_ROWS, LINAS_HTTP_CHECKS = 1_000_000, 16
-LINAS_SINGLE, LINAS_CLIENTS, LINAS_PER_CLIENT, LINAS_WAVE_CALLS = 100, 64, 10, 20
+LINAS_SINGLE, LINAS_CLIENTS, LINAS_PER_CLIENT, LINAS_WAVE_CALLS = 50, 64, 5, 10
 # card vs CPU: cuDNN's GRU and the convolutions sum in another order
 LINAS_TOL = 1e-3
 # HTTP answers vs index.search_ids on the same card: the same f32 products
@@ -1860,7 +1881,7 @@ SIM_VALUE_RTOL, SIM_GRAD_REL, SVD_GRAD_REL = 1e-4, 1e-4, 1e-3
 # whose gradient is rounding noise takes a +-lr Adam step the noise picks)
 # and every element within 2 lr a step
 RESUME_LOSS_RTOL, RESUME_PARAM_TOL, RESUME_PARAM_SHARE = 1e-4, 1e-4, 0.999
-TRAIN_HTTP_CHECKS, ADAPT_STEPS, TIMED_STEPS = 8, 4, 8
+TRAIN_HTTP_CHECKS, ADAPT_STEPS, TIMED_STEPS = 8, 2, 5
 
 
 def _grad_errors(card_model, cpu_model) -> dict:
@@ -2327,10 +2348,10 @@ def check_linas_training(dev, card) -> dict:
 
 
 # -- 12. composed retrieval (tolerances stated before the first run) ---------
-COMPOSED_VIDEOS, COMPOSED_REQUESTS, COMPOSED_REFS = 1000, 16, 4
-RN_CHECK_FRAMES, EXTRACT_CALLS, COMPOSED_TOPK = 2, 5, 10
-COMBINER_TRIPLETS, COMBINER_BATCH, COMBINER_EPOCHS = 256, 32, 2
-COMBINER_HTTP_CHECKS, COMBINER_TIMED_STEPS = 4, 8
+COMPOSED_VIDEOS, COMPOSED_REQUESTS, COMPOSED_REFS = 250, 8, 4
+RN_CHECK_FRAMES, EXTRACT_CALLS, COMPOSED_TOPK = 1, 3, 10
+COMBINER_TRIPLETS, COMBINER_BATCH, COMBINER_EPOCHS = 128, 32, 2
+COMBINER_HTTP_CHECKS, COMBINER_TIMED_STEPS = 4, 5
 # (a) clip_preprocess card vs CPU: the same f32 arithmetic rounded to bf16;
 # where the two f32 values fall on two sides of a rounding boundary the
 # outputs differ by one bf16 step (2^-6 for |x| < 4), in at most PRE_SHARE
@@ -2793,8 +2814,8 @@ def check_composed(dev, card):
 
 # caption route step: videos (300 frames of 360x480, drawn on demand),
 # batch-1 requests, one burst of concurrent ones, timed waves
-CAPTION_VIDEOS, CAPTION_REQUESTS, CAPTION_BURST = 8, 16, 8
-CAPTION_WAVE_CALLS, CAPTION_PIPELINE_CALLS = 10, 8
+CAPTION_VIDEOS, CAPTION_REQUESTS, CAPTION_BURST = 8, 8, 8
+CAPTION_WAVE_CALLS, CAPTION_PIPELINE_CALLS = 5, 8
 # the joint checkpoint's decoder output layer is scaled so that its step-0
 # probabilities spread away from the threshold; at most this share of the
 # step-0 labels may lie within the bf16 tolerance of it, unchecked
@@ -3026,8 +3047,8 @@ def check_caption_route(dev, card) -> Tuple[dict, dict]:
 
 # explain route step: the caption step's backbone with a 400-class head,
 # seeded concept banks, batch-1 requests, a burst, timed waves
-EXPLAIN_REQUESTS, EXPLAIN_BURST, EXPLAIN_CPU_VIDEOS = 16, 8, 1
-EXPLAIN_WAVE_CALLS, EXPLAIN_PHASE_CALLS = 10, 5
+EXPLAIN_REQUESTS, EXPLAIN_BURST, EXPLAIN_CPU_VIDEOS = 8, 8, 1
+EXPLAIN_WAVE_CALLS, EXPLAIN_PHASE_CALLS = 5, 3
 # (a-c) route answers against a direct grad_extract + concept_scores on the
 # card: the predicted class equal and the probes' cosine at least
 # EXPLAIN_PROBE_COS wherever the direct top-2 class-score margin clears
@@ -3420,6 +3441,14 @@ RECOGNITION_CONFIG = (ROOT / "configs" / "recognition"
 # card-vs-CPU steps at TRAIN15_CPU_BATCH (the CPU's time); 8 videos (a
 # step an epoch, as the CLIs of steps 18-20) for the script's time
 TRAIN15_VIDEOS, TRAIN15_VAL, TRAIN15_BATCH, TRAIN15_CPU_BATCH = 8, 8, 8, 1
+# the seeded videos of the training CLIs (steps 15, 18-20): 256x341 frames,
+# the short side the recipes' Resize((-1, 256)) asks for, as video sets
+# pre-scaled to a 256 short side hold them (the routes of steps 13, 14 and
+# 16 decode 360x480 ones and resize them).  Step 21 keeps 360x480: on
+# 256x341 frames 21a's fine-bucket step from the training init failed 18b's
+# BatchNorm group bound (the card's fast-path layer4 gradients 3% from
+# float64, the CPU's 4e-6)
+TRAIN_VIDEO_HW = dict(height=256, width=341)
 # (a) one f32 caption step, card vs CPU, dropouts 0: step 11a's bounds
 # (the loss, each gradient tensor, the parameters after the SGD step); the
 # clip engaged by a max_norm below the gradient's norm
@@ -3428,7 +3457,7 @@ TRAIN15_CLIP = 1e-3
 # steps on one batch, the last loss below the first; (b) resumed epoch 1
 # vs the uninterrupted one, both on the card: step 11d's bounds on the
 # loss and the epoch-1 parameters, seq_mAP within RESUME_LOSS_RTOL too
-TRAIN15_REPEAT = 8
+TRAIN15_REPEAT = 4
 # (c) the joint flash variant in f32: per-tensor gradient cosine to the
 # plain arm >= COSINE_MIN, with remat too; flash launches a step
 TRAIN15_FLASH_STEPS = 3
@@ -3440,8 +3469,10 @@ TRAIN15_FLASH_STEPS = 3
 BF16_LOSS_REL, BF16_GRAD_COS = 2e-2, 0.99
 TRAIN15D_LAYERS = 4
 # (e) steps timed by CUDA events (median of steps 3..), the loop profiled
-# over 2 steps
-TRAIN15_TIMED, TRAIN15_PROFILED = 5, 2
+# over 1 step
+TRAIN15_TIMED, TRAIN15_PROFILED = 4, 1
+# the bench rows' timed steps in 15e and 18b (the rows' defaults 10 and 8)
+BENCH_ROW_STEPS = 3
 
 
 def shipped_training_config(path, **options):
@@ -3972,7 +4003,7 @@ def training_times(dev, card, names, videos) -> dict:
                 raise SystemExit(f"15e the {name} loop's loss is not finite")
             del model, state, step, b, args, it, prof
             torch.cuda.empty_cache()
-    out["bench_row"] = bench_train_step_timesformer()
+    out["bench_row"] = bench_train_step_timesformer(steps=BENCH_ROW_STEPS)
     return out
 
 
@@ -3988,11 +4019,12 @@ def check_timesformer_training(dev, card) -> Tuple[dict, dict]:
         build_pipeline, with_reader)
 
     t_step = time.perf_counter()
-    videos = bserve.seeded_videos(TRAIN15_VIDEOS, seed=15)
+    videos = bserve.seeded_videos(TRAIN15_VIDEOS, seed=15, **TRAIN_VIDEO_HW)
     names = sorted(videos)
     line = {"card": card, "videos": TRAIN15_VIDEOS, "batch": TRAIN15_BATCH,
             "video_frames": bserve.VIDEO_FRAMES,
-            "video_size": [bserve.VIDEO_HEIGHT, bserve.VIDEO_WIDTH]}
+            "video_size": [TRAIN_VIDEO_HW["height"],
+                           TRAIN_VIDEO_HW["width"]]}
     scratch = ROOT / "build"
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
@@ -4054,7 +4086,8 @@ YOLO_FIRE = (0, 2)
 # must give the card's detections (nms_agreement)
 YOLO_F32_REL = 1e-4
 YOLO_CPU_TTA, YOLO_CPU_SEG = 4, 4            # images of the TTA and seg arms
-YOLO_VAL_IMAGES, YOLO_MAP_MIN = 32, 0.99
+YOLO_CPU_BATCH = 8      # images of 16a's card-vs-CPU heads and classifier
+YOLO_VAL_IMAGES, YOLO_MAP_MIN = 8, 0.99
 # the card's and the CPU's yolo_val rows: NMS meets scores within the f32
 # bound in another order on each side (16a: a few percent of the
 # detections differ until the CPU takes the card's scores), which moves
@@ -4065,13 +4098,13 @@ YOLO_VAL_AGREE = 0.01
 YOLO_SEG_VAL_IMAGES = 4
 # the labels are written from batches of the CLI's own size, so the CPU's
 # run reproduces them bit for bit
-YOLO_VAL_BATCH = 16
+YOLO_VAL_BATCH = 8
 YOLO_VAL_OPTIONS = [f"data.batch_size={YOLO_VAL_BATCH}",
                     "data.max_targets=512"]
 YOLO_TIMED_CALLS = 20
 # ctv_build: step 14's backbone, seeded videos at a size on the 32 grid; the
 # CPU builds the first video's banks (one video for the script's time)
-CTV_VIDEOS, CTV_CPU_VIDEOS, CTV_SIZE, CTV_REFUSED = 8, 1, (352, 480), \
+CTV_VIDEOS, CTV_CPU_VIDEOS, CTV_SIZE, CTV_REFUSED = 4, 1, (352, 480), \
     (360, 480)
 # bf16 on both sides: an instance CTV (a difference of two CLS features)
 # from the card against the CPU's, and explain_video's video CTVs
@@ -4315,7 +4348,7 @@ def detector_card_vs_cpu(models, cfgs, x_u8) -> dict:
     out["segment"].update(masks_compared=masks, pixels_differing=differ,
                           pixels_differing_within_bound=near)
     # the classifier at 224²
-    xc = torch.from_numpy(seeded_images(YOLO_BATCH, 19, (224, 224))
+    xc = torch.from_numpy(seeded_images(YOLO_CPU_BATCH, 19, (224, 224))
                           ).float() / 255.0
     with torch.no_grad():
         lc = card["classify"](xc.to(dev)).cpu().numpy()
@@ -4749,7 +4782,8 @@ def check_concept_detector(dev, card) -> Tuple[dict, dict]:
             "fire": list(YOLO_FIRE)}
     x_u8 = np.stack([letterbox(im, cfgs["detect"].img_size)[0]
                      for im in seeded_images(YOLO_BATCH, 15)])
-    line["card_vs_cpu"] = detector_card_vs_cpu((card_m, cpu_m), cfgs, x_u8)
+    line["card_vs_cpu"] = detector_card_vs_cpu((card_m, cpu_m), cfgs,
+                                               x_u8[:YOLO_CPU_BATCH])
     scratch = ROOT / "build"
     scratch.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
@@ -4776,7 +4810,8 @@ CAPTION17_CLIPS, CAPTION17_BEAM = 4, 4
 CAPTION17_REL, CAPTION17_COS = 5e-2, 0.99
 CAPTION17_TIMED = 3
 # 17b-c: seeded splits; the shipped configs' batches give 2 steps an epoch
-YOLO17_TRAIN, YOLO17_VAL, YOLO17_SEG_VAL = 32, 16, 4
+# (the loops' idle shares read the interval between them)
+YOLO17_TRAIN, YOLO17_VAL, YOLO17_SEG_VAL = 32, 8, 4
 YOLO17_EPOCHS = 2
 YOLO17_CLS_CLASSES, YOLO17_CLS_PER_CLASS = 16, 8     # 128 images: 2 steps
 YOLO17_STEP_BATCH = 2                   # one step, card against CPU
@@ -4800,7 +4835,7 @@ YOLO17_BF16 = {"loss": 5e-3, "stats": 5e-2, "cos": 0.5}
 # a resumed epoch against the uninterrupted one on the card (cuDNN's
 # backward may sum in another order: the CPU test holds them equal)
 YOLO17_RESUME_REL = 1e-2
-YOLO17_TIMED_STEPS = 5
+YOLO17_TIMED_STEPS = 3
 
 
 def kernel_counters():
@@ -5428,18 +5463,19 @@ CNN18 = {"slowonly_r50_8x8": "slowonly_r50_8x8_k400.py",
          "x3d_m": "x3d_m_k400.py"}
 # card vs CPU at batch 1, f32, TF32 off: logits within CNN18_REL of the
 # largest and cosine >= CNN18_COS; forwards timed at CNN18_BATCH
-CNN18_REL, CNN18_COS, CNN18_BATCH, CNN18_TIMED = 1e-3, 0.999, 8, 10
+CNN18_REL, CNN18_COS, CNN18_BATCH, CNN18_TIMED = 1e-3, 0.999, 8, 3
 CNN18_SIZE = 224
 SLOWFAST18_CONFIG = CNN_CONFIGS / "slowfast_r50_4x16_k400.py"
 I3D_RELSEQ_CONFIG = ROOT / "configs" / "seq_generate" / "i3d_relseq.py"
 # 18b/c: a seeded collection of TRAIN18_VIDEOS (validation: the first
 # TRAIN18_VAL), batch TRAIN18_BATCH as the configs say; the card-vs-CPU
 # steps at TRAIN18_CPU_BATCH; the bench row at TRAIN18_BIG (halved until it
-# fits); the shipped step timed over 5 steps and its loop profiled over 1;
+# fits); the shipped step timed over 4 steps and its loop profiled over 1;
 # the CLIs of steps 18-20 train one step an epoch on the 8 videos, for the
 # script's time
 TRAIN18_VIDEOS, TRAIN18_VAL, TRAIN18_BATCH, TRAIN18_CPU_BATCH = 8, 8, 8, 1
-TRAIN18_BIG, TRAIN18_TIMED, TRAIN18_PROFILED = 32, 5, 1
+TRAIN18_BIG, TRAIN18_TIMED, TRAIN18_PROFILED = 16, 4, 1
+TRAIN18_STEP_HW = 112
 # one step card vs CPU at full width, from the CLI's epoch_1 state (2
 # steps on; the training init's steps are 19b's), head dropout 0.
 # float64 on both devices is the witness: every gradient and running statistic within
@@ -5479,7 +5515,7 @@ TRAIN18_BIG, TRAIN18_TIMED, TRAIN18_PROFILED = 32, 5, 1
 #   training init lie from percents to several times their norm from
 #   float64, by summation order, on either device:
 #   `bench/step_orders.py` reads it); the groups and the whole gradient
-#   hold it, and the primary CPU run alone sets their bounds;
+#   hold it, their bounds set by the worse of the two CPU runs too;
 # - both: the card's parameters moved by the optimizer's update of its
 #   own gradients, lr (clip(g) + wd p), within STEP18_UPDATE of each
 #   tensor's largest update plus STEP18_ULP of its largest parameter
@@ -5677,7 +5713,7 @@ def _group(name: str) -> str:
 # strict).
 INIT_FNS = ("conv_init_state_dict", "init_state_dict")
 INIT_BUILDERS = ("build_recognition_model", "build_caption_model",
-                 "build_detection_model")
+                 "build_detection_model", "build_skeleton_model")
 TORCH_INITS = ("kaiming_uniform_", "kaiming_normal_", "uniform_", "normal_",
                "trunc_normal_", "xavier_uniform_", "xavier_normal_",
                "constant_", "zeros_", "ones_", "orthogonal_")
@@ -5706,7 +5742,8 @@ def shared_training_init():
     import torch
     from cross_modal_video_engine_tpu_torch.cli import (caption_train,
                                                         detection_train,
-                                                        recognition_train)
+                                                        recognition_train,
+                                                        skeleton_train)
     memo = collections.OrderedDict()
     saved = []
 
@@ -5745,7 +5782,8 @@ def shared_training_init():
         return build
 
     try:
-        for owner in (recognition_train, caption_train, detection_train):
+        for owner in (recognition_train, caption_train, detection_train,
+                      skeleton_train):
             for name in INIT_FNS:
                 if hasattr(owner, name):
                     patch(owner, name, memoized(getattr(owner, name)))
@@ -5979,10 +6017,12 @@ def _reference(cpu, f64, alt=None) -> dict:
     for n in names:
         groups.setdefault(_group(n), []).append(n)
     tt = {n: float(t.reshape(-1) @ t.reshape(-1)) for n, t in truth.items()}
+    runs = [cpu] + ([alt] if alt else [])
     return {"truth": truth, "groups": groups, "tt": tt,
             "numel": {n: t.numel() for n, t in truth.items()},
             "cpu": _sums(cpu["grads"], truth, cpu["grads"]),
-            "gate": _gate([cpu] + ([alt] if alt else []), truth, tt)}
+            "cpus": [_sums(r["grads"], truth, cpu["grads"]) for r in runs],
+            "gate": _gate(runs, truth, tt)}
 
 
 def _step_verdict(card, cpu, f64, ref, tcfg, bf16: bool,
@@ -6014,15 +6054,19 @@ def _step_verdict(card, cpu, f64, ref, tcfg, bf16: bool,
     def total(sums, ns, i):
         return sum(sums[n][i] for n in ns)
 
+    # the CPU's readings of a group: the worse of its runs (two summation
+    # orders), as _gate reads each tensor
     by_group, bad_groups = {}, []
     for grp, ns in list(ref["groups"].items()) + [("all", list(truth))]:
         t2 = sum(tt[n] for n in ns)
         c2, u2 = total(cs, ns, 0), total(us, ns, 0)
         row = {"card_f64_cos": _sum_cos(total(cs, ns, 1), c2, t2),
-               "cpu_f64_cos": _sum_cos(total(us, ns, 1), u2, t2),
+               "cpu_f64_cos": min(_sum_cos(total(u, ns, 1), total(u, ns, 0),
+                                           t2) for u in ref["cpus"]),
                "card_cpu_cos": _sum_cos(total(cs, ns, 2), c2, u2),
                "card_l2_err": (total(cs, ns, 3) / t2) ** 0.5,
-               "cpu_l2_err": (total(us, ns, 3) / t2) ** 0.5}
+               "cpu_l2_err": max((total(u, ns, 3) / t2) ** 0.5
+                                 for u in ref["cpus"])}
         by_group[grp] = row
         if grp == "all":
             held = bf16 or (1.0 - row["card_f64_cos"] <= max(
@@ -6232,7 +6276,12 @@ def slowfast_training(dev, card, tmp, videos, names) -> dict:
         raise SystemExit("18b the shipped SlowFast recipe lost its s2d stem")
     pipe = build_pipeline(with_reader(cfg["data.pipeline"],
                                       videos.__getitem__))
-    clips = _step_clips(cfg, videos, names[:TRAIN18_CPU_BATCH])
+    # the card-vs-CPU step on the clip's central TRAIN18_STEP_HW² (the
+    # CPU's float64 and bf16 runs take most of the check's time)
+    lo = (CNN18_SIZE - TRAIN18_STEP_HW) // 2
+    clips = np.ascontiguousarray(_step_clips(
+        cfg, videos, names[:TRAIN18_CPU_BATCH])[
+            :, :, lo:lo + TRAIN18_STEP_HW, lo:lo + TRAIN18_STEP_HW])
     labels = np.arange(TRAIN18_CPU_BATCH) * 7
     work = os.path.join(tmp, "slowfast")
     t0 = time.perf_counter()
@@ -6323,13 +6372,14 @@ def slowfast_training(dev, card, tmp, videos, names) -> dict:
         torch.cuda.empty_cache()
     del holder
 
-    # the bench row's bf16 step at batch 8 and at 32 (halved until it fits)
+    # the bench row's bf16 step at batch 8 and at 16 (halved until it fits)
     rows = {}
     for batch in (TRAIN18_BATCH, TRAIN18_BIG):
         while True:
             try:
                 torch.cuda.reset_peak_memory_stats(dev)
-                row = bench_train_step_slowfast(batch=batch, device=dev)
+                row = bench_train_step_slowfast(batch=batch, device=dev,
+                                                steps=BENCH_ROW_STEPS)
                 row["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
                 rows[batch] = row
                 break
@@ -6520,7 +6570,8 @@ def check_step18(dev, card) -> Tuple[dict, dict]:
     t0 = time.perf_counter()
     line["forwards"] = cnn_forwards(dev, card)
     line["forwards"]["seconds"] = time.perf_counter() - t0
-    videos = bserve.seeded_videos(TRAIN18_VIDEOS, seed=18)
+    videos = bserve.seeded_videos(TRAIN18_VIDEOS, seed=18,
+                                    **TRAIN_VIDEO_HW)
     names = sorted(videos)
     scratch = ROOT / "build"
     scratch.mkdir(exist_ok=True)
@@ -6794,7 +6845,8 @@ def check_step19(dev, card) -> Tuple[dict, dict]:
     t0 = time.perf_counter()
     line["forwards"] = cnn2d_forwards(dev, card)
     line["forwards"]["seconds"] = time.perf_counter() - t0
-    videos = bserve.seeded_videos(TRAIN18_VIDEOS, seed=19)
+    videos = bserve.seeded_videos(TRAIN18_VIDEOS, seed=19,
+                                    **TRAIN_VIDEO_HW)
     names = sorted(videos)
     t0 = time.perf_counter()
     line["steps"] = cnn2d_steps(dev, card, videos, names)
@@ -6837,7 +6889,7 @@ RELSEQ20 = {"mvit_relseq": ROOT / "configs" / "seq_generate" /
             "mvit_relseq.py",
             "videomae_relseq": ROOT / "configs" / "seq_generate" /
             "videomae_relseq.py"}
-TX20_REL, TX20_COS, TX20_BATCH, TX20_TIMED = 1e-3, 0.999, 8, 5
+TX20_REL, TX20_COS, TX20_BATCH, TX20_TIMED = 1e-3, 0.999, 8, 3
 # 20b: clip_mean_pooling_8x32 with fused_attn=fused_mlp=True against the
 # plain arm on the same weights at batch CLIP20_BATCH (x 8 frames), in bf16
 # (the config's compute dtype; f32 masters) and f32: logits by cosine >=
@@ -6855,9 +6907,9 @@ STEP20_BF16 = ("swin_tiny", "videomae_b_16x4")
 # the whole script must stay well inside its 1200 s time limit
 STEP20_DEPTH = {"swin_tiny": {"model.backbone.depths": [2, 2, 2, 2]},
                 "mvit_small": {"model.backbone.depths": [1, 1, 1, 1]},
-                "videomae_b_16x4": {"model.backbone.num_layers": 2},
+                "videomae_b_16x4": {"model.backbone.num_layers": 1},
                 "clip_mean_pooling_8x32": {
-                    "model.backbone.vision_layers": 2},
+                    "model.backbone.vision_layers": 1},
                 # 20a's relseq features (their recipes' backbones run 20a
                 # at full depth)
                 "mvit_relseq": {"model.backbone.depths": [1, 1, 1, 1]},
@@ -7159,7 +7211,8 @@ def check_step20(dev, card) -> Tuple[dict, dict, dict]:
     t0 = time.perf_counter()
     line["clip_kernel_arm"], clip_launches = clip_kernel_arm(dev, card)
     line["clip_kernel_arm"]["seconds"] = time.perf_counter() - t0
-    videos = bserve.seeded_videos(TRAIN18_VIDEOS, seed=20)
+    videos = bserve.seeded_videos(TRAIN18_VIDEOS, seed=20,
+                                    **TRAIN_VIDEO_HW)
     names = sorted(videos)
     zero()
     t0 = time.perf_counter()
@@ -7221,8 +7274,8 @@ def kernel_json(results, launches, core, block_extra, counts) -> dict:
     of 20b's CLIP kernel arm, `recipes_launches` over the counted calls of
     step 21d, `localization_launches` over step 22, `detection_launches`
     over step 23, `host_tools_launches` over 24c's host-feed loop and 24d's
-    card run of dump_features.  A main-path count is None when its step
-    did not run.
+    card run of dump_features, `skeleton_convert_launches` over step 25.
+    A main-path count is None when its step did not run.
     `bound_ms` is the
     larger of the case's bytes over the card's memory rate and its
     operations over the bf16 tensor-core peak.  The attention sublayers
@@ -7284,7 +7337,7 @@ def kernel_json(results, launches, core, block_extra, counts) -> dict:
 # (base_batch 1), one epoch a stage and one final epoch, so that its
 # history shows the switch from the coarsest to the finest bucket
 MULTIGRID21_CONFIG = CNN_CONFIGS / "slowfast_multigrid_k400.py"
-MG21_TIMED, MG21_VIDEOS, MG21_EPOCHS = 3, 8, 2
+MG21_TIMED, MG21_VIDEOS, MG21_EPOCHS = 2, 8, 2
 # the card-vs-CPU steps with the SlowFast at one block a stage (widths
 # kept; 17.5 s for both at full depth)
 MG21_STEP_DEPTH = {"model.backbone.depth_blocks": [1, 1, 1, 1]}
@@ -9587,20 +9640,725 @@ def check_step24(dev, card) -> Tuple[dict, dict]:
     return line, launches
 
 
-STEPS = tuple(range(4, 25))      # the steps a selection may name
+# -- step 25: skeleton recognition, the checkpoint converter and the exports ---
+
+SKEL_CONFIGS = ROOT / "configs" / "skeleton"
+STGCN25_CONFIG = SKEL_CONFIGS / "stgcn" / "stgcn_80e_ntu60_xsub_keypoint.py"
+AGCN25_CONFIG = (SKEL_CONFIGS / "2s-agcn"
+                 / "2sagcn_80e_ntu60_xsub_keypoint_3d.py")
+POSEC3D25_CONFIG = (SKEL_CONFIGS / "posec3d"
+                    / "slowonly_r50_u48_240e_ntu60_xsub_keypoint.py")
+# 25a's CLI fixture: 2 steps of the recipe's batch 16, one val batch; a
+# clip has SK25_FRAMES frames that PoseDataset samples down to clip_len
+SK25_TRAIN, SK25_VAL, SK25_FRAMES = 32, 16, 120
+# the GCNs' card-vs-CPU steps run at the recipes' batch (16); the COCO
+# bone stream's forward at SK25_BONE_BATCH clips
+SK25_BONE_BATCH = 8
+STGCN25_CLI_OPTIONS = []     # more --cfg-options for 25a's CLI
+POSE25_STEP_BATCH = 1
+SK25_TIMED = 3               # calls a forward or step time averages
+POSE25_LOOP = 8              # PoseC3D's host-fed steps in the idle share
+# the biases whose gradient is zero by structure: a train-mode BatchNorm
+# right after them (ST-GCN's temporal and residual convs; AGCN's conv_d,
+# down, temporal and residual convs) or, AGCN's conv_a, a shift the
+# softmax over the source joints does not see.  Their float64 gradients
+# are cancellation noise, which the card's and the CPU's summation orders
+# make differently (the batch-8 witness read 1.47e-09 with them in): read
+# apart, each within AVA23_ZERO of the largest gradient on both devices
+SK25_ZERO_BY_STRUCTURE = re.compile(
+    r"(st_gcn_networks\.\d+\.(tcn\.2|residual\.0)|agcn_networks\.\d+\."
+    r"(gcn\.conv_[ad]\.\d|gcn\.down\.0|tcn\.0|residual\.0))\.bias$")
+# a forward, card against CPU, f32 (TF32 off), of the largest score: the
+# GCNs; PoseC3D, a ResNet3D, is held to 18a's CNN18_REL
+SK25_REL = 1e-4
+# 25d's SlowOnly-R50 (ResNet3DConfig's defaults) and its clips' size
+R3D25, R3D25_HW = {}, 224
+
+
+def pose25_annotations(n: int, joints: int, persons: int, frames: int,
+                       seed: int, classes: int = 60) -> list:
+    """Seeded pose annotations as the poseC3D pickles hold them: keypoints
+    (M, T, V, 3) in pixels of a 1080x1920 frame (a body near the middle,
+    moving), the score channel in (0.3, 1), a label, the img_shape."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        base = rng.uniform([500, 300], [1400, 700], (persons, 1, joints, 2))
+        walk = np.cumsum(rng.normal(0, 4, (persons, frames, joints, 2)), 1)
+        kp = np.concatenate([base + walk, rng.uniform(
+            0.3, 1.0, (persons, frames, joints, 1))], -1).astype(np.float32)
+        out.append({"keypoint": kp, "label": int(i % classes),
+                    "img_shape": (1080, 1920)})
+    return out
+
+
+def _pickle25(path: str, annos: list) -> str:
+    import pickle
+    with open(path, "wb") as f:
+        pickle.dump(annos, f)
+    return path
+
+
+def _sk25_model(path, d, **options):
+    from cross_modal_video_engine_tpu_torch.cli import skeleton_train
+    return skeleton_train.build_skeleton_model(
+        shipped_training_config(path, **options), d)
+
+
+def _sk25_step_run(d, path, start, x, y, dtype=None, masks=None,
+                   **options) -> dict:
+    """One make_cls_train_step_stats step of the recipe (its SGD, no
+    warmup) from `start` on device d, the head's dropout masks handed in;
+    with dtype=float64 the train-mode forward and backward alone, in
+    float64 (the witness)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.models.layers import Dropout
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_cls_train_step_stats,
+        make_rec_optimizer)
+    model = _sk25_model(path, d, **options)
+    model.load_state_dict(start)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.masks = iter(masks) if masks is not None else None
+    xs, ys = torch.from_numpy(x).to(d), torch.from_numpy(y).to(d)
+    if dtype is not None:
+        model = model.to(dtype).train()
+        loss = torch.nn.functional.cross_entropy(model(xs.to(dtype)), ys)
+        loss.backward()
+        return {"loss": float(loss.detach()), "grads": _grads64(model),
+                "stats": _stats64(model)}
+    cfg = shipped_training_config(path, **options)
+    tcfg = RecognitionTrainConfig(**dict(cfg["optimizer"], warmup_steps=0))
+    state = init_rec_state(model, make_rec_optimizer(tcfg, 10))
+    step = make_cls_train_step_stats(model, device=d)
+    p0 = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
+    s0 = _stats64(model)
+    t0 = time.perf_counter()
+    _, logs = step(state, xs, ys)
+    loss = float(logs["loss"])
+    return {"loss": loss, "s": time.perf_counter() - t0,
+            "grads": _grads64(model), "p0": p0, "s0": s0,
+            "params": {n: p.detach().double().cpu()
+                       for n, p in model.named_parameters()},
+            "stats": _stats64(model), "tcfg": tcfg}
+
+
+def _sk25_seeded(model, seed: int) -> dict:
+    """The model's state dict drawn from a numpy seed (the graph and the
+    counts kept): convs at lecun-normal scale, BatchNorm scales, edge masks
+    and PA near 1, biases and running means small, running variances in
+    [0.5, 1.5).  At the training init (unit scales, zero biases, PA and
+    AGCN's gcn BatchNorm at 1e-6) train-mode BatchNorm's f32 backward
+    cancels and the running means sit at rounding level, on either device;
+    from these weights the step's f32 numbers are well conditioned."""
+    import torch
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in model.state_dict().items():
+        leaf = k.rsplit(".", 1)[-1]
+        if not v.is_floating_point() or leaf == "A":
+            out[k] = v.clone()
+            continue
+        shape = tuple(v.shape)
+        if leaf == "running_var":
+            a = 0.5 + rng.random(shape)
+        elif leaf in ("running_mean", "bias"):
+            a = 0.05 * rng.standard_normal(shape)
+        elif v.dim() == 1 or "edge_importance" in k or leaf == "PA":
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        else:
+            a = int(np.prod(shape[1:])) ** -0.5 * rng.standard_normal(shape)
+        out[k] = torch.from_numpy(np.asarray(a, np.float32))
+    return out
+
+
+def sk25_step_card_vs_cpu(dev, path, x, y, masks=None, **options) -> dict:
+    """One SGD step of the recipe at x's batch from seeded weights
+    (_sk25_seeded) on the card and on the CPU (at torch's thread count and
+    at half of it), held to the float64 run by 18b's verdict, with its
+    planted faults."""
+    import torch
+    start = _sk25_seeded(_sk25_model(path, "cpu", **options), seed=25)
+    cpu_dev = torch.device("cpu")
+    t0 = time.perf_counter()
+    f64 = {w: _sk25_step_run(d, path, start, x, y, torch.float64, masks,
+                             **options)
+           for w, d in (("card", dev), ("cpu", cpu_dev))}
+    top = max(float(g.abs().max()) for g in f64["cpu"]["grads"].values())
+    floor = STEP18_F64_FLOOR * top
+    # the gradients zero by structure are read apart, as 23b reads its own
+    zero = [n for n in f64["cpu"]["grads"] if SK25_ZERO_BY_STRUCTURE.search(n)]
+    ranked = sorted(((float((f64["card"]["grads"][n] - g).abs().max())
+                      / max(float(g.abs().max()), floor), n)
+                     for n, g in f64["cpu"]["grads"].items()
+                     if n not in zero), reverse=True)
+    witness = ranked[0][0]
+    zero_max = max((float(f64[w]["grads"][n].abs().max()) / top
+                    for w in ("card", "cpu") for n in zero), default=0.0)
+    out = {"batch": int(x.shape[0]), "f64_max_rel": witness,
+           "f64_worst": ranked[:3], "zero_by_structure": len(zero),
+           "zero_max": zero_max, "f64_s": time.perf_counter() - t0,
+           "f64_loss": [f64["card"]["loss"], f64["cpu"]["loss"]]}
+    failed = [] if witness <= STEP18_F64 else ["float64 witness"]
+    if zero_max > AVA23_ZERO:
+        failed.append("a gradient zero by structure")
+    threads = torch.get_num_threads()
+    card = _sk25_step_run(dev, path, start, x, y, masks=masks, **options)
+    cpu = _sk25_step_run(cpu_dev, path, start, x, y, masks=masks, **options)
+    torch.set_num_threads(max(1, threads // 2))
+    try:
+        alt = _sk25_step_run(cpu_dev, path, start, x, y, masks=masks,
+                             **options)
+    finally:
+        torch.set_num_threads(threads)
+    tcfg = card.pop("tcfg")
+    ref = _reference(cpu, f64["card"], alt)
+    bad, read = _step_verdict(card, cpu, f64["card"], ref, tcfg, False)
+    planted = _planted(card, cpu, f64["card"], ref, tcfg, False)
+    failed += bad + [f"planted {k} not refused" for k, v in planted.items()
+                     if v.get("refused") is False]
+    out.update(read, loss_card=card["loss"], loss_cpu=cpu["loss"],
+               card_s=card["s"], cpu_s=cpu["s"], cpu_alt_s=alt["s"],
+               failed=failed, planted=planted)
+    return out
+
+
+def _sk25_times(model, x, y, card: str, tag: str) -> dict:
+    """The recipe's forward (eval, no graph) and SGD step at x's batch by
+    CUDA events, TFLOP/s of the counted products (3 x the forward's for
+    the step), peak memory of each."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_cls_train_step_stats,
+        make_rec_optimizer)
+    out = {"batch": list(x.shape)}
+    model.eval()
+    with torch.no_grad():
+        flops = _counted_flops(lambda: model(x))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: model(x), iters=SK25_TIMED, warmup=1)
+    out["forward"] = {"ms": ms, "gflop": flops / 1e9,
+                      "tflops": flops / ms / 1e9,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    state = init_rec_state(model, make_rec_optimizer(
+        RecognitionTrainConfig(optimizer="sgd", learning_rate=1e-3), 10))
+    step = make_cls_train_step_stats(model, device=x.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, x, y), iters=SK25_TIMED, warmup=1)
+    out["step"] = {"ms": ms, "tflops": 3 * flops / ms / 1e9,
+                   "clips_per_s": x.shape[0] / ms * 1e3,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"{tag} at {out['batch']}: forward {out['forward']['ms']:.3f} "
+          f"ms ({out['forward']['tflops']:.2f} TFLOP/s of "
+          f"{out['forward']['gflop']:.1f} GFLOP, peak "
+          f"{out['forward']['peak_gib']:.2f} GiB), SGD step {ms:.3f} ms "
+          f"({out['step']['tflops']:.2f} TFLOP/s, peak "
+          f"{out['step']['peak_gib']:.2f} GiB) ({card})", flush=True)
+    return out
+
+
+def _sk25_card_vs_cpu(model, x) -> float:
+    """The eval-mode forward of the model on the card against a CPU copy
+    of it, max |diff| over the largest score."""
+    import copy
+    import torch
+    cpu = copy.deepcopy(model).to("cpu").eval()
+    model.eval()
+    with torch.no_grad():
+        return _max_rel(model(x).cpu(), cpu(x.cpu()))
+
+
+def _sk25_verdict(tag: str, s: dict) -> None:
+    print(f"{tag} step at batch {s['batch']}, card vs CPU held to "
+          f"float64: witness {s['f64_max_rel']:.2e} (need <= {STEP18_F64}),"
+          f" loss {s['loss_card']:.6f} / {s['loss_cpu']:.6f}, all-gradient "
+          f"cosine to float64 card {s['by_group']['all']['card_f64_cos']:.7f}"
+          f" CPU {s['by_group']['all']['cpu_f64_cos']:.7f}; planted "
+          f"{json.dumps({k: v.get('refused', v.get('refused_in')) for k, v in s['planted'].items()})}; "
+          f"failed {s['failed']}", flush=True)
+    if s["failed"]:
+        print(f"{tag} readings: {json.dumps({k: s.get(k) for k in ('f64_worst', 'zero_max', 'by_group', 'bad_groups', 'bad_tensors', 'worst_tensors', 'stats_max_rel', 'update_over_bound', 'loss_rel')})}",
+              flush=True)
+        raise SystemExit(f"25 the {tag} step failed {s['failed']}")
+
+
+def _sk25_inputs(cfg, batch: int, seed: int, joints=None):
+    """Seeded (B, M, T, V, 3) keypoints (normalised scale) and labels for a
+    GCN recipe."""
+    rng = np.random.default_rng(seed)
+    M = cfg.get("data.num_persons", 1)
+    V = joints or cfg.get("model.backbone.num_joints", 17)
+    x = rng.standard_normal((batch, M, cfg["data.clip_len"], V, 3)).astype(
+        np.float32)
+    return x, rng.integers(0, cfg["model.num_classes"], batch)
+
+
+def stgcn25(dev, card, tmp) -> Tuple[dict, dict]:
+    """25a: the ST-GCN recipe through skeleton_train.main for one epoch of
+    2 steps and an eval on a seeded pickle, its epoch and best checkpoint
+    read back; one step card vs CPU held to float64; forward and step
+    times.  Returns (its line, the state dict converted in 25d)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import skeleton_train
+    from cross_modal_video_engine_tpu_torch.convert.from_jax import (
+        conv_recognizer_state_dict_from_jax)
+    from cross_modal_video_engine_tpu_torch.train.checkpoint import (
+        load_checkpoint)
+    cfg = shipped_training_config(STGCN25_CONFIG)
+    line = {"config": str(STGCN25_CONFIG.relative_to(ROOT))}
+    train = _pickle25(os.path.join(tmp, "stgcn_train.pkl"), pose25_annotations(
+        SK25_TRAIN, 17, 2, SK25_FRAMES, seed=250))
+    val = _pickle25(os.path.join(tmp, "stgcn_val.pkl"), pose25_annotations(
+        SK25_VAL, 17, 2, SK25_FRAMES, seed=251))
+    work = os.path.join(tmp, "stgcn_work")
+    t0 = time.perf_counter()
+    history, _ = _quiet_call(skeleton_train.main, [
+        str(STGCN25_CONFIG), "--work_dir", work, "--total_epochs", "1",
+        "--cfg-options", f"data.train.ann_file={train}",
+        f"data.val.ann_file={val}"] + STGCN25_CLI_OPTIONS)
+    line["cli"] = {"seconds": time.perf_counter() - t0, "history": history}
+    model = _sk25_model(STGCN25_CONFIG, dev)
+    variables, config, _ = load_checkpoint(os.path.join(work, "model_best"))
+    model.load_state_dict(conv_recognizer_state_dict_from_jax(variables,
+                                                              model))
+    ok = (len(history) == 1 and np.isfinite(history[0]["loss"])
+          and "top1_acc" in history[0]
+          and os.path.isdir(os.path.join(work, "epoch_0"))
+          and all(torch.isfinite(p).all() for p in model.parameters()))
+    print(f"25a ST-GCN {line['config']} (COCO-17, channels "
+          f"{model.backbone.cfg.channels}, clip_len {cfg['data.clip_len']}, "
+          f"2 persons, batch {cfg['data.batch_size']}): skeleton_train.main "
+          f"1 epoch of 2 steps and an eval in {line['cli']['seconds']:.1f} s:"
+          f" {json.dumps(history)}; model_best read back", flush=True)
+    if not ok:
+        raise SystemExit("25a the ST-GCN CLI's history or checkpoints are "
+                         "not what it must write")
+    x, y = _sk25_inputs(cfg, cfg["data.batch_size"], seed=252)
+    s = sk25_step_card_vs_cpu(dev, STGCN25_CONFIG, x, y)
+    _sk25_verdict("25a ST-GCN", s)
+    line["step_card_vs_cpu"] = s
+    xb, yb = _sk25_inputs(cfg, cfg["data.batch_size"], seed=253)
+    xb, yb = torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev)
+    line["forward_card_vs_cpu"] = _sk25_card_vs_cpu(model, xb[:2])
+    if not line["forward_card_vs_cpu"] <= SK25_REL:
+        raise SystemExit(f"25a the ST-GCN forward differs between the card "
+                         f"and the CPU: {line['forward_card_vs_cpu']}")
+    line["times"] = _sk25_times(model, xb, yb, card, "25a ST-GCN")
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model, xb, yb
+    torch.cuda.empty_cache()
+    return line, sd
+
+
+def agcn25(dev, card, tmp) -> Tuple[dict, dict]:
+    """25b: the 2s-AGCN joint recipe (NTU-25, 10 blocks): one step card vs
+    CPU held to float64, forward and step times; the bone stream on a
+    COCO-17 AGCN of the same widths; NTU-25's bone stream refused.
+    Returns (its line, the state dict converted in 25d)."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import skeleton_train
+    from cross_modal_video_engine_tpu_torch.data.datasets_extra import (
+        PoseDataset)
+    cfg = shipped_training_config(AGCN25_CONFIG)
+    line = {"config": str(AGCN25_CONFIG.relative_to(ROOT))}
+    x, y = _sk25_inputs(cfg, cfg["data.batch_size"], seed=254)
+    s = sk25_step_card_vs_cpu(dev, AGCN25_CONFIG, x, y)
+    _sk25_verdict("25b 2s-AGCN joint", s)
+    line["step_card_vs_cpu"] = s
+    model = _sk25_model(AGCN25_CONFIG, dev)
+    xb, yb = _sk25_inputs(cfg, cfg["data.batch_size"], seed=255)
+    xb, yb = torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev)
+    line["forward_card_vs_cpu"] = _sk25_card_vs_cpu(model, xb[:2])
+    if not line["forward_card_vs_cpu"] <= SK25_REL:
+        raise SystemExit(f"25b the AGCN forward differs between the card "
+                         f"and the CPU: {line['forward_card_vs_cpu']}")
+    line["times"] = _sk25_times(model, xb, yb, card, "25b 2s-AGCN joint")
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model, xb, yb
+
+    # the bone stream: a COCO-17 AGCN of the same widths on bone vectors
+    coco = {"model.backbone.num_joints": 17, "model.backbone.layout": "coco",
+            "data.stream": "bone"}
+    bone = _sk25_model(AGCN25_CONFIG, dev, **coco)
+    path = _pickle25(os.path.join(tmp, "coco.pkl"), pose25_annotations(
+        SK25_BONE_BATCH, 17, 2, SK25_FRAMES, seed=256))
+    ds = PoseDataset(path, cfg["data.clip_len"], 17, 2)
+    xs, ys, _ = next(skeleton_train.skeleton_arrays(ds, SK25_BONE_BATCH,
+                                                    "bone"))
+    rel = _sk25_card_vs_cpu(bone, torch.from_numpy(xs).to(dev))
+    line["bone"] = {"forward_card_vs_cpu": rel}
+    print(f"25b 2s-AGCN bone stream on a COCO-17 AGCN of the same widths: "
+          f"forward card vs CPU {rel:.2e} (need <= {SK25_REL})", flush=True)
+    if not rel <= SK25_REL:
+        raise SystemExit("25b the bone-stream AGCN differs between the card "
+                         "and the CPU")
+    del bone
+    # the shipped recipe's bone stream: 25 joints, 17 COCO parents
+    ntu = _pickle25(os.path.join(tmp, "ntu.pkl"), pose25_annotations(
+        1, 25, 2, 20, seed=257))
+    try:
+        next(skeleton_train.skeleton_arrays(PoseDataset(ntu, 8, 25, 2), 1,
+                                            "bone"))
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    line["ntu_bone_refusal"] = refusal
+    print(f"25b the shipped NTU-25 recipe with data.stream=bone: "
+          f"ValueError {refusal!r} (the JAX package's numpy broadcast "
+          f"refusal)", flush=True)
+    if not refusal or "broadcast" not in refusal:
+        raise SystemExit("25b NTU-25's bone stream was not refused as the "
+                         "JAX package refuses it")
+    torch.cuda.empty_cache()
+    return line, sd
+
+
+def posec3d25(dev, card, tmp) -> dict:
+    """25c: PoseC3D (SlowOnly stage blocks (4, 6, 3), base 32) over
+    GeneratePoseTarget heatmaps made on the host: the host's heatmap ms a
+    batch, one step card vs CPU with the dropout masks handed in, forward
+    and step times, and POSE25_LOOP host-fed steps with the card's idle
+    share."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import skeleton_train
+    from cross_modal_video_engine_tpu_torch.data.datasets_extra import (
+        PoseDataset)
+    from cross_modal_video_engine_tpu_torch.train.recognition_trainer import (
+        RecognitionTrainConfig, init_rec_state, make_cls_train_step_stats,
+        make_rec_optimizer)
+    cfg = shipped_training_config(POSEC3D25_CONFIG)
+    line = {"config": str(POSEC3D25_CONFIG.relative_to(ROOT))}
+    bs, hm = cfg["data.batch_size"], cfg["data.heatmap"]
+    path = _pickle25(os.path.join(tmp, "posec3d.pkl"), pose25_annotations(
+        bs * POSE25_LOOP, 17, 1, SK25_FRAMES, seed=258))
+    ds = PoseDataset(path, cfg["data.clip_len"], 17, 1)
+    batches = skeleton_train.skeleton_arrays(ds, bs, "joint", hm)
+    t0 = time.perf_counter()
+    x, y, _ = next(batches)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"25c PoseC3D heatmaps {list(x.shape)} by GeneratePoseTarget on "
+          f"the host: {host_ms:.1f} ms a batch of {bs}", flush=True)
+    feat = _sk25_model(POSEC3D25_CONFIG, "cpu").backbone.feat_dim
+    masks = np.random.default_rng(259).random(
+        (POSE25_STEP_BATCH, feat)) < 0.5
+    s = sk25_step_card_vs_cpu(dev, POSEC3D25_CONFIG, x[:POSE25_STEP_BATCH],
+                              y[:POSE25_STEP_BATCH], masks=[masks])
+    _sk25_verdict("25c PoseC3D", s)
+    line["step_card_vs_cpu"] = s
+    model = _sk25_model(POSEC3D25_CONFIG, dev)
+    xb, yb = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    line["forward_card_vs_cpu"] = _sk25_card_vs_cpu(model, xb[:1])
+    if not line["forward_card_vs_cpu"] <= CNN18_REL:
+        raise SystemExit(f"25c the PoseC3D forward differs between the card "
+                         f"and the CPU: {line['forward_card_vs_cpu']}")
+    line["times"] = _sk25_times(model, xb, yb, card, "25c PoseC3D")
+    # host-fed steps: heatmaps on the host, the copy to the card, the step
+    # on the card; the card is busy from the step's start (after the copy)
+    # to its end, the copies are read apart
+    state = init_rec_state(model, make_rec_optimizer(RecognitionTrainConfig(
+        **dict(cfg["optimizer"], warmup_steps=0)), 10))
+    step = make_cls_train_step_stats(model, device=dev)
+    busy, copy, host, losses = 0.0, [], [], []
+    batches = skeleton_train.skeleton_arrays(ds, bs, "joint", hm)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter()
+    for _ in range(POSE25_LOOP):
+        t0 = time.perf_counter()
+        x, y, _ = next(batches)
+        t1 = time.perf_counter()
+        host.append((t1 - t0) * 1e3)
+        xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        copy.append((time.perf_counter() - t1) * 1e3)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        state, logs = step(state, xd, yd)
+        end.record()
+        losses.append(float(logs["loss"]))
+        busy += start.elapsed_time(end)
+    wall = (time.perf_counter() - t_loop) * 1e3
+    line["loop"] = {"steps": POSE25_LOOP, "first_heatmap_ms": host_ms,
+                    "host_heatmap_ms": host, "copy_ms": copy,
+                    "wall_ms": wall, "device_ms": busy,
+                    "idle_share": 1.0 - busy / wall, "losses": losses}
+    print(f"25c PoseC3D {POSE25_LOOP} host-fed steps at batch {bs}: "
+          f"{wall:.1f} ms wall, card busy {busy:.1f} ms in its steps (idle "
+          f"share {1.0 - busy / wall:.3f}); host heatmaps "
+          f"{json.dumps([round(h, 1) for h in host])} ms a batch, copies "
+          f"to the card {json.dumps([round(c, 1) for c in copy])} ms, beside"
+          f" a step of {line['times']['step']['ms']:.1f} ms; losses "
+          f"{json.dumps(losses)} ({card})", flush=True)
+    if not np.isfinite(losses).all():
+        raise SystemExit("25c the PoseC3D loop's losses are not finite")
+    del model, state, step, xb, yb
+    torch.cuda.empty_cache()
+    return line
+
+
+def _convert25_sources(dev, tmp, gcn_sds) -> dict:
+    """type -> (the .pth's checkpoint, --config blob or None, the model
+    the reference state dict loads into, the port's loader of the written
+    directory's variables, a seeded input)."""
+    import dataclasses
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli.yolo_train import yolo_config
+    from cross_modal_video_engine_tpu_torch.convert import from_jax
+    from cross_modal_video_engine_tpu_torch.models import clip, yolo
+    from cross_modal_video_engine_tpu_torch.models.recognizer import (
+        BackboneClassifier, conv_init_state_dict)
+    from cross_modal_video_engine_tpu_torch.models.resnet3d import (
+        ResNet3D, ResNet3DConfig)
+    rng = np.random.default_rng(260)
+    out = {}
+    for kind, path in (("stgcn", STGCN25_CONFIG), ("agcn", AGCN25_CONFIG)):
+        cfg = shipped_training_config(path)
+        model = _sk25_model(path, dev)
+        x, _ = _sk25_inputs(cfg, 2, seed=261)
+        out[kind] = ({"state_dict": gcn_sds[kind]}, None, model,
+                     lambda v, m: from_jax.conv_recognizer_state_dict_from_jax(
+                         v, m), torch.from_numpy(x).to(dev))
+    ccfg = clip.flagship_config()
+    model = clip.CLIPModel(ccfg, device=dev)
+    blob = {k: list(v) if isinstance(v, tuple) else v
+            for k, v in dataclasses.asdict(ccfg).items()}
+    R = ccfg.image_resolution
+    out["clip"] = (clip.random_state_dict(ccfg, seed=262), blob, model,
+                   lambda v, m: from_jax.clip_state_dict_from_jax(v, m.cfg),
+                   torch.from_numpy(rng.standard_normal(
+                       (2, 4, R, R, 3)).astype(np.float32)).to(dev))
+    ycfg = yolo_config(shipped_training_config(YOLO_DETECT_CONFIG))
+    out["yolov5"] = ({"model": yolo.random_state_dict(ycfg, seed=263)}, None,
+                     yolo.YoloV5(ycfg, device=dev),
+                     lambda v, m: from_jax.yolo_state_dict_from_jax(v, m.cfg),
+                     torch.from_numpy(rng.random(
+                         (2, ycfg.img_size, ycfg.img_size, 3)).astype(
+                         np.float32)).to(dev))
+    r3cfg = ResNet3DConfig(**R3D25)
+    r3 = BackboneClassifier(ResNet3D(r3cfg, device=dev), 400)
+    out["resnet3d"] = (
+        {"state_dict": conv_init_state_dict(r3, 264)},
+        {"backbone": {k: list(v) if isinstance(v, tuple) else v
+                      for k, v in dataclasses.asdict(r3cfg).items()},
+         "num_classes": 400}, r3,
+        lambda v, m: from_jax.conv_recognizer_state_dict_from_jax(v, m),
+        torch.from_numpy(rng.standard_normal(
+            (2, 8, R3D25_HW, R3D25_HW, 3)).astype(np.float32)).to(dev))
+    return out
+
+
+def _forward25(model, x):
+    import torch
+    with torch.no_grad():
+        model.eval()
+        out = (model.encode_video(x)[0] if hasattr(model, "encode_video")
+               else model(x))
+        return torch.utils._pytree.tree_leaves(out)
+
+
+def convert25(dev, card, tmp, gcn_sds) -> dict:
+    """25d: convert_checkpoint.main on the card for stgcn, agcn, clip
+    (ViT-B/32), yolov5 (v5s) and resnet3d (SlowOnly-R50) at full width: each written directory read back through the port's
+    loader gives a forward bit-equal to the model loaded straight from
+    the .pth; ST-GCN's params.msgpack written with --device cuda is
+    byte-equal to the one written with --device cpu."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import convert_checkpoint
+    from cross_modal_video_engine_tpu_torch.train.checkpoint import (
+        load_checkpoint)
+    line = {}
+    for kind, (ckpt, blob, model, loader, x) in _convert25_sources(
+            dev, tmp, gcn_sds).items():
+        src, dst = os.path.join(tmp, f"{kind}.pth"), os.path.join(tmp, kind)
+        torch.save(ckpt, src)
+        argv = ["--type", kind, "--src", src, "--dst", dst]
+        if blob is not None:
+            with open(src + ".json", "w") as f:
+                json.dump(blob, f)
+            argv += ["--config", src + ".json"]
+        t0 = time.perf_counter()
+        _quiet_call(convert_checkpoint.main, argv)
+        seconds = time.perf_counter() - t0
+        model.load_state_dict(ckpt.get("state_dict", ckpt.get("model",
+                                                              ckpt)))
+        want = _forward25(model, x)
+        # read back into NaN parameters and NaN floating buffers (running
+        # statistics, the GCNs' graph): one the directory lacks shows in
+        # the forward; only integer buffers (BatchNorm's counts, which an
+        # eval forward does not read) may be missing from what it loads
+        with torch.no_grad():
+            for t in list(model.parameters()) + list(model.buffers()):
+                if t.is_floating_point():
+                    t.fill_(float("nan"))
+        variables, _, _ = load_checkpoint(dst)
+        keys = model.load_state_dict(loader(variables, model), strict=False)
+        floating = {k for k, v in model.state_dict().items()
+                    if v.is_floating_point()}
+        missing = sorted(set(keys.missing_keys) & floating)
+        got = _forward25(model, x)
+        equal = (all(torch.equal(a, b) for a, b in zip(got, want))
+                 and not missing and not keys.unexpected_keys)
+        row = {"seconds": seconds, "bytes": sum(
+            os.path.getsize(os.path.join(dst, f)) for f in os.listdir(dst)),
+            "pth_bytes": os.path.getsize(src), "forward_bit_equal": equal,
+            "missing_floating": missing[:5],
+            "unexpected": keys.unexpected_keys[:5]}
+        if kind == "stgcn":
+            _quiet_call(convert_checkpoint.main,
+                        ["--type", kind, "--src", src, "--dst", dst + "_cpu",
+                         "--device", "cpu"])
+            with open(os.path.join(dst, "params.msgpack"), "rb") as f:
+                a = f.read()
+            with open(os.path.join(dst + "_cpu", "params.msgpack"),
+                      "rb") as f:
+                row["cuda_cpu_msgpack_equal"] = a == f.read()
+        line[kind] = row
+        print(f"25d convert_checkpoint --type {kind}: {seconds:.2f} s, "
+              f"{row['pth_bytes'] / 2**20:.1f} MiB .pth -> "
+              f"{row['bytes'] / 2**20:.1f} MiB directory; its forward read "
+              f"back {'bit-equal' if equal else 'DIFFERENT'} to the .pth's "
+              f"(floating entries missing {missing[:5]}, unexpected "
+              f"{keys.unexpected_keys[:5]})"
+              + (f"; --device cuda and cpu msgpack "
+                 f"{'byte-equal' if row['cuda_cpu_msgpack_equal'] else 'DIFFERENT'}"
+                 if kind == "stgcn" else "") + f" ({card})", flush=True)
+        if not equal or row.get("cuda_cpu_msgpack_equal") is False:
+            raise SystemExit(f"25d the converted {kind} checkpoint is not "
+                             f"the .pth's")
+        del model, x, ckpt
+        torch.cuda.empty_cache()
+    return line
+
+
+def exports25(dev, card, tmp, clip_ckpt: str) -> dict:
+    """25e: misc_tools export_model --preset vitb32 (bf16, batch 1, 8
+    frames; the weights of 25d's converted ViT-B/32 directory,
+    `--checkpoint`) and export_yolo on yolov5s_coco_640.py and
+    yolov5s_seg_coco_640.py on the card: each artifact loaded back with
+    torch.export.load and called with the weights the tool traced with,
+    its outputs against the module's own (misc_tools.EXPORT_TOL of the
+    largest), its bytes and its export seconds."""
+    import torch
+    from cross_modal_video_engine_tpu_torch.cli import misc_tools
+    from cross_modal_video_engine_tpu_torch.cli.yolo_train import (
+        build_yolo_model)
+    from cross_modal_video_engine_tpu_torch.convert.from_jax import (
+        clip_state_dict_from_jax)
+    from cross_modal_video_engine_tpu_torch.models import clip, yolo
+    from cross_modal_video_engine_tpu_torch.train.checkpoint import (
+        load_checkpoint)
+    line = {}
+    cases = [("vitb32", ["export_model", "--preset", "vitb32", "--batch",
+                         "1", "--frames", "8", "--checkpoint", clip_ckpt])]
+    cases += [(os.path.basename(str(c))[:-3], ["export_yolo", str(c)])
+              for c in (YOLO_DETECT_CONFIG, YOLO_SEGMENT_CONFIG)]
+    for name, argv in cases:
+        out = os.path.join(tmp, name + ".pt2")
+        t0 = time.perf_counter()
+        _quiet_call(misc_tools.main, argv + ["--output", out])
+        seconds = time.perf_counter() - t0
+        if name == "vitb32":
+            cfg = misc_tools.clip_preset("vitb32")
+            model = clip.CLIPModel(cfg, device=dev)
+            model.load_state_dict(clip_state_dict_from_jax(
+                load_checkpoint(clip_ckpt)[0], cfg))
+            R = cfg.image_resolution
+            x = torch.from_numpy(np.random.default_rng(265).standard_normal(
+                (1, 8, R, R, 3)).astype(np.float32)).to(dev)
+            with torch.no_grad():
+                want = [model.encode_video(x)[0]]
+            tol = misc_tools.EXPORT_TOL[cfg.dtype]
+        else:
+            model = build_yolo_model(shipped_training_config(
+                YOLO_CONFIGS / (name + ".py")), device=dev)
+            model.load_state_dict(yolo.init_state_dict(model.cfg, seed=0))
+            S = model.cfg.img_size
+            x = torch.from_numpy(np.random.default_rng(266).random(
+                (1, S, S, 3)).astype(np.float32)).to(dev)
+            with torch.no_grad():
+                raw = model(x)
+            maps = raw[0] if model.cfg.masks else raw
+            want = [yolo.decode_predictions(maps, model.cfg)] + (
+                [raw[1]] if model.cfg.masks else [])
+            tol = misc_tools.EXPORT_TOL["float32"]
+        state = dict(model.state_dict())
+        t0 = time.perf_counter()
+        program = torch.export.load(out).module()
+        with torch.no_grad():
+            got = torch.utils._pytree.tree_leaves(program(state, x))
+        load_s = time.perf_counter() - t0
+        err = max(_max_rel(g, w) for g, w in zip(got, want))
+        line[name] = {"bytes": os.path.getsize(out), "export_s": seconds,
+                      "load_and_call_s": load_s, "max_rel": err,
+                      "outputs": [list(w.shape) for w in want]}
+        print(f"25e {' '.join(argv)}: {line[name]['bytes'] / 2**20:.2f} MiB "
+              f"program (weights an input) in {seconds:.2f} s; loaded back "
+              f"and called with the state dict in {load_s:.2f} s, outputs "
+              f"{line[name]['outputs']} within {err:.2e} of the module's "
+              f"(need <= {tol}) ({card})", flush=True)
+        if not err <= tol or len(got) != len(want):
+            raise SystemExit(f"25e the {name} program differs from its "
+                             f"module")
+        del model, program, state
+        torch.cuda.empty_cache()
+    return line
+
+
+def check_step25(dev, card) -> Tuple[dict, dict]:
+    """Step 25 (a-e).  Returns (the `skeleton_convert` JSON object, the
+    kernels' launches over the step: all must be 0)."""
+    import torch
+    t_step = time.perf_counter()
+    counted = kernel_counters()
+    for fn in counted.values():
+        fn.launches = 0
+    line = {"card": card}
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        sds = {}
+        for key, fn in (("stgcn", stgcn25), ("agcn", agcn25)):
+            t0 = time.perf_counter()
+            line[key], sds[key] = fn(dev, card, tmp)
+            line[key]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        line["posec3d"] = posec3d25(dev, card, tmp)
+        line["posec3d"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        line["convert"] = convert25(dev, card, tmp, sds)
+        line["convert"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        line["exports"] = exports25(dev, card, tmp,
+                                    os.path.join(tmp, "clip"))
+        line["exports"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    line["launches"] = launches
+    line["seconds"] = time.perf_counter() - t_step
+    print(f"25 kernel launches over step 25: {json.dumps(launches)} (need 0: "
+          f"no skeleton, converter or export path reaches a kernel); step "
+          f"25 checked in {line['seconds']:.1f} s", flush=True)
+    if any(launches.values()):
+        raise SystemExit("25 a skeleton, converter or export path launched a "
+                         "kernel")
+    return line, launches
+
+
+STEPS = tuple(range(4, 26))      # the steps a selection may name
 
 
 def selected_steps(argv) -> set:
-    """The steps to run: all of 4-24 with no argument, else the numbers
+    """The steps to run: all of 4-25 with no argument, else the numbers
     given ("19", "13 19" or "13,19"); 4-5 and 6-7 run as pairs (5 and 7
     time what 4 and 6 build).  The build (2), the kernel checks (3) and
-    the results (25) always run."""
+    the results (26) always run."""
     if not argv:
         return set(STEPS)
     steps = set()
     for arg in argv:
         for part in filter(None, arg.split(",")):
-            if not part.isdigit() or int(part) not in range(2, 26):
+            if not part.isdigit() or int(part) not in range(2, 27):
                 raise SystemExit(f"chip_smoke: unknown step {part!r}; "
                                  f"choose among {STEPS[0]}-{STEPS[-1]}")
             steps.add(int(part))
@@ -9692,7 +10450,8 @@ def main(argv=None) -> int:
                             "ctv", "caption_transformer",
                             "detector_training", "cnn", "cnn2d",
                             "transformer", "clip_recognizer", "recipes",
-                            "localization", "detection", "host_tools"))
+                            "localization", "detection", "host_tools",
+                            "skeleton_convert"))
     rng = np.random.default_rng(1)
     if 4 in steps:
         t_step = time.perf_counter()
@@ -9864,16 +10623,24 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         lines["host_tools"], counts["host_tools"] = check_step24(dev, card)
         step_seconds(step_s, "24", t_step)
+
+    if 25 in steps:
+        t_step = time.perf_counter()
+        # -- 25. skeleton recognition, the converter and the exports ---------
+        torch.cuda.empty_cache()
+        lines["skeleton_convert"], counts["skeleton_convert"] = \
+            check_step25(dev, card)
+        step_seconds(step_s, "25", t_step)
     builds.close()
 
-    # -- 25. results ----------------------------------------------------------
+    # -- 26. results ----------------------------------------------------------
     for key, value in lines.items():
         print(json.dumps({key: value}))
     print(json.dumps(kernel_json(results, launches, core, block_extra,
                                  counts)))
     print(json.dumps({"step_seconds": step_s}))
     skipped = sorted(set(STEPS) - steps)
-    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 25"
+    print(f"steps run: 2, 3, {', '.join(map(str, sorted(steps)))}, 26"
           + (f"; skipped: {skipped} (a partial run)" if skipped else
              " (the whole smoke run)"), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -107,8 +107,17 @@ def _init_caption_backbone(btype: str, bb_kw: dict, cfg_d: dict,
                          f"init_recognizer refuses it too)")
     no_tf32()
     kw = {k: _deep_tuple(v) for k, v in bb_kw.items()}
+    # a ResNet3D stem's input channels from its weights (PoseC3D's are the
+    # heatmap channels)
+    in_channels = 3
+    if btype in ("ResNet3D", "SlowOnly"):
+        in_channels = int(
+            state_dict["backbone.conv1.conv.weight"].shape[1]
+            if state_dict is not None else
+            variables["params"]["backbone"]["conv1"]["kernel"].shape[-2])
     model = RecognizerRelseq(
-        build_caption_backbone(btype, kw, resolve_device(device)),
+        build_caption_backbone(btype, kw, resolve_device(device),
+                               in_channels=in_channels),
         RNNDecoderConfig(**cfg_d["decoder"]))
     if state_dict is None:
         state_dict = conv_recognizer_state_dict_from_jax(variables, model)

@@ -141,14 +141,16 @@ CNN_BACKBONES = {
 
 
 def build_backbone(btype: str, kw: dict, device=None,
-                   input_shape=None) -> nn.Module:
+                   input_shape=None, in_channels: int = 3) -> nn.Module:
     """The backbone `model.backbone.type` names (shared by the recognition
     and caption trainers and `api.init_recognizer`): the CNN families of
     models/{resnet3d,backbones2d,tin_mobilenet,tanet}.py ('SlowOnly' is a
     ResNet3D, 'TSN' a TSM with shift_div=0) and the transformers Swin3D
     (its tables sized for videos of `input_shape` (T, H, W)), MViT and
     VideoMAEViT.  'CLIP' and 'VideoCLIP' are recognizers, not backbones,
-    here as in the JAX CLI: they raise "unknown backbone type"."""
+    here as in the JAX CLI: they raise "unknown backbone type".
+    in_channels: a ResNet3D's stem input channels (a PoseC3D's
+    heatmaps)."""
     if btype == "Swin3D":
         return swin3d.Swin3D(swin3d.Swin3DConfig(**kw), device, input_shape)
     if btype in CNN_BACKBONES:
@@ -157,7 +159,10 @@ def build_backbone(btype: str, kw: dict, device=None,
             kw = dict(kw, shift_div=0)
         if cfg_cls is None:                          # C3D takes keywords
             return getattr(module, cls)(**kw, device=device)
-        return getattr(module, cls)(getattr(module, cfg_cls)(**kw), device)
+        cfg = getattr(module, cfg_cls)(**kw)
+        if cls == "ResNet3D":
+            return module.ResNet3D(cfg, device, in_channels=in_channels)
+        return getattr(module, cls)(cfg, device)
     raise ValueError(f"unknown backbone type {btype}")
 
 
@@ -175,10 +180,11 @@ class _TemporalMean(nn.Module):
 
 
 def build_caption_backbone(btype: str, kw: dict, device=None,
-                           input_shape=None) -> nn.Module:
+                           input_shape=None, in_channels: int = 3
+                           ) -> nn.Module:
     """The caption trainer's backbone: a pooled (B, C) feature, per-frame
     backbones behind `_TemporalMean`."""
-    backbone = build_backbone(btype, kw, device, input_shape)
+    backbone = build_backbone(btype, kw, device, input_shape, in_channels)
     if btype in PER_FRAME_BACKBONES:
         backbone = _TemporalMean(backbone)
     return backbone

@@ -75,6 +75,14 @@ compute the same function.
   -> `relation_fc{1,2}`, `consensus.fc_fusion_scales.{i}.{1,3}` ->
   `fusion_s{S-i}_fc{1,2}`) or TPNRecognizer's `cls_head.fc_cls` (the
   JAX Dense `cls_head`); these functions are their bridge.
+* The same functions carry the skeleton models (models/stgcn.py: ST-GCN
+  and AGCN alone or under SkeletonClassifier) in the keys convert_stgcn
+  and convert_agcn read: a 1x1 Conv2d that is a Dense in JAX (gcn,
+  conv_{a,b,d}, down, the head's `cls_head.fc` as `cls_head/fc_cls`) as
+  its kernel, the edge masks and PA as they are; the graph buffer is not
+  in the tree (the JAX config carries it: with the batch_stats, the state
+  dict takes it from the model's config).  `{stgcn,agcn}_*` are the
+  per-family forms.
 * `transformer_state_dict_from_jax` and `transformer_variables_to_jax`
   carry the transformer and CLIP backbones both ways, alone or under
   BackboneClassifier, RecognizerRelseq or Recognizer3DCLIP (the CNN
@@ -1352,14 +1360,76 @@ def _ava_head_path(parts: List[str]) -> Tuple[str, ...]:
     return ("roi_head",) + tuple(parts)
 
 
+# the skeleton backbones (models/stgcn.py): the reference module under a
+# block -> its JAX name (convert_stgcn, convert_agcn)
+_STGCN_BLOCK = {"gcn.conv": "gcn", "tcn.0": "bn_gcn", "tcn.2": "tcn",
+                "tcn.3": "bn_tcn", "residual.0": "residual",
+                "residual.1": "bn_res"}
+_AGCN_BLOCK = {"gcn.bn": "bn_gcn", "gcn.down.0": "down",
+               "gcn.down.1": "bn_down", "tcn.0": "tcn", "tcn.1": "bn_tcn",
+               "residual.0": "residual", "residual.1": "bn_res"}
+_DENSE_1X1 = ("gcn", "down", "fc_cls") + tuple(
+    f"conv_{c}" for c in "abd")
+
+
+def _skeleton_path(parts: List[str]) -> Tuple[str, ...]:
+    """A GCN backbone's module or parameter path -> its JAX path."""
+    if parts[0] == "data_bn":
+        return ("data_bn",)
+    if parts[0] == "edge_importance":
+        return (f"block_{parts[1]}", "edge_importance")
+    block, rest = f"block_{parts[1]}", ".".join(parts[2:])
+    if rest == "gcn.PA":
+        return (block, "PA")
+    if parts[2:4] in (["gcn", "conv_a"], ["gcn", "conv_b"],
+                      ["gcn", "conv_d"]):
+        return (block, parts[3] + parts[4])
+    table = _STGCN_BLOCK if parts[0] == "st_gcn_networks" else _AGCN_BLOCK
+    return (block, table[rest])
+
+
+def _skeleton_table(model) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """_cnn_table for an ST-GCN or AGCN backbone alone or under
+    SkeletonClassifier: kind 'dense' for the 1x1 Conv2d that are Dense
+    layers in JAX (gcn, conv_{a,b,d}, down, the head's fc), 'conv' for the
+    temporal and residual convs, 'bn', and 'param' for the edge masks and
+    PA (the graph buffer `A` goes to the config, not the tree)."""
+    from ..models.layers import FlaxBatchNorm
+    wrapped = hasattr(model, "backbone")
+    table = []
+    for name, mod in model.named_modules():
+        if not isinstance(mod, (torch.nn.Conv2d, FlaxBatchNorm)):
+            continue
+        parts = name.split(".")
+        if parts[0] == "cls_head":
+            path = ("cls_head", "fc_cls")
+        else:
+            path = _skeleton_path(parts[1:] if wrapped else parts)
+            path = (("backbone",) if wrapped else ()) + path
+        kind = ("bn" if isinstance(mod, FlaxBatchNorm)
+                else "dense" if path[-1].startswith(_DENSE_1X1) else "conv")
+        table.append((name, path, kind))
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[-1] == "PA" or "edge_importance" in parts:
+            inner = parts[1:] if wrapped else parts
+            table.append((name, (("backbone",) if wrapped else ())
+                          + _skeleton_path(inner), "param"))
+    return table
+
+
 def _cnn_table(model) -> List[Tuple[str, Tuple[str, ...], str]]:
     """(the port module's name, its JAX path, kind) for every conv,
     linear and BatchNorm of a CNN backbone or recognizer (or a TPN neck
     alone), and of an AVA detector (train/detection_trainer.AVAFastRCNN)
     with its heads.  kind: 'conv' (Conv1d/2d/3d, with its bias if it has
     one), 'se' (an SE fc as a Dense), 'dense' (Linear), 'bn', 'ln' (the
-    FBO's LayerNorms).  The RNN decoder head is apart."""
+    FBO's LayerNorms).  The RNN decoder head is apart.  A skeleton model
+    takes `_skeleton_table`."""
     from ..models.decoder_head import RNNDecoderHead
+    from ..models.stgcn import is_skeleton_model
+    if is_skeleton_model(model):
+        return _skeleton_table(model)
     from ..models.flax_nn import LayerNorm
     from ..models.layers import FlaxBatchNorm
     from ..models.recognizer import TPNRecognizer
@@ -1430,6 +1500,9 @@ def conv_recognizer_state_dict_from_jax(variables: Dict[str, Any], model
     sd: Dict[str, torch.Tensor] = {}
     for name, path, kind in _cnn_table(model):
         p = _tree_get(params, path)
+        if kind == "param":
+            sd[name] = _f32(p)
+            continue
         if kind in ("bn", "ln"):
             sd[f"{name}.weight"] = _f32(p["scale"])
             sd[f"{name}.bias"] = _f32(p["bias"])
@@ -1440,6 +1513,8 @@ def conv_recognizer_state_dict_from_jax(variables: Dict[str, Any], model
                 k.dim() - 1, k.dim() - 2, *range(k.dim() - 2)).contiguous()
         elif kind == "se":
             sd[f"{name}.weight"] = k.t()[:, :, None, None, None].contiguous()
+        elif isinstance(model.get_submodule(name), torch.nn.Conv2d):
+            sd[f"{name}.weight"] = k.t()[:, :, None, None].contiguous()
         else:
             sd[f"{name}.weight"] = k.t().contiguous()
         if "bias" in p:
@@ -1448,7 +1523,18 @@ def conv_recognizer_state_dict_from_jax(variables: Dict[str, Any], model
         _decoder_from_jax(sd, params["cls_head"])
     if stats is not None:
         sd.update(conv_batch_stats_from_jax(stats, model))
+        _skeleton_graph(sd, model)
     return sd
+
+
+def _skeleton_graph(sd: Dict[str, torch.Tensor], model) -> None:
+    """A skeleton model's graph buffer, which the JAX tree leaves to the
+    config, from the model's config (so the state dict loads strictly)."""
+    from ..models.stgcn import is_skeleton_model, reference_graph
+    if is_skeleton_model(model):
+        backbone = getattr(model, "backbone", model)
+        key = "backbone.A" if backbone is not model else "A"
+        sd[key] = torch.from_numpy(reference_graph(backbone.cfg))
 
 
 def conv_batch_stats_from_jax(stats: Dict[str, Any], model
@@ -1478,6 +1564,9 @@ def conv_recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], model
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     for name, path, kind in _cnn_table(model):
+        if kind == "param":
+            _tree_put(params, path, _np32(sd[name]))
+            continue
         if kind in ("bn", "ln"):
             _tree_put(params, path, {"scale": _np32(sd[f"{name}.weight"]),
                                      "bias": _np32(sd[f"{name}.bias"])})
@@ -1490,7 +1579,7 @@ def conv_recognizer_variables_to_jax(sd: Dict[str, torch.Tensor], model
         leaf = {"kernel": (w.transpose(*range(2, w.ndim), 1, 0)
                            if kind == "conv"
                            else w[..., 0, 0, 0].T if kind == "se"
-                           else w.T)}
+                           else w.reshape(w.shape[0], -1).T)}
         if f"{name}.bias" in sd:
             leaf["bias"] = _np32(sd[f"{name}.bias"])
         _tree_put(params, path, leaf)
@@ -1544,6 +1633,10 @@ tanet_state_dict_from_jax, tanet_variables_to_jax = \
     _conv_backbone_fns("TANet", "tanet")
 tpn_state_dict_from_jax, tpn_variables_to_jax = \
     _conv_backbone_fns("TPN", "tpn")
+stgcn_state_dict_from_jax, stgcn_variables_to_jax = \
+    _conv_backbone_fns("STGCN", "stgcn")
+agcn_state_dict_from_jax, agcn_variables_to_jax = \
+    _conv_backbone_fns("AGCN", "stgcn")
 
 
 # -- the transformer and CLIP backbones (Swin3D, MViT, VideoMAE, VideoCLIP,

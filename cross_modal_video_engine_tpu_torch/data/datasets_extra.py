@@ -12,9 +12,14 @@ rest of the mmaction dataset family).  Ported so far:
   proposal-file format and the per-video sampled proposal layout, drawn
   from the dataset's seeded numpy generator (ssn_dataset.py);
 * `AVADataset`: AVA csv rows grouped into keyframes, each with its
-  entities' normalized boxes and many-hot action labels.
+  entities' normalized boxes and many-hot action labels;
+* `PoseDataset`: pickled skeleton annotations (keypoints (M, T, V, C) or
+  (T, V, C) and a label), persons zero-padded or cut to M, clips
+  sampled uniformly by `np.round(np.linspace(...))` or loop-padded to
+  clip_len, `src_shape` (the annotation's img_shape) and `batches`
+  (padded by repeating the first item).
 
-The pose dataset comes with ROADMAP.md queue 1 item 8h.
+Every dataset of the JAX module is ported.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from __future__ import annotations
 import csv
 import json
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+import pickle
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -55,6 +61,69 @@ class HVUDataset:
     def __getitem__(self, idx: int) -> Dict:
         results = dict(self.video_infos[idx], start_index=0)
         return self.pipeline(results) if self.pipeline else results
+
+
+class PoseDataset:
+    """Pickled list of dicts: {'keypoint': (M, T, V, C), 'label': int}.
+
+    ``num_persons=1`` (default) yields (T, V, C) for the single-person
+    GCN path; ``num_persons=M`` keeps up to M persons zero-padded to a
+    static (M, T, V, C) — the NTU layout the reference's skeleton
+    pipelines batch as (N, C, T, V, M) with num_person=2
+    (heads/stgcn_head.py:46-57)."""
+
+    def __init__(self, ann_file: str, clip_len: int = 48,
+                 num_joints: int = 17, num_persons: int = 1):
+        with open(ann_file, "rb") as f:
+            self.annos = pickle.load(f)
+        self.clip_len = clip_len
+        self.num_joints = num_joints
+        self.num_persons = num_persons
+
+    def __len__(self) -> int:
+        return len(self.annos)
+
+    def src_shape(self, idx: int):
+        """The annotation's (h, w) pixel frame for its keypoint coords
+        (poseC3D pickles carry 'img_shape'); None if absent.  Heatmap
+        consumers rescale keypoints from this frame to the heatmap
+        size — raw 1080p coords dropped into a 56x56 canvas would fall
+        entirely outside it."""
+        return self.annos[idx].get("img_shape")
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, int]:
+        a = self.annos[idx]
+        kp = np.asarray(a["keypoint"], np.float32)
+        if kp.ndim == 3:                  # (T, V, C) -> one person
+            kp = kp[None]
+        M = self.num_persons
+        if kp.shape[0] >= M:
+            kp = kp[:M]
+        else:
+            pad = np.zeros((M - kp.shape[0],) + kp.shape[1:], np.float32)
+            kp = np.concatenate([kp, pad])
+        T = kp.shape[1]
+        if T >= self.clip_len:            # uniform sample
+            sel = np.round(np.linspace(0, T - 1, self.clip_len)).astype(int)
+            kp = kp[:, sel]
+        else:                             # loop pad
+            reps = int(np.ceil(self.clip_len / T))
+            kp = np.tile(kp, (1, reps, 1, 1))[:, : self.clip_len]
+        if M == 1:
+            return kp[0], int(a["label"])
+        return kp, int(a["label"])
+
+    def batches(self, batch_size: int
+                ) -> Iterator[Tuple[np.ndarray, np.ndarray, int]]:
+        for i in range(0, len(self), batch_size):
+            items = [self[j] for j in range(i, min(i + batch_size,
+                                                   len(self)))]
+            n = len(items)
+            while len(items) < batch_size:
+                items.append(items[0])
+            kps = np.stack([it[0] for it in items])
+            labels = np.asarray([it[1] for it in items], np.int64)
+            yield kps, labels, n
 
 
 class AVADataset:

@@ -701,22 +701,17 @@ def with_reader(cfgs: Sequence[Dict], reader) -> list:
 
 # the JAX package's pipelines_extra ops, by the part of ROADMAP.md queue 1
 # item 8 that ports them
-UNPORTED_OPS = dict(
-    {op: "8g" for op in ("AudioDecodeInit", "LoadAudioFeature",
-                         "AudioDecode", "AudioFeatureSelector",
-                         "AudioAmplify", "MelSpectrogram",
-                         "FormatAudioShape")},
-    **{op: "8h" for op in ("UniformSampleFrames", "PaddingWithLoop",
-                           "PoseDecode", "LoadKineticsPose", "PoseNormalize",
-                           "PoseCompact", "JointToBone", "FormatGCNInput",
-                           "GeneratePoseTarget")})
+UNPORTED_OPS = {op: "8g" for op in (
+    "AudioDecodeInit", "LoadAudioFeature", "AudioDecode",
+    "AudioFeatureSelector", "AudioAmplify", "MelSpectrogram",
+    "FormatAudioShape")}
 
 
 def build_pipeline(cfgs: Sequence[Dict]) -> Compose:
     """Build from mmaction-style [{'type': 'SampleFrames', ...}, ...].
     An op type that is not ported raises KeyError naming the part of
     ROADMAP.md queue 1 item 8 that ports it (`UNPORTED_OPS`: the audio
-    and pose ops of the JAX package's pipelines_extra)."""
+    ops of the JAX package's pipelines_extra)."""
     # the decode ops (DecordInit, DecordDecode, ...) register on import
     from ..io import video_decode  # noqa: F401
     ops = []

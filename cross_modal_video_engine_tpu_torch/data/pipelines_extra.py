@@ -31,13 +31,23 @@ cross_modal_video_engine_tpu/data/pipelines_extra.py, over the same
   generator in train mode (bounds `(-fi) // 2` and `(fi + 1) // 2`),
   clamped to the shot.
 
-The audio and pose ops come with ROADMAP.md queue 1 items 8g and 8h
+* the pose ops (pose_loading.py, formatting.py, augmentations.py),
+  numpy copies of the JAX ops: `UniformSampleFrames` (test mode from a
+  fixed seed; in train mode from the op's `rng`, an unseeded numpy
+  generator a caller may replace to hand the draws in),
+  `PaddingWithLoop`, `PoseDecode`, `LoadKineticsPose`, `PoseNormalize`,
+  `PoseCompact`, `JointToBone`, `FormatGCNInput` and
+  `GeneratePoseTarget` (keypoint and limb pseudo-heatmaps, max-combined
+  over persons, (T, H, W, K)).
+
+The audio ops come with ROADMAP.md queue 1 item 8g
 (data/pipelines.UNPORTED_OPS).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -435,4 +445,443 @@ class SampleProposalFrames:
                                 + self.aug_segments[1])
         if self.mode in ("train", "val"):
             results["num_proposals"] = len(results["out_proposals"])
+        return results
+
+
+# -- pose / skeleton (pose_loading.py, formatting.py, augmentations.py) -----
+
+@PIPELINES.register("UniformSampleFrames")
+class UniformSampleFrames:
+    """pose_loading.py:14-139: split into clip_len segments, one frame per
+    segment; special cases below/near clip_len follow the reference exactly.
+    Test mode draws from a fixed seed for reproducibility."""
+
+    def __init__(self, clip_len: int, num_clips: int = 1,
+                 test_mode: bool = False, seed: int = 255):
+        self.clip_len = clip_len
+        self.num_clips = num_clips
+        self.test_mode = test_mode
+        self.seed = seed
+        self.rng = np.random.default_rng(None if not test_mode else seed)
+
+    def _sample_once(self, num_frames: int, rng) -> np.ndarray:
+        clip_len = self.clip_len
+        if num_frames < clip_len:
+            start = rng.integers(0, num_frames)
+            return np.arange(start, start + clip_len)
+        if num_frames < 2 * clip_len:
+            basic = np.arange(clip_len)
+            inds = rng.choice(clip_len + 1, num_frames - clip_len,
+                              replace=False)
+            offset = np.zeros(clip_len + 1, dtype=np.int64)
+            offset[inds] = 1
+            return basic + np.cumsum(offset)[:-1]
+        bids = np.array([i * num_frames // clip_len
+                         for i in range(clip_len + 1)])
+        bsize = np.diff(bids)
+        return bids[:clip_len] + rng.integers(0, bsize)
+
+    def __call__(self, results: Dict) -> Dict:
+        num_frames = results["total_frames"]
+        if self.test_mode:
+            rng = np.random.default_rng(self.seed)
+            if num_frames < self.clip_len and num_frames < self.num_clips:
+                starts = list(range(self.num_clips))
+                inds = np.concatenate(
+                    [np.arange(i, i + self.clip_len) for i in starts])
+            elif num_frames < self.clip_len:
+                starts = [i * num_frames // self.num_clips
+                          for i in range(self.num_clips)]
+                inds = np.concatenate(
+                    [np.arange(i, i + self.clip_len) for i in starts])
+            else:
+                inds = np.concatenate([self._sample_once(num_frames, rng)
+                                       for _ in range(self.num_clips)])
+        else:
+            assert self.num_clips == 1
+            inds = self._sample_once(num_frames, self.rng)
+        inds = np.mod(inds, num_frames) + results.get("start_index", 0)
+        results["frame_inds"] = inds.astype(np.int64)
+        results["clip_len"] = self.clip_len
+        results["frame_interval"] = None
+        results["num_clips"] = self.num_clips
+        return results
+
+
+@PIPELINES.register("PaddingWithLoop")
+class PaddingWithLoop:
+    """pose_loading.py:635-667: frames 0..clip_len looped over the video."""
+
+    def __init__(self, clip_len: int, num_clips: int = 1):
+        self.clip_len = clip_len
+        self.num_clips = num_clips
+
+    def __call__(self, results: Dict) -> Dict:
+        inds = np.mod(np.arange(self.clip_len), results["total_frames"])
+        results["frame_inds"] = inds.astype(np.int64)
+        results["clip_len"] = self.clip_len
+        results["frame_interval"] = None
+        results["num_clips"] = self.num_clips
+        return results
+
+
+@PIPELINES.register("PoseDecode")
+class PoseDecode:
+    """pose_loading.py:142-196: gather keypoints (M, T, V, C) and scores
+    (M, T, V) at frame_inds."""
+
+    def __call__(self, results: Dict) -> Dict:
+        if "frame_inds" not in results:
+            results["frame_inds"] = np.arange(results["total_frames"])
+        inds = np.asarray(results["frame_inds"])
+        if inds.ndim != 1:   # reference guard (pose_loading.py:177):
+            inds = np.squeeze(inds)   # a clip_len=1 (1,) keeps its axis
+        inds = inds + results.get("offset", 0)
+        if "keypoint_score" in results:
+            results["keypoint_score"] = \
+                results["keypoint_score"][:, inds].astype(np.float32)
+        if "keypoint" in results:
+            results["keypoint"] = \
+                results["keypoint"][:, inds].astype(np.float32)
+        return results
+
+
+@PIPELINES.register("LoadKineticsPose")
+class LoadKineticsPose:
+    """pose_loading.py:199-343: unpack the per-detection (x, y, score)
+    pickle into dense (num_person, T, V, 2) + scores, squeezing empty
+    frames and dropping low-confidence persons beyond max_person by the
+    face/torso/limb-weighted score."""
+
+    _SUBSETS = {
+        "openpose-18": dict(face=[0, 14, 15, 16, 17], torso=[1, 2, 8, 5, 11],
+                            limb=[3, 4, 6, 7, 9, 10, 12, 13]),
+        "mmpose": dict(face=[0, 1, 2, 3, 4], torso=[5, 6, 11, 12],
+                       limb=[7, 8, 9, 10, 13, 14, 15, 16]),
+    }
+
+    def __init__(self, squeeze: bool = True, max_person: int = 100,
+                 keypoint_weight: Optional[Dict] = None,
+                 source: str = "mmpose"):
+        if source not in self._SUBSETS:
+            raise NotImplementedError(source)
+        self.squeeze = squeeze
+        self.max_person = max_person
+        self.weight = dict(keypoint_weight or dict(face=1, torso=2, limb=3))
+        self.source = source
+        self.kpsubset = self._SUBSETS[source]
+
+    def __call__(self, results: Dict) -> Dict:
+        filename = results.pop("filename")
+        anno_inds = results.pop("anno_inds", None)
+        results.pop("box_score", None)
+        with open(filename, "rb") as f:
+            kps = pickle.load(f)
+        total_frames = results["total_frames"]
+        frame_inds = np.asarray(results.pop("frame_inds"))
+        if anno_inds is not None:
+            assert self.source == "mmpose"
+            kps = kps[anno_inds]
+            frame_inds = frame_inds[anno_inds]
+        if self.squeeze:
+            uni = {x: i for i, x in enumerate(np.unique(frame_inds))}
+            frame_inds = np.array([uni[x] for x in frame_inds], np.int64)
+            total_frames = int(frame_inds.max()) + 1
+        results["total_frames"] = total_frames
+
+        h, w = results["img_shape"]
+        kps = np.asarray(kps, np.float32).copy()
+        if self.source == "openpose-18":
+            kps[:, :, 0] *= w
+            kps[:, :, 1] *= h
+
+        num_kp = kps.shape[1]
+        counts = np.bincount(frame_inds, minlength=total_frames)
+        num_person = int(counts.max()) if counts.size else 0
+        new_kp = np.zeros([num_person, total_frames, num_kp, 2], np.float16)
+        new_score = np.zeros([num_person, total_frames, num_kp], np.float16)
+        cursor = np.zeros([total_frames], np.int64)
+        for fi, kp in zip(frame_inds, kps):
+            p = cursor[fi]
+            new_kp[p, fi] = kp[:, :2]
+            new_score[p, fi] = kp[:, 2]
+            cursor[fi] += 1
+
+        results["num_person"] = num_person
+        if num_person > self.max_person:
+            grp, wt = self.kpsubset, self.weight
+            for i in range(total_frames):
+                n = cursor[i]
+                val = new_score[:n, i].astype(np.float32)
+                score = (val[:, grp["face"]].sum(1) * wt["face"]
+                         + val[:, grp["torso"]].sum(1) * wt["torso"]
+                         + val[:, grp["limb"]].sum(1) * wt["limb"])
+                order = np.argsort(-score)
+                new_score[:n, i] = new_score[order, i]
+                new_kp[:n, i] = new_kp[order, i]
+            results["num_person"] = self.max_person
+        results["keypoint"] = new_kp[:self.max_person]
+        results["keypoint_score"] = new_score[:self.max_person]
+        return results
+
+
+@PIPELINES.register("PoseNormalize")
+class PoseNormalize:
+    """pose_loading.py:670-698: (kp - mean) / (max - min) per channel."""
+
+    def __init__(self, mean=(960.0, 540.0, 0.5), min_value=(0.0, 0.0, 0.0),
+                 max_value=(1920.0, 1080.0, 1.0)):
+        shape = (-1, 1, 1, 1)
+        self.mean = np.asarray(mean, np.float32).reshape(shape)
+        self.min_value = np.asarray(min_value, np.float32).reshape(shape)
+        self.max_value = np.asarray(max_value, np.float32).reshape(shape)
+
+    def __call__(self, results: Dict) -> Dict:
+        kp = results["keypoint"]
+        results["keypoint"] = (kp - self.mean) / (self.max_value
+                                                  - self.min_value)
+        results["keypoint_norm_cfg"] = dict(
+            mean=self.mean, min_value=self.min_value,
+            max_value=self.max_value)
+        return results
+
+
+@PIPELINES.register("PoseCompact")
+class PoseCompact:
+    """augmentations.py:169-290: shrink img_shape to the padded tight box
+    around all joints; zero coordinates mark missing joints and are kept
+    out of the box (and left untranslated)."""
+
+    def __init__(self, padding: float = 0.25, threshold: int = 10,
+                 hw_ratio=None, allow_imgpad: bool = True):
+        assert padding >= 0
+        self.padding = padding
+        self.threshold = threshold
+        if hw_ratio is not None and not isinstance(hw_ratio, (tuple, list)):
+            hw_ratio = (hw_ratio, hw_ratio)
+        self.hw_ratio = hw_ratio
+        self.allow_imgpad = allow_imgpad
+
+    def __call__(self, results: Dict) -> Dict:
+        h, w = results["img_shape"]
+        kp = results["keypoint"]
+        kp[np.isnan(kp)] = 0.0
+        kp_x, kp_y = kp[..., 0], kp[..., 1]
+        if not (kp_x != 0).any() or not (kp_y != 0).any():
+            return results
+        min_x, max_x = np.min(kp_x[kp_x != 0]), np.max(kp_x[kp_x != 0])
+        min_y, max_y = np.min(kp_y[kp_y != 0]), np.max(kp_y[kp_y != 0])
+        if max_x - min_x < self.threshold or max_y - min_y < self.threshold:
+            return results
+        center = ((max_x + min_x) / 2, (max_y + min_y) / 2)
+        half_w = (max_x - min_x) / 2 * (1 + self.padding)
+        half_h = (max_y - min_y) / 2 * (1 + self.padding)
+        if self.hw_ratio is not None:
+            half_h = max(self.hw_ratio[0] * half_w, half_h)
+            half_w = max(1 / self.hw_ratio[1] * half_h, half_w)
+        min_x, max_x = center[0] - half_w, center[0] + half_w
+        min_y, max_y = center[1] - half_h, center[1] + half_h
+        if not self.allow_imgpad:
+            min_x, min_y = int(max(0, min_x)), int(max(0, min_y))
+            max_x, max_y = int(min(w, max_x)), int(min(h, max_y))
+        else:
+            min_x, min_y = int(min_x), int(min_y)
+            max_x, max_y = int(max_x), int(max_y)
+        kp_x[kp_x != 0] -= min_x
+        kp_y[kp_y != 0] -= min_y
+        results["img_shape"] = (max_y - min_y, max_x - min_x)
+        quad = results.get("crop_quadruple", (0.0, 0.0, 1.0, 1.0))
+        results["crop_quadruple"] = _combine_quadruple(
+            quad, (min_x / w, min_y / h, (max_x - min_x) / w,
+                   (max_y - min_y) / h))
+        return results
+
+
+@PIPELINES.register("JointToBone")
+class JointToBone:
+    """formatting.py:378-434: bone[v1] = kp[v1] - kp[v2] over the skeleton
+    pairs; 3-channel coco/openpose keeps the averaged score."""
+
+    _PAIRS = {
+        "nturgb+d": [(0, 1), (1, 20), (2, 20), (3, 2), (4, 20), (5, 4),
+                     (6, 5), (7, 6), (8, 20), (9, 8), (10, 9), (11, 10),
+                     (12, 0), (13, 12), (14, 13), (15, 14), (16, 0),
+                     (17, 16), (18, 17), (19, 18), (21, 22), (20, 20),
+                     (22, 7), (23, 24), (24, 11)],
+        "openpose-18": [(0, 0), (1, 0), (2, 1), (3, 2), (4, 3), (5, 1),
+                        (6, 5), (7, 6), (8, 2), (9, 8), (10, 9), (11, 5),
+                        (12, 11), (13, 12), (14, 0), (15, 0), (16, 14),
+                        (17, 15)],
+        "coco": [(0, 0), (1, 0), (2, 0), (3, 1), (4, 2), (5, 0), (6, 0),
+                 (7, 5), (8, 6), (9, 7), (10, 8), (11, 0), (12, 0),
+                 (13, 11), (14, 12), (15, 13), (16, 14)],
+    }
+
+    def __init__(self, dataset: str = "nturgb+d"):
+        if dataset not in self._PAIRS:
+            raise ValueError(dataset)
+        self.dataset = dataset
+        self.pairs = self._PAIRS[dataset]
+
+    def __call__(self, results: Dict) -> Dict:
+        kp = results["keypoint"]
+        m, t, v, c = kp.shape
+        assert c in (2, 3)
+        bone = np.zeros((m, t, v, c), np.float32)
+        for v1, v2 in self.pairs:
+            bone[..., v1, :] = kp[..., v1, :] - kp[..., v2, :]
+            if c == 3 and self.dataset in ("openpose-18", "coco"):
+                bone[..., v1, 2] = (kp[..., v1, 2] + kp[..., v2, 2]) / 2
+        results["keypoint"] = bone
+        return results
+
+
+@PIPELINES.register("FormatGCNInput")
+class FormatGCNInput:
+    """formatting.py:438-500: (M, T, V, C[+score]) -> NCTVM padded/truncated
+    to num_person."""
+
+    def __init__(self, input_format: str = "NCTVM", num_person: int = 2):
+        assert input_format == "NCTVM"
+        self.num_person = num_person
+
+    def __call__(self, results: Dict) -> Dict:
+        kp = results["keypoint"]
+        if "keypoint_score" in results:
+            kp = np.concatenate(
+                [kp, results["keypoint_score"][..., None]], axis=-1)
+        kp = np.transpose(kp, (3, 1, 2, 0))  # M T V C -> C T V M
+        if kp.shape[-1] < self.num_person:
+            pad = np.zeros(kp.shape[:-1] + (self.num_person - kp.shape[-1],),
+                           kp.dtype)
+            kp = np.concatenate([kp, pad], axis=-1)
+        elif kp.shape[-1] > self.num_person:
+            kp = kp[..., :self.num_person]
+        results["keypoint"] = kp
+        results["input_shape"] = kp.shape
+        return results
+
+
+@PIPELINES.register("GeneratePoseTarget")
+class GeneratePoseTarget:
+    """pose_loading.py:346-633: gaussian keypoint (and limb-segment)
+    pseudo-heatmaps, max-combined over persons, stacked (T, H, W, K)."""
+
+    COCO_SKELETONS = ((0, 1), (0, 2), (1, 3), (2, 4), (0, 5), (5, 7), (7, 9),
+                      (0, 6), (6, 8), (8, 10), (5, 11), (11, 13), (13, 15),
+                      (6, 12), (12, 14), (14, 16), (11, 12))
+
+    def __init__(self, sigma: float = 0.6, use_score: bool = True,
+                 with_kp: bool = True, with_limb: bool = False,
+                 skeletons: Sequence[Tuple[int, int]] = COCO_SKELETONS,
+                 double: bool = False,
+                 left_kp=(1, 3, 5, 7, 9, 11, 13, 15),
+                 right_kp=(2, 4, 6, 8, 10, 12, 14, 16)):
+        assert with_kp or with_limb
+        self.sigma = sigma
+        self.use_score = use_score
+        self.with_kp = with_kp
+        self.with_limb = with_limb
+        self.skeletons = skeletons
+        self.double = double
+        self.left_kp = left_kp
+        self.right_kp = right_kp
+        self.eps = 1e-4
+
+    def _kp_heatmap(self, h, w, centers, max_values):
+        heatmap = np.zeros([h, w], np.float32)
+        sigma = self.sigma
+        for center, max_value in zip(centers, max_values):
+            if max_value < self.eps:
+                continue
+            mu_x, mu_y = center[0], center[1]
+            st_x, ed_x = max(int(mu_x - 3 * sigma), 0), \
+                min(int(mu_x + 3 * sigma) + 1, w)
+            st_y, ed_y = max(int(mu_y - 3 * sigma), 0), \
+                min(int(mu_y + 3 * sigma) + 1, h)
+            x = np.arange(st_x, ed_x, 1, np.float32)
+            y = np.arange(st_y, ed_y, 1, np.float32)[:, None]
+            if not (x.size and y.size):
+                continue
+            patch = np.exp(-((x - mu_x) ** 2 + (y - mu_y) ** 2)
+                           / 2 / sigma ** 2) * max_value
+            heatmap[st_y:ed_y, st_x:ed_x] = np.maximum(
+                heatmap[st_y:ed_y, st_x:ed_x], patch)
+        return heatmap
+
+    def _limb_heatmap(self, h, w, starts, ends, svals, evals):
+        heatmap = np.zeros([h, w], np.float32)
+        sigma = self.sigma
+        for start, end, sv, ev in zip(starts, ends, svals, evals):
+            coeff_v = min(sv, ev)
+            if coeff_v < self.eps:
+                continue
+            min_x = max(int(min(start[0], end[0]) - 3 * sigma), 0)
+            max_x = min(int(max(start[0], end[0]) + 3 * sigma) + 1, w)
+            min_y = max(int(min(start[1], end[1]) - 3 * sigma), 0)
+            max_y = min(int(max(start[1], end[1]) + 3 * sigma) + 1, h)
+            x = np.arange(min_x, max_x, 1, np.float32)
+            y = np.arange(min_y, max_y, 1, np.float32)[:, None]
+            if not (x.size and y.size):
+                continue
+            d2_start = (x - start[0]) ** 2 + (y - start[1]) ** 2
+            d2_end = (x - end[0]) ** 2 + (y - end[1]) ** 2
+            d2_ab = (start[0] - end[0]) ** 2 + (start[1] - end[1]) ** 2
+            if d2_ab < 1:
+                heatmap = np.maximum(
+                    heatmap, self._kp_heatmap(h, w, [start], [sv]))
+                continue
+            coeff = (d2_start - d2_end + d2_ab) / 2.0 / d2_ab
+            a_dom, b_dom = coeff <= 0, coeff >= 1
+            seg_dom = 1 - a_dom - b_dom
+            pos = np.stack(np.broadcast_arrays(x, y), -1)
+            proj = start + coeff[..., None] * (end - start)
+            d2_line = ((pos - proj) ** 2).sum(-1)
+            d2_seg = a_dom * d2_start + b_dom * d2_end + seg_dom * d2_line
+            patch = np.exp(-d2_seg / 2.0 / sigma ** 2) * coeff_v
+            heatmap[min_y:max_y, min_x:max_x] = np.maximum(
+                heatmap[min_y:max_y, min_x:max_x], patch)
+        return heatmap
+
+    def _frame(self, h, w, kps, max_values):
+        maps = []
+        if self.with_kp:
+            for i in range(kps.shape[1]):
+                maps.append(self._kp_heatmap(h, w, kps[:, i],
+                                             max_values[:, i]))
+        if self.with_limb:
+            for s, e in self.skeletons:
+                maps.append(self._limb_heatmap(
+                    h, w, kps[:, s], kps[:, e],
+                    max_values[:, s], max_values[:, e]))
+        return np.stack(maps, axis=-1)
+
+    def _gen(self, results):
+        kps = results["keypoint"]
+        scores = results.get(
+            "keypoint_score", np.ones(kps.shape[:-1], np.float32))
+        h, w = results["img_shape"]
+        out = []
+        for t in range(kps.shape[1]):
+            mv = scores[:, t] if self.use_score else \
+                np.ones(scores[:, t].shape, np.float32)
+            out.append(self._frame(h, w, kps[:, t].astype(np.float32),
+                                   mv.astype(np.float32)))
+        return out
+
+    def __call__(self, results: Dict) -> Dict:
+        if not self.double:
+            results["imgs"] = np.stack(self._gen(results))
+            return results
+        import copy
+        flipped = copy.deepcopy(results)
+        _, w = results["img_shape"]
+        kp = flipped["keypoint"].copy()
+        kp[..., 0] = w - kp[..., 0]
+        order = list(range(kp.shape[2]))
+        for l, r in zip(self.left_kp, self.right_kp):
+            order[l], order[r] = order[r], order[l]
+        flipped["keypoint"] = kp[:, :, order]
+        results["imgs"] = np.concatenate(
+            [self._gen(results), self._gen(flipped)])
         return results

@@ -658,7 +658,11 @@ def conv_init_state_dict(model: nn.Module, seed: int
     (train/detection_trainer.AVAFastRCNN): its backbone's, ACRN's convs
     and BatchNorms and the FBO's Dense kernels (lecun-normal) and
     LayerNorms (1 and 0), the RoI head's `fc_cls` normal(0.01).  The same
-    distributions as `model.init`, not the same numbers."""
+    for the skeleton models (models/stgcn.py): convs lecun-normal, the
+    graph from the config, edge masks 1, PA 1e-6, AGCN's `gcn.bn` scale
+    1e-6, the head's `fc` normal(0.01).  The same distributions as
+    `model.init`, not the same numbers."""
+    from .stgcn import SkeletonHead
     rng = np.random.default_rng(seed)
     out: Dict[str, torch.Tensor] = {}
     head = getattr(model, "cls_head", None)
@@ -675,7 +679,9 @@ def conv_init_state_dict(model: nn.Module, seed: int
                 and isinstance(head, X3DHead) else \
                 0.01 if owner == "fc_cls" \
                 and isinstance(model, Recognizer3DCLIP) else \
-                0.01 if owner == "roi_head.fc_cls" else None
+                0.01 if owner == "roi_head.fc_cls" else \
+                0.01 if owner.endswith("cls_head.fc") \
+                and isinstance(head, SkeletonHead) else None
             if std is not None:
                 w = torch.from_numpy(
                     std * rng.standard_normal(shape).astype(np.float32))
@@ -689,7 +695,8 @@ def conv_init_state_dict(model: nn.Module, seed: int
                 out[pre + "bias"] = torch.zeros(mod.bias.shape)
         elif isinstance(mod, FlaxBatchNorm):
             c = mod.num_features
-            out[pre + "weight"] = torch.ones(c)
+            out[pre + "weight"] = torch.full((c,), getattr(mod, "init_scale",
+                                                           1.0))
             out[pre + "bias"] = torch.zeros(c)
             out[pre + "running_mean"] = torch.zeros(c)
             out[pre + "running_var"] = torch.ones(c)
@@ -697,6 +704,8 @@ def conv_init_state_dict(model: nn.Module, seed: int
                 (), dtype=torch.int64)
         elif isinstance(mod, RNNDecoderHead):
             _decoder_init(out, rng, pre, mod.cfg)
+        elif hasattr(mod, "init_extras"):      # the skeleton backbones
+            out.update({pre + k: v for k, v in mod.init_extras().items()})
         else:
             _transformer_init(out, rng, pre, mod)
     missing = set(model.state_dict()) - set(out)

@@ -185,13 +185,19 @@ class ResNet3DConfig:
 
 @BACKBONES.register("ResNet3D")
 class ResNet3D(nn.Module):
-    def __init__(self, cfg: ResNet3DConfig, device=None):
+    """in_channels: the stem's input channels, 3 for RGB, the heatmap
+    channels for PoseC3D (the JAX module reads them off its input; they
+    are not a config field, since the JAX config has none)."""
+
+    def __init__(self, cfg: ResNet3DConfig, device=None,
+                 in_channels: int = 3):
         super().__init__()
         device = resolve_device(device)   # None: the CUDA device
         self.cfg = cfg
         c0 = cfg.base_channels // cfg.channel_ratio
         kt = cfg.conv1_kernel_t
-        self.conv1 = ConvModule(3, c0, (kt, 7, 7), (cfg.conv1_stride_t, 2, 2),
+        self.conv1 = ConvModule(in_channels, c0, (kt, 7, 7),
+                                (cfg.conv1_stride_t, 2, 2),
                                 (kt // 2, 3, 3), device=device)
         cin, planes = c0, c0
         for i, (blocks, tk) in enumerate(zip(cfg.stage_blocks,

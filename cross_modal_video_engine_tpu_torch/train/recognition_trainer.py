@@ -37,7 +37,8 @@ Counterpart of cross_modal_video_engine_tpu/train/recognition_trainer.py
 * `make_cls_train_step_stats` and `make_seq_train_step_stats`: the same
   for the BatchNorm recognizers (BackboneClassifier and X3DClassifier
   over models/resnet3d.py's and backbones2d.py's pooled backbones,
-  Recognizer2D over the per-frame ones, RecognizerRelseq over either).
+  Recognizer2D over the per-frame ones, RecognizerRelseq over either,
+  SkeletonClassifier over models/stgcn.py's graph backbones).
   The forward runs
   in train mode: each BatchNorm normalizes by the batch and moves its
   running statistics in place, by flax's update, as the JAX step returns
@@ -87,6 +88,7 @@ from ..metrics.accuracy import mean_class_accuracy, top_k_accuracy
 from ..models.decoder_head import RNNDecoderHead
 from ..models.heads import TRNHead
 from ..models.layers import Dropout, FlaxBatchNorm
+from ..models.stgcn import SkeletonClassifier
 from ..models.recognizer import (BackboneClassifier, Recognizer2D,
                                  Recognizer3D, Recognizer3DCLIP,
                                  Recognizer3DRelseq, RecognizerRelseq,
@@ -100,8 +102,6 @@ from .optim import OptaxOptimizer
 # the parts of slice 5 still to port (ROADMAP.md queue 1 item 8)
 PARTS = {
     "8g": "audio recognition",
-    "8h": "skeleton recognition (ST-GCN, 2s-AGCN, PoseC3D)",
-    "8j": "the checkpoint converters and exports",
 }
 
 
@@ -117,7 +117,7 @@ def not_ported_model(step: str, model) -> str:
             f"with a later part of slice 5 (ROADMAP.md queue 1 item 8)")
 
 
-CLASSIFIERS = (BackboneClassifier, Recognizer2D)
+CLASSIFIERS = (BackboneClassifier, Recognizer2D, SkeletonClassifier)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,8 +253,9 @@ def make_cls_train_step_stats(model: BackboneClassifier, blending=None,
                               generator: Optional[torch.Generator] = None,
                               device=None):
     """make_cls_train_step for the BatchNorm recognizers
-    (BackboneClassifier, X3DClassifier, Recognizer2D): step(state, videos,
-    labels, draws=None) -> (state, {"loss", "top1_acc"}), the running
+    (BackboneClassifier, X3DClassifier, Recognizer2D, SkeletonClassifier):
+    step(state, videos, labels, draws=None) -> (state, {"loss",
+    "top1_acc"}), the running
     statistics updated in place.  bf16: f32 masters and statistics, the
     forward and backward in bfloat16 (JAX recognition_trainer.py
     :122-160)."""

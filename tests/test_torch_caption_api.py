@@ -717,7 +717,21 @@ def _entry_points():
             "--checkpoint", str(w["detector"][0] / "rec"), "--layers", "0",
             "--mode", "both", "--out", str(w["tmp"] / "feats.pkl"),
             "--device", "cpu"]),
+        "skeleton_train.main": lambda w: _skeleton(w["tmp"]),
     }
+
+
+def _skeleton(tmp):
+    """One epoch of the ST-GCN recipe on test_skeleton_train_cli's
+    fixture."""
+    from cross_modal_video_engine_tpu_torch.cli import skeleton_train
+    from test_skeleton_train_cli import _cfg, _pose_fixture
+    cfg = _cfg(tmp, _pose_fixture(tmp, n=4),
+               "dict(backbone=dict(type='STGCN', num_joints=17, "
+               "channels=[8, 8], temporal_strides=[1, 2]), num_classes=2)",
+               epochs=1)
+    skeleton_train.main([cfg, "--work_dir", str(tmp / "skeleton"),
+                         "--device", "cpu"])
 
 
 ENTRY_POINTS = ["restore_dual_encoding", "retrieval_inference.main",
@@ -733,7 +747,7 @@ ENTRY_POINTS = ["restore_dual_encoding", "retrieval_inference.main",
                 "recognition_train.main[omnisource]",
                 "localization_train.main", "detection_train.main",
                 "detection_test.main", "ava_proposals.main",
-                "dump_features.main"]
+                "dump_features.main", "skeleton_train.main"]
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)

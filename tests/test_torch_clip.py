@@ -200,11 +200,16 @@ HOST_MODULES = (
     "io._native_build", "io.native", "io.pipeline", "data.prefetch",
     "utils.logging", "utils.concept_tags", "metrics", "metrics.scorers",
     "cli.dump_features", "bench.extra")
+# the skeleton models, the checkpoint converter and the exports
+SKELETON_MODULES = (
+    "models.stgcn", "data.datasets_extra", "data.pipelines_extra",
+    "cli.skeleton_train", "cli.convert_checkpoint", "cli.misc_tools")
 
 
 def test_port_imports_no_jax():
     modules = (("models.clip", "retrieval.index", "convert") + LINAS_MODULES
-               + LOCALIZATION_MODULES + AVA_MODULES + HOST_MODULES)
+               + LOCALIZATION_MODULES + AVA_MODULES + HOST_MODULES
+               + SKELETON_MODULES)
     code = ("import sys; "
             + "; ".join(f"import cross_modal_video_engine_tpu_torch.{m}"
                         for m in modules) + "; "

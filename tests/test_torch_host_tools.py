@@ -599,13 +599,6 @@ def test_publish_model(tmp_path, capsys):
     assert names["port"][0].startswith("model-")
 
 
-@pytest.mark.parametrize("argv", [["export_model", "--output", "o"],
-                                  ["export_yolo", "cfg.py", "--output", "o"]])
-def test_exports_are_refused(argv):
-    with pytest.raises(NotImplementedError, match="item 8j"):
-        tmt.main(argv)
-
-
 def test_cv2_tools_name_cv2_without_it(tmp_path):
     """build_rawframes and flow_extraction on a machine without cv2: an
     ImportError naming cv2, before anything is decoded or written."""

@@ -304,13 +304,10 @@ def test_denormalize_proposals_writes_the_jax_bytes(tmp_path, capsys):
 
 
 # the subcommands the port still refuses, by the part that ports them
-REFUSED_PART = {"export_model": "8j", "export_yolo": "8j",
-                "build_audio_features": "8g"}
+REFUSED_PART = {"build_audio_features": "8g"}
 
 
 @pytest.mark.parametrize("tool,argv", [
-    (tmt, ["export_model", "--output", "o"]),
-    (tmt, ["export_yolo", "cfg.py", "--output", "o"]),
     (tdt, ["build_audio_features", "--src_dir", "a", "--out_dir", "b"]),
 ])
 def test_other_tools_name_their_part(tool, argv):

@@ -261,7 +261,7 @@ def test_registry_matches_jax():
         PIPELINES as JAX_PIPELINES)
     jp.build_pipeline([])          # registers the JAX decode ops
     ported = set(PIPELINES)
-    assert len(ported) == 36 and ported <= set(JAX_PIPELINES)
+    assert len(ported) == 45 and ported <= set(JAX_PIPELINES)
     r = Registry("things")
     r.register()(Registry)
     r.register_value("x", 3)

@@ -300,7 +300,6 @@ def test_recognition_test_matches_jax(clips_dir, tmp_path, capsys):
 
 @pytest.mark.parametrize("part,refused", [
     ("8g", lambda root: build_pipeline([dict(type="AudioDecode")])),
-    ("8h", lambda root: build_pipeline([dict(type="PoseDecode")])),
 ])
 def test_refusals_name_their_part(part, refused, clips_dir):
     with pytest.raises((NotImplementedError, KeyError),

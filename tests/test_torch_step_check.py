@@ -145,6 +145,45 @@ def test_per_tensor_bounds_hold_where_both_cpu_orders_agree():
     assert chip_smoke._tensor_ok(good["w"], gate["w"], 1.0, 2)
 
 
+@pytest.mark.parametrize("card_err, held", [(1e-2, True), (3e-2, False)])
+def test_group_bounds_read_the_worse_cpu_run(card_err, held):
+    """A group's f32 bound is STEP18_ACC times the worse of the two CPU
+    runs' L2 errors from float64 (here 1e-3 and 1e-2 of its norm), as the
+    per-tensor gate reads both: a card at 1e-2 is held, one at 3e-2 is
+    refused."""
+    import types
+    rng = np.random.default_rng(0)
+    t = rng.standard_normal(400)
+    t /= np.linalg.norm(t)
+
+    def off(err, seed):
+        d = np.random.default_rng(seed).standard_normal(400)
+        d -= (d @ t) * t
+        return torch.from_numpy(t + err * d / np.linalg.norm(d))
+
+    lr = 0.1
+    p0 = {"backbone.conv.weight": torch.zeros(400, dtype=torch.float64)}
+
+    def run(g):
+        return {"loss": 1.0, "grads": {"backbone.conv.weight": g},
+                "p0": p0, "params": {n: p - lr * g for n, p in p0.items()},
+                "s0": {}, "stats": {}}
+
+    f64 = run(torch.from_numpy(t))
+    cpu, alt = run(off(1e-3, 1)), run(off(1e-2, 2))
+    card = run(off(card_err, 3))
+    tcfg = types.SimpleNamespace(optimizer="sgd", grad_clip=1e9,
+                                 weight_decay=0.0, learning_rate=lr)
+    ref = chip_smoke._reference(cpu, f64, alt)
+    failed, read = chip_smoke._step_verdict(card, cpu, f64, ref, tcfg, False)
+    assert read["by_group"]["conv"]["cpu_l2_err"] == pytest.approx(1e-2)
+    assert ("gradients" not in failed) is held
+    # with the primary CPU run alone the bound is 2e-3: both are refused
+    alone = chip_smoke._reference(cpu, f64)
+    assert "gradients" in chip_smoke._step_verdict(
+        card, cpu, f64, alone, tcfg, False)[0]
+
+
 @pytest.mark.parametrize("name", ["slowfast", *STEP19_CUTS])
 def test_shared_training_init_builds_the_same_models(name):
     """Inside shared_training_init a model is built with the same training
